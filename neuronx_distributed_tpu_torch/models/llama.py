@@ -1,0 +1,260 @@
+"""Llama on the paged KV pool (counterpart of
+``neuronx_distributed_tpu/models/llama.py``, paged serving path, tp=1).
+
+The state dict keeps the JAX parameter names and layouts (kernels ``[in,
+out]``, the fused MLP kernel ``[H, 2, I]``), so :mod:`.convert` maps a JAX
+param tree across by renaming and unstacking the scanned layer dim.
+Weights are held in ``cfg.dtype``: the JAX package holds fp32 and computes
+in ``cfg.dtype``, which casts every weight at its use to the same values.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from ..inference.kv_cache import quantize_kv
+from ..inference.paging import (PagedCacheView, PagedKVCache,
+                                QuantizedPagedKVCache, flat_write_indices,
+                                scatter_pool_rows, valid_write_rows)
+from ..modules.attention import apply_rotary, precompute_rope
+from ..modules.norms import RMSNorm
+from ..ops.paged_attention import paged_attention
+from ..parallel.layers import (GQAQKVColumnParallelLinear, Linear,
+                               ParallelEmbedding)
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    """The fields of the JAX ``LlamaConfig`` that the paged serving path
+    honours."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    rope_scaling: bool = False
+    rms_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+
+LLAMA2_7B = LlamaConfig(num_layers=32, hidden_size=4096,
+                        intermediate_size=11008, num_heads=32, num_kv_heads=32)
+LLAMA2_70B = LlamaConfig(num_layers=80, hidden_size=8192,
+                         intermediate_size=28672, num_heads=64, num_kv_heads=8)
+LLAMA3_8B = LlamaConfig(vocab_size=128256, num_layers=32, hidden_size=4096,
+                        intermediate_size=14336, num_heads=32, num_kv_heads=8,
+                        rope_theta=500000.0)
+
+
+def tiny_config(**kw) -> LlamaConfig:
+    base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def _paged_cache_attend(cfg: LlamaConfig, q, k, v, positions,
+                        view: PagedCacheView) -> torch.Tensor:
+    """Write this step's K/V rows into the layer's pool slice (quantized
+    for an int8 pool), then attend through the per-token block tables. The
+    write lands before the attention reads, so each token sees its own row.
+    The packed batch is ``[1, T]``."""
+    k_rows, v_rows = k[0][view.rows], v[0][view.rows]    # [W, KV, D]
+    if view.k_scale is not None:
+        qk, ks = quantize_kv(k_rows)
+        qv, vs = quantize_kv(v_rows)
+        scatter_pool_rows(view.k, qk, view.at)
+        scatter_pool_rows(view.v, qv, view.at)
+        scatter_pool_rows(view.k_scale, ks, view.at)
+        scatter_pool_rows(view.v_scale, vs, view.at)
+    else:
+        scatter_pool_rows(view.k, k_rows, view.at)
+        scatter_pool_rows(view.v, v_rows, view.at)
+    out = paged_attention(q[0], view.k, view.v, view.pos, view.tables,
+                          positions[0], k_scale=view.k_scale,
+                          v_scale=view.v_scale,
+                          scale=1.0 / math.sqrt(q.shape[-1]))[None]
+    return out.to(cfg.dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.head_dim_
+        self.qkv = GQAQKVColumnParallelLinear(
+            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d,
+            dtype=cfg.dtype, device=device)
+        self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
+                             dtype=cfg.dtype, device=device)
+
+    def forward(self, x, cos, sin, positions, view: PagedCacheView):
+        cfg = self.cfg
+        d = cfg.head_dim_
+        q, k, v = self.qkv(x)
+        b, s = q.shape[:2]
+        q = apply_rotary(q.reshape(b, s, cfg.num_heads, d), cos, sin,
+                         positions)
+        k = apply_rotary(k.reshape(b, s, cfg.num_kv_heads, d), cos, sin,
+                         positions)
+        v = v.reshape(b, s, cfg.num_kv_heads, d)
+        out = _paged_cache_attend(cfg, q, k, v, positions, view)
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * d))
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU with the fused ``gate_up_kernel [H, 2, I]`` (index 0 = gate,
+    1 = up) and ``down``."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.gate_up_kernel = nn.Parameter(torch.empty(
+            (cfg.hidden_size, 2, cfg.intermediate_size), dtype=cfg.dtype,
+            device=device))
+        self.down = Linear(cfg.intermediate_size, cfg.hidden_size,
+                           dtype=cfg.dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h_dim, _, i_dim = self.gate_up_kernel.shape
+        h = torch.matmul(x.to(self.cfg.dtype),
+                         self.gate_up_kernel.reshape(h_dim, 2 * i_dim))
+        h = h.unflatten(-1, (2, i_dim))
+        return self.down(F.silu(h[..., 0, :]) * h[..., 1, :])
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                                  device)
+        self.attn = LlamaAttention(cfg, device)
+        self.post_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                                 device)
+        self.mlp = LlamaMLP(cfg, device)
+
+    def forward(self, x, cos, sin, positions, view: PagedCacheView):
+        x = x + self.attn(self.input_norm(x), cos, sin, positions, view)
+        return x + self.mlp(self.post_norm(x))
+
+
+class LlamaForCausalLM(nn.Module):
+    """Embedding, decoder stack, final norm and LM head. Parameters are
+    allocated uninitialised: load a state dict (:func:`build_model`,
+    :func:`.convert.load_jax_params`) or make one (:func:`init_state_dict`).
+    """
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                       dtype=cfg.dtype, device=dev)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(cfg, dev) for _ in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                              dtype=cfg.dtype, device=dev)
+        self._rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def rope_tables(self, device: torch.device):
+        """fp32 cos/sin ``[max_seq_len, head_dim/2]``, made once per
+        device."""
+        if self._rope is None or self._rope[0].device != device:
+            cfg = self.cfg
+            self._rope = precompute_rope(cfg.head_dim_, cfg.max_seq_len,
+                                         cfg.rope_theta,
+                                         use_scaled=cfg.rope_scaling,
+                                         device=device)
+        return self._rope
+
+
+def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
+                device: DeviceLike = None) -> LlamaForCausalLM:
+    """A model whose parameters are ``state_dict``'s tensors, moved to
+    ``device`` and ``cfg.dtype`` (no copy where they already are)."""
+    dev = resolve_device(device)
+    model = LlamaForCausalLM(cfg, device="meta")
+    model.load_state_dict(
+        {k: v.to(device=dev, dtype=cfg.dtype) for k, v in state_dict.items()},
+        strict=True, assign=True)
+    return model.requires_grad_(False)
+
+
+def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``:
+    normal(0, ``std``) kernels and embeddings, unit norm scales, made on
+    ``device`` in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = LlamaForCausalLM(cfg, device="meta").state_dict()
+    sd = {}
+    for name, t in shapes.items():
+        if name.endswith(".scale"):
+            sd[name] = torch.ones(t.shape, dtype=cfg.dtype, device=dev)
+        else:
+            sd[name] = torch.randn(t.shape, generator=gen, dtype=cfg.dtype,
+                                   device=dev).mul_(std)
+    return sd
+
+
+@torch.no_grad()
+def llama_forward_with_cache(model: LlamaForCausalLM,
+                             input_ids: torch.Tensor,
+                             positions: torch.Tensor,
+                             kv_cache: PagedKVCache,
+                             slot_ids: torch.Tensor):
+    """Paged-pool forward of one packed step: ``input_ids``/``positions``
+    ``[1, T]``, ``slot_ids [T]`` mapping each packed token to its cache
+    slot (pad rows carry ``max_slots`` and position PAD_POSITION). Writes
+    the step's positions and K/V into the pool **in place** and returns
+    ``(logits [1, T, V], kv_cache)``."""
+    cfg = model.cfg
+    if input_ids.dim() != 2 or input_ids.shape[0] != 1:
+        raise ValueError("paged decode packs requests into one row batch "
+                         f"[1, T]; got {tuple(input_ids.shape)}")
+    positions = positions.to(torch.int32)
+    x = model.embed(input_ids)
+    cos, sin = model.rope_tables(input_ids.device)
+    # rope lookup needs in-table indices; sentinel pads clamp to the last
+    # entry (their K values are garbage but never land or are attended).
+    # As in the JAX model, the clamped positions are also the query
+    # positions of the attention mask.
+    rope_pos = torch.clamp(positions, max=cfg.max_seq_len - 1)
+    # per-token routing: each packed token carries its slot's block table
+    # row (pad slot ids clip to the last slot) and a flat pool index for
+    # this step's K/V write (== capacity for rows that must not land)
+    slot = torch.clamp(slot_ids.long(), 0, kv_cache.max_slots - 1)
+    tok_tables = kv_cache.block_tables[slot]
+    write_idx = flat_write_indices(tok_tables, positions[0],
+                                   kv_cache.block_size, kv_cache.capacity)
+    rows = valid_write_rows(write_idx, kv_cache.capacity)
+    at = write_idx[rows]
+    scatter_pool_rows(kv_cache.pos, positions[0][rows], at)
+    quantized = isinstance(kv_cache, QuantizedPagedKVCache)
+    for i, layer in enumerate(model.layers):
+        view = PagedCacheView(
+            k=kv_cache.k[i], v=kv_cache.v[i],
+            k_scale=kv_cache.k_scale[i] if quantized else None,
+            v_scale=kv_cache.v_scale[i] if quantized else None,
+            pos=kv_cache.pos, tables=tok_tables, rows=rows, at=at)
+        x = layer(x, cos, sin, rope_pos, view)
+    logits = model.lm_head(model.norm(x))
+    return logits, kv_cache

@@ -1,0 +1,127 @@
+"""Where the serving step's time goes on one CUDA card.
+
+    python3 -m neuronx_distributed_tpu_torch.scripts.profile_serving
+
+Serves ``chip_smoke.py``'s phase-4 workload (Llama-3-8B at full width, all
+32 layers, bf16, random weights; 8 requests of 128-1024 prompt tokens and
+64 new tokens each) through the port's ``ServingEngine`` and traces two
+windows with ``torch.profiler``: the first prefill-heavy steps, and steady
+decode once every request is decoding. For each window it prints one JSON
+line: host wall time per step, device busy time per step, the device's
+idle share, and the kernels by device time; and the wall time per decode
+step without the profiler. It also counts, over decode
+steps, how many pool key entries the attention kernel walked for real rows
+and for the step's pad rows (pad rows carry the last slot's block table,
+as in the JAX model, and their output is discarded).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def trace(eng, steps: int, label: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.device_time_total
+    busy_ms = sum(kernels.values()) / 1e3 / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    attn = sum(v for k, v in kernels.items() if "paged_attention" in k)
+    print(json.dumps({
+        "window": label, "steps": steps, "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
+        "paged_attention_share_of_busy": (attn / sum(kernels.values())
+                                          if kernels else None),
+        "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps]
+                                    for k, v in top]}), flush=True)
+
+
+def time_steps(eng, steps: int, label: str) -> None:
+    """Host wall time per step without the profiler, for the idle share:
+    1 - (profiled device busy time) / (this wall time)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    print(json.dumps({"window": label, "steps": steps, "wall_ms_per_step":
+                      (time.perf_counter() - t0) * 1e3 / steps}), flush=True)
+
+
+def count_walked(eng, steps: int) -> None:
+    """Pool key entries the attention kernel walks, real rows vs pad
+    rows, over ``steps`` decode steps (untimed)."""
+    from ..models import llama
+
+    real_fn, pad_pos = llama.paged_attention, eng.model_cfg.max_seq_len - 1
+    walked = {"real": 0, "pad": 0}
+
+    def counting(q, k_pool, v_pool, pool_pos, tables, q_pos, **kw):
+        per_row = (tables >= 0).sum(1) * k_pool.shape[1]
+        pad = q_pos == pad_pos
+        walked["pad"] += int(per_row[pad].sum())
+        walked["real"] += int(per_row[~pad].sum())
+        return real_fn(q, k_pool, v_pool, pool_pos, tables, q_pos, **kw)
+
+    llama.paged_attention = counting
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        llama.paged_attention = real_fn
+    total = walked["real"] + walked["pad"]
+    print(json.dumps({"window": "decode_key_entries", "steps": steps,
+                      **walked, "pad_share": walked["pad"] / total}),
+          flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: CUDA is not available")
+    from ..inference.engine import EngineConfig, ServingEngine
+    from ..models.llama import LLAMA3_8B, init_state_dict
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    cfg = LLAMA3_8B
+    eng = ServingEngine(cfg, init_state_dict(cfg, seed=0, std=0.02),
+                        EngineConfig(block_size=16, num_blocks=2048,
+                                     max_slots=8, max_blocks_per_seq=128,
+                                     token_budget=512))
+    rng = np.random.RandomState(0)
+    for i, n in enumerate(rng.randint(128, 1025, 8)):
+        eng.submit(rng.randint(0, cfg.vocab_size, n).tolist(), 64,
+                   uid=f"r{i}")
+    eng.step()                          # first use: kernel build and load
+    trace(eng, 1, "profiler_warmup")    # the first trace pays CUPTI's start
+    trace(eng, 3, "prefill")
+    while any(s is not None and not s.decoding for s in eng._slots):
+        eng.step()
+    count_walked(eng, 3)
+    time_steps(eng, 5, "decode_unprofiled")
+    trace(eng, 5, "decode")
+    eng.run()
+    print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
+
+
+if __name__ == "__main__":
+    main()
