@@ -22,6 +22,21 @@ script exits non-zero and prints no result:
 5. serve_int8: the same with an int8 pool at 4 layers.
 6. cross_check: one packed step at full width, 2 layers, fp32, on the card
    and on the port's CPU path; logits within 1e-3 x max|logit|.
+7. flash_vs_plain: the flash kernels K2 (forward), K3 (dq) and K4 (dk/dv)
+   against their plain versions at the train step's shapes (B=1, S=4096,
+   N=32, KV=8, D=128, causal): bf16 within 2e-2 and fp32 within 1e-4 of
+   max(1, max|ref|), dropout 0.1, D=64, n_rep=1, non-causal and S=1000; the
+   kernel's dropout mask equal to the plain mask bit for bit; times each
+   kernel, its plain version and SDPA's forward (K2) and backward (K3+K4).
+8. train: ``make_train_step`` on Llama-3-8B widths at 4 layers, fp32
+   params, bf16 compute, flash attention (random weights, seed 0, std
+   0.02), B=1, S=4096, AdamW lr 1e-4 clipped at 1.0, 5 steps on one batch.
+   Asserts finite losses and grad norms, a falling loss, ``step == 5`` and
+   each flash kernel launched layers x steps = 20 times.
+9. train_cross_check: one fp32 train step at full width, 2 layers, S=256,
+   on the card and on the port's CPU path from the same weights and batch:
+   loss within 1e-4 relative, grad norm within 1e-3, updated params within
+   1e-3 x max|p|.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
@@ -48,6 +63,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense, per the q dtype
 KERNEL_SOURCE = "neuronx_distributed_tpu_torch/csrc/paged_attention.cu"
 KERNEL_REPLACES = "neuronx_distributed_tpu/ops/paged_attention.py:95"
+FLASH_SOURCE = "neuronx_distributed_tpu_torch/csrc/flash_attention.cu"
+FLASH_KERNELS = (   # dispatcher (and its launch count), TPU kernel replaced
+    ("flash_fwd", "neuronx_distributed_tpu/ops/flash_attention.py:229"),
+    ("flash_bwd_dq", "neuronx_distributed_tpu/ops/flash_attention.py:426"),
+    ("flash_bwd_dkv", "neuronx_distributed_tpu/ops/flash_attention.py:474"),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -327,6 +348,284 @@ def phase_cross_check(base_cfg):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the flash kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_inputs(seed, b=1, s=4096, n=32, kv=8, d=128, dtype=torch.bfloat16):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return randn(b, s, n, d), randn(b, s, kv, d), randn(b, s, kv, d), \
+        randn(b, s, n, d)
+
+
+def flash_run(impl, q, k, v, g, causal, p, seed):
+    """(out, lse, dq, dk, dv) through the given versions: the kernels'
+    wrappers or the plain functions; each backward takes its own forward's
+    out and lse."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    fwd, dq_fn, dkv_fn = impl
+    out, lse = fwd(q, k, v, causal, None, p, seed)
+    delta = fa.attention_delta(g, out)
+    args = (q, k, v, g, lse, delta, causal, None, p, seed)
+    return (out, lse, dq_fn(*args), *dkv_fn(*args)), delta
+
+
+def flash_bounds(q, k, causal):
+    """Least time of each kernel: the larger of its bytes (each input read
+    once, each output written once) over HBM bandwidth and its products
+    over the peak rate for the input type. Causal attention does only the
+    pairs k <= q; K2 does 2 products (s, pv), K3 3 (s, dp, dq), K4 4 (s,
+    dv, dp, dk), 2 FLOP per multiply-add."""
+    b, s, n, d = q.shape
+    kv = k.shape[2]
+    pairs = s * (s + 1) // 2 if causal else s * s
+    es = q.element_size()
+    qb, kvb, stat = b * s * n * d * es, b * s * kv * d * es, b * n * s * 4
+    work = {"flash_fwd": (2, 2 * qb + 2 * kvb + stat),
+            "flash_bwd_dq": (3, 3 * qb + 2 * kvb + 2 * stat),
+            "flash_bwd_dkv": (4, 2 * qb + 4 * kvb + 2 * stat)}
+    out = {}
+    for name, (products, nbytes) in work.items():
+        flops = 2.0 * products * b * n * pairs * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+        out[name] = dict(bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", bytes=nbytes, flops=flops)
+    return out
+
+
+def sdpa_yardsticks(q, k, v, g, causal, flush):
+    """One PyTorch call for the same function, timed as a yardstick only:
+    ``F.scaled_dot_product_attention`` forward (K2), and its backward (the
+    work of K3 and K4 together), on [B, N, S, D] copies."""
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd, flush=flush)
+    out = fwd()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                                 retain_graph=True),
+                     flush=flush)
+    return fwd_ms, bwd_ms
+
+
+def check_flash_mask():
+    """q = k = 0 makes every valid score equal, so with V one-hot over a
+    window of D keys K2's output is keep / (l (1 - p)): its nonzero pattern
+    is the kernel's mask, held bit for bit against dropout_keep_mask (and
+    causality) over all 512 x 512 (q, k) pairs of all 32 heads."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    b, s, n, kv, d, p, seed = 1, 512, 32, 8, 128, 0.1, 0xC0FFEE
+    q = torch.zeros(b, s, n, d, device="cuda")
+    k = torch.zeros(b, s, kv, d, device="cuda")
+    q_pos = torch.arange(s, device="cuda")[:, None]
+    kept = total = 0
+    for k0 in range(0, s, d):
+        v = torch.zeros(b, s, kv, d, device="cuda")
+        v[0, k0:k0 + d] = torch.eye(d, device="cuda")[:, None, :]
+        out, _ = fa.flash_fwd_cuda(q, k, v, True, None, p, seed)
+        k_pos = torch.arange(k0, k0 + d, device="cuda")[None, :]
+        want = fa.dropout_keep_mask(seed, fa.flat_bh(b, n, "cuda"), q_pos,
+                                    k_pos, s, p) & (k_pos <= q_pos)
+        got = out.permute(0, 2, 1, 3) != 0
+        if not torch.equal(got, want):
+            raise AssertionError(f"flash dropout mask differs from the plain "
+                                 f"mask in {(got != want).sum().item()} "
+                                 f"places (keys {k0}..{k0 + d - 1})")
+        kept += int(want.sum())
+        total += int((k_pos <= q_pos).sum()) * n
+    return dict(pairs=total, kept_share=kept / total)
+
+
+def phase_flash_vs_plain():
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    plains = (fa.flash_fwd_plain, fa.flash_bwd_dq_plain,
+              fa.flash_bwd_dkv_plain)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    cases = [
+        ("bf16", {}, True, 0.0, 2e-2),
+        ("fp32", dict(dtype=torch.float32), True, 0.0, 1e-4),
+        ("bf16_dropout", {}, True, 0.1, 2e-2),
+        ("bf16_d64", dict(d=64), True, 0.0, 2e-2),
+        ("bf16_nrep1", dict(kv=32), True, 0.0, 2e-2),
+        ("bf16_noncausal", {}, False, 0.0, 2e-2),
+        ("bf16_s1000", dict(s=1000), True, 0.0, 2e-2),
+    ]
+    names = ("out", "lse", "dq", "dk", "dv")
+    results = []
+    for i, (case, kw, causal, p, tol) in enumerate(cases):
+        q, k, v, g = flash_inputs(200 + i, **kw)
+        seed = 1234 + i
+        (got, delta), (ref, _) = (flash_run(impl, q, k, v, g, causal, p, seed)
+                                  for impl in (kernels, plains))
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in zip(names, got, ref):
+            err = (a.float() - r.float()).abs().max().item()
+            limit = tol * max(1.0, r.float().abs().max().item())
+            if not (err <= limit) or not torch.isfinite(a).all():
+                raise AssertionError(f"flash {case} {name}: max abs error "
+                                     f"{err} above {limit}")
+            errs[name] = err
+        res = dict(case=case, causal=causal, dropout_p=p, tol=tol,
+                   shape=list(q.shape), kv_heads=k.shape[2],
+                   dtype=str(q.dtype), max_abs_err=errs)
+        if case in ("bf16", "fp32"):
+            out, lse = got[0], got[1]
+            bwd = (q, k, v, g, lse, delta, causal, None, p, seed)
+            calls = {"flash_fwd": (lambda: kernels[0](q, k, v, causal),
+                                   lambda: plains[0](q, k, v, causal)),
+                     "flash_bwd_dq": (lambda: kernels[1](*bwd),
+                                      lambda: plains[1](*bwd)),
+                     "flash_bwd_dkv": (lambda: kernels[2](*bwd),
+                                       lambda: plains[2](*bwd))}
+            bounds = flash_bounds(q, k, causal)
+            timing = {}
+            for name, (kern, plain) in calls.items():
+                timing[name] = dict(
+                    kernel_ms=time_ms(kern, flush=flush),
+                    plain_ms=time_ms(plain, reps=5, flush=flush),
+                    **bounds[name])
+            if case == "bf16":
+                fwd_ms, bwd_ms = sdpa_yardsticks(q, k, v, g, causal, flush)
+                timing["flash_fwd"]["library_ms"] = fwd_ms
+                timing["flash_bwd_dq"]["library_ms"] = bwd_ms
+                timing["flash_bwd_dkv"]["library_ms"] = bwd_ms
+                res["library"] = ("F.scaled_dot_product_attention (is_causal, "
+                                  "enable_gqa): forward for flash_fwd; its "
+                                  "backward (dq, dk, dv together) for both "
+                                  "backward kernels")
+            res["timing"] = timing
+        results.append(res)
+        del q, k, v, g, got, ref, delta
+        torch.cuda.empty_cache()
+    mask = check_flash_mask()
+    emit("flash_vs_plain", cases=results, dropout_mask=mask)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the train step
+# ---------------------------------------------------------------------------
+
+def train_batch(vocab, s, seed=0):
+    ids = np.random.RandomState(seed).randint(0, vocab, (1, s + 1))
+    ids = torch.from_numpy(ids)
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def phase_train(base_cfg, steps=5, seq=4096):
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        OptimizerConfig, neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(base_cfg, num_layers=4, dtype=torch.bfloat16,
+                              param_dtype=torch.float32,
+                              use_flash_attention=True, attention_dropout=0.0)
+    ncfg = neuronx_distributed_config(optimizer_config=OptimizerConfig(
+        grad_clipping=True, max_grad_norm=1.0))
+    torch.cuda.reset_peak_memory_stats()
+    pm, params = trainer.initialize_parallel_model(ncfg, cfg, seed=0,
+                                                   std=0.02)
+    tx, state = trainer.initialize_parallel_optimizer(pm, params,
+                                                      learning_rate=1e-4)
+    step = trainer.make_train_step(pm, tx)
+    batch = train_batch(cfg.vocab_size, seq)
+    n_params = sum(p.numel() for p in params.values())
+    torch.cuda.synchronize()
+    for name, _ in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    launches = {name: getattr(fa, name).launches
+                for name, _ in FLASH_KERNELS}
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"train: non-finite loss or grad norm: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    if state.step != steps:
+        raise AssertionError(f"train: state.step {state.step} != {steps}")
+    want = cfg.num_layers * steps
+    for name, n in launches.items():
+        if n != want:
+            raise AssertionError(f"train: {name} launched {n} times, want "
+                                 f"layers x steps = {want}")
+    p50 = float(np.median(times))
+    emit("train", layers=cfg.num_layers, params=n_params, seq=seq,
+         compute_dtype=str(cfg.dtype), param_dtype=str(cfg.param_dtype),
+         steps=steps, losses=losses, grad_norms=norms, step_ms=times,
+         step_ms_p50=p50, tokens_per_s=seq / (p50 / 1e3),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=launches)
+    del pm, params, tx, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cross_check(base_cfg, layers=2, seq=256):
+    """One fp32 step at full width on the card and on the CPU path."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+
+    cfg = dataclasses.replace(base_cfg, num_layers=layers,
+                              dtype=torch.float32, param_dtype=torch.float32,
+                              use_flash_attention=True)
+    sd = init_state_dict(cfg, seed=1, std=0.02, device="cpu")
+    batch = train_batch(cfg.vocab_size, seq, seed=1)
+    side = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pm, params = trainer.initialize_parallel_model(
+            neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
+        tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+        _, m = trainer.make_train_step(pm, tx)(state, batch)
+        side[dev] = (m["loss"].item(), m["grad_norm"].item(),
+                     {n: p.detach().cpu() for n, p in params.items()},
+                     time.perf_counter() - t0)
+        del pm, params, tx, state
+    del sd
+    torch.cuda.empty_cache()
+    (lg, ng, pg, tg), (lc, nc, pc, tc) = side["cuda"], side["cpu"]
+    if not abs(lg - lc) <= 1e-4 * abs(lc):
+        raise AssertionError(f"train_cross_check: loss {lg} vs CPU {lc}")
+    if not abs(ng - nc) <= 1e-3 * abs(nc):
+        raise AssertionError(f"train_cross_check: grad norm {ng} vs CPU {nc}")
+    worst = 0.0
+    for name, ref in pc.items():
+        diff = (pg[name] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst = max(worst, diff / scale)
+        if not diff <= 1e-3 * scale:
+            raise AssertionError(f"train_cross_check: {name} differs by "
+                                 f"{diff}, above 1e-3 x max|p| ({scale})")
+    emit("train_cross_check", layers=layers, seq=seq, loss_card=lg,
+         loss_cpu=lc, grad_norm_card=ng, grad_norm_cpu=nc,
+         max_param_rel_diff=worst, card_s=tg, cpu_s=tc)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -358,9 +657,12 @@ def main() -> None:
     serve(dataclasses.replace(LLAMA3_8B, num_layers=4),
           dataclasses.replace(ecfg, quantized=True), "serve_int8")
     phase_cross_check(LLAMA3_8B)
+    flash_cases = phase_flash_vs_plain()
+    flash_launches = phase_train(LLAMA3_8B)
+    phase_train_cross_check(LLAMA3_8B)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
-    summary = {"kernels": [{
+    summary = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max(c["max_err"] for c in cases),
@@ -368,8 +670,22 @@ def main() -> None:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "kernel_ms": main_case["kernel_ms"],
-        "max_err": max(c["max_err"] for c in cases)}]}
-    print(json.dumps(summary), flush=True)
+        "max_err": max(c["max_err"] for c in cases)}]
+    flash_main = next(c for c in flash_cases if c["case"] == "bf16")
+    outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
+               "flash_bwd_dkv": ("dk", "dv")}
+    for name, replaces in FLASH_KERNELS:
+        t = flash_main["timing"][name]
+        err = max(c["max_abs_err"][o] for c in flash_cases
+                  for o in outputs[name])
+        summary.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces, "launches": flash_launches[name],
+            "max_abs_err": err, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "kernel_ms": t["kernel_ms"], "max_err": err})
+    print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,15 @@
-"""Llama on the paged KV pool (counterpart of
-``neuronx_distributed_tpu/models/llama.py``, paged serving path, tp=1).
+"""Llama (counterpart of ``neuronx_distributed_tpu/models/llama.py`` at
+tp=1): the paged serving path and the training forward.
 
 The state dict keeps the JAX parameter names and layouts (kernels ``[in,
 out]``, the fused MLP kernel ``[H, 2, I]``), so :mod:`.convert` maps a JAX
 param tree across by renaming and unstacking the scanned layer dim.
-Weights are held in ``cfg.dtype``: the JAX package holds fp32 and computes
-in ``cfg.dtype``, which casts every weight at its use to the same values.
+
+Weights are held in ``param_dtype`` and cast to ``cfg.dtype`` at use, as
+flax does. Serving (:func:`build_model`) holds them in ``cfg.dtype``, which
+gives the same values at every use and half the memory; the training
+entry point (``trainer.initialize_parallel_model``) holds them in
+``cfg.param_dtype`` (fp32 by default) with gradients on.
 """
 
 from __future__ import annotations
@@ -23,17 +27,21 @@ from ..inference.kv_cache import quantize_kv
 from ..inference.paging import (PagedCacheView, PagedKVCache,
                                 QuantizedPagedKVCache, flat_write_indices,
                                 scatter_pool_rows, valid_write_rows)
-from ..modules.attention import apply_rotary, precompute_rope
+from ..modules.attention import (apply_rotary, attention_dropout_seed,
+                                 precompute_rope, repeat_kv, sdpa_reference)
 from ..modules.norms import RMSNorm
+from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..parallel.layers import (GQAQKVColumnParallelLinear, Linear,
                                ParallelEmbedding)
+from ..parallel.loss_functions import causal_lm_loss
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
-    """The fields of the JAX ``LlamaConfig`` that the paged serving path
-    honours."""
+    """The fields of the JAX ``LlamaConfig`` that the paged serving path and
+    the single-device training step honour. ``attention_dropout`` is active
+    only when the caller passes a ``dropout_generator``."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -47,6 +55,9 @@ class LlamaConfig:
     rope_scaling: bool = False
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    use_flash_attention: bool = False
+    attention_dropout: float = 0.0
 
     @property
     def head_dim_(self) -> int:
@@ -93,18 +104,39 @@ def _paged_cache_attend(cfg: LlamaConfig, q, k, v, positions,
     return out.to(cfg.dtype)
 
 
+def _causal_attend(cfg: LlamaConfig, q, k, v,
+                   dropout_generator: Optional[torch.Generator]):
+    """The no-cache branch at cp=1 (JAX ``models/llama.py:488-540``): flash
+    attention, which reads the GQA K/V heads natively, or the dense
+    reference on K/V expanded by ``repeat_kv``."""
+    dropout_p, seed = attention_dropout_seed(cfg.attention_dropout,
+                                             dropout_generator)
+    if cfg.use_flash_attention:
+        return flash_attention(q, k, v, causal=True, dropout_p=dropout_p,
+                               dropout_seed=seed)
+    n_rep = q.shape[2] // k.shape[2]
+    return sdpa_reference(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                          causal=True, dropout_p=dropout_p,
+                          dropout_seed=seed)
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.head_dim_
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d,
-            dtype=cfg.dtype, device=device)
+            dtype=cfg.dtype, device=device, param_dtype=param_dtype)
         self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
-                             dtype=cfg.dtype, device=device)
+                             dtype=cfg.dtype, device=device,
+                             param_dtype=param_dtype)
 
-    def forward(self, x, cos, sin, positions, view: PagedCacheView):
+    def forward(self, x, cos, sin, positions,
+                view: Optional[PagedCacheView] = None,
+                dropout_generator: Optional[torch.Generator] = None):
+        """With a paged ``view``, the serving step; without, causal
+        self-attention over the sequence (training)."""
         cfg = self.cfg
         d = cfg.head_dim_
         q, k, v = self.qkv(x)
@@ -114,7 +146,10 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(k.reshape(b, s, cfg.num_kv_heads, d), cos, sin,
                          positions)
         v = v.reshape(b, s, cfg.num_kv_heads, d)
-        out = _paged_cache_attend(cfg, q, k, v, positions, view)
+        if view is not None:
+            out = _paged_cache_attend(cfg, q, k, v, positions, view)
+        else:
+            out = _causal_attend(cfg, q, k, v, dropout_generator)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * d))
 
 
@@ -122,56 +157,100 @@ class LlamaMLP(nn.Module):
     """SwiGLU with the fused ``gate_up_kernel [H, 2, I]`` (index 0 = gate,
     1 = up) and ``down``."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.gate_up_kernel = nn.Parameter(torch.empty(
-            (cfg.hidden_size, 2, cfg.intermediate_size), dtype=cfg.dtype,
-            device=device))
+            (cfg.hidden_size, 2, cfg.intermediate_size),
+            dtype=param_dtype or cfg.dtype, device=device))
         self.down = Linear(cfg.intermediate_size, cfg.hidden_size,
-                           dtype=cfg.dtype, device=device)
+                           dtype=cfg.dtype, device=device,
+                           param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h_dim, _, i_dim = self.gate_up_kernel.shape
         h = torch.matmul(x.to(self.cfg.dtype),
-                         self.gate_up_kernel.reshape(h_dim, 2 * i_dim))
+                         self.gate_up_kernel.reshape(h_dim, 2 * i_dim).to(
+                             self.cfg.dtype))
         h = h.unflatten(-1, (2, i_dim))
         return self.down(F.silu(h[..., 0, :]) * h[..., 1, :])
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device)
-        self.attn = LlamaAttention(cfg, device)
+                                  device, param_dtype)
+        self.attn = LlamaAttention(cfg, device, param_dtype)
         self.post_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                 device)
-        self.mlp = LlamaMLP(cfg, device)
+                                 device, param_dtype)
+        self.mlp = LlamaMLP(cfg, device, param_dtype)
 
-    def forward(self, x, cos, sin, positions, view: PagedCacheView):
-        x = x + self.attn(self.input_norm(x), cos, sin, positions, view)
+    def forward(self, x, cos, sin, positions,
+                view: Optional[PagedCacheView] = None,
+                dropout_generator: Optional[torch.Generator] = None):
+        x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
+                          dropout_generator)
         return x + self.mlp(self.post_norm(x))
 
 
 class LlamaForCausalLM(nn.Module):
-    """Embedding, decoder stack, final norm and LM head. Parameters are
-    allocated uninitialised: load a state dict (:func:`build_model`,
-    :func:`.convert.load_jax_params`) or make one (:func:`init_state_dict`).
-    """
+    """Embedding, decoder stack, final norm and an untied LM head.
+    Parameters are allocated uninitialised in ``param_dtype`` (default
+    ``cfg.param_dtype``): load a state dict (:func:`build_model`,
+    :func:`.convert.load_jax_params`, ``initialize_parallel_model``) or
+    make one (:func:`init_state_dict`)."""
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
+        pdt = param_dtype or cfg.param_dtype
         self.cfg = cfg
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
-                                       dtype=cfg.dtype, device=dev)
+                                       dtype=cfg.dtype, device=dev,
+                                       param_dtype=pdt)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(cfg, dev) for _ in range(cfg.num_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev)
+            [LlamaDecoderLayer(cfg, dev, pdt) for _ in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev, pdt)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
-                              dtype=cfg.dtype, device=dev)
+                              dtype=cfg.dtype, device=dev, param_dtype=pdt)
         self._rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def hidden(self, input_ids: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
+               dropout_generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+        """The JAX ``LlamaModel`` (``models/llama.py:872``): embedding, the
+        decoder layers (unrolled) and the final norm over ``input_ids [B,
+        S]``; rope positions default to ``arange(S)``."""
+        x = self.embed(input_ids)
+        cos, sin = self.rope_tables(input_ids.device)
+        for layer in self.layers:
+            x = layer(x, cos, sin, positions, None, dropout_generator)
+        return self.norm(x)
+
+    def forward(self, input_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                ignore_index: int = -100,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Logits ``[B, S, V]`` in ``cfg.dtype``, or, given ``labels`` (the
+        next-token ids, already shifted), the mean causal-LM loss over the
+        labels that are not ``ignore_index``."""
+        logits = self.lm_head(self.hidden(input_ids, positions,
+                                          dropout_generator))
+        if labels is not None:
+            return causal_lm_loss(logits, labels, ignore_index=ignore_index)
+        return logits
+
+    def loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
+             ignore_index: int = -100,
+             dropout_generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
+        return self(input_ids, labels=labels, ignore_index=ignore_index,
+                    dropout_generator=dropout_generator)
 
     def rope_tables(self, device: torch.device):
         """fp32 cos/sin ``[max_seq_len, head_dim/2]``, made once per
@@ -187,10 +266,11 @@ class LlamaForCausalLM(nn.Module):
 
 def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
                 device: DeviceLike = None) -> LlamaForCausalLM:
-    """A model whose parameters are ``state_dict``'s tensors, moved to
-    ``device`` and ``cfg.dtype`` (no copy where they already are)."""
+    """A serving model, frozen, whose parameters are ``state_dict``'s
+    tensors moved to ``device`` and ``cfg.dtype`` (no copy where they
+    already are)."""
     dev = resolve_device(device)
-    model = LlamaForCausalLM(cfg, device="meta")
+    model = LlamaForCausalLM(cfg, device="meta", param_dtype=cfg.dtype)
     model.load_state_dict(
         {k: v.to(device=dev, dtype=cfg.dtype) for k, v in state_dict.items()},
         strict=True, assign=True)
@@ -198,19 +278,22 @@ def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
 
 
 def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
-                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                    device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     normal(0, ``std``) kernels and embeddings, unit norm scales, made on
-    ``device`` in ``cfg.dtype``."""
+    ``device`` in ``dtype`` (default ``cfg.dtype``)."""
     dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
     shapes = LlamaForCausalLM(cfg, device="meta").state_dict()
     sd = {}
     for name, t in shapes.items():
         if name.endswith(".scale"):
-            sd[name] = torch.ones(t.shape, dtype=cfg.dtype, device=dev)
+            sd[name] = torch.ones(t.shape, dtype=dtype, device=dev)
         else:
-            sd[name] = torch.randn(t.shape, generator=gen, dtype=cfg.dtype,
+            sd[name] = torch.randn(t.shape, generator=gen, dtype=dtype,
                                    device=dev).mul_(std)
     return sd
 

@@ -1,4 +1,5 @@
-"""Rotary embeddings and GQA head expansion (counterparts of
+"""Rotary embeddings, GQA head expansion, the dense reference attention and
+the attention-dropout seed (counterparts of
 ``neuronx_distributed_tpu/modules/attention.py``)."""
 
 from __future__ import annotations
@@ -67,3 +68,46 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     b, s, k, d = x.shape
     return x[:, :, :, None, :].expand(b, s, k, n_rep, d).reshape(
         b, s, k * n_rep, d)
+
+
+def attention_dropout_seed(rate: float,
+                           generator: Optional[torch.Generator]
+                           ) -> Tuple[float, Optional[int]]:
+    """``(dropout_p, dropout_seed)``: dropout is on iff ``rate > 0`` and the
+    caller passed a generator (training); one uint32 seed is drawn from it
+    per attention call. The JAX package draws it from the module's
+    ``"dropout"`` rng instead, so the two give different masks."""
+    if rate > 0.0 and generator is not None:
+        return rate, int(torch.randint(0, 2 ** 32, (), generator=generator,
+                                       device=generator.device,
+                                       dtype=torch.int64))
+    return 0.0, None
+
+
+def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, dropout_p: float = 0.0,
+                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Plain softmax attention in fp32, the JAX model's path when
+    ``use_flash_attention`` is off. ``q``/``k``/``v`` ``[B, S, N, D]`` (K/V
+    already GQA-expanded); masked scores are -1e30. Dropout uses the same
+    counter hash as the flash kernels, so both draw one mask per seed."""
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(),
+                          k.float()) * (1.0 / math.sqrt(d))
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_p > 0.0:
+        from ..ops.flash_attention import dropout_keep_mask, flat_bh
+
+        keep = dropout_keep_mask(
+            dropout_seed, flat_bh(b, n, q.device),
+            torch.arange(sq, device=q.device)[None, None, :, None],
+            torch.arange(sk, device=q.device)[None, None, None, :], sk,
+            dropout_p)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_p)), 0.0)
+    out = torch.einsum("bnqk,bknd->bqnd", probs, v.float())
+    return out.to(q.dtype)

@@ -1,6 +1,7 @@
 """Card-only checks of the PyTorch port: the hand-written paged-attention
-kernel against its plain version, the wrapper's refusals, and the serving
-engine on the card against the same engine on the CPU.
+and flash-attention kernels against their plain versions, the wrappers'
+refusals, the serving engine and a train step on the card against the same
+on the CPU.
 
 This file imports nothing of JAX, so it runs on a machine without it:
 
@@ -14,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from neuronx_distributed_tpu_torch import trainer as ttr
+from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
 from neuronx_distributed_tpu_torch.inference import engine as te
 from neuronx_distributed_tpu_torch.inference.kv_cache import (PAD_POSITION,
                                                               quantize_kv)
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.ops import flash_attention as tfa
 from neuronx_distributed_tpu_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +132,131 @@ def test_engine_on_card_matches_cpu(cuda, quantized):
                             else cfg.num_layers * eng.stats.steps)
     assert out["cpu"] == out["cuda"]
     assert out["cuda"][3] == 1
+
+
+def _flash_case(device, seed, dtype, b=2, s=100, n=8, kv=2, d=64):
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            device=device, dtype=dtype)
+
+    return t(b, s, n, d), t(b, s, kv, d), t(b, s, kv, d), t(b, s, n, d)
+
+
+def _flash_all(fns, q, k, v, g, causal, p, seed):
+    fwd, dq_fn, dkv_fn = fns
+    out, lse = fwd(q, k, v, causal, None, p, seed)
+    delta = tfa.attention_delta(g, out)
+    args = (q, k, v, g, lse, delta, causal, None, p, seed)
+    return (out, lse, dq_fn(*args), *dkv_fn(*args))
+
+
+@pytest.mark.parametrize("name,dtype,s,n,kv,d,causal,p", [
+    ("fp32", torch.float32, 100, 8, 2, 64, True, 0.0),
+    ("fp32_d128_noncausal", torch.float32, 130, 4, 4, 128, False, 0.0),
+    ("bf16", torch.bfloat16, 192, 8, 2, 128, True, 0.0),
+    ("fp32_dropout", torch.float32, 77, 4, 1, 64, True, 0.2),
+    ("bf16_dropout_noncausal", torch.bfloat16, 64, 8, 8, 128, False, 0.1),
+])
+def test_flash_kernels_match_plain(cuda, name, dtype, s, n, kv, d, causal,
+                                   p):
+    """K2, K3 and K4 against their plain versions on the same inputs (the
+    plain backward takes the plain forward's out and lse, the kernels the
+    kernel's), each launching once."""
+    q, k, v, g = _flash_case(cuda, 0, dtype, s=s, n=n, kv=kv, d=d)
+    counts = [f.launches for f in (tfa.flash_fwd, tfa.flash_bwd_dq,
+                                   tfa.flash_bwd_dkv)]
+    got = _flash_all((tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv),
+                     q, k, v, g, causal, p, 1234)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfa.flash_fwd, tfa.flash_bwd_dq,
+                                 tfa.flash_bwd_dkv)] == [c + 1 for c in counts]
+    ref = _flash_all((tfa.flash_fwd_plain, tfa.flash_bwd_dq_plain,
+                      tfa.flash_bwd_dkv_plain), q, k, v, g, causal, p, 1234)
+    # fp32: summation order only; bf16: the rounding of out/dq/dk/dv to bf16
+    # and of the plain version's bf16 inputs, relative to the largest value
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for label, a, r in zip(("out", "lse", "dq", "dk", "dv"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, label
+        scale = max(1.0, r.float().abs().max().item())
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * scale, (label, err, scale)
+
+
+def test_flash_kernel_dropout_mask_is_the_plain_mask(cuda):
+    """With q = k = 0 every valid score is equal, so with V = one-hot rows
+    K2's output is keep / (l (1 - p)): its nonzero pattern is the kernel's
+    keep mask, which must equal dropout_keep_mask bit for bit."""
+    b, s, n, kv, d, p, seed = 1, 192, 4, 2, 64, 0.3, 99
+    q = torch.zeros(b, s, n, d, device=cuda)
+    k = torch.zeros(b, s, kv, d, device=cuda)
+    q_pos = torch.arange(s, device=cuda)[:, None]
+    for k0 in range(0, s, d):
+        v = torch.zeros(b, s, kv, d, device=cuda)
+        v[0, k0:k0 + d, :, :] = torch.eye(d, device=cuda)[:, None, :]
+        out, _ = tfa.flash_fwd_cuda(q, k, v, True, None, p, seed)
+        k_pos = torch.arange(k0, k0 + d, device=cuda)[None, :]
+        want = tfa.dropout_keep_mask(seed, tfa.flat_bh(b, n, cuda), q_pos,
+                                     k_pos, s, p) & (k_pos <= q_pos)
+        got = out.permute(0, 2, 1, 3) != 0            # [B, N, S, D]
+        assert torch.equal(got, want)
+
+
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    q, k, v, g = _flash_case("cpu", 3, torch.float32, s=70, n=4, kv=2, d=64)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (q, k, v)]
+        out = tfa.flash_attention(*leaves, dropout_p=0.1, dropout_seed=7)
+        out.backward(g.to(dev).transpose(1, 2).contiguous().transpose(1, 2))
+        grads[str(dev)] = [out.detach().cpu()] + [t.grad.cpu()
+                                                  for t in leaves]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-4)
+
+
+def test_flash_wrappers_refuse_what_they_do_not_take(cuda):
+    q, k, v, g = _flash_case(cuda, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="not supported"):
+        tfa.flash_fwd_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="every tensor on"):
+        tfa.flash_fwd_cuda(q, k.cpu(), v)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Three fp32 flash-attention train steps on the card and on the CPU
+    from the same weights and batch: loss, grad norm and parameters."""
+    cfg = tl.tiny_config(dtype=torch.float32, hidden_size=256, num_heads=4,
+                         num_kv_heads=2, use_flash_attention=True)
+    sd = tl.init_state_dict(cfg, seed=0, std=0.02, device="cpu")
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 97)))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    runs = {}
+    for dev in ("cpu", cuda):
+        pm, params = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
+        tx, state = ttr.initialize_parallel_optimizer(pm, params, 1e-3)
+        step = ttr.make_train_step(pm, tx)
+        before = tfa.flash_bwd_dkv.launches
+        metrics = [step(state, batch)[1] for _ in range(3)]
+        assert tfa.flash_bwd_dkv.launches - before == (
+            0 if dev == "cpu" else 3 * cfg.num_layers)
+        runs[str(dev)] = ([(float(m["loss"]), float(m["grad_norm"]))
+                           for m in metrics],
+                          {n: p.detach().cpu() for n, p in params.items()})
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    # Adam's m / (sqrt(v) + eps) magnifies the rounding of gradients near
+    # zero, so params are held to 1e-3 x max|p| (as against JAX on the CPU)
+    for name, ref in pc.items():
+        torch.testing.assert_close(pg[name], ref, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())

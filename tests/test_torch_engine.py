@@ -186,7 +186,7 @@ _ISOLATED = textwrap.dedent("""
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax",
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                       "neuronx_distributed_tpu"):
                 raise ImportError("refused: " + name)
             return None
@@ -198,6 +198,9 @@ _ISOLATED = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for m in mods:
         importlib.import_module(m)
+    for m in ("config", "ops.flash_attention", "parallel.loss_functions",
+              "trainer.optimizer", "trainer.schedules", "trainer.trainer"):
+        assert pkg.__name__ + "." + m in mods, m
     from neuronx_distributed_tpu_torch.inference import engine as te
     from neuronx_distributed_tpu_torch.models import llama as tl
     cfg = tl.tiny_config(dtype=torch.float32)
@@ -208,7 +211,7 @@ _ISOLATED = textwrap.dedent("""
     eng.submit([1, 2, 3, 4, 5], 4, uid="a")
     assert len(eng.run()["a"].tokens) == 4
     bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "jaxlib", "flax",
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                   "neuronx_distributed_tpu")]
     assert not bad, bad
     print("isolated", len(mods))
