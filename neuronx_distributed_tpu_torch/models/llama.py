@@ -5,17 +5,18 @@ The state dict keeps the JAX parameter names and layouts (kernels ``[in,
 out]``, the fused MLP kernel ``[H, 2, I]``), so :mod:`.convert` maps a JAX
 param tree across by renaming and unstacking the scanned layer dim.
 
-Weights are held in ``param_dtype`` and cast to ``cfg.dtype`` at use, as
-flax does. Serving (:func:`build_model`) holds them in ``cfg.dtype``, which
-gives the same values at every use and half the memory; the training
-entry point (``trainer.initialize_parallel_model``) holds them in
-``cfg.param_dtype`` (fp32 by default) with gradients on.
+Weights are held in ``cfg.param_dtype`` and cast to ``cfg.dtype`` at use,
+as flax does. The training entry point
+(``trainer.initialize_parallel_model``) holds them so (fp32 by default)
+with gradients on; serving (:func:`build_model`) sets ``param_dtype`` to
+``cfg.dtype``, which gives the same values at every use and half the
+memory.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -121,16 +122,16 @@ def _causal_attend(cfg: LlamaConfig, q, k, v,
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.head_dim_
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d,
-            dtype=cfg.dtype, device=device, param_dtype=param_dtype)
+            dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype)
         self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
                              dtype=cfg.dtype, device=device,
-                             param_dtype=param_dtype)
+                             param_dtype=cfg.param_dtype)
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[PagedCacheView] = None,
@@ -157,15 +158,15 @@ class LlamaMLP(nn.Module):
     """SwiGLU with the fused ``gate_up_kernel [H, 2, I]`` (index 0 = gate,
     1 = up) and ``down``."""
 
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.gate_up_kernel = nn.Parameter(torch.empty(
             (cfg.hidden_size, 2, cfg.intermediate_size),
-            dtype=param_dtype or cfg.dtype, device=device))
+            dtype=cfg.param_dtype, device=device))
         self.down = Linear(cfg.intermediate_size, cfg.hidden_size,
                            dtype=cfg.dtype, device=device,
-                           param_dtype=param_dtype)
+                           param_dtype=cfg.param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h_dim, _, i_dim = self.gate_up_kernel.shape
@@ -177,14 +178,14 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device, param_dtype)
-        self.attn = LlamaAttention(cfg, device, param_dtype)
+                                  device, cfg.param_dtype)
+        self.attn = LlamaAttention(cfg, device)
         self.post_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                 device, param_dtype)
-        self.mlp = LlamaMLP(cfg, device, param_dtype)
+                                 device, cfg.param_dtype)
+        self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[PagedCacheView] = None,
@@ -196,22 +197,20 @@ class LlamaDecoderLayer(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Embedding, decoder stack, final norm and an untied LM head.
-    Parameters are allocated uninitialised in ``param_dtype`` (default
-    ``cfg.param_dtype``): load a state dict (:func:`build_model`,
-    :func:`.convert.load_jax_params`, ``initialize_parallel_model``) or
-    make one (:func:`init_state_dict`)."""
+    Parameters are allocated uninitialised in ``cfg.param_dtype``: load a
+    state dict (:func:`build_model`, :func:`.convert.load_jax_params`,
+    ``initialize_parallel_model``) or make one (:func:`init_state_dict`)."""
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
-                 param_dtype: Optional[torch.dtype] = None):
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        pdt = param_dtype or cfg.param_dtype
+        pdt = cfg.param_dtype
         self.cfg = cfg
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
                                        dtype=cfg.dtype, device=dev,
                                        param_dtype=pdt)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(cfg, dev, pdt) for _ in range(cfg.num_layers)])
+            [LlamaDecoderLayer(cfg, dev) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev, pdt)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
                               dtype=cfg.dtype, device=dev, param_dtype=pdt)
@@ -268,9 +267,10 @@ def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
                 device: DeviceLike = None) -> LlamaForCausalLM:
     """A serving model, frozen, whose parameters are ``state_dict``'s
     tensors moved to ``device`` and ``cfg.dtype`` (no copy where they
-    already are)."""
+    already are): serving holds its weights in the compute dtype."""
     dev = resolve_device(device)
-    model = LlamaForCausalLM(cfg, device="meta", param_dtype=cfg.dtype)
+    model = LlamaForCausalLM(replace(cfg, param_dtype=cfg.dtype),
+                             device="meta")
     model.load_state_dict(
         {k: v.to(device=dev, dtype=cfg.dtype) for k, v in state_dict.items()},
         strict=True, assign=True)
@@ -278,14 +278,12 @@ def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
 
 
 def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
-                    device: DeviceLike = None,
-                    dtype: Optional[torch.dtype] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     normal(0, ``std``) kernels and embeddings, unit norm scales, made on
-    ``device`` in ``dtype`` (default ``cfg.dtype``)."""
+    ``device`` in ``cfg.param_dtype``."""
     dev = resolve_device(device)
-    dtype = dtype or cfg.dtype
+    dtype = cfg.param_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
     shapes = LlamaForCausalLM(cfg, device="meta").state_dict()
     sd = {}

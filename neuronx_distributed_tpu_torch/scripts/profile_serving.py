@@ -17,6 +17,7 @@ as in the JAX model, and their output is discarded).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -102,7 +103,8 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    cfg = LLAMA3_8B
+    # serving holds bf16 weights: make them in bf16
+    cfg = dataclasses.replace(LLAMA3_8B, param_dtype=LLAMA3_8B.dtype)
     eng = ServingEngine(cfg, init_state_dict(cfg, seed=0, std=0.02),
                         EngineConfig(block_size=16, num_blocks=2048,
                                      max_slots=8, max_blocks_per_seq=128,

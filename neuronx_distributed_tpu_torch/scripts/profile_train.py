@@ -2,9 +2,10 @@
 
     python3 -m neuronx_distributed_tpu_torch.scripts.profile_train
 
-Runs ``chip_smoke.py``'s ``train`` workload (Llama-3-8B widths at 4
-layers, fp32 params, bf16 compute, flash attention, B=1, S=4096, AdamW
-clipped at 1.0, one fixed batch) through ``make_train_step``. After two
+Runs ``chip_smoke.py``'s ``train`` workload
+(:func:`.workloads.llama3_train_workload`: Llama-3-8B widths at 4 layers,
+fp32 params, bf16 compute, flash attention, B=1, S=4096, AdamW clipped at
+1.0, one fixed batch) through ``make_train_step``. After two
 warm-up steps it times 3 steps without the profiler, then traces 3 with
 ``torch.profiler`` and prints one JSON line: host wall time per step,
 device busy time per step, the device's idle share (busy time from the
@@ -15,12 +16,10 @@ the top kernels by device time.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import subprocess
 import time
 
-import numpy as np
 import torch
 
 # kernel-name fragments of each group, first match wins
@@ -43,24 +42,14 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from .. import trainer
-    from ..config import neuronx_distributed_config
-    from ..models.llama import LLAMA3_8B
+    from .workloads import llama3_train_workload
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    cfg = dataclasses.replace(LLAMA3_8B, num_layers=4, dtype=torch.bfloat16,
-                              param_dtype=torch.float32,
-                              use_flash_attention=True)
-    pm, params = trainer.initialize_parallel_model(
-        neuronx_distributed_config(), cfg, seed=0, std=0.02)
-    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
-    step = trainer.make_train_step(pm, tx)
     seq = 4096
-    ids = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (1, seq + 1)))
-    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    w = llama3_train_workload(layers=4, seq=seq)
+    cfg, state, step, batch = w.cfg, w.state, w.step, w.batch
 
     def run(n):
         nonlocal state

@@ -58,13 +58,11 @@ def initialize_parallel_model(
     is. Returns ``(ParallelModel, params)``."""
     dev = resolve_device(device)
     if state_dict is None:
-        sd = init_state_dict(model_cfg, seed=seed, std=std, device=dev,
-                             dtype=model_cfg.param_dtype)
+        sd = init_state_dict(model_cfg, seed=seed, std=std, device=dev)
     else:
         sd = {k: v.to(device=dev, dtype=model_cfg.param_dtype, copy=True)
               for k, v in state_dict.items()}
-    model = LlamaForCausalLM(model_cfg, device="meta",
-                             param_dtype=model_cfg.param_dtype)
+    model = LlamaForCausalLM(model_cfg, device="meta")
     model.load_state_dict(sd, strict=True, assign=True)
     model.requires_grad_(True).train()
     params = dict(model.named_parameters())

@@ -229,3 +229,41 @@ def test_ctypes_binding_matches_the_c_prototype(fn, argtypes):
                      ctypes.c_uint if param.startswith("unsigned") else
                      ctypes.c_int)
     assert kinds == argtypes
+
+
+def test_card_check_flags_a_fault_late_in_the_sequence():
+    """``chip_smoke.flash_rel_err``, by which the card checks hold the
+    kernels to their plain versions, compares element by element against
+    the element and its row's rms. Causal rows differ in scale along S, so a
+    fault in the last rows must still show: K4 dropping one query head of
+    each kv group for the last 5% of keys is flagged far above the bf16
+    limit 2e-2, while one bf16 step on every element stays within it."""
+    from chip_smoke import flash_rel_err
+
+    gen = torch.Generator().manual_seed(0)
+    b, s, n, kv, d = 1, 2048, 8, 2, 64
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen).bfloat16()
+                  for h in (n, kv, kv, n))
+    out, lse = tfa.flash_fwd_plain(q, k, v)
+    dk, dv = tfa.flash_bwd_dkv_plain(q, k, v, g, lse,
+                                     tfa.attention_delta(g, out))
+    g_drop = g.unflatten(2, (kv, n // kv)).clone()
+    g_drop[:, :, :, -1] = 0
+    g_drop = g_drop.flatten(2, 3)
+    dk_drop, dv_drop = tfa.flash_bwd_dkv_plain(
+        q, k, v, g_drop, lse, tfa.attention_delta(g_drop, out))
+    late = (torch.arange(s) >= s * 95 // 100)[None, :, None, None]
+    for full, dropped in ((dk, dk_drop), (dv, dv_drop)):
+        assert flash_rel_err(torch.where(late, dropped, full), full) > 0.5
+        sign = torch.randint(0, 2, full.shape, generator=gen) * 2 - 1
+        one_step = (full.float() * (1 + sign * 2.0 ** -8)).bfloat16()
+        assert flash_rel_err(one_step, full) < 2e-2
+    # causal dq of query 0 is zero but for rounding, which may differ
+    dq = tfa.flash_bwd_dq_plain(q, k, v, g, lse, tfa.attention_delta(g, out))
+    assert dq[:, 0].abs().max() < 1e-3 * dq.abs().max()
+    noise_free = dq.clone()
+    noise_free[:, 0] = 0
+    assert flash_rel_err(noise_free, dq) < 1e-4
+    zero = torch.zeros(2, 4)
+    assert flash_rel_err(zero, zero) == 0
+    assert not flash_rel_err(zero + float("nan"), zero) <= 2e-2
