@@ -39,6 +39,25 @@ script exits non-zero and prints no result:
    S=256, on the card and on the port's CPU path from the same weights and
    batch: each step's loss within 1e-4 relative and grad norm within 1e-3,
    and each parameter's update within 1e-3 of its norm.
+10. moe_vs_plain: the grouped-GLU kernels against their plain versions at
+   Mixtral 8x7B's widths (E=8, top-2, H=4096, I=14336, block 64): K5 at the
+   packed step's shapes (512 tokens, P=1536) and K6 at the decode worker's
+   (4 tokens, sentinel metadata), fp32 element by element within 1e-4, bf16
+   against the plain version in fp32 on the same bf16 inputs, rounded once,
+   within 1e-2 (``flash_rel_err``); times each kernel, its plain version
+   and cuBLAS over the same rows expert by expert, and computes the bound.
+11. serve_mixtral: ``ServingEngine`` with ``MIXTRAL_8X7B``'s widths cut to
+   8 layers, bf16, blockwise dispatch with block 64 (random weights, seed
+   0, std 0.02), phase 4's engine config and requests. Asserts every
+   request completes, one step shape, paged_attention and grouped_glu
+   launches = layers x steps, and no grouped_glu_decode launch.
+12. serve_mixtral_disagg: the same, disaggregated, ``max_slots=4``,
+   ``prefill_budget=512``: grouped_glu launches = layers x prefill runs,
+   grouped_glu_decode launches = layers x decode runs, one step shape per
+   worker.
+13. mixtral_cross_check: one packed step (width 64) and one decode-worker
+   step (width 4) at full width, 2 layers, fp32, blockwise, on the card and
+   on the port's CPU path; logits within 1e-3 x max|logit|.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
@@ -70,6 +89,11 @@ FLASH_KERNELS = (   # dispatcher (and its launch count), TPU kernel replaced
     ("flash_fwd", "neuronx_distributed_tpu/ops/flash_attention.py:229"),
     ("flash_bwd_dq", "neuronx_distributed_tpu/ops/flash_attention.py:426"),
     ("flash_bwd_dkv", "neuronx_distributed_tpu/ops/flash_attention.py:474"),
+)
+MOE_SOURCE = "neuronx_distributed_tpu_torch/csrc/blockwise_moe.cu"
+MOE_KERNELS = (
+    ("grouped_glu", "neuronx_distributed_tpu/ops/blockwise_moe.py:64"),
+    ("grouped_glu_decode", "neuronx_distributed_tpu/ops/blockwise_moe.py:208"),
 )
 
 
@@ -245,15 +269,20 @@ def phase_kernel_vs_plain():
 # ---------------------------------------------------------------------------
 
 def serve(cfg, ecfg, label):
+    """Serve 8 requests through ``ServingEngine`` and check the launch
+    counts: K1 once per layer per worker run; for Mixtral K5 once per layer
+    per packed or prefill run and K6 once per layer per decode run."""
     from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
-    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+    from neuronx_distributed_tpu_torch.models import llama, mixtral
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
     from neuronx_distributed_tpu_torch.ops.paged_attention import (
         paged_attention)
 
+    moe = isinstance(cfg, mixtral.MixtralConfig)
     torch.cuda.reset_peak_memory_stats()
     # serving holds its weights in the compute dtype: make them there
-    sd = init_state_dict(dataclasses.replace(cfg, param_dtype=cfg.dtype),
-                         seed=0, std=0.02)
+    sd = (mixtral if moe else llama).init_state_dict(
+        dataclasses.replace(cfg, param_dtype=cfg.dtype), seed=0, std=0.02)
     eng = ServingEngine(cfg, sd, ecfg)
     del sd
     rng = np.random.RandomState(0)
@@ -262,6 +291,7 @@ def serve(cfg, ecfg, label):
     new = 64
     torch.cuda.synchronize()
     paged_attention.launches = 0
+    bm.grouped_glu.launches = bm.grouped_glu_decode.launches = 0
     t0 = time.perf_counter()
     for i in range(6):
         eng.submit(prompts[i], new, uid=f"r{i}")
@@ -272,22 +302,33 @@ def serve(cfg, ecfg, label):
     res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = paged_attention.launches
+    launches = {"paged_attention": paged_attention.launches,
+                "grouped_glu": bm.grouped_glu.launches,
+                "grouped_glu_decode": bm.grouped_glu_decode.launches}
     steps = eng.stats.steps
+    runs = dict(eng.worker_runs)
     bad = [u for u, r in res.items()
            if r.status != "completed" or len(r.tokens) != new]
     if len(res) != 8 or bad:
         raise AssertionError(f"{label}: requests not completed: {bad}")
-    if eng.compile_count() != 1:
-        raise AssertionError(f"{label}: {eng.compile_count()} step shapes")
-    if launches != cfg.num_layers * steps or launches == 0:
-        raise AssertionError(f"{label}: {launches} kernel launches for "
-                             f"{steps} steps x {cfg.num_layers} layers")
+    if set(eng.worker_compile_counts().values()) != {1}:
+        raise AssertionError(f"{label}: step shapes per worker "
+                             f"{eng.worker_compile_counts()}")
+    nl = cfg.num_layers
+    wide = runs.get("packed", 0) + runs.get("prefill", 0)
+    want = {"paged_attention": nl * sum(runs.values()),
+            "grouped_glu": nl * wide if moe else 0,
+            "grouped_glu_decode": nl * runs.get("decode", 0) if moe else 0}
+    if launches != want or launches["paged_attention"] == 0 or (
+            moe and launches["grouped_glu"] == 0):
+        raise AssertionError(f"{label}: launches {launches}, want {want} "
+                             f"(layers x worker runs {runs})")
     rep = eng.stats.report()
     emit(label, layers=cfg.num_layers, dtype=str(cfg.dtype),
-         quantized_pool=ecfg.quantized, requests=len(res),
+         quantized_pool=ecfg.quantized,
+         disaggregated=ecfg.disaggregated, requests=len(res),
          prompt_tokens=int(lens.sum()), new_tokens=8 * new, steps=steps,
-         paged_attention_launches=launches,
+         worker_runs=runs, launches=launches,
          output_tok_per_s=8 * new / wall, wall_s=wall,
          engine_tok_per_s=rep["tokens_per_s"],
          ttft_p50_ms=rep["ttft_p50_ms"], ttft_p99_ms=rep["ttft_p99_ms"],
@@ -348,6 +389,196 @@ def phase_cross_check(base_cfg):
                                  f"1e-3 x max|logit| ({scale})")
     emit("cross_check", layers=cfg.num_layers, width=width,
          max_rel_diff=worst, tol=1e-3)
+    del sides
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 10-13: Mixtral and the grouped-GLU kernels
+# ---------------------------------------------------------------------------
+
+def moe_case(seed, tokens, weights, sentinel_empty, k=2, bs=64):
+    """The expert-sorted blocks of ``tokens`` random tokens routed top-``k``
+    by random router logits over the experts of ``weights`` (``gate_up``,
+    ``down``), laid out by the port's block metadata."""
+    from neuronx_distributed_tpu_torch.modules.moe import blockwise as bw
+
+    gate_up, down = weights
+    e, h = gate_up.shape[0], gate_up.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randn((tokens, e), generator=gen, device="cuda").topk(k)[1]
+    _, src, dest, be, _, padded = bw.compute_block_metadata(
+        idx, e, bs, sentinel_empty=sentinel_empty)
+    x = torch.randn((tokens, h), generator=gen, device="cuda")
+    xs = bw.scatter_to_blocks(x.to(gate_up.dtype), src, dest, padded)
+    return xs, gate_up, down, be, bs
+
+
+def moe_bound(xs, gate_up, down, be, bs):
+    """Least time for the call: the larger of its bytes (xs read and ys
+    written once, the weights of each expert some live block uses once, the
+    block table) over HBM bandwidth, and its products over the live blocks'
+    rows (x Wg, x Wu, a Wd: 6 H I FLOP per row) over the peak rate for the
+    dtype."""
+    e, h, _, i = gate_up.shape
+    live = be[be < e]
+    hit = torch.unique(live).numel()
+    es = xs.element_size()
+    nbytes = 2 * xs.numel() * es + hit * 3 * h * i * es + be.numel() * 4
+    flops = 6.0 * live.numel() * bs * h * i
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[xs.dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, hit_experts=hit,
+                live_blocks=live.numel())
+
+
+def moe_library(xs, gate_up, down, be, bs):
+    """The yardstick, several PyTorch calls: per run of one expert's live
+    blocks, cuBLAS ``x @ gate_up[e]`` (gate and up in one product),
+    ``silu(g) * u`` and ``a @ down[e]``. Timed only."""
+    e, h, _, i = gate_up.shape
+    runs = []
+    for b, x in enumerate(be.tolist()):
+        if x >= e:
+            continue
+        if runs and runs[-1][0] == x and runs[-1][2] == b * bs:
+            runs[-1][2] = (b + 1) * bs
+        else:
+            runs.append([x, b * bs, (b + 1) * bs])
+
+    def call():
+        for x, r0, r1 in runs:
+            gu = xs[r0:r1] @ gate_up[x].reshape(h, 2 * i)
+            _ = (F.silu(gu[:, :i]) * gu[:, i:]) @ down[x]
+    return call
+
+
+def phase_moe_vs_plain():
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+
+    cfg = MIXTRAL_8X7B
+    e, h, i = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    w32 = (torch.randn((e, h, 2, i), generator=gen, device="cuda") * 0.02,
+           torch.randn((e, i, h), generator=gen, device="cuda") * 0.02)
+    weights = {torch.float32: w32,
+               torch.bfloat16: tuple(w.bfloat16() for w in w32)}
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    kernels = {"grouped_glu": (bm.grouped_glu_cuda, bm.grouped_glu_plain),
+               "grouped_glu_decode": (bm.grouped_glu_decode_cuda,
+                                      bm.grouped_glu_decode_plain)}
+    # (case, kernel, tokens, dtype, sentinel metadata, tolerance)
+    cases = [("k5_bf16", "grouped_glu", 512, torch.bfloat16, False, 1e-2),
+             ("k5_fp32", "grouped_glu", 512, torch.float32, False, 1e-4),
+             ("k6_bf16", "grouped_glu_decode", 4, torch.bfloat16, True, 1e-2),
+             ("k6_fp32", "grouped_glu_decode", 4, torch.float32, True, 1e-4)]
+    bi = min(512, i)
+    results = []
+    for n, (case, name, tokens, dtype, sentinel, tol) in enumerate(cases):
+        args = moe_case(400 + n, tokens, weights[dtype], sentinel)
+        xs, gate_up, down, be, bs = args
+        kernel, plain = kernels[name]
+        got = kernel(*args, bi)
+        torch.cuda.synchronize()
+        # bf16: the kernel sums over I in fp32 and rounds once, so it is
+        # held to the plain version in fp32 on the same inputs, rounded once
+        ref = plain(xs.float(), gate_up.float(), down.float(), be, bs,
+                    bi).to(dtype)
+        rel = flash_rel_err(got, ref)
+        sent = torch.repeat_interleave(be >= e, bs)
+        if not (rel <= tol) or not torch.isfinite(got).all() \
+                or got[sent].any():
+            raise AssertionError(f"{case}: error {rel} of |ref| + rms(row) "
+                                 f"above {tol}, or sentinel rows not zero")
+        res = dict(case=case, kernel=name, tokens=tokens, dtype=str(dtype),
+                   rows=xs.shape[0], blocks=be.numel(), tol=tol,
+                   max_rel_err=rel,
+                   max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                   kernel_ms=time_ms(lambda: kernel(*args, bi), reps=10,
+                                     flush=flush),
+                   plain_ms=time_ms(lambda: plain(*args, bi), reps=3,
+                                    flush=flush),
+                   **moe_bound(*args))
+        if dtype == torch.bfloat16:
+            res["library_ms"] = time_ms(moe_library(*args), reps=10,
+                                        flush=flush)
+            res["library"] = ("several calls: per run of one expert's live "
+                              "blocks, torch.matmul (cuBLAS) x @ gate_up[e], "
+                              "silu(g) * u, and @ down[e]")
+        results.append(res)
+        del args, xs, got, ref
+        torch.cuda.empty_cache()
+    del weights, w32
+    torch.cuda.empty_cache()
+    emit("moe_vs_plain", cases=results)
+    return results
+
+
+def phase_mixtral_cross_check(base_cfg):
+    """One packed step (two prompts and pad rows, width 64: K5) and one
+    decode-worker step (two decode rows, width 4: K6) at full width, 2
+    layers, fp32, blockwise with block 64, on the card and the CPU path."""
+    from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
+    from neuronx_distributed_tpu_torch.inference.paging import (
+        init_paged_kv_cache)
+    from neuronx_distributed_tpu_torch.models.mixtral import (
+        build_model, init_state_dict, mixtral_forward_with_cache)
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+
+    cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32,
+                              param_dtype=torch.float32,
+                              moe_dispatch="blockwise", moe_block_size=64)
+    bs, nb, maxb = 16, 64, 8
+    sd = init_state_dict(cfg, seed=1, std=0.02)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        sides[dev] = (build_model(cfg, sd, dev), init_paged_kv_cache(
+            cfg.num_layers, nb, bs, cfg.num_kv_heads, cfg.head_dim_, 2, maxb,
+            dtype=torch.float32, device=dev))
+    del sd
+    tables = np.full((2, maxb), -1, np.int32)
+    tables[0, :3] = [17, 3, 40]
+    tables[1, :2] = [8, 62]
+    rng = np.random.RandomState(2)
+    steps = [(64, list(range(40)) + list(range(20)), [0] * 40 + [1] * 20,
+              "grouped_glu"),
+             (4, [40, 20], [0, 1], "grouped_glu_decode")]
+    worst, cpu_s = 0.0, 0.0
+    for width, pos, slots, kernel in steps:
+        n = len(pos)
+        toks = np.zeros((1, width), np.int32)
+        toks[0, :n] = rng.randint(0, cfg.vocab_size, n)
+        p = np.full((1, width), PAD_POSITION, np.int32)
+        p[0, :n] = pos
+        s = np.full((width,), 2, np.int32)
+        s[:n] = slots
+        out = {}
+        for dev, (model, cache) in sides.items():
+            before = getattr(bm, kernel).launches
+            t0 = time.perf_counter()
+            cache.block_tables.copy_(torch.from_numpy(tables))
+            logits, _ = mixtral_forward_with_cache(
+                model, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(p).to(dev), cache,
+                torch.from_numpy(s).to(dev))
+            out[dev] = logits[0, :n].float().cpu()
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t0
+            elif getattr(bm, kernel).launches - before != cfg.num_layers:
+                raise AssertionError(f"mixtral_cross_check: width {width} "
+                                     f"did not launch {kernel} per layer")
+        diff = (out["cuda"] - out["cpu"]).abs().max().item()
+        scale = out["cpu"].abs().max().item()
+        worst = max(worst, diff / scale)
+        if not diff <= 1e-3 * scale:
+            raise AssertionError(f"mixtral_cross_check: width {width} max "
+                                 f"|diff| {diff} above 1e-3 x max|logit| "
+                                 f"({scale})")
+    emit("mixtral_cross_check", layers=cfg.num_layers, widths=[64, 4],
+         max_rel_diff=worst, tol=1e-3, cpu_s=cpu_s)
     del sides
     torch.cuda.empty_cache()
 
@@ -670,6 +901,7 @@ def main() -> None:
 
     from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
     from neuronx_distributed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -681,10 +913,20 @@ def main() -> None:
 
     ecfg = EngineConfig(block_size=16, num_blocks=2048, max_slots=8,
                         max_blocks_per_seq=128, token_budget=512)
-    launches = serve(LLAMA3_8B, ecfg, "serve")
+    launches = serve(LLAMA3_8B, ecfg, "serve")["paged_attention"]
     serve(dataclasses.replace(LLAMA3_8B, num_layers=4),
           dataclasses.replace(ecfg, quantized=True), "serve_int8")
     phase_cross_check(LLAMA3_8B)
+    moe_cases = phase_moe_vs_plain()
+    mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=8,
+                                  moe_dispatch="blockwise", moe_block_size=64)
+    moe_launches = {
+        "grouped_glu": serve(mixtral, ecfg, "serve_mixtral")["grouped_glu"],
+        "grouped_glu_decode": serve(
+            mixtral, dataclasses.replace(ecfg, disaggregated=True,
+                                         max_slots=4, prefill_budget=512),
+            "serve_mixtral_disagg")["grouped_glu_decode"]}
+    phase_mixtral_cross_check(MIXTRAL_8X7B)
     flash_cases = phase_flash_vs_plain()
     flash_launches = phase_train()
     phase_train_cross_check(LLAMA3_8B)
@@ -713,6 +955,19 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "kernel_ms": t["kernel_ms"], "max_err": err})
+    for name, replaces in MOE_KERNELS:
+        main_case = next(c for c in moe_cases
+                         if c["kernel"] == name and c["case"].endswith("bf16"))
+        err = max(c["max_abs_err"] for c in moe_cases if c["kernel"] == name)
+        summary.append({
+            "name": name, "route": "cuda", "source": MOE_SOURCE,
+            "replaces": replaces, "launches": moe_launches[name],
+            "max_abs_err": err, "ms": main_case["kernel_ms"],
+            "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "kernel_ms": main_case["kernel_ms"], "max_err": err})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,11 +8,20 @@ token batch,
 * chunked prefill rows for newly admitted requests (a prompt may take
   several steps, ``token_budget`` tokens at a time),
 
-then runs :func:`..models.llama.llama_forward_with_cache` on the paged
-pool and samples one token per row. Every tensor the step sees — tokens,
-positions, slot ids, block tables, the pool — has a fixed shape, so the
-step's shapes never change with load (:meth:`ServingEngine.compile_count`
-counts the distinct shape signatures and stays 1).
+then runs the model family's paged forward on the pool
+(:func:`..models.llama.llama_forward_with_cache`, or
+:func:`..models.mixtral.mixtral_forward_with_cache` for a
+``MixtralConfig``) and samples one token per row. Every tensor the step
+sees — tokens, positions, slot ids, block tables, the pool — has a fixed
+shape, so the step's shapes never change with load
+(:meth:`ServingEngine.compile_count` counts the distinct shape signatures
+and stays 1).
+
+With ``EngineConfig(disaggregated=True)`` prefill and decode run as two
+workers of their own fixed widths (prefill ``prefill_budget or
+token_budget``, decode ``max_slots``), prefill first, each step; the KV
+handoff between them is the shared pool itself. A narrow decode worker is
+what sends a Mixtral step to the decode grouped GLU (K6).
 
 Block allocation is lazy and host-side: a slot gets pool blocks as its
 positions first touch them. When the pool runs dry the youngest running
@@ -33,7 +42,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.llama import LlamaConfig, build_model, llama_forward_with_cache
+from ..models import llama, mixtral
+from ..models.llama import LlamaConfig
 from .kv_cache import PAD_POSITION
 from .paging import (BlockAllocator, CacheExhaustedError, init_paged_kv_cache,
                      init_quantized_paged_kv_cache)
@@ -58,7 +68,9 @@ class EngineConfig:
     ``token_budget`` is the packed step width: decode rows (one per
     running slot) plus prefill chunk rows, padded up to this fixed size.
     ``max_slots`` bounds concurrent requests; the pool is ``num_blocks *
-    block_size`` KV slots shared by all of them."""
+    block_size`` KV slots shared by all of them. ``disaggregated`` runs
+    prefill and decode as two workers, decode ``max_slots`` wide and prefill
+    ``prefill_budget`` (default ``token_budget``) wide."""
 
     block_size: int = 16
     num_blocks: int = 64
@@ -69,6 +81,8 @@ class EngineConfig:
     kv_dtype: Optional[torch.dtype] = None   # None -> model dtype
     eos_id: Optional[int] = None
     sampling: SamplingConfig = SamplingConfig(greedy=True)
+    disaggregated: bool = False
+    prefill_budget: Optional[int] = None
 
 
 class RequestRejected(RuntimeError):
@@ -171,8 +185,10 @@ class ServingEngine:
     fixed-shape step.
 
     ``params`` is the model's state dict (:func:`..models.llama.
-    init_state_dict`, :func:`..models.convert.params_from_jax`); its
-    tensors become the model's weights on ``device`` in the model dtype.
+    init_state_dict`, :func:`..models.mixtral.init_state_dict`,
+    :func:`..models.convert.params_from_jax`); its tensors become the
+    model's weights on ``device`` in the model dtype. The model family
+    follows the config's type: a ``MixtralConfig`` serves Mixtral.
     ``device=None`` means CUDA and raises when there is none. ``generator``
     drives non-greedy sampling; ``clock`` returns seconds (default
     ``time.monotonic``)."""
@@ -185,7 +201,12 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.ecfg = engine_cfg
-        self.model = build_model(model_cfg, params, self.device)
+        family = (mixtral if isinstance(model_cfg, mixtral.MixtralConfig)
+                  else llama)
+        self.model = family.build_model(model_cfg, params, self.device)
+        self._forward = (mixtral.mixtral_forward_with_cache
+                         if family is mixtral
+                         else llama.llama_forward_with_cache)
         self.allocator = BlockAllocator(engine_cfg.num_blocks)
         self.stats = EngineStats()
         self.results: Dict[str, RequestResult] = {}
@@ -203,7 +224,11 @@ class ServingEngine:
         self._admit_counter = 0
         self._uid_counter = 0
         self._freed_dirty: set = set()  # freed blocks with stale positions
-        self._signatures: set = set()   # distinct step input shapes seen
+        # per worker: the distinct step input shapes seen, and the runs
+        workers = (("prefill", "decode") if engine_cfg.disaggregated
+                   else ("packed",))
+        self._signatures: Dict[str, set] = {w: set() for w in workers}
+        self.worker_runs: Dict[str, int] = {w: 0 for w in workers}
         self.cache = self._init_cache()
 
     # -- construction -----------------------------------------------------
@@ -220,11 +245,15 @@ class ServingEngine:
             m.head_dim_, e.max_slots, e.max_blocks_per_seq,
             dtype=e.kv_dtype or m.dtype, device=self.device)
 
+    def worker_compile_counts(self) -> Dict[str, int]:
+        """Distinct input-shape signatures per worker: ``{"packed": n}``
+        or, disaggregated, ``{"prefill": n, "decode": n}``."""
+        return {w: len(s) for w, s in self._signatures.items()}
+
     def compile_count(self) -> int:
-        """Number of distinct input-shape signatures the serving step has
-        seen (the fixed-shape invariant: stays 1 as the live-request mix
-        varies)."""
-        return len(self._signatures)
+        """Most distinct input-shape signatures any worker has seen (the
+        fixed-shape invariant: stays 1 as the live-request mix varies)."""
+        return max(self.worker_compile_counts().values())
 
     # -- public API -------------------------------------------------------
 
@@ -340,10 +369,17 @@ class ServingEngine:
 
     def _build_schedule(self):
         """Pack this step's rows: (req, token, position, produce) — one
-        decode row per decoding slot, then prefill chunks, sharing one
-        ``token_budget``. Preempts (youngest first) when a decode row
-        can't get its next block; prefill chunks merely truncate."""
-        budget = self.ecfg.token_budget
+        decode row per decoding slot, then prefill chunks. Preempts
+        (youngest first) when a decode row can't get its next block;
+        prefill chunks merely truncate. Packed mode shares one
+        ``token_budget`` across both lists; disaggregated mode gives each
+        worker its own width."""
+        e = self.ecfg
+        if e.disaggregated:
+            decode_budget = e.max_slots
+            prefill_budget = e.prefill_budget or e.token_budget
+        else:
+            decode_budget = prefill_budget = e.token_budget
         while True:
             try:
                 decode_rows = []
@@ -351,7 +387,7 @@ class ServingEngine:
                         (s for s in self._slots
                          if s is not None and s.decoding),
                         key=lambda r: r.admit_seq):
-                    if len(decode_rows) >= budget:
+                    if len(decode_rows) >= decode_budget:
                         break
                     pos = req.n_cached
                     self._ensure_block(req, pos)
@@ -360,11 +396,11 @@ class ServingEngine:
             except CacheExhaustedError:
                 self._preempt_youngest(req)
         prefill_rows = []
-        used = len(decode_rows)
+        used = 0 if e.disaggregated else len(decode_rows)
         for req in sorted((s for s in self._slots
                            if s is not None and not s.decoding),
                           key=lambda r: r.admit_seq):
-            room = budget - used - len(prefill_rows)
+            room = prefill_budget - used - len(prefill_rows)
             if room <= 0:
                 break
             chunk = min(room, req.prompt_len - req.n_cached)
@@ -381,9 +417,10 @@ class ServingEngine:
             self.stats.prefill_tokens += chunk
         return decode_rows, prefill_rows
 
-    def _run_worker(self, rows, width: int) -> np.ndarray:
-        """Pack ``rows`` into a fixed ``width`` batch and run one step;
-        returns per-row sampled tokens (aligned with ``rows``)."""
+    def _run_worker(self, worker: str, rows, width: int) -> np.ndarray:
+        """Pack ``rows`` into a fixed ``width`` batch and run one step of
+        ``worker``; returns per-row sampled tokens (aligned with
+        ``rows``)."""
         tokens = np.zeros((1, width), np.int32)
         positions = np.full((1, width), PAD_POSITION, np.int32)
         slot_ids = np.full((width,), self.ecfg.max_slots, np.int32)
@@ -394,17 +431,19 @@ class ServingEngine:
         dev = self.device
         args = [torch.from_numpy(a).to(dev)
                 for a in (tokens, positions, slot_ids)]
-        self._signatures.add(tuple(
+        self._signatures[worker].add(tuple(
             (tuple(a.shape), a.dtype) for a in
             args + [self.cache.block_tables, self.cache.pos]))
-        logits, self.cache = llama_forward_with_cache(
+        self.worker_runs[worker] += 1
+        logits, self.cache = self._forward(
             self.model, args[0], args[1], self.cache, slot_ids=args[2])
         return sample(logits[0], self._generator,
                       self.ecfg.sampling).cpu().numpy()
 
     def step(self) -> int:
         """One serving step. Returns the number of live rows packed (0 =
-        nothing was runnable)."""
+        nothing was runnable). Disaggregated, the prefill worker runs
+        first, so its new KV lands before the decode worker reads."""
         self._admit()
         decode_rows, prefill_rows = self._build_schedule()
         rows = decode_rows + prefill_rows
@@ -425,7 +464,18 @@ class ServingEngine:
                 lengths[i] = s.n_cached
         self.cache.block_tables.copy_(torch.from_numpy(self._tables))
         self.cache.lengths.copy_(torch.from_numpy(lengths))
-        sampled = self._run_worker(rows, self.ecfg.token_budget)
+        e = self.ecfg
+        if e.disaggregated:
+            sampled = np.zeros((len(rows),), np.int32)
+            if prefill_rows:
+                sampled[len(decode_rows):] = self._run_worker(
+                    "prefill", prefill_rows,
+                    e.prefill_budget or e.token_budget)[:len(prefill_rows)]
+            if decode_rows:
+                sampled[:len(decode_rows)] = self._run_worker(
+                    "decode", decode_rows, e.max_slots)[:len(decode_rows)]
+        else:
+            sampled = self._run_worker("packed", rows, e.token_budget)
 
         now = self._now()
         for i, (req, _, pos, produce) in enumerate(rows):

@@ -4,7 +4,9 @@ The JAX ``LlamaForCausalLM`` tree (``scan_layers=True``) stacks every
 decoder layer on a leading dim under ``params/model/layers/layer``, with
 ``q/k/v_kernel`` ``[L, H, *]``, ``o_proj/kernel``, ``mlp/gate_up_kernel
 [L, H, 2, I]`` and ``mlp/down/kernel``. The port keeps the names and
-layouts per layer, so the bridge only unstacks and renames. It reads numpy
+layouts per layer, so the bridge only unstacks and renames. A Mixtral tree
+has ``moe/router/kernel [L, H, E]``, ``moe/experts/gate_up [L, E, H, 2, I]``
+and ``moe/experts/down [L, E, I, H]`` in place of the MLP. It reads numpy
 arrays and imports nothing of JAX.
 """
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .llama import LlamaConfig, LlamaForCausalLM
+from .mixtral import MixtralConfig
 
 # port name within layer i -> path under the JAX "layers/layer" subtree
 _LAYER_KEYS = {
@@ -25,8 +28,15 @@ _LAYER_KEYS = {
     "attn.qkv.v_kernel": ("attn", "qkv", "v_kernel"),
     "attn.o_proj.kernel": ("attn", "o_proj", "kernel"),
     "post_norm.scale": ("post_norm", "scale"),
+}
+_MLP_KEYS = {
     "mlp.gate_up_kernel": ("mlp", "gate_up_kernel"),
     "mlp.down.kernel": ("mlp", "down", "kernel"),
+}
+_MOE_KEYS = {
+    "moe.router.kernel": ("moe", "router", "kernel"),
+    "moe.experts.gate_up": ("moe", "experts", "gate_up"),
+    "moe.experts.down": ("moe", "experts", "down"),
 }
 
 
@@ -38,9 +48,9 @@ def _get(tree: Mapping[str, Any], path) -> np.ndarray:
 
 def params_from_jax(cfg: LlamaConfig,
                     tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``LlamaForCausalLM`` params (numpy arrays, with or without the
-    outer ``"params"`` key) -> the port's state dict, in the tree's own
-    dtype."""
+    """JAX ``LlamaForCausalLM`` or ``MixtralForCausalLM`` params (numpy
+    arrays, with or without the outer ``"params"`` key) -> the port's state
+    dict, in the tree's own dtype."""
     p = tree.get("params", tree)
     if "lm_head" not in p:
         raise ValueError("tied-embedding checkpoints (no lm_head) are not "
@@ -53,7 +63,8 @@ def params_from_jax(cfg: LlamaConfig,
     sd = {"embed.embedding": tensor(_get(model, ("embed", "embedding"))),
           "norm.scale": tensor(_get(model, ("norm", "scale"))),
           "lm_head.kernel": tensor(_get(p, ("lm_head", "kernel")))}
-    for name, path in _LAYER_KEYS.items():
+    ffn = _MOE_KEYS if isinstance(cfg, MixtralConfig) else _MLP_KEYS
+    for name, path in {**_LAYER_KEYS, **ffn}.items():
         stacked = _get(layers, path)
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(f"{'/'.join(path)} stacks {stacked.shape[0]} "

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -201,6 +201,8 @@ class LlamaForCausalLM(nn.Module):
     state dict (:func:`build_model`, :func:`.convert.load_jax_params`,
     ``initialize_parallel_model``) or make one (:func:`init_state_dict`)."""
 
+    layer_cls = LlamaDecoderLayer
+
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
@@ -210,7 +212,7 @@ class LlamaForCausalLM(nn.Module):
                                        dtype=cfg.dtype, device=dev,
                                        param_dtype=pdt)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(cfg, dev) for _ in range(cfg.num_layers)])
+            [self.layer_cls(cfg, dev) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev, pdt)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
                               dtype=cfg.dtype, device=dev, param_dtype=pdt)
@@ -264,49 +266,52 @@ class LlamaForCausalLM(nn.Module):
 
 
 def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
-                device: DeviceLike = None) -> LlamaForCausalLM:
+                device: DeviceLike = None,
+                model_cls=LlamaForCausalLM) -> LlamaForCausalLM:
     """A serving model, frozen, whose parameters are ``state_dict``'s
     tensors moved to ``device`` and ``cfg.dtype`` (no copy where they
-    already are): serving holds its weights in the compute dtype."""
+    already are): serving holds its weights in the compute dtype. A
+    parameter the model holds in fp32 whatever its dtypes (the MoE router's
+    kernel) stays in fp32."""
     dev = resolve_device(device)
-    model = LlamaForCausalLM(replace(cfg, param_dtype=cfg.dtype),
-                             device="meta")
+    model = model_cls(replace(cfg, param_dtype=cfg.dtype), device="meta")
+    want = model.state_dict()
     model.load_state_dict(
-        {k: v.to(device=dev, dtype=cfg.dtype) for k, v in state_dict.items()},
+        {k: v.to(device=dev, dtype=want[k].dtype if k in want else cfg.dtype)
+         for k, v in state_dict.items()},
         strict=True, assign=True)
     return model.requires_grad_(False)
 
 
 def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
-                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                    device: DeviceLike = None,
+                    model_cls=LlamaForCausalLM) -> Dict[str, torch.Tensor]:
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     normal(0, ``std``) kernels and embeddings, unit norm scales, made on
-    ``device`` in ``cfg.param_dtype``."""
+    ``device`` in each parameter's dtype (``cfg.param_dtype``, or fp32 for
+    a parameter held so)."""
     dev = resolve_device(device)
-    dtype = cfg.param_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shapes = LlamaForCausalLM(cfg, device="meta").state_dict()
+    shapes = model_cls(cfg, device="meta").state_dict()
     sd = {}
     for name, t in shapes.items():
         if name.endswith(".scale"):
-            sd[name] = torch.ones(t.shape, dtype=dtype, device=dev)
+            sd[name] = torch.ones(t.shape, dtype=t.dtype, device=dev)
         else:
-            sd[name] = torch.randn(t.shape, generator=gen, dtype=dtype,
+            sd[name] = torch.randn(t.shape, generator=gen, dtype=t.dtype,
                                    device=dev).mul_(std)
     return sd
 
 
-@torch.no_grad()
-def llama_forward_with_cache(model: LlamaForCausalLM,
-                             input_ids: torch.Tensor,
-                             positions: torch.Tensor,
-                             kv_cache: PagedKVCache,
-                             slot_ids: torch.Tensor):
-    """Paged-pool forward of one packed step: ``input_ids``/``positions``
-    ``[1, T]``, ``slot_ids [T]`` mapping each packed token to its cache
-    slot (pad rows carry ``max_slots`` and position PAD_POSITION). Writes
-    the step's positions and K/V into the pool **in place** and returns
-    ``(logits [1, T, V], kv_cache)``."""
+def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
+                  positions: torch.Tensor, kv_cache: PagedKVCache,
+                  slot_ids: torch.Tensor,
+                  run_layer: Callable[..., torch.Tensor]):
+    """The paged plumbing shared by the model families: embedding, rope,
+    each token's block table and pool write index, the stored positions,
+    then ``x = run_layer(layer, x, cos, sin, rope_pos, view)`` per layer,
+    the final norm and the LM head. Returns ``(logits [1, T, V],
+    kv_cache)``; the pool is written in place."""
     cfg = model.cfg
     if input_ids.dim() != 2 or input_ids.shape[0] != 1:
         raise ValueError("paged decode packs requests into one row batch "
@@ -336,6 +341,21 @@ def llama_forward_with_cache(model: LlamaForCausalLM,
             k_scale=kv_cache.k_scale[i] if quantized else None,
             v_scale=kv_cache.v_scale[i] if quantized else None,
             pos=kv_cache.pos, tables=tok_tables, rows=rows, at=at)
-        x = layer(x, cos, sin, rope_pos, view)
+        x = run_layer(layer, x, cos, sin, rope_pos, view)
     logits = model.lm_head(model.norm(x))
     return logits, kv_cache
+
+
+@torch.no_grad()
+def llama_forward_with_cache(model: LlamaForCausalLM,
+                             input_ids: torch.Tensor,
+                             positions: torch.Tensor,
+                             kv_cache: PagedKVCache,
+                             slot_ids: torch.Tensor):
+    """Paged-pool forward of one packed step: ``input_ids``/``positions``
+    ``[1, T]``, ``slot_ids [T]`` mapping each packed token to its cache
+    slot (pad rows carry ``max_slots`` and position PAD_POSITION). Writes
+    the step's positions and K/V into the pool **in place** and returns
+    ``(logits [1, T, V], kv_cache)``."""
+    return paged_forward(model, input_ids, positions, kv_cache, slot_ids,
+                         lambda layer, *args: layer(*args))

@@ -1,15 +1,20 @@
 """Where the serving step's time goes on one CUDA card.
 
     python3 -m neuronx_distributed_tpu_torch.scripts.profile_serving
+    python3 -m neuronx_distributed_tpu_torch.scripts.profile_serving --mixtral
 
 Serves ``chip_smoke.py``'s phase-4 workload (Llama-3-8B at full width, all
 32 layers, bf16, random weights; 8 requests of 128-1024 prompt tokens and
 64 new tokens each) through the port's ``ServingEngine`` and traces two
 windows with ``torch.profiler``: the first prefill-heavy steps, and steady
-decode once every request is decoding. For each window it prints one JSON
-line: host wall time per step, device busy time per step, the device's
-idle share, and the kernels by device time; and the wall time per decode
-step without the profiler. It also counts, over decode
+decode once every request is decoding. With ``--mixtral`` the model is
+phase 11's, Mixtral 8x7B's widths at 8 layers with blockwise dispatch,
+block 64 (add ``--disaggregated`` for phase 12's two workers). For each
+window it prints one JSON line: host wall time per step, device busy time
+per step, the device's idle share, the kernels by device time and the
+busy time by group (paged attention K1, the grouped GLU K5/K6, cuBLAS
+products, the rest); and the wall time per decode step without the
+profiler. It also counts, over decode
 steps, how many pool key entries the attention kernel walked for real rows
 and for the step's pad rows (pad rows carry the last slot's block table,
 as in the JAX model, and their output is discarded).
@@ -17,6 +22,7 @@ as in the JAX model, and their output is discarded).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -24,6 +30,13 @@ import time
 
 import numpy as np
 import torch
+
+
+# kernel groups by name: K1, K5/K6 (both passes), cuBLAS products
+GROUPS = {"paged_attention": ("paged_attention",),
+          "grouped_glu": ("glu_act", "glu_down"),
+          "cublas_products": ("nvjet", "gemm", "sm90_xmma", "cutlass"),
+          "other": ()}
 
 
 def trace(eng, steps: int, label: str) -> None:
@@ -44,13 +57,18 @@ def trace(eng, steps: int, label: str) -> None:
             kernels[e.key] = kernels.get(e.key, 0.0) + e.device_time_total
     busy_ms = sum(kernels.values()) / 1e3 / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    attn = sum(v for k, v in kernels.items() if "paged_attention" in k)
+    groups = {g: 0.0 for g in GROUPS}
+    for k, v in kernels.items():
+        g = next((g for g, keys in GROUPS.items()
+                  if any(x in k for x in keys)), "other")
+        groups[g] += v / 1e3 / steps
     print(json.dumps({
         "window": label, "steps": steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
-        "paged_attention_share_of_busy": (attn / sum(kernels.values())
-                                          if kernels else None),
+        "paged_attention_share_of_busy": (
+            groups["paged_attention"] / busy_ms if kernels else None),
+        "busy_ms_per_step_by_group": groups,
         "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps]
                                     for k, v in top]}), flush=True)
 
@@ -95,20 +113,33 @@ def count_walked(eng, steps: int) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mixtral", action="store_true",
+                    help="Mixtral 8x7B widths at 8 layers, blockwise")
+    ap.add_argument("--disaggregated", action="store_true",
+                    help="two workers: decode 4 wide, prefill 512 wide")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: CUDA is not available")
     from ..inference.engine import EngineConfig, ServingEngine
-    from ..models.llama import LLAMA3_8B, init_state_dict
+    from ..models import llama, mixtral
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    family = mixtral if args.mixtral else llama
+    base = (dataclasses.replace(mixtral.MIXTRAL_8X7B, num_layers=8,
+                                moe_dispatch="blockwise", moe_block_size=64)
+            if args.mixtral else llama.LLAMA3_8B)
     # serving holds bf16 weights: make them in bf16
-    cfg = dataclasses.replace(LLAMA3_8B, param_dtype=LLAMA3_8B.dtype)
-    eng = ServingEngine(cfg, init_state_dict(cfg, seed=0, std=0.02),
-                        EngineConfig(block_size=16, num_blocks=2048,
-                                     max_slots=8, max_blocks_per_seq=128,
-                                     token_budget=512))
+    cfg = dataclasses.replace(base, param_dtype=base.dtype)
+    ecfg = EngineConfig(block_size=16, num_blocks=2048, max_slots=8,
+                        max_blocks_per_seq=128, token_budget=512)
+    if args.disaggregated:
+        ecfg = dataclasses.replace(ecfg, disaggregated=True, max_slots=4,
+                                   prefill_budget=512)
+    eng = ServingEngine(cfg, family.init_state_dict(cfg, seed=0, std=0.02),
+                        ecfg)
     rng = np.random.RandomState(0)
     for i, n in enumerate(rng.randint(128, 1025, 8)):
         eng.submit(rng.randint(0, cfg.vocab_size, n).tolist(), 64,

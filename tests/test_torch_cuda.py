@@ -1,7 +1,7 @@
-"""Card-only checks of the PyTorch port: the hand-written paged-attention
-and flash-attention kernels against their plain versions, the wrappers'
-refusals, the serving engine and a train step on the card against the same
-on the CPU.
+"""Card-only checks of the PyTorch port: the hand-written paged-attention,
+flash-attention and grouped-GLU kernels against their plain versions, the
+wrappers' refusals, the serving engine (Llama and Mixtral) and a train step
+on the card against the same on the CPU.
 
 This file imports nothing of JAX, so it runs on a machine without it:
 
@@ -22,6 +22,9 @@ from neuronx_distributed_tpu_torch.inference import engine as te
 from neuronx_distributed_tpu_torch.inference.kv_cache import (PAD_POSITION,
                                                               quantize_kv)
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.models import mixtral as tm
+from neuronx_distributed_tpu_torch.modules.moe import blockwise as tbw
+from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
 from neuronx_distributed_tpu_torch.ops import flash_attention as tfa
 from neuronx_distributed_tpu_torch.ops import paged_attention as tpa
 
@@ -260,3 +263,109 @@ def test_train_step_on_card_matches_cpu(cuda):
     for name, ref in pc.items():
         torch.testing.assert_close(pg[name], ref, rtol=0,
                                    atol=1e-3 * ref.abs().max().item())
+
+
+def _moe_case(device, seed, dtype, t=40, k=2, e=5, h=200, i=176, bs=16,
+              sentinel_empty=False):
+    """Expert-sorted blocks of ``t`` tokens routed top-``k`` over ``e``
+    experts, expert 1 hit by none; H and I not multiples of the kernels'
+    tiles."""
+    rng = np.random.RandomState(seed)
+    idx = np.stack([rng.choice([x for x in range(e) if x != 1], k,
+                               replace=False) for _ in range(t)])
+    x = torch.from_numpy(rng.randn(t, h).astype(np.float32))
+    gate_up = torch.from_numpy(rng.randn(e, h, 2, i).astype(np.float32) * .1)
+    down = torch.from_numpy(rng.randn(e, i, h).astype(np.float32) * .1)
+    _, src, dest, be, _, padded = tbw.compute_block_metadata(
+        torch.from_numpy(idx), e, bs, sentinel_empty=sentinel_empty)
+    xs = tbw.scatter_to_blocks(x, src, dest, padded)
+    return (xs.to(device, dtype), gate_up.to(device, dtype),
+            down.to(device, dtype), be.to(device), bs)
+
+
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("name,bs,sentinel_empty", [
+    ("fp32", 16, False), ("bf16", 16, False), ("fp32", 80, True),
+    ("bf16", 64, True), ("fp32", 64, False),
+])
+def test_grouped_glu_kernels_match_plain(cuda, decode, name, bs,
+                                         sentinel_empty):
+    """K5 and K6 against their plain versions on the same inputs: fp32
+    element by element within 1e-4 (summation order); bf16 against the
+    plain version in fp32 on the same bf16 inputs, rounded once, within
+    1e-2 (one bf16 rounding each). Sentinel blocks give exact zeros."""
+    dtype = _FLOATS[name]
+    xs, gu, dn, be, bs = _moe_case(cuda, 0, dtype, bs=bs,
+                                   sentinel_empty=sentinel_empty)
+    kernel, plain = ((tbm.grouped_glu_decode, tbm.grouped_glu_decode_plain)
+                     if decode else (tbm.grouped_glu, tbm.grouped_glu_plain))
+    before = kernel.launches
+    got = kernel(xs, gu, dn, be, bs, gu.shape[-1] // 2)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == xs.shape
+    ref = plain(xs.float(), gu.float(), dn.float(), be, bs,
+                gu.shape[-1] // 2).to(dtype)
+    rel = flash_rel_err(got, ref)
+    assert rel <= (1e-4 if name == "fp32" else 1e-2), rel
+    sent = torch.repeat_interleave(be >= gu.shape[0], bs)
+    if sentinel_empty:
+        assert sent.any()
+    assert not got[sent].any()
+    assert (got[~sent] != 0).any()
+
+
+def test_grouped_glu_wrappers_refuse_what_they_do_not_take(cuda):
+    xs, gu, dn, be, bs = _moe_case(cuda, 1, torch.bfloat16)
+    for fn in (tbm.grouped_glu_cuda, tbm.grouped_glu_decode_cuda):
+        with pytest.raises(ValueError, match="fp32 or bf16"):
+            fn(xs.half(), gu.half(), dn.half(), be, bs, 16)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(xs, gu.transpose(1, 2).contiguous().transpose(1, 2), dn, be,
+               bs, 16)
+        with pytest.raises(ValueError, match="int32"):
+            fn(xs, gu, dn, be.long(), bs, 16)
+        with pytest.raises(ValueError, match="every tensor on"):
+            fn(xs, gu, dn.cpu(), be, bs, 16)
+        with pytest.raises(RuntimeError, match="K7/K8"):
+            fn(xs.requires_grad_(True), gu, dn, be, bs, 16)
+        xs = xs.detach()
+
+
+@pytest.mark.parametrize("disaggregated", [False, True])
+def test_mixtral_engine_on_card_matches_cpu(cuda, disaggregated):
+    """A blockwise fp32 Mixtral engine on the card gives the CPU engine's
+    greedy tokens; packed it launches K5 once per layer per step, and
+    disaggregated K5 per prefill run and K6 per decode run."""
+    cfg = tm.tiny_moe_config(dtype=torch.float32, moe_dispatch="blockwise",
+                             moe_block_size=8, hidden_size=256, num_heads=4,
+                             num_kv_heads=2)
+    sd = tm.init_state_dict(cfg, seed=0, std=0.05, device="cpu")
+    ecfg = te.EngineConfig(block_size=4, num_blocks=16, max_slots=2,
+                           max_blocks_per_seq=8, token_budget=8,
+                           disaggregated=disaggregated)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (7, 4, 9)]
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = te.ServingEngine(cfg, sd, ecfg, device=dev)
+        k5, k6 = tbm.grouped_glu.launches, tbm.grouped_glu_decode.launches
+        eng.submit(prompts[0], 6, uid="a")
+        eng.step()
+        eng.submit(prompts[1], 5, uid="b")
+        eng.submit(prompts[2], 4, uid="c")
+        res = eng.run()
+        out[str(dev)] = ({u: r.tokens for u, r in res.items()},
+                         eng.stats.steps, eng.worker_compile_counts())
+        k5 = tbm.grouped_glu.launches - k5
+        k6 = tbm.grouped_glu_decode.launches - k6
+        runs = eng.worker_runs
+        if dev == "cpu":
+            assert k5 == k6 == 0
+        elif disaggregated:
+            assert (k5, k6) == (cfg.num_layers * runs["prefill"],
+                                cfg.num_layers * runs["decode"])
+            assert runs["decode"] > 0
+        else:
+            assert (k5, k6) == (cfg.num_layers * runs["packed"], 0)
+    assert out["cpu"] == out["cuda"]

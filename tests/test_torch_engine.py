@@ -1,8 +1,9 @@
 """The PyTorch port's ServingEngine against the JAX package's: identical
 greedy token ids per request and identical step counters in every
 scenario (solo, late arrival, preemption, EOS, int8 pool, a queue longer
-than the slots), fixed step shapes across load changes, admission
-rejection, CUDA-by-default, and a port that imports nothing of JAX."""
+than the slots, disaggregated prefill and decode workers), fixed step
+shapes across load changes, admission rejection, CUDA-by-default, and a
+port that imports nothing of JAX."""
 
 import itertools
 import os
@@ -106,6 +107,17 @@ SCENARIOS = {
              steps_before_late=4),
         dict(num_blocks=7, max_slots=3, max_blocks_per_seq=5,
              token_budget=6)),
+    # two workers of their own widths: prefill 8 (token_budget), decode 2
+    "disaggregated": (
+        dict(early=[("a", 40, 9, 6), ("b", 41, 4, 7)],
+             late=[("c", 42, 11, 4)], steps_before_late=2),
+        dict(disaggregated=True)),
+    # a prefill budget below the token budget, three slots, preemption
+    "disaggregated_crowded": (
+        dict(early=[("a", 50, 9, 7), ("b", 51, 5, 8), ("c", 52, 12, 4)],
+             late=[("d", 53, 3, 9)], steps_before_late=3),
+        dict(disaggregated=True, prefill_budget=5, num_blocks=7, max_slots=3,
+             max_blocks_per_seq=5)),
 }
 
 
@@ -116,11 +128,15 @@ def test_engine_matches_jax(models, name):
     assert {s for s, _ in tres.values()} == {"completed"}
     assert tres == jres
     assert tstats == jstats
-    if name in ("preemption", "crowded_small_pool"):
+    if name in ("preemption", "crowded_small_pool",
+                "disaggregated_crowded"):
         assert tstats["preempted"] >= 1
     assert teng.allocator.num_allocated == 0
     assert (teng._tables == -1).all()
     assert teng.compile_count() == 1
+    if ekw.get("disaggregated"):
+        assert teng.worker_compile_counts() == {"prefill": 1, "decode": 1}
+        assert min(teng.worker_runs.values()) > 0
     if name == "int8_pool":
         assert teng.cache.k.dtype == torch.int8
 
@@ -199,7 +215,10 @@ _ISOLATED = textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     for m in ("config", "ops.flash_attention", "parallel.loss_functions",
-              "trainer.optimizer", "trainer.schedules", "trainer.trainer"):
+              "trainer.optimizer", "trainer.schedules", "trainer.trainer",
+              "ops.blockwise_moe", "modules.moe", "modules.moe.blockwise",
+              "modules.moe.expert_mlps", "modules.moe.model",
+              "modules.moe.routing", "models.mixtral"):
         assert pkg.__name__ + "." + m in mods, m
     from neuronx_distributed_tpu_torch.inference import engine as te
     from neuronx_distributed_tpu_torch.models import llama as tl
@@ -210,6 +229,19 @@ _ISOLATED = textwrap.dedent("""
         token_budget=8), device="cpu")
     eng.submit([1, 2, 3, 4, 5], 4, uid="a")
     assert len(eng.run()["a"].tokens) == 4
+    from neuronx_distributed_tpu_torch.models import mixtral as tm
+    mcfg = tm.tiny_moe_config(dtype=torch.float32, moe_dispatch="blockwise",
+                              moe_block_size=8)
+    eng = te.ServingEngine(mcfg, tm.init_state_dict(mcfg, device="cpu"),
+                           te.EngineConfig(block_size=4, num_blocks=16,
+                                           max_slots=2, max_blocks_per_seq=8,
+                                           token_budget=8,
+                                           disaggregated=True), device="cpu")
+    eng.submit([1, 2, 3, 4, 5], 4, uid="m")
+    eng.submit([6, 7], 3, uid="n")
+    res = eng.run()
+    assert [len(res[u].tokens) for u in "mn"] == [4, 3]
+    assert eng.worker_compile_counts() == {"prefill": 1, "decode": 1}
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                   "neuronx_distributed_tpu")]

@@ -1,0 +1,299 @@
+"""The PyTorch port's MoE pieces against the JAX package: the blockwise
+metadata bit for bit, the top-k router (ties included), the plain grouped
+GLU (K5) and its decode form (K6) against the Pallas kernels in interpret
+mode, the expert bank in both dispatch modes, the MoE layer, and the
+kernels' dispatch and ctypes binding. The kernels themselves run only on a
+card (``tests/test_torch_cuda.py``)."""
+
+import ctypes
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from neuronx_distributed_tpu.modules.moe import blockwise as jbw
+from neuronx_distributed_tpu.modules.moe import expert_mlps as jexp
+from neuronx_distributed_tpu.modules.moe import model as jmodel
+from neuronx_distributed_tpu.modules.moe import routing as jrouting
+from neuronx_distributed_tpu.ops import blockwise_moe as jops
+from neuronx_distributed_tpu_torch.modules.moe import blockwise as tbw
+from neuronx_distributed_tpu_torch.modules.moe import expert_mlps as texp
+from neuronx_distributed_tpu_torch.modules.moe import model as tmodel
+from neuronx_distributed_tpu_torch.modules.moe import routing as trouting
+from neuronx_distributed_tpu_torch.ops import blockwise_moe as tops
+
+
+def _routing(case):
+    """``[T, K]`` expert ids: random, skewed onto two experts with the
+    others empty, all on one expert, and fewer pairs than one block."""
+    rng = np.random.RandomState(0)
+    if case == "random":
+        return rng.randint(0, 4, (16, 2)), 4, 8
+    if case == "skewed":
+        idx = rng.choice([0, 2], (24, 2))
+        idx[:, 1] = 2 - idx[:, 0]            # every token hits 0 and 2
+        idx[:3, 1] = 3
+        return idx, 5, 4
+    if case == "one_expert":
+        return np.full((10, 1), 2), 4, 4
+    return np.array([[3, 1], [1, 0]]), 6, 16   # "tiny": 4 pairs, B=16
+
+
+@pytest.mark.parametrize("sentinel_empty", [False, True])
+@pytest.mark.parametrize("case", ["random", "skewed", "one_expert", "tiny"])
+def test_block_metadata_bitwise(case, sentinel_empty):
+    idx, e, b = _routing(case)
+    ref = jbw.compute_block_metadata(jnp.asarray(idx, jnp.int32), e, b,
+                                     sentinel_empty=sentinel_empty)
+    got = tbw.compute_block_metadata(torch.from_numpy(idx), e, b,
+                                     sentinel_empty=sentinel_empty)
+    assert got[4:] == tuple(ref[4:])
+    for name, g, r in zip(("order", "src", "dest_slot", "block_expert"),
+                          got[:4], ref[:4]):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+    if sentinel_empty and case in ("skewed", "one_expert", "tiny"):
+        assert (got[3] == e).any()            # empty experts are sentinels
+
+
+def test_scatter_and_combine_match_jax():
+    idx, e, b = _routing("random")
+    rng = np.random.RandomState(1)
+    x = rng.randn(idx.shape[0], 8).astype(np.float32)
+    gates = rng.rand(*idx.shape).astype(np.float32)
+    jm = jbw.compute_block_metadata(jnp.asarray(idx, jnp.int32), e, b)
+    tm = tbw.compute_block_metadata(torch.from_numpy(idx), e, b)
+    jxs = jbw.scatter_to_blocks(jnp.asarray(x), jm[1], jm[2], jm[5])
+    txs = tbw.scatter_to_blocks(torch.from_numpy(x), tm[1], tm[2], tm[5])
+    np.testing.assert_array_equal(txs.numpy(), np.asarray(jxs))
+    ys = rng.randn(*txs.shape).astype(np.float32)
+    ref = jbw.combine_from_blocks(jnp.asarray(ys), jnp.asarray(gates), jm[0],
+                                  jm[1], jm[2], idx.shape[0])
+    got = tbw.combine_from_blocks(torch.from_numpy(ys),
+                                  torch.from_numpy(gates), tm[0], tm[1],
+                                  tm[2], idx.shape[0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 3])
+def test_router_matches_jax_with_ties(top_k):
+    """Indices bit for bit and gates within 1e-6; row 0 is all ties (x = 0)
+    and experts 1 and 3 share a kernel column, so every row ties them: the
+    lowest index comes first, as in ``jax.lax.top_k``."""
+    rng = np.random.RandomState(2)
+    e, h = 6, 16
+    x = rng.randn(12, h).astype(np.float32)
+    x[0] = 0.0
+    kernel = rng.randn(h, e).astype(np.float32)
+    kernel[:, 3] = kernel[:, 1]
+    gates, idx, aux = jrouting.RouterTopK(num_experts=e, top_k=top_k).apply(
+        {"params": {"kernel": jnp.asarray(kernel)}}, jnp.asarray(x))
+    router = trouting.RouterTopK(h, e, top_k)
+    with torch.no_grad():
+        router.kernel.copy_(torch.from_numpy(kernel))
+        tg, ti, taux = router(torch.from_numpy(x))
+    assert ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(idx))
+    assert ti[0].tolist() == list(range(top_k))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(gates), rtol=1e-6,
+                               atol=1e-6)
+    for name in ("load_balance_loss", "z_loss"):
+        np.testing.assert_allclose(taux[name].item(), float(aux[name]),
+                                   rtol=1e-6)
+
+
+def test_top_k_lowest_first_on_an_all_tie_row():
+    vals, idx = trouting.top_k_lowest_first(torch.full((2, 8), 0.125), 2)
+    assert idx.tolist() == [[0, 1], [0, 1]]
+    assert vals.tolist() == [[0.125, 0.125]] * 2
+
+
+def _glu_problem(sentinel_empty, dtype=np.float32, t=16, h=8, i=16, e=4,
+                 k=2, b=8, skew=False):
+    """The grouped GLU's inputs as numpy: expert-sorted blocks of ``t``
+    tokens and random weights; ``skew`` sends every token to expert 0
+    but one, which goes to 2, so experts 1 and 3 are empty."""
+    rng = np.random.RandomState(3)
+    idx = rng.randint(0, e, (t, k))
+    if skew:
+        idx = np.zeros((t, 1), np.int32)
+        idx[0, 0] = 2
+    x = rng.randn(t, h).astype(np.float32)
+    _, src, dest, be, _, padded = jbw.compute_block_metadata(
+        jnp.asarray(idx, jnp.int32), e, b, sentinel_empty=sentinel_empty)
+    xs = np.array(jbw.scatter_to_blocks(jnp.asarray(x), src, dest, padded))
+    gate_up = rng.randn(e, h, 2, i).astype(np.float32) * 0.3
+    down = rng.randn(e, i, h).astype(np.float32) * 0.3
+    return (xs.astype(dtype), gate_up.astype(dtype), down.astype(dtype),
+            np.array(be), b)
+
+
+@pytest.mark.parametrize("bi_frac", [1, 2])
+@pytest.mark.parametrize("sentinel_empty,skew", [(False, False),
+                                                 (True, False), (True, True)])
+def test_plain_grouped_glu_matches_pallas_interpret(bi_frac, sentinel_empty,
+                                                    skew):
+    """K5's and K6's plain versions against the Pallas kernels run in
+    interpret mode (``force_pallas=True``), fp32, within 1e-5; sentinel
+    blocks are exact zeros in both."""
+    xs, gu, dn, be, b = _glu_problem(sentinel_empty, skew=skew)
+    bi = gu.shape[-1] // bi_frac
+    j = [jnp.asarray(a) for a in (xs, gu, dn, be)]
+    t = [torch.from_numpy(a) for a in (xs, gu, dn, be.astype(np.int32))]
+    for jfn, tfn in ((jops.grouped_glu, tops.grouped_glu_plain),
+                     (jops.grouped_glu_decode, tops.grouped_glu_decode_plain)):
+        ref = np.asarray(jfn(*j, b, bi, force_pallas=True))
+        got = tfn(*t, b, bi).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        sent = np.repeat(be >= gu.shape[0], b)
+        assert sent.any() == sentinel_empty
+        assert not got[sent].any() and not ref[sent].any()
+
+
+def test_plain_grouped_glu_bf16_rounds_per_tile_like_jax():
+    """In bf16 the plain K5 rounds each I-tile's partial, as the JAX
+    reference does; both agree within a bf16 step of the largest value."""
+    xs, gu, dn, be, b = _glu_problem(False)
+    j = [jnp.asarray(a, jnp.bfloat16) for a in (xs, gu, dn)]
+    t = [torch.from_numpy(a).bfloat16() for a in (xs, gu, dn)]
+    for jfn, tfn in ((jops.grouped_glu_reference, tops.grouped_glu_plain),
+                     (jops._ref_decode_fwd, tops.grouped_glu_decode_plain)):
+        ref = np.asarray(jfn(*j, jnp.asarray(be), b, 8), np.float32)
+        got = tfn(*t, torch.from_numpy(be).int(), b, 8).float().numpy()
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=2 ** -7 * np.abs(ref).max())
+
+
+def test_dispatch_by_device_and_the_cuda_wrappers_refusals():
+    *arrays, b = _glu_problem(True)
+    xs, gu, dn, be = (torch.from_numpy(a) for a in arrays)
+    be = be.int()
+    counts = (tops.grouped_glu.launches, tops.grouped_glu_decode.launches)
+    assert torch.equal(tops.grouped_glu(xs, gu, dn, be, b, 16),
+                       tops.grouped_glu_plain(xs, gu, dn, be, b, 16))
+    assert torch.equal(tops.grouped_glu_decode(xs, gu, dn, be, b, 16),
+                       tops.grouped_glu_decode_plain(xs, gu, dn, be, b, 16))
+    assert (tops.grouped_glu.launches,
+            tops.grouped_glu_decode.launches) == counts
+    for fn in (tops.grouped_glu_cuda, tops.grouped_glu_decode_cuda):
+        with pytest.raises(ValueError, match="every tensor on"):
+            fn(xs, gu, dn, be, b, 16)                     # CPU tensors
+        with pytest.raises(RuntimeError, match="K7/K8"):
+            fn(xs, gu.requires_grad_(True), dn, be, b, 16)
+        gu = gu.detach()
+    with pytest.raises(ValueError, match="multiple of block_i"):
+        tops.grouped_glu(xs, gu, dn, be, b, 5)
+    with pytest.raises(ValueError, match="block_expert"):
+        tops.grouped_glu(xs, gu, dn, be[:-1], b, 16)
+
+
+def test_ctypes_binding_matches_the_c_prototype():
+    """The ctypes argtypes agree with both kernels' extern "C" signatures
+    in count and kind (a mismatch shows only on the card otherwise)."""
+    src = (pathlib.Path(tops.__file__).parent.parent / "csrc"
+           / "blockwise_moe.cu").read_text()
+    for fn in ("nxd_grouped_glu", "nxd_grouped_glu_decode"):
+        proto = re.search(rf'extern "C" int {fn}\((.*?)\)\s*\{{', src,
+                          re.S).group(1)
+        kinds = [ctypes.c_void_p if "*" in p else
+                 ctypes.c_float if p.strip().startswith("float") else
+                 ctypes.c_int for p in proto.split(",")]
+        assert kinds == tops.ARGTYPES, fn
+
+
+def _experts_inputs(t=12, h=16, i=32, e=4, k=2, seed=4):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(t, h).astype(np.float32)
+    idx = np.stack([rng.choice(e, k, replace=False) for _ in range(t)])
+    gates = rng.rand(t, k).astype(np.float32)
+    gate_up = rng.randn(e, h, 2, i).astype(np.float32) * 0.2
+    down = rng.randn(e, i, h).astype(np.float32) * 0.2
+    return x, idx.astype(np.int32), gates, gate_up, down
+
+
+def _port_experts(mode, gate_up, down, **kw):
+    e, h, _, i = gate_up.shape
+    mod = texp.ExpertMLPs(e, h, i, dispatch_mode=mode, dtype=torch.float32,
+                          **kw)
+    with torch.no_grad():
+        mod.gate_up.copy_(torch.from_numpy(gate_up))
+        mod.down.copy_(torch.from_numpy(down))
+    return mod
+
+
+@pytest.mark.parametrize("mode,cf,block", [
+    ("capacity", 2.0, 512), ("capacity", 0.5, 512),   # 0.5 drops pairs
+    ("blockwise", 2.0, 4), ("blockwise", 2.0, 16),
+])
+def test_expert_mlps_match_jax(mode, cf, block):
+    x, idx, gates, gate_up, down = _experts_inputs()
+    e, h, _, i = gate_up.shape
+    ref, raux = jexp.ExpertMLPs(
+        num_experts=e, hidden_size=h, intermediate_size=i, top_k=2,
+        capacity_factor=cf, dispatch_mode=mode, block_size=block,
+        block_i=16, dtype=jnp.float32, param_dtype=jnp.float32).apply(
+            {"params": {"gate_up": jnp.asarray(gate_up),
+                        "down": jnp.asarray(down)}},
+            jnp.asarray(x), jnp.asarray(gates), jnp.asarray(idx))
+    mod = _port_experts(mode, gate_up, down, capacity_factor=cf,
+                        block_size=block, block_i=16)
+    got, aux = mod(torch.from_numpy(x), torch.from_numpy(gates),
+                   torch.from_numpy(idx))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(aux["dropped_fraction"].item(),
+                               float(raux["dropped_fraction"]), atol=1e-7)
+    if cf < 1:
+        assert aux["dropped_fraction"].item() > 0
+
+
+def test_capacity_and_blockwise_agree_without_drops():
+    """With capacity for every pair the two dispatch programs compute the
+    same function; the decode form (sentinel metadata) too."""
+    x, idx, gates, gate_up, down = (torch.from_numpy(a)
+                                    for a in _experts_inputs(seed=5))
+    cap = _port_experts("capacity", gate_up.numpy(), down.numpy(),
+                        capacity_factor=4.0)
+    blk = _port_experts("blockwise", gate_up.numpy(), down.numpy(),
+                        block_size=8)
+    y_cap, aux = cap(x, gates, idx)
+    assert aux["dropped_fraction"].item() == 0
+    for sentinel in (False, True):
+        y_blk, _ = blk(x, gates, idx, sentinel_empty=sentinel)
+        torch.testing.assert_close(y_blk, y_cap, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["capacity", "blockwise"])
+def test_moe_layer_matches_jax(mode):
+    rng = np.random.RandomState(6)
+    e, h, i = 4, 16, 32
+    x = rng.randn(2, 5, h).astype(np.float32)
+    params = {"router": {"kernel": rng.randn(h, e).astype(np.float32)},
+              "experts": {"gate_up": rng.randn(e, h, 2, i).astype(
+                  np.float32) * 0.2,
+                          "down": rng.randn(e, i, h).astype(np.float32) * .2}}
+    ref, raux = jmodel.MoE(
+        num_experts=e, hidden_size=h, intermediate_size=i, top_k=2,
+        dispatch_mode=mode, block_size=4, dtype=jnp.float32,
+        param_dtype=jnp.float32).apply(
+            {"params": jax.tree.map(jnp.asarray, params)}, jnp.asarray(x))
+    moe = tmodel.MoE(e, h, i, top_k=2, dispatch_mode=mode, block_size=4,
+                     dtype=torch.float32)
+    with torch.no_grad():
+        moe.router.kernel.copy_(torch.from_numpy(params["router"]["kernel"]))
+        moe.experts.gate_up.copy_(torch.from_numpy(
+            params["experts"]["gate_up"]))
+        moe.experts.down.copy_(torch.from_numpy(params["experts"]["down"]))
+        got, aux = moe(torch.from_numpy(x))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    for name in ("load_balance_loss", "z_loss", "dropped_fraction"):
+        np.testing.assert_allclose(aux[name].item(), float(raux[name]),
+                                   rtol=1e-5, atol=1e-7)
