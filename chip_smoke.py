@@ -58,6 +58,23 @@ script exits non-zero and prints no result:
 13. mixtral_cross_check: one packed step (width 64) and one decode-worker
    step (width 4) at full width, 2 layers, fp32, blockwise, on the card and
    on the port's CPU path; logits within 1e-3 x max|logit|.
+14. moe_bwd_vs_plain: the grouped GLU's backward kernels K7 (dx), K8 (dW)
+   and the pair behind one shared first pass against the plain backward at
+   the train step's shapes (Mixtral 8x7B widths, 4096 tokens top-2, block
+   64, P=8704), fp32 within 1e-4 and bf16 within 1e-2 element by element
+   (``flash_rel_err``, bf16 against the plain version in fp32 on the same
+   inputs, rounded once); an expert that owns no block gets exact zeros of
+   dW; times each entry, its plain version and cuBLAS expert by expert,
+   and computes the bound.
+15. train_mixtral: ``make_train_step`` on Mixtral 8x7B widths cut to 2
+   layers, fp32 params, bf16 compute, flash attention, blockwise dispatch
+   with block 64, router coefficients 0.02 and 0.001, otherwise phase 8's
+   settings; asserts finite losses and grad norms, a falling loss, ``step
+   == 5``, K2-K5, K7 and K8 each launched layers x steps = 10 times and K6
+   never.
+16. mixtral_train_cross_check: phase 9 for Mixtral at full width, 1 layer,
+   blockwise with block 64; both sides must first route every token to the
+   same experts.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
@@ -95,17 +112,28 @@ MOE_KERNELS = (
     ("grouped_glu", "neuronx_distributed_tpu/ops/blockwise_moe.py:64"),
     ("grouped_glu_decode", "neuronx_distributed_tpu/ops/blockwise_moe.py:208"),
 )
+MOE_BWD_KERNELS = (
+    ("grouped_glu_dx", "neuronx_distributed_tpu/ops/blockwise_moe.py:91"),
+    ("grouped_glu_dw", "neuronx_distributed_tpu/ops/blockwise_moe.py:123"),
+)
+# per grouped-GLU entry: (FLOP per live row in units of H I, [P, H] tensors
+# read or written, whether it writes the E experts' dW)
+MOE_WORK = {"grouped_glu": (6, 2, False), "grouped_glu_decode": (6, 2, False),
+            "grouped_glu_dx": (10, 3, False),
+            "grouped_glu_dw": (12, 2, True),
+            "grouped_glu_bwd": (16, 3, True)}
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, reps: int = 25, flush: torch.Tensor = None) -> float:
+def time_ms(fn, reps: int = 25, flush: torch.Tensor = None,
+            warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` runs, CUDA events around
-    each, after warm-up; ``flush`` is overwritten before each run so the
-    50 MB L2 holds no pool data, as for a layer of the real step."""
-    for _ in range(3):
+    each, after ``warmup`` runs; ``flush`` is overwritten before each run
+    so the 50 MB L2 holds no pool data, as for a layer of the real step."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -397,16 +425,20 @@ def phase_cross_check(base_cfg):
 # phases 10-13: Mixtral and the grouped-GLU kernels
 # ---------------------------------------------------------------------------
 
-def moe_case(seed, tokens, weights, sentinel_empty, k=2, bs=64):
+def moe_case(seed, tokens, weights, sentinel_empty, k=2, bs=64, avoid=None):
     """The expert-sorted blocks of ``tokens`` random tokens routed top-``k``
     by random router logits over the experts of ``weights`` (``gate_up``,
-    ``down``), laid out by the port's block metadata."""
+    ``down``), laid out by the port's block metadata; no token goes to
+    expert ``avoid``."""
     from neuronx_distributed_tpu_torch.modules.moe import blockwise as bw
 
     gate_up, down = weights
     e, h = gate_up.shape[0], gate_up.shape[1]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    idx = torch.randn((tokens, e), generator=gen, device="cuda").topk(k)[1]
+    logits = torch.randn((tokens, e), generator=gen, device="cuda")
+    if avoid is not None:
+        logits[:, avoid] = -float("inf")
+    idx = logits.topk(k)[1]
     _, src, dest, be, _, padded = bw.compute_block_metadata(
         idx, e, bs, sentinel_empty=sentinel_empty)
     x = torch.randn((tokens, h), generator=gen, device="cuda")
@@ -414,18 +446,24 @@ def moe_case(seed, tokens, weights, sentinel_empty, k=2, bs=64):
     return xs, gate_up, down, be, bs
 
 
-def moe_bound(xs, gate_up, down, be, bs):
-    """Least time for the call: the larger of its bytes (xs read and ys
-    written once, the weights of each expert some live block uses once, the
-    block table) over HBM bandwidth, and its products over the live blocks'
-    rows (x Wg, x Wu, a Wd: 6 H I FLOP per row) over the peak rate for the
-    dtype."""
+def moe_bound(xs, gate_up, down, be, bs, kind="grouped_glu"):
+    """Least time for one call of the grouped-GLU entry ``kind``: the
+    larger of its bytes (each ``[P, H]`` tensor it reads or writes once:
+    xs and ys forward, xs, dy and dx for dx; the weights of each expert
+    some live block uses, once; the dW of all E experts written once, in
+    the weights' type; the block table) over HBM bandwidth, and its
+    products over the live blocks' rows over the peak rate for the dtype:
+    x Wg, x Wu, a Wd forward (6 H I FLOP per row); g, u, da = dy Wd^T, dg
+    Wg^T, du Wu^T for dx (10); g, u, da and a^T dy, x^T dg, x^T du for dW
+    (12); all eight for the pair (16)."""
+    per_row, tensors, writes_dw = MOE_WORK[kind]
     e, h, _, i = gate_up.shape
     live = be[be < e]
     hit = torch.unique(live).numel()
     es = xs.element_size()
-    nbytes = 2 * xs.numel() * es + hit * 3 * h * i * es + be.numel() * 4
-    flops = 6.0 * live.numel() * bs * h * i
+    nbytes = (tensors * xs.numel() * es + hit * 3 * h * i * es
+              + be.numel() * 4 + (e * 3 * h * i * es if writes_dw else 0))
+    flops = float(per_row) * live.numel() * bs * h * i
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[xs.dtype] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -434,11 +472,9 @@ def moe_bound(xs, gate_up, down, be, bs):
                 live_blocks=live.numel())
 
 
-def moe_library(xs, gate_up, down, be, bs):
-    """The yardstick, several PyTorch calls: per run of one expert's live
-    blocks, cuBLAS ``x @ gate_up[e]`` (gate and up in one product),
-    ``silu(g) * u`` and ``a @ down[e]``. Timed only."""
-    e, h, _, i = gate_up.shape
+def expert_runs(be, e, bs):
+    """``[expert, first row, end row]`` of each run of one expert's
+    consecutive live blocks."""
     runs = []
     for b, x in enumerate(be.tolist()):
         if x >= e:
@@ -447,11 +483,47 @@ def moe_library(xs, gate_up, down, be, bs):
             runs[-1][2] = (b + 1) * bs
         else:
             runs.append([x, b * bs, (b + 1) * bs])
+    return runs
+
+
+def moe_library(xs, gate_up, down, be, bs):
+    """The yardstick, several PyTorch calls: per run of one expert's live
+    blocks, cuBLAS ``x @ gate_up[e]`` (gate and up in one product),
+    ``silu(g) * u`` and ``a @ down[e]``. Timed only."""
+    e, h, _, i = gate_up.shape
+    runs = expert_runs(be, e, bs)
 
     def call():
         for x, r0, r1 in runs:
             gu = xs[r0:r1] @ gate_up[x].reshape(h, 2 * i)
             _ = (F.silu(gu[:, :i]) * gu[:, i:]) @ down[x]
+    return call
+
+
+def moe_bwd_library(xs, gate_up, down, be, bs, dy, kind):
+    """The backward's yardstick, several PyTorch calls per run of one
+    expert's live blocks: cuBLAS ``x @ gate_up[e]`` (g and u in one
+    product) and ``dy @ down[e].T``, the elementwise dg, du (and a), then
+    for dx ``[dg | du] @ gate_up[e]^T`` (dg Wg^T + du Wu^T in one product),
+    for dW ``x^T @ [dg | du]`` and ``a^T @ dy``, for the pair all three.
+    Timed only."""
+    e, h, _, i = gate_up.shape
+    runs = expert_runs(be, e, bs)
+
+    def call():
+        for x, r0, r1 in runs:
+            w = gate_up[x].reshape(h, 2 * i)
+            gu = xs[r0:r1] @ w
+            g, u = gu[:, :i], gu[:, i:]
+            da = dy[r0:r1] @ down[x].T
+            s = torch.sigmoid(g)
+            sg = g * s
+            dgdu = torch.cat([da * u * (s * (1 + g * (1 - s))), da * sg], 1)
+            if kind != "grouped_glu_dw":
+                _ = dgdu @ w.T
+            if kind != "grouped_glu_dx":
+                _ = xs[r0:r1].T @ dgdu
+                _ = (sg * u).T @ dy[r0:r1]
     return call
 
 
@@ -501,7 +573,7 @@ def phase_moe_vs_plain():
                                      flush=flush),
                    plain_ms=time_ms(lambda: plain(*args, bi), reps=3,
                                     flush=flush),
-                   **moe_bound(*args))
+                   **moe_bound(*args, kind=name))
         if dtype == torch.bfloat16:
             res["library_ms"] = time_ms(moe_library(*args), reps=10,
                                         flush=flush)
@@ -581,6 +653,101 @@ def phase_mixtral_cross_check(base_cfg):
          max_rel_diff=worst, tol=1e-3, cpu_s=cpu_s)
     del sides
     torch.cuda.empty_cache()
+
+
+def phase_moe_bwd_vs_plain(tokens=4096):
+    """K7 and K8, and the pair behind one pass 1, against the plain
+    backward at the train step's shapes (Mixtral 8x7B widths, ``tokens``
+    tokens top-2 over 8 experts, block 64, training metadata: every block
+    live), fp32 and bf16, element by element (``flash_rel_err``): fp32
+    within 1e-4, bf16 against the plain version in fp32 on the same bf16
+    inputs, rounded once, within 1e-2. A third case routes no token to
+    expert 5 and then hands its padding block to expert 4 and reverses the
+    table, so expert 5 owns no block: its dW must be exact zeros. Times each
+    entry, its plain version (bf16) and cuBLAS over the same rows expert by
+    expert, and computes the bound."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+
+    cfg = MIXTRAL_8X7B
+    e, h, i = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    gen = torch.Generator(device="cuda").manual_seed(310)
+    w32 = (torch.randn((e, h, 2, i), generator=gen, device="cuda") * 0.02,
+           torch.randn((e, i, h), generator=gen, device="cuda") * 0.02)
+    weights = {torch.float32: w32,
+               torch.bfloat16: tuple(w.bfloat16() for w in w32)}
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    entries = ("grouped_glu_dx", "grouped_glu_dw", "grouped_glu_bwd")
+    outputs = {"grouped_glu_dx": (0,), "grouped_glu_dw": (1, 2),
+               "grouped_glu_bwd": (0, 1, 2)}
+    bi = min(512, i)
+    results = []
+    for n, (case, dtype, tol) in enumerate((
+            ("bf16", torch.bfloat16, 1e-2), ("fp32", torch.float32, 1e-4),
+            ("bf16_empty_expert", torch.bfloat16, 1e-2))):
+        empty = case == "bf16_empty_expert"
+        xs, gate_up, down, be, bs = moe_case(600 + n, tokens, weights[dtype],
+                                             False, avoid=5 if empty else None)
+        if empty:
+            be = torch.where(be == 5, 4, be).flip(0).contiguous()
+        dy = torch.randn(xs.shape, generator=gen, device="cuda").to(dtype)
+        args = (xs, gate_up, down, be, dy, bs, bi)
+        # the kernels sum over I in fp32 and round once: held to the plain
+        # version in fp32 on the same inputs, rounded once
+        ref = bm.grouped_glu_bwd_plain(*(t.float() for t in args[:3]), be,
+                                       dy.float(), bs, bi)
+        ref = [r.to(dtype) for r in ref]
+        res = dict(case=case, dtype=str(dtype), rows=xs.shape[0],
+                   blocks=be.numel(), tol=tol, max_rel_err={},
+                   max_abs_err={})
+        for name in entries:
+            got = getattr(bm, f"{name}_cuda")(*args)
+            got = (got,) if name == "grouped_glu_dx" else got
+            torch.cuda.synchronize()
+            for k, g in zip(outputs[name], got):
+                rel = flash_rel_err(g, ref[k])
+                label = f"{name}.{('dx', 'dgate_up', 'ddown')[k]}"
+                if not (rel <= tol) or not torch.isfinite(g).all():
+                    raise AssertionError(f"moe_bwd {case} {label}: error "
+                                         f"{rel} of |ref| + rms(row) above "
+                                         f"{tol}")
+                res["max_rel_err"][label] = rel
+                res["max_abs_err"][label] = (g.float() - ref[k].float()
+                                             ).abs().max().item()
+                if k and empty and g[5].any():
+                    raise AssertionError(f"moe_bwd {label}: expert 5 owns "
+                                         "no block, its dW is not zero")
+            del got
+        if not empty:
+            timing = {}
+            for name in entries:
+                kern = getattr(bm, f"{name}_cuda")
+                plain = getattr(bm, f"{name}_plain")
+                t = dict(kernel_ms=time_ms(lambda: kern(*args), reps=5,
+                                           flush=flush),
+                         **moe_bound(*args[:4], bs, kind=name))
+                if dtype == torch.bfloat16:
+                    t["plain_ms"] = time_ms(lambda: plain(*args), reps=2,
+                                            flush=flush, warmup=1)
+                    t["library_ms"] = time_ms(
+                        moe_bwd_library(xs, gate_up, down, be, bs, dy, name),
+                        reps=5, flush=flush)
+                timing[name] = t
+            res["timing"] = timing
+            if dtype == torch.bfloat16:
+                res["library"] = ("several calls per run of one expert's live "
+                                  "blocks: torch.matmul (cuBLAS) x @ "
+                                  "gate_up[e] and dy @ down[e].T, the "
+                                  "elementwise dg, du, a, then [dg|du] @ "
+                                  "gate_up[e].T (dx) and x.T @ [dg|du], "
+                                  "a.T @ dy (dW)")
+        results.append(res)
+        del args, xs, dy, ref
+        torch.cuda.empty_cache()
+    del weights, w32
+    torch.cuda.empty_cache()
+    emit("moe_bwd_vs_plain", cases=results)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -775,18 +942,30 @@ def phase_flash_vs_plain():
 # phases 8-9: the train step
 # ---------------------------------------------------------------------------
 
-def phase_train(steps=5, seq=4096):
+def phase_train(steps=5, seq=4096, mixtral=False):
+    """``train`` (Llama-3-8B widths, 4 layers) or ``train_mixtral``
+    (Mixtral 8x7B widths, 2 layers, blockwise): ``steps`` steps of the
+    workload on one batch; the kernels' counts are set to 0 just before and
+    read just after."""
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_tpu_torch.scripts.workloads import (
-        llama3_train_workload)
+        llama3_train_workload, mixtral_train_workload)
 
+    phase = "train_mixtral" if mixtral else "train"
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    if mixtral:
+        counters.update({name: getattr(bm, name) for name in (
+            "grouped_glu", "grouped_glu_decode", "grouped_glu_dx",
+            "grouped_glu_dw")})
     torch.cuda.reset_peak_memory_stats()
-    w = llama3_train_workload(layers=4, seq=seq)
+    w = (mixtral_train_workload(layers=2, seq=seq) if mixtral
+         else llama3_train_workload(layers=4, seq=seq))
     cfg, state, step, batch = w.cfg, w.state, w.step, w.batch
     n_params = sum(p.numel() for p in state.params.values())
     torch.cuda.synchronize()
-    for name, _ in FLASH_KERNELS:
-        getattr(fa, name).launches = 0
+    for c in counters.values():
+        c.launches = 0
     losses, norms, times = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -795,22 +974,21 @@ def phase_train(steps=5, seq=4096):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
-    launches = {name: getattr(fa, name).launches
-                for name, _ in FLASH_KERNELS}
+    launches = {name: c.launches for name, c in counters.items()}
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
-        raise AssertionError(f"train: non-finite loss or grad norm: "
+        raise AssertionError(f"{phase}: non-finite loss or grad norm: "
                              f"{losses} {norms}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: loss did not fall: {losses}")
     if state.step != steps:
-        raise AssertionError(f"train: state.step {state.step} != {steps}")
-    want = cfg.num_layers * steps
+        raise AssertionError(f"{phase}: state.step {state.step} != {steps}")
     for name, n in launches.items():
+        want = 0 if name == "grouped_glu_decode" else cfg.num_layers * steps
         if n != want:
-            raise AssertionError(f"train: {name} launched {n} times, want "
-                                 f"layers x steps = {want}")
+            raise AssertionError(f"{phase}: {name} launched {n} times, want "
+                                 f"{want} (layers x steps, or none)")
     p50 = float(np.median(times))
-    emit("train", layers=cfg.num_layers, params=n_params, seq=seq,
+    emit(phase, layers=cfg.num_layers, params=n_params, seq=seq,
          compute_dtype=str(cfg.dtype), param_dtype=str(cfg.param_dtype),
          steps=steps, losses=losses, grad_norms=norms, step_ms=times,
          step_ms_p50=p50, tokens_per_s=seq / (p50 / 1e3),
@@ -821,7 +999,8 @@ def phase_train(steps=5, seq=4096):
     return launches
 
 
-def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2):
+def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2,
+                            phase="train_cross_check", **cfg_kw):
     """Two fp32 steps at full width on the card and on the CPU path, from
     the same weights and batch. The second step's loss and grad norm depend
     on the first update. The updates themselves, ``p_after - p_before``,
@@ -829,42 +1008,55 @@ def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2):
     ``lr g / (|g| + eps)``, so an element whose gradient is within rounding
     of zero may move by any fraction of ``lr`` on either side, and no
     element-wise limit below ``lr`` would hold; the norm bounds how much
-    of the update such elements carry."""
+    of the update such elements carry. A Mixtral config first has both
+    sides route every token to the same experts in every step, so that a
+    failure names its cause."""
     from neuronx_distributed_tpu_torch import trainer
     from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
-    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+    from neuronx_distributed_tpu_torch.models import llama, mixtral
     from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
 
     cfg = dataclasses.replace(base_cfg, num_layers=layers,
                               dtype=torch.float32, param_dtype=torch.float32,
-                              use_flash_attention=True)
-    sd = init_state_dict(cfg, seed=1, std=0.02, device="cpu")
+                              use_flash_attention=True, **cfg_kw)
+    family = mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama
+    sd = family.init_state_dict(cfg, seed=1, std=0.02, device="cpu")
     batch = train_batch(cfg.vocab_size, seq, seed=1)
     side = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         pm, params = trainer.initialize_parallel_model(
             neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
+        routes = []
+        for layer in pm.module.layers:
+            if hasattr(layer, "moe"):
+                layer.moe.router.register_forward_hook(
+                    lambda mod, inp, out, r=routes: r.append(out[1].cpu()))
         tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
         step = trainer.make_train_step(pm, tx)
         metrics = [step(state, batch)[1] for _ in range(steps)]
         side[dev] = ([(m["loss"].item(), m["grad_norm"].item())
                       for m in metrics],
                      {n: p.detach().cpu() - sd[n] for n, p in params.items()},
-                     time.perf_counter() - t0)
+                     time.perf_counter() - t0, routes)
         del pm, params, tx, state, step
     torch.cuda.empty_cache()
-    (mg, ug, tg), (mc, uc, tc) = side["cuda"], side["cpu"]
+    (mg, ug, tg, rg), (mc, uc, tc, rc) = side["cuda"], side["cpu"]
+    if len(rg) != len(rc) or any(not torch.equal(a, b)
+                                 for a, b in zip(rg, rc)):
+        moved = sum(int((a != b).any(-1).sum()) for a, b in zip(rg, rc))
+        raise AssertionError(f"{phase}: the card routed {moved} token(s) "
+                             "to other experts than the CPU")
     for i, ((lg, ng), (lc, nc)) in enumerate(zip(mg, mc)):
         if not abs(lg - lc) <= 1e-4 * abs(lc):
-            raise AssertionError(f"train_cross_check: step {i + 1} loss {lg} "
-                                 f"vs CPU {lc}")
+            raise AssertionError(f"{phase}: step {i + 1} loss {lg} vs CPU "
+                                 f"{lc}")
         if not abs(ng - nc) <= 1e-3 * abs(nc):
-            raise AssertionError(f"train_cross_check: step {i + 1} grad norm "
-                                 f"{ng} vs CPU {nc}")
+            raise AssertionError(f"{phase}: step {i + 1} grad norm {ng} vs "
+                                 f"CPU {nc}")
     if not mc[-1][0] < mc[0][0] - 1e-2:
-        raise AssertionError(f"train_cross_check: the update did not lower "
-                             f"the loss: {mc}")
+        raise AssertionError(f"{phase}: the update did not lower the loss: "
+                             f"{mc}")
     worst, worst_name, worst_elem = 0.0, None, 0.0
     for name, ref in uc.items():
         diff = ug[name] - ref
@@ -874,14 +1066,14 @@ def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2):
         worst_elem = max(worst_elem, (diff.abs().max()
                                       / ref.abs().max()).item())
         if not rel <= 1e-3:
-            raise AssertionError(f"train_cross_check: {name}'s update differs "
-                                 f"by {rel} of its norm, above 1e-3")
+            raise AssertionError(f"{phase}: {name}'s update differs by {rel} "
+                                 "of its norm, above 1e-3")
     del sd
-    emit("train_cross_check", layers=layers, seq=seq, steps=steps,
+    emit(phase, layers=layers, seq=seq, steps=steps,
          loss_card=[m[0] for m in mg], loss_cpu=[m[0] for m in mc],
          grad_norm_card=[m[1] for m in mg], grad_norm_cpu=[m[1] for m in mc],
          max_update_rel_diff=worst, max_update_rel_diff_param=worst_name,
-         max_update_elem_diff_of_max=worst_elem,
+         max_update_elem_diff_of_max=worst_elem, routed_calls=len(rc),
          card_s=tg, cpu_s=tc)
 
 
@@ -927,9 +1119,14 @@ def main() -> None:
                                          max_slots=4, prefill_budget=512),
             "serve_mixtral_disagg")["grouped_glu_decode"]}
     phase_mixtral_cross_check(MIXTRAL_8X7B)
+    bwd_cases = phase_moe_bwd_vs_plain()
     flash_cases = phase_flash_vs_plain()
     flash_launches = phase_train()
     phase_train_cross_check(LLAMA3_8B)
+    train_launches = phase_train(mixtral=True)
+    phase_train_cross_check(MIXTRAL_8X7B, layers=1,
+                            phase="mixtral_train_cross_check",
+                            moe_dispatch="blockwise", moe_block_size=64)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -968,6 +1165,18 @@ def main() -> None:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "kernel_ms": main_case["kernel_ms"], "max_err": err})
+    bwd_main = next(c for c in bwd_cases if c["case"] == "bf16")
+    for name, replaces in MOE_BWD_KERNELS:
+        t = bwd_main["timing"][name]
+        err = max(v for c in bwd_cases for k, v in c["max_abs_err"].items()
+                  if k.startswith(f"{name}."))
+        summary.append({
+            "name": name, "route": "cuda", "source": MOE_SOURCE,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": err, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "kernel_ms": t["kernel_ms"], "max_err": err})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,11 +1,13 @@
-// Grouped GLU of the dropless MoE, forward, for Hopper (sm_90a): K5 for the
-// packed step and K6 for decode.
+// Grouped GLU of the dropless MoE for Hopper (sm_90a): the forward, K5 for
+// the packed step and K6 for decode, and the backward, K7 (dx) and K8 (dW).
 //
 // Replaces the Pallas TPU kernels of neuronx_distributed_tpu/ops/
 // blockwise_moe.py: `_glu_fwd_kernel` (:64, launched at :198 by
-// `_grouped_glu_pallas`) and `_glu_fwd_decode_kernel` (:208, launched at
-// :257 by `_grouped_glu_decode_pallas`). Both compute, over the blocks of
-// the expert-sorted rows xs [P, H],
+// `_grouped_glu_pallas`), `_glu_fwd_decode_kernel` (:208, launched at :257
+// by `_grouped_glu_decode_pallas`), `_glu_dx_kernel` (:91, launched at :293)
+// and `_glu_dw_kernel` (:123, launched at :315), the last two by
+// `_grouped_glu_pallas_bwd`. The forward computes, over the blocks of the
+// expert-sorted rows xs [P, H],
 //     ys[b] = (silu(x_b Wg_e) * (x_b Wu_e)) Wd_e,   e = block_expert[b],
 // with gate_up [E, H, 2, I] (gate at index 0, up at 1, I contiguous) read in
 // place and down [E, I, H]. A block with block_expert[b] >= E is a sentinel:
@@ -16,31 +18,53 @@
 // about 190 FLOP per byte, so the bound is the bytes (0.84 ms at 3.35 TB/s)
 // with the operations close behind (0.55 ms at 989 TFLOP/s). K6 at decode
 // does the same work per hit block over far fewer blocks; its bound is the
-// bytes of the experts the step's tokens hit.
+// bytes of the experts the step's tokens hit. The backward at the train
+// step (P = 8704 rows in 136 live blocks) is bound by operations: K7 does
+// 10 H I FLOP per row (g, u, da, dx: 5.11 TFLOP, 5.17 ms at 989 TFLOP/s),
+// K8 12 H I (g, u, da and three dW products: 6.20 ms), the pair 16 H I
+// (8.27 ms); their bytes (2.8 GB of weights, 2.8 GB of dW) take 1.7 ms.
 //
 // Design (simple and correct first; tensor cores come later):
-//  * Two passes. Pass A gives a = silu(g) * u for each (row tile, I tile)
-//    into an fp32 scratch act [P, I]; pass B gives y = a Wd for each (row
-//    tile, H tile), summing over all of I in fp32 and rounding once. The
-//    TPU kernel fused both and accumulated y over I tiles in VMEM; on the
-//    card a fused kernel would recompute g and u once per H tile. The TPU
-//    decode kernel wrote fp32 partials [num_ib, P, H] and summed them
+//  * Forward, two passes. Pass A gives a = silu(g) * u for each (row tile,
+//    I tile) into an fp32 scratch act [P, I]; pass B gives y = a Wd for each
+//    (row tile, H tile), summing over all of I in fp32 and rounding once.
+//    The TPU kernel fused both and accumulated y over I tiles in VMEM; on
+//    the card a fused kernel would recompute g and u once per H tile. The
+//    TPU decode kernel wrote fp32 partials [num_ib, P, H] and summed them
 //    outside; here the sum over I stays in registers, one rounding, the
 //    same result.
+//  * Backward, three passes that share the first, as K6 shares K5's.
+//    Pass 1 gives, for each (row tile, I tile), g, u and da = dy Wd^T, then
+//    dg = da u silu'(g), du = da silu(g) and (for K8) a = silu(g) u, into
+//    fp32 scratch [P, I] each. Pass 2 (K7) gives dx = dg Wg^T + du Wu^T for
+//    each (row tile, H tile), summing over all of I in fp32 and rounding
+//    once, where the TPU kernel rounded each I tile's partial into dx.
+//    Pass 3 (K8) replaces the TPU's sequential grid (ib, b), which summed an
+//    expert's dW over consecutive blocks in VMEM: one CTA per (expert, dW
+//    tile) finds that expert's blocks in the int32 table itself (never
+//    assuming it sorted), loops over them in ascending order summing in
+//    registers, and writes its tile once, in the weights' type. No atomics,
+//    so the sum is deterministic; sentinel blocks add nothing, and an expert
+//    that owns no block gets exact zeros, as every tile is written.
+//    K7 runs passes 1-2, K8 passes 1 and 3, the pair (the autograd
+//    backward) passes 1-3.
 //  * Tiles are staged in shared memory as fp32 and multiplied with fp32
-//    FMAs on the CUDA cores: 256 threads, each owning 4 rows x 4 columns of
-//    both g and u (pass A, 64 x 64 tiles) or 4 rows x 8 columns of y (pass B,
-//    64 x 128 tiles), over reduction chunks of 16. Inputs fp32 or bf16, every
-//    sum in fp32, ys in the input type. Ragged H, I and block tails load as
-//    zeros and are not stored.
-//  * One CTA per (64-row tile of a block, column tile), row tiles fastest.
-//    Each live CTA reads its expert's weight tile; the CTAs of one expert's
-//    run on a column tile are numbered side by side, so they run together
-//    and share that tile through L2. Sentinel CTAs read no weight byte: they
-//    return (pass A) or store zeros (pass B). On decode metadata with at
-//    most 64-row blocks (each hit expert holds one block) every run is one
-//    row tile, so each hit expert's weights are read exactly once.
-//  * K5 and K6 share these kernels and differ in entry point only.
+//    FMAs on the CUDA cores: 256 threads, each owning 4 rows x 4 columns
+//    (64 x 64 tiles) or 4 rows x 8 columns (64 x 128 tiles), over reduction
+//    chunks of 16. Inputs fp32 or bf16, every sum in fp32, outputs in the
+//    input type. Ragged H, I and block tails load as zeros and are not
+//    stored.
+//  * One CTA per (64-row tile of a block, column tile), row tiles fastest,
+//    in passes A, B, 1 and 2. Each live CTA reads its expert's weight tile;
+//    the CTAs of one expert's run on a column tile are numbered side by
+//    side, so they run together and share that tile through L2. Sentinel
+//    CTAs read no weight byte: they return (passes A, 1) or store zeros
+//    (passes B, 2). On decode metadata with at most 64-row blocks (each hit
+//    expert holds one block) every run is one row tile, so each hit
+//    expert's weights are read exactly once. In pass 3 the H tiles are
+//    numbered fastest, so neighbouring CTAs share the scratch columns of
+//    one I tile, and one expert's x and dy rows stay in L2.
+//  * K5 and K6 share the forward kernels and differ in entry point only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -214,12 +238,12 @@ __device__ void down_tile(const float* __restrict__ act,
   }
 }
 
-// Zero rows [r0, r0 + nrows) x columns [h0, h0 + kTH) of ys.
-template <typename T>
+// Zero rows [r0, r0 + nrows) x columns [h0, h0 + W) of ys.
+template <typename T, int W>
 __device__ void zero_tile(T* __restrict__ ys, int r0, int nrows, int h0,
                           int H) {
-  for (int q = threadIdx.x; q < kTM * kTH; q += kThreads) {
-    const int r = q / kTH, c = h0 + q % kTH;
+  for (int q = threadIdx.x; q < kTM * W; q += kThreads) {
+    const int r = q / W, c = h0 + q % W;
     if (r < nrows && c < H) ys[(size_t)(r0 + r) * H + c] = from_f32<T>(0.f);
   }
 }
@@ -252,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) glu_down_kernel(
   const int r0 = b * BS + t * kTM, nrows = min(kTM, BS - t * kTM);
   const int e = block_expert[b];
   if (e >= E)
-    zero_tile<T>(ys, r0, nrows, blockIdx.y * kTH, H);
+    zero_tile<T, kTH>(ys, r0, nrows, blockIdx.y * kTH, H);
   else
     down_tile<T>(act, down, ys, r0, nrows, e, blockIdx.y * kTH, H, I, sh);
 }
@@ -295,6 +319,381 @@ int run(int dtype, const void* xs, const void* gate_up, const void* down,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7 and K8: the backward, three passes
+// ---------------------------------------------------------------------------
+constexpr int kSmemBwd = 3 * kTK * kLdM + 2 * kTK * kTN;  // floats, pass 1
+
+// Stage rows [r0, r0 + nrows) x columns [c0, c0 + W) of a row-major matrix
+// with `ld` columns (`ncols` valid) into sh[r][c] as fp32, for pass 3, whose
+// reduction runs over the rows (the tokens).
+template <typename T, int W>
+__device__ __forceinline__ void load_cols(float* sh, const T* src, size_t ld,
+                                          int r0, int nrows, int c0,
+                                          int ncols) {
+  for (int q = threadIdx.x; q < kTK * W; q += kThreads) {
+    const int r = q / W, c = q % W;
+    float v = 0.f;
+    if (r < nrows && c0 + c < ncols)
+      v = to_f32(src[(size_t)(r0 + r) * ld + c0 + c]);
+    sh[q] = v;
+  }
+}
+
+// Pass 1 for one tile: with g = x Wg, u = x Wu and da = dy Wd^T over the
+// tile's I columns, dg = da u silu'(g), du = da silu(g) and, where `a` is
+// given, a = silu(g) u, into the fp32 scratches [P, I].
+template <typename T>
+__device__ void bwd_act_tile(const T* __restrict__ xs,
+                             const T* __restrict__ dy,
+                             const T* __restrict__ gate_up,
+                             const T* __restrict__ down, float* __restrict__ a,
+                             float* __restrict__ dg, float* __restrict__ du,
+                             int r0, int nrows, int e, int i0, int H, int I,
+                             float* sh) {
+  float* x_sh = sh;                      // [kTK][kLdM] rows of xs
+  float* y_sh = x_sh + kTK * kLdM;       // [kTK][kLdM] rows of dy
+  float* d_sh = y_sh + kTK * kLdM;       // [kTK][kLdM] rows i0.. of Wd
+  float* g_sh = d_sh + kTK * kLdM;       // [kTK][kTN]
+  float* u_sh = g_sh + kTK * kTN;        // [kTK][kTN]
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* w = gate_up + (size_t)e * H * 2 * I;   // [H][2][I]
+  const T* wd = down + (size_t)e * I * H;         // [I][H]
+  const int ni = min(kTN, I - i0);
+  float g[4][4], u[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g[i][j] = u[i][j] = da[i][j] = 0.f;
+  for (int k0 = 0; k0 < H; k0 += kTK) {
+    __syncthreads();                     // the last chunk's reads are done
+    load_rows_t<T>(x_sh, xs, H, r0, nrows, k0, H);
+    load_rows_t<T>(y_sh, dy, H, r0, nrows, k0, H);
+    load_rows_t<T>(d_sh, wd, H, i0, ni, k0, H);
+    for (int q = threadIdx.x; q < kTK * kTN; q += kThreads) {
+      const int k = q / kTN, c = q % kTN;
+      float gv = 0.f, uv = 0.f;
+      if (k0 + k < H && i0 + c < I) {
+        const T* row = w + (size_t)(k0 + k) * 2 * I + i0 + c;
+        gv = to_f32(row[0]);
+        uv = to_f32(row[I]);
+      }
+      g_sh[q] = gv;
+      u_sh[q] = uv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTK; ++k) {
+      const float4 xv = *reinterpret_cast<const float4*>(x_sh + k * kLdM +
+                                                         4 * ty);
+      const float4 yv = *reinterpret_cast<const float4*>(y_sh + k * kLdM +
+                                                         4 * ty);
+      const float4 gv = *reinterpret_cast<const float4*>(g_sh + k * kTN +
+                                                         4 * tx);
+      const float4 uv = *reinterpret_cast<const float4*>(u_sh + k * kTN +
+                                                         4 * tx);
+      const float4 dv = *reinterpret_cast<const float4*>(d_sh + k * kLdM +
+                                                         4 * tx);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+      const float ya[4] = {yv.x, yv.y, yv.z, yv.w};
+      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float ua[4] = {uv.x, uv.y, uv.z, uv.w};
+      const float wa[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          g[i][j] = fmaf(xa[i], ga[j], g[i][j]);
+          u[i][j] = fmaf(xa[i], ua[j], u[i][j]);
+          da[i][j] = fmaf(ya[i], wa[j], da[i][j]);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = i0 + 4 * tx + j;
+      if (c >= I) continue;
+      const float s = 1.f / (1.f + expf(-g[i][j]));
+      const float sg = g[i][j] * s;
+      const size_t o = (size_t)(r0 + r) * I + c;
+      dg[o] = da[i][j] * u[i][j] * (s * (1.f + g[i][j] * (1.f - s)));
+      du[o] = da[i][j] * sg;
+      if (a != nullptr) a[o] = sg * u[i][j];
+    }
+  }
+}
+
+// Pass 2 (K7) for one tile: dx[r0 + r][h0 + c] = sum_i dg[r][i] Wg[h][i] +
+// du[r][i] Wu[h][i], summed in fp32 over all of I and rounded once.
+template <typename T>
+__device__ void bwd_dx_tile(const float* __restrict__ dg,
+                            const float* __restrict__ du,
+                            const T* __restrict__ gate_up, T* __restrict__ dx,
+                            int r0, int nrows, int e, int h0, int H, int I,
+                            float* sh) {
+  float* g_sh = sh;                      // [kTK][kLdM] rows of dg
+  float* u_sh = g_sh + kTK * kLdM;       // [kTK][kLdM] rows of du
+  float* wg_sh = u_sh + kTK * kLdM;      // [kTK][kLdM] rows h0.. of Wg
+  float* wu_sh = wg_sh + kTK * kLdM;     // [kTK][kLdM] rows h0.. of Wu
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* w = gate_up + (size_t)e * H * 2 * I;   // [H][2][I]
+  const int nh = min(kTM, H - h0);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < I; k0 += kTK) {
+    __syncthreads();
+    load_rows_t<float>(g_sh, dg, I, r0, nrows, k0, I);
+    load_rows_t<float>(u_sh, du, I, r0, nrows, k0, I);
+    load_rows_t<T>(wg_sh, w, 2 * (size_t)I, h0, nh, k0, I);
+    load_rows_t<T>(wu_sh, w + I, 2 * (size_t)I, h0, nh, k0, I);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTK; ++k) {
+      const float4 gv = *reinterpret_cast<const float4*>(g_sh + k * kLdM +
+                                                         4 * ty);
+      const float4 uv = *reinterpret_cast<const float4*>(u_sh + k * kLdM +
+                                                         4 * ty);
+      const float4 wg = *reinterpret_cast<const float4*>(wg_sh + k * kLdM +
+                                                         4 * tx);
+      const float4 wu = *reinterpret_cast<const float4*>(wu_sh + k * kLdM +
+                                                         4 * tx);
+      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float ua[4] = {uv.x, uv.y, uv.z, uv.w};
+      const float wga[4] = {wg.x, wg.y, wg.z, wg.w};
+      const float wua[4] = {wu.x, wu.y, wu.z, wu.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(ua[i], wua[j], fmaf(ga[i], wga[j], acc[i][j]));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = h0 + 4 * tx + j;
+      if (c < H) dx[(size_t)(r0 + r) * H + c] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) glu_bwd_act_kernel(
+    const T* __restrict__ xs, const T* __restrict__ dy,
+    const T* __restrict__ gate_up, const T* __restrict__ down,
+    const int* __restrict__ block_expert, float* __restrict__ a,
+    float* __restrict__ dg, float* __restrict__ du, int H, int I, int E,
+    int BS) {
+  __shared__ __align__(16) float sh[kSmemBwd];
+  const int tiles = (BS + kTM - 1) / kTM;
+  const int b = blockIdx.x / tiles, t = blockIdx.x % tiles;
+  const int e = block_expert[b];
+  if (e >= E) return;                    // sentinel: nothing reads its rows
+  bwd_act_tile<T>(xs, dy, gate_up, down, a, dg, du, b * BS + t * kTM,
+                  min(kTM, BS - t * kTM), e, blockIdx.y * kTN, H, I, sh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) glu_bwd_dx_kernel(
+    const float* __restrict__ dg, const float* __restrict__ du,
+    const T* __restrict__ gate_up, const int* __restrict__ block_expert,
+    T* __restrict__ dx, int H, int I, int E, int BS) {
+  __shared__ __align__(16) float sh[4 * kTK * kLdM];
+  const int tiles = (BS + kTM - 1) / kTM;
+  const int b = blockIdx.x / tiles, t = blockIdx.x % tiles;
+  const int r0 = b * BS + t * kTM, nrows = min(kTM, BS - t * kTM);
+  const int e = block_expert[b];
+  if (e >= E)
+    zero_tile<T, kTM>(dx, r0, nrows, blockIdx.y * kTM, H);
+  else
+    bwd_dx_tile<T>(dg, du, gate_up, dx, r0, nrows, e, blockIdx.y * kTM, H,
+                   I, sh);
+}
+
+// Pass 3 (K8): grid (dW tiles, E). Tiles [0, n_gu) are 64 (H) x 64 (I)
+// tiles of both dWg and dWu, which read the same x rows; the rest are
+// 64 (I) x 128 (H) tiles of dWd. H tiles are numbered fastest.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) glu_bwd_dw_kernel(
+    const T* __restrict__ xs, const T* __restrict__ dy,
+    const float* __restrict__ a, const float* __restrict__ dg,
+    const float* __restrict__ du, const int* __restrict__ block_expert,
+    T* __restrict__ dgu, T* __restrict__ ddn, int nb, int H, int I, int BS) {
+  __shared__ __align__(16) float sh[kTK * (kTN + kTH)];
+  const int e = blockIdx.y;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int nh = (H + kTM - 1) / kTM, n_gu = nh * ((I + kTN - 1) / kTN);
+  if ((int)blockIdx.x < n_gu) {
+    const int h0 = blockIdx.x % nh * kTM, i0 = blockIdx.x / nh * kTN;
+    float* x_sh = sh;                    // [kTK][kTM] x rows, H columns
+    float* g_sh = x_sh + kTK * kTM;      // [kTK][kTN] dg rows, I columns
+    float* u_sh = g_sh + kTK * kTN;      // [kTK][kTN] du rows, I columns
+    float wg[4][4], wu[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wg[i][j] = wu[i][j] = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      if (block_expert[b] != e) continue;  // other expert, or a sentinel
+      for (int r0 = b * BS; r0 < (b + 1) * BS; r0 += kTK) {
+        const int nr = min(kTK, (b + 1) * BS - r0);
+        __syncthreads();
+        load_cols<T, kTM>(x_sh, xs, H, r0, nr, h0, H);
+        load_cols<float, kTN>(g_sh, dg, I, r0, nr, i0, I);
+        load_cols<float, kTN>(u_sh, du, I, r0, nr, i0, I);
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kTK; ++k) {
+          const float4 xv = *reinterpret_cast<const float4*>(x_sh + k * kTM +
+                                                             4 * ty);
+          const float4 gv = *reinterpret_cast<const float4*>(g_sh + k * kTN +
+                                                             4 * tx);
+          const float4 uv = *reinterpret_cast<const float4*>(u_sh + k * kTN +
+                                                             4 * tx);
+          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+          const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+          const float ua[4] = {uv.x, uv.y, uv.z, uv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              wg[i][j] = fmaf(xa[i], ga[j], wg[i][j]);
+              wu[i][j] = fmaf(xa[i], ua[j], wu[i][j]);
+            }
+        }
+      }
+    }
+    T* out = dgu + (size_t)e * H * 2 * I;         // [H][2][I]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = h0 + 4 * ty + i;
+      if (h >= H) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = i0 + 4 * tx + j;
+        if (c >= I) continue;
+        out[(size_t)h * 2 * I + c] = from_f32<T>(wg[i][j]);
+        out[(size_t)h * 2 * I + I + c] = from_f32<T>(wu[i][j]);
+      }
+    }
+  } else {
+    const int t = blockIdx.x - n_gu, nh2 = (H + kTH - 1) / kTH;
+    const int h0 = t % nh2 * kTH, i0 = t / nh2 * kTN;
+    float* a_sh = sh;                    // [kTK][kTN] a rows, I columns
+    float* y_sh = a_sh + kTK * kTN;      // [kTK][kTH] dy rows, H columns
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      if (block_expert[b] != e) continue;
+      for (int r0 = b * BS; r0 < (b + 1) * BS; r0 += kTK) {
+        const int nr = min(kTK, (b + 1) * BS - r0);
+        __syncthreads();
+        load_cols<float, kTN>(a_sh, a, I, r0, nr, i0, I);
+        load_cols<T, kTH>(y_sh, dy, H, r0, nr, h0, H);
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kTK; ++k) {
+          const float4 av = *reinterpret_cast<const float4*>(a_sh + k * kTN +
+                                                             4 * ty);
+          const float4 d0 = *reinterpret_cast<const float4*>(y_sh + k * kTH +
+                                                             4 * tx);
+          const float4 d1 = *reinterpret_cast<const float4*>(y_sh + k * kTH +
+                                                             64 + 4 * tx);
+          const float aa[4] = {av.x, av.y, av.z, av.w};
+          const float ya[8] = {d0.x, d0.y, d0.z, d0.w,
+                               d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(aa[i], ya[j], acc[i][j]);
+        }
+      }
+    }
+    T* out = ddn + (size_t)e * I * H;             // [I][H]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i0 + 4 * ty + i;
+      if (r >= I) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = h0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+        if (c < H) out[(size_t)r * H + c] = from_f32<T>(acc[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* xs, const void* gate_up, const void* down,
+                       const int* be, const void* dy, float* a, float* dg,
+                       float* du, void* dx, void* dgu, void* ddn, int P,
+                       int H, int I, int E, int BS, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xs);
+  const T* gu = static_cast<const T*>(gate_up);
+  const T* g = static_cast<const T*>(dy);
+  const int row_tiles = P / BS * ((BS + kTM - 1) / kTM);
+  glu_bwd_act_kernel<T><<<dim3(row_tiles, (I + kTN - 1) / kTN), kThreads, 0,
+                          stream>>>(x, g, gu, static_cast<const T*>(down),
+                                    be, a, dg, du, H, I, E, BS);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && dx != nullptr) {
+    glu_bwd_dx_kernel<T><<<dim3(row_tiles, (H + kTM - 1) / kTM), kThreads, 0,
+                           stream>>>(dg, du, gu, be, static_cast<T*>(dx), H,
+                                     I, E, BS);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || dgu == nullptr) return err;
+  const int tiles = (H + kTM - 1) / kTM * ((I + kTN - 1) / kTN) +
+                    (H + kTH - 1) / kTH * ((I + kTN - 1) / kTN);
+  glu_bwd_dw_kernel<T><<<dim3(tiles, E), kThreads, 0, stream>>>(
+      x, g, a, dg, du, be, static_cast<T*>(dgu), static_cast<T*>(ddn), P / BS,
+      H, I, BS);
+  return cudaGetLastError();
+}
+
+// want_dx / want_dw: what the entry computes; the pointers of what it does
+// not compute must be null, and those of what it does must not.
+int run_bwd(bool want_dx, bool want_dw, int dtype, const void* xs,
+            const void* gate_up, const void* down, const void* block_expert,
+            const void* dy, void* a, void* dg, void* du, void* dx, void* dgu,
+            void* ddn, int P, int H, int I, int E, int BS, void* stream) {
+  if (P <= 0 || H <= 0 || I <= 0 || E <= 0 || BS <= 0 || P % BS != 0 ||
+      (I + kTN - 1) / kTN > 65535 || (H + kTM - 1) / kTM > 65535 ||
+      E > 65535 || dg == nullptr || du == nullptr ||
+      want_dx != (dx != nullptr) || want_dw != (dgu != nullptr) ||
+      want_dw != (ddn != nullptr) || want_dw != (a != nullptr))
+    return cudaErrorInvalidValue;
+  const int* be = static_cast<const int*>(block_expert);
+  float* af = static_cast<float*>(a);
+  float* gf = static_cast<float*>(dg);
+  float* uf = static_cast<float*>(du);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_bwd<float>(xs, gate_up, down, be, dy, af, gf, uf, dx, dgu,
+                               ddn, P, H, I, E, BS, s);
+    case kBF16:
+      return launch_bwd<__nv_bfloat16>(xs, gate_up, down, be, dy, af, gf, uf,
+                                       dx, dgu, ddn, P, H, I, E, BS, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Each returns a cudaError_t: 0 on a clean launch of both passes. `act` is
@@ -316,4 +715,39 @@ extern "C" int nxd_grouped_glu_decode(int dtype, const void* xs,
                                       int BS, void* stream) {
   return run(dtype, xs, gate_up, down, block_expert, act, ys, P, H, I, E, BS,
              stream);
+}
+
+// The backward entries, each returning a cudaError_t: 0 on a clean launch of
+// its passes. dg and du (and a, for dW) are fp32 scratch [P, I]; dy, dx are
+// [P, H], dgu and ddn shaped and typed as gate_up and down; every pointer is
+// contiguous device memory. K7 writes dx (a, dgu, ddn null), K8 dgu and ddn
+// (dx null), the pair all three from one pass 1.
+extern "C" int nxd_grouped_glu_dx(int dtype, const void* xs,
+                                  const void* gate_up, const void* down,
+                                  const void* block_expert, const void* dy,
+                                  void* a, void* dg, void* du, void* dx,
+                                  void* dgu, void* ddn, int P, int H, int I,
+                                  int E, int BS, void* stream) {
+  return run_bwd(true, false, dtype, xs, gate_up, down, block_expert, dy, a, dg,
+                 du, dx, dgu, ddn, P, H, I, E, BS, stream);
+}
+
+extern "C" int nxd_grouped_glu_dw(int dtype, const void* xs,
+                                  const void* gate_up, const void* down,
+                                  const void* block_expert, const void* dy,
+                                  void* a, void* dg, void* du, void* dx,
+                                  void* dgu, void* ddn, int P, int H, int I,
+                                  int E, int BS, void* stream) {
+  return run_bwd(false, true, dtype, xs, gate_up, down, block_expert, dy, a, dg,
+                 du, dx, dgu, ddn, P, H, I, E, BS, stream);
+}
+
+extern "C" int nxd_grouped_glu_bwd(int dtype, const void* xs,
+                                   const void* gate_up, const void* down,
+                                   const void* block_expert, const void* dy,
+                                   void* a, void* dg, void* du, void* dx,
+                                   void* dgu, void* ddn, int P, int H, int I,
+                                   int E, int BS, void* stream) {
+  return run_bwd(true, true, dtype, xs, gate_up, down, block_expert, dy, a, dg,
+                 du, dx, dgu, ddn, P, H, I, E, BS, stream);
 }

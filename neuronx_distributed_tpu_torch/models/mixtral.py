@@ -7,6 +7,9 @@ The state dict keeps the JAX names and layouts: per layer
 I]`` and ``moe.experts.down [E, I, H]``, beside Llama's attention and norm
 keys, so :mod:`.convert` maps a JAX Mixtral tree across.
 
+Training goes through :meth:`MixtralForCausalLM.loss`, the JAX loss: the
+causal-LM cross entropy plus the router's load-balance and z losses summed
+over the layers, weighted by ``router_aux_coef`` and ``router_z_coef``.
 Serving goes through :func:`mixtral_forward_with_cache`, the paged step of
 :func:`.llama.paged_forward`. With ``moe_dispatch="blockwise"`` the experts
 run the grouped GLU: K5 on a wide step, and K6 with ``sentinel_empty``
@@ -26,6 +29,7 @@ from ..device import DeviceLike
 from ..inference.paging import PagedCacheView, PagedKVCache
 from ..modules.moe import MoE
 from ..modules.norms import RMSNorm
+from ..parallel.loss_functions import causal_lm_loss
 from . import llama
 from .llama import LlamaAttention, LlamaConfig, LlamaForCausalLM
 
@@ -43,6 +47,9 @@ class MixtralConfig(LlamaConfig):
     # blocks of no real row become sentinels (forward only)
     moe_sentinel_empty: bool = False
     router_type: str = "top_k"
+    # weights of the router's aux losses in the train loss
+    router_aux_coef: float = 0.02
+    router_z_coef: float = 0.001
 
     def __post_init__(self):
         if self.moe_dispatch not in ("capacity", "blockwise"):
@@ -84,11 +91,14 @@ class MixtralDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[PagedCacheView] = None,
+                dropout_generator: Optional[torch.Generator] = None,
                 sentinel_empty: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(x, aux)``, aux = ``[load_balance_loss, z_loss]``; with a
-        paged ``view`` the serving step, without, causal self-attention."""
-        x = x + self.attn(self.input_norm(x), cos, sin, positions, view)
+        paged ``view`` the serving step, without, causal self-attention
+        (with attention dropout given a ``dropout_generator``)."""
+        x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
+                          dropout_generator)
         moe_out, aux = self.moe(self.post_norm(x), sentinel_empty)
         return x + moe_out, torch.stack([aux["load_balance_loss"],
                                          aux["z_loss"]])
@@ -100,7 +110,8 @@ class MixtralForCausalLM(LlamaForCausalLM):
     layer_cls = MixtralDecoderLayer
 
     def hidden(self, input_ids: torch.Tensor,
-               positions: Optional[torch.Tensor] = None
+               positions: Optional[torch.Tensor] = None,
+               dropout_generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The JAX ``MixtralModel``: ``(normed hidden [B, S, H], aux)``,
         aux summed over the layers."""
@@ -108,16 +119,27 @@ class MixtralForCausalLM(LlamaForCausalLM):
         cos, sin = self.rope_tables(input_ids.device)
         aux = []
         for layer in self.layers:
-            x, a = layer(x, cos, sin, positions)
+            x, a = layer(x, cos, sin, positions, None, dropout_generator)
             aux.append(a)
         return self.norm(x), torch.stack(aux).sum(0)
 
     def forward(self, input_ids: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(logits [B, S, V], aux [2])``."""
-        x, aux = self.hidden(input_ids, positions)
-        return self.lm_head(x), aux
+                positions: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                ignore_index: int = -100,
+                dropout_generator: Optional[torch.Generator] = None):
+        """``(logits [B, S, V], aux [2])``, or, given ``labels`` (the
+        next-token ids, already shifted), the JAX ``MixtralForCausalLM.loss``
+        (``models/mixtral.py:315``): ``ce + router_aux_coef · aux[0] +
+        router_z_coef · aux[1]``, ce the mean causal-LM loss over the labels
+        that are not ``ignore_index``. ``loss`` (inherited) calls this."""
+        x, aux = self.hidden(input_ids, positions, dropout_generator)
+        logits = self.lm_head(x)
+        if labels is None:
+            return logits, aux
+        cfg = self.cfg
+        ce = causal_lm_loss(logits, labels, ignore_index=ignore_index)
+        return ce + cfg.router_aux_coef * aux[0] + cfg.router_z_coef * aux[1]
 
 
 def build_model(cfg: MixtralConfig, state_dict: Dict[str, torch.Tensor],

@@ -9,8 +9,11 @@ and ``down [E, I, H]``, with two dispatch programs:
   the golden cross-check of the blockwise path (with enough capacity the two
   agree).
 * ``"blockwise"``: dropless. Tokens sorted by expert into blocks
-  (:mod:`.blockwise`) run through the grouped GLU, K5, or K6 with
-  ``sentinel_empty`` (:mod:`...ops.blockwise_moe`).
+  (:mod:`.blockwise`) run through the grouped GLU, K5 with its backward K7
+  and K8, or K6 with ``sentinel_empty``, forward only
+  (:mod:`...ops.blockwise_moe`). Under autograd the bank's weights enter the
+  grouped GLU through their ``.to(dtype)`` casts, so the gradients in the
+  compute dtype flow back to the parameters in theirs, as in the JAX bank.
 
 The expert- and tensor-parallel forms come with the parallel substrate.
 """
@@ -104,8 +107,9 @@ class ExpertMLPs(nn.Module):
         return y.to(dt), {"dropped_fraction": dropped}
 
     def _run_grouped_glu(self, xs, be, sentinel_empty: bool):
-        """K5, or K6 with ``sentinel_empty``; ``bi = min(block_i, I)``, or
-        all of I where that does not divide it."""
+        """K5 (differentiable: K7 and K8 in the backward), or K6 with
+        ``sentinel_empty``; ``bi = min(block_i, I)``, or all of I where
+        that does not divide it."""
         i = self.gate_up.shape[-1]
         bi = min(self.block_i, i)
         if i % bi:

@@ -1,21 +1,26 @@
 """Where the train step's time goes on one CUDA card.
 
-    python3 -m neuronx_distributed_tpu_torch.scripts.profile_train
+    python3 -m neuronx_distributed_tpu_torch.scripts.profile_train [--mixtral]
 
 Runs ``chip_smoke.py``'s ``train`` workload
 (:func:`.workloads.llama3_train_workload`: Llama-3-8B widths at 4 layers,
 fp32 params, bf16 compute, flash attention, B=1, S=4096, AdamW clipped at
-1.0, one fixed batch) through ``make_train_step``. After two
-warm-up steps it times 3 steps without the profiler, then traces 3 with
-``torch.profiler`` and prints one JSON line: host wall time per step,
-device busy time per step, the device's idle share (busy time from the
-trace over the unprofiled wall time), the device time per step of each
-group of kernels (the three flash kernels, matrix products, the rest) and
-the top kernels by device time.
+1.0, one fixed batch) through ``make_train_step``, or with ``--mixtral``
+its ``train_mixtral`` workload (:func:`.workloads.mixtral_train_workload`:
+Mixtral 8x7B widths at 2 layers, blockwise experts with block 64, the same
+settings otherwise). After two warm-up steps it times 3 steps without the
+profiler, then traces 3 with ``torch.profiler`` and prints one JSON line:
+host wall time per step, device busy time per step, the device's idle
+share (busy time from the trace over the unprofiled wall time), the device
+time per step of each group of kernels (the three flash kernels, the
+grouped-GLU forward K5, the backward's shared pass 1 and its dx (K7) and dW
+(K8) passes, matrix products, the rest) and the top kernels by device
+time.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -26,6 +31,10 @@ import torch
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+          ("grouped_glu", ("glu_act_kernel", "glu_down_kernel")),
+          ("grouped_glu_bwd_pass1", ("glu_bwd_act_kernel",)),
+          ("grouped_glu_dx", ("glu_bwd_dx_kernel",)),
+          ("grouped_glu_dw", ("glu_bwd_dw_kernel",)),
           ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")))
 
 
@@ -37,18 +46,23 @@ def group_of(name: str) -> str:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mixtral", action="store_true",
+                    help="the train_mixtral workload (2 layers)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from .workloads import llama3_train_workload
+    from .workloads import llama3_train_workload, mixtral_train_workload
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     seq = 4096
-    w = llama3_train_workload(layers=4, seq=seq)
+    w = (mixtral_train_workload(layers=2, seq=seq) if args.mixtral
+         else llama3_train_workload(layers=4, seq=seq))
     cfg, state, step, batch = w.cfg, w.state, w.step, w.batch
 
     def run(n):
@@ -79,6 +93,7 @@ def main() -> None:
         groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({
+        "model": "mixtral" if args.mixtral else "llama",
         "layers": cfg.num_layers, "seq": seq,
         "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": profiled_ms,
         "device_busy_ms_per_step": busy_ms,

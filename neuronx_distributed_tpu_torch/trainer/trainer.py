@@ -1,11 +1,14 @@
-"""The single-device Llama train step (counterpart of
+"""The single-device train step of Llama and Mixtral (counterpart of
 ``neuronx_distributed_tpu/trainer/trainer.py``).
 
 The JAX package builds one jitted step (loss, grad, clip, AdamW) over
-sharded params. Here the step runs eagerly on one device: the loss
-(``LlamaForCausalLM.loss``) through autograd, with causal flash attention
-on the flash kernels when ``use_flash_attention`` is set, then the global
-gradient norm and the optimizer. The model's parameters are the state:
+sharded params. Here the step runs eagerly on one device: the model's loss
+(``LlamaForCausalLM.loss``, or ``MixtralForCausalLM.loss`` with the
+router's aux losses) through autograd, with causal flash attention on the
+flash kernels when ``use_flash_attention`` is set and, for Mixtral with
+``moe_dispatch="blockwise"``, the experts on the grouped-GLU kernels (K5
+forward, K7 and K8 backward), then the global gradient norm and the
+optimizer. The model's parameters are the state:
 every step updates them, the gradients and the Adam moments in place, and
 returns the same :class:`TrainState`.
 
@@ -22,7 +25,8 @@ import torch
 
 from ..config import NxDConfig
 from ..device import DeviceLike, resolve_device
-from ..models.llama import LlamaConfig, LlamaForCausalLM, init_state_dict
+from ..models import llama, mixtral
+from ..models.llama import LlamaConfig, LlamaForCausalLM
 from . import optimizer as opt_mod
 
 
@@ -52,17 +56,26 @@ def initialize_parallel_model(
         device: DeviceLike = None, std: float = 0.02
 ) -> Tuple[ParallelModel, Dict[str, torch.nn.Parameter]]:
     """Build the model on ``device`` (None: the CUDA card) with parameters
-    in ``model_cfg.param_dtype`` that require gradients: random normal(0,
-    ``std``) from ``seed`` (unit norm scales), or copies of ``state_dict``
-    (e.g. :func:`..models.convert.params_from_jax`), which is left as it
-    is. Returns ``(ParallelModel, params)``."""
+    that require gradients: random normal(0, ``std``) from ``seed`` (unit
+    norm scales), or copies of ``state_dict`` (e.g.
+    :func:`..models.convert.params_from_jax`), which is left as it is. The
+    family follows the config's type: a ``MixtralConfig`` builds a
+    ``MixtralForCausalLM``. Parameters are in ``model_cfg.param_dtype``, but
+    for those the model holds in fp32 (the MoE router's kernel). Returns
+    ``(ParallelModel, params)``."""
     dev = resolve_device(device)
-    if state_dict is None:
-        sd = init_state_dict(model_cfg, seed=seed, std=std, device=dev)
+    if isinstance(model_cfg, mixtral.MixtralConfig):
+        family, model_cls = mixtral, mixtral.MixtralForCausalLM
     else:
-        sd = {k: v.to(device=dev, dtype=model_cfg.param_dtype, copy=True)
+        family, model_cls = llama, LlamaForCausalLM
+    model = model_cls(model_cfg, device="meta")
+    if state_dict is None:
+        sd = family.init_state_dict(model_cfg, seed=seed, std=std, device=dev)
+    else:
+        want = model.state_dict()
+        sd = {k: v.to(device=dev, dtype=want[k].dtype if k in want
+                      else model_cfg.param_dtype, copy=True)
               for k, v in state_dict.items()}
-    model = LlamaForCausalLM(model_cfg, device="meta")
     model.load_state_dict(sd, strict=True, assign=True)
     model.requires_grad_(True).train()
     params = dict(model.named_parameters())

@@ -1,7 +1,8 @@
 """Card-only checks of the PyTorch port: the hand-written paged-attention,
-flash-attention and grouped-GLU kernels against their plain versions, the
-wrappers' refusals, the serving engine (Llama and Mixtral) and a train step
-on the card against the same on the CPU.
+flash-attention and grouped-GLU kernels (forward and backward) against
+their plain versions, the wrappers' refusals, the serving engine (Llama
+and Mixtral) and train steps (Llama and Mixtral) on the card against the
+same on the CPU.
 
 This file imports nothing of JAX, so it runs on a machine without it:
 
@@ -327,9 +328,13 @@ def test_grouped_glu_wrappers_refuse_what_they_do_not_take(cuda):
             fn(xs, gu, dn, be.long(), bs, 16)
         with pytest.raises(ValueError, match="every tensor on"):
             fn(xs, gu, dn.cpu(), be, bs, 16)
-        with pytest.raises(RuntimeError, match="K7/K8"):
-            fn(xs.requires_grad_(True), gu, dn, be, bs, 16)
-        xs = xs.detach()
+    # K6 is forward-only, as in the JAX package; K5 has its backward
+    with pytest.raises(RuntimeError, match="no backward.*JAX package"):
+        tbm.grouped_glu_decode_cuda(xs.requires_grad_(True), gu, dn, be, bs,
+                                    16)
+    with torch.no_grad():
+        tbm.grouped_glu_decode_cuda(xs, gu, dn, be, bs, 16)
+    assert tbm.grouped_glu_cuda(xs, gu, dn, be, bs, 16).grad_fn is None
 
 
 @pytest.mark.parametrize("disaggregated", [False, True])
@@ -369,3 +374,146 @@ def test_mixtral_engine_on_card_matches_cpu(cuda, disaggregated):
         else:
             assert (k5, k6) == (cfg.num_layers * runs["packed"], 0)
     assert out["cpu"] == out["cuda"]
+
+
+def _bwd_case(device, seed, dtype, no_block=None, **kw):
+    """``_moe_case`` with a cotangent; ``no_block`` reassigns that expert's
+    blocks to expert 0, so it owns none, and reverses the table (the dW
+    kernel must not assume it sorted)."""
+    xs, gu, dn, be, bs = _moe_case("cpu", seed, torch.float32, **kw)
+    dy = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        *xs.shape).astype(np.float32))
+    if no_block is not None:
+        be = torch.where(be == no_block, 0, be).flip(0).contiguous()
+    return ([t.to(device, dtype) for t in (xs, gu, dn)] + [be.to(device),
+                                                           dy.to(device,
+                                                                 dtype)],
+            bs)
+
+
+@pytest.mark.parametrize("entry", ["dx", "dw", "bwd"])
+@pytest.mark.parametrize("name,bs,sentinel_empty,no_block", [
+    ("fp32", 16, False, None), ("bf16", 16, False, None),
+    ("fp32", 80, True, None), ("bf16", 64, True, None),
+    ("fp32", 16, False, 3), ("bf16", 64, False, 3),
+])
+def test_grouped_glu_backward_kernels_match_plain(cuda, entry, name, bs,
+                                                  sentinel_empty, no_block):
+    """K7 (dx), K8 (dW) and the pair against the plain backward on the same
+    inputs: fp32 element by element within 1e-4 (summation order); bf16
+    against the plain version in fp32 on the same bf16 inputs, rounded
+    once, within 1e-2. Sentinel rows of dx are exact zeros; expert 1 (no
+    token: a block of padding rows) or, where the table is rewritten, an
+    expert that owns no block at all gets exact zeros of dW; each entry
+    counts its launches."""
+    dtype = _FLOATS[name]
+    (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 2, dtype, no_block, bs=bs,
+                                         sentinel_empty=sentinel_empty)
+    bi = gu.shape[-1] // 2
+    fn = getattr(tbm, f"grouped_glu_{entry}_cuda")
+    counters = (tbm.grouped_glu_dx, tbm.grouped_glu_dw, tbm.grouped_glu_bwd)
+    before = [c.launches for c in counters]
+    out = fn(xs, gu, dn, be, dy, bs, bi)
+    torch.cuda.synchronize()
+    added = [c.launches - b for c, b in zip(counters, before)]
+    assert added == {"dx": [1, 0, 0], "dw": [0, 1, 0],
+                     "bwd": [1, 1, 1]}[entry]
+    out = {"dx": (out, None, None), "dw": (None, *out), "bwd": out}[entry]
+    ref = tbm.grouped_glu_bwd_plain(xs.float(), gu.float(), dn.float(), be,
+                                    dy.float(), bs, bi)
+    tol = 1e-4 if name == "fp32" else 1e-2
+    for got, want, like in zip(out, ref, (xs, gu, dn)):
+        if got is None:
+            continue
+        assert got.dtype == dtype and got.shape == like.shape
+        assert torch.isfinite(got).all()
+        rel = flash_rel_err(got, want.to(dtype))
+        assert rel <= tol, rel
+    dx, dgu, ddn = out
+    if dx is not None:
+        sent = torch.repeat_interleave(be >= gu.shape[0], bs)
+        assert sent.any() == sentinel_empty
+        assert not dx[sent].any() and (dx[~sent] != 0).any()
+    if dgu is not None:
+        # reversing the table hands expert 1's padding block real rows
+        empty = 1 if no_block is None else no_block
+        assert not dgu[empty].any() and not ddn[empty].any()
+        assert no_block is None or not (be == no_block).any()
+        assert (dgu[0] != 0).any() and (ddn[0] != 0).any()
+
+
+def test_grouped_glu_backward_wrappers_refuse_what_they_do_not_take(cuda):
+    (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 1, torch.bfloat16)
+    for fn in (tbm.grouped_glu_dx_cuda, tbm.grouped_glu_dw_cuda,
+               tbm.grouped_glu_bwd_cuda):
+        with pytest.raises(ValueError, match="fp32 or bf16"):
+            fn(xs, gu, dn, be, dy.float(), bs, 16)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(xs, gu, dn, be, dy.t().contiguous().t(), bs, 16)
+        with pytest.raises(ValueError, match="int32"):
+            fn(xs, gu, dn, be.long(), dy, bs, 16)
+        with pytest.raises(ValueError, match="every tensor on"):
+            fn(xs, gu, dn, be, dy.cpu(), bs, 16)
+        with pytest.raises(ValueError, match="dy must be shaped"):
+            fn(xs, gu, dn, be, dy[:bs], bs, 16)
+
+
+def test_grouped_glu_autograd_on_card_matches_cpu(cuda):
+    """``grouped_glu`` under autograd on the card (K5, then K7 and K8 in
+    one launch) against the CPU (the plain versions), fp32; and with the
+    weights frozen the backward runs K7 alone."""
+    (xs, gu, dn, be, dy), bs = _bwd_case("cpu", 3, torch.float32,
+                                         sentinel_empty=True)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (xs, gu, dn)]
+        pair = tbm.grouped_glu_bwd.launches
+        ys = tbm.grouped_glu(*leaves, be.to(dev), bs, 88)
+        ys.backward(dy.to(dev))
+        assert tbm.grouped_glu_bwd.launches - pair == (str(dev) != "cpu")
+        grads[str(dev)] = [ys.detach().cpu()] + [t.grad.cpu()
+                                                 for t in leaves]
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert flash_rel_err(a, r) <= 1e-4
+    k7, k8 = tbm.grouped_glu_dx.launches, tbm.grouped_glu_dw.launches
+    x = xs.detach().to(cuda).requires_grad_(True)
+    tbm.grouped_glu(x, gu.to(cuda), dn.to(cuda), be.to(cuda), bs,
+                    88).backward(dy.to(cuda))
+    assert (tbm.grouped_glu_dx.launches - k7,
+            tbm.grouped_glu_dw.launches - k8) == (1, 0)
+    assert flash_rel_err(x.grad.cpu(), grads["cpu"][1]) <= 1e-4
+
+
+def test_mixtral_train_step_on_card_matches_cpu(cuda):
+    """Three fp32 blockwise Mixtral train steps with flash attention on
+    the card and on the CPU from the same weights and batch: loss, grad
+    norm and parameters; on the card K5, K7 and K8 launch once per layer
+    per step."""
+    cfg = tm.tiny_moe_config(dtype=torch.float32, hidden_size=256,
+                             num_heads=4, num_kv_heads=2,
+                             use_flash_attention=True,
+                             moe_dispatch="blockwise", moe_block_size=16)
+    sd = tm.init_state_dict(cfg, seed=0, std=0.02, device="cpu")
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 65)))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    counters = (tbm.grouped_glu, tbm.grouped_glu_dx, tbm.grouped_glu_dw)
+    runs = {}
+    for dev in ("cpu", cuda):
+        pm, params = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
+        tx, state = ttr.initialize_parallel_optimizer(pm, params, 1e-3)
+        step = ttr.make_train_step(pm, tx)
+        before = [c.launches for c in counters]
+        metrics = [step(state, batch)[1] for _ in range(3)]
+        want = 0 if dev == "cpu" else 3 * cfg.num_layers
+        assert [c.launches - b for c, b in zip(counters, before)] == [want] * 3
+        runs[str(dev)] = ([(float(m["loss"]), float(m["grad_norm"]))
+                           for m in metrics],
+                          {n: p.detach().cpu() for n, p in params.items()})
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for name, ref in pc.items():
+        torch.testing.assert_close(pg[name], ref, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())

@@ -1,8 +1,12 @@
 """The PyTorch port's Mixtral against the JAX package: the weight bridge,
 the forward without a cache, one paged step per dispatch mode
-(logits and pool), and the serving engine's greedy ids in packed blockwise,
+(logits and pool), the serving engine's greedy ids in packed blockwise,
 packed capacity and disaggregated modes, where the decode worker runs the
-decode grouped GLU (K6's plain version) and the prefill worker K5's."""
+decode grouped GLU (K6's plain version) and the prefill worker K5's, and
+training: the loss with the router's aux losses, every gradient against
+``jax.grad``, and a 10-step loss curve against the JAX ``make_train_step``
+in both dispatch modes (blockwise through the grouped GLU's backward, K7
+and K8's plain versions)."""
 
 import itertools
 
@@ -14,10 +18,14 @@ import jax
 import jax.numpy as jnp
 from flax.core import meta
 
+import neuronx_distributed_tpu as nxd
 from neuronx_distributed_tpu.inference import engine as je
 from neuronx_distributed_tpu.inference import paging as jpg
 from neuronx_distributed_tpu.models import mixtral as jm
 from neuronx_distributed_tpu.parallel import mesh as ps
+from neuronx_distributed_tpu.trainer import trainer as jtr
+from neuronx_distributed_tpu_torch import trainer as ttr
+from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
 from neuronx_distributed_tpu_torch.inference import engine as te
 from neuronx_distributed_tpu_torch.inference import paging as tpg
 from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
@@ -239,3 +247,152 @@ def test_mixtral_engine_defaults_to_cuda(params):
         te.ServingEngine(tcfg, params_from_jax(tcfg, np_tree))
     with pytest.raises(RuntimeError, match="CUDA"):
         tm.MixtralForCausalLM(tcfg)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _batches(seed, n, b=2, s=16):
+    """``n`` batches of next-token ids; the first 3 labels of each row are
+    ignored (-100)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, 256, (b, s + 1)).astype(np.int32)
+        labels = ids[:, 1:].copy()
+        labels[:, :3] = -100
+        out.append({"input_ids": ids[:, :-1], "labels": labels})
+    return out
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+
+
+def test_config_has_the_router_coefficients():
+    """The port's config carries the JAX loss's router weights."""
+    jcfg, tcfg = jm.tiny_moe_config(), tm.tiny_moe_config()
+    assert (tcfg.router_aux_coef, tcfg.router_z_coef) == (0.02, 0.001)
+    assert (tcfg.router_aux_coef, tcfg.router_z_coef) == (
+        jcfg.router_aux_coef, jcfg.router_z_coef)
+    assert tm.MIXTRAL_8X7B.router_aux_coef == jm.MIXTRAL_8X7B.router_aux_coef
+
+
+def test_initialize_parallel_model_builds_mixtral():
+    """A ``MixtralConfig`` gives a ``MixtralForCausalLM`` with the MoE
+    parameters, the router's kernel in fp32 also from a bf16 state dict."""
+    cfg = tm.tiny_moe_config(dtype=torch.float32, moe_dispatch="blockwise",
+                             moe_block_size=16)
+    pm, params = ttr.initialize_parallel_model(neuronx_distributed_config(),
+                                               cfg, device="cpu")
+    assert isinstance(pm.module, tm.MixtralForCausalLM)
+    for name in ("layers.0.moe.router.kernel", "layers.1.moe.experts.gate_up",
+                 "layers.1.moe.experts.down"):
+        assert name in params and params[name].requires_grad, name
+    assert set(params) == set(tm.init_state_dict(cfg, device="cpu"))
+    sd = {k: v.bfloat16() for k, v in tm.init_state_dict(
+        cfg, seed=3, device="cpu").items()}
+    bcfg = tm.tiny_moe_config(dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    _, bparams = ttr.initialize_parallel_model(
+        neuronx_distributed_config(), bcfg, state_dict=sd, device="cpu")
+    assert bparams["layers.0.moe.router.kernel"].dtype == torch.float32
+    assert bparams["layers.0.moe.experts.down"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("mode", ["capacity", "blockwise"])
+def test_loss_and_gradients_match_jax(params, monkeypatch, mode):
+    """``MixtralForCausalLM.loss`` (cross entropy plus 0.02 x load balance
+    plus 0.001 x z loss) within 1e-5 of the JAX loss, and every gradient,
+    the router's included, within 1e-4 x max|g| of ``jax.grad``; blockwise
+    runs block 16, so the experts' gradients come from the plain K7/K8."""
+    tree, np_tree = params
+    jcfg, tcfg = _cfgs(mode, block=16)
+    batch = _batches(2, 1)[0]
+    ps.initialize_model_parallel()
+    try:
+        jloss, jgrads = jax.value_and_grad(
+            lambda p: jm.MixtralForCausalLM(jcfg).apply(
+                p, jnp.asarray(batch["input_ids"]),
+                jnp.asarray(batch["labels"]), method="loss"))(tree)
+    finally:
+        ps.destroy_model_parallel()
+    pm, tparams = ttr.initialize_parallel_model(
+        neuronx_distributed_config(), tcfg,
+        state_dict=params_from_jax(tcfg, np_tree), device="cpu")
+    tb = _torch_batch(batch)
+    calls = []
+    bwd = tops.grouped_glu_bwd_plain
+    monkeypatch.setattr(tops, "grouped_glu_bwd_plain",
+                        lambda *a: (calls.append(1), bwd(*a))[1])
+    loss = pm.module.loss(tb["input_ids"], tb["labels"])
+    loss.backward()
+    assert len(calls) == (tcfg.num_layers if mode == "blockwise" else 0)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    want = params_from_jax(tcfg, jax.tree.map(np.asarray, jgrads))
+    assert set(want) == set(tparams)
+    for name, p in tparams.items():
+        ref = want[name].numpy()
+        assert np.abs(ref).max() > 0, name
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max(),
+                                   err_msg=name)
+
+
+class MixtralJaxRun:
+    """The JAX ``make_train_step`` over the tiny Mixtral on a one-device
+    mesh, its initial params as writable numpy arrays, and the port's
+    config with the same fields."""
+
+    def __init__(self, mode, lr=1e-3):
+        self.jcfg, self.tcfg = _cfgs(mode, block=16)
+        cfg = nxd.neuronx_distributed_config(tensor_parallel_size=1,
+                                             devices=jax.devices()[:1])
+        try:
+            pm, params = jtr.initialize_parallel_model(
+                cfg, jm.MixtralForCausalLM(self.jcfg), jax.random.key(0),
+                jnp.zeros((2, 16), jnp.int32))
+            tx, self.state, sh = jtr.initialize_parallel_optimizer(
+                pm, params, learning_rate=lr)
+            self.step_fn = jtr.make_train_step(pm, tx, sh, donate=False)
+        except Exception:
+            ps.destroy_model_parallel()
+            raise
+        self.params = jax.tree.map(np.array, params)
+
+    def step(self, batch):
+        self.state, m = self.step_fn(self.state, {
+            k: jnp.asarray(v) for k, v in batch.items()})
+        return {k: np.asarray(v) for k, v in m.items()}
+
+    def close(self):
+        ps.destroy_model_parallel()
+
+
+@pytest.mark.parametrize("mode", ["capacity", "blockwise"])
+def test_ten_steps_match_jax(mode):
+    """10 fp32 AdamW steps (lr 1e-3, clipped at 1.0) on 10 batches: each
+    loss within 1e-4 relative of the JAX train step's and each grad norm
+    within 1e-3; blockwise trains the experts through K5's plain version
+    and the plain K7/K8."""
+    run = MixtralJaxRun(mode)
+    try:
+        pm, params = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), run.tcfg,
+            state_dict=params_from_jax(run.tcfg, run.params), device="cpu")
+        tx, state = ttr.initialize_parallel_optimizer(pm, params, 1e-3)
+        step = ttr.make_train_step(pm, tx)
+        losses = []
+        for batch in _batches(5, 10):
+            jmet = run.step(batch)
+            _, tmet = step(state, _torch_batch(batch))
+            np.testing.assert_allclose(tmet["loss"].item(), jmet["loss"],
+                                       rtol=1e-4)
+            np.testing.assert_allclose(tmet["grad_norm"].item(),
+                                       jmet["grad_norm"], rtol=1e-3)
+            losses.append(tmet["loss"].item())
+        assert state.step == 10 and int(run.state.step) == 10
+        assert losses[-1] < losses[0]
+    finally:
+        run.close()

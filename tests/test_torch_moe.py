@@ -1,9 +1,10 @@
 """The PyTorch port's MoE pieces against the JAX package: the blockwise
 metadata bit for bit, the top-k router (ties included), the plain grouped
-GLU (K5) and its decode form (K6) against the Pallas kernels in interpret
-mode, the expert bank in both dispatch modes, the MoE layer, and the
-kernels' dispatch and ctypes binding. The kernels themselves run only on a
-card (``tests/test_torch_cuda.py``)."""
+GLU (K5), its decode form (K6) and its backward (K7 dx, K8 dW) against the
+Pallas kernels in interpret mode, the autograd Function (``gradcheck``),
+the expert bank in both dispatch modes, the MoE layer, and the kernels'
+dispatch and ctypes binding. The kernels themselves run only on a card
+(``tests/test_torch_cuda.py``)."""
 
 import ctypes
 import pathlib
@@ -170,41 +171,152 @@ def test_plain_grouped_glu_bf16_rounds_per_tile_like_jax():
                                    atol=2 ** -7 * np.abs(ref).max())
 
 
+def _cotangent(xs):
+    return np.random.RandomState(9).randn(*xs.shape).astype(np.float32)
+
+
 def test_dispatch_by_device_and_the_cuda_wrappers_refusals():
+    """CPU tensors take the plain versions and launch nothing; the CUDA
+    wrappers refuse them. K6 alone refuses inputs that require grad: it is
+    forward-only, as in the JAX package; K5 has its backward."""
     *arrays, b = _glu_problem(True)
     xs, gu, dn, be = (torch.from_numpy(a) for a in arrays)
     be = be.int()
-    counts = (tops.grouped_glu.launches, tops.grouped_glu_decode.launches)
+    dy = torch.from_numpy(_cotangent(xs))
+    counters = (tops.grouped_glu, tops.grouped_glu_decode,
+                tops.grouped_glu_dx, tops.grouped_glu_dw, tops.grouped_glu_bwd)
+    counts = [c.launches for c in counters]
     assert torch.equal(tops.grouped_glu(xs, gu, dn, be, b, 16),
                        tops.grouped_glu_plain(xs, gu, dn, be, b, 16))
     assert torch.equal(tops.grouped_glu_decode(xs, gu, dn, be, b, 16),
                        tops.grouped_glu_decode_plain(xs, gu, dn, be, b, 16))
-    assert (tops.grouped_glu.launches,
-            tops.grouped_glu_decode.launches) == counts
+    dx, dgu, ddn = tops.grouped_glu_bwd(xs, gu, dn, be, dy, b, 16)
+    assert torch.equal(tops.grouped_glu_dx(xs, gu, dn, be, dy, b, 16), dx)
+    for got, want in zip(tops.grouped_glu_dw(xs, gu, dn, be, dy, b, 16),
+                         (dgu, ddn)):
+        assert torch.equal(got, want)
+    assert [c.launches for c in counters] == counts
     for fn in (tops.grouped_glu_cuda, tops.grouped_glu_decode_cuda):
         with pytest.raises(ValueError, match="every tensor on"):
             fn(xs, gu, dn, be, b, 16)                     # CPU tensors
-        with pytest.raises(RuntimeError, match="K7/K8"):
-            fn(xs, gu.requires_grad_(True), dn, be, b, 16)
-        gu = gu.detach()
+    with pytest.raises(ValueError, match="every tensor on"):
+        tops.grouped_glu_cuda(xs, gu.requires_grad_(True), dn, be, b, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tops.grouped_glu_decode_cuda(xs, gu, dn, be, b, 16)
+    gu = gu.detach()
+    for fn in (tops.grouped_glu_dx_cuda, tops.grouped_glu_dw_cuda,
+               tops.grouped_glu_bwd_cuda):
+        with pytest.raises(ValueError, match="every tensor on"):
+            fn(xs, gu, dn, be, dy, b, 16)
     with pytest.raises(ValueError, match="multiple of block_i"):
         tops.grouped_glu(xs, gu, dn, be, b, 5)
     with pytest.raises(ValueError, match="block_expert"):
         tops.grouped_glu(xs, gu, dn, be[:-1], b, 16)
+    with pytest.raises(ValueError, match="dy must be shaped"):
+        tops.grouped_glu_bwd(xs, gu, dn, be, dy[1:], b, 16)
 
 
 def test_ctypes_binding_matches_the_c_prototype():
-    """The ctypes argtypes agree with both kernels' extern "C" signatures
-    in count and kind (a mismatch shows only on the card otherwise)."""
+    """The ctypes argtypes agree with every kernel entry's extern "C"
+    signature in count and kind (a mismatch shows only on the card
+    otherwise)."""
     src = (pathlib.Path(tops.__file__).parent.parent / "csrc"
            / "blockwise_moe.cu").read_text()
-    for fn in ("nxd_grouped_glu", "nxd_grouped_glu_decode"):
+    entries = {"nxd_grouped_glu": tops.ARGTYPES,
+               "nxd_grouped_glu_decode": tops.ARGTYPES,
+               "nxd_grouped_glu_dx": tops.BWD_ARGTYPES,
+               "nxd_grouped_glu_dw": tops.BWD_ARGTYPES,
+               "nxd_grouped_glu_bwd": tops.BWD_ARGTYPES}
+    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == set(entries)
+    for fn, argtypes in entries.items():
         proto = re.search(rf'extern "C" int {fn}\((.*?)\)\s*\{{', src,
                           re.S).group(1)
         kinds = [ctypes.c_void_p if "*" in p else
                  ctypes.c_float if p.strip().startswith("float") else
                  ctypes.c_int for p in proto.split(",")]
-        assert kinds == tops.ARGTYPES, fn
+        assert kinds == argtypes, fn
+
+
+@pytest.mark.parametrize("bi_frac", [1, 2])
+@pytest.mark.parametrize("sentinel_empty,skew", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_plain_grouped_glu_backward_matches_pallas_interpret(
+        bi_frac, sentinel_empty, skew):
+    """Plain K7 and K8 against ``jax.vjp`` of the grouped GLU through the
+    Pallas kernels in interpret mode (``force_pallas=True``, which runs
+    ``_glu_dx_kernel`` and ``_glu_dw_kernel``) and through the jnp
+    reference, fp32, within 1e-5 relative. Skewed routing leaves experts 1
+    and 3 without a token: on plain metadata each owns a block of padding
+    rows, on sentinel metadata no block at all. Their dW is exactly 0 in the
+    port; the Pallas dW kernel never visits the tile of an expert that owns
+    no block, which keeps whatever memory held (NaN here), so that tile is
+    held to the reference only."""
+    xs, gu, dn, be, b = _glu_problem(sentinel_empty, skew=skew)
+    bi = gu.shape[-1] // bi_frac
+    dy = _cotangent(xs)
+    j = [jnp.asarray(a) for a in (xs, gu, dn)]
+    refs = {}
+    for name, force in (("pallas", True), ("reference", False)):
+        _, vjp = jax.vjp(lambda x, g, d, _f=force: jops.grouped_glu(
+            x, g, d, jnp.asarray(be), b, bi, force_pallas=_f), *j)
+        refs[name] = [np.asarray(r) for r in vjp(jnp.asarray(dy))]
+    t = [torch.from_numpy(a) for a in (xs, gu, dn, be.astype(np.int32), dy)]
+    got = [g.numpy() for g in tops.grouped_glu_bwd_plain(*t, b, bi)]
+    assert np.array_equal(got[0], tops.grouped_glu_dx_plain(*t, b, bi))
+    for g, w in zip(got[1:], tops.grouped_glu_dw_plain(*t, b, bi)):
+        assert np.array_equal(g, w.numpy())
+    owned = np.isin(np.arange(gu.shape[0]), be)
+    for name, ref in refs.items():
+        for k, (g, r) in enumerate(zip(got, ref)):
+            if k and name == "pallas":
+                g, r = g[owned], r[owned]
+            np.testing.assert_allclose(g, r, rtol=1e-5,
+                                       atol=1e-5 * np.abs(r).max(),
+                                       err_msg=f"{name} output {k}")
+    sent = np.repeat(be >= gu.shape[0], b)
+    assert not got[0][sent].any()
+    if skew:
+        for e in (1, 3):
+            assert not got[1][e].any() and not got[2][e].any()
+        assert owned.all() != sentinel_empty
+
+
+def test_plain_grouped_glu_dx_bf16_rounds_per_tile_like_jax():
+    """In bf16 the plain K7 rounds each I-tile's partial into dx, as the
+    JAX ``_ref_dx`` does; the two agree within a bf16 step of the largest
+    value."""
+    xs, gu, dn, be, b = _glu_problem(False)
+    dy = _cotangent(xs)
+    j = [jnp.asarray(a, jnp.bfloat16) for a in (xs, gu, dn, dy)]
+    ref = np.asarray(jops._ref_dx(j[0], j[1], j[2], jnp.asarray(be), j[3], b,
+                                  8, gu.shape[0]), np.float32)
+    t = [torch.from_numpy(a).bfloat16() for a in (xs, gu, dn, dy)]
+    got = tops.grouped_glu_dx_plain(t[0], t[1], t[2],
+                                    torch.from_numpy(be).int(), t[3], b, 8)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                               atol=2 ** -7 * np.abs(ref).max())
+
+
+def test_grouped_glu_function_passes_gradcheck():
+    """``torch.autograd.gradcheck`` in float64 through
+    ``GroupedGLUFunction`` on the CPU (the plain forward and backward), on
+    metadata with sentinel blocks, for all three inputs together and for
+    the weights alone (the K8-only branch of the backward)."""
+    *arrays, b = _glu_problem(True, t=6, h=5, i=8, b=4)
+    xs, gu, dn = (torch.from_numpy(a).double().requires_grad_(True)
+                  for a in arrays[:3])
+    be = torch.from_numpy(arrays[3]).int()
+    assert (be >= gu.shape[0]).any()
+
+    def fn(x, g, d):
+        return tops.grouped_glu(x, g, d, be, b, 4)
+
+    assert torch.autograd.gradcheck(fn, (xs, gu, dn))
+    assert torch.autograd.gradcheck(lambda g, d: fn(xs.detach(), g, d),
+                                    (gu, dn))
+    assert torch.autograd.gradcheck(lambda x: fn(x, gu.detach(), dn.detach()),
+                                    (xs,))
 
 
 def _experts_inputs(t=12, h=16, i=32, e=4, k=2, seed=4):
