@@ -28,8 +28,11 @@ script exits non-zero and prints no result:
    bf16 within 2e-2 and fp32 within 1e-4 of |ref| + rms(ref's row) + 1e-3
    max|ref|, in bf16 also dropout 0.1, D=64, n_rep=1, non-causal and
    S=1000; the kernel's dropout mask equal to the plain mask bit for bit;
-   times each kernel, its plain version and SDPA's forward (K2) and
-   backward (K3+K4).
+   in bf16 (where K3 and K4 run on the tensor cores) a second launch of
+   each equal to the first bit for bit; times each kernel, its plain
+   version and SDPA's forward (K2) and backward (K3+K4), and prints each
+   kernel's TFLOP/s and the K3+K4 factor against SDPA's backward on a
+   line of its own (``flash_bwd_pair``).
 8. train: ``make_train_step`` on Llama-3-8B widths at 4 layers, fp32
    params, bf16 compute, flash attention (random weights, seed 0, std
    0.02), B=1, S=4096, AdamW lr 1e-4 clipped at 1.0, 5 steps on one batch.
@@ -767,9 +770,13 @@ def flash_inputs(seed, b=1, s=4096, n=32, kv=8, d=128, dtype=torch.bfloat16):
 def flash_rel_err(a: torch.Tensor, r: torch.Tensor) -> float:
     """Largest ``|a - r| / (|r| + rms(r's row) + 1e-3 max|r|)`` over the
     elements, a row being the last dim (D of out/dq/dk/dv, S of lse).
-    Kernel and plain version sum in fp32 from the same inputs, so they
-    differ by a few roundings of each element, and by a few roundings of
-    its row's scale where a sum cancels. Causal attention's rows differ in
+    Kernel and plain version sum in fp32 from the same inputs, except that
+    the bf16 K3 and K4 round p and ds once to bf16 before the dq, dk and dv
+    products (2^-9 relative on each term, which the sums average; bounded
+    on the CPU by ``test_bf16_rounding_of_p_and_ds_is_bounded`` in
+    ``tests/test_torch_flash_attention.py``). So they differ by a few
+    roundings of each element, and by a few roundings of its row's scale
+    where a sum cancels. Causal attention's rows differ in
     scale by orders of magnitude along S, so the scale is the row's: one
     taken over the whole tensor, from its first rows, would let a late row
     drop a term unseen. The small whole-tensor term covers rows that are
@@ -904,6 +911,17 @@ def phase_flash_vs_plain():
         res = dict(case=case, causal=causal, dropout_p=p, tol=tol,
                    shape=list(q.shape), kv_heads=k.shape[2],
                    dtype=str(q.dtype), max_abs_err=errs, max_rel_err=rels)
+        if q.dtype == torch.bfloat16:
+            # K3 and K4 sum inside one CTA in a fixed order: a second
+            # launch on the same inputs gives the same bits
+            bwd = (q, k, v, g, got[1], delta, causal, None, p, seed)
+            again = (kernels[1](*bwd), *kernels[2](*bwd))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), got[2:], again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"flash {case} {name}: two launches "
+                                         "on the same inputs differ")
+            res["bwd_deterministic"] = True
         if case in ("bf16", "fp32"):
             out, lse = got[0], got[1]
             bwd = (q, k, v, g, lse, delta, causal, None, p, seed)
@@ -920,6 +938,8 @@ def phase_flash_vs_plain():
                     kernel_ms=time_ms(kern, flush=flush),
                     plain_ms=time_ms(plain, reps=5, flush=flush),
                     **bounds[name])
+                timing[name]["tflops"] = (bounds[name]["flops"]
+                                          / timing[name]["kernel_ms"] / 1e9)
             if case == "bf16":
                 fwd_ms, bwd_ms = sdpa_yardsticks(q, k, v, g, causal, flush)
                 timing["flash_fwd"]["library_ms"] = fwd_ms
@@ -935,6 +955,15 @@ def phase_flash_vs_plain():
         torch.cuda.empty_cache()
     mask = check_flash_mask()
     emit("flash_vs_plain", cases=results, dropout_mask=mask)
+    rates = {c["case"]: {name: t["tflops"] for name, t in c["timing"].items()}
+             for c in results if "timing" in c}
+    t = next(c for c in results if c["case"] == "bf16")["timing"]
+    pair = t["flash_bwd_dq"]["kernel_ms"] + t["flash_bwd_dkv"]["kernel_ms"]
+    emit("flash_bwd_pair", tflops=rates, k3_k4_ms=pair,
+         sdpa_bwd_ms=t["flash_bwd_dq"]["library_ms"],
+         factor_vs_sdpa_bwd=pair / t["flash_bwd_dq"]["library_ms"],
+         bound_ms=t["flash_bwd_dq"]["bound_ms"]
+         + t["flash_bwd_dkv"]["bound_ms"])
     return results
 
 

@@ -19,9 +19,45 @@
 //
 // Bound: operations. At B=1, S=4096, N=32, D=128, causal, K2 does about
 // 137 GFLOP against 84 MB of traffic, over 1600 FLOP per byte, far above the
-// H100's ~295 bf16 FLOP per byte; K3 and K4 add one and two more products.
+// H100's ~295 bf16 FLOP per byte; K3 and K4 add one and two more products
+// (206 and 275 GFLOP: 0.21 and 0.28 ms at 989 bf16 TFLOP/s).
 //
-// Design (simple and correct first; wgmma/TMA come later):
+// Two designs, chosen by the input type (the C entries' dtype argument):
+//
+// bf16 K3 and K4 (namespace tc, `flash_bwd_dq_wgmma`,
+// `flash_bwd_dkv_wgmma`): only the tensor cores reach the bound, so every
+// product is a wgmma of bf16 with fp32 accumulators in registers.
+//  * One warpgroup (128 threads) per CTA and 64-row tiles, two CTAs an SM
+//    (97 and 99 KB of shared memory at D=128), so one CTA's softmax-side
+//    work overlaps the other's products.
+//  * Tiles stay bf16 in shared memory in the 128-byte swizzle the wgmma
+//    descriptors read (two 64-column atoms a row at D=128). The streamed
+//    operand (K and V in K3; Q, dO, lse and delta in K4) lands by cp.async
+//    in a ring of two stages: the next tile's copy runs under this tile's
+//    products; the ragged tail is zero-filled by the copy.
+//  * S = Q K^T and dP = dO V^T read both operands from shared memory. P
+//    (dropped: P_v) and dS are computed on the accumulator fragments, each
+//    element's (query, key) position taken from the m64nNk16 accumulator
+//    layout, so the causal mask, the ragged tail and the dropout hash see
+//    the CUDA-core kernels' global coordinates. They are rounded once to
+//    bf16 in registers, where they already sit as the A operand of the
+//    second products (dQ += dS K; dV += P_v^T dO, dK += dS^T Q); the B
+//    operand is the same shared tile read MN-major through the
+//    descriptor's transpose bit, so nothing is transposed or written back.
+//  * K4 runs key-major (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come
+//    out as A operands; dK and dV stay in registers over the n_rep query
+//    heads and their q-blocks and are written once: no atomics, the same
+//    bits on every launch.
+//  * Only diagonal and ragged tiles evaluate the mask. Grids run the
+//    longest causal loops first (the launch order is blockIdx.x fastest).
+// The new rounding: the Pallas kernels and the CUDA-core ones keep p and ds
+// in fp32; these round them once to bf16 (bounded on the CPU by
+// tests/test_torch_flash_attention.py).
+//
+// CUDA-core kernels (K2 in both types, K3 and K4 in fp32): fp32 on the
+// tensor cores would be TF32, about three decimal digits, which the fp32
+// card limit of 1e-4 and the fp32 train-step cross-checks would not hold;
+// fp32 keeps exact fp32 FMAs at the CUDA cores' 67 TFLOP/s.
 //  * 64 x 64 tiles, 256 threads. Thread t owns tile rows 4*(t/16)..+3 and
 //    tile columns (t%16) + 16*j, j < 4; a row's 16 owners are 16 lanes of
 //    one warp, so row max and row sum reduce with four shuffles.
@@ -37,7 +73,7 @@
 //    the diagonal block; K4 starts its q loop at the diagonal block. The
 //    heaviest CTAs are scheduled first. The ragged tail of a sequence that is
 //    not a multiple of 64 loads as zeros and is masked.
-//  * D is 64 or 128, a template parameter.
+//  * D is 64 or 128, a template parameter, in both designs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -453,6 +489,503 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 K3 and K4 on the tensor cores (wgmma). One warpgroup (128 threads)
+// per CTA, 64-row tiles kept in bf16 in shared memory in the 128-byte
+// swizzle that wgmma descriptors read.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kRows = 64;                 // rows of every tile
+constexpr int kWarpgroup = 128;           // threads of a CTA
+constexpr uint32_t kAtom = kRows * 128;   // bytes of one 64-column atom
+constexpr float kLog2e = 1.4426950408889634f;
+
+// bytes of a 64 x D bf16 tile: D / 64 atoms of 64 rows x 128 B
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return kRows * D * 2;
+}
+
+// K4's stage: Q, dO, then 64 lse and 64 delta, padded so the next stage's
+// tiles start 1024-aligned, as the swizzle needs
+template <int D>
+__host__ __device__ constexpr uint32_t dkv_stage_bytes() {
+  return 2 * tile_bytes<D>() + 1024;
+}
+
+// dynamic shared memory of K3 (Q, dO, two stages of K and V) and K4 (K, V,
+// two stages), with 1024 bytes to align the first tile
+template <int D>
+__host__ __device__ constexpr uint32_t dq_smem_bytes() {
+  return 6 * tile_bytes<D>() + 1024;
+}
+
+template <int D>
+__host__ __device__ constexpr uint32_t dkv_smem_bytes() {
+  return 2 * tile_bytes<D>() + 2 * dkv_stage_bytes<D>() + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from global to shared memory, zeros where !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies have landed and are visible to wgmma (the async
+// proxy); a __syncthreads() after it makes every thread's so.
+__device__ __forceinline__ void cp_async_wait_for_wgmma() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + 64) of a bf16 slab whose rows are `stride` elements
+// apart into the 64 x D tile at `dst`: 64-column atoms of 64 rows x 128 B,
+// the 16-byte chunk c of row r at r * 128 + ((c ^ (r % 8)) * 16), as TMA's
+// SWIZZLE_128B lays it out. Rows at or past S are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          size_t stride, int row0, int S) {
+  constexpr int kChunks = D / 8;          // 16-byte chunks of a row
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kWarpgroup; ++i) {
+    const int id = threadIdx.x + i * kWarpgroup;
+    const int r = id / kChunks, c = id % kChunks;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + (c / 8) * kAtom + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               src + (size_t)(ok ? row0 + r : 0) * stride + c * 8, ok);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A tile read K-major (its D columns are the sum), k-step kk of 16
+// columns: 32 bytes into the row of atom kk / 4; 8-row groups 1024 B apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return make_desc(tile + (kk / 4) * kAtom + (kk % 4) * 32, 16, 1024);
+}
+
+// A tile read MN-major (its 64 rows are the sum, its D columns the N of
+// the product), k-step kk of 16 rows; the 64-column atoms kAtom apart.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, kAtom, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Tie registers that a wgmma reads or writes to this point of the
+// program, so the compiler neither reads an accumulator before the wait
+// nor reuses an operand register while the wgmma may still read it.
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d[64 x 64] (+)= A . B^T: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A . B: A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A . B: A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// acc[64 x 64] = A[64 x D] . B[64 x D]^T over two K-major tiles.
+template <int D>
+__device__ __forceinline__ void mma_ss(float (&acc)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(acc, desc_k(a, kk), desc_k(b, kk), kk > 0);
+}
+
+// acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers (four k16 steps),
+// B a tile read MN-major.
+__device__ __forceinline__ void mma_rs(float (&acc)[32],
+                                       const uint32_t (&a)[4][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(acc, a[kk], desc_mn(b, kk), 1);
+}
+
+__device__ __forceinline__ void mma_rs(float (&acc)[64],
+                                       const uint32_t (&a)[4][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, a[kk], desc_mn(b, kk), 1);
+}
+
+// Element i of an m64nN fp32 accumulator held by thread `lane` of warp
+// `warp` of the warpgroup: row 16 warp + lane / 4 (+ 8 for i % 4 >= 2),
+// column 8 (i / 4) + 2 (lane % 4) (+ 1 for odd i).
+__device__ __forceinline__ int frag_row(int warp, int lane, int i) {
+  return 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+}
+
+__device__ __forceinline__ int frag_col(int lane, int i) {
+  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x 64 fp32 accumulator as the bf16 A operand of four k16 steps: the
+// A fragment of step kk holds columns 16 kk .. 16 kk + 15 of the same rows
+// in the same threads, so no data moves between threads.
+__device__ __forceinline__ void to_operand(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Rows [row0, row0 + 64) of a 64 x D accumulator out to bf16 rows
+// `stride` elements apart, the rows at or past S left out.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, size_t stride,
+                                           const float (&acc)[D / 2],
+                                           int row0, int S, int warp,
+                                           int lane) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = row0 + frag_row(warp, lane, i);
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * stride +
+                                         frag_col(lane, i)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 (bf16): dq. grid (B*N, q-blocks), the longest causal rows first.
+// Shared memory: Q, dO, then two stages of (K, V).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup, 2) flash_bwd_dq_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int S, int N, int KV, float scale, int causal,
+    Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t T = tile_bytes<D>();
+  const uint32_t q_sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t g_sh = q_sh + T, kv_sh = q_sh + 2 * T;
+  const int nqb = (S + kRows - 1) / kRows;
+  const int qb = nqb - 1 - blockIdx.y;
+  const int bn = blockIdx.x;
+  const int b = bn / N, n = bn % N, h = n / (N / KV);
+  const int q0 = qb * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t q_stride = (size_t)N * D, kv_stride = (size_t)KV * D;
+  const size_t q_off = ((size_t)b * S * N + n) * D;
+  const bf16* k_base = k + ((size_t)b * S * KV + h) * D;
+  const bf16* v_base = v + ((size_t)b * S * KV + h) * D;
+  const uint32_t hseed = drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+  const int nkb = (S + kRows - 1) / kRows;
+  const int kb_end = causal ? min(nkb, qb + 1) : nkb;
+
+  load_tile<D>(q_sh, q + q_off, q_stride, q0, S);
+  load_tile<D>(g_sh, g + q_off, q_stride, q0, S);
+  load_tile<D>(kv_sh, k_base, kv_stride, 0, S);
+  load_tile<D>(kv_sh + T, v_base, kv_stride, 0, S);
+  cp_async_commit();
+
+  // this thread's two rows: lse (in log2 units) and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + frag_row(warp, lane, 2 * e);
+    lse2[e] = row < S ? lse[(size_t)bn * S + row] * kLog2e : 0.f;
+    dlt[e] = row < S ? delta[(size_t)bn * S + row] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  float acc[D / 2];
+  zero(acc);
+  for (int kb = 0; kb < kb_end; ++kb) {
+    const uint32_t k_sh = kv_sh + (kb & 1) * 2 * T, v_sh = k_sh + T;
+    cp_async_wait_for_wgmma();
+    __syncthreads();                     // tile kb is in; kb - 1 is free
+    if (kb + 1 < kb_end) {
+      const uint32_t next = kv_sh + ((kb + 1) & 1) * 2 * T;
+      load_tile<D>(next, k_base, kv_stride, (kb + 1) * kRows, S);
+      load_tile<D>(next + T, v_base, kv_stride, (kb + 1) * kRows, S);
+    }
+    cp_async_commit();
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wgmma_fence();
+    mma_ss<D>(s, q_sh, k_sh);            // s = q k^T
+    mma_ss<D>(dp, g_sh, v_sh);           // dp = g v^T
+    wgmma_commit();
+    wgmma_wait();
+    hold(s);
+    hold(dp);
+    const int k0 = kb * kRows;
+    const bool edge = (causal && kb == qb) || k0 + kRows > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qpos = q0 + frag_row(warp, lane, i);
+      const int kpos = k0 + frag_col(lane, i);
+      float p = exp2f(s[i] * scale2 - lse2[(i >> 1) & 1]);
+      if (edge && !(kpos < S && (!causal || kpos <= qpos))) p = 0.f;
+      float d = dp[i];
+      if (drop.on)
+        d = keep(hseed, (uint32_t)qpos, (uint32_t)kpos, (uint32_t)S,
+                 drop.threshold)
+                ? d * drop.inv_keep
+                : 0.f;
+      s[i] = p * (d - dlt[(i >> 1) & 1]) * scale;   // ds
+    }
+    uint32_t ds[4][4];
+    to_operand(s, ds);
+    wgmma_fence();
+    mma_rs(acc, ds, k_sh);               // dq += ds k
+    wgmma_commit();
+    wgmma_wait();
+    hold(acc);
+    hold(ds);
+  }
+  store_rows<D>(dq + q_off, q_stride, acc, q0, S, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K4 (bf16): dk and dv. grid (B*KV, k-blocks), the longest causal loops
+// first. Shared memory: K, V, then two stages of (Q, dO, lse, delta),
+// streamed over the n_rep query heads and their q-blocks. The products
+// run key-major: s^T = k q^T and dp^T = v g^T, so p^T and ds^T are the A
+// operands of dv += p_v^T g and dk += ds^T q.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup, 2) flash_bwd_dkv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int N, int KV,
+    float scale, int causal, Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t T = tile_bytes<D>();
+  constexpr uint32_t kStage = dkv_stage_bytes<D>();
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_sh = (raw + 1023) & ~1023u;
+  const uint32_t v_sh = k_sh + T, st_sh = k_sh + 2 * T;
+  const int bh = blockIdx.x, kb = blockIdx.y;
+  const int b = bh / KV, h = bh % KV;
+  const int n_rep = N / KV;
+  const int k0 = kb * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t q_stride = (size_t)N * D, kv_stride = (size_t)KV * D;
+  const size_t kv_off = ((size_t)b * S * KV + h) * D;
+  const int nqb = (S + kRows - 1) / kRows;
+  const int qb_begin = causal ? kb : 0;
+  const int nq = nqb - qb_begin;
+  const int n_it = n_rep * nq;
+
+  // iteration `it` reads query head h n_rep + it / nq, q-block
+  // qb_begin + it % nq, into stage it % 2
+  auto load_stage = [&](int it) {
+    const int n = h * n_rep + it / nq;
+    const int q0 = (qb_begin + it % nq) * kRows;
+    const size_t q_off = ((size_t)b * S * N + n) * D;
+    const uint32_t st = st_sh + (it & 1) * kStage;
+    load_tile<D>(st, q + q_off, q_stride, q0, S);
+    load_tile<D>(st + T, g + q_off, q_stride, q0, S);
+    const int t = threadIdx.x % kRows;
+    const float* stat = threadIdx.x < kRows ? lse : delta;
+    const size_t row = (size_t)(b * N + n) * S;
+    cp_async4(st + 2 * T + (threadIdx.x / kRows) * kRows * 4 + t * 4,
+              stat + row + (q0 + t < S ? q0 + t : 0), q0 + t < S);
+  };
+
+  load_tile<D>(k_sh, k + kv_off, kv_stride, k0, S);
+  load_tile<D>(v_sh, v + kv_off, kv_stride, k0, S);
+  load_stage(0);
+  cp_async_commit();
+
+  const float scale2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int it = 0; it < n_it; ++it) {
+    const uint32_t st = st_sh + (it & 1) * kStage;
+    const float* lse_sh =
+        reinterpret_cast<const float*>(smem_raw + (st + 2 * T - raw));
+    const float* delta_sh = lse_sh + kRows;
+    cp_async_wait_for_wgmma();
+    __syncthreads();                     // stage it is in; it - 1 is free
+    if (it + 1 < n_it) load_stage(it + 1);
+    cp_async_commit();
+    const int n = h * n_rep + it / nq;
+    const int qb = qb_begin + it % nq;
+    const int q0 = qb * kRows;
+    const uint32_t hseed =
+        drop.on ? head_seed(drop.seed, (uint32_t)(b * N + n)) : 0u;
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wgmma_fence();
+    mma_ss<D>(s, k_sh, st);              // s^T = k q^T
+    mma_ss<D>(dp, v_sh, st + T);         // dp^T = v g^T
+    wgmma_commit();
+    wgmma_wait();
+    hold(s);
+    hold(dp);
+    const bool edge =
+        (causal && qb == kb) || q0 + kRows > S || k0 + kRows > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kpos = k0 + frag_row(warp, lane, i);
+      const int col = frag_col(lane, i);
+      const int qpos = q0 + col;
+      float p = exp2f(s[i] * scale2 - lse_sh[col] * kLog2e);
+      if (edge && !(kpos < S && qpos < S && (!causal || kpos <= qpos)))
+        p = 0.f;
+      float p_v = p, d = dp[i];
+      if (drop.on) {
+        const bool kept = keep(hseed, (uint32_t)qpos, (uint32_t)kpos,
+                               (uint32_t)S, drop.threshold);
+        p_v = kept ? p * drop.inv_keep : 0.f;
+        d = kept ? d * drop.inv_keep : 0.f;
+      }
+      s[i] = p_v;                                    // p_v^T
+      dp[i] = p * (d - delta_sh[col]) * scale;       // ds^T
+    }
+    uint32_t pa[4][4], da[4][4];
+    to_operand(s, pa);
+    to_operand(dp, da);
+    wgmma_fence();
+    mma_rs(dv_acc, pa, st + T);          // dv += p_v^T g
+    mma_rs(dk_acc, da, st);              // dk += ds^T q
+    wgmma_commit();
+    wgmma_wait();
+    hold(dv_acc);
+    hold(dk_acc);
+    hold(pa);
+    hold(da);
+  }
+  store_rows<D>(dk + kv_off, kv_stride, dk_acc, k0, S, warp, lane);
+  store_rows<D>(dv + kv_off, kv_stride, dv_acc, k0, S, warp, lane);
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -466,6 +999,16 @@ template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// as set_smem, and all of L1 as shared memory, so two CTAs fit an SM
+template <typename K>
+cudaError_t set_smem_max(K kernel, size_t bytes) {
+  cudaError_t err = set_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 bool bad_shape(int B, int S, int N, int KV, int D) {
@@ -505,6 +1048,52 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dq), S, N, KV, scale, causal, drop);
   return cudaGetLastError();
+}
+
+// bf16 K3/K4: 128 threads, two CTAs an SM (99 KB of shared memory each at
+// D=128).
+template <int D>
+cudaError_t bwd_dq_bf16(const void* q, const void* k, const void* v,
+                        const void* g, const void* lse, const void* delta,
+                        void* dq, int B, int S, int N, int KV, float scale,
+                        int causal, Dropout drop, cudaStream_t stream) {
+  auto kernel = tc::flash_bwd_dq_wgmma<D>;
+  const size_t smem = tc::dq_smem_bytes<D>();
+  cudaError_t err = set_smem_max(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * N, (S + tc::kRows - 1) / tc::kRows);
+  kernel<<<grid, tc::kWarpgroup, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dq), S, N, KV, scale, causal, drop);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                         const void* g, const void* lse, const void* delta,
+                         void* dk, void* dv, int B, int S, int N, int KV,
+                         float scale, int causal, Dropout drop,
+                         cudaStream_t stream) {
+  auto kernel = tc::flash_bwd_dkv_wgmma<D>;
+  const size_t smem = tc::dkv_smem_bytes<D>();
+  cudaError_t err = set_smem_max(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * KV, (S + tc::kRows - 1) / tc::kRows);
+  kernel<<<grid, tc::kWarpgroup, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), S, N, KV,
+      scale, causal, drop);
+  return cudaGetLastError();
+}
+
+// cp.async reads 16-byte chunks
+bool misaligned(const void* a, const void* b, const void* c,
+                const void* d) {
+  return ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15;
 }
 
 template <typename T, int D>
@@ -572,12 +1161,13 @@ extern "C" int nxd_flash_bwd_dq(int dtype, const void* q, const void* k,
                                        KV, scale, causal, drop, s)
                    : bwd_dq<float, 128>(q, k, v, g, lse, delta, dq, B, S, N,
                                         KV, scale, causal, drop, s);
-  if (dtype == kBF16)
-    return D == 64
-               ? bwd_dq<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dq, B, S,
-                                           N, KV, scale, causal, drop, s)
-               : bwd_dq<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dq, B,
-                                            S, N, KV, scale, causal, drop, s);
+  if (dtype == kBF16) {
+    if (misaligned(q, k, v, g)) return cudaErrorMisalignedAddress;
+    return D == 64 ? bwd_dq_bf16<64>(q, k, v, g, lse, delta, dq, B, S, N, KV,
+                                     scale, causal, drop, s)
+                   : bwd_dq_bf16<128>(q, k, v, g, lse, delta, dq, B, S, N,
+                                      KV, scale, causal, drop, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -597,12 +1187,12 @@ extern "C" int nxd_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                         S, N, KV, scale, causal, drop, s)
                    : bwd_dkv<float, 128>(q, k, v, g, lse, delta, dk, dv, B,
                                          S, N, KV, scale, causal, drop, s);
-  if (dtype == kBF16)
-    return D == 64 ? bwd_dkv<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dk,
-                                                dv, B, S, N, KV, scale,
-                                                causal, drop, s)
-                   : bwd_dkv<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dk,
-                                                 dv, B, S, N, KV, scale,
-                                                 causal, drop, s);
+  if (dtype == kBF16) {
+    if (misaligned(q, k, v, g)) return cudaErrorMisalignedAddress;
+    return D == 64 ? bwd_dkv_bf16<64>(q, k, v, g, lse, delta, dk, dv, B, S,
+                                      N, KV, scale, causal, drop, s)
+                   : bwd_dkv_bf16<128>(q, k, v, g, lse, delta, dk, dv, B, S,
+                                       N, KV, scale, causal, drop, s);
+  }
   return cudaErrorInvalidValue;
 }

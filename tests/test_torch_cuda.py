@@ -163,12 +163,16 @@ def _flash_all(fns, q, k, v, g, causal, p, seed):
     ("bf16", torch.bfloat16, 192, 8, 2, 128, True, 0.0),
     ("fp32_dropout", torch.float32, 77, 4, 1, 64, True, 0.2),
     ("bf16_dropout_noncausal", torch.bfloat16, 64, 8, 8, 128, False, 0.1),
+    ("fp32_nrep4", torch.float32, 200, 8, 2, 128, True, 0.0),
+    ("fp32_nrep4_dropout_noncausal", torch.float32, 200, 8, 2, 128, False,
+     0.1),
 ])
 def test_flash_kernels_match_plain(cuda, name, dtype, s, n, kv, d, causal,
                                    p):
     """K2, K3 and K4 against their plain versions on the same inputs (the
     plain backward takes the plain forward's out and lse, the kernels the
-    kernel's), each launching once."""
+    kernel's), each launching once. fp32 inputs keep the CUDA-core K3 and
+    K4 (fp32 on the tensor cores would be TF32) and meet 1e-4."""
     q, k, v, g = _flash_case(cuda, 0, dtype, s=s, n=n, kv=kv, d=d)
     counts = [f.launches for f in (tfa.flash_fwd, tfa.flash_bwd_dq,
                                    tfa.flash_bwd_dkv)]
@@ -233,6 +237,104 @@ def test_flash_wrappers_refuse_what_they_do_not_take(cuda):
         tfa.flash_fwd_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="every tensor on"):
         tfa.flash_fwd_cuda(q, k.cpu(), v)
+
+
+def _bwd_inputs(device, seed, dtype, s, n_rep, d, causal, p, b=1, kv=2):
+    """q, k, v, g and the plain forward's lse and delta: what K3 and K4
+    take, the same for the kernel and its plain version."""
+    q, k, v, g = _flash_case(device, seed, dtype, b=b, s=s, n=kv * n_rep,
+                             kv=kv, d=d)
+    out, lse = tfa.flash_fwd_plain(q, k, v, causal, None, p, 99)
+    return q, k, v, g, lse, tfa.attention_delta(g, out)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 1000])
+def test_flash_bwd_bf16_kernels_match_plain(cuda, s, d, n_rep, causal, p):
+    """The bf16 K3 and K4 (tensor cores) against their plain versions in
+    fp32 on the same bf16 inputs, element by element within 2e-2: lengths
+    below, at and across the 64-row tile, one key head per 1, 4 or 8 query
+    heads. Each wrapper counts one launch.
+
+    At S=1 without dropout a softmax over one key has no gradient: ds =
+    p (dp - delta) scale with delta = dp, so dq and dk are zero but for
+    the rounding of that cancellation, which differs between the tensor
+    cores and the plain version (exactly zero in some heads): element by
+    element they would compare two roundings of zero. There they are held
+    to zero within 2e-2 of the terms that cancel, scale max|dp| max|k|
+    (max|q| n_rep for dk); dv = g is compared element by element."""
+    args = _bwd_inputs(cuda, s + d + n_rep, torch.bfloat16, s, n_rep, d,
+                       causal, p)
+    kw = dict(causal=causal, dropout_p=p, seed=99)
+    counts = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    dq = tfa.flash_bwd_dq(*args, **kw)
+    dk, dv = tfa.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    f32 = [x.float() for x in args[:4]] + list(args[4:])
+    ref_dq = tfa.flash_bwd_dq_plain(*f32, **kw)
+    ref_dk, ref_dv = tfa.flash_bwd_dkv_plain(*f32, **kw)
+    zero_grad = s == 1 and p == 0.0
+    if zero_grad:
+        q, k, v, g = f32[:4]
+        dp = (g.unflatten(2, (k.shape[2], n_rep))
+              * v[:, :, :, None]).sum(-1).abs().max()
+        scale = d ** -0.5
+        assert dq.float().abs().max() <= 2e-2 * scale * dp * k.abs().max()
+        assert dk.float().abs().max() <= (2e-2 * scale * dp * n_rep
+                                          * q.abs().max())
+    for label, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                        ("dv", dv, ref_dv)):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape, label
+        if zero_grad and label != "dv":
+            continue
+        rel = flash_rel_err(a, r)
+        assert rel <= 2e-2, (label, rel)
+
+
+@pytest.mark.parametrize("s,n_rep,d,causal,p", [
+    (1000, 4, 128, True, 0.0),
+    (333, 8, 64, False, 0.1),
+])
+def test_flash_bwd_bf16_kernels_are_deterministic(cuda, s, n_rep, d, causal,
+                                                  p):
+    """K3 and K4 sum each output inside one CTA in a fixed order, with no
+    atomics: two launches on the same inputs agree bit for bit."""
+    args = _bwd_inputs(cuda, 5, torch.bfloat16, s, n_rep, d, causal, p)
+    kw = dict(causal=causal, dropout_p=p, seed=7)
+    first = (tfa.flash_bwd_dq(*args, **kw), *tfa.flash_bwd_dkv(*args, **kw))
+    second = (tfa.flash_bwd_dq(*args, **kw), *tfa.flash_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")),
+    (torch.float32, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+])
+def test_flash_bwd_routes_by_dtype(cuda, dtype, kernels):
+    """The entries choose the backward kernels by the input type alone: a
+    bf16 input launches the tensor-core K3/K4 and nothing else, an fp32
+    input the CUDA-core ones (names as the profiler reports them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _bwd_inputs(cuda, 2, dtype, 130, 4, 64, True, 0.0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tfa.flash_bwd_dq(*args)
+        tfa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "flash_bwd" in e.key]
+    assert len(names) == 2, names
+    for want in kernels:
+        assert sum(want in n for n in names) == 1, (want, names)
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -267,3 +267,117 @@ def test_card_check_flags_a_fault_late_in_the_sequence():
     zero = torch.zeros(2, 4)
     assert flash_rel_err(zero, zero) == 0
     assert not flash_rel_err(zero + float("nan"), zero) <= 2e-2
+
+
+def _tensor_core_backward(q, k, v, g, lse, delta, causal, p, seed):
+    """dq, dk, dv as the bf16 tensor-core K3 and K4 compute them: bf16
+    operands, products summed in fp32, the dropped probabilities p_v and ds
+    rounded once to bf16 before they enter the dq, dk and dv products, the
+    outputs rounded to bf16. Dense over all keys (the kernels' tiles only
+    change the order of fp32 sums)."""
+    b, s, n, d = q.shape
+    n_rep = n // k.shape[2]
+    scale = 1.0 / np.sqrt(d)
+    qf, gf = (x.float().transpose(1, 2) for x in (q, g))   # [B, N, S, D]
+    kf, vf = (x.float().repeat_interleave(n_rep, 2).transpose(1, 2)
+              for x in (k, v))
+    pos = torch.arange(s)
+    valid = (pos[:, None] >= pos[None, :]) if causal else torch.ones(
+        s, s, dtype=torch.bool)
+    prob = torch.where(valid, torch.exp(qf @ kf.transpose(-1, -2) * scale
+                                        - lse[..., None]), 0.0)
+    dp = gf @ vf.transpose(-1, -2)
+    p_v = prob
+    if p > 0.0:
+        keep = tfa.dropout_keep_mask(seed, tfa.flat_bh(b, n), pos[:, None],
+                                     pos[None, :], s, p)
+        p_v = torch.where(keep, prob / (1.0 - p), 0.0)
+        dp = torch.where(keep, dp / (1.0 - p), 0.0)
+    ds = (prob * (dp - delta[..., None]) * scale).bfloat16().float()
+    p_v = p_v.bfloat16().float()
+
+    def fold(x):                       # [B, N, S, D] -> [B, S, KV, D]
+        return x.unflatten(1, (n // n_rep, n_rep)).sum(2).transpose(1, 2)
+
+    dq = (ds @ kf).transpose(1, 2)
+    dk = fold(ds.transpose(-1, -2) @ qf)
+    dv = fold(p_v.transpose(-1, -2) @ gf)
+    return tuple(x.bfloat16() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_rounding_of_p_and_ds_is_bounded(causal, d):
+    """The bf16 K3 and K4 round p_v and ds to bf16 before the second
+    products, where the Pallas kernels and the plain versions keep them in
+    fp32. Emulated here at dropout 0.1, four query heads per kv head and a
+    length that no 64-row tile divides: (1) the emulation stays within the
+    card limit 2e-2 of the fp32 plain versions (``flash_rel_err``); (2)
+    under the same rounding the rule still flags K4 dropping one query head
+    of each kv group for the last 5% of keys, far above 0.5; (3) the plain
+    versions still match the Pallas kernels in interpret mode."""
+    from chip_smoke import flash_rel_err
+
+    s, kv, n_rep, p = 136, 2, 4, 0.1
+    q, k, v, g = (torch.from_numpy(x).bfloat16()
+                  for x in _inputs(8, d, n_rep, s=s, kv=kv))
+    q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
+    out, lse = tfa.flash_fwd_plain(q32, k32, v32, causal, None, p, SEED)
+    delta = tfa.attention_delta(g32, out)
+    args = (q32, k32, v32, g32, lse, delta, causal, None, p, SEED)
+    ref = (tfa.flash_bwd_dq_plain(*args), *tfa.flash_bwd_dkv_plain(*args))
+    emu = _tensor_core_backward(q, k, v, g, lse, delta, causal, p, SEED)
+    for a, r in zip(emu, ref):
+        assert 0 < flash_rel_err(a, r) < 2e-2
+
+    g_drop = g.unflatten(2, (kv, n_rep)).clone()
+    g_drop[:, :, :, -1] = 0
+    g_drop = g_drop.flatten(2, 3)
+    emu_drop = _tensor_core_backward(
+        q, k, v, g_drop, lse, tfa.attention_delta(g_drop.float(), out),
+        causal, p, SEED)
+    late = (torch.arange(s) >= s * 95 // 100)[None, :, None, None]
+    for full, dropped, r in zip(emu[1:], emu_drop[1:], ref[1:]):
+        assert flash_rel_err(torch.where(late, dropped, full), r) > 0.5
+
+    scale = 1.0 / np.sqrt(d)
+    seed = jnp.asarray([SEED], jnp.uint32)
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (
+        q32.numpy(), _expand(k32.numpy(), n_rep), _expand(v32.numpy(), n_rep),
+        g32.numpy()))
+    j_out, j_lse = jfa._flash_xla_impl(jq, jk, jv, causal, 8, scale, p,
+                                       seed[0])
+    rdq, rdk, rdv = jfa._flash_pallas_bwd(jq, jk, jv, j_out, j_lse, jg, seed,
+                                          causal, 8, 8, scale, interpret=True,
+                                          dropout_p=p)
+    t_out, t_lse = (torch.from_numpy(np.array(x)) for x in (j_out, j_lse))
+    args = (q32, k32, v32, g32, t_lse, tfa.attention_delta(g32, t_out),
+            causal, None, p, SEED)
+    dq = tfa.flash_bwd_dq_plain(*args)
+    dk, dv = tfa.flash_bwd_dkv_plain(*args)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(rdq), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(dk.numpy(), _fold(np.asarray(rdk), n_rep),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dv.numpy(), _fold(np.asarray(rdv), n_rep),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 128>(...)",
+     "flash_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 128>(...)",
+     "flash_bwd_dq"),
+    ("void (anonymous namespace)::tc::flash_bwd_dq_wgmma<128>(...)",
+     "flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64>(...)",
+     "flash_bwd_dkv"),
+    ("void (anonymous namespace)::tc::flash_bwd_dkv_wgmma<64>(...)",
+     "flash_bwd_dkv"),
+])
+def test_profile_train_groups_every_flash_kernel(kernel, group):
+    """``scripts/profile_train.py`` counts each flash kernel, the CUDA-core
+    fp32 ones and the bf16 wgmma ones, under its dispatcher's name."""
+    from neuronx_distributed_tpu_torch.scripts import profile_train
+
+    assert profile_train.group_of(kernel) == group
