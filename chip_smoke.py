@@ -64,11 +64,14 @@ script exits non-zero and prints no result:
 14. moe_bwd_vs_plain: the grouped GLU's backward kernels K7 (dx), K8 (dW)
    and the pair behind one shared first pass against the plain backward at
    the train step's shapes (Mixtral 8x7B widths, 4096 tokens top-2, block
-   64, P=8704), fp32 within 1e-4 and bf16 within 1e-2 element by element
-   (``flash_rel_err``, bf16 against the plain version in fp32 on the same
-   inputs, rounded once); an expert that owns no block gets exact zeros of
-   dW; times each entry, its plain version and cuBLAS expert by expert,
-   and computes the bound.
+   64, P=8704), fp32 (CUDA cores) within 1e-4 and bf16 (tensor cores,
+   ``wgmma``) within 1e-2 element by element (``flash_rel_err``, bf16
+   against the plain version in fp32 on the same inputs, rounded once); an
+   expert that owns no block gets exact zeros of dW; in bf16 a second
+   launch of the pair equal to the first bit for bit; times each entry,
+   its plain version and cuBLAS expert by expert, and computes the bound;
+   times K5 (the forward) at the same shape beside its cuBLAS yardstick and
+   bound.
 15. train_mixtral: ``make_train_step`` on Mixtral 8x7B widths cut to 2
    layers, fp32 params, bf16 compute, flash attention, blockwise dispatch
    with block 64, router coefficients 0.02 and 0.001, otherwise phase 8's
@@ -119,6 +122,9 @@ MOE_BWD_KERNELS = (
     ("grouped_glu_dx", "neuronx_distributed_tpu/ops/blockwise_moe.py:91"),
     ("grouped_glu_dw", "neuronx_distributed_tpu/ops/blockwise_moe.py:123"),
 )
+# the backward's design per input type (csrc/blockwise_moe.cu)
+MOE_BWD_DESIGN = {torch.bfloat16: "wgmma (tensor cores)",
+                  torch.float32: "fp32 FMAs (CUDA cores)"}
 # per grouped-GLU entry: (FLOP per live row in units of H I, [P, H] tensors
 # read or written, whether it writes the E experts' dW)
 MOE_WORK = {"grouped_glu": (6, 2, False), "grouped_glu_decode": (6, 2, False),
@@ -666,9 +672,12 @@ def phase_moe_bwd_vs_plain(tokens=4096):
     within 1e-4, bf16 against the plain version in fp32 on the same bf16
     inputs, rounded once, within 1e-2. A third case routes no token to
     expert 5 and then hands its padding block to expert 4 and reverses the
-    table, so expert 5 owns no block: its dW must be exact zeros. Times each
-    entry, its plain version (bf16) and cuBLAS over the same rows expert by
-    expert, and computes the bound."""
+    table, so expert 5 owns no block: its dW must be exact zeros. In bf16
+    (the tensor-core design) a second launch of the pair must give the
+    same bits. Times each entry, its plain version (bf16) and cuBLAS over
+    the same rows expert by expert, and computes the bound; times K5 at the
+    same shape (the train step's forward), its cuBLAS yardstick and its
+    bound."""
     from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
     from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
 
@@ -702,11 +711,21 @@ def phase_moe_bwd_vs_plain(tokens=4096):
         ref = [r.to(dtype) for r in ref]
         res = dict(case=case, dtype=str(dtype), rows=xs.shape[0],
                    blocks=be.numel(), tol=tol, max_rel_err={},
-                   max_abs_err={})
+                   max_abs_err={}, design=MOE_BWD_DESIGN[dtype])
         for name in entries:
             got = getattr(bm, f"{name}_cuda")(*args)
             got = (got,) if name == "grouped_glu_dx" else got
             torch.cuda.synchronize()
+            if name == "grouped_glu_bwd" and dtype == torch.bfloat16:
+                # every sum stays in one CTA in a fixed order: a second
+                # launch on the same inputs gives the same bits
+                again = bm.grouped_glu_bwd_cuda(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"moe_bwd {case}: two launches of "
+                                         "the pair on the same inputs differ")
+                res["pair_deterministic"] = True
+                del again
             for k, g in zip(outputs[name], got):
                 rel = flash_rel_err(g, ref[k])
                 label = f"{name}.{('dx', 'dgate_up', 'ddown')[k]}"
@@ -744,6 +763,13 @@ def phase_moe_bwd_vs_plain(tokens=4096):
                                   "elementwise dg, du, a, then [dg|du] @ "
                                   "gate_up[e].T (dx) and x.T @ [dg|du], "
                                   "a.T @ dy (dW)")
+                # K5 where the train step runs it: the same rows forward
+                res["k5_at_train_shape"] = dict(
+                    kernel_ms=time_ms(lambda: bm.grouped_glu_cuda(
+                        xs, gate_up, down, be, bs, bi), reps=5, flush=flush),
+                    library_ms=time_ms(moe_library(xs, gate_up, down, be,
+                                                   bs), reps=5, flush=flush),
+                    **moe_bound(xs, gate_up, down, be, bs))
         results.append(res)
         del args, xs, dy, ref
         torch.cuda.empty_cache()
@@ -1205,7 +1231,8 @@ def main() -> None:
             "max_abs_err": err, "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "kernel_ms": t["kernel_ms"], "max_err": err})
+            "kernel_ms": t["kernel_ms"], "max_err": err,
+            "design": bwd_main["design"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,7 +24,12 @@
 // K8 12 H I (g, u, da and three dW products: 6.20 ms), the pair 16 H I
 // (8.27 ms); their bytes (2.8 GB of weights, 2.8 GB of dW) take 1.7 ms.
 //
-// Design (simple and correct first; tensor cores come later):
+// Two designs of the backward, chosen by the input type (the entries'
+// dtype argument): bf16 runs on the tensor cores (namespace tc), fp32 on
+// the CUDA cores, since TF32 would not hold the fp32 limit of 1e-4. The
+// forward runs on the CUDA cores in both types.
+//
+// CUDA-core kernels (K5 and K6; K7 and K8 in fp32):
 //  * Forward, two passes. Pass A gives a = silu(g) * u for each (row tile,
 //    I tile) into an fp32 scratch act [P, I]; pass B gives y = a Wd for each
 //    (row tile, H tile), summing over all of I in fp32 and rounding once.
@@ -36,7 +41,7 @@
 //  * Backward, three passes that share the first, as K6 shares K5's.
 //    Pass 1 gives, for each (row tile, I tile), g, u and da = dy Wd^T, then
 //    dg = da u silu'(g), du = da silu(g) and (for K8) a = silu(g) u, into
-//    fp32 scratch [P, I] each. Pass 2 (K7) gives dx = dg Wg^T + du Wu^T for
+//    scratch [P, I] each. Pass 2 (K7) gives dx = dg Wg^T + du Wu^T for
 //    each (row tile, H tile), summing over all of I in fp32 and rounding
 //    once, where the TPU kernel rounded each I tile's partial into dx.
 //    Pass 3 (K8) replaces the TPU's sequential grid (ib, b), which summed an
@@ -51,9 +56,8 @@
 //  * Tiles are staged in shared memory as fp32 and multiplied with fp32
 //    FMAs on the CUDA cores: 256 threads, each owning 4 rows x 4 columns
 //    (64 x 64 tiles) or 4 rows x 8 columns (64 x 128 tiles), over reduction
-//    chunks of 16. Inputs fp32 or bf16, every sum in fp32, outputs in the
-//    input type. Ragged H, I and block tails load as zeros and are not
-//    stored.
+//    chunks of 16. Every sum in fp32, outputs in the input type, fp32
+//    scratch. Ragged H, I and block tails load as zeros and are not stored.
 //  * One CTA per (64-row tile of a block, column tile), row tiles fastest,
 //    in passes A, B, 1 and 2. Each live CTA reads its expert's weight tile;
 //    the CTAs of one expert's run on a column tile are numbered side by
@@ -64,12 +68,48 @@
 //    expert's weights are read exactly once. In pass 3 the H tiles are
 //    numbered fastest, so neighbouring CTAs share the scratch columns of
 //    one I tile, and one expert's x and dy rows stay in L2.
+//
+// bf16 K7 and K8 (tc::glu_bwd_act_wgmma, glu_bwd_dx_wgmma,
+// glu_bwd_dw_wgmma): the same three passes, every product a wgmma of bf16
+// with fp32 accumulators in registers (helpers in hopper_tc.cuh).
+//  * Two warpgroups (256 threads) a CTA, one CTA an SM. Tiles stay bf16 in
+//    shared memory in the 128-byte swizzle; cp.async fills a ring of stages
+//    (k_loop) so the next tiles' copies run under this tile's products;
+//    ragged H, I and block tails are zero-filled by the copy and not
+//    stored. Rows of H and I must be 16-byte multiples.
+//  * Passes 1 and 2 give each warpgroup one 64-row tile and pair the two
+//    tiles of a CTA (consecutive tiles, so mostly one expert's): the weight
+//    tiles, which dominate the traffic, are read once for 128 rows. A pair
+//    that straddles two experts runs its loops once per expert, each
+//    warpgroup multiplying only under its own. Grids walk groups of 8 pairs
+//    fastest, so the CTAs in flight share weight columns and rows in L2.
+//  * Pass 1 (128 I columns a CTA): da = dy Wd^T (down's [I][H] rows read
+//    K-major) in a first loop over H, parked in shared memory as fp32; then
+//    g = x Wg and u = x Wu (gate_up's [H][2][I] rows read MN-major) in a
+//    second, so two m64n128 accumulators a thread are live, not three.
+//    The epilogue works on the fragments and writes dg and du rounded to
+//    bf16, and where the dW pass follows also a, each as a bf16 value plus
+//    the bf16 remainder of that rounding, in [2, P, I] scratch.
+//  * dx pass (256 H columns a CTA, two m64n128 accumulators): K = 2I over
+//    the values of dg and du, gate_up's rows K-major.
+//  * dW pass: one CTA per (expert, 128 x 128 dWg/dWu tile or 128 x 256 dWd
+//    tile), as the CUDA-core pass 3 but 64 rows a stage and 16 a k-step:
+//    A = x^T or a^T and B = dg, du or dy are all read MN-major (the A
+//    operand through its transpose bit); dWg and dWu share x. Value and
+//    remainder both enter each sum (twice the products), because one bf16
+//    rounding of dg, du and a put dW past the 1e-2 card limit (0.0107 at
+//    the train shape, 0.0123 on a narrow card test).
+//  * The new rounding: dx takes dg and du rounded once to bf16, where the
+//    Pallas kernels keep them in fp32 (bounded on the CPU by
+//    tests/test_torch_moe.py).
 //  * K5 and K6 share the forward kernels and differ in entry point only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -637,6 +677,447 @@ __global__ void __launch_bounds__(kThreads) glu_bwd_dw_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7 and K8 in bf16 on the tensor cores (wgmma): two warpgroups a CTA, tiles
+// in the 128-byte swizzle (hopper_tc.cuh), a ring of cp.async stages.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kThreads2 = 2 * kWarpgroup;  // two warpgroups a CTA
+constexpr uint32_t kT = kAtom;             // bytes of a 64 x 64 bf16 tile
+constexpr int kPairGroup = 8;              // row-tile pairs a raster group
+
+// Each pass's stage, in 64 x 64 tiles, and its ring of stages. Pass 1:
+// x of two row tiles, Wg and Wu (64 H x 128 I); its da loop uses dy of
+// two row tiles and Wd (128 I x 64 H) of the same stage. dx pass: dg or
+// du of two row tiles, Wg or Wu (256 H x 64 I). dW pass: five 64-row x
+// 128-column tiles (x, then dg and du as value and remainder; or a as value
+// and remainder, then dy's two column halves).
+constexpr uint32_t kActStage = 6 * kT;
+constexpr int kActStages = 3;
+constexpr uint32_t kActPark = kThreads2 * 64 * 4;   // da, fp32, 64 a thread
+constexpr uint32_t kDxStage = 6 * kT;
+constexpr int kDxStages = 4;
+constexpr uint32_t kDwStage = 10 * kT;
+constexpr int kDwStages = 2;
+
+// dynamic shared memory of a ring, with 1024 bytes to align the first tile
+__host__ __device__ constexpr uint32_t ring_bytes(uint32_t stage,
+                                                  int stages) {
+  return stage * stages + 1024;
+}
+
+// Row tile t of the blocks: rows [r0, rend) of one block, whose expert is
+// e; a tile past the last has no rows and expert E (none).
+struct RowTile {
+  int r0, rend, e;
+};
+
+__device__ __forceinline__ RowTile row_tile(const int* be, int t, int n_rt,
+                                            int BS, int E) {
+  if (t >= n_rt) return {0, 0, E};
+  const int per = (BS + kRows - 1) / kRows, b = t / per, s = t % per;
+  const int r0 = b * BS + s * kRows;
+  return {r0, r0 + min(kRows, BS - s * kRows), be[b]};
+}
+
+// This CTA's (row-tile pair, column tile) of a 1-D grid that walks groups
+// of kPairGroup pairs, pairs fastest: the CTAs that run together share the
+// weight columns of their experts and their own rows through L2.
+__device__ __forceinline__ void raster(int n_pairs, int n_cols, int& pair,
+                                       int& col) {
+  const int per = kPairGroup * n_cols, g = blockIdx.x / per;
+  const int first = g * kPairGroup, size = min(kPairGroup, n_pairs - first);
+  const int rem = blockIdx.x - g * per;
+  pair = first + rem % size;
+  col = rem / size;
+}
+
+__device__ __forceinline__ void store2(bf16* dst, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+}
+
+// v0, v1 rounded to bf16 at hi and, where lo is given, the bf16 of what
+// that rounding left out at lo: hi + lo holds v to about 2^-16.
+__device__ __forceinline__ void store2_split(bf16* hi, bf16* lo, float v0,
+                                             float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
+  if (lo == nullptr) return;
+  const float2 f = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(lo) =
+      __floats2bfloat162_rn(v0 - f.x, v1 - f.y);
+}
+
+// A K loop of n steps over a ring of S stages `stage` bytes apart from
+// sh: load(k, st) issues step k's copies into stage st, and mma(st) runs
+// the products on stage st once it is in. Every thread of the CTA takes
+// part; the ring is free again when it returns.
+template <int S, typename Load, typename Mma>
+__device__ __forceinline__ void k_loop(uint32_t sh, uint32_t stage, int n,
+                                       Load load, Mma mma) {
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n) load(s, sh + s * stage);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n; ++k) {
+    cp_async_wait_group_for_wgmma<S - 2>();
+    __syncthreads();                     // step k is in; k - 1's stage free
+    if (k + S - 1 < n) load(k + S - 1, sh + (k + S - 1) % S * stage);
+    cp_async_commit();
+    mma(sh + k % S * stage);
+  }
+  __syncthreads();
+}
+
+// Pass 1: for two row tiles (one a warpgroup) and 128 I columns, g = x Wg,
+// u = x Wu and da = dy Wd^T over all of H, then dg = da u silu'(g) and
+// du = da silu(g), rounded to bf16. Where `a` is given (the dW pass
+// follows), also a = silu(g) u, and each of dg, du and a is [2][P][I]: the
+// bf16 value, then the bf16 of what its rounding left out (`plane` = P I
+// apart). A pair whose tiles belong to two experts runs its loop once per
+// expert, each warpgroup multiplying only under its own; sentinel tiles
+// compute and store nothing.
+__global__ void __launch_bounds__(kThreads2, 1) glu_bwd_act_wgmma(
+    const bf16* __restrict__ xs, const bf16* __restrict__ dy,
+    const bf16* __restrict__ gate_up, const bf16* __restrict__ down,
+    const int* __restrict__ block_expert, bf16* __restrict__ a,
+    bf16* __restrict__ dg, bf16* __restrict__ du, size_t plane, int n_rt,
+    int H, int I, int E, int BS) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  int pair, col;
+  raster((n_rt + 1) / 2, (I + 127) / 128, pair, col);
+  const RowTile t0 = row_tile(block_expert, 2 * pair, n_rt, BS, E);
+  const RowTile t1 = row_tile(block_expert, 2 * pair + 1, n_rt, BS, E);
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const RowTile mine = wg ? t1 : t0;
+  const int i0 = col * 128, nk = (H + 63) / 64;
+  const size_t ldw = 2 * (size_t)I;
+  // da parked in shared memory between the two loops, [64][256] fp32:
+  // each thread's own fragment, conflict-free
+  float* park = reinterpret_cast<float*>(
+      smem_raw + (sh - smem_u32(smem_raw)) + kActStages * kActStage);
+  for (int pass = 0; pass < 2; ++pass) {
+    const int e = pass ? t1.e : t0.e;
+    if (e >= E || (pass && t1.e == t0.e)) continue;
+    const bf16* w = gate_up + (size_t)e * H * ldw;      // [H][2][I]
+    const bf16* wd = down + (size_t)e * I * H;          // [I][H]
+    const bool active = mine.e == e;
+    // da = dy Wd^T over all of H, then g = x Wg and u = x Wu: two loops,
+    // so that two m64n128 accumulators a thread are live at a time
+    float g[64], u[64];
+    zero(g);
+    k_loop<kActStages>(
+        sh, kActStage, nk,
+        [&](int k, uint32_t st) {
+          const int h0 = k * 64;
+          load_tile_rc<64, 64, kThreads2>(st, dy, H, t0.r0, t0.rend, h0, H);
+          load_tile_rc<64, 64, kThreads2>(st + kT, dy, H, t1.r0, t1.rend,
+                                          h0, H);
+          load_tile_rc<128, 64, kThreads2>(st + 2 * kT, wd, H, i0, I, h0, H);
+        },
+        [&](uint32_t st) {
+          if (!active) return;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<0, 0>(g, desc_k(st + wg * kT, kk),
+                           desc_k(st + 2 * kT, kk), 1);
+          wgmma_commit();
+          wgmma_wait();
+          hold(g);
+        });
+#pragma unroll
+    for (int i = 0; i < 64; ++i) park[i * kThreads2 + threadIdx.x] = g[i];
+    zero(g);
+    zero(u);
+    k_loop<kActStages>(
+        sh, kActStage, nk,
+        [&](int k, uint32_t st) {
+          const int h0 = k * 64;
+          load_tile_rc<64, 64, kThreads2>(st, xs, H, t0.r0, t0.rend, h0, H);
+          load_tile_rc<64, 64, kThreads2>(st + kT, xs, H, t1.r0, t1.rend,
+                                          h0, H);
+          load_tile_rc<64, 128, kThreads2>(st + 2 * kT, w, ldw, h0, H, i0, I);
+          load_tile_rc<64, 128, kThreads2>(st + 4 * kT, w + I, ldw, h0, H,
+                                           i0, I);
+        },
+        [&](uint32_t st) {
+          if (!active) return;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t x = desc_k(st + wg * kT, kk);
+            wgmma_ss<0, 1>(g, x, desc_mn(st + 2 * kT, kk), 1);   // x Wg
+            wgmma_ss<0, 1>(u, x, desc_mn(st + 4 * kT, kk), 1);   // x Wu
+          }
+          wgmma_commit();
+          wgmma_wait();
+          hold(g);
+          hold(u);
+        });
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = mine.r0 + frag_row(warp, lane, i);
+      const int c = i0 + frag_col(lane, i);
+      if (r >= mine.rend || c >= I) continue;
+      float o_dg[2], o_du[2], o_a[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float gv = g[i + j], uv = u[i + j];
+        const float dv = park[(i + j) * kThreads2 + threadIdx.x];
+        const float s = 1.f / (1.f + expf(-gv));
+        const float sg = gv * s;
+        o_dg[j] = dv * uv * (s * (1.f + gv * (1.f - s)));
+        o_du[j] = dv * sg;
+        o_a[j] = sg * uv;
+      }
+      const size_t o = (size_t)r * I + c;
+      const bool split = a != nullptr;
+      store2_split(dg + o, split ? dg + plane + o : nullptr, o_dg[0],
+                   o_dg[1]);
+      store2_split(du + o, split ? du + plane + o : nullptr, o_du[0],
+                   o_du[1]);
+      if (split) store2_split(a + o, a + plane + o, o_a[0], o_a[1]);
+    }
+  }
+}
+
+// K7's dx pass: for two row tiles (one a warpgroup) and 256 H columns, dx
+// = [dg | du] [Wg | Wu]^T from the bf16 values of dg and du, summed over
+// all of 2I in fp32 and rounded once;
+// pairs of two experts as in pass 1. Sentinel rows get zeros and read no
+// weight byte.
+__global__ void __launch_bounds__(kThreads2, 1) glu_bwd_dx_wgmma(
+    const bf16* __restrict__ dg, const bf16* __restrict__ du,
+    const bf16* __restrict__ gate_up, const int* __restrict__ block_expert,
+    bf16* __restrict__ dx, int n_rt, int H, int I, int E, int BS) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  int pair, col;
+  raster((n_rt + 1) / 2, (H + 255) / 256, pair, col);
+  const RowTile t0 = row_tile(block_expert, 2 * pair, n_rt, BS, E);
+  const RowTile t1 = row_tile(block_expert, 2 * pair + 1, n_rt, BS, E);
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const RowTile mine = wg ? t1 : t0;
+  const int h0 = col * 256, nki = (I + 63) / 64, nk = 2 * nki;
+  const size_t ldw = 2 * (size_t)I;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int e = pass ? t1.e : t0.e;
+    if (e >= E || (pass && t1.e == t0.e)) continue;
+    const bf16* w = gate_up + (size_t)e * H * ldw;      // [H][2][I]
+    // step k < nki: dg's columns 64 k.. and Wg's; then du's and Wu's
+    auto load = [&](int k, uint32_t st) {
+      const int part = k >= nki, c0 = (k - part * nki) * 64;
+      const bf16* src = part ? du : dg;
+      load_tile_rc<64, 64, kThreads2>(st, src, I, t0.r0, t0.rend, c0, I);
+      load_tile_rc<64, 64, kThreads2>(st + kT, src, I, t1.r0, t1.rend, c0, I);
+      load_tile_rc<256, 64, kThreads2>(st + 2 * kT, w + part * I, ldw, h0, H,
+                                       c0, I);
+    };
+    const bool active = mine.e == e;
+    float acc0[64], acc1[64];                // H columns h0.., h0 + 128..
+    zero(acc0);
+    zero(acc1);
+    k_loop<kDxStages>(sh, kDxStage, nk, load, [&](uint32_t st) {
+      if (!active) return;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t x = desc_k(st + wg * kT, kk);
+        wgmma_ss<0, 0>(acc0, x, desc_k(st + 2 * kT, kk), 1);
+        wgmma_ss<0, 0>(acc1, x, desc_k(st + 4 * kT, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      hold(acc0);
+      hold(acc1);
+    });
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = mine.r0 + frag_row(warp, lane, i);
+      const int c = h0 + frag_col(lane, i);
+      if (r >= mine.rend) continue;
+      bf16* out = dx + (size_t)r * H;
+      if (c < H) store2(out + c, acc0[i], acc0[i + 1]);
+      if (c + 128 < H) store2(out + c + 128, acc1[i], acc1[i + 1]);
+    }
+  }
+  if (mine.e < E) return;
+  for (int q = threadIdx.x % kWarpgroup; q < kRows * 128; q += kWarpgroup) {
+    const int r = mine.r0 + q / 128, c = h0 + 2 * (q % 128);
+    if (r < mine.rend && c < H) store2(dx + (size_t)r * H + c, 0.f, 0.f);
+  }
+}
+
+// K8's dW pass: grid (dW tiles, E). Tiles [0, n_gu) are 128 (H) x 128 (I)
+// tiles of both dWg = x^T dg and dWu = x^T du, which share x; the rest are
+// 128 (I) x 256 (H) tiles of dWd = a^T dy. Warpgroup w computes rows
+// 64 w.. of the tile. dg, du and a enter as both their bf16 planes (value
+// and remainder, staged together with x or dy), so the sums see them to
+// about 2^-16, as the fp32 versions do. The CTA finds its expert's blocks in
+// the table (never assuming it sorted) and adds them in ascending order,
+// 64 rows a stage, 16 a wgmma k-step, both operands read MN-major (x^T and
+// a^T through the A operand's transpose bit). No atomics: the same bits on
+// every launch; sentinel blocks add nothing; an expert that owns no block
+// gets exact zeros, as every tile is written.
+__global__ void __launch_bounds__(kThreads2, 1) glu_bwd_dw_wgmma(
+    const bf16* __restrict__ xs, const bf16* __restrict__ dy,
+    const bf16* __restrict__ a, const bf16* __restrict__ dg,
+    const bf16* __restrict__ du, const int* __restrict__ block_expert,
+    bf16* __restrict__ dgu, bf16* __restrict__ ddn, size_t plane, int nb,
+    int H, int I, int BS) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int e = blockIdx.y;
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int nh = (H + 127) / 128, n_gu = nh * ((I + 127) / 128);
+  const bool gu = (int)blockIdx.x < n_gu;
+  // gu: rows x columns [m0, m0 + 128) of H (x), columns [n0, n0 + 128) of
+  // I (dg, du); dd: columns [m0, m0 + 128) of I (a), [n0, n0 + 256) of H
+  // (dy)
+  int m0, n0;
+  if (gu) {
+    m0 = blockIdx.x % nh * 128;
+    n0 = blockIdx.x / nh * 128;
+  } else {
+    const int t = blockIdx.x - n_gu, nh2 = (H + 255) / 256;
+    n0 = t % nh2 * 256;
+    m0 = t / nh2 * 128;
+  }
+  const int per = (BS + 63) / 64;        // 64-row chunks a block
+  int n = 0;
+  for (int b = 0; b < nb; ++b) n += block_expert[b] == e ? per : 0;
+  int lb = 0, lc = 0;                    // the next chunk to load
+  while (lb < nb && block_expert[lb] != e) ++lb;
+  auto load = [&](int, uint32_t st) {
+    const int r0 = lb * BS + lc * 64, rend = min(r0 + 64, (lb + 1) * BS);
+    if (gu) {
+      load_tile_rc<64, 128, kThreads2>(st, xs, H, r0, rend, m0, H);
+      load_tile_rc<64, 128, kThreads2>(st + 2 * kT, dg, I, r0, rend, n0, I);
+      load_tile_rc<64, 128, kThreads2>(st + 4 * kT, dg + plane, I, r0, rend,
+                                       n0, I);
+      load_tile_rc<64, 128, kThreads2>(st + 6 * kT, du, I, r0, rend, n0, I);
+      load_tile_rc<64, 128, kThreads2>(st + 8 * kT, du + plane, I, r0, rend,
+                                       n0, I);
+    } else {
+      load_tile_rc<64, 128, kThreads2>(st, a, I, r0, rend, m0, I);
+      load_tile_rc<64, 128, kThreads2>(st + 2 * kT, a + plane, I, r0, rend,
+                                       m0, I);
+      load_tile_rc<64, 128, kThreads2>(st + 4 * kT, dy, H, r0, rend, n0, H);
+      load_tile_rc<64, 128, kThreads2>(st + 6 * kT, dy, H, r0, rend,
+                                       n0 + 128, H);
+    }
+    if (++lc == per) {
+      lc = 0;
+      do ++lb; while (lb < nb && block_expert[lb] != e);
+    }
+  };
+  float acc0[64], acc1[64];
+  zero(acc0);
+  zero(acc1);
+  k_loop<kDwStages>(sh, kDwStage, n, load, [&](uint32_t st) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (gu) {                          // x^T (value + remainder)
+        const uint64_t xt = desc_mn(st + wg * kT, kk);
+        wgmma_ss<1, 1>(acc0, xt, desc_mn(st + 2 * kT, kk), 1);
+        wgmma_ss<1, 1>(acc0, xt, desc_mn(st + 4 * kT, kk), 1);
+        wgmma_ss<1, 1>(acc1, xt, desc_mn(st + 6 * kT, kk), 1);
+        wgmma_ss<1, 1>(acc1, xt, desc_mn(st + 8 * kT, kk), 1);
+      } else {                           // (value + remainder)^T dy
+        const uint64_t hi = desc_mn(st + wg * kT, kk);
+        const uint64_t lo = desc_mn(st + (2 + wg) * kT, kk);
+        const uint64_t y0 = desc_mn(st + 4 * kT, kk);
+        const uint64_t y1 = desc_mn(st + 6 * kT, kk);
+        wgmma_ss<1, 1>(acc0, hi, y0, 1);
+        wgmma_ss<1, 1>(acc0, lo, y0, 1);
+        wgmma_ss<1, 1>(acc1, hi, y1, 1);
+        wgmma_ss<1, 1>(acc1, lo, y1, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+    hold(acc0);
+    hold(acc1);
+  });
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int m = m0 + 64 * wg + frag_row(warp, lane, i);
+    const int c = frag_col(lane, i);
+    if (gu) {
+      if (m >= H || n0 + c >= I) continue;
+      bf16* out = dgu + ((size_t)e * H + m) * 2 * I + n0 + c;   // [H][2][I]
+      store2(out, acc0[i], acc0[i + 1]);
+      store2(out + I, acc1[i], acc1[i + 1]);
+    } else {
+      if (m >= I) continue;
+      bf16* out = ddn + ((size_t)e * I + m) * H;                 // [I][H]
+      if (n0 + c < H) store2(out + n0 + c, acc0[i], acc0[i + 1]);
+      if (n0 + 128 + c < H)
+        store2(out + n0 + 128 + c, acc1[i], acc1[i + 1]);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, uint32_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Pass 1, then the dx pass where dx is given and the dW pass where dgu is.
+cudaError_t launch_bwd(const void* xs, const void* gate_up, const void* down,
+                       const int* be, const void* dy, void* a, void* dg,
+                       void* du, void* dx, void* dgu, void* ddn, int P, int H,
+                       int I, int E, int BS, cudaStream_t stream) {
+  const bf16* x = static_cast<const bf16*>(xs);
+  const bf16* gu = static_cast<const bf16*>(gate_up);
+  const bf16* g = static_cast<const bf16*>(dy);
+  bf16* ab = static_cast<bf16*>(a);
+  bf16* gb = static_cast<bf16*>(dg);
+  bf16* ub = static_cast<bf16*>(du);
+  const int n_rt = P / BS * ((BS + kRows - 1) / kRows);
+  const int n_pairs = (n_rt + 1) / 2;
+  constexpr uint32_t act_smem = ring_bytes(kActStage, kActStages) + kActPark;
+  cudaError_t err = set_smem(glu_bwd_act_wgmma, act_smem);
+  if (err != cudaSuccess) return err;
+  const size_t plane = (size_t)P * I;
+  glu_bwd_act_wgmma<<<n_pairs * ((I + 127) / 128), kThreads2, act_smem,
+                      stream>>>(x, g, gu, static_cast<const bf16*>(down), be,
+                                ab, gb, ub, plane, n_rt, H, I, E, BS);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && dx != nullptr) {
+    constexpr uint32_t dx_smem = ring_bytes(kDxStage, kDxStages);
+    err = set_smem(glu_bwd_dx_wgmma, dx_smem);
+    if (err != cudaSuccess) return err;
+    glu_bwd_dx_wgmma<<<n_pairs * ((H + 255) / 256), kThreads2, dx_smem,
+                       stream>>>(gb, ub, gu, be, static_cast<bf16*>(dx), n_rt,
+                                 H, I, E, BS);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || dgu == nullptr) return err;
+  constexpr uint32_t dw_smem = ring_bytes(kDwStage, kDwStages);
+  err = set_smem(glu_bwd_dw_wgmma, dw_smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (H + 127) / 128 * ((I + 127) / 128) +
+                    (H + 255) / 256 * ((I + 127) / 128);
+  glu_bwd_dw_wgmma<<<dim3(tiles, E), kThreads2, dw_smem, stream>>>(
+      x, g, ab, gb, ub, be, static_cast<bf16*>(dgu), static_cast<bf16*>(ddn),
+      plane, P / BS, H, I, BS);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* gate_up, const void* down,
                        const int* be, const void* dy, float* a, float* dg,
@@ -687,8 +1168,15 @@ int run_bwd(bool want_dx, bool want_dw, int dtype, const void* xs,
       return launch_bwd<float>(xs, gate_up, down, be, dy, af, gf, uf, dx, dgu,
                                ddn, P, H, I, E, BS, s);
     case kBF16:
-      return launch_bwd<__nv_bfloat16>(xs, gate_up, down, be, dy, af, gf, uf,
-                                       dx, dgu, ddn, P, H, I, E, BS, s);
+      // cp.async moves 16-byte chunks: rows of H and I, and every tensor,
+      // 16-byte aligned
+      if (H % 8 != 0 || I % 8 != 0 ||
+          ((uintptr_t)xs | (uintptr_t)gate_up | (uintptr_t)down |
+           (uintptr_t)dy | (uintptr_t)a | (uintptr_t)dg | (uintptr_t)du |
+           (uintptr_t)dx | (uintptr_t)dgu | (uintptr_t)ddn) & 15)
+        return cudaErrorInvalidValue;
+      return tc::launch_bwd(xs, gate_up, down, be, dy, a, dg, du, dx, dgu,
+                            ddn, P, H, I, E, BS, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -718,7 +1206,9 @@ extern "C" int nxd_grouped_glu_decode(int dtype, const void* xs,
 }
 
 // The backward entries, each returning a cudaError_t: 0 on a clean launch of
-// its passes. dg and du (and a, for dW) are fp32 scratch [P, I]; dy, dx are
+// its passes. dg and du (and a, for dW) are scratch: fp32 [P, I] for fp32
+// inputs; for bf16 inputs (H and I multiples of 8) bf16 [P, I], or
+// [2, P, I] (value and remainder) where dW is computed; dy, dx are
 // [P, H], dgu and ddn shaped and typed as gate_up and down; every pointer is
 // contiguous device memory. K7 writes dx (a, dgu, ddn null), K8 dgu and ddn
 // (dx null), the pair all three from one pass 1.

@@ -44,6 +44,8 @@
 //    second products (dQ += dS K; dV += P_v^T dO, dK += dS^T Q); the B
 //    operand is the same shared tile read MN-major through the
 //    descriptor's transpose bit, so nothing is transposed or written back.
+//  * The cp.async, descriptor and wgmma helpers live in hopper_tc.cuh,
+//    shared with the grouped-GLU backward of blockwise_moe.cu.
 //  * K4 runs key-major (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come
 //    out as A operands; dK and dV stay in registers over the n_rep query
 //    heads and their q-blocks and are written once: no atomics, the same
@@ -79,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -495,11 +499,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // ---------------------------------------------------------------------------
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kRows = 64;                 // rows of every tile
-constexpr int kWarpgroup = 128;           // threads of a CTA
-constexpr uint32_t kAtom = kRows * 128;   // bytes of one 64-column atom
 constexpr float kLog2e = 1.4426950408889634f;
 
 // bytes of a 64 x D bf16 tile: D / 64 atoms of 64 rows x 128 B
@@ -527,36 +526,6 @@ __host__ __device__ constexpr uint32_t dkv_smem_bytes() {
   return 2 * tile_bytes<D>() + 2 * dkv_stage_bytes<D>() + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes from global to shared memory, zeros where !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// This thread's copies have landed and are visible to wgmma (the async
-// proxy); a __syncthreads() after it makes every thread's so.
-__device__ __forceinline__ void cp_async_wait_for_wgmma() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Rows [row0, row0 + 64) of a bf16 slab whose rows are `stride` elements
 // apart into the 64 x D tile at `dst`: 64-column atoms of 64 rows x 128 B,
 // the 16-byte chunk c of row r at r * 128 + ((c ^ (r % 8)) * 16), as TMA's
@@ -575,133 +544,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   }
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// A tile read K-major (its D columns are the sum), k-step kk of 16
-// columns: 32 bytes into the row of atom kk / 4; 8-row groups 1024 B apart.
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return make_desc(tile + (kk / 4) * kAtom + (kk % 4) * 32, 16, 1024);
-}
-
-// A tile read MN-major (its 64 rows are the sum, its D columns the N of
-// the product), k-step kk of 16 rows; the 64-column atoms kAtom apart.
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 16 * 128, kAtom, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Tie registers that a wgmma reads or writes to this point of the
-// program, so the compiler neither reads an accumulator before the wait
-// nor reuses an operand register while the wgmma may still read it.
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// d[64 x 64] (+)= A . B^T: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[64 x 64] (+)= A . B: A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// d[64 x 128] (+)= A . B: A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
 // acc[64 x 64] = A[64 x D] . B[64 x D]^T over two K-major tiles.
 template <int D>
 __device__ __forceinline__ void mma_ss(float (&acc)[32], uint32_t a,
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(acc, desc_k(a, kk), desc_k(b, kk), kk > 0);
+    wgmma_ss<0, 0>(acc, desc_k(a, kk), desc_k(b, kk), kk > 0);
 }
 
 // acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers (four k16 steps),
@@ -718,40 +567,6 @@ __device__ __forceinline__ void mma_rs(float (&acc)[64],
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, a[kk], desc_mn(b, kk), 1);
-}
-
-// Element i of an m64nN fp32 accumulator held by thread `lane` of warp
-// `warp` of the warpgroup: row 16 warp + lane / 4 (+ 8 for i % 4 >= 2),
-// column 8 (i / 4) + 2 (lane % 4) (+ 1 for odd i).
-__device__ __forceinline__ int frag_row(int warp, int lane, int i) {
-  return 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
-}
-
-__device__ __forceinline__ int frag_col(int lane, int i) {
-  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A 64 x 64 fp32 accumulator as the bf16 A operand of four k16 steps: the
-// A fragment of step kk holds columns 16 kk .. 16 kk + 15 of the same rows
-// in the same threads, so no data moves between threads.
-__device__ __forceinline__ void to_operand(const float (&x)[32],
-                                           uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 // Rows [row0, row0 + 64) of a 64 x D accumulator out to bf16 rows

@@ -38,7 +38,12 @@ versions on the CPU.
 The kernels (``csrc/blockwise_moe.cu``, bound with :mod:`ctypes`) sum over
 the whole intermediate dim in fp32 and round once, so in bf16 K5's and K7's
 outputs are closer to the fp32 result than their plain versions, which
-round once per tile. dW is summed in fp32 and rounded once in both.
+round once per tile. dW is summed in fp32 and rounded once in both. In bf16
+the backward runs on the tensor cores: its dx rounds the intermediates dg
+and du once to bf16 before the second product (the plain versions keep them
+in fp32), and its dW takes dg, du and a as a bf16 value plus the bf16
+remainder of that rounding; it takes H and I multiples of 8. fp32 runs on
+the CUDA cores.
 
 Each dispatcher chooses by the device of ``xs``: CPU tensors take the plain
 version, CUDA tensors the kernel, which launches or raises; nothing falls
@@ -294,16 +299,27 @@ def grouped_glu_decode_cuda(xs, gate_up, down, block_expert, block_size,
 def _launch_bwd(entry: str, xs, gate_up, down, block_expert, dy, block_size,
                 block_i, want_dx: bool, want_dw: bool):
     """Launch one backward entry of ``csrc/blockwise_moe.cu``: pass 1 into
-    fp32 scratches, then K7's dx pass and/or K8's dW pass. Returns ``(dx,
-    dgate_up, ddown)``, None for what the entry does not compute."""
+    scratches (bf16 for bf16 inputs, on the tensor cores; fp32 for fp32
+    ones, on the CUDA cores), then K7's dx pass and/or K8's dW pass.
+    Returns ``(dx, dgate_up, ddown)``, None for what the entry does not
+    compute."""
     _check_kernel_args(entry, xs, gate_up, down, block_expert, block_size,
                        block_i, dy)
     p, h = xs.shape
     e, _, _, i = gate_up.shape
+    if xs.dtype == torch.bfloat16 and (h % 8 or i % 8):
+        raise ValueError(f"{entry} in bf16 needs H and I multiples of 8 "
+                         f"(16-byte rows for cp.async); got H={h}, I={i}")
     dx = torch.empty_like(xs) if want_dx else None
     dgu = torch.empty_like(gate_up) if want_dw else None
     ddn = torch.empty_like(down) if want_dw else None
-    scratch = dict(size=(p, i), dtype=torch.float32, device=xs.device)
+    # fp32: [P, I] each; bf16: [P, I], or where the dW pass follows [2, P,
+    # I], the bf16 value and the bf16 remainder of its rounding
+    if xs.dtype == torch.bfloat16:
+        scratch = dict(size=(2, p, i) if want_dw else (p, i),
+                       dtype=torch.bfloat16, device=xs.device)
+    else:
+        scratch = dict(size=(p, i), dtype=torch.float32, device=xs.device)
     dg, du = torch.empty(**scratch), torch.empty(**scratch)
     a = torch.empty(**scratch) if want_dw else None
     ptrs = [None if t is None else t.data_ptr()

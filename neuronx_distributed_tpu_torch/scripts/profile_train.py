@@ -33,9 +33,10 @@ GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_wgmma")),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_wgmma")),
           ("grouped_glu", ("glu_act_kernel", "glu_down_kernel")),
-          ("grouped_glu_bwd_pass1", ("glu_bwd_act_kernel",)),
-          ("grouped_glu_dx", ("glu_bwd_dx_kernel",)),
-          ("grouped_glu_dw", ("glu_bwd_dw_kernel",)),
+          ("grouped_glu_bwd_pass1", ("glu_bwd_act_kernel",
+                                     "glu_bwd_act_wgmma")),
+          ("grouped_glu_dx", ("glu_bwd_dx_kernel", "glu_bwd_dx_wgmma")),
+          ("grouped_glu_dw", ("glu_bwd_dw_kernel", "glu_bwd_dw_wgmma")),
           ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")))
 
 

@@ -478,19 +478,28 @@ def test_mixtral_engine_on_card_matches_cpu(cuda, disaggregated):
     assert out["cpu"] == out["cuda"]
 
 
-def _bwd_case(device, seed, dtype, no_block=None, **kw):
+def _bwd_case(device, seed, dtype, no_block=None, reverse=False, **kw):
     """``_moe_case`` with a cotangent; ``no_block`` reassigns that expert's
     blocks to expert 0, so it owns none, and reverses the table (the dW
-    kernel must not assume it sorted)."""
+    kernel must not assume it sorted); ``reverse`` only reverses it."""
     xs, gu, dn, be, bs = _moe_case("cpu", seed, torch.float32, **kw)
     dy = torch.from_numpy(np.random.RandomState(seed + 1).randn(
         *xs.shape).astype(np.float32))
     if no_block is not None:
-        be = torch.where(be == no_block, 0, be).flip(0).contiguous()
+        be = torch.where(be == no_block, 0, be)
+    if no_block is not None or reverse:
+        be = be.flip(0).contiguous()
     return ([t.to(device, dtype) for t in (xs, gu, dn)] + [be.to(device),
                                                            dy.to(device,
                                                                  dtype)],
             bs)
+
+
+# bf16 cases: "bf16" at H=200, I=176 over 5 experts (ragged against every
+# tile), "bf16_wide" at H=256, I=384 over 8 experts (whole tiles), and
+# "bf16_rev" with the block table reversed
+_BWD_SHAPES = {"bf16_wide": dict(h=256, i=384, e=8),
+               "bf16_rev": dict(reverse=True)}
 
 
 @pytest.mark.parametrize("entry", ["dx", "dw", "bwd"])
@@ -498,19 +507,23 @@ def _bwd_case(device, seed, dtype, no_block=None, **kw):
     ("fp32", 16, False, None), ("bf16", 16, False, None),
     ("fp32", 80, True, None), ("bf16", 64, True, None),
     ("fp32", 16, False, 3), ("bf16", 64, False, 3),
+    ("bf16_wide", 64, False, None), ("bf16_rev", 16, False, None),
+    ("bf16_rev", 80, True, None),
 ])
 def test_grouped_glu_backward_kernels_match_plain(cuda, entry, name, bs,
                                                   sentinel_empty, no_block):
     """K7 (dx), K8 (dW) and the pair against the plain backward on the same
     inputs: fp32 element by element within 1e-4 (summation order); bf16
+    (the tensor-core kernels, which round dg, du and a once to bf16)
     against the plain version in fp32 on the same bf16 inputs, rounded
     once, within 1e-2. Sentinel rows of dx are exact zeros; expert 1 (no
     token: a block of padding rows) or, where the table is rewritten, an
     expert that owns no block at all gets exact zeros of dW; each entry
     counts its launches."""
-    dtype = _FLOATS[name]
+    dtype = _FLOATS[name[:4]]
+    kw = _BWD_SHAPES.get(name, {})
     (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 2, dtype, no_block, bs=bs,
-                                         sentinel_empty=sentinel_empty)
+                                         sentinel_empty=sentinel_empty, **kw)
     bi = gu.shape[-1] // 2
     fn = getattr(tbm, f"grouped_glu_{entry}_cuda")
     counters = (tbm.grouped_glu_dx, tbm.grouped_glu_dw, tbm.grouped_glu_bwd)
@@ -536,12 +549,79 @@ def test_grouped_glu_backward_kernels_match_plain(cuda, entry, name, bs,
         sent = torch.repeat_interleave(be >= gu.shape[0], bs)
         assert sent.any() == sentinel_empty
         assert not dx[sent].any() and (dx[~sent] != 0).any()
-    if dgu is not None:
-        # reversing the table hands expert 1's padding block real rows
+    if dgu is not None and kw.get("reverse"):
+        # reversing the table hands expert 1's padding block real rows and
+        # may hand an expert a block of padding or sentinel rows: an expert
+        # whose plain dW is exactly zero gets exact zeros
+        for x in range(gu.shape[0]):
+            if not ref[1][x].any():
+                assert not dgu[x].any() and not ddn[x].any()
+        assert (dgu != 0).any() and (ddn != 0).any()
+    elif dgu is not None:
         empty = 1 if no_block is None else no_block
         assert not dgu[empty].any() and not ddn[empty].any()
         assert no_block is None or not (be == no_block).any()
         assert (dgu[0] != 0).any() and (ddn[0] != 0).any()
+
+
+@pytest.mark.parametrize("bs,sentinel_empty,shape", [
+    (64, False, dict(h=256, i=384, e=8)), (80, True, {}), (16, False, {}),
+])
+def test_grouped_glu_backward_bf16_is_deterministic(cuda, bs, sentinel_empty,
+                                                    shape):
+    """The bf16 pair sums every output inside one CTA in a fixed order,
+    with no atomics: two launches on the same inputs agree bit for bit."""
+    (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 4, torch.bfloat16, bs=bs,
+                                         sentinel_empty=sentinel_empty,
+                                         **shape)
+    args = (xs, gu, dn, be, dy, bs, gu.shape[-1] // 2)
+    first = tbm.grouped_glu_bwd_cuda(*args)
+    second = tbm.grouped_glu_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_grouped_glu_backward_bf16_refuses_widths_not_multiple_of_8(cuda):
+    """cp.async moves 16-byte chunks, so the bf16 backward takes H and I
+    multiples of 8 and raises on others; fp32 takes any width."""
+    for h, i in ((204, 176), (200, 180)):
+        (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 1, torch.bfloat16, h=h,
+                                             i=i)
+        for fn in (tbm.grouped_glu_dx_cuda, tbm.grouped_glu_dw_cuda,
+                   tbm.grouped_glu_bwd_cuda):
+            with pytest.raises(ValueError, match="multiples of 8"):
+                fn(xs, gu, dn, be, dy, bs, i // 2)
+        f32 = [t.float() for t in (xs, gu, dn)]
+        dx, dgu, ddn = tbm.grouped_glu_bwd_cuda(*f32, be, dy.float(), bs,
+                                                i // 2)
+        torch.cuda.synchronize()
+        assert torch.isfinite(dx).all() and torch.isfinite(dgu).all()
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("glu_bwd_act_wgmma", "glu_bwd_dx_wgmma",
+                      "glu_bwd_dw_wgmma")),
+    (torch.float32, ("glu_bwd_act_kernel", "glu_bwd_dx_kernel",
+                     "glu_bwd_dw_kernel")),
+])
+def test_grouped_glu_backward_routes_by_dtype(cuda, dtype, kernels):
+    """The backward entries choose their kernels by the input type alone:
+    the bf16 pair launches the three tensor-core passes and nothing else,
+    fp32 the three CUDA-core ones (names as the profiler reports them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 5, dtype)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tbm.grouped_glu_bwd_cuda(xs, gu, dn, be, dy, bs, 88)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "glu_bwd" in e.key]
+    assert len(names) == 3, names
+    for want in kernels:
+        assert sum(want in n for n in names) == 1, (want, names)
 
 
 def test_grouped_glu_backward_wrappers_refuse_what_they_do_not_take(cuda):
