@@ -47,8 +47,11 @@ script exits non-zero and prints no result:
    packed step's shapes (512 tokens, P=1536) and K6 at the decode worker's
    (4 tokens, sentinel metadata), fp32 element by element within 1e-4, bf16
    against the plain version in fp32 on the same bf16 inputs, rounded once,
-   within 1e-2 (``flash_rel_err``); times each kernel, its plain version
-   and cuBLAS over the same rows expert by expert, and computes the bound.
+   within 1e-2 (``flash_rel_err``); in bf16 (where K5 and K6 run on the
+   tensor cores) a second launch of each equal to the first bit for bit;
+   times each kernel, its plain version and cuBLAS over the same rows
+   expert by expert, computes the bound, and prints each bf16 kernel's
+   TFLOP/s and its factor against cuBLAS.
 11. serve_mixtral: ``ServingEngine`` with ``MIXTRAL_8X7B``'s widths cut to
    8 layers, bf16, blockwise dispatch with block 64 (random weights, seed
    0, std 0.02), phase 4's engine config and requests. Asserts every
@@ -70,8 +73,9 @@ script exits non-zero and prints no result:
    expert that owns no block gets exact zeros of dW; in bf16 a second
    launch of the pair equal to the first bit for bit; times each entry,
    its plain version and cuBLAS expert by expert, and computes the bound;
-   times K5 (the forward) at the same shape beside its cuBLAS yardstick and
-   bound.
+   holds K5 (the forward) at the same shape in bf16 to its plain version
+   in fp32 within 1e-2 element by element, and times it beside its cuBLAS
+   yardstick and bound.
 15. train_mixtral: ``make_train_step`` on Mixtral 8x7B widths cut to 2
    layers, fp32 params, bf16 compute, flash attention, blockwise dispatch
    with block 64, router coefficients 0.02 and 0.001, otherwise phase 8's
@@ -122,6 +126,12 @@ MOE_BWD_KERNELS = (
     ("grouped_glu_dx", "neuronx_distributed_tpu/ops/blockwise_moe.py:91"),
     ("grouped_glu_dw", "neuronx_distributed_tpu/ops/blockwise_moe.py:123"),
 )
+# the bf16 forward's design per entry (csrc/blockwise_moe.cu; fp32 runs
+# on the CUDA cores)
+MOE_FWD_DESIGN = {
+    "grouped_glu": "wgmma (tensor cores), 64-row tiles in pairs",
+    "grouped_glu_decode": "wgmma (tensor cores), one 64-row tile a CTA, "
+                          "its columns split between the warpgroups"}
 # the backward's design per input type (csrc/blockwise_moe.cu)
 MOE_BWD_DESIGN = {torch.bfloat16: "wgmma (tensor cores)",
                   torch.float32: "fp32 FMAs (CUDA cores)"}
@@ -481,6 +491,13 @@ def moe_bound(xs, gate_up, down, be, bs, kind="grouped_glu"):
                 live_blocks=live.numel())
 
 
+def moe_rates(t):
+    """TFLOP/s of a timed kernel (its bound's operations over its time)
+    and its factor against the cuBLAS yardstick."""
+    return dict(tflops=t["flops"] / t["kernel_ms"] / 1e9,
+                factor_vs_library=t["kernel_ms"] / t["library_ms"])
+
+
 def expert_runs(be, e, bs):
     """``[expert, first row, end row]`` of each run of one expert's
     consecutive live blocks."""
@@ -564,6 +581,15 @@ def phase_moe_vs_plain():
         kernel, plain = kernels[name]
         got = kernel(*args, bi)
         torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            # every sum stays in one CTA in a fixed order: a second launch
+            # on the same inputs gives the same bits
+            again = kernel(*args, bi)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{case}: two launches on the same "
+                                     "inputs differ")
+            del again
         # bf16: the kernel sums over I in fp32 and rounds once, so it is
         # held to the plain version in fp32 on the same inputs, rounded once
         ref = plain(xs.float(), gate_up.float(), down.float(), be, bs,
@@ -589,6 +615,8 @@ def phase_moe_vs_plain():
             res["library"] = ("several calls: per run of one expert's live "
                               "blocks, torch.matmul (cuBLAS) x @ gate_up[e], "
                               "silu(g) * u, and @ down[e]")
+            res.update(deterministic=True, design=MOE_FWD_DESIGN[name],
+                       **moe_rates(res))
         results.append(res)
         del args, xs, got, ref
         torch.cuda.empty_cache()
@@ -763,13 +791,29 @@ def phase_moe_bwd_vs_plain(tokens=4096):
                                   "elementwise dg, du, a, then [dg|du] @ "
                                   "gate_up[e].T (dx) and x.T @ [dg|du], "
                                   "a.T @ dy (dW)")
-                # K5 where the train step runs it: the same rows forward
-                res["k5_at_train_shape"] = dict(
-                    kernel_ms=time_ms(lambda: bm.grouped_glu_cuda(
-                        xs, gate_up, down, be, bs, bi), reps=5, flush=flush),
-                    library_ms=time_ms(moe_library(xs, gate_up, down, be,
-                                                   bs), reps=5, flush=flush),
-                    **moe_bound(xs, gate_up, down, be, bs))
+                # K5 where the train step runs it: the same rows forward,
+                # its largest grid, with the most pairs of two experts
+                got = bm.grouped_glu_cuda(xs, gate_up, down, be, bs, bi)
+                want = bm.grouped_glu_plain(
+                    *(t.float() for t in (xs, gate_up, down)), be, bs,
+                    bi).to(dtype)
+                rel = flash_rel_err(got, want)
+                if not (rel <= tol) or not torch.isfinite(got).all():
+                    raise AssertionError(f"moe_bwd {case}: K5 at the train "
+                                         f"shape, error {rel} of |ref| + "
+                                         f"rms(row) above {tol}")
+                k5 = dict(max_rel_err=rel,
+                          max_abs_err=(got.float() - want.float()
+                                       ).abs().max().item(),
+                          kernel_ms=time_ms(lambda: bm.grouped_glu_cuda(
+                              xs, gate_up, down, be, bs, bi), reps=5,
+                              flush=flush),
+                          library_ms=time_ms(moe_library(
+                              xs, gate_up, down, be, bs), reps=5,
+                              flush=flush),
+                          **moe_bound(xs, gate_up, down, be, bs))
+                res["k5_at_train_shape"] = dict(k5, **moe_rates(k5))
+                del got, want
         results.append(res)
         del args, xs, dy, ref
         torch.cuda.empty_cache()
@@ -1219,7 +1263,8 @@ def main() -> None:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
-            "kernel_ms": main_case["kernel_ms"], "max_err": err})
+            "kernel_ms": main_case["kernel_ms"], "max_err": err,
+            "design": main_case["design"]})
     bwd_main = next(c for c in bwd_cases if c["case"] == "bf16")
     for name, replaces in MOE_BWD_KERNELS:
         t = bwd_main["timing"][name]

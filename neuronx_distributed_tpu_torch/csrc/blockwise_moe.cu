@@ -15,21 +15,23 @@
 //
 // Bound. At the packed step (P = 1536 rows in 24 blocks of 64, E = 8,
 // H = 4096, I = 14336) K5 does 541 GFLOP against 2.8 GB of bf16 weights:
-// about 190 FLOP per byte, so the bound is the bytes (0.84 ms at 3.35 TB/s)
-// with the operations close behind (0.55 ms at 989 TFLOP/s). K6 at decode
-// does the same work per hit block over far fewer blocks; its bound is the
-// bytes of the experts the step's tokens hit. The backward at the train
+// about 190 FLOP per byte, so the bound is the bytes (0.85 ms at 3.35 TB/s)
+// with the operations close behind (0.55 ms at 989 TFLOP/s). In the train
+// step's forward (P = 8704 rows in 136 live blocks) K5 is bound by
+// operations: 6 H I FLOP per row, 3.07 TFLOP, 3.10 ms. K6 at decode (9
+// blocks of 64, 6 live with 1-2 real rows each) does the same work per hit
+// block over far fewer blocks; its bound is the bytes of the experts the
+// step's tokens hit (2.1 GB, 0.63 ms). The backward at the train
 // step (P = 8704 rows in 136 live blocks) is bound by operations: K7 does
 // 10 H I FLOP per row (g, u, da, dx: 5.11 TFLOP, 5.17 ms at 989 TFLOP/s),
 // K8 12 H I (g, u, da and three dW products: 6.20 ms), the pair 16 H I
 // (8.27 ms); their bytes (2.8 GB of weights, 2.8 GB of dW) take 1.7 ms.
 //
-// Two designs of the backward, chosen by the input type (the entries'
+// Two designs of every kernel, chosen by the input type (the entries'
 // dtype argument): bf16 runs on the tensor cores (namespace tc), fp32 on
-// the CUDA cores, since TF32 would not hold the fp32 limit of 1e-4. The
-// forward runs on the CUDA cores in both types.
+// the CUDA cores, since TF32 would not hold the fp32 limit of 1e-4.
 //
-// CUDA-core kernels (K5 and K6; K7 and K8 in fp32):
+// CUDA-core kernels (fp32):
 //  * Forward, two passes. Pass A gives a = silu(g) * u for each (row tile,
 //    I tile) into an fp32 scratch act [P, I]; pass B gives y = a Wd for each
 //    (row tile, H tile), summing over all of I in fp32 and rounding once.
@@ -102,7 +104,25 @@
 //  * The new rounding: dx takes dg and du rounded once to bf16, where the
 //    Pallas kernels keep them in fp32 (bounded on the CPU by
 //    tests/test_torch_moe.py).
-//  * K5 and K6 share the forward kernels and differ in entry point only.
+//
+// bf16 K5 and K6 (tc::glu_act_wgmma, glu_down_wgmma): the forward's two
+// passes on wgmma, with the backward's tiles, swizzle and cp.async rings.
+//  * Pass A (128 I columns a CTA): g = x Wg and u = x Wu over all of H
+//    (gate_up's rows read MN-major), then act = silu(g) u rounded once to
+//    bf16 into scratch [P, I], where the CUDA-core pass keeps it in fp32:
+//    half the bytes between the passes, and the A operand of pass B.
+//  * Pass B: y = act Wd over all of I (act K-major, down's [I][H] rows
+//    MN-major), rounded once; sentinel rows store zeros.
+//  * K5 pairs two row tiles a CTA, one a warpgroup, so each weight tile
+//    serves 128 rows (pass B 256 H columns a CTA). K6 runs on decode
+//    metadata, where each hit expert holds one block of 1-2 real rows: a
+//    pair would straddle two experts in nearly every CTA and run its loops
+//    twice with one warpgroup idle. So K6 gives a CTA one row tile and each
+//    warpgroup half its columns (pass B 128 H columns a CTA, two CTAs an
+//    SM): every hit expert's weights are still read once, by twice as many
+//    CTAs as pairs would give, to keep the SMs streaming them.
+//  * The new rounding of act is bounded on the CPU by tests/
+//    test_torch_moe.py, within the 1e-2 card limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,20 +144,15 @@ static_assert(kTK * kTH == 2 * kTK * kTN, "passes share one smem layout");
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
+// The CUDA-core kernels below are instantiated for fp32 only (bf16 runs on
+// the tensor cores, namespace tc).
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float silu(float g) {
@@ -337,26 +352,6 @@ cudaError_t launch(const void* xs, const void* gate_up, const void* down,
   glu_down_kernel<T><<<dim3(row_tiles, (H + kTH - 1) / kTH), kThreads, 0,
                        stream>>>(act, dn, be, y, H, I, E, BS);
   return cudaGetLastError();
-}
-
-int run(int dtype, const void* xs, const void* gate_up, const void* down,
-        const void* block_expert, void* act, void* ys, int P, int H, int I,
-        int E, int BS, void* stream) {
-  if (P <= 0 || H <= 0 || I <= 0 || E <= 0 || BS <= 0 || P % BS != 0 ||
-      (I + kTN - 1) / kTN > 65535 || (H + kTH - 1) / kTH > 65535)
-    return cudaErrorInvalidValue;
-  const int* be = static_cast<const int*>(block_expert);
-  float* a = static_cast<float*>(act);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch<float>(xs, gate_up, down, be, a, ys, P, H, I, E, BS, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(xs, gate_up, down, be, a, ys, P, H, I, E,
-                                   BS, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1116,7 +1111,243 @@ cudaError_t launch_bwd(const void* xs, const void* gate_up, const void* down,
   return cudaGetLastError();
 }
 
+
+// K5 and K6: the forward's two passes. Pairs (Split false, K5): each
+// warpgroup owns one 64-row tile of a pair and the weight tiles serve both,
+// as in pass 1 and the dx pass. Split (K6): one row tile a CTA and each
+// warpgroup half of its columns, since on decode metadata each hit expert
+// holds one block and a pair would nearly always straddle two experts,
+// running its loops twice with one warpgroup idle. Stages, in 64 x 64
+// tiles: pass A, x of each row tile, then Wg and Wu (64 H x 128 I); pass
+// B, act of each row tile, then Wd (64 I x 256 H for pairs, 128 for Split).
+constexpr int kFwdStages = 4;
+
+__host__ __device__ constexpr uint32_t act_stage(bool split) {
+  return (split ? 5 : 6) * kT;
+}
+
+__host__ __device__ constexpr uint32_t down_stage(bool split) {
+  return (split ? 3 : 6) * kT;
+}
+
+// Pass A: for 128 I columns of one row tile (Split) or of each tile of a
+// pair, act = silu(x Wg) * (x Wu), summed over all of H in fp32 and
+// rounded once to bf16. gate_up's [H][2][I] rows are read MN-major. A pair
+// whose tiles belong to two experts runs its loop once per expert, each
+// warpgroup multiplying only under its own; sentinel tiles compute and
+// store nothing.
+template <bool Split>
+__global__ void __launch_bounds__(kThreads2, 1) glu_act_wgmma(
+    const bf16* __restrict__ xs, const bf16* __restrict__ gate_up,
+    const int* __restrict__ block_expert, bf16* __restrict__ act, int n_rt,
+    int H, int I, int E, int BS) {
+  constexpr int kN = Split ? 64 : 128;         // I columns a warpgroup
+  constexpr uint32_t kStage = act_stage(Split);
+  constexpr uint32_t kW = (Split ? 1 : 2) * kT;  // Wg's tile in a stage
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  int unit, col;
+  raster(Split ? n_rt : (n_rt + 1) / 2, (I + 127) / 128, unit, col);
+  const RowTile t0 = row_tile(block_expert, Split ? unit : 2 * unit, n_rt,
+                              BS, E);
+  const RowTile t1 =
+      Split ? t0 : row_tile(block_expert, 2 * unit + 1, n_rt, BS, E);
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const RowTile mine = wg ? t1 : t0;
+  const int i0 = col * 128, nk = (H + 63) / 64;
+  const int c0 = i0 + (Split ? 64 * wg : 0);   // this warpgroup's columns
+  const uint32_t xo = Split ? 0 : wg * kT;     // its x tile, its Wg atoms
+  const uint32_t wo = kW + (Split ? wg * kT : 0);
+  const size_t ldw = 2 * (size_t)I;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int e = pass ? t1.e : t0.e;
+    if (e >= E || (pass && t1.e == t0.e)) continue;
+    const bf16* w = gate_up + (size_t)e * H * ldw;      // [H][2][I]
+    const bool active = mine.e == e;
+    float g[kN / 2], u[kN / 2];
+    zero(g);
+    zero(u);
+    k_loop<kFwdStages>(
+        sh, kStage, nk,
+        [&](int k, uint32_t st) {
+          const int h0 = k * 64;
+          load_tile_rc<64, 64, kThreads2>(st, xs, H, t0.r0, t0.rend, h0, H);
+          if (!Split)
+            load_tile_rc<64, 64, kThreads2>(st + kT, xs, H, t1.r0, t1.rend,
+                                            h0, H);
+          load_tile_rc<64, 128, kThreads2>(st + kW, w, ldw, h0, H, i0, I);
+          load_tile_rc<64, 128, kThreads2>(st + kW + 2 * kT, w + I, ldw, h0,
+                                           H, i0, I);
+        },
+        [&](uint32_t st) {
+          if (!active) return;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t x = desc_k(st + xo, kk);
+            wgmma_ss<0, 1>(g, x, desc_mn(st + wo, kk), 1);            // x Wg
+            wgmma_ss<0, 1>(u, x, desc_mn(st + wo + 2 * kT, kk), 1);   // x Wu
+          }
+          wgmma_commit();
+          wgmma_wait();
+          hold(g);
+          hold(u);
+        });
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < kN / 2; i += 2) {
+      const int r = mine.r0 + frag_row(warp, lane, i);
+      const int c = c0 + frag_col(lane, i);
+      if (r < mine.rend && c < I)
+        store2(act + (size_t)r * I + c, silu(g[i]) * u[i],
+               silu(g[i + 1]) * u[i + 1]);
+    }
+  }
+}
+
+// Pass B: for one row tile (Split: 128 H columns a CTA, 64 a warpgroup) or
+// each tile of a pair (256 H columns, two m64n128 accumulators a thread),
+// ys = act Wd, summed over all of I in fp32 and rounded once. down's
+// [I][H] rows are read MN-major; pairs of two experts as in pass A.
+// Sentinel rows get zeros and read no weight byte.
+template <bool Split>
+__global__ void __launch_bounds__(kThreads2, Split ? 2 : 1) glu_down_wgmma(
+    const bf16* __restrict__ act, const bf16* __restrict__ down,
+    const int* __restrict__ block_expert, bf16* __restrict__ ys, int n_rt,
+    int H, int I, int E, int BS) {
+  constexpr int kCols = Split ? 128 : 256;     // H columns a CTA
+  constexpr int kAcc = Split ? 1 : 2;          // accumulators a thread
+  constexpr int kN = Split ? 64 : 128;         // H columns an accumulator
+  constexpr uint32_t kStage = down_stage(Split);
+  constexpr uint32_t kW = (Split ? 1 : 2) * kT;  // Wd's tile in a stage
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  int unit, col;
+  raster(Split ? n_rt : (n_rt + 1) / 2, (H + kCols - 1) / kCols, unit, col);
+  const RowTile t0 = row_tile(block_expert, Split ? unit : 2 * unit, n_rt,
+                              BS, E);
+  const RowTile t1 =
+      Split ? t0 : row_tile(block_expert, 2 * unit + 1, n_rt, BS, E);
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const RowTile mine = wg ? t1 : t0;
+  const int h0 = col * kCols, nk = (I + 63) / 64;
+  const int hw = h0 + (Split ? 64 * wg : 0);   // this warpgroup's columns
+  const uint32_t ao = Split ? 0 : wg * kT;     // its act tile, its Wd atoms
+  const uint32_t wo = kW + (Split ? wg * kT : 0);
+  for (int pass = 0; pass < 2; ++pass) {
+    const int e = pass ? t1.e : t0.e;
+    if (e >= E || (pass && t1.e == t0.e)) continue;
+    const bf16* wd = down + (size_t)e * I * H;          // [I][H]
+    const bool active = mine.e == e;
+    float acc[kAcc][kN / 2];
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) zero(acc[j]);
+    k_loop<kFwdStages>(
+        sh, kStage, nk,
+        [&](int k, uint32_t st) {
+          const int i0 = k * 64;
+          load_tile_rc<64, 64, kThreads2>(st, act, I, t0.r0, t0.rend, i0, I);
+          if (!Split)
+            load_tile_rc<64, 64, kThreads2>(st + kT, act, I, t1.r0, t1.rend,
+                                            i0, I);
+          load_tile_rc<64, kCols, kThreads2>(st + kW, wd, H, i0, I, h0, H);
+        },
+        [&](uint32_t st) {
+          if (!active) return;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t a = desc_k(st + ao, kk);
+#pragma unroll
+            for (int j = 0; j < kAcc; ++j)
+              wgmma_ss<0, 1>(acc[j], a, desc_mn(st + wo + 2 * j * kT, kk), 1);
+          }
+          wgmma_commit();
+          wgmma_wait();
+#pragma unroll
+          for (int j = 0; j < kAcc; ++j) hold(acc[j]);
+        });
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < kN / 2; i += 2) {
+      const int r = mine.r0 + frag_row(warp, lane, i);
+      if (r >= mine.rend) continue;
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) {
+        const int c = hw + j * 128 + frag_col(lane, i);
+        if (c < H) store2(ys + (size_t)r * H + c, acc[j][i], acc[j][i + 1]);
+      }
+    }
+  }
+  if (mine.e < E) return;
+  constexpr int kHalf = (Split ? 64 : 256) / 2;  // column pairs a warpgroup
+  for (int q = threadIdx.x % kWarpgroup; q < kRows * kHalf; q += kWarpgroup) {
+    const int r = mine.r0 + q / kHalf, c = hw + 2 * (q % kHalf);
+    if (r < mine.rend && c < H) store2(ys + (size_t)r * H + c, 0.f, 0.f);
+  }
+}
+
+// Pass A into the bf16 scratch act [P, I], then pass B.
+template <bool Split>
+cudaError_t launch_fwd(const void* xs, const void* gate_up, const void* down,
+                       const int* be, void* act, void* ys, int P, int H,
+                       int I, int E, int BS, cudaStream_t stream) {
+  const int n_rt = P / BS * ((BS + kRows - 1) / kRows);
+  const int units = Split ? n_rt : (n_rt + 1) / 2;
+  bf16* a = static_cast<bf16*>(act);
+  constexpr uint32_t act_smem = ring_bytes(act_stage(Split), kFwdStages);
+  cudaError_t err = set_smem(glu_act_wgmma<Split>, act_smem);
+  if (err != cudaSuccess) return err;
+  glu_act_wgmma<Split><<<units * ((I + 127) / 128), kThreads2, act_smem,
+                         stream>>>(static_cast<const bf16*>(xs),
+                                   static_cast<const bf16*>(gate_up), be, a,
+                                   n_rt, H, I, E, BS);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int cols = Split ? 128 : 256;
+  constexpr uint32_t down_smem = ring_bytes(down_stage(Split), kFwdStages);
+  err = set_smem(glu_down_wgmma<Split>, down_smem);
+  if (err != cudaSuccess) return err;
+  glu_down_wgmma<Split><<<units * ((H + cols - 1) / cols), kThreads2,
+                          down_smem, stream>>>(
+      a, static_cast<const bf16*>(down), be, static_cast<bf16*>(ys), n_rt, H,
+      I, E, BS);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
+
+// The forward: fp32 on the CUDA cores; bf16 on the tensor cores, row tiles
+// in pairs for K5 and split by columns for K6 (`decode`).
+int run(bool decode, int dtype, const void* xs, const void* gate_up,
+        const void* down, const void* block_expert, void* act, void* ys,
+        int P, int H, int I, int E, int BS, void* stream) {
+  if (P <= 0 || H <= 0 || I <= 0 || E <= 0 || BS <= 0 || P % BS != 0 ||
+      (I + kTN - 1) / kTN > 65535 || (H + kTH - 1) / kTH > 65535)
+    return cudaErrorInvalidValue;
+  const int* be = static_cast<const int*>(block_expert);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch<float>(xs, gate_up, down, be, static_cast<float*>(act),
+                           ys, P, H, I, E, BS, s);
+    case kBF16:
+      // cp.async moves 16-byte chunks: rows of H and I, and every tensor,
+      // 16-byte aligned
+      if (H % 8 != 0 || I % 8 != 0 ||
+          ((uintptr_t)xs | (uintptr_t)gate_up | (uintptr_t)down |
+           (uintptr_t)act | (uintptr_t)ys) & 15)
+        return cudaErrorInvalidValue;
+      return decode ? tc::launch_fwd<true>(xs, gate_up, down, be, act, ys, P,
+                                           H, I, E, BS, s)
+                    : tc::launch_fwd<false>(xs, gate_up, down, be, act, ys, P,
+                                            H, I, E, BS, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* gate_up, const void* down,
@@ -1185,15 +1416,16 @@ int run_bwd(bool want_dx, bool want_dw, int dtype, const void* xs,
 }  // namespace
 
 // Each returns a cudaError_t: 0 on a clean launch of both passes. `act` is
-// fp32 scratch [P, I]; every pointer is contiguous device memory. K5 and K6
-// run the same two kernels; each has its own entry so that the port counts
-// and checks them apart.
+// scratch [P, I]: fp32 for fp32 inputs, bf16 for bf16 ones (H and I
+// multiples of 8); every pointer is contiguous device memory. In fp32 K5
+// and K6 run the same two kernels; in bf16 K5 pairs row tiles and K6 splits
+// one tile's columns between the warpgroups.
 extern "C" int nxd_grouped_glu(int dtype, const void* xs, const void* gate_up,
                                const void* down, const void* block_expert,
                                void* act, void* ys, int P, int H, int I,
                                int E, int BS, void* stream) {
-  return run(dtype, xs, gate_up, down, block_expert, act, ys, P, H, I, E, BS,
-             stream);
+  return run(false, dtype, xs, gate_up, down, block_expert, act, ys, P, H, I,
+             E, BS, stream);
 }
 
 extern "C" int nxd_grouped_glu_decode(int dtype, const void* xs,
@@ -1201,8 +1433,8 @@ extern "C" int nxd_grouped_glu_decode(int dtype, const void* xs,
                                       const void* block_expert, void* act,
                                       void* ys, int P, int H, int I, int E,
                                       int BS, void* stream) {
-  return run(dtype, xs, gate_up, down, block_expert, act, ys, P, H, I, E, BS,
-             stream);
+  return run(true, dtype, xs, gate_up, down, block_expert, act, ys, P, H, I,
+             E, BS, stream);
 }
 
 // The backward entries, each returning a cudaError_t: 0 on a clean launch of

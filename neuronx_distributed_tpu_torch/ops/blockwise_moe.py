@@ -39,11 +39,12 @@ The kernels (``csrc/blockwise_moe.cu``, bound with :mod:`ctypes`) sum over
 the whole intermediate dim in fp32 and round once, so in bf16 K5's and K7's
 outputs are closer to the fp32 result than their plain versions, which
 round once per tile. dW is summed in fp32 and rounded once in both. In bf16
-the backward runs on the tensor cores: its dx rounds the intermediates dg
-and du once to bf16 before the second product (the plain versions keep them
-in fp32), and its dW takes dg, du and a as a bf16 value plus the bf16
-remainder of that rounding; it takes H and I multiples of 8. fp32 runs on
-the CUDA cores.
+every kernel runs on the tensor cores and takes H and I multiples of 8: the
+forward rounds ``a = silu(g) u`` once to bf16 between its two passes, the
+backward's dx rounds the intermediates dg and du once to bf16 before the
+second product (the plain versions keep all three in fp32), and its dW
+takes dg, du and a as a bf16 value plus the bf16 remainder of that
+rounding. fp32 runs on the CUDA cores.
 
 Each dispatcher chooses by the device of ``xs``: CPU tensors take the plain
 version, CUDA tensors the kernel, which launches or raises; nothing falls
@@ -237,6 +238,14 @@ def _check_kernel_args(name, xs, gate_up, down, block_expert, block_size,
                          f"{block_expert.dtype}")
 
 
+def _check_bf16_widths(name, xs, h, i):
+    """The bf16 kernels copy 16-byte chunks (cp.async): rows of H and I
+    must be multiples of 8 elements. fp32 takes any width."""
+    if xs.dtype == torch.bfloat16 and (h % 8 or i % 8):
+        raise ValueError(f"{name} in bf16 needs H and I multiples of 8 "
+                         f"(16-byte rows for cp.async); got H={h}, I={i}")
+
+
 def _lib_fn(entry: str, argtypes):
     from . import _build
 
@@ -257,11 +266,13 @@ def _launch(name: str, counter, xs, gate_up, down, block_expert,
                        block_i)
     p, h = xs.shape
     e, _, _, i = gate_up.shape
+    _check_bf16_widths(name, xs, h, i)
     ys = torch.empty_like(xs)
     if p == 0:
         return ys
-    # a = silu(x Wg) (x Wu) of every live row, fp32, between the two passes
-    act = torch.empty((p, i), dtype=torch.float32, device=xs.device)
+    # a = silu(x Wg) (x Wu) of every live row between the two passes: bf16
+    # for bf16 inputs (the tensor cores' A operand), fp32 for fp32 ones
+    act = torch.empty((p, i), dtype=xs.dtype, device=xs.device)
     fn = _lib_fn(name, ARGTYPES)
     _raise_on(fn(_CODES[xs.dtype], xs.data_ptr(), gate_up.data_ptr(),
                  down.data_ptr(), block_expert.data_ptr(), act.data_ptr(),
@@ -307,9 +318,7 @@ def _launch_bwd(entry: str, xs, gate_up, down, block_expert, dy, block_size,
                        block_i, dy)
     p, h = xs.shape
     e, _, _, i = gate_up.shape
-    if xs.dtype == torch.bfloat16 and (h % 8 or i % 8):
-        raise ValueError(f"{entry} in bf16 needs H and I multiples of 8 "
-                         f"(16-byte rows for cp.async); got H={h}, I={i}")
+    _check_bf16_widths(entry, xs, h, i)
     dx = torch.empty_like(xs) if want_dx else None
     dgu = torch.empty_like(gate_up) if want_dw else None
     ddn = torch.empty_like(down) if want_dw else None

@@ -12,8 +12,8 @@ phase 11's, Mixtral 8x7B's widths at 8 layers with blockwise dispatch,
 block 64 (add ``--disaggregated`` for phase 12's two workers). For each
 window it prints one JSON line: host wall time per step, device busy time
 per step, the device's idle share, the kernels by device time and the
-busy time by group (paged attention K1, the grouped GLU K5/K6, cuBLAS
-products, the rest); and the wall time per decode step without the
+busy time by group (paged attention K1, the grouped GLU K5 and K6,
+cuBLAS products, the rest); and the wall time per decode step without the
 profiler. It also counts, over decode
 steps, how many pool key entries the attention kernel walked for real rows
 and for the step's pad rows (pad rows carry the last slot's block table,
@@ -32,11 +32,20 @@ import numpy as np
 import torch
 
 
-# kernel groups by name: K1, K5/K6 (both passes), cuBLAS products
+# kernel groups by name, first match wins: K1, K6 and K5 (both passes
+# each; fp32 K6 runs K5's kernels, so it counts under grouped_glu), cuBLAS
+# products
 GROUPS = {"paged_attention": ("paged_attention",),
+          "grouped_glu_decode": ("glu_act_wgmma<true>",
+                                 "glu_down_wgmma<true>"),
           "grouped_glu": ("glu_act", "glu_down"),
           "cublas_products": ("nvjet", "gemm", "sm90_xmma", "cutlass"),
           "other": ()}
+
+
+def group_of(name: str) -> str:
+    return next((g for g, keys in GROUPS.items()
+                 if any(k in name for k in keys)), "other")
 
 
 def trace(eng, steps: int, label: str) -> None:
@@ -59,9 +68,7 @@ def trace(eng, steps: int, label: str) -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     groups = {g: 0.0 for g in GROUPS}
     for k, v in kernels.items():
-        g = next((g for g, keys in GROUPS.items()
-                  if any(x in k for x in keys)), "other")
-        groups[g] += v / 1e3 / steps
+        groups[group_of(k)] += v / 1e3 / steps
     print(json.dumps({
         "window": label, "steps": steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,

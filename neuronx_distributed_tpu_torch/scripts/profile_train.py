@@ -28,11 +28,12 @@ import time
 import torch
 
 # kernel-name fragments of each group, first match wins
-# (the backward's CUDA-core kernels run fp32, its wgmma kernels bf16)
+# (the CUDA-core kernels run fp32, the wgmma kernels bf16)
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_wgmma")),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_wgmma")),
-          ("grouped_glu", ("glu_act_kernel", "glu_down_kernel")),
+          ("grouped_glu", ("glu_act_kernel", "glu_down_kernel",
+                           "glu_act_wgmma", "glu_down_wgmma")),
           ("grouped_glu_bwd_pass1", ("glu_bwd_act_kernel",
                                      "glu_bwd_act_wgmma")),
           ("grouped_glu_dx", ("glu_bwd_dx_kernel", "glu_bwd_dx_wgmma")),

@@ -386,20 +386,32 @@ def _moe_case(device, seed, dtype, t=40, k=2, e=5, h=200, i=176, bs=16,
             down.to(device, dtype), be.to(device), bs)
 
 
+# bf16 forward cases beyond H=200, I=176 over 5 experts (ragged against
+# every tile): "bf16_wide" at H=256, I=384 over 8 experts (whole tiles),
+# "bf16_rev" with the block table reversed
+_FWD_SHAPES = {"bf16_wide": dict(h=256, i=384, e=8)}
+
+
 @pytest.mark.parametrize("decode", [False, True])
 @pytest.mark.parametrize("name,bs,sentinel_empty", [
     ("fp32", 16, False), ("bf16", 16, False), ("fp32", 80, True),
-    ("bf16", 64, True), ("fp32", 64, False),
+    ("bf16", 64, True), ("fp32", 64, False), ("bf16", 80, False),
+    ("bf16_wide", 64, False), ("bf16_rev", 16, True),
 ])
 def test_grouped_glu_kernels_match_plain(cuda, decode, name, bs,
                                          sentinel_empty):
     """K5 and K6 against their plain versions on the same inputs: fp32
-    element by element within 1e-4 (summation order); bf16 against the
-    plain version in fp32 on the same bf16 inputs, rounded once, within
-    1e-2 (one bf16 rounding each). Sentinel blocks give exact zeros."""
-    dtype = _FLOATS[name]
+    element by element within 1e-4 (summation order); bf16 (the
+    tensor-core kernels, which round a = silu(g) u once to bf16 between
+    their passes) against the plain version in fp32 on the same bf16
+    inputs, rounded once, within 1e-2. Sentinel blocks give exact
+    zeros."""
+    dtype = _FLOATS[name[:4]]
     xs, gu, dn, be, bs = _moe_case(cuda, 0, dtype, bs=bs,
-                                   sentinel_empty=sentinel_empty)
+                                   sentinel_empty=sentinel_empty,
+                                   **_FWD_SHAPES.get(name, {}))
+    if name == "bf16_rev":
+        be = be.flip(0).contiguous()
     kernel, plain = ((tbm.grouped_glu_decode, tbm.grouped_glu_decode_plain)
                      if decode else (tbm.grouped_glu, tbm.grouped_glu_plain))
     before = kernel.launches
@@ -410,7 +422,7 @@ def test_grouped_glu_kernels_match_plain(cuda, decode, name, bs,
     ref = plain(xs.float(), gu.float(), dn.float(), be, bs,
                 gu.shape[-1] // 2).to(dtype)
     rel = flash_rel_err(got, ref)
-    assert rel <= (1e-4 if name == "fp32" else 1e-2), rel
+    assert rel <= (1e-4 if dtype == torch.float32 else 1e-2), rel
     sent = torch.repeat_interleave(be >= gu.shape[0], bs)
     if sentinel_empty:
         assert sent.any()
@@ -437,6 +449,67 @@ def test_grouped_glu_wrappers_refuse_what_they_do_not_take(cuda):
     with torch.no_grad():
         tbm.grouped_glu_decode_cuda(xs, gu, dn, be, bs, 16)
     assert tbm.grouped_glu_cuda(xs, gu, dn, be, bs, 16).grad_fn is None
+
+
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("bs,sentinel_empty,shape", [
+    (64, False, dict(h=256, i=384, e=8)), (80, True, {}), (16, False, {}),
+])
+def test_grouped_glu_bf16_is_deterministic(cuda, decode, bs, sentinel_empty,
+                                           shape):
+    """The bf16 K5 and K6 sum every output inside one CTA in a fixed
+    order, with no atomics: two launches on the same inputs agree bit for
+    bit."""
+    xs, gu, dn, be, bs = _moe_case(cuda, 6, torch.bfloat16, bs=bs,
+                                   sentinel_empty=sentinel_empty, **shape)
+    fn = tbm.grouped_glu_decode_cuda if decode else tbm.grouped_glu_cuda
+    first = fn(xs, gu, dn, be, bs, gu.shape[-1] // 2)
+    second = fn(xs, gu, dn, be, bs, gu.shape[-1] // 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_grouped_glu_bf16_refuses_widths_not_multiple_of_8(cuda):
+    """cp.async moves 16-byte chunks, so the bf16 K5 and K6 take H and I
+    multiples of 8 and raise on others; fp32 takes any width."""
+    for h, i in ((204, 176), (200, 180)):
+        xs, gu, dn, be, bs = _moe_case(cuda, 1, torch.bfloat16, h=h, i=i)
+        for fn in (tbm.grouped_glu_cuda, tbm.grouped_glu_decode_cuda):
+            with pytest.raises(ValueError, match="multiples of 8"):
+                fn(xs, gu, dn, be, bs, i // 2)
+            ys = fn(xs.float(), gu.float(), dn.float(), be, bs, i // 2)
+            torch.cuda.synchronize()
+            assert torch.isfinite(ys).all() and (ys != 0).any()
+
+
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("glu_act_wgmma", "glu_down_wgmma")),
+    (torch.float32, ("glu_act_kernel", "glu_down_kernel")),
+])
+def test_grouped_glu_routes_by_dtype(cuda, decode, dtype, kernels):
+    """K5 and K6 choose their kernels by the input type alone: bf16
+    launches the two tensor-core passes (K5 pairing row tiles, K6 splitting
+    a tile's columns: ``<false>`` and ``<true>`` in the profiler's names),
+    fp32 the two CUDA-core ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xs, gu, dn, be, bs = _moe_case(cuda, 5, dtype, sentinel_empty=decode)
+    fn = tbm.grouped_glu_decode_cuda if decode else tbm.grouped_glu_cuda
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(xs, gu, dn, be, bs, 88)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and ("glu_act" in e.key or "glu_down" in e.key)]
+    assert len(names) == 2, names
+    for want in kernels:
+        assert sum(want in n for n in names) == 1, (want, names)
+    if dtype == torch.bfloat16:
+        split = "<true>" if decode else "<false>"
+        assert all(split in n for n in names), names
 
 
 @pytest.mark.parametrize("disaggregated", [False, True])

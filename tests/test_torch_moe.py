@@ -411,7 +411,93 @@ def test_bf16_rounding_of_dg_du_and_a_is_bounded():
                                    atol=1e-5 * np.abs(want).max())
 
 
+def _tensor_core_fwd(xs, gu, dn, be, bs, act_cols=None, skip_block=None):
+    """The arithmetic of the bf16 forward on the tensor cores, emulated:
+    g and u from bf16 inputs summed in fp32; ``a = silu(g) u`` rounded once
+    to bf16 (the scratch between the two passes); y = a Wd summed over all
+    of I in fp32 and rounded once. Two planted faults: ``act_cols`` keeps
+    only the first I columns of a (pass A drops the rest), ``skip_block``
+    leaves that block's rows zero (pass B skips it)."""
+    e = gu.shape[0]
+    x32, gu32, dn32 = (t.float() for t in (xs, gu, dn))
+    ys = torch.zeros_like(x32)
+    for b, eb in enumerate(be.tolist()):
+        if eb >= e or b == skip_block:
+            continue
+        rows = slice(b * bs, (b + 1) * bs)
+        g, u = x32[rows] @ gu32[eb, :, 0], x32[rows] @ gu32[eb, :, 1]
+        a = (g * torch.sigmoid(g) * u).bfloat16().float()
+        if act_cols is not None:
+            a[:, act_cols:] = 0
+        ys[rows] = a @ dn32[eb]
+    return ys.bfloat16()
+
+
+def test_bf16_rounding_of_the_forward_act_is_bounded():
+    """The bf16 K5 and K6 keep ``a = silu(x Wg) (x Wu)`` in bf16 between
+    their two passes, where the Pallas kernels and the plain versions keep
+    it in fp32. Emulated here at a narrow width over six experts, one of
+    which owns no block, on sentinel metadata with the block table
+    reversed: (1) the emulation stays within the card limit 1e-2 of the
+    fp32 plain versions (``flash_rel_err``), and sentinel rows are exact
+    zeros; (2) under the same rounding the rule still flags, far above the
+    limit, a pass A that drops the last 5% of I and a pass B that skips a
+    live block; (3) the plain K5 and K6 still match the Pallas kernels in
+    interpret mode on the same inputs."""
+    from chip_smoke import flash_rel_err
+
+    t, h, i, e, k, bs = 96, 64, 160, 6, 2, 16
+    rng = np.random.RandomState(12)
+    idx = np.stack([rng.choice([x for x in range(e) if x != 2], k,
+                               replace=False) for _ in range(t)])
+    x = rng.randn(t, h).astype(np.float32)
+    _, src, dest, be, _, padded = jbw.compute_block_metadata(
+        jnp.asarray(idx, jnp.int32), e, bs, sentinel_empty=True)
+    xs = np.array(jbw.scatter_to_blocks(jnp.asarray(x), src, dest, padded))
+    gu = rng.randn(e, h, 2, i).astype(np.float32) * 0.1
+    dn = rng.randn(e, i, h).astype(np.float32) * 0.1
+    be = np.array(be, np.int32)
+    assert 2 not in be and (be >= e).any()
+    bf = [torch.from_numpy(a).bfloat16() for a in (xs, gu, dn)]
+    rev = torch.from_numpy(be[::-1].copy())
+    emu = _tensor_core_fwd(*bf, rev, bs)
+    sent = torch.repeat_interleave(rev >= e, bs)
+    assert not emu[sent].any() and emu[~sent].any()
+    for plain in (tops.grouped_glu_plain, tops.grouped_glu_decode_plain):
+        ref = plain(*(a.float() for a in bf), rev, bs, i).bfloat16()
+        assert 0 < flash_rel_err(emu, ref) < 1e-2
+
+    # a live block that holds real rows (a reversed table hands the
+    # padding blocks of some experts real positions in the table)
+    live = next(b for b, x_e in enumerate(rev.tolist())
+                if x_e < e and bf[0][b * bs:(b + 1) * bs].any())
+    for fault in (dict(act_cols=i * 95 // 100), dict(skip_block=live)):
+        assert flash_rel_err(_tensor_core_fwd(*bf, rev, bs, **fault),
+                             ref) > 0.25
+
+    j = [jnp.asarray(a) for a in (xs, gu, dn, be)]
+    tt = [torch.from_numpy(a) for a in (xs, gu, dn, be)]
+    for jfn, tfn in ((jops.grouped_glu, tops.grouped_glu_plain),
+                     (jops.grouped_glu_decode, tops.grouped_glu_decode_plain)):
+        want = np.asarray(jfn(*j, bs, 32, force_pallas=True))
+        got = tfn(*tt, bs, 32).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("kernel,group", [
+    ("void (anonymous namespace)::glu_act_kernel<float>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::glu_down_kernel<float>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_act_wgmma<false>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_down_wgmma<false>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_act_wgmma<true>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_down_wgmma<true>(...)",
+     "grouped_glu"),
     ("void (anonymous namespace)::glu_bwd_act_kernel<float>(...)",
      "grouped_glu_bwd_pass1"),
     ("(anonymous namespace)::tc::glu_bwd_act_wgmma(...)",
@@ -424,12 +510,40 @@ def test_bf16_rounding_of_dg_du_and_a_is_bounded():
     ("(anonymous namespace)::tc::glu_bwd_dw_wgmma(...)", "grouped_glu_dw"),
 ])
 def test_profile_train_groups_every_backward_kernel(kernel, group):
-    """``scripts/profile_train.py --mixtral`` splits the grouped-GLU
-    backward into pass 1, the dx pass and the dW pass in both designs: the
-    fp32 CUDA-core kernels and the bf16 wgmma ones."""
+    """``scripts/profile_train.py --mixtral`` puts both passes of the
+    grouped-GLU forward under ``grouped_glu`` and splits the backward into
+    pass 1, the dx pass and the dW pass, in both designs: the fp32
+    CUDA-core kernels and the bf16 wgmma ones (pairs of row tiles, or one
+    tile split by columns)."""
     from neuronx_distributed_tpu_torch.scripts import profile_train
 
     assert profile_train.group_of(kernel) == group
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void (anonymous namespace)::glu_act_kernel<float>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::glu_down_kernel<float>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_act_wgmma<false>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_down_wgmma<false>(...)",
+     "grouped_glu"),
+    ("void (anonymous namespace)::tc::glu_act_wgmma<true>(...)",
+     "grouped_glu_decode"),
+    ("void (anonymous namespace)::tc::glu_down_wgmma<true>(...)",
+     "grouped_glu_decode"),
+    ("void (anonymous namespace)::paged_attention_kernel<float>(...)",
+     "paged_attention"),
+])
+def test_profile_serving_groups_every_forward_kernel(kernel, group):
+    """``scripts/profile_serving.py --mixtral`` counts both passes of the
+    grouped-GLU forward in both designs: bf16 K6 (one row tile split by
+    columns) apart from bf16 K5 (row tiles in pairs); fp32, where K5 and
+    K6 share their kernels, under K5."""
+    from neuronx_distributed_tpu_torch.scripts import profile_serving
+
+    assert profile_serving.group_of(kernel) == group
 
 
 def test_grouped_glu_function_passes_gradcheck():
