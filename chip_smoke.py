@@ -9,11 +9,16 @@ script exits non-zero and prints no result:
    limit as ``nvidia-smi`` reports them.
 2. build: compiles every kernel under ``neuronx_distributed_tpu_torch/csrc``
    from source (one ``nvcc`` per file, in parallel) and prints the seconds.
-3. kernel_vs_plain: each kernel's wrapper at the serving step's shapes
-   (T=512, N=32, KV=8, D=128, BS=16, maxb=128) against its plain PyTorch
-   version on the same inputs — fp32 pools within 1e-4, bf16 and int8
-   within 2e-2 — plus D=64 and BS=32; times the kernel, the plain version
-   and one PyTorch library call, and computes the card's bound.
+3. kernel_vs_plain: K1's wrapper at the serving step's shapes (T=512,
+   N=32, KV=8, D=128, BS=16, maxb=128) against its plain PyTorch version
+   on the same inputs — fp32 pools within 1e-4, bf16 and int8 within 2e-2
+   — on random tables, plus D=64 and BS=32, and on three bf16 steps shaped
+   like the main path's (``packed_step``): a packed prefill step (3-4
+   chunks), a packed decode step (8 decode rows, 504 pad rows on the last
+   slot's table) and the T=4 decode worker; in bf16 over a bf16 pool
+   (the tensor-core kernel) a second launch equal to the first bit for
+   bit; times the kernel, the plain version and one PyTorch library call,
+   and computes the card's bound.
 4. serve: ``ServingEngine`` with Llama-3-8B at full width and all 32 layers
    in bf16 (random weights, seed 0, std 0.02): 8 requests of 128-1024
    prompt tokens and 64 new tokens each, two admitted mid-flight. Asserts
@@ -27,12 +32,13 @@ script exits non-zero and prints no result:
    N=32, KV=8, D=128, causal), element by element (``flash_rel_err``):
    bf16 within 2e-2 and fp32 within 1e-4 of |ref| + rms(ref's row) + 1e-3
    max|ref|, in bf16 also dropout 0.1, D=64, n_rep=1, non-causal and
-   S=1000; the kernel's dropout mask equal to the plain mask bit for bit;
-   in bf16 (where K3 and K4 run on the tensor cores) a second launch of
-   each equal to the first bit for bit; times each kernel, its plain
-   version and SDPA's forward (K2) and backward (K3+K4), and prints each
-   kernel's TFLOP/s and the K3+K4 factor against SDPA's backward on a
-   line of its own (``flash_bwd_pair``).
+   S=1000; the kernel's dropout mask equal to the plain mask bit for bit
+   (bf16 and fp32); in bf16 (where K2, K3 and K4 run on the tensor cores)
+   a second launch of each equal to the first bit for bit; times each
+   kernel, its plain version and SDPA's forward (K2) and backward
+   (K3+K4), and prints each kernel's TFLOP/s, K2 against SDPA's forward
+   (``flash_fwd_k2``) and the K3+K4 factor against SDPA's backward
+   (``flash_bwd_pair``) on lines of their own.
 8. train: ``make_train_step`` on Llama-3-8B widths at 4 layers, fp32
    params, bf16 compute, flash attention (random weights, seed 0, std
    0.02), B=1, S=4096, AdamW lr 1e-4 clipped at 1.0, 5 steps on one batch.
@@ -117,6 +123,15 @@ FLASH_KERNELS = (   # dispatcher (and its launch count), TPU kernel replaced
     ("flash_bwd_dq", "neuronx_distributed_tpu/ops/flash_attention.py:426"),
     ("flash_bwd_dkv", "neuronx_distributed_tpu/ops/flash_attention.py:474"),
 )
+# each kernel's design (csrc/paged_attention.cu, csrc/flash_attention.cu)
+K1_DESIGN = {
+    "tensor_cores": "bf16 q over a bf16 pool: wgmma (tensor cores), one kv "
+                    "head and 64 // n_rep tokens a CTA, each run of equal "
+                    "table rows streamed once through a cp.async ring, the "
+                    "table split across CTAs where the card would idle",
+    "cuda_cores": "fp32 FMAs (CUDA cores), one CTA per (token, kv head)"}
+FLASH_DESIGN = {torch.bfloat16: "wgmma (tensor cores)",
+                torch.float32: "fp32 FMAs (CUDA cores)"}
 MOE_SOURCE = "neuronx_distributed_tpu_torch/csrc/blockwise_moe.cu"
 MOE_KERNELS = (
     ("grouped_glu", "neuronx_distributed_tpu/ops/blockwise_moe.py:64"),
@@ -173,34 +188,86 @@ def time_ms(fn, reps: int = 25, flush: torch.Tensor = None,
 # phase 3: kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_case(seed, t=512, n=32, kv=8, d=128, bs=16, maxb=128, nb=2048,
-               n_seq=8, dtype=torch.bfloat16, quantized=False):
-    """A packed step's attention inputs: ``n_seq`` sequences own disjoint
-    random pool blocks; each token carries its sequence's table row (so
-    tokens share blocks) and a valid position; a few table entries are
-    -1 and the unfilled tail of each sequence is -1 / PAD_POSITION."""
-    from neuronx_distributed_tpu_torch.inference.kv_cache import (
-        PAD_POSITION, quantize_kv)
+def packed_step(seed, kind, t, bs, maxb, nb, max_pos):
+    """Pool positions ``[nb, bs]``, block tables ``[t, maxb]`` and query
+    positions ``[t]`` (int32 numpy) of one packed step, each sequence on
+    its own random pool blocks, filled to its length:
+
+    * ``random``: every token carries one of 8 sequences' table rows at
+      random (so no two neighbours need share one), 5% of the entries -1
+      (never the first), at a random position the sequence holds;
+    * ``prefill``: chunks of 3-4 sequences' prompts fill the rows in turn,
+      each chunk's rows carrying its sequence's table at rising positions
+      up to the chunk's end, which the pool holds (a step writes its K/V
+      before it attends);
+    * ``decode``: 8 decode rows, one per sequence of 128-1088 tokens, then
+      pad rows carrying the last sequence's table at position ``max_pos``,
+      as the engine's pad rows do;
+    * ``worker``: ``t`` decode rows, one per sequence (the disaggregated
+      decode worker)."""
+    from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
 
     rng = np.random.RandomState(seed)
-    lens = rng.randint(bs, maxb * bs // 2, n_seq)
+    cap = maxb * bs
+    lens = rng.randint(bs, cap // 2, 8) if kind == "random" else None
     perm = rng.permutation(nb)
-    seq_tables = np.full((n_seq, maxb), -1, np.int32)
     pool_pos = np.full((nb, bs), PAD_POSITION, np.int32)
     used = 0
-    for s, ln in enumerate(lens):
-        nblk = -(-ln // bs)
+
+    def sequence(length):
+        """A table row over fresh blocks holding positions [0, length)."""
+        nonlocal used
+        nblk = -(-length // bs)
+        if used + nblk > nb or nblk > maxb:
+            raise ValueError(f"packed_step: {length} tokens do not fit")
         blocks = perm[used:used + nblk]
         used += nblk
-        seq_tables[s, :nblk] = blocks
+        row = np.full(maxb, -1, np.int32)
+        row[:nblk] = blocks
         p = np.arange(nblk * bs).reshape(nblk, bs)
-        pool_pos[blocks] = np.where(p < ln, p, PAD_POSITION)
-    seq_of = rng.randint(0, n_seq, t)
-    tables = seq_tables[seq_of].copy()
-    holes = rng.rand(t, maxb) < 0.05
-    holes[:, 0] = False              # every token keeps a valid key
-    tables[holes] = -1
-    q_pos = rng.randint(0, lens[seq_of]).astype(np.int32)
+        pool_pos[blocks] = np.where(p < length, p, PAD_POSITION)
+        return row
+
+    if kind == "random":
+        rows = np.stack([sequence(n) for n in lens])
+        seq_of = rng.randint(0, 8, t)
+        tables = rows[seq_of]
+        holes = rng.rand(t, maxb) < 0.05
+        holes[:, 0] = False
+        tables[holes] = -1
+        q_pos = rng.randint(0, lens[seq_of])
+    elif kind == "prefill":
+        n_seq = rng.randint(3, 5)
+        cuts = np.sort(rng.choice(np.arange(1, t), n_seq - 1, replace=False))
+        tables, q_pos = [], []
+        for c in np.diff(np.concatenate([[0], cuts, [t]])):
+            start = rng.randint(0, max(1, min(cap // 2, cap - c + 1)))
+            tables += [sequence(start + c)] * c
+            q_pos += list(range(start, start + c))
+    elif kind in ("decode", "worker"):
+        n_seq = 8 if kind == "decode" else t
+        top = min(cap, 1088)
+        lens = rng.randint(min(128, top), top + 1, n_seq)
+        rows = [sequence(n) for n in lens]
+        tables = rows + [rows[-1]] * (t - n_seq)
+        q_pos = list(lens - 1) + [max_pos] * (t - n_seq)
+    else:
+        raise ValueError(f"packed_step: no kind {kind!r}")
+    return (pool_pos, np.asarray(tables, np.int32).reshape(t, maxb),
+            np.asarray(q_pos, np.int32))
+
+
+def paged_case(seed, t=512, n=32, kv=8, d=128, bs=16, maxb=128, nb=2048,
+               dtype=torch.bfloat16, quantized=False, kind="random",
+               max_pos=4095):
+    """A packed step's attention inputs on the card: random q, pools of
+    ``nb`` blocks (int8 with scales when ``quantized``), and the tables and
+    positions of :func:`packed_step`'s ``kind`` (pad rows at ``max_pos``,
+    Llama-3-8B's ``max_seq_len - 1``, as the engine puts them)."""
+    from neuronx_distributed_tpu_torch.inference.kv_cache import quantize_kv
+
+    pool_pos, tables, q_pos = packed_step(seed, kind, t, bs, maxb, nb,
+                                          max_pos)
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -270,6 +337,8 @@ def phase_kernel_vs_plain():
     from neuronx_distributed_tpu_torch.ops import paged_attention as pa
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    # (case, paged_case arguments, limit); the last three are shaped like
+    # the main path's steps (chip_smoke.packed_step)
     cases = [
         ("fp32", dict(dtype=torch.float32), 1e-4),
         ("bf16", dict(dtype=torch.bfloat16), 2e-2),
@@ -278,7 +347,12 @@ def phase_kernel_vs_plain():
         ("bf16_d64", dict(dtype=torch.bfloat16, d=64), 2e-2),
         ("bf16_bs32", dict(dtype=torch.bfloat16, bs=32, maxb=64, nb=1024),
          2e-2),
+        ("packed_prefill", dict(kind="prefill"), 2e-2),
+        ("packed_decode", dict(kind="decode"), 2e-2),
+        ("decode_worker", dict(kind="worker", t=4), 2e-2),
     ]
+    timed = ("bf16", "fp32", "int8_q_bf16", "packed_prefill",
+             "packed_decode", "decode_worker")
     results = []
     for i, (name, kw, tol) in enumerate(cases):
         args = paged_case(100 + i, **kw)
@@ -289,8 +363,24 @@ def phase_kernel_vs_plain():
         if not (err <= tol) or not torch.isfinite(got).all():
             raise AssertionError(f"paged_attention {name}: max abs error "
                                  f"{err} above {tol}")
-        res = dict(case=name, max_err=err, tol=tol)
-        if name in ("bf16", "fp32", "int8_q_bf16"):
+        res = dict(case=name, max_err=err, tol=tol, tokens=args[0].shape[0])
+        if args[0].dtype == args[1].dtype == torch.bfloat16:
+            # the tensor-core kernel: each run's sums in one CTA, splits
+            # merged in a fixed order, so a second launch gives the same bits
+            again = pa.paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name}: two launches "
+                                     "on the same inputs differ")
+            res.update(deterministic=True, design=K1_DESIGN["tensor_cores"],
+                       splits=pa.tc_splits(
+                           args[0].shape[0], args[0].shape[1],
+                           args[1].shape[2], torch.cuda.get_device_properties(
+                               0).multi_processor_count))
+            del again
+        else:
+            res["design"] = K1_DESIGN["cuda_cores"]
+        if name in timed:
             bound, by, nbytes, flops = paged_bound(args)
             res.update(
                 kernel_ms=time_ms(lambda: pa.paged_attention_cuda(*args),
@@ -298,12 +388,13 @@ def phase_kernel_vs_plain():
                 plain_ms=time_ms(lambda: pa.paged_attention_plain(*args),
                                  reps=20, flush=flush),
                 bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
-            if name == "bf16":
+            if args[0].dtype == args[1].dtype == torch.bfloat16:
                 lib = sdpa_on_gathered(args)
                 res["library_ms"] = time_ms(lib, flush=flush)
                 res["library"] = ("F.scaled_dot_product_attention on K/V "
                                   "pre-gathered to dense, masked; gather "
                                   "excluded")
+                del lib
         results.append(res)
         del args, got, ref
         torch.cuda.empty_cache()
@@ -917,20 +1008,22 @@ def sdpa_yardsticks(q, k, v, g, causal, flush):
     return fwd_ms, bwd_ms
 
 
-def check_flash_mask():
-    """q = k = 0 makes every valid score equal, so with V one-hot over a
-    window of D keys K2's output is keep / (l (1 - p)): its nonzero pattern
-    is the kernel's mask, held bit for bit against dropout_keep_mask (and
-    causality) over all 512 x 512 (q, k) pairs of all 32 heads."""
+def check_flash_mask(dtype):
+    """q = k = 0 makes every valid score equal (p exactly 1, also in bf16),
+    so with V one-hot over a window of D keys K2's output is keep / (l (1 -
+    p)): its nonzero pattern is the kernel's mask, held bit for bit against
+    dropout_keep_mask (and causality) over all 512 x 512 (q, k) pairs of
+    all 32 heads; in ``dtype`` (bf16: the tensor-core K2, fp32: the
+    CUDA-core one)."""
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
 
     b, s, n, kv, d, p, seed = 1, 512, 32, 8, 128, 0.1, 0xC0FFEE
-    q = torch.zeros(b, s, n, d, device="cuda")
-    k = torch.zeros(b, s, kv, d, device="cuda")
+    q = torch.zeros(b, s, n, d, device="cuda", dtype=dtype)
+    k = torch.zeros(b, s, kv, d, device="cuda", dtype=dtype)
     q_pos = torch.arange(s, device="cuda")[:, None]
     kept = total = 0
     for k0 in range(0, s, d):
-        v = torch.zeros(b, s, kv, d, device="cuda")
+        v = torch.zeros(b, s, kv, d, device="cuda", dtype=dtype)
         v[0, k0:k0 + d] = torch.eye(d, device="cuda")[:, None, :]
         out, _ = fa.flash_fwd_cuda(q, k, v, True, None, p, seed)
         k_pos = torch.arange(k0, k0 + d, device="cuda")[None, :]
@@ -982,16 +1075,18 @@ def phase_flash_vs_plain():
                    shape=list(q.shape), kv_heads=k.shape[2],
                    dtype=str(q.dtype), max_abs_err=errs, max_rel_err=rels)
         if q.dtype == torch.bfloat16:
-            # K3 and K4 sum inside one CTA in a fixed order: a second
+            # K2, K3 and K4 sum inside one CTA in a fixed order: a second
             # launch on the same inputs gives the same bits
             bwd = (q, k, v, g, got[1], delta, causal, None, p, seed)
-            again = (kernels[1](*bwd), *kernels[2](*bwd))
+            again = (*kernels[0](q, k, v, causal, None, p, seed),
+                     kernels[1](*bwd), *kernels[2](*bwd))
             torch.cuda.synchronize()
-            for name, a, b in zip(("dq", "dk", "dv"), got[2:], again):
+            for name, a, b in zip(names, got, again):
                 if not torch.equal(a, b):
                     raise AssertionError(f"flash {case} {name}: two launches "
                                          "on the same inputs differ")
-            res["bwd_deterministic"] = True
+            res["deterministic"] = True
+        res["design"] = FLASH_DESIGN[q.dtype]
         if case in ("bf16", "fp32"):
             out, lse = got[0], got[1]
             bwd = (q, k, v, g, lse, delta, causal, None, p, seed)
@@ -1023,11 +1118,19 @@ def phase_flash_vs_plain():
         results.append(res)
         del q, k, v, g, got, ref, delta
         torch.cuda.empty_cache()
-    mask = check_flash_mask()
+    mask = {str(dt): check_flash_mask(dt)
+            for dt in (torch.bfloat16, torch.float32)}
     emit("flash_vs_plain", cases=results, dropout_mask=mask)
     rates = {c["case"]: {name: t["tflops"] for name, t in c["timing"].items()}
              for c in results if "timing" in c}
     t = next(c for c in results if c["case"] == "bf16")["timing"]
+    k2 = t["flash_fwd"]
+    emit("flash_fwd_k2", k2_ms=k2["kernel_ms"], tflops=k2["tflops"],
+         sdpa_fwd_ms=k2["library_ms"],
+         factor_vs_sdpa_fwd=k2["kernel_ms"] / k2["library_ms"],
+         bound_ms=k2["bound_ms"],
+         fp32_k2_ms=next(c for c in results if c["case"] == "fp32")[
+             "timing"]["flash_fwd"]["kernel_ms"])
     pair = t["flash_bwd_dq"]["kernel_ms"] + t["flash_bwd_dkv"]["kernel_ms"]
     emit("flash_bwd_pair", tflops=rates, k3_k4_ms=pair,
          sdpa_bwd_ms=t["flash_bwd_dq"]["library_ms"],
@@ -1236,7 +1339,11 @@ def main() -> None:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "kernel_ms": main_case["kernel_ms"],
-        "max_err": max(c["max_err"] for c in cases)}]
+        "max_err": max(c["max_err"] for c in cases),
+        "design": K1_DESIGN["tensor_cores"] + "; other types: "
+                  + K1_DESIGN["cuda_cores"],
+        "cases_ms": {c["case"]: c["kernel_ms"] for c in cases
+                     if "kernel_ms" in c}}]
     flash_main = next(c for c in flash_cases if c["case"] == "bf16")
     outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
@@ -1250,7 +1357,9 @@ def main() -> None:
             "max_abs_err": err, "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "kernel_ms": t["kernel_ms"], "max_err": err})
+            "kernel_ms": t["kernel_ms"], "max_err": err,
+            "design": f"bf16: {FLASH_DESIGN[torch.bfloat16]}; fp32: "
+                      f"{FLASH_DESIGN[torch.float32]}"})
     for name, replaces in MOE_KERNELS:
         main_case = next(c for c in moe_cases
                          if c["kernel"] == name and c["case"].endswith("bf16"))

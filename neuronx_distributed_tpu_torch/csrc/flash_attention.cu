@@ -24,39 +24,43 @@
 //
 // Two designs, chosen by the input type (the C entries' dtype argument):
 //
-// bf16 K3 and K4 (namespace tc, `flash_bwd_dq_wgmma`,
-// `flash_bwd_dkv_wgmma`): only the tensor cores reach the bound, so every
-// product is a wgmma of bf16 with fp32 accumulators in registers.
+// bf16 K2, K3 and K4 (namespace tc, `flash_fwd_wgmma`,
+// `flash_bwd_dq_wgmma`, `flash_bwd_dkv_wgmma`): only the tensor cores reach
+// the bound, so every product is a wgmma of bf16 with fp32 accumulators in
+// registers.
 //  * One warpgroup (128 threads) per CTA and 64-row tiles, two CTAs an SM
-//    (97 and 99 KB of shared memory at D=128), so one CTA's softmax-side
-//    work overlaps the other's products.
+//    (81, 97 and 99 KB of shared memory at D=128), so one CTA's
+//    softmax-side work overlaps the other's products.
 //  * Tiles stay bf16 in shared memory in the 128-byte swizzle the wgmma
 //    descriptors read (two 64-column atoms a row at D=128). The streamed
-//    operand (K and V in K3; Q, dO, lse and delta in K4) lands by cp.async
-//    in a ring of two stages: the next tile's copy runs under this tile's
-//    products; the ragged tail is zero-filled by the copy.
+//    operand (K and V in K2 and K3; Q, dO, lse and delta in K4) lands by
+//    cp.async in a ring of two stages: the next tile's copy runs under this
+//    tile's products; the ragged tail is zero-filled by the copy.
 //  * S = Q K^T and dP = dO V^T read both operands from shared memory. P
 //    (dropped: P_v) and dS are computed on the accumulator fragments, each
 //    element's (query, key) position taken from the m64nNk16 accumulator
 //    layout, so the causal mask, the ragged tail and the dropout hash see
-//    the CUDA-core kernels' global coordinates. They are rounded once to
-//    bf16 in registers, where they already sit as the A operand of the
-//    second products (dQ += dS K; dV += P_v^T dO, dK += dS^T Q); the B
-//    operand is the same shared tile read MN-major through the
-//    descriptor's transpose bit, so nothing is transposed or written back.
-//  * The cp.async, descriptor and wgmma helpers live in hopper_tc.cuh,
-//    shared with the grouped-GLU backward of blockwise_moe.cu.
+//    the CUDA-core kernels' global coordinates. K2's online softmax runs
+//    in fp32 on the fragments in log2 units (hopper_tc.cuh); its l sums the
+//    undropped p. P and dS are rounded once to bf16 in registers, where
+//    they already sit as the A operand of the second products (O += P_v V;
+//    dQ += dS K; dV += P_v^T dO, dK += dS^T Q); the B operand is the same
+//    shared tile read MN-major through the descriptor's transpose bit, so
+//    nothing is transposed or written back.
+//  * The cp.async, descriptor, wgmma and softmax helpers live in
+//    hopper_tc.cuh, shared with paged_attention.cu and blockwise_moe.cu.
 //  * K4 runs key-major (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come
 //    out as A operands; dK and dV stay in registers over the n_rep query
 //    heads and their q-blocks and are written once: no atomics, the same
 //    bits on every launch.
 //  * Only diagonal and ragged tiles evaluate the mask. Grids run the
 //    longest causal loops first (the launch order is blockIdx.x fastest).
-// The new rounding: the Pallas kernels and the CUDA-core ones keep p and ds
-// in fp32; these round them once to bf16 (bounded on the CPU by
+//    K2 writes lse in fp32, [B*N, S], the layout K3 and K4 read.
+// The new roundings: the Pallas kernels and the CUDA-core ones keep p and
+// ds in fp32; these round them once to bf16 (bounded on the CPU by
 // tests/test_torch_flash_attention.py).
 //
-// CUDA-core kernels (K2 in both types, K3 and K4 in fp32): fp32 on the
+// CUDA-core kernels (K2, K3 and K4 in fp32): fp32 on the
 // tensor cores would be TF32, about three decimal digits, which the fp32
 // card limit of 1e-4 and the fp32 train-step cross-checks would not hold;
 // fp32 keeps exact fp32 FMAs at the CUDA cores' 67 TFLOP/s.
@@ -65,8 +69,8 @@
 //    one warp, so row max and row sum reduce with four shuffles.
 //  * Tiles are staged in shared memory as fp32 (rows padded to D+1 floats,
 //    so the column reads of a product hit distinct banks); products are
-//    fp32 FMAs on the CUDA cores, every sum in fp32. Inputs are fp32 or
-//    bf16, outputs in the input type, lse fp32.
+//    fp32 FMAs on the CUDA cores, every sum in fp32. Inputs, outputs and
+//    lse are fp32.
 //  * GQA is read natively: query head n reads kv head n / (N/KV) of
 //    [B, S, KV, D] K/V, so repeat_kv is never materialised. K4 runs one CTA
 //    per (batch, kv head, k-block) and loops over the n_rep query heads and
@@ -93,19 +97,12 @@ constexpr int kLdP = kTile + 1;       // row stride of the 64 x 64 p/ds tile
 enum DType { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 struct Dropout {
@@ -500,6 +497,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 namespace tc {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // bytes of a 64 x D bf16 tile: D / 64 atoms of 64 rows x 128 B
 template <int D>
@@ -514,8 +512,14 @@ __host__ __device__ constexpr uint32_t dkv_stage_bytes() {
   return 2 * tile_bytes<D>() + 1024;
 }
 
-// dynamic shared memory of K3 (Q, dO, two stages of K and V) and K4 (K, V,
-// two stages), with 1024 bytes to align the first tile
+// dynamic shared memory of K2 (Q, two stages of K and V), K3 (Q, dO, two
+// stages of K and V) and K4 (K, V, two stages), with 1024 bytes to align
+// the first tile
+template <int D>
+__host__ __device__ constexpr uint32_t fwd_smem_bytes() {
+  return 5 * tile_bytes<D>() + 1024;
+}
+
 template <int D>
 __host__ __device__ constexpr uint32_t dq_smem_bytes() {
   return 6 * tile_bytes<D>() + 1024;
@@ -544,29 +548,22 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   }
 }
 
-// acc[64 x 64] = A[64 x D] . B[64 x D]^T over two K-major tiles.
-template <int D>
-__device__ __forceinline__ void mma_ss(float (&acc)[32], uint32_t a,
-                                       uint32_t b) {
+// p as two bf16 A operands of four k16 steps each (to_operand's layout):
+// hi, its rounding, and lo, the rounding of what hi left, so hi + lo holds
+// p to about 2^-16 of itself.
+__device__ __forceinline__ void to_operands_hi_lo(const float (&x)[32],
+                                                  uint32_t (&hi)[4][4],
+                                                  uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<0, 0>(acc, desc_k(a, kk), desc_k(b, kk), kk > 0);
-}
-
-// acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers (four k16 steps),
-// B a tile read MN-major.
-__device__ __forceinline__ void mma_rs(float (&acc)[32],
-                                       const uint32_t (&a)[4][4],
-                                       uint32_t b) {
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(acc, a[kk], desc_mn(b, kk), 1);
-}
-
-__device__ __forceinline__ void mma_rs(float (&acc)[64],
-                                       const uint32_t (&a)[4][4],
-                                       uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, a[kk], desc_mn(b, kk), 1);
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][r] = pack_bf16(a - hf.x, b - hf.y);
+    }
 }
 
 // Rows [row0, row0 + 64) of a 64 x D accumulator out to bf16 rows
@@ -584,6 +581,131 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t stride,
                                          frag_col(lane, i)) =
           __floats2bfloat162_rn(acc[i], acc[i + 1]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K2 (bf16): out and lse. grid (B*N, q-blocks), the longest causal rows
+// first. Shared memory: Q, then K and V each in a ring of two slots. S =
+// Q K^T from shared memory, the next tile's under this tile's softmax (and
+// its K and the next V land under both); the online softmax on the
+// accumulator fragments in fp32
+// (log2 units); P, the dropped probabilities, as a bf16 value and the
+// bf16 remainder of its rounding, each the register A operand of
+// O += P V, V read MN-major. One rounding alone moved out, and with it the
+// backward's delta = rowsum(dO out), enough to put dq past the card limit
+// (tests/test_torch_flash_attention.py).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup, 2) flash_fwd_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int S, int N, int KV, float scale, int causal,
+    Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t T = tile_bytes<D>();
+  const uint32_t q_sh = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv_sh = q_sh + T;
+  const int nqb = (S + kRows - 1) / kRows;
+  const int qb = nqb - 1 - blockIdx.y;
+  const int bn = blockIdx.x;
+  const int b = bn / N, n = bn % N, h = n / (N / KV);
+  const int q0 = qb * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t q_stride = (size_t)N * D, kv_stride = (size_t)KV * D;
+  const size_t q_off = ((size_t)b * S * N + n) * D;
+  const bf16* k_base = k + ((size_t)b * S * KV + h) * D;
+  const bf16* v_base = v + ((size_t)b * S * KV + h) * D;
+  const uint32_t hseed = drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+  const int nkb = (S + kRows - 1) / kRows;
+  const int kb_end = causal ? min(nkb, qb + 1) : nkb;
+
+  // K_j and V_j land in ring slot j % 2 each
+  const uint32_t k_sh = kv_sh, v_sh = kv_sh + 2 * T;
+  load_tile<D>(q_sh, q + q_off, q_stride, q0, S);
+  load_tile<D>(k_sh, k_base, kv_stride, 0, S);
+  load_tile<D>(v_sh, v_base, kv_stride, 0, S);
+  if (kb_end > 1) load_tile<D>(k_sh + T, k_base, kv_stride, kRows, S);
+  cp_async_commit();
+
+  const float scale2 = scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2];
+  zero(acc);
+  cp_async_wait_for_wgmma();
+  __syncthreads();
+  float s[32];
+  zero(s);
+  wgmma_fence();
+  mma_ss<D>(s, q_sh, k_sh);              // s = q k_0^T
+  wgmma_commit();
+  wgmma_wait();
+  hold(s);
+  for (int kb = 0; kb < kb_end; ++kb) {
+    // in: s = q k_kb^T, K_{kb+1}, V_kb
+    float sn[32];
+    zero(sn);
+    wgmma_fence();
+    if (kb + 1 < kb_end)                 // runs under this tile's softmax
+      mma_ss<D>(sn, q_sh, k_sh + ((kb + 1) & 1) * T);
+    wgmma_commit();
+    if (kb + 2 < kb_end)                 // into K_kb's slot: s is done
+      load_tile<D>(k_sh + (kb & 1) * T, k_base, kv_stride, (kb + 2) * kRows,
+                   S);
+    if (kb + 1 < kb_end)                 // into V_{kb-1}'s: its PV is done
+      load_tile<D>(v_sh + ((kb + 1) & 1) * T, v_base, kv_stride,
+                   (kb + 1) * kRows, S);
+    cp_async_commit();
+    const int k0 = kb * kRows;
+    const bool edge = (causal && kb == qb) || k0 + kRows > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qpos = q0 + frag_row(warp, lane, i);
+      const int kpos = k0 + frag_col(lane, i);
+      s[i] = (edge && !(kpos < S && (!causal || kpos <= qpos)))
+                 ? -INFINITY
+                 : s[i] * scale2;
+    }
+    online_softmax(s, m, l, acc);        // l sums the undropped p
+    if (drop.on) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!keep(hseed, (uint32_t)(q0 + frag_row(warp, lane, i)),
+                  (uint32_t)(k0 + frag_col(lane, i)), (uint32_t)S,
+                  drop.threshold))
+          s[i] = 0.f;
+    }
+    uint32_t hi[4][4], lo[4][4];
+    to_operands_hi_lo(s, hi, lo);
+    const uint32_t vt = v_sh + (kb & 1) * T;
+    wgmma_fence();
+    mma_rs(acc, hi, vt);                 // o += p v, p as value
+    mma_rs(acc, lo, vt);                 // and remainder
+    wgmma_commit();
+    wgmma_wait();                        // these and the next s
+    hold(acc);
+    hold(hi);
+    hold(lo);
+    hold(sn);
+    cp_async_wait_for_wgmma();
+    __syncthreads();                     // K_{kb+2}, V_{kb+1} are in
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = sn[i];
+  }
+  // survivors rescaled by 1/(1-p) once, here; lse in natural-log units
+  const float inv_keep = drop.on ? drop.inv_keep : 1.f;
+  float f[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float lt = quad_sum(l[e]);
+    const int row = q0 + frag_row(warp, lane, 2 * e);
+    f[e] = inv_keep / fmaxf(lt, 1e-30f);
+    if (row < S && lane % 4 == 0)
+      lse[(size_t)bn * S + row] =
+          lt > 0.f ? m[e] * kLn2 + logf(lt) : -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= f[(i >> 1) & 1];
+  store_rows<D>(out + q_off, q_stride, acc, q0, S, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -865,8 +987,24 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// bf16 K3/K4: 128 threads, two CTAs an SM (99 KB of shared memory each at
-// D=128).
+// bf16 K2/K3/K4: 128 threads, two CTAs an SM (81, 97 and 99 KB of shared
+// memory each at D=128).
+template <int D>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int B, int S, int N, int KV, float scale,
+                     int causal, Dropout drop, cudaStream_t stream) {
+  auto kernel = tc::flash_fwd_wgmma<D>;
+  const size_t smem = tc::fwd_smem_bytes<D>();
+  cudaError_t err = set_smem_max(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * N, (S + tc::kRows - 1) / tc::kRows);
+  kernel<<<grid, tc::kWarpgroup, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out),
+      static_cast<float*>(lse), S, N, KV, scale, causal, drop);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t bwd_dq_bf16(const void* q, const void* k, const void* v,
                         const void* g, const void* lse, const void* delta,
@@ -953,11 +1091,13 @@ extern "C" int nxd_flash_fwd(int dtype, const void* q, const void* k,
                                     causal, drop, s)
                    : fwd<float, 128>(q, k, v, out, lse, B, S, N, KV, scale,
                                      causal, drop, s);
-  if (dtype == kBF16)
-    return D == 64 ? fwd<__nv_bfloat16, 64>(q, k, v, out, lse, B, S, N, KV,
-                                            scale, causal, drop, s)
-                   : fwd<__nv_bfloat16, 128>(q, k, v, out, lse, B, S, N, KV,
-                                             scale, causal, drop, s);
+  if (dtype == kBF16) {
+    if (misaligned(q, k, v, out)) return cudaErrorMisalignedAddress;
+    return D == 64 ? fwd_bf16<64>(q, k, v, out, lse, B, S, N, KV, scale,
+                                  causal, drop, s)
+                   : fwd_bf16<128>(q, k, v, out, lse, B, S, N, KV, scale,
+                                   causal, drop, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) tensor-core helpers shared by the bf16 kernels of
-// flash_attention.cu (K3, K4) and blockwise_moe.cu (K7, K8): cp.async into
-// tiles in the 128-byte swizzle, wgmma shared-memory descriptors, the
-// wgmma products with fp32 accumulators in registers, and the accumulator
-// fragment's coordinates.
+// flash_attention.cu (K2, K3, K4), paged_attention.cu (K1) and
+// blockwise_moe.cu (K5-K8): cp.async into tiles in the 128-byte swizzle
+// (from a strided slab, or row by row through a gather), wgmma
+// shared-memory descriptors, the wgmma products with fp32 accumulators in
+// registers, the accumulator fragment's coordinates, and the online
+// softmax of the attention kernels on those fragments.
 //
 // A tile is R rows x C bf16 columns (C a multiple of 64): 64-column atoms
 // R * 128 bytes apart, row r of an atom at r * 128, its 16-byte chunk c at
@@ -19,6 +21,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -89,6 +92,30 @@ __device__ __forceinline__ void load_tile_rc(uint32_t dst, const bf16* src,
     cp_async16(dst + (c / 8) * (R * 128) + r * 128 +
                    (((c % 8) ^ (r % 8)) << 4),
                ok ? src + (size_t)row * ld + col : src, ok);
+  }
+}
+
+// NTL tiles of R x C gathered row by row at one offset: row r of tile j
+// from base[j] + off(r) (elements), or zeros where off(r) is negative
+// (nothing is read). By the NT threads of the CTA; off(r) is computed once
+// for all the tiles; rows need 16-byte alignment.
+template <int R, int C, int NT, int NTL, typename Off>
+__device__ __forceinline__ void load_rows(const uint32_t (&dst)[NTL],
+                                          const bf16* const (&base)[NTL],
+                                          Off off) {
+  constexpr int kChunks = C / 8;          // 16-byte chunks of a row
+  static_assert(C % 64 == 0 && R % 8 == 0 && R * kChunks % NT == 0,
+                "whole atoms, whole passes of the threads");
+#pragma unroll
+  for (int i = 0; i < R * kChunks / NT; ++i) {
+    const int id = threadIdx.x + i * NT;
+    const int r = id / kChunks, c = id % kChunks;
+    const long long o = off(r);
+    const uint32_t at = (c / 8) * (R * 128) + r * 128 +
+                        (((c % 8) ^ (r % 8)) << 4);
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+      cp_async16(dst[j] + at, base[j] + (o < 0 ? 0 : o + 8 * c), o >= 0);
   }
 }
 
@@ -244,6 +271,31 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(accumulate));
 }
 
+// acc[64 x 64] = A[64 x D] . B[64 x D]^T over two K-major tiles.
+template <int D>
+__device__ __forceinline__ void mma_ss(float (&acc)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<0, 0>(acc, desc_k(a, kk), desc_k(b, kk), kk > 0);
+}
+
+// acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers (four k16 steps),
+// B a tile read MN-major.
+__device__ __forceinline__ void mma_rs(float (&acc)[32],
+                                       const uint32_t (&a)[4][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(acc, a[kk], desc_mn(b, kk), 1);
+}
+
+__device__ __forceinline__ void mma_rs(float (&acc)[64],
+                                       const uint32_t (&a)[4][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, a[kk], desc_mn(b, kk), 1);
+}
+
 // Element i of an m64nN fp32 accumulator held by thread `lane` of warp
 // `warp` of the warpgroup: row 16 warp + lane / 4 (+ 8 for i % 4 >= 2),
 // column 8 (i / 4) + 2 (lane % 4) (+ 1 for odd i).
@@ -276,6 +328,49 @@ template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// The four lanes of a quad hold one accumulator row between them.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One online-softmax step over a 64 x 64 score tile held as an m64n64 fp32
+// accumulator, in log2 units, masked entries -inf. Element i of s and of
+// the output accumulator acc (any width) belongs to this thread's row
+// (i >> 1) & 1. Updates the rows' running max m (log2 units) and this
+// thread's share l of their running sums (the quad's shares add up: every
+// lane applies the same rescale), rescales acc, and leaves p = exp2(s - m)
+// in s. A row whose entries are all masked keeps m, l and acc bit for bit.
+template <int NA>
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&acc)[NA]) {
+  float mx[2] = {-INFINITY, -INFINITY}, base[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float m_new = fmaxf(m[e], quad_max(mx[e]));
+    base[e] = m_new == -INFINITY ? 0.f : m_new;
+    corr[e] = m[e] == -INFINITY ? 0.f : exp2f(m[e] - base[e]);
+    m[e] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = exp2f(s[i] - base[(i >> 1) & 1]);
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = l[e] * corr[e] + sum[e];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] *= corr[(i >> 1) & 1];
 }
 
 }  // namespace tc

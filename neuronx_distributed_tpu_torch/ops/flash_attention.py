@@ -14,8 +14,12 @@ Three kernels, each with a plain PyTorch version behind one signature:
 
 Each dispatcher chooses by the device of ``q``: CPU tensors take the plain
 version, CUDA tensors the kernel (``csrc/flash_attention.cu``, bound with
-:mod:`ctypes`), which launches or raises; nothing falls back. Every kernel
-wrapper adds one to its dispatcher's ``launches`` per launch.
+:mod:`ctypes`), which launches or raises; nothing falls back. The C entries
+choose the kernel by the input type: bf16 runs the tensor-core kernels
+(``tc::flash_fwd_wgmma``, ``tc::flash_bwd_dq_wgmma``,
+``tc::flash_bwd_dkv_wgmma``), fp32 the CUDA-core ones. Every kernel
+wrapper adds one to its dispatcher's ``launches`` per launch, whichever
+kernel it launched.
 
 K/V may carry fewer heads than q (grouped-query attention): ``k``/``v``
 ``[B, S, KV, D]`` with ``N % KV == 0``, query head ``n`` reading kv head

@@ -8,9 +8,14 @@ Two implementations behind one signature:
   table, force unmapped entries to ``PAD_POSITION``, fp32 einsums,
   ``-1e30`` masking, softmax. The CPU tests hold it against the JAX
   function, and ``chip_smoke.py`` holds the kernel against it.
-* :func:`paged_attention_cuda` — the hand-written Hopper kernel
+* :func:`paged_attention_cuda` — the hand-written Hopper kernels of
   ``csrc/paged_attention.cu`` (replacing the Pallas ``_paged_kernel``),
-  bound through :mod:`ctypes`.
+  bound through :mod:`ctypes`. The types choose the kernel: bf16 q over a
+  bf16 pool runs ``tc::paged_attention_wgmma`` on the tensor cores, which
+  walks each run of consecutive tokens with equal table rows once for the
+  whole run and, where the card would sit idle, splits each run's table
+  across :func:`tc_splits` CTAs merged by a second pass; other types run
+  the CUDA-core ``paged_attention_kernel``.
 
 :func:`paged_attention` chooses by the device of ``q``: CPU tensors take
 the plain version, CUDA tensors the kernel, and nothing falls back. A row
@@ -33,11 +38,23 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
           torch.int8: 3}
 MAX_REP = 16
 MAX_BLOCK_SIZE = 256
+MAX_SPLITS = 16
+ROWS = 64              # query rows of a tensor-core tile: 64 // n_rep tokens
 # nxd_paged_attention(q_dtype, pool_dtype, q, k_pool, v_pool, k_scale,
-#   v_scale, pool_pos, tables, q_pos, out, T, N, KV, D, BS, MAXB, scale,
-#   stream) in csrc/paged_attention.cu
-ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+#   v_scale, pool_pos, tables, q_pos, out, partial, T, N, KV, D, BS, MAXB,
+#   splits, scale, stream) in csrc/paged_attention.cu
+ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def tc_splits(t: int, n: int, kv: int, sms: int) -> int:
+    """CTAs per (token tile, kv head) of the tensor-core kernel, from the
+    shapes alone: enough that the tiles x kv heads fill the card's ``sms``
+    SMs four times over (two CTAs an SM, two waves, so a tile that walks
+    many runs, as the decode step's first does, is shared out), at most
+    ``MAX_SPLITS``."""
+    ctas = -(-t // (ROWS // (n // kv))) * kv
+    return max(1, min(MAX_SPLITS, 4 * sms // ctas))
 
 
 def _check_common(q, k_pool, v_pool, k_scale, v_scale):
@@ -95,10 +112,14 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          tables: torch.Tensor, q_pos: torch.Tensor,
                          k_scale: Optional[torch.Tensor] = None,
                          v_scale: Optional[torch.Tensor] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None, *,
+                         splits: Optional[int] = None) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on the current stream. Checks
     device, dtype, shape and contiguity, and raises on anything the kernel
-    does not take. Adds one to ``paged_attention.launches`` per launch."""
+    does not take. Adds one to ``paged_attention.launches`` per launch.
+    ``splits`` sets the bf16 tensor-core kernel's split count (default
+    :func:`tc_splits`), to time the candidates; every caller on the main
+    path leaves it."""
     from . import _build
 
     _check_common(q, k_pool, v_pool, k_scale, v_scale)
@@ -145,6 +166,15 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if t == 0:
         return out
+    tensor_cores = q.dtype == k_pool.dtype == torch.bfloat16
+    if tensor_cores and splits is None:
+        splits = tc_splits(t, n, kv, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+    splits = splits if tensor_cores else 1
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{MAX_SPLITS}")
+    partial = (torch.empty(splits * t * n * (d + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     lib = _build.load("paged_attention")
     fn = lib.nxd_paged_attention
     fn.restype = ctypes.c_int
@@ -154,7 +184,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     rc = fn(_CODES[q.dtype], _CODES[k_pool.dtype], q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
             pool_pos.data_ptr(), tables.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), t, n, kv, d, bs, maxb,
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            t, n, kv, d, bs, maxb, splits,
             (1.0 / math.sqrt(d)) if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -13,8 +13,9 @@ block 64 (add ``--disaggregated`` for phase 12's two workers). For each
 window it prints one JSON line: host wall time per step, device busy time
 per step, the device's idle share, the kernels by device time and the
 busy time by group (paged attention K1, the grouped GLU K5 and K6,
-cuBLAS products, the rest); and the wall time per decode step without the
-profiler. It also counts, over decode
+cuBLAS products, the rest), each of the port's kernels by name (K1's
+``tc::paged_attention_wgmma`` and ``tc::paged_combine`` apart); and the
+wall time per decode step without the profiler. It also counts, over decode
 steps, how many pool key entries the attention kernel walked for real rows
 and for the step's pad rows (pad rows carry the last slot's block table,
 as in the JAX model, and their output is discarded).
@@ -31,11 +32,14 @@ import time
 import numpy as np
 import torch
 
+from .profile_train import port_kernels
 
-# kernel groups by name, first match wins: K1, K6 and K5 (both passes
-# each; fp32 K6 runs K5's kernels, so it counts under grouped_glu), cuBLAS
-# products
-GROUPS = {"paged_attention": ("paged_attention",),
+
+# kernel groups by name, first match wins: K1 (the bf16 tensor-core
+# kernel with its split combine, or the CUDA-core kernel), K6 and K5 (both
+# passes each; fp32 K6 runs K5's kernels, so it counts under grouped_glu),
+# cuBLAS products
+GROUPS = {"paged_attention": ("paged_attention", "paged_combine"),
           "grouped_glu_decode": ("glu_act_wgmma<true>",
                                  "glu_down_wgmma<true>"),
           "grouped_glu": ("glu_act", "glu_down"),
@@ -76,6 +80,10 @@ def trace(eng, steps: int, label: str) -> None:
         "paged_attention_share_of_busy": (
             groups["paged_attention"] / busy_ms if kernels else None),
         "busy_ms_per_step_by_group": groups,
+        # each kernel of the port's groups (not cuBLAS, not "other") by name
+        "port_kernels_ms_per_step": port_kernels(
+            kernels, steps,
+            lambda k: group_of(k) not in ("cublas_products", "other")),
         "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps]
                                     for k, v in top]}), flush=True)
 

@@ -14,8 +14,9 @@ host wall time per step, device busy time per step, the device's idle
 share (busy time from the trace over the unprofiled wall time), the device
 time per step of each group of kernels (the three flash kernels, the
 grouped-GLU forward K5, the backward's shared pass 1 and its dx (K7) and dW
-(K8) passes, matrix products, the rest) and the top kernels by device
-time.
+(K8) passes, matrix products, the rest), each of the port's kernels by
+name (so the bf16 ``tc::..._wgmma`` kernels and the fp32 CUDA-core ones
+show apart) and the top kernels by device time.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 # kernel-name fragments of each group, first match wins
 # (the CUDA-core kernels run fp32, the wgmma kernels bf16)
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
+GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_wgmma")),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_wgmma")),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_wgmma")),
           ("grouped_glu", ("glu_act_kernel", "glu_down_kernel",
@@ -46,6 +47,25 @@ def group_of(name: str) -> str:
         if any(k in name for k in keys):
             return group
     return "other"
+
+
+def port_kernels(kernels: dict, steps: int, keep) -> dict:
+    """Device ms per step of each kernel whose profiler key ``keep``
+    accepts, by :func:`kernel_name`; ``kernels`` maps profiler keys to
+    device us."""
+    out = {}
+    for key, us in kernels.items():
+        if keep(key):
+            name = kernel_name(key)
+            out[name] = out.get(name, 0.0) + us / 1e3 / steps
+    return out
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its return type, namespace and arguments:
+    ``void (anonymous namespace)::tc::flash_fwd_wgmma<128>(...)`` ->
+    ``tc::flash_fwd_wgmma<128>``."""
+    return key.split("(anonymous namespace)::", 1)[-1].split("(")[0]
 
 
 def main() -> None:
@@ -103,6 +123,10 @@ def main() -> None:
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "tokens_per_s": seq / (wall_ms / 1e3),
         "groups_ms_per_step": groups,
+        # each kernel of the port's groups (not cuBLAS, not "other") by name
+        "port_kernels_ms_per_step": port_kernels(
+            kernels, steps,
+            lambda k: group_of(k) not in ("matmul", "other")),
         "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps]
                                     for k, v in top]}), flush=True)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))

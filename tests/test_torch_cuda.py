@@ -139,6 +139,139 @@ def test_engine_on_card_matches_cpu(cuda, quantized):
     assert out["cuda"][3] == 1
 
 
+def _profiler_warmup():
+    """One throwaway trace: a kernel launched just after the first trace
+    starts may go unrecorded while CUPTI starts up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def _step_case(device, seed, kind, t, n_rep, bs, d, kv=2):
+    """bf16 q and pools on ``device`` over ``chip_smoke.packed_step``'s
+    tables (up to 1024 keys a table); in the random case token 3 has no
+    valid key (an all -1 table, a run of its own)."""
+    from chip_smoke import packed_step
+
+    maxb = max(1, 1024 // bs)
+    nb = 9 * maxb
+    pool_pos, tables, q_pos = packed_step(seed, kind, t, bs, maxb, nb, 4095)
+    if kind == "random":
+        tables[3] = -1
+    rng = np.random.RandomState(seed + 1)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to(device=device, dtype=torch.bfloat16)
+               for shape in ((t, kv * n_rep, d), (nb, bs, kv, d),
+                             (nb, bs, kv, d)))
+    return (q, k, v) + tuple(torch.from_numpy(a).to(device)
+                             for a in (pool_pos, tables, q_pos))
+
+
+def _no_valid_key(args):
+    _, _, _, pool_pos, tables, q_pos = args
+    pos = pool_pos[tables.long().clamp(min=0)].flatten(1)
+    ok = (q_pos[:, None] >= pos) & (tables >= 0).repeat_interleave(
+        pool_pos.shape[1], 1)
+    return ~ok.any(1)
+
+
+K1_CASES = [
+    ("random", 48, 4, 16, 128), ("random", 77, 1, 5, 64),
+    ("random", 50, 2, 32, 128), ("random", 33, 8, 256, 64),
+    ("prefill", 512, 4, 16, 128), ("prefill", 70, 1, 32, 64),
+    ("prefill", 100, 8, 5, 128), ("prefill", 37, 2, 256, 128),
+    ("prefill", 50, 3, 16, 64),
+    ("decode", 512, 4, 16, 128), ("decode", 40, 8, 32, 64),
+    ("decode", 21, 1, 16, 128),
+    ("worker", 4, 4, 16, 128), ("worker", 3, 8, 5, 64),
+    ("worker", 4, 2, 256, 128),
+]
+
+
+@pytest.mark.parametrize("kind,t,n_rep,bs,d", K1_CASES)
+def test_paged_attention_bf16_kernel_matches_plain(cuda, kind, t, n_rep, bs,
+                                                   d):
+    """The bf16 tensor-core K1 against its plain version, element by
+    element within 2e-2: random tables with holes, steps shaped like the
+    engine's (prefill chunks whose runs straddle token tiles, decode and
+    pad rows, the decode worker, where each run's table is split across
+    CTAs), T not a multiple of the 64 // n_rep token tile, n_rep 1, 2, 3
+    (one spare row a tile), 4 and 8, block sizes 5, 16, 32 and 256, and
+    rows with no valid key, which give zeros. One launch is counted."""
+    args = _step_case(cuda, t + bs + n_rep, kind, t, n_rep, bs, d)
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    ref = tpa.paged_attention_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2)
+    assert not got[_no_valid_key(args)].any()
+
+
+@pytest.mark.parametrize("kind,t,n_rep,bs,d", [
+    ("prefill", 512, 4, 16, 128), ("worker", 4, 4, 16, 128),
+    ("random", 77, 1, 5, 64), ("decode", 40, 8, 32, 64)])
+def test_paged_attention_bf16_candidates_agree(cuda, kind, t, n_rep, bs, d):
+    """Every split count that ``scripts/time_paged_tilings.py`` times is
+    right within 2e-2 of the plain version."""
+    args = _step_case(cuda, 7, kind, t, n_rep, bs, d)
+    ref = tpa.paged_attention_plain(*args).float()
+    for splits in (1, 2, 4, 8, 16):
+        got = tpa.paged_attention_cuda(*args, splits=splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref, rtol=0, atol=2e-2)
+        assert not got[_no_valid_key(args)].any(), splits
+
+
+@pytest.mark.parametrize("kind,t", [("prefill", 512), ("worker", 4),
+                                    ("random", 48)])
+def test_paged_attention_bf16_is_deterministic(cuda, kind, t):
+    """Each run's sums stay in one CTA, and the splits merge in a fixed
+    order: two launches on the same inputs agree bit for bit."""
+    args = _step_case(cuda, 3, kind, t, 4, 16, 128)
+    first, second = (tpa.paged_attention(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("q_name,pool,kernels", [
+    ("bf16", "bf16", ("paged_attention_wgmma",)),
+    ("fp32", "fp32", ("paged_attention_kernel",)),
+    ("bf16", "int8", ("paged_attention_kernel",)),
+])
+def test_paged_attention_routes_by_dtype(cuda, q_name, pool, kernels):
+    """The entry chooses K1's kernel by the types alone: bf16 q over a
+    bf16 pool launches the tensor-core kernel (here split, so with its
+    combine) and no CUDA-core one; fp32 and int8 pools the CUDA-core
+    kernel (names as the profiler reports them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _case(cuda, 2, pool, _FLOATS[q_name])
+    _profiler_warmup()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tpa.paged_attention(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "paged_" in e.key]
+    assert sum("paged_attention" in n for n in names) == 1, names
+    for want in kernels:
+        assert sum(want in n for n in names) == 1, (want, names)
+    assert any("paged_combine" in n for n in names) == (pool == q_name
+                                                       == "bf16"), names
+
+
+def test_paged_attention_bf16_refuses_bad_splits(cuda):
+    args = _step_case(cuda, 1, "worker", 4, 4, 16, 128)
+    for bad in (dict(splits=0), dict(splits=17)):
+        with pytest.raises(ValueError, match="splits"):
+            tpa.paged_attention_cuda(*args, **bad)
+
+
 def _flash_case(device, seed, dtype, b=2, s=100, n=8, kv=2, d=64):
     rng = np.random.RandomState(seed)
 
@@ -335,6 +468,85 @@ def test_flash_bwd_routes_by_dtype(cuda, dtype, kernels):
     assert len(names) == 2, names
     for want in kernels:
         assert sum(want in n for n in names) == 1, (want, names)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 1000])
+def test_flash_fwd_bf16_kernel_matches_plain(cuda, s, d, n_rep, causal, p):
+    """The bf16 K2 (tensor cores) against its plain version on the same
+    bf16 inputs, element by element: out within 2e-2 and lse within 1e-4
+    (``flash_rel_err``), at lengths below, at and across the 64-row tile,
+    one key head per 1, 2, 4 or 8 query heads. One launch is counted."""
+    q, k, v, _ = _flash_case(cuda, s + d + n_rep, torch.bfloat16, b=1, s=s,
+                             n=2 * n_rep, kv=2, d=d)
+    before = tfa.flash_fwd.launches
+    out, lse = tfa.flash_fwd(q, k, v, causal, None, p, 99)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd.launches == before + 1
+    ref_out, ref_lse = tfa.flash_fwd_plain(q, k, v, causal, None, p, 99)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert flash_rel_err(out, ref_out) <= 2e-2
+    assert flash_rel_err(lse, ref_lse) <= 1e-4
+
+
+@pytest.mark.parametrize("s,n_rep,d,causal,p", [
+    (1000, 4, 128, True, 0.0),
+    (333, 8, 64, False, 0.1),
+])
+def test_flash_fwd_bf16_kernel_is_deterministic(cuda, s, n_rep, d, causal,
+                                                p):
+    """K2 sums each row inside one CTA in a fixed order: two launches on
+    the same inputs agree bit for bit."""
+    q, k, v, _ = _flash_case(cuda, 5, torch.bfloat16, b=1, s=s,
+                             n=2 * n_rep, kv=2, d=d)
+    first, second = (tfa.flash_fwd(q, k, v, causal, None, p, 7)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_fwd_bf16_dropout_mask_is_the_plain_mask(cuda):
+    """As ``test_flash_kernel_dropout_mask_is_the_plain_mask``, for the
+    bf16 K2: with q = k = 0 every p is exactly 1 (also in bf16), so the
+    output's nonzero pattern is the kernel's keep mask."""
+    b, s, n, kv, d, p, seed = 1, 192, 4, 2, 64, 0.3, 99
+    q = torch.zeros(b, s, n, d, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(b, s, kv, d, device=cuda, dtype=torch.bfloat16)
+    q_pos = torch.arange(s, device=cuda)[:, None]
+    for k0 in range(0, s, d):
+        v = torch.zeros(b, s, kv, d, device=cuda, dtype=torch.bfloat16)
+        v[0, k0:k0 + d, :, :] = torch.eye(d, device=cuda)[:, None, :]
+        out, _ = tfa.flash_fwd_cuda(q, k, v, True, None, p, seed)
+        k_pos = torch.arange(k0, k0 + d, device=cuda)[None, :]
+        want = tfa.dropout_keep_mask(seed, tfa.flat_bh(b, n, cuda), q_pos,
+                                     k_pos, s, p) & (k_pos <= q_pos)
+        assert torch.equal(out.permute(0, 2, 1, 3) != 0, want)
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "flash_fwd_wgmma"),
+    (torch.float32, "flash_fwd_kernel"),
+])
+def test_flash_fwd_routes_by_dtype(cuda, dtype, kernel):
+    """The entry chooses K2 by the input type alone: bf16 launches the
+    tensor-core kernel and nothing else, fp32 the CUDA-core one (names as
+    the profiler reports them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _ = _flash_case(cuda, 2, dtype, b=1, s=130, n=8, kv=2, d=64)
+    _profiler_warmup()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tfa.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "flash_fwd" in e.key]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 def test_train_step_on_card_matches_cpu(cuda):

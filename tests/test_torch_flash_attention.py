@@ -363,8 +363,132 @@ def test_bf16_rounding_of_p_and_ds_is_bounded(causal, d):
                                rtol=TOL, atol=TOL)
 
 
+def _tensor_core_forward(q, k, v, causal, p, seed, skip_last=False,
+                         remainder=True):
+    """out and lse as the bf16 tensor-core K2 computes them: per 64-row
+    query tile, 64-key tiles up to the diagonal (causal), S in fp32 from
+    the bf16 operands, the online softmax in log2 units with l summing
+    the undropped p, the kept p as a bf16 value plus the bf16 remainder of
+    its rounding (``remainder=False``: the value alone) before PV, the
+    survivors rescaled by 1/(1-p) at the end. ``skip_last`` plants a fault:
+    every row tile skips its last key tile."""
+    b, s, n, d = q.shape
+    n_rep = n // k.shape[2]
+    scale2 = 1.4426950408889634 / np.sqrt(d)
+    qf = q.float().transpose(1, 2)                          # [B, N, S, D]
+    kf, vf = (x.float().repeat_interleave(n_rep, 2).transpose(1, 2)
+              for x in (k, v))
+    pos = torch.arange(s)
+    out = torch.zeros(b, n, s, d)
+    lse = torch.zeros(b, n, s)
+    for q0 in range(0, s, 64):
+        rows = pos[q0:q0 + 64]
+        k_end = min(s, q0 + 64) if causal else s
+        tiles = list(range(0, k_end, 64))
+        if skip_last:
+            tiles = tiles[:-1]
+        m = torch.full((b, n, len(rows)), -np.inf)
+        l = torch.zeros(b, n, len(rows))
+        acc = torch.zeros(b, n, len(rows), d)
+        for k0 in tiles:
+            cols = pos[k0:k0 + 64]
+            sc = qf[:, :, q0:q0 + 64] @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
+            sc = sc * scale2
+            if causal:
+                sc = sc.masked_fill(cols[None, :] > rows[:, None], -np.inf)
+            m_new = torch.maximum(m, sc.amax(-1))
+            base = torch.where(torch.isinf(m_new), 0.0, m_new)
+            corr = torch.where(torch.isinf(m), 0.0, torch.exp2(m - base))
+            pr = torch.exp2(sc - base[..., None])
+            l = l * corr + pr.sum(-1)
+            if p > 0.0:
+                keep = tfa.dropout_keep_mask(seed, tfa.flat_bh(b, n),
+                                             rows[:, None], cols[None, :], s,
+                                             p)
+                pr = torch.where(keep, pr, 0.0)
+            hi = pr.bfloat16().float()
+            if remainder:
+                hi = hi + (pr - hi).bfloat16().float()
+            acc = acc * corr[..., None] + hi @ vf[:, :, k0:k0 + 64]
+            m = m_new
+        inv_keep = 1.0 / (1.0 - p) if p > 0.0 else 1.0
+        out[:, :, q0:q0 + 64] = acc * (inv_keep / l.clamp(min=1e-30))[..., None]
+        lse[:, :, q0:q0 + 64] = m / 1.4426950408889634 + torch.log(l)
+    return out.transpose(1, 2).bfloat16(), lse
+
+
+def _chain(fwd, q, k, v, g, causal, p):
+    """out, lse, dq, dk, dv: ``fwd``'s forward, then the backward on its
+    out (delta = rowsum(g out)) and lse, in the emulated tensor-core K3/K4
+    when ``fwd`` is the emulated K2, else in the plain versions."""
+    out, lse = fwd(q, k, v, causal, p, SEED)
+    delta = tfa.attention_delta(g, out)
+    if fwd is _tensor_core_forward:
+        return (out, lse, *_tensor_core_backward(q, k, v, g, lse, delta,
+                                                 causal, p, SEED))
+    args = (q, k, v, g, lse, delta, causal, None, p, SEED)
+    return (out, lse, tfa.flash_bwd_dq_plain(*args),
+            *tfa.flash_bwd_dkv_plain(*args))
+
+
+def _plain_forward(q, k, v, causal, p, seed):
+    return tfa.flash_fwd_plain(q, k, v, causal, None, p, seed)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_p_is_bounded_through_the_backward(causal, p, d, n_rep):
+    """The bf16 K2 carries the kept p into PV as a bf16 value plus the
+    bf16 remainder of its rounding, where the Pallas kernel and
+    ``flash_fwd_plain`` keep it in fp32; l sums the unrounded p. Emulated
+    here at a length no 64-row tile divides: out stays within the card
+    limit 2e-2 of ``flash_fwd_plain`` and lse within 1e-5
+    (``flash_rel_err``); the emulated K2 followed by the emulated bf16
+    K3/K4 stays within 2e-2 of the plain forward and backward, as the
+    card's chained checks hold them; and the same rule flags a kernel
+    whose rows skip their last key tile (the causal diagonal)."""
+    from chip_smoke import flash_rel_err
+
+    q, k, v, g = (torch.from_numpy(x).bfloat16()
+                  for x in _inputs(9, d, n_rep, s=136, kv=2))
+    ref = _chain(_plain_forward, q, k, v, g, causal, p)
+    emu = _chain(_tensor_core_forward, q, k, v, g, causal, p)
+    assert 0 < flash_rel_err(emu[0], ref[0]) < 2e-2
+    assert flash_rel_err(emu[1], ref[1]) < 1e-5
+    for a, r in zip(emu[2:], ref[2:]):
+        assert flash_rel_err(a, r) < 2e-2
+    bad, _ = _tensor_core_forward(q, k, v, causal, p, SEED, skip_last=True)
+    assert flash_rel_err(bad, ref[0]) > 2e-2
+
+
+def test_one_rounding_of_the_forward_p_breaks_the_chained_dq():
+    """Why K2 keeps p's remainder: on the bf16 case of the card's
+    ``test_flash_kernels_match_plain`` (B=2, S=192, 8 query heads on 2 kv
+    heads, D=128, causal), p rounded once to bf16 moves out, and with it
+    the backward's delta, enough to put the chained dq past the 2e-2
+    limit, while value plus remainder keeps it well inside."""
+    from chip_smoke import flash_rel_err
+
+    rng = np.random.RandomState(0)
+    q, k, v, g = (torch.from_numpy(rng.randn(2, 192, h, 128).astype(
+        np.float32)).bfloat16() for h in (8, 2, 2, 8))
+    ref = _chain(_plain_forward, q, k, v, g, True, 0.0)
+    emu = _chain(_tensor_core_forward, q, k, v, g, True, 0.0)
+    assert flash_rel_err(emu[2], ref[2]) < 1.5e-2
+    out, lse = _tensor_core_forward(q, k, v, True, 0.0, SEED,
+                                    remainder=False)
+    once = _tensor_core_backward(q, k, v, g, lse,
+                                 tfa.attention_delta(g, out), True, 0.0,
+                                 SEED)
+    assert flash_rel_err(once[0], ref[2]) > 2e-2
+
+
 @pytest.mark.parametrize("kernel,group", [
     ("void (anonymous namespace)::flash_fwd_kernel<float, 128>(...)",
+     "flash_fwd"),
+    ("void (anonymous namespace)::tc::flash_fwd_wgmma<128>(...)",
      "flash_fwd"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 128>(...)",
      "flash_bwd_dq"),
@@ -381,3 +505,25 @@ def test_profile_train_groups_every_flash_kernel(kernel, group):
     from neuronx_distributed_tpu_torch.scripts import profile_train
 
     assert profile_train.group_of(kernel) == group
+
+
+def test_profile_train_names_each_port_kernel_once():
+    """``scripts/profile_train.py`` lists the port's kernels by name: the
+    first ``(anonymous namespace)::`` starts the name and its arguments
+    end it, so an argument type from that namespace (K2's ``Dropout``)
+    neither becomes the name nor folds the three flash kernels into one;
+    cuBLAS and "other" kernels stay out."""
+    from neuronx_distributed_tpu_torch.scripts import profile_train
+
+    keys = {f"void (anonymous namespace)::tc::{k}<128>(__nv_bfloat16 const*, "
+            "(anonymous namespace)::Dropout)": us
+            for k, us in (("flash_fwd_wgmma", 3000.0),
+                          ("flash_bwd_dq_wgmma", 1500.0),
+                          ("flash_bwd_dkv_wgmma", 1500.0))}
+    keys["nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT"] = 9000.0
+    keys["void at::native::vectorized_elementwise_kernel<4>(...)"] = 7.0
+    assert profile_train.port_kernels(
+            keys, 3, lambda k: profile_train.group_of(k) not in (
+                "matmul", "other")) == {
+        "tc::flash_fwd_wgmma<128>": 1.0, "tc::flash_bwd_dq_wgmma<128>": 0.5,
+        "tc::flash_bwd_dkv_wgmma<128>": 0.5}
