@@ -91,9 +91,50 @@ script exits non-zero and prints no result:
 16. mixtral_train_cross_check: phase 9 for Mixtral at full width, 1 layer,
    blockwise with block 64; both sides must first route every token to the
    same experts.
+17. generate: ``generate`` (contiguous KV cache) on Llama-3-8B at all 32
+   layers in bf16 (random weights, seed 0, std 0.02): B=8 right-padded
+   prompts of 100-500 tokens (bucket 512), 64 greedy tokens (a 576-slot
+   cache). Asserts the ``[8, 64]`` shape, ids inside the vocabulary, and,
+   in a second call with an ``eos_id``, every row pinned past it; prints
+   prefill ms, decode step p50/p99 ms, output tokens/s and peak GiB.
+18. generate_cross_check: ``prefill`` and 4 ``decode_step`` calls at full
+   width, 2 layers, fp32, B=3 ragged prompts, on the card and on the CPU
+   path, for a ``KVCache`` and a ``QuantizedKVCache``: logits within 1e-3
+   x max|logit| at every step; for the int8 cache, codes after the prefill
+   at most one step apart between card and CPU (where they part, and how
+   close the CPU's value lies to a rounding boundary, is printed), and each
+   decode step run on the CPU from a copy of the card's cache within 1e-4
+   x max|logit| of the card.
+19. generate_mixtral: ``generation.prefill`` and ``decode_step`` with
+   Mixtral's cached forward over a contiguous ``KVCache``, Mixtral 8x7B
+   widths cut to 8 layers, bf16, blockwise with block 64: B=4 prompts of
+   100-500 tokens padded to 512, then 32 greedy decode steps; asserts K5
+   launched layers times (the prefill) and K6 layers x 32 times (sentinel
+   metadata), holds K5's launch at layer 0 of the prefill and K6's at
+   layer 0 of the first decode step to their plain versions on the
+   inputs the path gave them (within 1e-2, as ``moe_vs_plain``), prints
+   prefill ms and decode step p50 ms.
+20. serve_prefix: phase 4's engine with ``prefix_sharing=True`` on 8
+   requests that share a 1000-token system prompt and add 16-256 tokens
+   each, 64 new tokens; request 0 runs alone until its first token.
+   Asserts every request completes, one step shape, K1 launched layers x
+   worker runs over the shared and cloned tables, 7 x 1000 hit tokens, 7
+   copy-on-write clones and an empty pool after ``release_prefix_cache``;
+   holds K1's launch at layer 0 of two steps after the last clone, whose
+   tables map shared and cloned blocks, to its plain version on the
+   inputs the path gave it within 2e-2, and a second launch to the same
+   bits;
+   runs the same requests without sharing and prints both runs' TTFT,
+   prefill tokens, steps and output tokens/s and the share of greedy ids
+   that match.
+21. prefix_cross_check: the same at full width, 2 layers, fp32, block 16,
+   a 40-token shared prefix, three requests, fp32 and int8 pools: greedy
+   ids with sharing equal those without, and ``cow_copy_blocks`` on the
+   card writes the CPU's pool bit for bit.
 
-The last two lines are the kernels' JSON summary and
-``{"ok": true, "device": {...}}``.
+The last two lines are the kernels' JSON summary (``path_launches`` gives
+each path's launches of K1, K5 and K6) and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1279,6 +1320,604 @@ def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2,
          card_s=tg, cpu_s=tc)
 
 
+# ---------------------------------------------------------------------------
+# phases 17-21: contiguous-cache generation and prefix sharing
+# ---------------------------------------------------------------------------
+
+def ragged_prompts(seed, b, lo, hi, vocab):
+    """``b`` right-padded prompts of ``lo``-``hi`` tokens (numpy seed
+    ``seed``): ids ``[b, max len]`` (pad id 0) and the lengths."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(lo, hi + 1, b).astype(np.int32)
+    ids = np.zeros((b, lens.max()), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(0, vocab, n)
+    return ids, lens
+
+
+class EventLog:
+    """CUDA events around each call of a function (no host sync while it
+    runs); ``ms()`` synchronises and returns the device time of each."""
+
+    def __init__(self, fn):
+        self.fn, self.events = fn, []
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def phase_generate(cfg, new=64):
+    """``generate`` on ``cfg`` at full depth in bf16: B=8 right-padded
+    prompts of 100-500 tokens (bucket 512), ``new`` greedy tokens (a cache
+    of 512 + 64 slots); prefill and each decode step timed by CUDA events
+    around ``generation.prefill`` and ``generation.decode_step``. A second
+    call with an ``eos_id`` must pin every row past it."""
+    from neuronx_distributed_tpu_torch.inference import generation
+    from neuronx_distributed_tpu_torch.models.llama import (build_model,
+                                                            init_state_dict)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, init_state_dict(
+        dataclasses.replace(cfg, param_dtype=cfg.dtype), seed=0, std=0.02))
+    ids, lens = ragged_prompts(0, 8, 100, 500, cfg.vocab_size)
+    bucket = generation.pick_bucket(ids.shape[1], (128, 512, 2048))
+    generation.generate(model, ids, lens, 2)          # warm-up
+    plain = generation.prefill, generation.decode_step
+    generation.prefill, generation.decode_step = map(EventLog, plain)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generation.generate(model, ids, lens, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prefill_ms = generation.prefill.ms()
+        step_ms = generation.decode_step.ms()
+    finally:
+        generation.prefill, generation.decode_step = plain
+    out = out.cpu()
+    if tuple(out.shape) != (8, new) or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"generate: output {tuple(out.shape)} or ids "
+                             "outside the vocabulary")
+    eos = int(out[0, 3])
+    pinned = generation.generate(model, ids, lens, new, eos_id=eos).cpu()
+    hit = 0
+    for row, ref in zip(pinned.tolist(), out.tolist()):
+        if eos in row:
+            first = row.index(eos)
+            hit += 1
+            if row[first:] != [eos] * (new - first) or row[:first] != \
+                    ref[:first]:
+                raise AssertionError(f"generate: a row ran past eos {eos}")
+        elif row != ref:
+            raise AssertionError("generate: a row without eos changed")
+    if hit == 0:
+        raise AssertionError("generate: no row hit the eos id")
+    emit("generate", layers=cfg.num_layers, dtype=str(cfg.dtype), batch=8,
+         prompt_tokens=int(lens.sum()), bucket=bucket,
+         cache_len=bucket + generation.pick_bucket(
+             new, generation.DECODE_BUCKETS),
+         new_tokens=new, prefill_ms=prefill_ms[0],
+         decode_step_p50_ms=float(np.percentile(step_ms, 50)),
+         decode_step_p99_ms=float(np.percentile(step_ms, 99)),
+         decode_steps=len(step_ms), output_tok_per_s=8 * new / wall,
+         wall_s=wall, eos_rows=hit,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model
+    torch.cuda.empty_cache()
+
+
+def cache_to_cpu(cache):
+    """A copy on the CPU of a contiguous cache's tensors."""
+    return dataclasses.replace(cache, **{
+        f: getattr(cache, f).to("cpu", copy=True)
+        for f in ("k", "v", "pos", "k_scale", "v_scale")
+        if getattr(cache, f, None) is not None})
+
+
+def int8_code_gap(fp_prefill, q_prefill):
+    """Where the card's and the CPU's int8 codes after the prefill part,
+    and why. ``fp_prefill``/``q_prefill``: each side's fp32 and int8 caches
+    after the same prefill, on the CPU. The prefill attends to its own K/V
+    unquantized, so each side's codes and scales are ``quantize_kv``, on
+    that side's device, of the K/V its fp32 run stored (``reproduced``; on
+    the CPU the card's scales, ``amax / 127``, can be one ulp off, counted
+    in ``scales_off_on_the_cpu``: ATen's CUDA division by a scalar
+    multiplies by its reciprocal). A code differs
+    where the two sides' ``r = x / scale`` fall either side of a rounding
+    boundary (k + 1/2): the boundary then lies within ``|r_card - r_cpu|``
+    of the CPU's ``r``."""
+    from neuronx_distributed_tpu_torch.inference.kv_cache import (
+        PAD_POSITION, quantize_kv)
+
+    out = dict(differing=0, total=0, max_step=0, scale_max_rel_diff=0.0,
+               reproduced={"cuda": True, "cpu": True},
+               scales_off_on_the_cpu=0,
+               max_boundary_distance=0.0, max_r_diff=0.0,
+               within_r_diff_of_boundary=0)
+    real = q_prefill["cpu"].pos < PAD_POSITION
+    for f in ("k", "v"):
+        codes = {d: getattr(c, f)[:, real] for d, c in q_prefill.items()}
+        scales = {d: getattr(c, f + "_scale")[:, real]
+                  for d, c in q_prefill.items()}
+        r = {}
+        for d, c in fp_prefill.items():
+            x = getattr(c, f)[:, real].float()
+            q, sc = (t.cpu() for t in quantize_kv(x.to(d)))
+            out["reproduced"][d] &= bool(torch.equal(q, codes[d]) and
+                                         torch.equal(sc, scales[d]))
+            if d != "cpu":
+                out["scales_off_on_the_cpu"] += int(
+                    (quantize_kv(x)[1] != sc).sum())
+            r[d] = x / sc[..., None]
+        step = (codes["cuda"].int() - codes["cpu"].int()).abs()
+        diff = step > 0
+        dist = (r["cpu"] - torch.floor(r["cpu"]) - 0.5).abs()
+        rdiff = (r["cuda"] - r["cpu"]).abs()
+        out["differing"] += int(diff.sum())
+        out["total"] += step.numel()
+        out["max_step"] = max(out["max_step"], int(step.max()))
+        out["scale_max_rel_diff"] = max(out["scale_max_rel_diff"], float(
+            ((scales["cuda"] - scales["cpu"]).abs() / scales["cpu"]).max()))
+        if diff.any():
+            out["max_boundary_distance"] = max(out["max_boundary_distance"],
+                                               float(dist[diff].max()))
+        out["max_r_diff"] = max(out["max_r_diff"], float(rdiff.max()))
+        out["within_r_diff_of_boundary"] += int(
+            (dist <= rdiff.max()).sum())
+    return out
+
+
+def phase_generate_cross_check(base_cfg, steps=4):
+    """``prefill`` and ``steps`` greedy ``decode_step`` calls at full width,
+    2 layers, fp32, B=3 ragged prompts, on the card and on the CPU path
+    from the same weights, for a ``KVCache`` and a ``QuantizedKVCache``:
+    logits within 1e-3 x max|logit| at every step. For the int8 cache it
+    also finds where the two sides' codes part (``int8_code_gap``: no code
+    more than one step apart) and runs each decode step a third time, on
+    the CPU from a copy of the card's cache as it stood before the step:
+    with the same codes the CPU must agree with the card within 1e-4 x
+    max|logit|, so that the gap comes from the codes alone."""
+    from neuronx_distributed_tpu_torch.inference import generation, kv_cache
+    from neuronx_distributed_tpu_torch.models.llama import (build_model,
+                                                            init_state_dict)
+
+    cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
+    sd = init_state_dict(cfg, seed=2, std=0.02)
+    models = {dev: build_model(cfg, sd, dev) for dev in ("cuda", "cpu")}
+    del sd
+    ids, lens = ragged_prompts(3, 3, 20, 60, cfg.vocab_size)
+    bucket = generation.pick_bucket(ids.shape[1], (64,))
+    ids = np.pad(ids, ((0, 0), (0, bucket - ids.shape[1])))
+    worst, cpu_s, toks = {}, 0.0, None
+    prefilled = {}
+    same_cache = 0.0
+    for quantized in (False, True):
+        logits, caches = {}, {}
+        for dev, model in models.items():
+            shape = (cfg.num_layers, 3, bucket + steps, cfg.num_kv_heads,
+                     cfg.head_dim_)
+            caches[dev] = (kv_cache.init_quantized_kv_cache(*shape,
+                                                             device=dev)
+                           if quantized else kv_cache.init_kv_cache(
+                               *shape, dtype=torch.float32, device=dev))
+        name = "quantized" if quantized else "fp32"
+        worst[name] = 0.0
+        for step in range(steps + 1):
+            if quantized and step:
+                card_cache = cache_to_cpu(caches["cuda"])
+            for dev, model in models.items():
+                t0 = time.perf_counter()
+                if step == 0:
+                    logits[dev], caches[dev] = generation.prefill(
+                        model, torch.from_numpy(ids).to(dev),
+                        torch.from_numpy(lens).to(dev), caches[dev])
+                    prefilled[name, dev] = cache_to_cpu(caches[dev])
+                else:
+                    logits[dev], caches[dev] = generation.decode_step(
+                        model, toks.to(dev),
+                        torch.from_numpy(lens + step - 1).to(dev),
+                        caches[dev])
+                if dev == "cpu":
+                    cpu_s += time.perf_counter() - t0
+            diff = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+            scale = logits["cpu"].abs().max().item()
+            worst[name] = max(worst[name], diff / scale)
+            if not diff <= 1e-3 * scale:
+                raise AssertionError(
+                    f"generate_cross_check: {name} step {step} max |diff| "
+                    f"{diff} above 1e-3 x max|logit| ({scale})")
+            if quantized and step:
+                same, _ = generation.decode_step(
+                    models["cpu"], toks, torch.from_numpy(lens + step - 1),
+                    card_cache)
+                same_cache = max(same_cache, (logits["cuda"].cpu() - same)
+                                 .abs().max().item() / scale)
+            toks = torch.argmax(logits["cpu"], dim=-1)   # both sides' next
+    gap = int8_code_gap(
+        {d: prefilled["fp32", d] for d in models},
+        {d: prefilled["quantized", d] for d in models})
+    gap["same_cache_max_rel_diff"] = same_cache
+    if gap["max_step"] > 1 or not same_cache <= 1e-4 or not all(
+            gap["reproduced"].values()):
+        raise AssertionError(
+            f"generate_cross_check: int8 codes {gap['max_step']} steps "
+            f"apart, or {same_cache} of max|logit| between card and CPU "
+            "from the same cache (above 1e-4), or codes that are not "
+            f"quantize_kv of the fp32 run's K/V: {gap['reproduced']}")
+    emit("generate_cross_check", layers=cfg.num_layers, batch=3,
+         prompt_lens=lens.tolist(), decode_steps=steps, max_rel_diff=worst,
+         tol=1e-3, int8_codes=gap, cpu_s=cpu_s)
+    del models
+    torch.cuda.empty_cache()
+
+
+class Capture:
+    """Wraps the function ``name`` of ``module`` while a path runs: every
+    call goes through as before, and up to ``limit`` calls that ``want``
+    picks (it sees the call's arguments) are kept as copies of their
+    arguments and output, to hold a kernel to its plain version on the
+    inputs the path gave it. Positional arguments in ``by_ref`` (weights,
+    which the path does not change) are kept by reference."""
+
+    def __init__(self, module, name, want=None, limit=1, by_ref=()):
+        self.module, self.name, self.limit = module, name, limit
+        self.want = want or (lambda *a, **kw: True)
+        self.by_ref, self.calls = by_ref, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def copy(a):
+            return a.clone() if isinstance(a, torch.Tensor) else a
+
+        def spy(*args, **kw):
+            out = self.real(*args, **kw)
+            if len(self.calls) < self.limit and self.want(*args, **kw):
+                self.calls.append(([a if i in self.by_ref else copy(a)
+                                    for i, a in enumerate(args)],
+                                   {k: copy(v) for k, v in kw.items()},
+                                   copy(out)))
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def hold_glu(call, plain, tol=1e-2):
+    """A grouped-GLU launch the path made (``Capture``'d), held element by
+    element (``flash_rel_err``) to the plain version in fp32 on the same
+    inputs, rounded once, as ``moe_vs_plain`` holds it; sentinel rows must
+    be zero."""
+    (xs, gate_up, down, be, bs, bi), _, got = call
+    e = gate_up.shape[0]
+    ref = plain(xs.float(), gate_up.float(), down.float(), be, bs,
+                bi).to(xs.dtype)
+    rel = flash_rel_err(got, ref)
+    sent = torch.repeat_interleave(be >= e, bs)
+    res = dict(rows=xs.shape[0], blocks=be.numel(),
+               live_blocks=int((be < e).sum()), tol=tol, max_rel_err=rel,
+               max_abs_err=(got.float() - ref.float()).abs().max().item())
+    if not (rel <= tol) or not torch.isfinite(got).all() or got[sent].any():
+        raise AssertionError(f"{plain.__name__} on the path's inputs: {res}, "
+                             "or sentinel rows not zero")
+    return res
+
+
+def phase_generate_mixtral(cfg, steps=32):
+    """``generation.prefill`` and ``decode_step`` given Mixtral's cached
+    forward over a contiguous ``KVCache`` (the reference's ``generate`` is
+    Llama-only): B=4 prompts of 100-500 tokens padded to 512, then
+    ``steps`` greedy decode steps. Asserts K5 launched once per layer (the
+    prefill: 4 x 512 tokens x top-2 > 8 experts) and K6 once per layer per
+    decode step (4 tokens x top-2 <= 8 experts: sentinel metadata), and
+    holds the first launch of each (layer 0 of the prefill, of the first
+    decode step) to its plain version on the inputs the path gave it;
+    returns the launch counts."""
+    from neuronx_distributed_tpu_torch.inference import generation, kv_cache
+    from neuronx_distributed_tpu_torch.models.mixtral import (
+        build_model, init_state_dict, mixtral_forward_with_cache)
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, init_state_dict(
+        dataclasses.replace(cfg, param_dtype=cfg.dtype), seed=0, std=0.02))
+    ids, lens = ragged_prompts(1, 4, 100, 500, cfg.vocab_size)
+    bucket = generation.pick_bucket(ids.shape[1], (128, 512, 2048))
+    ids = torch.from_numpy(np.pad(ids, ((0, 0), (0, bucket - ids.shape[1])))
+                           ).cuda()
+    plen = torch.from_numpy(lens).cuda()
+    fwd = dict(forward=mixtral_forward_with_cache)
+
+    def empty_cache():
+        return kv_cache.init_kv_cache(
+            cfg.num_layers, 4, bucket + generation.pick_bucket(
+                steps, generation.DECODE_BUCKETS), cfg.num_kv_heads,
+            cfg.head_dim_, dtype=cfg.dtype)
+
+    generation.prefill(model, ids, plen, empty_cache(), **fwd)  # warm-up
+    prefill = EventLog(generation.prefill)
+    decode = EventLog(generation.decode_step)
+    torch.cuda.synchronize()
+    with Capture(bm, "grouped_glu_cuda", by_ref=(1, 2)) as k5, \
+            Capture(bm, "grouped_glu_decode_cuda", by_ref=(1, 2)) as k6:
+        bm.grouped_glu.launches = bm.grouped_glu_decode.launches = 0
+        logits, cache = prefill(model, ids, plen, empty_cache(), **fwd)
+        out, at = [], plen
+        for _ in range(steps):
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+            logits, cache = decode(model, tok, at, cache, **fwd)
+            at = at + 1
+        torch.cuda.synchronize()
+        launches = {"grouped_glu": bm.grouped_glu.launches,
+                    "grouped_glu_decode": bm.grouped_glu_decode.launches}
+    prefill_ms, step_ms = prefill.ms(), decode.ms()
+    out = torch.stack(out, 1).cpu()
+    nl = cfg.num_layers
+    want = {"grouped_glu": nl, "grouped_glu_decode": nl * steps}
+    if launches != want:
+        raise AssertionError(f"generate_mixtral: launches {launches}, want "
+                             f"{want}")
+    if not torch.isfinite(logits).all() or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError("generate_mixtral: non-finite logits or ids "
+                             "outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache
+    held = {"grouped_glu": hold_glu(k5.calls[0], bm.grouped_glu_plain),
+            "grouped_glu_decode": hold_glu(k6.calls[0],
+                                           bm.grouped_glu_decode_plain)}
+    emit("generate_mixtral", layers=nl, dtype=str(cfg.dtype), batch=4,
+         prompt_tokens=int(lens.sum()), bucket=bucket, decode_steps=steps,
+         launches=launches, prefill_ms=prefill_ms[0],
+         decode_step_p50_ms=float(np.percentile(step_ms, 50)),
+         decode_step_p99_ms=float(np.percentile(step_ms, 99)),
+         held_to_plain=held, peak_mem_gib=peak)
+    del model, k5, k6
+    torch.cuda.empty_cache()
+    return launches
+
+
+def shared_prefix_prompts(seed, n, prefix_len, lo, hi, vocab):
+    """``n`` prompts: one ``prefix_len``-token system prompt, then each its
+    own suffix of ``lo``-``hi`` tokens whose first token differs from the
+    first request's."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, vocab, prefix_len).tolist()
+    suffixes = []
+    for i in range(n):
+        suf = rng.randint(0, vocab, rng.randint(lo, hi + 1)).tolist()
+        if i and suf[0] == suffixes[0][0]:
+            suf[0] = (suf[0] + 1) % vocab
+        suffixes.append(suf)
+    return [system + suf for suf in suffixes]
+
+
+def serve_shared(eng, prompts, new):
+    """Request 0 alone until it has its first token, then the rest at
+    once; returns each request's tokens and the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.submit(prompts[0], new, uid="r0")
+    while eng.stats.tokens_generated == 0:
+        eng.step()
+    for i in range(1, len(prompts)):
+        eng.submit(prompts[i], new, uid=f"r{i}")
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [u for u, r in res.items()
+           if r.status != "completed" or len(r.tokens) != new]
+    if len(res) != len(prompts) or bad:
+        raise AssertionError(f"requests not completed: {bad}")
+    return [res[f"r{i}"].tokens for i in range(len(prompts))], wall
+
+
+def hold_k1(call, clones, tol=2e-2):
+    """A K1 launch the path made (``Capture``'d) over shared and cloned
+    tables: the distinct tables of the step, the pool blocks two or more
+    of them map (shared), the clones' destinations they map (cloned), and
+    the launch's output against the plain version on the same inputs
+    within ``tol``; a second launch on the same inputs gives the same
+    bits."""
+    from neuronx_distributed_tpu_torch.ops import paged_attention as pa
+
+    args, kw, got = call
+    tables = np.unique(args[4].cpu().numpy(), axis=0)
+    owners = {}
+    for row in tables:
+        for b in set(row[row >= 0].tolist()):
+            owners[b] = owners.get(b, 0) + 1
+    ref = pa.paged_attention_plain(*args, **kw)
+    again = pa.paged_attention_cuda(*args, **kw)
+    res = dict(tokens=args[0].shape[0], distinct_tables=len(tables),
+               shared_blocks=sum(n >= 2 for n in owners.values()),
+               cloned_blocks=len(set(clones) & set(owners)), tol=tol,
+               max_abs_err=(got.float() - ref.float()).abs().max().item(),
+               same_bits_again=bool(torch.equal(got, again)))
+    if not (res["max_abs_err"] <= tol) or not torch.isfinite(got).all() \
+            or not res["shared_blocks"] or not res["cloned_blocks"] \
+            or not res["same_bits_again"]:
+        raise AssertionError(f"serve_prefix: K1 on the path's inputs {res}")
+    return res
+
+
+def phase_serve_prefix(cfg, ecfg, new=64, prefix_len=1000):
+    """``ServingEngine`` with ``prefix_sharing=True`` on 8 requests that
+    share a ``prefix_len``-token system prompt (62 full blocks of 16 and 8
+    tokens, so every sharer maps a partial tail and clones it) and add
+    16-256 tokens each; then the same requests without sharing. Asserts the
+    hit tokens, the clones, one step shape, K1 launched once per layer per
+    step over the shared and cloned tables, and an empty pool after the
+    trie's release; holds K1 at layer 0 of two steps of the sharing run
+    (the first after the last clone, and 16 steps later) to its plain
+    version on the inputs the path gave it (``hold_k1``); returns K1's
+    launches."""
+    from neuronx_distributed_tpu_torch.inference import engine as em
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.models import llama
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    sd = init_state_dict(dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                         seed=0, std=0.02)
+    prompts = shared_prefix_prompts(0, 8, prefix_len, 16, 256,
+                                    cfg.vocab_size)
+    runs, tokens = {}, {}
+    for sharing in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, sd, dataclasses.replace(
+            ecfg, prefix_sharing=sharing))
+        picked = []
+
+        def after_clones(*args, eng=eng, **kw):
+            """Layer 0 of the first step after the last clone, and of the
+            step 16 later (the first call of each step)."""
+            s = eng.stats.steps
+            if eng.stats.cow_copies < len(prompts) - 1 or s in picked or (
+                    picked and s != picked[0] + 16):
+                return False
+            picked.append(s)
+            return True
+
+        with Capture(llama, "paged_attention", want=after_clones,
+                     limit=2 if sharing else 0) as k1, \
+                Capture(em, "cow_copy_blocks", limit=len(prompts)) as cow:
+            paged_attention.launches = 0
+            tokens[sharing], wall = serve_shared(eng, prompts, new)
+            launches = paged_attention.launches
+        rep = eng.stats.report()
+        runs["sharing" if sharing else "no_sharing"] = dict(
+            steps=eng.stats.steps, prefill_tokens=eng.stats.prefill_tokens,
+            prefix_hit_tokens=eng.stats.prefix_hit_tokens,
+            cow_copies=eng.stats.cow_copies,
+            output_tok_per_s=len(prompts) * new / wall, wall_s=wall,
+            ttft_p50_ms=rep["ttft_p50_ms"], ttft_p99_ms=rep["ttft_p99_ms"],
+            step_latency_p50_ms=rep["step_latency_p50_ms"],
+            step_latency_p99_ms=rep["step_latency_p99_ms"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if eng.compile_count() != 1:
+            raise AssertionError(f"serve_prefix: {eng.compile_count()} step "
+                                 "shapes")
+        if sharing:
+            k1_launches = launches
+            want = cfg.num_layers * eng.worker_runs["packed"]
+            hits = (len(prompts) - 1) * prefix_len
+            if launches != want or eng.stats.prefix_hit_tokens != hits or \
+                    eng.stats.cow_copies != len(prompts) - 1:
+                raise AssertionError(
+                    f"serve_prefix: K1 launches {launches} (want {want}), "
+                    f"hit tokens {eng.stats.prefix_hit_tokens} (want "
+                    f"{hits}), clones {eng.stats.cow_copies} (want "
+                    f"{len(prompts) - 1})")
+            clones = [int(d) for args, _, _ in cow.calls for d in args[2]]
+            if len(k1.calls) != 2:
+                raise AssertionError(f"serve_prefix: {len(k1.calls)} K1 "
+                                     "launches captured after the clones")
+            k1_held = [dict(step=s, **hold_k1(c, clones))
+                       for s, c in zip(picked, k1.calls)]
+            del k1, cow
+            eng.release_prefix_cache()
+            if eng.allocator.num_allocated != 0:
+                raise AssertionError(
+                    f"serve_prefix: {eng.allocator.num_allocated} blocks "
+                    "still allocated after the trie's release")
+        del eng
+        torch.cuda.empty_cache()
+    same = [np.asarray(a) == np.asarray(b)
+            for a, b in zip(tokens[True], tokens[False])]
+    diverge = [(i, int(np.argmin(m))) for i, m in enumerate(same)
+               if not m.all()]
+    emit("serve_prefix", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         requests=len(prompts), prefix_tokens=prefix_len,
+         prompt_tokens=sum(map(len, prompts)), new_tokens=len(prompts) * new,
+         k1_launches=k1_launches, k1_held_to_plain=k1_held, runs=runs,
+         greedy_match_share=float(np.mean(np.concatenate(same))),
+         first_divergence=diverge[:8])
+    del sd
+    torch.cuda.empty_cache()
+    return k1_launches
+
+
+def phase_prefix_cross_check(base_cfg, new=8):
+    """Prefix sharing at full width, 2 layers, fp32, block 16: a 40-token
+    shared prefix (2 full blocks and 8 tokens), three requests, fp32 and
+    int8 pools. Greedy ids with sharing equal those without, on the card;
+    ``cow_copy_blocks`` on the card writes the same pool rows as on the CPU
+    from the same pool, bit for bit."""
+    from neuronx_distributed_tpu_torch.inference.engine import (
+        EngineConfig, ServingEngine)
+    from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
+    from neuronx_distributed_tpu_torch.inference.paging import (
+        cow_copy_blocks)
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+
+    cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
+    sd = init_state_dict(cfg, seed=4, std=0.02)
+    prompts = shared_prefix_prompts(5, 3, 40, 8, 20, cfg.vocab_size)
+    ecfg = EngineConfig(block_size=16, num_blocks=64, max_slots=4,
+                        max_blocks_per_seq=8, token_budget=64)
+    out = {}
+    for quantized in (False, True):
+        tokens = {}
+        for sharing in (True, False):
+            eng = ServingEngine(cfg, sd, dataclasses.replace(
+                ecfg, quantized=quantized, prefix_sharing=sharing))
+            tokens[sharing], _ = serve_shared(eng, prompts, new)
+            if sharing:
+                if (eng.stats.prefix_hit_tokens != 80
+                        or eng.stats.cow_copies != 2):
+                    raise AssertionError(
+                        f"prefix_cross_check: hit tokens "
+                        f"{eng.stats.prefix_hit_tokens}, clones "
+                        f"{eng.stats.cow_copies} (want 80, 2)")
+                shared_pool = eng.cache
+        name = "int8" if quantized else "fp32"
+        if tokens[True] != tokens[False]:
+            raise AssertionError(f"prefix_cross_check: {name} greedy ids "
+                                 "differ with prefix sharing")
+        # clone six written blocks, rows cut at six points, into five
+        # unwritten blocks and the first source (read before it is written)
+        used = [int(b) for b in torch.nonzero(
+            (shared_pool.pos < PAD_POSITION).any(1)).flatten()[:6]]
+        free = [b for b in range(ecfg.num_blocks) if b not in used][-5:]
+        src, dst = used, free + used[:1]
+        keep = [0, 5, 16, 40, 1000, PAD_POSITION]
+        cpu = dataclasses.replace(shared_pool, **{
+            f: getattr(shared_pool, f).cpu() for f in
+            ("k", "v", "pos", "k_scale", "v_scale")
+            if getattr(shared_pool, f, None) is not None})
+        cow_copy_blocks(shared_pool, src, dst, keep)
+        cow_copy_blocks(cpu, src, dst, keep)
+        for f in ("k", "v", "pos", "k_scale", "v_scale"):
+            a = getattr(shared_pool, f, None)
+            if a is not None and not torch.equal(a.cpu(), getattr(cpu, f)):
+                raise AssertionError(f"prefix_cross_check: {name} "
+                                     f"cow_copy_blocks' {f} differs")
+        out[name] = dict(requests=len(prompts), cow_checked_blocks=len(src),
+                         greedy_ids_equal=True)
+        del eng, shared_pool, cpu
+    emit("prefix_cross_check", layers=cfg.num_layers, prefix_tokens=40,
+         runs=out)
+    del sd
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1329,6 +1968,11 @@ def main() -> None:
     phase_train_cross_check(MIXTRAL_8X7B, layers=1,
                             phase="mixtral_train_cross_check",
                             moe_dispatch="blockwise", moe_block_size=64)
+    phase_generate(LLAMA3_8B)
+    phase_generate_cross_check(LLAMA3_8B)
+    gen_moe_launches = phase_generate_mixtral(mixtral)
+    prefix_launches = phase_serve_prefix(LLAMA3_8B, ecfg)
+    phase_prefix_cross_check(LLAMA3_8B)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -1343,7 +1987,9 @@ def main() -> None:
         "design": K1_DESIGN["tensor_cores"] + "; other types: "
                   + K1_DESIGN["cuda_cores"],
         "cases_ms": {c["case"]: c["kernel_ms"] for c in cases
-                     if "kernel_ms" in c}}]
+                     if "kernel_ms" in c},
+        "path_launches": {"serve": launches,
+                          "serve_prefix": prefix_launches}}]
     flash_main = next(c for c in flash_cases if c["case"] == "bf16")
     outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
@@ -1373,7 +2019,11 @@ def main() -> None:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "kernel_ms": main_case["kernel_ms"], "max_err": err,
-            "design": main_case["design"]})
+            "design": main_case["design"],
+            "path_launches": {
+                "serve_mixtral_disagg" if name.endswith("decode")
+                else "serve_mixtral": moe_launches[name],
+                "generate_mixtral": gen_moe_launches[name]}})
     bwd_main = next(c for c in bwd_cases if c["case"] == "bf16")
     for name, replaces in MOE_BWD_KERNELS:
         t = bwd_main["timing"][name]

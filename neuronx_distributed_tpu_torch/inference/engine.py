@@ -29,6 +29,14 @@ request is preempted (blocks freed, restarted from its prompt later);
 admission control rejects requests that could never fit. Finished slots
 (EOS / max tokens) free their blocks at the same step boundary, so new
 requests are admitted mid-flight.
+
+With ``EngineConfig(prefix_sharing=True)`` full prompt blocks are
+published to a trie (:class:`.paging.PrefixCache`); a later request maps
+the longest cached prefix of its prompt (refcounted) instead of prefilling
+it, and a write into a block that other owners map clones it first
+(copy-on-write, :func:`.paging.cow_copy_blocks`, run at the next step
+boundary). Under pool pressure the trie's least-recently-matched leaves are
+evicted before a request is preempted.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +53,8 @@ from ..device import DeviceLike, resolve_device
 from ..models import llama, mixtral
 from ..models.llama import LlamaConfig
 from .kv_cache import PAD_POSITION
-from .paging import (BlockAllocator, CacheExhaustedError, init_paged_kv_cache,
+from .paging import (BlockAllocator, CacheExhaustedError, PrefixCache,
+                     cow_copy_blocks, init_paged_kv_cache,
                      init_quantized_paged_kv_cache)
 from .sampling import SamplingConfig, sample
 
@@ -70,7 +79,10 @@ class EngineConfig:
     ``max_slots`` bounds concurrent requests; the pool is ``num_blocks *
     block_size`` KV slots shared by all of them. ``disaggregated`` runs
     prefill and decode as two workers, decode ``max_slots`` wide and prefill
-    ``prefill_budget`` (default ``token_budget``) wide."""
+    ``prefill_budget`` (default ``token_budget``) wide. ``prefix_sharing``
+    maps cached prompt prefixes instead of prefilling them; it is off by
+    default because the trie keeps blocks allocated past a request's
+    retirement (:meth:`ServingEngine.release_prefix_cache` drops them)."""
 
     block_size: int = 16
     num_blocks: int = 64
@@ -81,6 +93,7 @@ class EngineConfig:
     kv_dtype: Optional[torch.dtype] = None   # None -> model dtype
     eos_id: Optional[int] = None
     sampling: SamplingConfig = SamplingConfig(greedy=True)
+    prefix_sharing: bool = False
     disaggregated: bool = False
     prefill_budget: Optional[int] = None
 
@@ -111,6 +124,10 @@ class _RequestState:
     n_cached: int = 0               # tokens whose K/V are in the pool
     first_token_time: Optional[float] = None
     admit_seq: int = -1             # admission order, for preemption choice
+    shared_tokens: int = 0          # prompt tokens mapped from the trie
+    chain: Optional[int] = None     # trie chain hash for continued insert
+    trie_blocks: int = 0            # prompt blocks walked/inserted so far
+    trie_dead: bool = False         # stop inserting (collision/eviction)
 
     @property
     def prompt_len(self) -> int:
@@ -130,6 +147,10 @@ class _RequestState:
         self.slot = None
         self.n_cached = 0
         self.first_token_time = None
+        self.shared_tokens = 0
+        self.chain = None
+        self.trie_blocks = 0
+        self.trie_dead = False
 
 
 @dataclasses.dataclass
@@ -150,6 +171,8 @@ class EngineStats:
     rejected: int = 0
     preempted: int = 0
     tokens_generated: int = 0
+    cow_copies: int = 0             # shared blocks cloned before a write
+    prefix_hit_tokens: int = 0      # prompt tokens mapped from the trie
     prefill_tokens: int = 0         # prompt tokens actually computed
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     step_latency_s: List[float] = dataclasses.field(default_factory=list)
@@ -177,6 +200,11 @@ class EngineStats:
             "step_latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
             "pool_occupancy_mean": (float(np.mean(self.occupancy))
                                     if self.occupancy else 0.0),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_hit_rate": (
+                self.prefix_hit_tokens
+                / max(1, self.prefix_hit_tokens + self.prefill_tokens)),
+            "cow_copies": self.cow_copies,
         }
 
 
@@ -224,6 +252,10 @@ class ServingEngine:
         self._admit_counter = 0
         self._uid_counter = 0
         self._freed_dirty: set = set()  # freed blocks with stale positions
+        self._pending_cow: List[Tuple[int, int, int]] = []  # (src, dst, keep)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.allocator, engine_cfg.block_size)
+            if engine_cfg.prefix_sharing else None)
         # per worker: the distinct step input shapes seen, and the runs
         workers = (("prefill", "decode") if engine_cfg.disaggregated
                    else ("packed",))
@@ -300,6 +332,22 @@ class ServingEngine:
         self._queue.append(req)
         return uid
 
+    def prefix_lookup(self, prompt: Sequence[int]) -> int:
+        """How many tokens of ``prompt`` the prefix cache holds now (0
+        without ``prefix_sharing``), capped at ``len(prompt) - 1``: the
+        last prompt row always runs so that the request gets logits."""
+        if self.prefix_cache is None or len(prompt) <= 1:
+            return 0
+        return self.prefix_cache.lookup([int(t) for t in prompt],
+                                        len(prompt) - 1)
+
+    def release_prefix_cache(self) -> None:
+        """Drop the trie's own block references (blocks that live slots
+        still map stay allocated); blocks that free get their stored
+        positions wiped at the next step."""
+        if self.prefix_cache is not None:
+            self._freed_dirty.update(self.prefix_cache.clear())
+
     def has_work(self) -> bool:
         return bool(self._queue) or any(s is not None for s in self._slots)
 
@@ -332,19 +380,81 @@ class ServingEngine:
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
             self._slots[slot] = req
+            self._apply_prefix(req)
+
+    def _apply_prefix(self, req: _RequestState) -> None:
+        """Map the longest cached prefix of the prompt into the slot's
+        table (one allocator ref per mapped block, no prefill work), capped
+        at ``prompt_len - 1`` so that at least one prompt row runs. A
+        partial-tail match maps a donor block whose first ``m`` tokens are
+        shared; the first divergent write into it copies it
+        (:meth:`_ensure_block`)."""
+        req.chain = None
+        req.trie_blocks = 0
+        req.trie_dead = False
+        if self.prefix_cache is None or req.n_cached:
+            return
+        full, matched, partial, chain = self.prefix_cache.match(
+            req.prompt, req.prompt_len - 1)
+        for i, blk in enumerate(full):
+            self.allocator.ref(blk)
+            self._tables[req.slot, i] = blk
+            self._slot_blocks[req.slot].append(blk)
+        req.chain = chain
+        req.trie_blocks = len(full)
+        req.n_cached = matched
+        if partial is not None:
+            blk, m = partial
+            self.allocator.ref(blk)
+            self._tables[req.slot, len(full)] = blk
+            self._slot_blocks[req.slot].append(blk)
+            req.n_cached += m
+        req.shared_tokens = req.n_cached
+        self.stats.prefix_hit_tokens += req.n_cached
+
+    def _alloc_blocks(self, n: int) -> List[int]:
+        """Pool allocation that, before giving up, evicts the trie's
+        least-recently-matched prefixes until enough blocks free (the
+        caller's preemption handles the rest)."""
+        try:
+            return self.allocator.alloc(n)
+        except CacheExhaustedError:
+            if self.prefix_cache is None or self.prefix_cache.size == 0:
+                raise
+            self._freed_dirty.update(
+                self.prefix_cache.evict(n - self.allocator.num_free))
+            return self.allocator.alloc(n)
 
     def _ensure_block(self, req: _RequestState, position: int) -> None:
         """Map the block covering ``position`` into the slot's table,
-        allocating from the pool (raises CacheExhaustedError when dry)."""
+        allocating from the pool (raises CacheExhaustedError when dry). A
+        write into a block that other owners also map clones it first
+        (copy-on-write): the clone replaces the shared block in this slot's
+        table, and the copy runs at the next step boundary."""
         blk_i = position // self.ecfg.block_size
-        if self._tables[req.slot, blk_i] >= 0:
+        cur = int(self._tables[req.slot, blk_i])
+        if cur >= 0:
+            if self.allocator.refcount(cur) <= 1:
+                return
+            dst = self._alloc_blocks(1)[0]
+            self._pending_cow.append((cur, dst, position))
+            # the copy overwrites dst's stale positions; the freed-position
+            # wipe, which runs after the copy, must leave them
+            self._freed_dirty.discard(dst)
+            self._tables[req.slot, blk_i] = dst
+            sb = self._slot_blocks[req.slot]
+            sb[sb.index(cur)] = dst
+            self._freed_dirty.update(self.allocator.free([cur]))
+            self.stats.cow_copies += 1
             return
-        blk = self.allocator.alloc(1)[0]
+        blk = self._alloc_blocks(1)[0]
         self._tables[req.slot, blk_i] = blk
         self._slot_blocks[req.slot].append(blk)
 
     def _release(self, req: _RequestState) -> None:
         slot = req.slot
+        # only blocks whose last reference dropped get their positions
+        # wiped: clearing a still-shared block would blind its sharers
         self._freed_dirty.update(
             self.allocator.free(self._slot_blocks[slot]))
         self._slot_blocks[slot] = []
@@ -417,6 +527,40 @@ class ServingEngine:
             self.stats.prefill_tokens += chunk
         return decode_rows, prefill_rows
 
+    def _apply_pending_cow(self) -> None:
+        """Run the copy-on-write clones registered while scheduling, all in
+        one call (the reference chunks them only to keep one compiled
+        shape). Runs before the freed-position wipe: a source freed in the
+        same pass still needs its positions for the clone."""
+        if not self._pending_cow:
+            return
+        # a clone whose slot was preempted in the same pass may have had its
+        # dst handed out again: the later clone owns it, and one scatter
+        # with a repeated dst would leave either on CUDA
+        live = {d: (s, k) for s, d, k in self._pending_cow}
+        src, keep = zip(*live.values())
+        cow_copy_blocks(self.cache, src, list(live), keep)
+        self._pending_cow.clear()
+
+    def _maybe_insert_prefix(self, req: _RequestState) -> None:
+        """Publish this request's fully written prompt blocks into the
+        trie (after the step, when their pool rows exist). Stops for good
+        on a hash collision or an evicted parent chain."""
+        if self.prefix_cache is None or req.trie_dead:
+            return
+        bs = self.ecfg.block_size
+        target = min(req.n_cached, req.prompt_len) // bs
+        while req.trie_blocks < target:
+            i = req.trie_blocks
+            chain, _ = self.prefix_cache.insert(
+                req.chain, req.prompt[i * bs:(i + 1) * bs],
+                int(self._tables[req.slot, i]))
+            if chain is None:
+                req.trie_dead = True
+                return
+            req.chain = chain
+            req.trie_blocks += 1
+
     def _run_worker(self, worker: str, rows, width: int) -> np.ndarray:
         """Pack ``rows`` into a fixed ``width`` batch and run one step of
         ``worker``; returns per-row sampled tokens (aligned with
@@ -452,6 +596,7 @@ class ServingEngine:
         t_start = self._now()
         if self.stats.first_step_t is None:
             self.stats.first_step_t = t_start
+        self._apply_pending_cow()
         if self._freed_dirty:
             mask = np.zeros((self.ecfg.num_blocks,), np.bool_)
             mask[list(self._freed_dirty)] = True
@@ -476,6 +621,9 @@ class ServingEngine:
                     "decode", decode_rows, e.max_slots)[:len(decode_rows)]
         else:
             sampled = self._run_worker("packed", rows, e.token_budget)
+        if self.prefix_cache is not None:
+            for req in {id(r[0]): r[0] for r in prefill_rows}.values():
+                self._maybe_insert_prefix(req)
 
         now = self._now()
         for i, (req, _, pos, produce) in enumerate(rows):

@@ -15,12 +15,17 @@ causal mask is ``q_pos >= slot_pos``.
 Unlike the JAX version, which is functional and donates the pool to the
 step, the writes here update the pool **in place**: at Llama-3-8B's serving
 size the pool is 4 GiB, and a functional update would hold a second copy.
+
+Prefix sharing (:class:`PrefixCache`, :func:`cow_copy_blocks`) lets later
+requests map the pool blocks of an earlier prompt's full blocks instead of
+prefilling them again; a block that several owners map is cloned before a
+divergent write.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -308,3 +313,214 @@ def write_pool_positions(pos: torch.Tensor, positions: torch.Tensor,
     block_size]`` slot-position table in place (shared by all layers,
     written once per step)."""
     return write_pool_rows(pos, positions, flat_idx)
+
+
+# ---------------------------------------------------------------------------
+# Prefix sharing: a host-side trie over full prompt blocks. KV for a token
+# depends only on (token, position, params), so two prompts with a common
+# prefix produce the same pool rows for it; the trie lets later requests
+# map those rows instead of prefilling them again.
+# ---------------------------------------------------------------------------
+
+class _PrefixNode:
+    """One cached full block: ``tokens`` (``block_size`` of them, starting
+    at position ``depth * block_size``), the pool block holding its KV, and
+    the chain hash addressing it (a hash of the whole token path from the
+    root, so equal block content at different depths is a different
+    node)."""
+
+    __slots__ = ("chain", "parent", "tokens", "block", "tick")
+
+    def __init__(self, chain: int, parent: Optional[int],
+                 tokens: Tuple[int, ...], block: int, tick: int):
+        self.chain = chain
+        self.parent = parent
+        self.tokens = tokens
+        self.block = block
+        self.tick = tick
+
+
+class PrefixCache:
+    """Trie of full prompt blocks -> pool block ids.
+
+    The cache holds one allocator reference per inserted block, so a
+    cached block outlives the request that wrote it; a later request's
+    :meth:`match` maps the longest cached prefix into its own table (the
+    caller takes its own refs). Cached blocks are never written: a request
+    that diverges mid-block copies first (:func:`cow_copy_blocks`). Under
+    pool pressure :meth:`evict` drops least-recently-matched leaf nodes
+    until enough blocks return to the free list. Chain hashes are Python
+    ``hash`` values, so they hold for one process only."""
+
+    def __init__(self, allocator: BlockAllocator, block_size: int):
+        self.allocator = allocator
+        self.block_size = block_size
+        self._nodes: Dict[int, _PrefixNode] = {}
+        self._children: Dict[Optional[int], Set[int]] = {None: set()}
+        self._tick = 0
+
+    @property
+    def size(self) -> int:
+        return len(self._nodes)
+
+    @staticmethod
+    def _hash(parent: Optional[int], tokens: Tuple[int, ...]) -> int:
+        return hash((parent, tokens))
+
+    def _touch(self, node: _PrefixNode) -> None:
+        self._tick += 1
+        node.tick = self._tick
+
+    def _walk(self, prompt: Sequence[int], max_tokens: int, touch: bool):
+        """Follow full blocks of ``prompt`` down from the root while they
+        are cached and fit in ``max_tokens``: ``(blocks, matched,
+        chain)``."""
+        bs = self.block_size
+        full: List[int] = []
+        chain: Optional[int] = None
+        matched = 0
+        while matched + bs <= max_tokens:
+            tokens = tuple(prompt[matched:matched + bs])
+            child = self._hash(chain, tokens)
+            node = self._nodes.get(child)
+            if node is None or node.tokens != tokens:
+                break
+            if touch:
+                self._touch(node)
+            full.append(node.block)
+            chain = child
+            matched += bs
+        return full, matched, chain
+
+    def _best_tail(self, chain: Optional[int], tail: Tuple[int, ...]):
+        """The child of ``chain`` whose tokens share the longest head with
+        ``tail`` (the first such on a tie): ``(m, node)``, ``(0, None)``
+        when none shares a token."""
+        best, best_node = 0, None
+        if tail:
+            for child in self._children.get(chain, ()):
+                node = self._nodes[child]
+                m = 0
+                for a, b in zip(node.tokens, tail):
+                    if a != b:
+                        break
+                    m += 1
+                if m > best:
+                    best, best_node = m, node
+        return best, best_node
+
+    def match(self, prompt: Sequence[int], max_tokens: int
+              ) -> Tuple[List[int], int, Optional[Tuple[int, int]],
+                         Optional[int]]:
+        """Longest cached prefix of ``prompt``, capped at ``max_tokens``.
+
+        Returns ``(full_blocks, matched, partial, chain)``: pool ids of the
+        fully matched blocks, the token count they cover, an optional
+        ``(block, m)`` partial-tail match (a cached block whose first ``m <
+        block_size`` tokens extend the prefix: the case that later forces a
+        copy-on-write, since the mapper writes its own rows mid-block), and
+        the chain hash of the last full node (``None`` at the root) for
+        continued insertion. Touches every node it returns."""
+        full, matched, chain = self._walk(prompt, max_tokens, touch=True)
+        best, node = self._best_tail(chain,
+                                     tuple(prompt[matched:max_tokens]))
+        partial = None
+        if node is not None:
+            self._touch(node)
+            partial = (node.block, best)
+        return full, matched, partial, chain
+
+    def lookup(self, prompt: Sequence[int], max_tokens: int) -> int:
+        """How many tokens of ``prompt`` the cache covers now (full blocks
+        and a partial tail), without touching recency."""
+        _, matched, chain = self._walk(prompt, max_tokens, touch=False)
+        best, _ = self._best_tail(chain, tuple(prompt[matched:max_tokens]))
+        return matched + best
+
+    def insert(self, parent: Optional[int], tokens: Sequence[int],
+               block: int) -> Tuple[Optional[int], bool]:
+        """Register ``block`` as holding the full block ``tokens`` under
+        ``parent`` (a chain hash from :meth:`match` or an earlier insert).
+
+        Returns ``(chain, inserted)``. An existing node with the same
+        tokens just advances the chain (``inserted`` False; the caller
+        keeps its own block). ``(None, False)`` means the chain is unusable
+        (a hash collision, or the parent was evicted) and the caller stops
+        inserting for this request."""
+        tokens = tuple(tokens)
+        if len(tokens) != self.block_size:
+            raise ValueError(
+                f"prefix nodes cache full blocks only: got {len(tokens)} "
+                f"tokens for block_size {self.block_size}")
+        if parent is not None and parent not in self._nodes:
+            return None, False
+        chain = self._hash(parent, tokens)
+        node = self._nodes.get(chain)
+        if node is not None:
+            if node.tokens != tokens:     # hash collision: leave the trie
+                return None, False        # alone, stop this chain
+            self._touch(node)
+            return chain, False
+        self.allocator.ref(block)
+        node = _PrefixNode(chain, parent, tokens, block, 0)
+        self._touch(node)
+        self._nodes[chain] = node
+        self._children.setdefault(parent, set()).add(chain)
+        self._children.setdefault(chain, set())
+        return chain, True
+
+    def evict(self, want_free: int) -> List[int]:
+        """Drop least-recently-matched *leaf* nodes until ``want_free``
+        blocks have returned to the pool (a dropped node whose block other
+        slots still map frees nothing, so it keeps going). Returns the
+        blocks that did free, for the engine's stale-position wipe."""
+        freed: List[int] = []
+        while len(freed) < want_free:
+            leaves = [n for n in self._nodes.values()
+                      if not self._children.get(n.chain)]
+            if not leaves:
+                break
+            victim = min(leaves, key=lambda n: n.tick)
+            freed.extend(self._remove(victim))
+        return freed
+
+    def clear(self) -> List[int]:
+        """Drop every node; returns the blocks that returned to the free
+        list."""
+        freed: List[int] = []
+        for node in list(self._nodes.values()):
+            if node.chain in self._nodes:
+                freed.extend(self._remove(node))
+        return freed
+
+    def _remove(self, node: _PrefixNode) -> List[int]:
+        del self._nodes[node.chain]
+        self._children.pop(node.chain, None)
+        self._children.get(node.parent, set()).discard(node.chain)
+        return self.allocator.free([node.block])
+
+
+def cow_copy_blocks(cache: PagedKVCache, src, dst, keep_upto
+                    ) -> PagedKVCache:
+    """In place: clone pool blocks ``src[i] -> dst[i]`` (k, v, and the
+    scales of an int8 pool, every layer) before a writer lands in a shared
+    block. Rows whose stored position is ``>= keep_upto[i]`` (the writer's
+    first divergent position) become PAD_POSITION in the clone: the writer
+    owns them from here on.
+
+    Every entry is live. The JAX version pads its batch with ``dst ==
+    num_blocks`` entries that its scatter drops; indexing here does not
+    drop (it raises on the CPU and is undefined on CUDA), so the caller,
+    which knows how many entries are live, passes only those. All rows are
+    read before any is written, as in the functional version."""
+    dev = cache.pos.device
+    src, dst, keep = (torch.as_tensor(a, dtype=torch.long).to(dev)
+                      for a in (src, dst, keep_upto))
+    pools = [cache.k, cache.v]
+    if isinstance(cache, QuantizedPagedKVCache):
+        pools += [cache.k_scale, cache.v_scale]
+    for pool in pools:
+        pool[:, dst] = pool[:, src]
+    rows = cache.pos[src]
+    cache.pos[dst] = rows.masked_fill(rows >= keep[:, None], PAD_POSITION)
+    return cache

@@ -1,5 +1,6 @@
 """Llama (counterpart of ``neuronx_distributed_tpu/models/llama.py`` at
-tp=1): the paged serving path and the training forward.
+tp=1): the cached serving forward over a paged pool or a contiguous cache,
+and the training forward.
 
 The state dict keeps the JAX parameter names and layouts (kernels ``[in,
 out]``, the fused MLP kernel ``[H, 2, I]``), so :mod:`.convert` maps a JAX
@@ -17,14 +18,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..inference.kv_cache import quantize_kv
+from ..inference.kv_cache import (ContiguousCacheView, KVCache,
+                                  QuantizedKVCache, dequantize_kv,
+                                  quantize_kv)
 from ..inference.paging import (PagedCacheView, PagedKVCache,
                                 QuantizedPagedKVCache, flat_write_indices,
                                 scatter_pool_rows, valid_write_rows)
@@ -81,6 +84,9 @@ def tiny_config(**kw) -> LlamaConfig:
     return LlamaConfig(**base)
 
 
+CacheView = Union[PagedCacheView, ContiguousCacheView]
+
+
 def _paged_cache_attend(cfg: LlamaConfig, q, k, v, positions,
                         view: PagedCacheView) -> torch.Tensor:
     """Write this step's K/V rows into the layer's pool slice (quantized
@@ -102,6 +108,39 @@ def _paged_cache_attend(cfg: LlamaConfig, q, k, v, positions,
                           positions[0], k_scale=view.k_scale,
                           v_scale=view.v_scale,
                           scale=1.0 / math.sqrt(q.shape[-1]))[None]
+    return out.to(cfg.dtype)
+
+
+def _contiguous_cache_attend(cfg: LlamaConfig, q, k, v, positions,
+                             view: ContiguousCacheView) -> torch.Tensor:
+    """The contiguous-cache branch (JAX ``models/llama.py:441-487`` without
+    flash decoding, and the int8 body ``_DecodeScanBody``): write this
+    step's K/V at ``view.index``, then dense fp32 attention over every
+    slot, masked by stored position with ``-1e30`` so that no row (a pad
+    query attends to every real slot) turns to NaN. An int8 cache is
+    dequantized to ``cfg.dtype`` for the read and only this step's slots
+    are requantized, so slots already written never drift."""
+    at = slice(view.index, view.index + q.shape[1])
+    if view.k_scale is not None:
+        k_l = dequantize_kv(view.k, view.k_scale, cfg.dtype)
+        v_l = dequantize_kv(view.v, view.v_scale, cfg.dtype)
+    else:
+        k_l, v_l = view.k, view.v
+    k_l[:, at] = k.to(k_l.dtype)
+    v_l[:, at] = v.to(v_l.dtype)
+    n_rep = q.shape[2] // k.shape[2]
+    k_full = repeat_kv(k_l.to(cfg.dtype), n_rep)
+    v_full = repeat_kv(v_l.to(cfg.dtype), n_rep)
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(),
+                          k_full.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    mask = positions[:, :, None] >= view.pos[:, None, :]
+    scores = scores.masked_fill(~mask[:, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bnqk,bknd->bqnd", probs, v_full.float())
+    if view.k_scale is not None:
+        for codes, scales, rows in ((view.k, view.k_scale, k_l[:, at]),
+                                    (view.v, view.v_scale, v_l[:, at])):
+            codes[:, at], scales[:, at] = quantize_kv(rows)
     return out.to(cfg.dtype)
 
 
@@ -134,10 +173,10 @@ class LlamaAttention(nn.Module):
                              param_dtype=cfg.param_dtype)
 
     def forward(self, x, cos, sin, positions,
-                view: Optional[PagedCacheView] = None,
+                view: Optional[CacheView] = None,
                 dropout_generator: Optional[torch.Generator] = None):
-        """With a paged ``view``, the serving step; without, causal
-        self-attention over the sequence (training)."""
+        """With a cache ``view`` (paged or contiguous), the serving step;
+        without, causal self-attention over the sequence (training)."""
         cfg = self.cfg
         d = cfg.head_dim_
         q, k, v = self.qkv(x)
@@ -147,8 +186,10 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(k.reshape(b, s, cfg.num_kv_heads, d), cos, sin,
                          positions)
         v = v.reshape(b, s, cfg.num_kv_heads, d)
-        if view is not None:
+        if isinstance(view, PagedCacheView):
             out = _paged_cache_attend(cfg, q, k, v, positions, view)
+        elif view is not None:
+            out = _contiguous_cache_attend(cfg, q, k, v, positions, view)
         else:
             out = _causal_attend(cfg, q, k, v, dropout_generator)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * d))
@@ -188,7 +229,7 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, cos, sin, positions,
-                view: Optional[PagedCacheView] = None,
+                view: Optional[CacheView] = None,
                 dropout_generator: Optional[torch.Generator] = None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
                           dropout_generator)
@@ -346,16 +387,80 @@ def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
     return logits, kv_cache
 
 
+def contiguous_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
+                       positions: torch.Tensor, kv_cache: KVCache,
+                       run_layer: Callable[..., torch.Tensor]):
+    """The contiguous-cache plumbing shared by the model families (JAX
+    ``models/llama.py:1146-1215``): embedding, rope, this step's positions
+    recorded at ``index``, then ``x = run_layer(layer, x, cos, sin,
+    rope_pos, view)`` per layer, the final norm and the LM head. Returns
+    ``(logits [B, S, V], cache)``: the cache's tensors are written in
+    place and the returned cache's ``index`` is ``index + S``.
+
+    The JAX write (``dynamic_update_slice``) clamps its start so that the
+    slice fits; a step that would run past ``S_max`` raises here instead
+    of shifting its write."""
+    if not isinstance(kv_cache, KVCache):
+        raise TypeError(f"unknown cache type {type(kv_cache).__name__}")
+    cfg = model.cfg
+    b, s = input_ids.shape
+    idx = kv_cache.index
+    if idx + s > kv_cache.max_len:
+        raise ValueError(f"a step of {s} tokens at slot {idx} overflows the "
+                         f"cache's {kv_cache.max_len} slots")
+    positions = positions.to(torch.int32)
+    x = model.embed(input_ids)
+    cos, sin = model.rope_tables(input_ids.device)
+    # as in the paged path, the clamped positions are the rope positions
+    # and the attention's query positions; the cache stores the true ones
+    # (PAD_POSITION for pads)
+    rope_pos = torch.clamp(positions, max=cfg.max_seq_len - 1)
+    kv_cache.pos[:, idx:idx + s] = positions
+    quantized = isinstance(kv_cache, QuantizedKVCache)
+    for i, layer in enumerate(model.layers):
+        view = ContiguousCacheView(
+            k=kv_cache.k[i], v=kv_cache.v[i],
+            k_scale=kv_cache.k_scale[i] if quantized else None,
+            v_scale=kv_cache.v_scale[i] if quantized else None,
+            pos=kv_cache.pos, index=idx)
+        x = run_layer(layer, x, cos, sin, rope_pos, view)
+    logits = model.lm_head(model.norm(x))
+    return logits, replace(kv_cache, index=idx + s)
+
+
+def cached_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
+                   positions: torch.Tensor, kv_cache,
+                   slot_ids: Optional[torch.Tensor],
+                   run_layer: Callable[..., torch.Tensor]):
+    """Dispatch on the cache's type, as the JAX
+    ``llama_forward_with_cache`` does: a paged pool needs ``slot_ids`` and
+    a batch of one packed row; a contiguous cache takes neither."""
+    if isinstance(kv_cache, PagedKVCache):
+        if slot_ids is None:
+            raise ValueError("paged cache forward requires slot_ids [T]")
+        return paged_forward(model, input_ids, positions, kv_cache,
+                             slot_ids, run_layer)
+    return contiguous_forward(model, input_ids, positions, kv_cache,
+                              run_layer)
+
+
 @torch.no_grad()
 def llama_forward_with_cache(model: LlamaForCausalLM,
                              input_ids: torch.Tensor,
-                             positions: torch.Tensor,
-                             kv_cache: PagedKVCache,
-                             slot_ids: torch.Tensor):
-    """Paged-pool forward of one packed step: ``input_ids``/``positions``
-    ``[1, T]``, ``slot_ids [T]`` mapping each packed token to its cache
-    slot (pad rows carry ``max_slots`` and position PAD_POSITION). Writes
-    the step's positions and K/V into the pool **in place** and returns
-    ``(logits [1, T, V], kv_cache)``."""
-    return paged_forward(model, input_ids, positions, kv_cache, slot_ids,
-                         lambda layer, *args: layer(*args))
+                             positions: torch.Tensor, kv_cache,
+                             slot_ids: Optional[torch.Tensor] = None):
+    """KV-cached forward of one step.
+
+    Paged pool (:class:`..inference.paging.PagedKVCache` or its int8
+    variant): ``input_ids``/``positions`` ``[1, T]``, ``slot_ids [T]``
+    mapping each packed token to its cache slot (pad rows carry
+    ``max_slots`` and position PAD_POSITION); writes the step's positions
+    and K/V into the pool **in place** and returns ``(logits [1, T, V],
+    kv_cache)``.
+
+    Contiguous cache (:class:`..inference.kv_cache.KVCache` or
+    ``QuantizedKVCache``): ``input_ids``/``positions`` ``[B, S]``, no
+    ``slot_ids``; writes at ``kv_cache.index`` in place and returns
+    ``(logits [B, S, V], cache with index + S)``."""
+    return cached_forward(model, input_ids, positions, kv_cache, slot_ids,
+                          lambda layer, *args: layer(*args))

@@ -10,11 +10,12 @@ keys, so :mod:`.convert` maps a JAX Mixtral tree across.
 Training goes through :meth:`MixtralForCausalLM.loss`, the JAX loss: the
 causal-LM cross entropy plus the router's load-balance and z losses summed
 over the layers, weighted by ``router_aux_coef`` and ``router_z_coef``.
-Serving goes through :func:`mixtral_forward_with_cache`, the paged step of
-:func:`.llama.paged_forward`. With ``moe_dispatch="blockwise"`` the experts
-run the grouped GLU: K5 on a wide step, and K6 with ``sentinel_empty``
-metadata on a step so narrow that ``tokens x top_k <= num_experts``, as the
-JAX model decides.
+Serving goes through :func:`mixtral_forward_with_cache`, the cached step
+of :func:`.llama.cached_forward` over a paged pool or a contiguous cache.
+With ``moe_dispatch="blockwise"`` the experts run the grouped GLU: K5 on a
+wide step, and K6 with ``sentinel_empty`` metadata on a step so narrow
+that ``tokens x top_k <= num_experts`` (all tokens of the batch counted),
+as the JAX model decides.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike
-from ..inference.paging import PagedCacheView, PagedKVCache
+from ..inference.kv_cache import QuantizedKVCache
 from ..modules.moe import MoE
 from ..modules.norms import RMSNorm
 from ..parallel.loss_functions import causal_lm_loss
@@ -90,12 +91,12 @@ class MixtralDecoderLayer(nn.Module):
                        param_dtype=cfg.param_dtype, device=device)
 
     def forward(self, x, cos, sin, positions,
-                view: Optional[PagedCacheView] = None,
+                view: Optional[llama.CacheView] = None,
                 dropout_generator: Optional[torch.Generator] = None,
                 sentinel_empty: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(x, aux)``, aux = ``[load_balance_loss, z_loss]``; with a
-        paged ``view`` the serving step, without, causal self-attention
+        cache ``view`` the serving step, without, causal self-attention
         (with attention dropout given a ``dropout_generator``)."""
         x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
                           dropout_generator)
@@ -168,14 +169,16 @@ def decode_sentinel_empty(cfg: MixtralConfig, num_tokens: int) -> bool:
 @torch.no_grad()
 def mixtral_forward_with_cache(model: MixtralForCausalLM,
                                input_ids: torch.Tensor,
-                               positions: torch.Tensor,
-                               kv_cache: PagedKVCache,
-                               slot_ids: torch.Tensor):
-    """Paged-pool forward of one packed step, as
+                               positions: torch.Tensor, kv_cache,
+                               slot_ids: Optional[torch.Tensor] = None):
+    """KV-cached forward of one step, as
     :func:`.llama.llama_forward_with_cache` (same arguments, same in-place
-    pool writes); returns ``(logits [1, T, V], kv_cache)``."""
+    writes) over a paged pool or a contiguous ``KVCache``. As in JAX there
+    is no int8 contiguous cache for Mixtral. Returns ``(logits, cache)``."""
+    if isinstance(kv_cache, QuantizedKVCache):
+        raise TypeError("Mixtral's contiguous path has no int8 cache")
     sentinel = decode_sentinel_empty(model.cfg,
                                      input_ids.shape[0] * input_ids.shape[1])
-    return llama.paged_forward(
+    return llama.cached_forward(
         model, input_ids, positions, kv_cache, slot_ids,
         lambda layer, *args: layer(*args, sentinel_empty=sentinel)[0])

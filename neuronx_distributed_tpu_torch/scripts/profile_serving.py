@@ -52,7 +52,8 @@ def group_of(name: str) -> str:
                  if any(k in name for k in keys)), "other")
 
 
-def trace(eng, steps: int, label: str) -> None:
+def trace(step, steps: int, label: str) -> None:
+    """Profile ``steps`` calls of ``step`` and print the window's line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -61,7 +62,7 @@ def trace(eng, steps: int, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = {}
@@ -88,13 +89,13 @@ def trace(eng, steps: int, label: str) -> None:
                                     for k, v in top]}), flush=True)
 
 
-def time_steps(eng, steps: int, label: str) -> None:
-    """Host wall time per step without the profiler, for the idle share:
-    1 - (profiled device busy time) / (this wall time)."""
+def time_steps(step, steps: int, label: str) -> None:
+    """Host wall time per call of ``step`` without the profiler, for the
+    idle share: 1 - (profiled device busy time) / (this wall time)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     print(json.dumps({"window": label, "steps": steps, "wall_ms_per_step":
                       (time.perf_counter() - t0) * 1e3 / steps}), flush=True)
@@ -160,13 +161,13 @@ def main() -> None:
         eng.submit(rng.randint(0, cfg.vocab_size, n).tolist(), 64,
                    uid=f"r{i}")
     eng.step()                          # first use: kernel build and load
-    trace(eng, 1, "profiler_warmup")    # the first trace pays CUPTI's start
-    trace(eng, 3, "prefill")
+    trace(eng.step, 1, "profiler_warmup")   # the first trace pays CUPTI's
+    trace(eng.step, 3, "prefill")           # start
     while any(s is not None and not s.decoding for s in eng._slots):
         eng.step()
     count_walked(eng, 3)
-    time_steps(eng, 5, "decode_unprofiled")
-    trace(eng, 5, "decode")
+    time_steps(eng.step, 5, "decode_unprofiled")
+    trace(eng.step, 5, "decode")
     eng.run()
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
 

@@ -265,6 +265,44 @@ def test_paged_attention_routes_by_dtype(cuda, q_name, pool, kernels):
                                                        == "bf16"), names
 
 
+@pytest.mark.parametrize("q_name,splits,same_bits", [
+    ("bf16", 1, True), ("bf16", 2, False), ("fp32", None, True)])
+def test_paged_attention_bits_follow_the_tables_length(cuda, q_name, splits,
+                                                       same_bits):
+    """The same 16 rows (positions in block 11) attend the same keys
+    through a table of 16 valid blocks and through one of 24, whose last
+    blocks lie past every row. Either way the output is within 2e-2 (bf16)
+    or 1e-4 (fp32) of the plain version. The fp32 K1 and the bf16 K1 with
+    one split only add exact zeros for the masked keys, so their bits must
+    be equal; with two splits the split point follows the table's length
+    (block 8 against block 12) and the bits may differ, which is why bf16
+    greedy ids depend on chunking (ROADMAP §C), so that case asserts
+    nothing of the bits."""
+    rng = np.random.RandomState(9)
+    t, n, kv, d, bs, nb = 16, 32, 8, 128, 16, 32
+    dt = _FLOATS[q_name]
+    q = torch.from_numpy(rng.randn(t, n, d).astype(np.float32)).to(cuda, dt)
+    k, v = (torch.from_numpy(rng.randn(nb, bs, kv, d).astype(np.float32))
+            .to(cuda, dt) for _ in "kv")
+    pool_pos = torch.arange(nb * bs, dtype=torch.int32,
+                            device=cuda).view(nb, bs)
+    q_pos = torch.arange(176, 192, dtype=torch.int32, device=cuda)
+    outs = []
+    for valid in (16, 24):
+        tables = torch.full((t, 24), -1, dtype=torch.int32, device=cuda)
+        tables[:, :valid] = torch.arange(valid, dtype=torch.int32)
+        args = (q, k, v, pool_pos, tables, q_pos)
+        kw = {} if splits is None else dict(splits=splits)
+        outs.append(tpa.paged_attention_cuda(*args, **kw))
+        ref = tpa.paged_attention_plain(*args).float()
+        torch.testing.assert_close(outs[-1].float(), ref, rtol=0,
+                                   atol=2e-2 if dt == torch.bfloat16
+                                   else 1e-4)
+    torch.cuda.synchronize()
+    if same_bits:
+        assert torch.equal(outs[0], outs[1])
+
+
 def test_paged_attention_bf16_refuses_bad_splits(cuda):
     args = _step_case(cuda, 1, "worker", 4, 4, 16, 128)
     for bad in (dict(splits=0), dict(splits=17)):

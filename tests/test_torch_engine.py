@@ -3,7 +3,8 @@ greedy token ids per request and identical step counters in every
 scenario (solo, late arrival, preemption, EOS, int8 pool, a queue longer
 than the slots, disaggregated prefill and decode workers), fixed step
 shapes across load changes, admission rejection, CUDA-by-default, and a
-port that imports nothing of JAX."""
+port that imports nothing of JAX (serving and ``generate`` run in a
+process that refuses it)."""
 
 import itertools
 import os
@@ -184,7 +185,7 @@ def test_oversize_request_rejected_at_submit(models):
 
 def test_engine_config_has_no_later_slice_fields():
     with pytest.raises(TypeError):
-        te.EngineConfig(prefix_sharing=True)
+        te.EngineConfig(speculation=object())
 
 
 def test_entry_points_default_to_cuda(models):
@@ -218,7 +219,8 @@ _ISOLATED = textwrap.dedent("""
               "trainer.optimizer", "trainer.schedules", "trainer.trainer",
               "ops.blockwise_moe", "modules.moe", "modules.moe.blockwise",
               "modules.moe.expert_mlps", "modules.moe.model",
-              "modules.moe.routing", "models.mixtral"):
+              "modules.moe.routing", "models.mixtral",
+              "inference.generation"):
         assert pkg.__name__ + "." + m in mods, m
     from neuronx_distributed_tpu_torch.inference import engine as te
     from neuronx_distributed_tpu_torch.models import llama as tl
@@ -229,6 +231,11 @@ _ISOLATED = textwrap.dedent("""
         token_budget=8), device="cpu")
     eng.submit([1, 2, 3, 4, 5], 4, uid="a")
     assert len(eng.run()["a"].tokens) == 4
+    from neuronx_distributed_tpu_torch.inference import generation
+    out = generation.generate(tl.build_model(cfg, sd, "cpu"),
+                              [[1, 2, 3, 4, 5], [6, 7, 0, 0, 0]], [5, 2], 4,
+                              buckets=(8,))
+    assert tuple(out.shape) == (2, 4), out.shape
     from neuronx_distributed_tpu_torch.models import mixtral as tm
     mcfg = tm.tiny_moe_config(dtype=torch.float32, moe_dispatch="blockwise",
                               moe_block_size=8)
