@@ -132,9 +132,35 @@ script exits non-zero and prints no result:
    ids with sharing equal those without, and ``cow_copy_blocks`` on the
    card writes the CPU's pool bit for bit.
 
+22. train_loop: ``Trainer.fit`` on ``LLAMA3_8B`` widths through
+   ``configure_model`` with ``ActivationCheckpointConfig(mode="full")``
+   (remat, ``remat_policy="save_attention"``), bf16 compute, fp32 params,
+   flash attention, ``loss_chunk=512``, random weights (seed 0, std
+   0.02), AdamW lr 1e-4 clipped at 1.0; B=1, S=4096 batches from the
+   native ``TokenBatchLoader`` over a uint32 token file written from numpy
+   seed 0 into a temporary directory under ``build/``;
+   ``MetricsLogger(every=1)`` and ``Watchdog(policy="halt")``; 8 steps at
+   4 layers, then 8 at 12. Asserts finite losses, the native loader, and
+   K2, K3 and K4 each launched layers x steps times at each depth; prints
+   step ms p50/p99, tokens/s, peak GiB and the losses.
+23. train_resume: full width, 1 layer, ``tie_embeddings=True``, the
+   full-logits loss: run A trains 6 loader batches; run B trains the first
+   4 with ``CheckpointCallback(every=2, num_kept=1)`` (async), then a new
+   model (seed 1) resumes through ``Trainer(resume_path=...)`` and trains
+   batches 5-6. B's losses and final params must equal A's bit for bit;
+   prints the free disk, bytes written, the seconds the loop blocks in each
+   save (the snapshot to host memory) and each commit's seconds. The
+   temporary directory is removed at the end.
+24. train_loop_cross_check: phase 9 with remat (``save_attention``) and
+   ``loss_chunk=64`` (fp32, full width, 2 layers, S=256, card against the
+   CPU); then on the card at 2 layers, S=4096, ``loss_chunk=512``, in fp32
+   and bf16: gradients with ``save_attention`` and ``"nothing"`` remat
+   equal to those without remat bit for bit, K2 launched layers times
+   (``save_attention``, no remat) or 2 x layers (``"nothing"``), K3 and K4
+   layers times.
+
 The last two lines are the kernels' JSON summary (``path_launches`` gives
-each path's launches of K1, K5 and K6) and ``{"ok": true, "device":
-{...}}``.
+each path's launches of K1-K6) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -142,8 +168,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1918,6 +1947,288 @@ def phase_prefix_cross_check(base_cfg, new=8):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: the Trainer entry point
+# ---------------------------------------------------------------------------
+
+def free_cuda():
+    """Hand the caching allocator's free blocks back, with no garbage
+    collection: a model that a phase dropped must already be freed, as a
+    user who builds the next model in the same process needs it to be."""
+    torch.cuda.empty_cache()
+
+
+def token_file(directory, vocab, seq, n_seqs=64, seed=0):
+    """A flat uint32 token file of ``n_seqs`` sequences of ``seq + 1``
+    tokens from numpy ``RandomState(seed)``."""
+    path = os.path.join(directory, "tokens.bin")
+    np.random.RandomState(seed).randint(
+        0, vocab, n_seqs * (seq + 1)).astype(np.uint32).tofile(path)
+    return path
+
+
+class StepClock:
+    """A ``Trainer`` callback: the wall time from one step's end to the
+    next, each ended by ``torch.cuda.synchronize()``: the other callbacks
+    of the step before, the loader's next batch and the step."""
+
+    def __init__(self):
+        self.ms, self.losses, self._t = [], [], None
+
+    def on_train_start(self, trainer):
+        torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def on_step_end(self, trainer, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms.append((now - self._t) * 1e3)
+        self.losses.append(metrics["loss"].item())
+        self._t = now
+
+    def on_eval_end(self, trainer, metrics):
+        pass
+
+    def on_train_end(self, trainer):
+        pass
+
+
+def loop_model(layers, seed=0, mode="full", compute="bfloat16", **cfg_kw):
+    """``LLAMA3_8B`` widths at ``layers`` layers through
+    ``configure_model`` with ``ActivationCheckpointConfig(mode)`` (remat
+    on unless ``"none"``) and ``compute`` as the compute dtype, fp32
+    params, flash attention, random weights (``seed``, std 0.02); AdamW lr
+    1e-4 clipped at 1.0."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        ActivationCheckpointConfig, MixedPrecisionConfig, OptimizerConfig,
+        configure_model, neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+
+    ncfg = neuronx_distributed_config(
+        optimizer_config=OptimizerConfig(grad_clipping=True,
+                                         max_grad_norm=1.0),
+        activation_checkpoint_config=ActivationCheckpointConfig(mode=mode),
+        mixed_precision_config=MixedPrecisionConfig(compute_dtype=compute))
+    cfg = configure_model(ncfg, dataclasses.replace(
+        LLAMA3_8B, num_layers=layers, param_dtype=torch.float32,
+        use_flash_attention=True, **cfg_kw))
+    pm, params = trainer.initialize_parallel_model(ncfg, cfg, seed=seed,
+                                                   std=0.02)
+    tx, state = trainer.initialize_parallel_optimizer(pm, params,
+                                                      learning_rate=1e-4)
+    return cfg, pm, state, trainer.make_train_step(pm, tx)
+
+
+def phase_train_loop(workdir, depths=(4, 12), steps=8, seq=4096):
+    """``Trainer.fit`` with remat (``save_attention``), the chunked loss
+    (512), ``TokenBatchLoader`` batches, ``MetricsLogger(every=1)`` and
+    ``Watchdog(policy="halt")``, ``steps`` steps at each depth; K2, K3 and
+    K4 each launched layers x steps. Returns the launches of the last
+    depth."""
+    from neuronx_distributed_tpu_torch.data import TokenBatchLoader
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.resilience.watchdog import Watchdog
+    from neuronx_distributed_tpu_torch.trainer import MetricsLogger, Trainer
+
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    tokens = token_file(workdir, 128256, seq)
+    for layers in depths:
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, pm, state, step = loop_model(layers,
+                                          remat_policy="save_attention",
+                                          loss_chunk=512)
+        loader = TokenBatchLoader(tokens, batch=1, seqlen=seq, seed=0,
+                                  dtype="uint32", nthreads=2)
+        if not loader.native:
+            raise AssertionError("train_loop: the native loader did not "
+                                 "build")
+        clock = StepClock()
+        trainer = Trainer(step, state, callbacks=[
+            clock, MetricsLogger(every=1), Watchdog(policy="halt")])
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        trainer.fit(loader, max_steps=steps)
+        launches = {name: c.launches for name, c in counters.items()}
+        loader.close()
+        if trainer.host_step != steps or state.step != steps:
+            raise AssertionError(f"train_loop: {trainer.host_step} steps, "
+                                 f"want {steps}")
+        if not np.isfinite(clock.losses).all():
+            raise AssertionError(f"train_loop: losses {clock.losses}")
+        for name, n in launches.items():
+            if n != layers * steps:
+                raise AssertionError(
+                    f"train_loop: {name} launched {n} times at {layers} "
+                    f"layers, want layers x steps = {layers * steps}")
+        p50 = float(np.median(clock.ms))
+        emit("train_loop", layers=layers, steps=steps, seq=seq,
+             params=sum(p.numel() for p in state.params.values()),
+             remat_policy=cfg.remat_policy, loss_chunk=cfg.loss_chunk,
+             compute_dtype=str(cfg.dtype), native_loader=loader.native,
+             losses=clock.losses, step_ms=clock.ms, step_ms_p50=p50,
+             step_ms_p99=float(np.percentile(clock.ms, 99)),
+             tokens_per_s=seq / (p50 / 1e3),
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches=launches)
+        del pm, state, step, trainer
+    free_cuda()
+    return launches
+
+
+def timed_checkpoint(path, every, num_kept):
+    """A ``CheckpointCallback`` that also records, for each save, the time
+    the loop blocks in it (the snapshot to host memory) and the seconds
+    until the tag's done-marker lands (the commit)."""
+    from neuronx_distributed_tpu_torch.trainer import CheckpointCallback
+
+    class Timed(CheckpointCallback):
+        def __init__(self):
+            super().__init__(path, every=every, num_kept=num_kept)
+            self.block_s, self.commit_s, self.waiters = [], [], []
+
+        def on_step_end(self, trainer, metrics):
+            saved = self._last_saved
+            t0 = time.perf_counter()
+            super().on_step_end(trainer, metrics)
+            if self._last_saved == saved:
+                return
+            self.block_s.append(time.perf_counter() - t0)
+            marker = os.path.join(path, str(self._last_saved), "checkpoint")
+
+            def wait():
+                while not os.path.isfile(marker):
+                    time.sleep(0.01)
+                self.commit_s.append(time.perf_counter() - t0)
+
+            self.waiters.append(threading.Thread(target=wait, daemon=True))
+            self.waiters[-1].start()
+
+    return Timed()
+
+
+def phase_train_resume(workdir, seq=4096, steps=6):
+    """Full width, 1 layer, ``tie_embeddings``, the full-logits loss: run A
+    trains ``steps`` batches; run B trains 4 with async checkpoints every 2
+    (``num_kept=1``), then a new model resumes through
+    ``Trainer(resume_path=...)`` and trains the rest; B's last losses and
+    final params must equal A's bit for bit."""
+    from neuronx_distributed_tpu_torch.data import TokenBatchLoader
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+    from neuronx_distributed_tpu_torch.trainer import checkpoint as ck
+
+    free_gib = shutil.disk_usage(workdir).free / 2 ** 30
+    loader = TokenBatchLoader(token_file(workdir, 128256, seq, seed=1),
+                              batch=1, seqlen=seq, seed=1, dtype="uint32")
+    batches = [loader.next_batch() for _ in range(steps)]
+    loader.close()
+    kw = dict(tie_embeddings=True, remat_policy="nothing")
+
+    def run(batches, callbacks=(), seed=0, resume=None):
+        cfg, pm, state, step = loop_model(1, seed=seed, **kw)
+        clock = StepClock()
+        trainer = Trainer(step, state, callbacks=[clock, *callbacks],
+                          resume_path=resume)
+        trainer.fit(iter(batches), max_steps=steps)
+        return pm, state, clock.losses
+
+    pm, state_a, losses_a = run(batches)
+    want = {n: p.detach().clone() for n, p in state_a.params.items()}
+    n_params = sum(p.numel() for p in want.values())
+    del pm, state_a
+    free_cuda()
+    path = os.path.join(workdir, "ckpt")
+    saver = timed_checkpoint(path, every=2, num_kept=1)
+    pm, state_b, losses_b = run(batches[:4], [saver])
+    for waiter in saver.waiters:
+        waiter.join(timeout=600)
+    tags = ck.list_complete_tags(path)
+    tag_bytes = sum(os.path.getsize(os.path.join(r, f))
+                    for r, _, fs in os.walk(os.path.join(path, tags[-1]))
+                    for f in fs)
+    del pm, state_b
+    free_cuda()
+    t0 = time.perf_counter()
+    pm, state_c, losses_c = run(batches[4:], seed=1, resume=path)
+    resume_s = time.perf_counter() - t0
+    if tags != ["4"]:
+        raise AssertionError(f"train_resume: complete tags {tags}, want "
+                             "['4'] (num_kept=1)")
+    if losses_b != losses_a[:4] or losses_c != losses_a[4:]:
+        raise AssertionError(f"train_resume: losses {losses_b} + "
+                             f"{losses_c} differ from the uninterrupted "
+                             f"{losses_a}")
+    differ = [n for n, p in state_c.params.items()
+              if not torch.equal(p, want[n])]
+    if differ or state_c.step != steps:
+        raise AssertionError(f"train_resume: step {state_c.step}, params "
+                             f"not bitwise equal: {differ}")
+    emit("train_resume", layers=1, tie_embeddings=True, params=n_params,
+         seq=seq, steps=steps, losses=losses_a, resumed_losses=losses_c,
+         bitwise=True, free_disk_gib=free_gib, tag_bytes=tag_bytes,
+         saves=len(saver.block_s), bytes_written=tag_bytes * len(
+             saver.block_s), save_block_s=saver.block_s,
+         commit_s=sorted(saver.commit_s),
+         resume_s_with_two_steps=resume_s)
+    del pm, state_c, want
+    free_cuda()
+
+
+def phase_train_loop_cross_check(base_cfg, seq=4096):
+    """fp32 card against the CPU with remat and the chunked loss (phase
+    9's limits), then on the card, in fp32 and bf16 at S=4096, the
+    gradients under ``save_attention`` and ``"nothing"`` remat equal to
+    those without, bit for bit, with K2 launched layers or 2 x layers
+    times and K3/K4 layers times."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
+
+    phase_train_cross_check(base_cfg, seq=256,
+                            phase="train_loop_cross_check", remat=True,
+                            remat_policy="save_attention", loss_chunk=64)
+    counters = [getattr(fa, name) for name, _ in FLASH_KERNELS]
+    batch = train_batch(base_cfg.vocab_size, seq, seed=2)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = None
+        for policy in (None, "save_attention", "nothing"):
+            cfg, pm, state, _ = loop_model(
+                2, mode="full" if policy else "none",
+                compute=str(dtype).split(".")[-1], loss_chunk=512,
+                remat_policy=policy or "nothing")
+            torch.cuda.synchronize()
+            before = [c.launches for c in counters]
+            loss = pm.module.loss(batch["input_ids"].cuda(),
+                                  batch["labels"].cuda())
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = [c.launches - b for c, b in zip(counters, before)]
+            k2 = cfg.num_layers * (2 if policy == "nothing" else 1)
+            if (launched != [k2, cfg.num_layers, cfg.num_layers]
+                    or cfg.dtype != dtype or cfg.remat != bool(policy)):
+                raise AssertionError(f"train_loop_cross_check: {dtype} "
+                                     f"{policy}: launches {launched}")
+            grads = {n: p.grad for n, p in pm.module.named_parameters()}
+            if ref is None:
+                ref = (loss.detach(), grads)
+            else:
+                differ = [n for n, g in grads.items()
+                          if not torch.equal(g, ref[1][n])]
+                if differ or not torch.equal(loss.detach(), ref[0]):
+                    raise AssertionError(
+                        f"train_loop_cross_check: {dtype} {policy}: remat "
+                        f"gradients not bitwise: {differ}")
+            out[f"{str(dtype).split('.')[-1]}_{policy or 'no_remat'}"] = (
+                launched)
+            del pm, state, grads, loss
+        del ref
+        free_cuda()
+    emit("train_loop_remat_bitwise", layers=2, seq=seq, launches=out,
+         bitwise=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1973,6 +2284,15 @@ def main() -> None:
     gen_moe_launches = phase_generate_mixtral(mixtral)
     prefix_launches = phase_serve_prefix(LLAMA3_8B, ecfg)
     phase_prefix_cross_check(LLAMA3_8B)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=build)
+    try:
+        loop_launches = phase_train_loop(workdir)
+        phase_train_resume(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_train_loop_cross_check(LLAMA3_8B)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -2005,7 +2325,9 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "kernel_ms": t["kernel_ms"], "max_err": err,
             "design": f"bf16: {FLASH_DESIGN[torch.bfloat16]}; fp32: "
-                      f"{FLASH_DESIGN[torch.float32]}"})
+                      f"{FLASH_DESIGN[torch.float32]}",
+            "path_launches": {"train": flash_launches[name],
+                              "train_loop": loop_launches[name]}})
     for name, replaces in MOE_KERNELS:
         main_case = next(c for c in moe_cases
                          if c["kernel"] == name and c["case"].endswith("bf16"))

@@ -6,7 +6,8 @@ decoder layer on a leading dim under ``params/model/layers/layer``, with
 [L, H, 2, I]`` and ``mlp/down/kernel``. The port keeps the names and
 layouts per layer, so the bridge only unstacks and renames. A Mixtral tree
 has ``moe/router/kernel [L, H, E]``, ``moe/experts/gate_up [L, E, H, 2, I]``
-and ``moe/experts/down [L, E, I, H]`` in place of the MLP. It reads numpy
+and ``moe/experts/down [L, E, I, H]`` in place of the MLP. A tied config
+(``tie_embeddings``) has no ``lm_head`` in either tree. It reads numpy
 arrays and imports nothing of JAX.
 """
 
@@ -52,17 +53,19 @@ def params_from_jax(cfg: LlamaConfig,
     arrays, with or without the outer ``"params"`` key) -> the port's state
     dict, in the tree's own dtype."""
     p = tree.get("params", tree)
-    if "lm_head" not in p:
-        raise ValueError("tied-embedding checkpoints (no lm_head) are not "
-                         "served by the port yet")
+    if ("lm_head" in p) == cfg.tie_embeddings:
+        raise ValueError(
+            f"the tree {'has' if 'lm_head' in p else 'has no'} lm_head but "
+            f"the config has tie_embeddings={cfg.tie_embeddings}")
     model, layers = p["model"], p["model"]["layers"]["layer"]
 
     def tensor(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a))   # a writable copy
 
     sd = {"embed.embedding": tensor(_get(model, ("embed", "embedding"))),
-          "norm.scale": tensor(_get(model, ("norm", "scale"))),
-          "lm_head.kernel": tensor(_get(p, ("lm_head", "kernel")))}
+          "norm.scale": tensor(_get(model, ("norm", "scale")))}
+    if not cfg.tie_embeddings:
+        sd["lm_head.kernel"] = tensor(_get(p, ("lm_head", "kernel")))
     ffn = _MOE_KEYS if isinstance(cfg, MixtralConfig) else _MLP_KEYS
     for name, path in {**_LAYER_KEYS, **ffn}.items():
         stacked = _get(layers, path)

@@ -38,14 +38,29 @@ from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..parallel.layers import (GQAQKVColumnParallelLinear, Linear,
                                ParallelEmbedding)
-from ..parallel.loss_functions import causal_lm_loss
+from ..parallel.loss_functions import (causal_lm_loss,
+                                       fused_linear_cross_entropy)
+from ..utils.remat import remat_call, validate_remat_policy
+
+#: ``(dropout_p, dropout_seed)`` of one attention call, as
+#: :func:`..modules.attention.attention_dropout_seed` draws it
+Dropout = Tuple[float, Optional[int]]
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
     """The fields of the JAX ``LlamaConfig`` that the paged serving path and
     the single-device training step honour. ``attention_dropout`` is active
-    only when the caller passes a ``dropout_generator``."""
+    only when the caller passes a ``dropout_generator``.
+
+    ``tie_embeddings``: no LM-head parameter; the logits use the embedding
+    table. ``remat``: each decoder layer is rematerialised in the backward,
+    keeping what ``remat_policy`` names (:mod:`..utils.remat`).
+    ``loss_chunk``: the training loss streams chunks of that many tokens
+    through the LM head (:func:`..parallel.loss_functions.
+    fused_linear_cross_entropy`) instead of building ``[B, S, V]``
+    logits; it needs the LM-head kernel, so it refuses ``tie_embeddings``,
+    as the reference does (``models/llama.py:246-261``)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -62,6 +77,23 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32
     use_flash_attention: bool = False
     attention_dropout: float = 0.0
+    tie_embeddings: bool = False
+    remat: bool = False
+    remat_policy: str = "nothing"
+    loss_chunk: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        validate_remat_policy(self.remat_policy)
+        if self.loss_chunk is not None:
+            if self.loss_chunk <= 0:
+                raise ValueError(
+                    f"loss_chunk must be positive, got {self.loss_chunk}")
+            if self.tie_embeddings:
+                raise ValueError(
+                    "loss_chunk is incompatible with tie_embeddings=True: "
+                    "the fused chunked loss streams through a dedicated "
+                    "lm_head kernel param; unset loss_chunk for this "
+                    "configuration")
 
     @property
     def head_dim_(self) -> int:
@@ -144,13 +176,11 @@ def _contiguous_cache_attend(cfg: LlamaConfig, q, k, v, positions,
     return out.to(cfg.dtype)
 
 
-def _causal_attend(cfg: LlamaConfig, q, k, v,
-                   dropout_generator: Optional[torch.Generator]):
+def _causal_attend(cfg: LlamaConfig, q, k, v, dropout: Optional[Dropout]):
     """The no-cache branch at cp=1 (JAX ``models/llama.py:488-540``): flash
     attention, which reads the GQA K/V heads natively, or the dense
     reference on K/V expanded by ``repeat_kv``."""
-    dropout_p, seed = attention_dropout_seed(cfg.attention_dropout,
-                                             dropout_generator)
+    dropout_p, seed = dropout or (0.0, None)
     if cfg.use_flash_attention:
         return flash_attention(q, k, v, causal=True, dropout_p=dropout_p,
                                dropout_seed=seed)
@@ -174,9 +204,10 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[CacheView] = None,
-                dropout_generator: Optional[torch.Generator] = None):
+                dropout: Optional[Dropout] = None):
         """With a cache ``view`` (paged or contiguous), the serving step;
-        without, causal self-attention over the sequence (training)."""
+        without, causal self-attention over the sequence (training), with
+        ``dropout = (p, seed)`` when given."""
         cfg = self.cfg
         d = cfg.head_dim_
         q, k, v = self.qkv(x)
@@ -191,7 +222,7 @@ class LlamaAttention(nn.Module):
         elif view is not None:
             out = _contiguous_cache_attend(cfg, q, k, v, positions, view)
         else:
-            out = _causal_attend(cfg, q, k, v, dropout_generator)
+            out = _causal_attend(cfg, q, k, v, dropout)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * d))
 
 
@@ -230,14 +261,15 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[CacheView] = None,
-                dropout_generator: Optional[torch.Generator] = None):
+                dropout: Optional[Dropout] = None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
-                          dropout_generator)
+                          dropout)
         return x + self.mlp(self.post_norm(x))
 
 
 class LlamaForCausalLM(nn.Module):
-    """Embedding, decoder stack, final norm and an untied LM head.
+    """Embedding, decoder stack, final norm and an LM head (none with
+    ``tie_embeddings``: the logits then use the embedding table).
     Parameters are allocated uninitialised in ``cfg.param_dtype``: load a
     state dict (:func:`build_model`, :func:`.convert.load_jax_params`,
     ``initialize_parallel_model``) or make one (:func:`init_state_dict`)."""
@@ -255,8 +287,10 @@ class LlamaForCausalLM(nn.Module):
         self.layers = nn.ModuleList(
             [self.layer_cls(cfg, dev) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev, pdt)
-        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
-                              dtype=cfg.dtype, device=dev, param_dtype=pdt)
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  dtype=cfg.dtype, device=dev,
+                                  param_dtype=pdt)
         self._rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def hidden(self, input_ids: torch.Tensor,
@@ -264,13 +298,38 @@ class LlamaForCausalLM(nn.Module):
                dropout_generator: Optional[torch.Generator] = None
                ) -> torch.Tensor:
         """The JAX ``LlamaModel`` (``models/llama.py:872``): embedding, the
-        decoder layers (unrolled) and the final norm over ``input_ids [B,
-        S]``; rope positions default to ``arange(S)``."""
+        decoder layers (unrolled, each rematerialised with ``cfg.remat``)
+        and the final norm over ``input_ids [B, S]``; rope positions
+        default to ``arange(S)``."""
         x = self.embed(input_ids)
         cos, sin = self.rope_tables(input_ids.device)
         for layer in self.layers:
-            x = layer(x, cos, sin, positions, None, dropout_generator)
+            x = self.run_layer(layer, x, cos, sin, positions,
+                               dropout_generator)
         return self.norm(x)
+
+    def run_layer(self, layer: nn.Module, x, cos, sin, positions,
+                  dropout_generator: Optional[torch.Generator]):
+        """One training layer, under remat when ``cfg.remat``. The layer's
+        attention-dropout seed is drawn here, before the layer runs, so
+        that a recompute sees the same seed and the generator advances
+        once per layer with or without remat."""
+        cfg = self.cfg
+        dropout = attention_dropout_seed(cfg.attention_dropout,
+                                         dropout_generator)
+        if cfg.remat:
+            return remat_call(layer, x, cos, sin, positions, None, dropout,
+                              policy=cfg.remat_policy)
+        return layer(x, cos, sin, positions, None, dropout)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ lm_head`` in ``cfg.dtype``, or with ``tie_embeddings``
+        ``x @ embedding^T`` (the JAX ``embedding_attend``); the table's
+        gradient then sums over both its uses."""
+        if self.cfg.tie_embeddings:
+            dt = self.cfg.dtype
+            return torch.matmul(x.to(dt), self.embed.embedding.to(dt).t())
+        return self.lm_head(x)
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -280,9 +339,16 @@ class LlamaForCausalLM(nn.Module):
                 ) -> torch.Tensor:
         """Logits ``[B, S, V]`` in ``cfg.dtype``, or, given ``labels`` (the
         next-token ids, already shifted), the mean causal-LM loss over the
-        labels that are not ``ignore_index``."""
-        logits = self.lm_head(self.hidden(input_ids, positions,
-                                          dropout_generator))
+        labels that are not ``ignore_index`` (chunked through the LM head
+        with ``cfg.loss_chunk``)."""
+        cfg = self.cfg
+        x = self.hidden(input_ids, positions, dropout_generator)
+        if labels is not None and cfg.loss_chunk:
+            return fused_linear_cross_entropy(
+                x.to(cfg.dtype), self.lm_head.kernel, labels,
+                ignore_index=ignore_index, chunk=cfg.loss_chunk,
+                dtype=cfg.dtype)
+        logits = self.logits(x)
         if labels is not None:
             return causal_lm_loss(logits, labels, ignore_index=ignore_index)
         return logits
@@ -383,7 +449,7 @@ def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
             v_scale=kv_cache.v_scale[i] if quantized else None,
             pos=kv_cache.pos, tables=tok_tables, rows=rows, at=at)
         x = run_layer(layer, x, cos, sin, rope_pos, view)
-    logits = model.lm_head(model.norm(x))
+    logits = model.logits(model.norm(x))
     return logits, kv_cache
 
 
@@ -424,7 +490,7 @@ def contiguous_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
             v_scale=kv_cache.v_scale[i] if quantized else None,
             pos=kv_cache.pos, index=idx)
         x = run_layer(layer, x, cos, sin, rope_pos, view)
-    logits = model.lm_head(model.norm(x))
+    logits = model.logits(model.norm(x))
     return logits, replace(kv_cache, index=idx + s)
 
 

@@ -39,6 +39,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+# The first call of a custom operator (flash_fwd_op below) imports
+# torch._dynamo, and one of its modules applies torch.fx.wrap at import,
+# whose frame refers to itself. Imported from inside a forward, that cycle
+# would keep the whole calling stack (the model, its activations) alive
+# until a garbage collection; imported here, it keeps nothing of a caller.
+import torch._dynamo  # noqa: F401
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -411,6 +417,19 @@ def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return (g.to(acc) * out.to(acc)).sum(-1).transpose(1, 2).contiguous()
 
 
+@torch.library.custom_op(
+    "nxd_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float? scale, "
+           "float dropout_p, int seed) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, causal, scale, dropout_p, seed):
+    """:func:`flash_fwd` as an operator of its own, so that remat's
+    op-by-op policies see it: ``remat_policy="save_attention"`` keeps its
+    ``(out, lse)``, the reference's named residuals ``flash_out`` and
+    ``flash_lse``, and the recompute replays them instead of launching
+    K2 again (:mod:`..utils.remat`)."""
+    return flash_fwd(q, k, v, causal, scale, dropout_p, seed)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with the flash backward: saves ``q, k, v, out, lse``
     and the uint32 seed, as ``_flash_pallas_vjp_fwd`` does, and recomputes
@@ -419,7 +438,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_fwd(q, k, v, causal, scale, dropout_p, seed)
+        out, lse = flash_fwd_op(q, k, v, causal, scale, dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse,
                               torch.tensor([seed], dtype=torch.uint32))
         ctx.causal, ctx.scale, ctx.dropout_p = causal, scale, dropout_p

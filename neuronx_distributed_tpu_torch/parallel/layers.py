@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -43,7 +44,10 @@ class Linear(nn.Module):
 
 class ParallelEmbedding(nn.Module):
     """Vocab embedding at tp=1: a row lookup in ``embedding [V, H]``, cast
-    to ``dtype``."""
+    to ``dtype``. The lookup is ``F.embedding``, whose backward sums a
+    row's gradients in a fixed order: the backward of an indexed read
+    (``index_put_`` with accumulate) gave other bits from run to run on
+    the CPU, which broke bitwise resume and remat checks."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -54,7 +58,7 @@ class ParallelEmbedding(nn.Module):
                                 param_dtype or dtype, device)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids.long()].to(self.dtype)
+        return F.embedding(ids.long(), self.embedding).to(self.dtype)
 
 
 class GQAQKVColumnParallelLinear(nn.Module):

@@ -1,6 +1,6 @@
 """Where the train step's time goes on one CUDA card.
 
-    python3 -m neuronx_distributed_tpu_torch.scripts.profile_train [--mixtral]
+    python3 -m neuronx_distributed_tpu_torch.scripts.profile_train [--mixtral | --loop]
 
 Runs ``chip_smoke.py``'s ``train`` workload
 (:func:`.workloads.llama3_train_workload`: Llama-3-8B widths at 4 layers,
@@ -8,7 +8,10 @@ fp32 params, bf16 compute, flash attention, B=1, S=4096, AdamW clipped at
 1.0, one fixed batch) through ``make_train_step``, or with ``--mixtral``
 its ``train_mixtral`` workload (:func:`.workloads.mixtral_train_workload`:
 Mixtral 8x7B widths at 2 layers, blockwise experts with block 64, the same
-settings otherwise). After two warm-up steps it times 3 steps without the
+settings otherwise), or with ``--loop`` the ``train`` workload with
+``train_loop``'s model: remat of each layer with
+``remat_policy="save_attention"`` and the loss chunked by 512 tokens.
+After two warm-up steps it times 3 steps without the
 profiler, then traces 3 with ``torch.profiler`` and prints one JSON line:
 host wall time per step, device busy time per step, the device's idle
 share (busy time from the trace over the unprofiled wall time), the device
@@ -70,8 +73,12 @@ def kernel_name(key: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mixtral", action="store_true",
-                    help="the train_mixtral workload (2 layers)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--mixtral", action="store_true",
+                       help="the train_mixtral workload (2 layers)")
+    which.add_argument("--loop", action="store_true",
+                       help="the train workload with remat "
+                            "(save_attention) and loss_chunk=512")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
@@ -84,8 +91,10 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     seq = 4096
+    loop_kw = (dict(remat=True, remat_policy="save_attention",
+                    loss_chunk=512) if args.loop else {})
     w = (mixtral_train_workload(layers=2, seq=seq) if args.mixtral
-         else llama3_train_workload(layers=4, seq=seq))
+         else llama3_train_workload(layers=4, seq=seq, **loop_kw))
     cfg, state, step, batch = w.cfg, w.state, w.step, w.batch
 
     def run(n):
@@ -117,6 +126,8 @@ def main() -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({
         "model": "mixtral" if args.mixtral else "llama",
+        "remat_policy": cfg.remat_policy if cfg.remat else None,
+        "loss_chunk": cfg.loss_chunk,
         "layers": cfg.num_layers, "seq": seq,
         "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": profiled_ms,
         "device_busy_ms_per_step": busy_ms,

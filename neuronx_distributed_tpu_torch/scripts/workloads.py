@@ -1,6 +1,7 @@
 """The train workloads that ``chip_smoke.py`` (phases ``train`` and
 ``train_mixtral``) and :mod:`.profile_train` both drive, set up in one
-place so the two cannot drift apart."""
+place so the two cannot drift apart (``profile_train --loop`` adds
+``train_loop``'s remat and chunked loss to the ``train`` workload)."""
 
 from __future__ import annotations
 
@@ -33,14 +34,16 @@ class TrainWorkload:
     batch: Dict[str, torch.Tensor]
 
 
-def _workload(cfg: LlamaConfig, seq: int) -> TrainWorkload:
+def _workload(cfg: LlamaConfig, seq: int, **cfg_kw) -> TrainWorkload:
     """``cfg`` in fp32 params and bf16 compute with flash attention and no
     dropout, random weights (seed 0, std 0.02); AdamW at lr 1e-4 (b2 0.95,
     weight decay 0.01) clipped at global norm 1.0; one fixed batch of
-    ``seq`` tokens from numpy seed 0."""
+    ``seq`` tokens from numpy seed 0. ``cfg_kw`` sets more config fields
+    (remat, ``loss_chunk``)."""
     cfg = dataclasses.replace(cfg, dtype=torch.bfloat16,
                               param_dtype=torch.float32,
-                              use_flash_attention=True, attention_dropout=0.0)
+                              use_flash_attention=True, attention_dropout=0.0,
+                              **cfg_kw)
     ncfg = neuronx_distributed_config(optimizer_config=OptimizerConfig(
         grad_clipping=True, max_grad_norm=1.0))
     pm, params = trainer.initialize_parallel_model(ncfg, cfg, seed=0,
@@ -52,9 +55,13 @@ def _workload(cfg: LlamaConfig, seq: int) -> TrainWorkload:
                          batch=train_batch(cfg.vocab_size, seq))
 
 
-def llama3_train_workload(layers: int = 4, seq: int = 4096) -> TrainWorkload:
-    """Llama-3-8B widths at ``layers`` layers (:func:`_workload`)."""
-    return _workload(dataclasses.replace(LLAMA3_8B, num_layers=layers), seq)
+def llama3_train_workload(layers: int = 4, seq: int = 4096,
+                          **cfg_kw) -> TrainWorkload:
+    """Llama-3-8B widths at ``layers`` layers (:func:`_workload`); with
+    ``remat=True, remat_policy="save_attention", loss_chunk=512`` the
+    model of ``chip_smoke.py``'s ``train_loop``."""
+    return _workload(dataclasses.replace(LLAMA3_8B, num_layers=layers), seq,
+                     **cfg_kw)
 
 
 def mixtral_train_workload(layers: int = 2,

@@ -105,8 +105,10 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
                     scan_steps: int = 1, compression: Any = None,
                     integrity_every: Optional[int] = None):
     """``step(state, batch) -> (state, metrics)`` over ``batch =
-    {"input_ids": [B, S], "labels": [B, S]}`` (labels already shifted,
-    ``-100`` ignored). ``metrics`` holds 0-dim device tensors: ``loss`` and
+    {"input_ids": [B, S], "labels": [B, S]}`` (tensors or numpy arrays,
+    moved to the model's device here; labels already shifted, ``-100``
+    ignored). ``tx`` is the optimizer, or it wrapped by
+    :func:`.mixed_precision.with_fp32_master_weights`. ``metrics`` holds 0-dim device tensors: ``loss`` and
     ``grad_norm``, the global norm before clipping.
 
     ``grad_accum_steps``: split the batch's leading dim into that many
@@ -135,8 +137,8 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, Any]]:
         params = list(state.params.values())
-        ids = batch["input_ids"].to(pm.device)
-        labels = batch["labels"].to(pm.device)
+        ids = torch.as_tensor(batch["input_ids"]).to(pm.device)
+        labels = torch.as_tensor(batch["labels"]).to(pm.device)
         a = grad_accum_steps
         if ids.shape[0] % a:
             raise ValueError(f"batch dim {ids.shape[0]} not divisible by "

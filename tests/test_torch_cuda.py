@@ -12,6 +12,9 @@ This file imports nothing of JAX, so it runs on a machine without it:
 a CUDA card every test here skips.
 """
 
+import dataclasses
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -149,6 +152,43 @@ def _profiler_warmup():
         torch.cuda.synchronize()
 
 
+def _traced_kernels(fn, part, attempts=5):
+    """The CUDA kernels, by the profiler's names, that contain ``part`` and
+    that five calls of ``fn`` launch. ``fn`` runs once untraced first, so
+    that its library is built and loaded and the card has loaded its
+    kernels; each trace opens with a throwaway kernel and a short pause.
+
+    A trace can miss launches of the ``ctypes`` libraries' kernels
+    (``tools/probe_trace_loss.py``: one launch of the fp32 K5 kept both
+    of its kernels in 3 traces of 20; five launches kept both in 20 of 20),
+    and now and then holds none of them at all. A trace that holds no
+    kernel with ``part`` in its name says nothing of the route, so it is
+    taken again, up to ``attempts`` times; the first trace that holds any
+    is returned whole, and the caller's checks on its names stay as they
+    are (an entry that launched a wrong or a missing kernel still fails
+    them, and one that launched none returns an empty list)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    _profiler_warmup()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and part in e.key]
+        if names:
+            return names
+    return names
+
+
 def _step_case(device, seed, kind, t, n_rep, bs, d, kv=2):
     """bf16 q and pools on ``device`` over ``chip_smoke.packed_step``'s
     tables (up to 1024 keys a table); in the random case token 3 has no
@@ -247,17 +287,8 @@ def test_paged_attention_routes_by_dtype(cuda, q_name, pool, kernels):
     bf16 pool launches the tensor-core kernel (here split, so with its
     combine) and no CUDA-core one; fp32 and int8 pools the CUDA-core
     kernel (names as the profiler reports them)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     args = _case(cuda, 2, pool, _FLOATS[q_name])
-    _profiler_warmup()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tpa.paged_attention(*args)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "paged_" in e.key]
+    names = _traced_kernels(lambda: tpa.paged_attention(*args), "paged_")
     assert sum("paged_attention" in n for n in names) == 1, names
     for want in kernels:
         assert sum(want in n for n in names) == 1, (want, names)
@@ -492,17 +523,10 @@ def test_flash_bwd_routes_by_dtype(cuda, dtype, kernels):
     """The entries choose the backward kernels by the input type alone: a
     bf16 input launches the tensor-core K3/K4 and nothing else, an fp32
     input the CUDA-core ones (names as the profiler reports them)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     args = _bwd_inputs(cuda, 2, dtype, 130, 4, 64, True, 0.0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tfa.flash_bwd_dq(*args)
-        tfa.flash_bwd_dkv(*args)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "flash_bwd" in e.key]
+    names = _traced_kernels(
+        lambda: (tfa.flash_bwd_dq(*args), tfa.flash_bwd_dkv(*args)),
+        "flash_bwd")
     assert len(names) == 2, names
     for want in kernels:
         assert sum(want in n for n in names) == 1, (want, names)
@@ -573,17 +597,8 @@ def test_flash_fwd_routes_by_dtype(cuda, dtype, kernel):
     """The entry chooses K2 by the input type alone: bf16 launches the
     tensor-core kernel and nothing else, fp32 the CUDA-core one (names as
     the profiler reports them)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     q, k, v, _ = _flash_case(cuda, 2, dtype, b=1, s=130, n=8, kv=2, d=64)
-    _profiler_warmup()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tfa.flash_fwd(q, k, v)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "flash_fwd" in e.key]
+    names = _traced_kernels(lambda: tfa.flash_fwd(q, k, v), "flash_fwd")
     assert len(names) == 1 and kernel in names[0], names
 
 
@@ -742,18 +757,11 @@ def test_grouped_glu_routes_by_dtype(cuda, decode, dtype, kernels):
     launches the two tensor-core passes (K5 pairing row tiles, K6 splitting
     a tile's columns: ``<false>`` and ``<true>`` in the profiler's names),
     fp32 the two CUDA-core ones."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     xs, gu, dn, be, bs = _moe_case(cuda, 5, dtype, sentinel_empty=decode)
     fn = tbm.grouped_glu_decode_cuda if decode else tbm.grouped_glu_cuda
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn(xs, gu, dn, be, bs, 88)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and ("glu_act" in e.key or "glu_down" in e.key)]
+    names = [n for n in _traced_kernels(
+        lambda: fn(xs, gu, dn, be, bs, 88), "glu_")
+        if "glu_act" in n or "glu_down" in n]
     assert len(names) == 2, names
     for want in kernels:
         assert sum(want in n for n in names) == 1, (want, names)
@@ -932,16 +940,10 @@ def test_grouped_glu_backward_routes_by_dtype(cuda, dtype, kernels):
     """The backward entries choose their kernels by the input type alone:
     the bf16 pair launches the three tensor-core passes and nothing else,
     fp32 the three CUDA-core ones (names as the profiler reports them)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     (xs, gu, dn, be, dy), bs = _bwd_case(cuda, 5, dtype)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tbm.grouped_glu_bwd_cuda(xs, gu, dn, be, dy, bs, 88)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "glu_bwd" in e.key]
+    names = _traced_kernels(
+        lambda: tbm.grouped_glu_bwd_cuda(xs, gu, dn, be, dy, bs, 88),
+        "glu_bwd")
     assert len(names) == 3, names
     for want in kernels:
         assert sum(want in n for n in names) == 1, (want, names)
@@ -1022,3 +1024,45 @@ def test_mixtral_train_step_on_card_matches_cpu(cuda):
     for name, ref in pc.items():
         torch.testing.assert_close(pg[name], ref, rtol=0,
                                    atol=1e-3 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_on_card_is_bitwise_and_skips_k2_under_save_attention(cuda,
+                                                                    dtype):
+    """Gradients under remat equal those without, bit for bit, for every
+    policy (recompute is the same kernels on the same inputs); K2 launches
+    once a layer under ``save_attention`` and ``dots_and_attention``,
+    twice under the others, and K3/K4 once a layer in all."""
+    from neuronx_distributed_tpu_torch.utils.remat import POLICIES
+
+    cfg = tl.tiny_config(dtype=dtype, hidden_size=256, num_heads=4,
+                         num_kv_heads=2, use_flash_attention=True,
+                         loss_chunk=32)
+    sd = tl.init_state_dict(cfg, seed=0, std=0.02, device=cuda)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 97))).to(cuda)
+
+    def grads(**kw):
+        pm, _ = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), dataclasses.replace(cfg, **kw),
+            state_dict=sd, device=cuda)
+        model = pm.module
+        counts = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+                  tfa.flash_bwd_dkv.launches)
+        loss = model.loss(ids[:, :-1], ids[:, 1:])
+        loss.backward()
+        launched = [c.launches - b for c, b in zip(
+            (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv), counts)]
+        return loss.detach(), {n: p.grad for n, p in
+                               model.named_parameters()}, launched
+
+    loss_ref, ref, launched = grads()
+    layers = cfg.num_layers
+    assert launched == [layers] * 3
+    for policy in POLICIES:
+        loss, got, launched = grads(remat=True, remat_policy=policy)
+        once = policy in ("save_attention", "dots_and_attention")
+        assert launched == [layers * (1 if once else 2), layers, layers]
+        assert torch.equal(loss, loss_ref), policy
+        for name, g in got.items():
+            assert torch.equal(g, ref[name]), (policy, name)
