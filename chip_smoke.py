@@ -126,7 +126,8 @@ script exits non-zero and prints no result:
    bits;
    runs the same requests without sharing and prints both runs' TTFT,
    prefill tokens, steps and output tokens/s and the share of greedy ids
-   that match.
+   that match (bf16 K1's split points follow the table's width, so the
+   share is 1.0).
 21. prefix_cross_check: the same at full width, 2 layers, fp32, block 16,
    a 40-token shared prefix, three requests, fp32 and int8 pools: greedy
    ids with sharing equal those without, and ``cow_copy_blocks`` on the
@@ -144,27 +145,54 @@ script exits non-zero and prints no result:
    K2, K3 and K4 each launched layers x steps times at each depth; prints
    step ms p50/p99, tokens/s, peak GiB and the losses.
 23. train_resume: full width, 1 layer, ``tie_embeddings=True``, the
-   full-logits loss: run A trains 6 loader batches; run B trains the first
-   4 with ``CheckpointCallback(every=2, num_kept=1)`` (async), then a new
-   model (seed 1) resumes through ``Trainer(resume_path=...)`` and trains
-   batches 5-6. B's losses and final params must equal A's bit for bit;
-   prints the free disk, bytes written, the seconds the loop blocks in each
-   save (the snapshot to host memory) and each commit's seconds. The
-   temporary directory is removed at the end.
+   full-logits loss, the step built with ``integrity_every=2``: run A
+   trains 6 loader batches; run B trains the first 4 with
+   ``CheckpointCallback(every=2, num_kept=1)`` (async) and an
+   ``IntegrityMonitor(every=2)`` whose chaos plan flips a bit of the
+   largest parameter after step 4's save: the monitor must catch it there
+   and its ``Watchdog(policy="rewind")`` restore tag 4, whose fingerprint
+   must be step 4's; B runs under a storage plan of 3 transient
+   ``save_text`` faults, which the commits heal. Then a new model (seed 1)
+   resumes through ``Trainer(resume_path=...)`` and trains batches 5-6.
+   B's losses and final params must equal A's bit for bit; prints the
+   free disk, bytes written, the seconds the loop blocks in each save (the
+   snapshot to host memory) and each commit's seconds. The temporary
+   directory is removed at the end.
 24. train_loop_cross_check: phase 9 with remat (``save_attention``) and
    ``loss_chunk=64`` (fp32, full width, 2 layers, S=256, card against the
    CPU); then on the card at 2 layers, S=4096, ``loss_chunk=512``, in fp32
    and bf16: gradients with ``save_attention`` and ``"nothing"`` remat
    equal to those without remat bit for bit, K2 launched layers times
    (``save_attention``, no remat) or 2 x layers (``"nothing"``), K3 and K4
-   layers times.
+   layers times; then ``scan_steps``: ``make_train_step(scan_steps=2)`` at
+   2 layers on two stacked batches leaves the parameters and Adam moments
+   of two single steps, bit for bit.
+25. train_mixtral_remat (run after phase 15): phase 15 with ``remat=True``
+   (each layer recomputed whole, as the reference's ``nothing_saveable``):
+   K2 and K5 launched 2 x layers x steps = 20 times, K3, K4, K7 and K8 10,
+   K6 never; prints step p50 and peak beside phase 15's. Then
+   mixtral_remat_bitwise: Mixtral 8x7B widths at 1 layer, S=4096, fp32 and
+   bf16 compute: loss and gradients with remat equal those without bit for
+   bit.
+26. train_integrity (run after phase 22): ``Trainer.fit`` on phase 8's
+   model with ``make_train_step(integrity_every=4)`` and
+   ``IntegrityMonitor(every=4)`` over loader batches, 12 steps with obs
+   enabled, then 12 disabled: no mismatch, the registry's step count and
+   histogram, one step shape, nothing recorded while disabled, the last
+   ``integrity_fp`` equal bit for bit to the numpy mirror of the
+   parameters copied to the host; times one fingerprint pass against its
+   byte bound; prints the ``train/*`` span stats and the step p50 with obs
+   on and off.
+
+Each phase line carries ``elapsed_s``, the seconds since the start.
 
 The last two lines are the kernels' JSON summary (``path_launches`` gives
-each path's launches of K1-K6) and ``{"ok": true, "device": {...}}``.
+each path's launches of K1-K8) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -228,8 +256,14 @@ MOE_WORK = {"grouped_glu": (6, 2, False), "grouped_glu_decode": (6, 2, False),
             "grouped_glu_bwd": (16, 3, True)}
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def time_ms(fn, reps: int = 25, flush: torch.Tensor = None,
@@ -1214,24 +1248,30 @@ def phase_flash_vs_plain():
 # phases 8-9: the train step
 # ---------------------------------------------------------------------------
 
-def phase_train(steps=5, seq=4096, mixtral=False):
-    """``train`` (Llama-3-8B widths, 4 layers) or ``train_mixtral``
-    (Mixtral 8x7B widths, 2 layers, blockwise): ``steps`` steps of the
-    workload on one batch; the kernels' counts are set to 0 just before and
-    read just after."""
+# each train phase's step p50 and peak, read by later phases of the call
+TRAIN_RESULTS = {}
+
+
+def phase_train(steps=5, seq=4096, mixtral=False, remat=False):
+    """``train`` (Llama-3-8B widths, 4 layers), ``train_mixtral`` (Mixtral
+    8x7B widths, 2 layers, blockwise) or ``train_mixtral_remat`` (the same
+    with ``remat=True``, each layer recomputed whole): ``steps`` steps of
+    the workload on one batch; the kernels' counts are set to 0 just
+    before and read just after. Under remat K2 and K5 run twice a layer,
+    the backward kernels once."""
     from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_tpu_torch.scripts.workloads import (
         llama3_train_workload, mixtral_train_workload)
 
-    phase = "train_mixtral" if mixtral else "train"
+    phase = ("train_mixtral" + "_remat" * remat) if mixtral else "train"
     counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
     if mixtral:
         counters.update({name: getattr(bm, name) for name in (
             "grouped_glu", "grouped_glu_decode", "grouped_glu_dx",
             "grouped_glu_dw")})
     torch.cuda.reset_peak_memory_stats()
-    w = (mixtral_train_workload(layers=2, seq=seq) if mixtral
+    w = (mixtral_train_workload(layers=2, seq=seq, remat=remat) if mixtral
          else llama3_train_workload(layers=4, seq=seq))
     cfg, state, step, batch = w.cfg, w.state, w.step, w.batch
     n_params = sum(p.numel() for p in state.params.values())
@@ -1254,21 +1294,217 @@ def phase_train(steps=5, seq=4096, mixtral=False):
         raise AssertionError(f"{phase}: loss did not fall: {losses}")
     if state.step != steps:
         raise AssertionError(f"{phase}: state.step {state.step} != {steps}")
+    twice = ("flash_fwd", "grouped_glu") if remat else ()
     for name, n in launches.items():
-        want = 0 if name == "grouped_glu_decode" else cfg.num_layers * steps
+        want = (0 if name == "grouped_glu_decode" else cfg.num_layers * steps
+                * (2 if name in twice else 1))
         if n != want:
             raise AssertionError(f"{phase}: {name} launched {n} times, want "
-                                 f"{want} (layers x steps, or none)")
+                                 f"{want} (layers x steps, twice that for "
+                                 "K2 and K5 under remat, or none)")
     p50 = float(np.median(times))
+    TRAIN_RESULTS[phase] = dict(
+        step_ms_p50=p50,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    beside = ({f"train_mixtral_{k}": v for k, v in
+               TRAIN_RESULTS.get("train_mixtral", {}).items()}
+              if remat else {})
     emit(phase, layers=cfg.num_layers, params=n_params, seq=seq,
          compute_dtype=str(cfg.dtype), param_dtype=str(cfg.param_dtype),
-         steps=steps, losses=losses, grad_norms=norms, step_ms=times,
-         step_ms_p50=p50, tokens_per_s=seq / (p50 / 1e3),
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-         launches=launches)
+         remat=cfg.remat, steps=steps, losses=losses, grad_norms=norms,
+         step_ms=times, step_ms_p50=p50, tokens_per_s=seq / (p50 / 1e3),
+         peak_mem_gib=TRAIN_RESULTS[phase]["peak_mem_gib"],
+         launches=launches, **beside)
     del w, state, step
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_mixtral_remat_bitwise(seq=4096):
+    """Mixtral 8x7B widths at 1 layer, blockwise with block 64, S=``seq``,
+    in fp32 and in bf16 compute (fp32 params): the loss and every gradient
+    with ``remat=True`` equal those without bit for bit (the recompute
+    routes every token to the same experts and rebuilds the same blocks),
+    with K2 and K5 launched twice, K3, K4, K7 and K8 once."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
+
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    counters.update({name: getattr(bm, name) for name in (
+        "grouped_glu", "grouped_glu_dx", "grouped_glu_dw")})
+    batch = train_batch(MIXTRAL_8X7B.vocab_size, seq, seed=3)
+    ids, labels = batch["input_ids"].cuda(), batch["labels"].cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = None
+        for remat in (False, True):
+            cfg = dataclasses.replace(
+                MIXTRAL_8X7B, num_layers=1, dtype=dtype,
+                param_dtype=torch.float32, use_flash_attention=True,
+                moe_dispatch="blockwise", moe_block_size=64, remat=remat)
+            pm, params = trainer.initialize_parallel_model(
+                neuronx_distributed_config(), cfg, seed=0, std=0.02)
+            torch.cuda.synchronize()
+            before = {n: c.launches for n, c in counters.items()}
+            loss = pm.module.loss(ids, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {n: c.launches - before[n]
+                        for n, c in counters.items()}
+            want = {n: 2 if remat and n in ("flash_fwd", "grouped_glu")
+                    else 1 for n in counters}
+            if launched != want:
+                raise AssertionError(f"mixtral_remat_bitwise: {dtype} remat="
+                                     f"{remat}: launches {launched}, want "
+                                     f"{want}")
+            grads = {n: p.grad for n, p in params.items()}
+            del pm, params
+            if ref is None:
+                ref = (loss.detach(), grads)
+            else:
+                differ = [n for n, g in grads.items()
+                          if not torch.equal(g, ref[1][n])]
+                if differ or not torch.equal(loss.detach(), ref[0]):
+                    raise AssertionError(
+                        f"mixtral_remat_bitwise: {dtype}: remat gradients "
+                        f"not bitwise: {differ}")
+            out[f"{str(dtype).split('.')[-1]}_"
+                f"{'remat' if remat else 'no_remat'}"] = launched
+            del grads, loss
+        del ref
+        free_cuda()
+    emit("mixtral_remat_bitwise", layers=1, seq=seq, launches=out,
+         bitwise=True)
+
+
+def plain_steps_p50(ms, every):
+    """Median of the steps whose interval holds no fingerprint: neither a
+    cadence step (the step's own pass) nor the one after it (the
+    monitor's recompute, in the callbacks), nor the run's first."""
+    return float(np.median([t for k, t in enumerate(ms, 1)
+                            if k > 1 and k % every not in (0, 1)]))
+
+
+def phase_train_integrity(workdir, steps=12, seq=4096):
+    """``Trainer.fit`` on ``LLAMA3_8B`` widths at 4 layers (``train``'s
+    model: no remat, the full-logits loss) with
+    ``make_train_step(integrity_every=4)`` and ``IntegrityMonitor(every=4)``
+    over native-loader batches: ``steps`` steps with obs enabled, then
+    ``steps`` more with it disabled. Asserts the monitor's checks and no
+    mismatch, the registry's step count and histogram, one step shape,
+    and the last step's ``integrity_fp``
+    equal, bit for bit, to the numpy mirror of the parameters copied to
+    the host; times one fingerprint pass over the parameters against its
+    byte bound; prints the ``train/*`` span stats and both runs' step p50,
+    over all steps and over the steps that hold no fingerprint pass
+    (:func:`plain_steps_p50`). While disabled nothing is recorded: no span
+    and no metric value.
+    Returns K2-K4's launches in the enabled run."""
+    from neuronx_distributed_tpu_torch import obs
+    from neuronx_distributed_tpu_torch.data import TokenBatchLoader
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.resilience.integrity import (
+        IntegrityMonitor, fingerprint_array_np, fingerprint_tree)
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, pm, state, step = loop_model(4, mode="none",
+                                      step_kw=dict(integrity_every=4))
+    loader = TokenBatchLoader(token_file(workdir, 128256, seq, seed=2),
+                              batch=1, seqlen=seq, seed=2, dtype="uint32")
+    runs = {}
+    try:
+        for enabled in (True, False):
+            obs.reset()
+            if enabled:
+                obs.enable()
+            clock, mon = StepClock(), IntegrityMonitor(every=4)
+            trainer = Trainer(step, state, callbacks=[clock, mon])
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            _, metrics = trainer.fit(loader,
+                                     max_steps=trainer.host_step + steps)
+            launches = {n: c.launches for n, c in counters.items()}
+            snap = obs.get_registry().snapshot()
+            stats = {n: v for n, v in obs.get_tracer().stats().items()
+                     if n.startswith("train/")}
+            obs.disable()
+            if mon.checks != steps // 4 or mon.mismatches:
+                raise AssertionError(f"train_integrity: {mon.checks} checks, "
+                                     f"{mon.mismatches} mismatches")
+            runs["enabled" if enabled else "disabled"] = dict(
+                step_ms_p50=float(np.median(clock.ms)),
+                plain_step_ms_p50=plain_steps_p50(clock.ms, 4),
+                step_ms=clock.ms, losses=clock.losses, launches=launches)
+            if enabled:
+                hist = snap["nxd_train_step_seconds"]["samples"][0]
+                if (hist["count"] != steps
+                        or snap["nxd_train_steps_total"]["samples"][0][
+                            "value"] != steps
+                        or snap["nxd_compile_total"]["samples"][0]["value"]
+                        != 1 or "nxd_recompile_total" in snap
+                        or stats["train/step"]["count"] != steps):
+                    raise AssertionError(f"train_integrity: registry {snap}, "
+                                         f"spans {stats}")
+                for name, n in launches.items():
+                    if n != cfg.num_layers * steps:
+                        raise AssertionError(f"train_integrity: {name} "
+                                             f"launched {n} times")
+                runs["enabled"].update(span_stats_us=stats,
+                                       step_seconds=hist)
+                enabled_launches = launches
+            else:
+                # families may exist (the monitor's), but hold no values
+                recorded = [n for n, m in snap.items() if any(
+                    x.get("value", x.get("count")) for x in m["samples"])]
+                if recorded or stats:
+                    raise AssertionError("train_integrity: obs recorded "
+                                         f"while disabled: {recorded} "
+                                         f"{stats}")
+            reported = metrics["integrity_fp"].cpu().numpy()
+        t0 = time.perf_counter()
+        host = [p.detach().cpu().numpy() for p in state.params.values()]
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # numpy's ufuncs release the interpreter lock: a leaf a thread
+        with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+            mirror = np.array([fp[0] for fp in pool.map(
+                fingerprint_array_np, host)])
+        mirror_s = time.perf_counter() - t0
+        if not np.array_equal(reported, mirror):
+            raise AssertionError(
+                "train_integrity: integrity_fp differs from the host "
+                f"mirror at leaves {np.nonzero(reported != mirror)[0]}")
+        del host
+        fp_ms = time_ms(lambda: fingerprint_tree(state.params), reps=5,
+                        warmup=1)
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in state.params.values())
+        n_params = sum(p.numel() for p in state.params.values())
+    finally:
+        loader.close()
+        obs.disable()
+        obs.reset()
+    emit("train_integrity", layers=cfg.num_layers, seq=seq, params=n_params,
+         integrity_every=4, steps_per_run=steps, runs=runs,
+         obs_plain_step_ms_p50_delta=(
+             runs["enabled"]["plain_step_ms_p50"]
+             - runs["disabled"]["plain_step_ms_p50"]),
+         integrity_fp_equals_host_mirror=True, leaves=len(reported),
+         host_copy_s=copy_s, host_mirror_s=mirror_s, fingerprint_ms=fp_ms,
+         fingerprint_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+         fingerprint_bound_by="bytes", fingerprint_bytes=nbytes,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del pm, state, step, trainer
+    free_cuda()
+    return enabled_launches
 
 
 def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2,
@@ -1993,12 +2229,13 @@ class StepClock:
         pass
 
 
-def loop_model(layers, seed=0, mode="full", compute="bfloat16", **cfg_kw):
+def loop_model(layers, seed=0, mode="full", compute="bfloat16",
+               step_kw=None, **cfg_kw):
     """``LLAMA3_8B`` widths at ``layers`` layers through
     ``configure_model`` with ``ActivationCheckpointConfig(mode)`` (remat
     on unless ``"none"``) and ``compute`` as the compute dtype, fp32
     params, flash attention, random weights (``seed``, std 0.02); AdamW lr
-    1e-4 clipped at 1.0."""
+    1e-4 clipped at 1.0; ``step_kw`` goes to ``make_train_step``."""
     from neuronx_distributed_tpu_torch import trainer
     from neuronx_distributed_tpu_torch.config import (
         ActivationCheckpointConfig, MixedPrecisionConfig, OptimizerConfig,
@@ -2017,7 +2254,7 @@ def loop_model(layers, seed=0, mode="full", compute="bfloat16", **cfg_kw):
                                                    std=0.02)
     tx, state = trainer.initialize_parallel_optimizer(pm, params,
                                                       learning_rate=1e-4)
-    return cfg, pm, state, trainer.make_train_step(pm, tx)
+    return cfg, pm, state, trainer.make_train_step(pm, tx, **(step_kw or {}))
 
 
 def phase_train_loop(workdir, depths=(4, 12), steps=8, seq=4096):
@@ -2109,22 +2346,57 @@ def timed_checkpoint(path, every, num_kept):
     return Timed()
 
 
+class StepFingerprints:
+    """A ``Trainer`` callback keeping each cadence step's
+    ``integrity_fp`` (a copy)."""
+
+    def __init__(self):
+        self.fps = {}
+
+    def on_train_start(self, trainer):
+        pass
+
+    def on_step_end(self, trainer, metrics):
+        fp = metrics.get("integrity_fp")
+        if fp is not None and fp.any():
+            self.fps[trainer.host_step] = fp.clone()
+
+    def on_eval_end(self, trainer, metrics):
+        pass
+
+    def on_train_end(self, trainer):
+        pass
+
+
 def phase_train_resume(workdir, seq=4096, steps=6):
-    """Full width, 1 layer, ``tie_embeddings``, the full-logits loss: run A
-    trains ``steps`` batches; run B trains 4 with async checkpoints every 2
-    (``num_kept=1``), then a new model resumes through
-    ``Trainer(resume_path=...)`` and trains the rest; B's last losses and
-    final params must equal A's bit for bit."""
+    """Full width, 1 layer, ``tie_embeddings``, the full-logits loss, the
+    step built with ``integrity_every=2``: run A trains ``steps`` batches;
+    run B trains 4 with async checkpoints every 2 (``num_kept=1``) and an
+    ``IntegrityMonitor(every=2)`` whose chaos plan flips a bit of the
+    largest parameter at the step-4 boundary, after that step's save: the
+    monitor must detect it there, and its ``Watchdog(policy="rewind")``
+    restore the newest verified tag, whose fingerprint must be the step's
+    own. B and the resume run under a storage plan that throws transient
+    faults on ``save_text``, which the commits heal. Then a new model
+    resumes through ``Trainer(resume_path=...)`` and trains the rest; B's
+    losses and the final params must equal A's bit for bit."""
     from neuronx_distributed_tpu_torch.data import TokenBatchLoader
+    from neuronx_distributed_tpu_torch.resilience.chaos import (
+        FaultPlan, wrapper_for_plan)
+    from neuronx_distributed_tpu_torch.resilience.integrity import (
+        IntegrityMonitor, fingerprint_tree)
+    from neuronx_distributed_tpu_torch.resilience.watchdog import Watchdog
     from neuronx_distributed_tpu_torch.trainer import Trainer
     from neuronx_distributed_tpu_torch.trainer import checkpoint as ck
+    from neuronx_distributed_tpu_torch.trainer import checkpoint_storage
 
     free_gib = shutil.disk_usage(workdir).free / 2 ** 30
     loader = TokenBatchLoader(token_file(workdir, 128256, seq, seed=1),
                               batch=1, seqlen=seq, seed=1, dtype="uint32")
     batches = [loader.next_batch() for _ in range(steps)]
     loader.close()
-    kw = dict(tie_embeddings=True, remat_policy="nothing")
+    kw = dict(tie_embeddings=True, remat_policy="nothing",
+              step_kw=dict(integrity_every=2))
 
     def run(batches, callbacks=(), seed=0, resume=None):
         cfg, pm, state, step = loop_model(1, seed=seed, **kw)
@@ -2141,18 +2413,41 @@ def phase_train_resume(workdir, seq=4096, steps=6):
     free_cuda()
     path = os.path.join(workdir, "ckpt")
     saver = timed_checkpoint(path, every=2, num_kept=1)
-    pm, state_b, losses_b = run(batches[:4], [saver])
-    for waiter in saver.waiters:
-        waiter.join(timeout=600)
-    tags = ck.list_complete_tags(path)
-    tag_bytes = sum(os.path.getsize(os.path.join(r, f))
-                    for r, _, fs in os.walk(os.path.join(path, tags[-1]))
-                    for f in fs)
-    del pm, state_b
-    free_cuda()
-    t0 = time.perf_counter()
-    pm, state_c, losses_c = run(batches[4:], seed=1, resume=path)
-    resume_s = time.perf_counter() - t0
+    watchdog = Watchdog(policy="rewind", checkpoint_path=path)
+    monitor = IntegrityMonitor(every=2, watchdog=watchdog, chaos=FaultPlan.parse(
+        "seed=5; integrity|params : bitflip, after=1, times=1"))
+    fps = StepFingerprints()
+    storage_plan = FaultPlan.parse(
+        "seed=1; save_text : transient, p=0.5, times=3")
+    checkpoint_storage.install_storage_wrapper(wrapper_for_plan(
+        storage_plan, base_delay=0.01, max_delay=0.05))
+    try:
+        pm, state_b, losses_b = run(batches[:4], [saver, fps, monitor])
+        for waiter in saver.waiters:
+            waiter.join(timeout=600)
+        rewound_fp = fingerprint_tree(state_b.params)
+        tags = ck.list_complete_tags(path)
+        tag_bytes = sum(os.path.getsize(os.path.join(r, f))
+                        for r, _, fs in os.walk(os.path.join(path, tags[-1]))
+                        for f in fs)
+        del pm, state_b
+        free_cuda()
+        t0 = time.perf_counter()
+        pm, state_c, losses_c = run(batches[4:], seed=1, resume=path)
+        resume_s = time.perf_counter() - t0
+    finally:
+        checkpoint_storage.clear_storage_wrapper()
+    if (monitor.flips_injected, monitor.mismatches, monitor.checks,
+            watchdog.anomalies) != (1, 1, 2, 1):
+        raise AssertionError(
+            f"train_resume: flips {monitor.flips_injected}, mismatches "
+            f"{monitor.mismatches}, checks {monitor.checks}, rewinds "
+            f"{watchdog.anomalies}; want 1, 1, 2, 1 (the step-4 boundary)")
+    if not torch.equal(rewound_fp, fps.fps[4]):
+        raise AssertionError("train_resume: the rewound parameters' "
+                             "fingerprint is not step 4's")
+    if not storage_plan.fire_count():
+        raise AssertionError("train_resume: the storage plan fired nothing")
     if tags != ["4"]:
         raise AssertionError(f"train_resume: complete tags {tags}, want "
                              "['4'] (num_kept=1)")
@@ -2167,7 +2462,11 @@ def phase_train_resume(workdir, seq=4096, steps=6):
                              f"not bitwise equal: {differ}")
     emit("train_resume", layers=1, tie_embeddings=True, params=n_params,
          seq=seq, steps=steps, losses=losses_a, resumed_losses=losses_c,
-         bitwise=True, free_disk_gib=free_gib, tag_bytes=tag_bytes,
+         bitwise=True, bitflip_detected_at=4, rewound_to_tag=4,
+         rewound_fingerprint_is_step_4s=True,
+         storage_faults_healed=storage_plan.fire_count(),
+         storage_faults=storage_plan.injected[:8],
+         free_disk_gib=free_gib, tag_bytes=tag_bytes,
          saves=len(saver.block_s), bytes_written=tag_bytes * len(
              saver.block_s), save_block_s=saver.block_s,
          commit_s=sorted(saver.commit_s),
@@ -2227,6 +2526,40 @@ def phase_train_loop_cross_check(base_cfg, seq=4096):
         free_cuda()
     emit("train_loop_remat_bitwise", layers=2, seq=seq, launches=out,
          bitwise=True)
+    check_scan_steps(base_cfg, seq)
+
+
+def check_scan_steps(base_cfg, seq):
+    """``make_train_step(scan_steps=2)`` at 2 layers (bf16 compute, no
+    remat) on two batches stacked ``[2, 1, S]`` leaves the same
+    parameters and Adam moments, bit for bit, as two single steps, and
+    reports the second step's loss."""
+    from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
+
+    batches = [train_batch(base_cfg.vocab_size, seq, seed=s) for s in (4, 5)]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    _, pm, state, step = loop_model(2, mode="none")
+    for b in batches:
+        _, single = step(state, b)
+    want = ([p.detach().clone() for p in state.params.values()],
+            [t.clone() for t in state.opt_state.mu + state.opt_state.nu])
+    del pm, state, step
+    free_cuda()
+    _, pm, state, step = loop_model(2, mode="none",
+                                    step_kw=dict(scan_steps=2))
+    _, scanned = step(state, stacked)
+    got = (list(state.params.values()),
+           state.opt_state.mu + state.opt_state.nu)
+    differ = sum(not torch.equal(a, b) for x, y in zip(got, want)
+                 for a, b in zip(x, y))
+    if (differ or state.step != 2 or not torch.equal(scanned["loss"],
+                                                     single["loss"])):
+        raise AssertionError(f"scan_steps: {differ} tensors differ from two "
+                             f"single steps (step {state.step})")
+    emit("scan_steps", layers=2, seq=seq, scan_steps=2, bitwise=True,
+         loss=scanned["loss"].item())
+    del pm, state, step, want, got
+    free_cuda()
 
 
 def main() -> None:
@@ -2276,6 +2609,8 @@ def main() -> None:
     flash_launches = phase_train()
     phase_train_cross_check(LLAMA3_8B)
     train_launches = phase_train(mixtral=True)
+    remat_launches = phase_train(mixtral=True, remat=True)
+    phase_mixtral_remat_bitwise()
     phase_train_cross_check(MIXTRAL_8X7B, layers=1,
                             phase="mixtral_train_cross_check",
                             moe_dispatch="blockwise", moe_block_size=64)
@@ -2289,6 +2624,7 @@ def main() -> None:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=build)
     try:
         loop_launches = phase_train_loop(workdir)
+        integrity_launches = phase_train_integrity(workdir)
         phase_train_resume(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2327,7 +2663,9 @@ def main() -> None:
             "design": f"bf16: {FLASH_DESIGN[torch.bfloat16]}; fp32: "
                       f"{FLASH_DESIGN[torch.float32]}",
             "path_launches": {"train": flash_launches[name],
-                              "train_loop": loop_launches[name]}})
+                              "train_loop": loop_launches[name],
+                              "train_mixtral_remat": remat_launches[name],
+                              "train_integrity": integrity_launches[name]}})
     for name, replaces in MOE_KERNELS:
         main_case = next(c for c in moe_cases
                          if c["kernel"] == name and c["case"].endswith("bf16"))
@@ -2345,7 +2683,9 @@ def main() -> None:
             "path_launches": {
                 "serve_mixtral_disagg" if name.endswith("decode")
                 else "serve_mixtral": moe_launches[name],
-                "generate_mixtral": gen_moe_launches[name]}})
+                "generate_mixtral": gen_moe_launches[name],
+                "train_mixtral": train_launches[name],
+                "train_mixtral_remat": remat_launches[name]}})
     bwd_main = next(c for c in bwd_cases if c["case"] == "bf16")
     for name, replaces in MOE_BWD_KERNELS:
         t = bwd_main["timing"][name]
@@ -2358,7 +2698,9 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "kernel_ms": t["kernel_ms"], "max_err": err,
-            "design": bwd_main["design"]})
+            "design": bwd_main["design"],
+            "path_launches": {"train_mixtral": train_launches[name],
+                              "train_mixtral_remat": remat_launches[name]}})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

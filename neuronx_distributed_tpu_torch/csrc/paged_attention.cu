@@ -35,10 +35,13 @@
 //    rows outside the run are masked and keep their state bit for bit, so
 //    every row is updated only by its own run and written once at the end.
 //  * Where tiles x kv heads fall short of the card, the wrapper asks for
-//    `splits` CTAs per (tile, kv head): split z takes the z-th share of each
-//    run's valid entries and writes its rows' (m, l, acc) to fp32 scratch;
-//    `paged_combine` merges the splits in a fixed order, so two launches
-//    give the same bits.
+//    `splits` CTAs per (tile, kv head): with c = ceil(MAXB / splits),
+//    split z takes each run's valid entries of rank [z c, (z + 1) c) and
+//    writes its rows' (m, l, acc) to fp32 scratch; `paged_combine` merges
+//    the splits in a fixed order, so two launches give the same bits. The
+//    split points follow the table's width, not its mapped length, so a
+//    row gets the same bits through any table whose extra entries it
+//    cannot see (as the reference, which walks every entry in order).
 //  * The new rounding: P to bf16 before PV (the CUDA-core kernel and the
 //    plain version keep it in fp32), bounded on the CPU by
 //    tests/test_torch_paged_attention.py.
@@ -322,8 +325,13 @@ __global__ void __launch_bounds__(kWarpgroup, 2)
     int nv = 0;                          // the run's valid entries
     for (int j0 = 0; j0 < MAXB; j0 += kWarpgroup)
       nv += __syncthreads_count(j0 + tid < MAXB && row[j0 + tid] >= 0);
-    const int lo = (int)((long long)split * nv / splits);
-    const int hi = (int)((long long)(split + 1) * nv / splits);
+    // split z takes the valid entries of rank [z c, (z + 1) c), c from
+    // the table's width alone: rounds and tiles start at the same ranks
+    // whatever nv is, so entries past a row's keys only add exact zeros
+    // and a row's bits do not depend on how much of its table is mapped
+    const int c = (MAXB + splits - 1) / splits;
+    const int lo = min(split * c, nv);
+    const int hi = min(lo + c, nv);
     for (int r0 = lo; r0 < hi; r0 += kList) {
       const int r1 = min(hi, r0 + kList);
       // compact the valid entries of rank [r0, r1) into list, in order

@@ -319,8 +319,13 @@ class LlamaForCausalLM(nn.Module):
                                          dropout_generator)
         if cfg.remat:
             return remat_call(layer, x, cos, sin, positions, None, dropout,
-                              policy=cfg.remat_policy)
+                              policy=self.layer_remat_policy)
         return layer(x, cos, sin, positions, None, dropout)
+
+    @property
+    def layer_remat_policy(self) -> str:
+        """The remat policy of a decoder layer: ``cfg.remat_policy``."""
+        return self.cfg.remat_policy
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ lm_head`` in ``cfg.dtype``, or with ``tie_embeddings``

@@ -9,7 +9,10 @@ keys, so :mod:`.convert` maps a JAX Mixtral tree across.
 
 Training goes through :meth:`MixtralForCausalLM.loss`, the JAX loss: the
 causal-LM cross entropy plus the router's load-balance and z losses summed
-over the layers, weighted by ``router_aux_coef`` and ``router_z_coef``.
+over the layers, weighted by ``router_aux_coef`` and ``router_z_coef``;
+``remat`` recomputes each layer whole. ``tie_embeddings`` (which the
+reference refuses too) and ``loss_chunk`` (which the reference ignores)
+raise.
 Serving goes through :func:`mixtral_forward_with_cache`, the cached step
 of :func:`.llama.cached_forward` over a paged pool or a contiguous cache.
 With ``moe_dispatch="blockwise"`` the experts run the grouped GLU: K5 on a
@@ -54,7 +57,7 @@ class MixtralConfig(LlamaConfig):
 
     def __post_init__(self):
         super().__post_init__()
-        later = [k for k in ("remat", "tie_embeddings") if getattr(self, k)]
+        later = ["tie_embeddings"] if self.tie_embeddings else []
         if self.loss_chunk is not None:
             later.append("loss_chunk")
         if later:
@@ -113,9 +116,22 @@ class MixtralDecoderLayer(nn.Module):
 
 
 class MixtralForCausalLM(LlamaForCausalLM):
-    """Embedding, Mixtral decoder stack, final norm, untied LM head."""
+    """Embedding, Mixtral decoder stack, final norm, untied LM head.
+
+    With ``cfg.remat`` each decoder layer is rematerialised with the
+    policy ``"nothing"`` whatever ``cfg.remat_policy`` says, as the
+    reference wraps its layers in ``nn.remat`` with ``nothing_saveable``:
+    the backward recomputes the whole layer, so K2 and K5 run twice a
+    layer, K3, K4, K7 and K8 once. The recompute routes every token to the
+    same experts (the router's stable sort, in fp32) and rebuilds the same
+    block metadata, so the gradients equal those without remat bit for
+    bit."""
 
     layer_cls = MixtralDecoderLayer
+
+    @property
+    def layer_remat_policy(self) -> str:
+        return "nothing"
 
     def hidden(self, input_ids: torch.Tensor,
                positions: Optional[torch.Tensor] = None,

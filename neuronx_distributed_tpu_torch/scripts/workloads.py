@@ -1,7 +1,8 @@
-"""The train workloads that ``chip_smoke.py`` (phases ``train`` and
-``train_mixtral``) and :mod:`.profile_train` both drive, set up in one
-place so the two cannot drift apart (``profile_train --loop`` adds
-``train_loop``'s remat and chunked loss to the ``train`` workload)."""
+"""The train workloads that ``chip_smoke.py`` (phases ``train``,
+``train_mixtral`` and ``train_mixtral_remat``) and :mod:`.profile_train`
+both drive, set up in one place so the two cannot drift apart
+(``profile_train --loop`` adds ``train_loop``'s remat and chunked loss to
+the ``train`` workload)."""
 
 from __future__ import annotations
 
@@ -64,11 +65,13 @@ def llama3_train_workload(layers: int = 4, seq: int = 4096,
                      **cfg_kw)
 
 
-def mixtral_train_workload(layers: int = 2,
-                           seq: int = 4096) -> TrainWorkload:
+def mixtral_train_workload(layers: int = 2, seq: int = 4096,
+                           **cfg_kw) -> TrainWorkload:
     """Mixtral 8x7B widths at ``layers`` layers, the experts dropless
     (``moe_dispatch="blockwise"``, block 64: K5 forward, K7 and K8
-    backward), router coefficients 0.02 and 0.001 (:func:`_workload`)."""
+    backward), router coefficients 0.02 and 0.001 (:func:`_workload`);
+    with ``remat=True`` the model of ``chip_smoke.py``'s
+    ``train_mixtral_remat``."""
     return _workload(dataclasses.replace(
         MIXTRAL_8X7B, num_layers=layers, moe_dispatch="blockwise",
-        moe_block_size=64), seq)
+        moe_block_size=64), seq, **cfg_kw)

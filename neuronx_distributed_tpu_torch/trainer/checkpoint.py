@@ -259,10 +259,20 @@ def user_content(path: str, tag: Any) -> Optional[dict]:
 # save
 # ---------------------------------------------------------------------------
 
+def _on_local_disk(storage: BaseCheckpointStorage) -> bool:
+    """Whether the payload goes straight to a local path: a filesystem
+    backend, also under wrappers such as the chaos storage (which wrap the
+    control plane; the payload bypasses them, as the reference's Orbax
+    writes beside its storage)."""
+    while hasattr(storage, "inner"):
+        storage = storage.inner
+    return isinstance(storage, FilesysCheckpointStorage)
+
+
 def _write_payload(storage: BaseCheckpointStorage, tdir: str,
                    tree: Any) -> None:
     target = _payload_path(tdir)
-    if isinstance(storage, FilesysCheckpointStorage):
+    if _on_local_disk(storage):
         os.makedirs(os.path.dirname(target), exist_ok=True)
         tmp = target + ".tmp"
         torch.save(tree, tmp)
@@ -376,7 +386,7 @@ def _verify_tag(storage: BaseCheckpointStorage, path: str,
 def _read_payload(storage: BaseCheckpointStorage, tdir: str,
                   map_location: torch.device) -> Any:
     source = _payload_path(tdir)
-    if isinstance(storage, FilesysCheckpointStorage):
+    if _on_local_disk(storage):
         return torch.load(source, map_location=map_location,
                           weights_only=True, mmap=True)
     with tempfile.TemporaryFile() as f:

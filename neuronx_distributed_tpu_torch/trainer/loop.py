@@ -3,10 +3,20 @@
 
 The loop is a plain function over the train step (``make_train_step``);
 the reference's Lightning surface maps to :class:`Callback` hooks
-(logging, checkpointing, the watchdog) around it. The reference's
-observability hooks (the ``train/*`` spans, the metrics registry) wait for
-the port of ``obs/``; its ``CompileTracker`` has no meaning in eager
-PyTorch.
+(logging, checkpointing, the watchdog, the integrity monitor) around it.
+
+Observability, as in the reference (``obs``): the spans ``train/data``
+(the next batch), ``train/step`` (the step call), ``train/callbacks`` and
+``CheckpointCallback``'s ``train/checkpoint`` (``mode="async"`` or
+``"sync"``); the counter ``nxd_train_steps_total`` and the histogram
+``nxd_train_step_seconds`` (the step call's wall time); and a
+``CompileTracker`` over the step's count of batch shapes (site
+``trainer/step``), which alerts when a second shape appears. ``train/step``
+is the host wall time of the step call, as in the reference; there it is
+the jitted step's dispatch, here the eager step's launches plus any host
+synchronisation inside it (the MoE router's ``bincount``, and
+``skip_nonfinite``'s reads of the loss and the norm), not the card's time.
+With obs disabled each hook costs one bool check.
 
 The port's step updates the state in place, and the state lives on the
 model's device; batches (numpy arrays or tensors) move there inside the
@@ -22,6 +32,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..obs.accounting import CompileTracker
+from ..obs.metrics import get_registry
+from ..obs.tracing import get_tracer
 from ..utils.logger import get_logger, log_event
 from . import checkpoint as ckpt
 
@@ -78,8 +91,12 @@ class CheckpointCallback(Callback):
     tail of a run is never lost to alignment.
 
     Every tag carries a save manifest with per-shard content digests, so
-    a later rewind (the watchdog's ``rewind`` policy) restores from a
-    checkpoint whose *bytes* verify.
+    a later rewind (the watchdog, or :class:`~..resilience.integrity
+    .IntegrityMonitor` on a fingerprint mismatch) restores from a
+    checkpoint whose *bytes* verify. Order this callback *before* the
+    IntegrityMonitor in ``callbacks``: detection then fires after the
+    boundary's save, and a mismatch rewinds to state captured before the
+    corruption could be persisted.
     """
 
     def __init__(self, path: str, every: int = 1000, num_kept: int = 3):
@@ -91,15 +108,21 @@ class CheckpointCallback(Callback):
     def on_step_end(self, trainer, metrics):
         step = trainer.host_step
         if self.every and step > 0 and step % self.every == 0:
-            ckpt.save_checkpoint(self.path, step, trainer.state,
-                                 async_save=True, num_kept=self.num_kept)
+            with get_tracer().span("train/checkpoint", step=step,
+                                   mode="async"):
+                ckpt.save_checkpoint(self.path, step, trainer.state,
+                                     async_save=True,
+                                     num_kept=self.num_kept)
             self._last_saved = step
 
     def on_train_end(self, trainer):
         step = trainer.host_step
         if step > 0 and step != self._last_saved:
-            ckpt.save_checkpoint(self.path, step, trainer.state,
-                                 async_save=False, num_kept=self.num_kept)
+            with get_tracer().span("train/checkpoint", step=step,
+                                   mode="sync"):
+                ckpt.save_checkpoint(self.path, step, trainer.state,
+                                     async_save=False,
+                                     num_kept=self.num_kept)
             self._last_saved = step
         ckpt.finalize_checkpoint()
 
@@ -140,6 +163,14 @@ class Trainer:
         self._track_prev = any(
             getattr(cb, "needs_prev_state", False) for cb in self.callbacks)
         self._prev_state: Optional[Any] = None
+        # observability: the step's count of batch shapes (alerts on a
+        # second one through the shared event channel) + phase spans
+        self._compile_tracker = CompileTracker.for_function(
+            "trainer/step", step_fn)
+        # obs handle cache, keyed by (registry, generation) so a mid-run
+        # reset() rebuilds the children instead of writing into dropped
+        # metrics
+        self._obs_cache = None
         # host-side mirror of state.step, which callbacks read; the port's
         # step count is a host integer, so reading it never syncs
         self.host_step = int(state.step)
@@ -170,24 +201,53 @@ class Trainer:
             cb.on_train_start(self)
         metrics: Dict = {}
         evaluated_at = -1
+        tracer = get_tracer()
+        reg = get_registry()
         batch_iter = iter(batches)
         while True:
             if max_steps is not None and self.host_step >= max_steps:
                 break
-            try:
-                batch = next(batch_iter)
-            except StopIteration:
-                break
+            # phase: data — host-side input pipeline latency
+            with tracer.span("train/data", step=self.host_step):
+                try:
+                    batch = next(batch_iter)
+                except StopIteration:
+                    break
             ids = batch.get("input_ids")
             self.tokens_per_batch = (int(np.prod(ids.shape))
                                      if ids is not None else 0)
             if self._track_prev:
                 self._prev_state = ckpt.state_to_tree(
                     self.state, lambda t: t.detach().clone())
-            self.state, metrics = self.step_fn(self.state, batch)
+            # phase: step — the step call's host wall time (see the
+            # module docstring)
+            t0 = time.perf_counter()
+            with tracer.span("train/step", step=self.host_step):
+                self.state, metrics = self.step_fn(self.state, batch)
+            wall_s = time.perf_counter() - t0
+            self._compile_tracker.poll(wall_s=wall_s)
             self.host_step += 1
-            for cb in self.callbacks:
-                cb.on_step_end(self, metrics)
+            if reg.enabled:
+                cache = self._obs_cache
+                if (cache is None or cache[0] is not reg
+                        or cache[1] != reg.generation):
+                    cache = (reg, reg.generation,
+                             reg.counter("nxd_train_steps_total",
+                                         "Train steps completed."),
+                             reg.histogram(
+                                 "nxd_train_step_seconds",
+                                 "Wall time per train step (dispatch + "
+                                 "any blocking compile) — the planner's "
+                                 "compute-efficiency calibration "
+                                 "source."))
+                    self._obs_cache = cache
+                cache[2].inc()
+                cache[3].observe(wall_s)
+            # phase: checkpoint et al. — callbacks (CheckpointCallback
+            # opens its own train/checkpoint span inside)
+            with tracer.span("train/callbacks", step=self.host_step):
+                for cb in self.callbacks:
+                    cb.on_step_end(self, metrics)
             if (self.preemption_guard is not None
                     and self.preemption_guard.requested):
                 # step boundary: the request recorded by the signal handler

@@ -12,8 +12,9 @@ optimizer. The model's parameters are the state:
 every step updates them, the gradients and the Adam moments in place, and
 returns the same :class:`TrainState`.
 
-``scan_steps``, ``compression``, ``integrity_every``, ``loss_fn`` and
-``grad_fn`` come with later slices; passing one raises.
+``loss_fn``, ``scan_steps`` and ``integrity_every`` are the reference's
+(:func:`make_train_step`); ``compression`` and ``grad_fn`` come with later
+slices, and passing one raises.
 """
 
 from __future__ import annotations
@@ -108,47 +109,84 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     {"input_ids": [B, S], "labels": [B, S]}`` (tensors or numpy arrays,
     moved to the model's device here; labels already shifted, ``-100``
     ignored). ``tx`` is the optimizer, or it wrapped by
-    :func:`.mixed_precision.with_fp32_master_weights`. ``metrics`` holds 0-dim device tensors: ``loss`` and
-    ``grad_norm``, the global norm before clipping.
+    :func:`.mixed_precision.with_fp32_master_weights`. ``metrics`` holds
+    0-dim device tensors: ``loss`` and ``grad_norm``, the global norm
+    before clipping.
 
+    ``loss_fn(module, params, batch) -> scalar``: the loss to
+    differentiate instead of the model's own (``params`` is
+    ``state.params``, the module's parameters by name; ``batch`` the
+    batch, or one microbatch of it, with every leaf a tensor on the
+    model's device). As in the reference it does not take
+    ``dropout_generator``: a custom loss manages its own randomness.
     ``grad_accum_steps``: split the batch's leading dim into that many
     microbatches and accumulate their gradients before the one update; the
     loss and gradient are the mean over microbatch means.
-    ``dropout_generator``: enables attention dropout; each attention call
-    of each microbatch draws its seed from it in turn.
+    ``dropout_generator``: enables attention dropout (default loss only);
+    each attention call of each microbatch draws its seed from it in turn.
     ``skip_nonfinite``: when the loss or the gradient norm is not finite,
     leave the parameters and the optimizer state as they were (the step
     still counts) and report ``metrics["nonfinite_skipped"]``; this reads
     both scalars on the host, one synchronisation per step.
+    ``scan_steps=K``: every batch leaf carries a leading ``[K]`` dim and
+    one call runs K updates, one per slice, returning the last one's
+    metrics (the reference runs them as one ``lax.scan``).
+    ``integrity_every=K``: ``metrics["integrity_fp"]`` is
+    :func:`..resilience.integrity.fingerprint_tree` of the updated
+    parameters, ``int32[n_params]``, when ``(step + 1) % K == 0``, and
+    zeros of that shape on other steps (shapes never change, so
+    ``step.cache_size()`` stays 1). With ``scan_steps > 1`` only the last
+    update's metric surfaces, so keep K a multiple of ``scan_steps``.
+
+    ``step.cache_size()`` counts the distinct batch shapes the step has
+    met, the port's analog of the reference's compile count
+    (:class:`..obs.accounting.CompileTracker` reads it).
+
+    ``grad_fn`` and ``compression`` come with later slices; passing one
+    raises.
     """
-    later = {"loss_fn": loss_fn is not None, "grad_fn": grad_fn is not None,
-             "scan_steps": scan_steps != 1,
-             "compression": compression is not None,
-             "integrity_every": integrity_every is not None}
+    later = {"grad_fn": grad_fn is not None,
+             "compression": compression is not None}
     asked = [k for k, v in later.items() if v]
     if asked:
         raise ValueError(f"{', '.join(asked)}: not in the port yet (later "
                          "slices)")
+    if dropout_generator is not None and loss_fn is not None:
+        raise ValueError(
+            "dropout_generator is only threaded through the default loss; "
+            "a custom loss_fn must manage its own randomness")
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+    if integrity_every is not None and integrity_every < 1:
+        raise ValueError(f"integrity_every must be >= 1, got "
+                         f"{integrity_every}")
     model = pm.module
+    shapes = set()
 
-    def step(state: TrainState, batch: Mapping[str, torch.Tensor]
-             ) -> Tuple[TrainState, Dict[str, Any]]:
+    def microbatch_loss(params, mb: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if loss_fn is not None:
+            return loss_fn(model, params, mb)
+        return model.loss(mb["input_ids"], mb["labels"],
+                          dropout_generator=dropout_generator)
+
+    def one_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, Any]:
         params = list(state.params.values())
-        ids = torch.as_tensor(batch["input_ids"]).to(pm.device)
-        labels = torch.as_tensor(batch["labels"]).to(pm.device)
         a = grad_accum_steps
-        if ids.shape[0] % a:
-            raise ValueError(f"batch dim {ids.shape[0]} not divisible by "
-                             f"grad_accum_steps {a}")
+        for name, x in batch.items():
+            if x.shape[0] % a:
+                raise ValueError(f"batch dim {x.shape[0]} of {name!r} not "
+                                 f"divisible by grad_accum_steps {a}")
         for p in params:
             p.grad = None
         loss = None
-        for mb_ids, mb_labels in zip(ids.chunk(a), labels.chunk(a)):
-            mb_loss = model.loss(mb_ids, mb_labels,
-                                 dropout_generator=dropout_generator)
+        chunks = {k: x.chunk(a) for k, x in batch.items()}
+        for i in range(a):
+            mb_loss = microbatch_loss(state.params,
+                                      {k: c[i] for k, c in chunks.items()})
             mb_loss.backward()
             mb_loss = mb_loss.detach()
             loss = mb_loss if loss is None else loss + mb_loss
@@ -166,7 +204,34 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
             tx.update(params, grads, state.opt_state, grad_norm=grad_norm)
         for p in params:
             p.grad = None
+        if integrity_every is not None:
+            # the lazy import keeps the resilience package off the step's
+            # import path unless integrity is on
+            from ..resilience.integrity import fingerprint_tree
+
+            if (state.step + 1) % integrity_every == 0:
+                metrics["integrity_fp"] = fingerprint_tree(state.params)
+            else:
+                metrics["integrity_fp"] = torch.zeros(
+                    len(params), dtype=torch.int32, device=pm.device)
         state.step += 1
+        return metrics
+
+    def step(state: TrainState, batch: Mapping[str, Any]
+             ) -> Tuple[TrainState, Dict[str, Any]]:
+        batch = {k: torch.as_tensor(v).to(pm.device)
+                 for k, v in batch.items()}
+        shapes.add(tuple(sorted((k, tuple(v.shape), v.dtype)
+                                for k, v in batch.items())))
+        if scan_steps == 1:
+            return state, one_step(state, batch)
+        for name, x in batch.items():
+            if x.shape[0] != scan_steps:
+                raise ValueError(f"{name!r} has leading dim {x.shape[0]}, "
+                                 f"want scan_steps = {scan_steps}")
+        for i in range(scan_steps):
+            metrics = one_step(state, {k: x[i] for k, x in batch.items()})
         return state, metrics
 
+    step.cache_size = lambda: len(shapes)
     return step

@@ -5,13 +5,11 @@ The level comes from ``NXD_LOG_LEVEL`` (default INFO), re-read at every
 ``get_logger`` call. On a process whose ``torch.distributed`` rank is not
 0, a ``rank0_only`` logger drops records below WARNING; before a process
 group exists every process counts as rank 0. ``log_event`` writes the
-reference's ``NXD_EVENT {json}`` line; the reference also counts it in its
-metrics registry, which comes with ``obs/``.
+reference's ``NXD_EVENT {json}`` line through the ``obs`` event channel.
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 from typing import Any, Dict, Tuple
@@ -75,7 +73,12 @@ def get_logger(name: str = "neuronx_distributed_tpu_torch",
 
 def log_event(logger: logging.Logger, event: str, **fields: Any) -> None:
     """One machine-parseable line, ``NXD_EVENT {json}``, at WARNING so that
-    every rank's resilience events stay visible."""
-    payload = {"event": event, **fields}
-    logger.warning("NXD_EVENT %s",
-                   json.dumps(payload, sort_keys=True, default=str))
+    every rank's resilience events stay visible.
+
+    Routed through the ``obs`` event channel: the same call also bumps
+    ``nxd_events_total{event=...}`` and fans out to subscribers, so the
+    NXD_EVENT log lines and the metrics registry share one source of
+    truth."""
+    from ..obs.events import emit_event  # lazy: obs imports this module
+
+    emit_event(event, logger=logger, **fields)

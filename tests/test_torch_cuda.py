@@ -297,30 +297,46 @@ def test_paged_attention_routes_by_dtype(cuda, q_name, pool, kernels):
 
 
 @pytest.mark.parametrize("q_name,splits,same_bits", [
-    ("bf16", 1, True), ("bf16", 2, False), ("fp32", None, True)])
+    ("bf16", 1, True), ("bf16", 2, True), ("fp32", None, True)])
 def test_paged_attention_bits_follow_the_tables_length(cuda, q_name, splits,
                                                        same_bits):
     """The same 16 rows (positions in block 11) attend the same keys
     through a table of 16 valid blocks and through one of 24, whose last
     blocks lie past every row. Either way the output is within 2e-2 (bf16)
-    or 1e-4 (fp32) of the plain version. The fp32 K1 and the bf16 K1 with
-    one split only add exact zeros for the masked keys, so their bits must
-    be equal; with two splits the split point follows the table's length
-    (block 8 against block 12) and the bits may differ, which is why bf16
-    greedy ids depend on chunking (ROADMAP §C), so that case asserts
-    nothing of the bits."""
+    or 1e-4 (fp32) of the plain version, and the bits are equal: the fp32
+    K1 only adds exact zeros for the masked keys, and the bf16 K1 takes its
+    split points from the table's width (24), not from how many entries
+    are mapped."""
+    outs = _paged_through_tables(cuda, q_name, splits, 24, (16, 24))
+    if same_bits:
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("splits", [2, 3, 16])
+def test_paged_attention_bits_hold_at_a_wider_table(cuda, splits):
+    """As above through tables 40 wide with 16, 24 or all 40 entries
+    mapped: the bf16 K1 gives the same bits each time at every split
+    count, so a row's output does not follow its table's mapped length."""
+    outs = _paged_through_tables(cuda, "bf16", splits, 40, (16, 24, 40))
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def _paged_through_tables(device, q_name, splits, maxb, valids):
+    """K1 on 16 rows at positions 176-191 through tables ``maxb`` wide
+    with the first ``valid`` entries mapped (blocks 0, 1, ...), each
+    output held to the plain version; returns the outputs."""
     rng = np.random.RandomState(9)
-    t, n, kv, d, bs, nb = 16, 32, 8, 128, 16, 32
+    t, n, kv, d, bs, nb = 16, 32, 8, 128, 16, 48
     dt = _FLOATS[q_name]
-    q = torch.from_numpy(rng.randn(t, n, d).astype(np.float32)).to(cuda, dt)
+    q = torch.from_numpy(rng.randn(t, n, d).astype(np.float32)).to(device, dt)
     k, v = (torch.from_numpy(rng.randn(nb, bs, kv, d).astype(np.float32))
-            .to(cuda, dt) for _ in "kv")
+            .to(device, dt) for _ in "kv")
     pool_pos = torch.arange(nb * bs, dtype=torch.int32,
-                            device=cuda).view(nb, bs)
-    q_pos = torch.arange(176, 192, dtype=torch.int32, device=cuda)
+                            device=device).view(nb, bs)
+    q_pos = torch.arange(176, 192, dtype=torch.int32, device=device)
     outs = []
-    for valid in (16, 24):
-        tables = torch.full((t, 24), -1, dtype=torch.int32, device=cuda)
+    for valid in valids:
+        tables = torch.full((t, maxb), -1, dtype=torch.int32, device=device)
         tables[:, :valid] = torch.arange(valid, dtype=torch.int32)
         args = (q, k, v, pool_pos, tables, q_pos)
         kw = {} if splits is None else dict(splits=splits)
@@ -330,8 +346,7 @@ def test_paged_attention_bits_follow_the_tables_length(cuda, q_name, splits,
                                    atol=2e-2 if dt == torch.bfloat16
                                    else 1e-4)
     torch.cuda.synchronize()
-    if same_bits:
-        assert torch.equal(outs[0], outs[1])
+    return outs
 
 
 def test_paged_attention_bf16_refuses_bad_splits(cuda):

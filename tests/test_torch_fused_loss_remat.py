@@ -130,11 +130,11 @@ def test_invalid_configs_raise_where_jax_raises():
     for name in tremat.POLICIES:
         jl.tiny_config(remat_policy=name)
         tl.tiny_config(remat_policy=name)
-    # Mixtral's remat, tied embeddings and chunked loss come later
+    # Mixtral's tied embeddings and chunked loss come later (its remat is
+    # ported: tests/test_torch_mixtral.py)
     from neuronx_distributed_tpu_torch.models import mixtral as tm
 
-    for kw in (dict(remat=True), dict(tie_embeddings=True),
-               dict(loss_chunk=16)):
+    for kw in (dict(tie_embeddings=True), dict(loss_chunk=16)):
         with pytest.raises(ValueError, match="later"):
             tm.tiny_moe_config(**kw)
     with pytest.raises(ValueError, match="positive"):

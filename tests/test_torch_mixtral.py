@@ -340,6 +340,87 @@ def test_loss_and_gradients_match_jax(params, monkeypatch, mode):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("policy", ["nothing", "save_attention"])
+def test_remat_gradients_are_bitwise_and_match_jax(params, monkeypatch,
+                                                   policy):
+    """Mixtral's ``remat`` recomputes each layer whole whatever
+    ``remat_policy`` says (the reference's ``nothing_saveable``): the flash
+    forward and the grouped-GLU forward run twice a layer, the backward
+    once; the loss and every gradient equal those without remat bit for
+    bit, and ``jax.grad`` of the reference with remat within 1e-4 x
+    max|g|."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as tfa
+
+    tree, np_tree = params
+    kw = dict(moe_dispatch="blockwise", moe_block_size=16,
+              use_flash_attention=True)
+    jcfg = jm.tiny_moe_config(dtype=jnp.float32, param_dtype=jnp.float32,
+                              remat=True, **kw)
+    batch = _batches(4, 1)[0]
+    ps.initialize_model_parallel()
+    try:
+        jloss, jgrads = jax.value_and_grad(
+            lambda p: jm.MixtralForCausalLM(jcfg).apply(
+                p, jnp.asarray(batch["input_ids"]),
+                jnp.asarray(batch["labels"]), method="loss"))(tree)
+    finally:
+        ps.destroy_model_parallel()
+    calls = {"flash": [], "glu": [], "bwd": []}
+    for mod, name, key in ((tfa, "flash_fwd_plain", "flash"),
+                           (tops, "grouped_glu_plain", "glu"),
+                           (tops, "grouped_glu_bwd_plain", "bwd")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, fn=fn, c=calls[key]: (
+            c.append(1), fn(*a))[1])
+    tb = _torch_batch(batch)
+    out = {}
+    for remat in (False, True):
+        tcfg = tm.tiny_moe_config(dtype=torch.float32,
+                                  param_dtype=torch.float32, remat=remat,
+                                  remat_policy=policy, **kw)
+        pm, tparams = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), tcfg,
+            state_dict=params_from_jax(tcfg, np_tree), device="cpu")
+        for c in calls.values():
+            c.clear()
+        loss = pm.module.loss(tb["input_ids"], tb["labels"])
+        loss.backward()
+        n = tcfg.num_layers
+        assert {k: len(c) for k, c in calls.items()} == {
+            "flash": n * (1 + remat), "glu": n * (1 + remat), "bwd": n}
+        out[remat] = (loss.detach(), {k: p.grad for k, p in tparams.items()})
+    assert torch.equal(out[True][0], out[False][0])
+    for name, g in out[True][1].items():
+        assert torch.equal(g, out[False][1][name]), name
+    np.testing.assert_allclose(out[True][0].item(), float(jloss), rtol=1e-5)
+    want = params_from_jax(tcfg, jax.tree.map(np.asarray, jgrads))
+    for name, g in out[True][1].items():
+        ref = want[name].numpy()
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max(),
+                                   err_msg=name)
+
+
+def test_bf16_remat_gradients_are_bitwise():
+    """In bf16 too the recompute routes every token to the same experts
+    (the router stays fp32, its sort stable) and rebuilds the same blocks,
+    so the gradients with remat equal those without bit for bit."""
+    ids = np.random.RandomState(5).randint(0, 256, (2, 33))
+    out = []
+    for remat in (False, True):
+        cfg = tm.tiny_moe_config(dtype=torch.bfloat16, remat=remat,
+                                 moe_dispatch="blockwise", moe_block_size=8,
+                                 use_flash_attention=True)
+        pm, params = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), cfg, seed=2, device="cpu")
+        loss = pm.module.loss(torch.from_numpy(ids[:, :-1]),
+                              torch.from_numpy(ids[:, 1:]))
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in params.values()]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
 class MixtralJaxRun:
     """The JAX ``make_train_step`` over the tiny Mixtral on a one-device
     mesh, its initial params as writable numpy arrays, and the port's

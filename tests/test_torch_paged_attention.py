@@ -117,23 +117,35 @@ LOG2E = 1.4426950408889634
 
 
 def _tensor_core_schedule(q, k, v, pool_pos, tables, q_pos, splits,
-                          drop_last_run=False, drop_last_split=False):
+                          drop_last_run=False, drop_last_split=False,
+                          split_by="width"):
     """What ``tc::paged_attention_wgmma`` computes, step by step in fp32
     on bf16 inputs: per kv head, tiles of ``64 // n_rep`` tokens; in each
     tile the runs of consecutive tokens with equal table rows; per run the
-    valid entries, split z of ``splits`` taking the z-th share of them in
-    rounds of 256, their keys in 64-key tiles; S in fp32, scaled in fp32,
-    masked by each row's q_pos; the online softmax in log2 units with P
-    rounded once to bf16 before PV; the splits merged in order. The two
+    valid entries, split z of ``splits`` taking those of rank [z c, (z + 1)
+    c), c = ceil(MAXB / splits), in rounds of 256, their keys in 64-key
+    tiles (the ragged tail zero-filled and masked); S in fp32, scaled in
+    fp32, masked by each row's q_pos; the online softmax in log2 units with
+    P rounded once to bf16 before PV; the splits merged in order. The
     flags plant faults: a tile that drops its last run, a run that drops
-    its last split."""
+    the last split holding any of its entries, and ``split_by="mapped"``,
+    the split points of earlier versions (the z-th share of the run's
+    valid entries, which follows how much of the table is mapped)."""
     t, n, d = q.shape
     _, bs, kv, _ = k.shape
+    maxb = tables.shape[1]
     n_rep = n // kv
     per = tpa.ROWS // n_rep
     scale2 = LOG2E / np.sqrt(d)
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros(t, n, d)
+
+    def split_range(z, nv):
+        if split_by == "mapped":
+            return z * nv // splits, (z + 1) * nv // splits
+        c = -(-maxb // splits)
+        return min(z * c, nv), min((z + 1) * c, nv)
+
     for h in range(kv):
         heads = slice(h * n_rep, (h + 1) * n_rep)
         for t0 in range(0, t, per):
@@ -144,25 +156,35 @@ def _tensor_core_schedule(q, k, v, pool_pos, tables, q_pos, splits,
             if drop_last_run and len(runs) > 1:
                 runs = runs[:-1]
             parts = []
-            for z in range(splits - (drop_last_split and splits > 1)):
+            for z in range(splits):
                 m = torch.full((ntok, n_rep), -np.inf)
                 l = torch.zeros(ntok, n_rep)
                 acc = torch.zeros(ntok, n_rep, d)
                 for a, b in runs:
                     valid = tables[t0 + a][tables[t0 + a] >= 0].long()
-                    lo = z * len(valid) // splits
-                    hi = (z + 1) * len(valid) // splits
+                    lo, hi = split_range(z, len(valid))
+                    if drop_last_split and lo < hi and not any(
+                            x < y for x, y in (split_range(w, len(valid))
+                                               for w in range(z + 1,
+                                                              splits))):
+                        continue
                     for r0 in range(lo, hi, 256):
                         blocks = valid[r0:min(hi, r0 + 256)]
                         keys = kf[blocks, :, h].reshape(-1, d)
                         vals = vf[blocks, :, h].reshape(-1, d)
                         pos = pool_pos[blocks].reshape(-1)
                         for k0 in range(0, len(keys), 64):
+                            kt, vt = keys[k0:k0 + 64], vals[k0:k0 + 64]
+                            real = len(kt)
+                            kt = torch.cat([kt, kt.new_zeros(64 - real, d)])
+                            vt = torch.cat([vt, vt.new_zeros(64 - real, d)])
                             s = torch.einsum("trd,kd->trk",
                                              qf[t0 + a:t0 + b, heads],
-                                             keys[k0:k0 + 64]) * scale2
+                                             kt) * scale2
                             ok = (q_pos[t0 + a:t0 + b, None]
                                   >= pos[None, k0:k0 + 64])
+                            ok = torch.cat([ok, ok.new_zeros(b - a,
+                                                             64 - real)], 1)
                             s = s.masked_fill(~ok[:, None, :], -np.inf)
                             m_old = m[a:b]
                             m_new = torch.maximum(m_old, s.amax(-1))
@@ -173,8 +195,7 @@ def _tensor_core_schedule(q, k, v, pool_pos, tables, q_pos, splits,
                             p = torch.exp2(s - base[..., None])
                             l[a:b] = l[a:b] * corr + p.sum(-1)
                             acc[a:b] = (acc[a:b] * corr[..., None]
-                                        + p.bfloat16().float()
-                                        @ vals[k0:k0 + 64])
+                                        + p.bfloat16().float() @ vt)
                             m[a:b] = m_new
                 parts.append((m, l, acc))
             mx = torch.stack([p[0] for p in parts]).amax(0)
@@ -249,6 +270,41 @@ def test_tensor_core_schedule_matches_plain_and_jax(kind, t, n_rep, bs,
     for fault in faults:
         bad = _tensor_core_schedule(*args, splits, **fault)
         assert (bad.float() - ref.float()).abs().max() > 2e-2, fault
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("maxb", [24, 40])
+def test_tensor_core_split_points_follow_the_tables_width(maxb, splits):
+    """The bf16 K1's split points come from the table's width: 16 rows
+    (positions in block 11) attend the same keys through tables of that
+    width with 16, 24 or all entries mapped, the later blocks past every
+    row, and the emulated schedule gives the same bits each time (as the
+    reference, which walks every entry in order and adds exact zeros for
+    the rest), within 2e-2 of the plain version. The split points of
+    earlier versions, a share of the mapped entries, give other bits for
+    the same rows, which is why bf16 greedy ids followed how a prompt was
+    chunked."""
+    rng = np.random.RandomState(9)
+    t, n, kv, d, bs, nb = 16, 8, 2, 64, 16, 48
+    q = torch.from_numpy(rng.randn(t, n, d).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.randn(nb, bs, kv, d).astype(np.float32))
+            .bfloat16() for _ in "kv")
+    pool_pos = torch.arange(nb * bs, dtype=torch.int32).view(nb, bs)
+    q_pos = torch.arange(176, 192, dtype=torch.int32)
+    outs = {}
+    for split_by in ("width", "mapped"):
+        for valid in sorted({16, 24, maxb}):
+            tables = torch.full((t, maxb), -1, dtype=torch.int32)
+            tables[:, :valid] = torch.arange(valid, dtype=torch.int32)
+            args = (q, k, v, pool_pos, tables, q_pos)
+            got = _tensor_core_schedule(*args, splits, split_by=split_by)
+            ref = tpa.paged_attention_plain(*args).float()
+            assert (got.float() - ref).abs().max() <= 2e-2
+            outs.setdefault(split_by, []).append(got)
+    first = outs["width"][0]
+    assert all(torch.equal(first, o) for o in outs["width"][1:])
+    assert not all(torch.equal(outs["mapped"][0], o)
+                   for o in outs["mapped"][1:])
 
 
 @pytest.mark.parametrize("t,n,kv,want", [(512, 32, 8, 2), (4, 32, 8, 16),

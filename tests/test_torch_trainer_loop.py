@@ -152,6 +152,97 @@ def test_eval_needs_eval_fn_in_both(jax_run):
             trainer.evaluate([{}])
 
 
+def _loop_obs(trainer_cls, ckpt_cls, step, state, path, steps=5):
+    """``Trainer.fit`` with obs on, checkpoints every 2 steps: the span
+    records (name and args, in order), the per-name counts and stats keys,
+    and the registry's snapshot."""
+    from importlib import import_module
+
+    obs = import_module(trainer_cls.__module__.split(".")[0] + ".obs")
+    finalize = import_module(ckpt_cls.__module__).ckpt.finalize_checkpoint
+
+    class OneCommitAtATime(ckpt_cls):
+        """Each async commit ends before the next save: the reference's
+        storage publishes through one shared temporary file, which two
+        concurrent commits can break (ROADMAP §C)."""
+
+        def on_step_end(self, trainer, metrics):
+            super().on_step_end(trainer, metrics)
+            finalize()
+
+    obs.reset()
+    obs.enable()
+    try:
+        trainer_cls(step, state, callbacks=[OneCommitAtATime(
+            path, every=2)]).fit(iter(_batches(3, steps)), max_steps=steps)
+        trace = obs.get_tracer().chrome_trace()["traceEvents"]
+        stats = obs.get_tracer().stats()
+        snap = obs.get_registry().snapshot()
+    finally:
+        obs.disable()
+        obs.reset()
+    return ([(e["name"], e.get("args")) for e in trace],
+            {n: (s["count"], sorted(s)) for n, s in stats.items()}, snap)
+
+
+def test_fit_records_the_loops_spans_and_metrics_like_jax(jax_run,
+                                                         tmp_path):
+    """With obs enabled both loops record the same spans in the same order
+    and nesting (``train/data``, ``train/step``, ``train/callbacks`` with
+    ``train/checkpoint`` inside, async at steps 2 and 4 and sync at the
+    end), the same stats keys, and count the steps in
+    ``nxd_train_steps_total`` and ``nxd_train_step_seconds``. The port's
+    step meets one batch shape, so its ``CompileTracker`` counts one and
+    alerts on none."""
+    _, state, step, _ = _port(jax_run)
+    got = _loop_obs(tloop.Trainer, tloop.CheckpointCallback, step, state,
+                    str(tmp_path / "torch"))
+    want = _loop_obs(jloop.Trainer, jloop.CheckpointCallback,
+                     jax_run["step"], jax_run["state"], str(tmp_path / "jax"))
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert [r for r in got[0] if r[0] == "train/checkpoint"] == [
+        ("train/checkpoint", {"step": 2, "mode": "async",
+                              "parent": "train/callbacks"}),
+        ("train/checkpoint", {"step": 4, "mode": "async",
+                              "parent": "train/callbacks"}),
+        ("train/checkpoint", {"step": 5, "mode": "sync"})]
+    for snap in (got[2], want[2]):
+        assert snap["nxd_train_steps_total"]["samples"][0]["value"] == 5
+        assert snap["nxd_train_step_seconds"]["samples"][0]["count"] == 5
+    assert got[2]["nxd_compile_total"]["samples"] == [
+        {"labels": {"site": "trainer/step"}, "value": 1.0}]
+    assert "nxd_recompile_total" not in got[2]
+    assert step.cache_size() == 1
+
+
+def test_fit_with_obs_disabled_records_nothing(jax_run):
+    from neuronx_distributed_tpu_torch import obs
+
+    obs.reset()
+    _, state, step, _ = _port(jax_run)
+    tloop.Trainer(step, state).fit(iter(_batches(3, 2)))
+    assert obs.get_tracer().stats() == {}
+    assert obs.get_registry().snapshot() == {}
+
+
+def test_a_second_batch_shape_alerts_as_a_recompile(jax_run):
+    """A batch of another shape is a second step shape, the reference's
+    recompile: counted and alerted through the event channel."""
+    from neuronx_distributed_tpu_torch import obs
+
+    _, state, step, _ = _port(jax_run)
+    got = []
+    unsub = obs.subscribe(lambda e, f: got.append((e, f["site"],
+                                                   f["cache_size"])))
+    try:
+        tloop.Trainer(step, state).fit(iter(_batches(3, 2)
+                                            + _batches(4, 1, s=8)))
+    finally:
+        unsub()
+    assert got == [("recompile_detected", "trainer/step", 2)]
+
+
 def _snapshot(state):
     return tck.state_to_tree(state, lambda t: t.detach().clone())
 
