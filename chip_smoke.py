@@ -15,10 +15,12 @@ script exits non-zero and prints no result:
    — on random tables, plus D=64 and BS=32, and on three bf16 steps shaped
    like the main path's (``packed_step``): a packed prefill step (3-4
    chunks), a packed decode step (8 decode rows, 504 pad rows on the last
-   slot's table) and the T=4 decode worker; in bf16 over a bf16 pool
-   (the tensor-core kernel) a second launch equal to the first bit for
-   bit; times the kernel, the plain version and one PyTorch library call,
-   and computes the card's bound.
+   slot's table) and the T=4 decode worker; also at DBRX's heads (N=48
+   over KV=8, n_rep 6: four spare rows in each tensor-core tile) on
+   random tables and a packed decode step; in bf16 over a bf16
+   pool (the tensor-core kernel) a second launch equal to the first bit
+   for bit; times the kernel, the plain version and one PyTorch library
+   call, and computes the card's bound.
 4. serve: ``ServingEngine`` with Llama-3-8B at full width and all 32 layers
    in bf16 (random weights, seed 0, std 0.02): 8 requests of 128-1024
    prompt tokens and 64 new tokens each, two admitted mid-flight. Asserts
@@ -57,7 +59,9 @@ script exits non-zero and prints no result:
    tensor cores) a second launch of each equal to the first bit for bit;
    times each kernel, its plain version and cuBLAS over the same rows
    expert by expert, computes the bound, and prints each bf16 kernel's
-   TFLOP/s and its factor against cuBLAS.
+   TFLOP/s and its factor against cuBLAS. Then the same four cases at
+   DBRX's widths (E=16, top-4, H=6144, I=10752: K5 at 512 tokens, 2048
+   pairs; K6 at 4 tokens, 16 pairs).
 11. serve_mixtral: ``ServingEngine`` with ``MIXTRAL_8X7B``'s widths cut to
    8 layers, bf16, blockwise dispatch with block 64 (random weights, seed
    0, std 0.02), phase 4's engine config and requests. Asserts every
@@ -183,6 +187,33 @@ script exits non-zero and prints no result:
    parameters copied to the host; times one fingerprint pass against its
    byte bound; prints the ``train/*`` span stats and the step p50 with obs
    on and off.
+
+27. serve_mixtral_int8 (run after phase 13): ``MIXTRAL_8X7B`` at all 32
+   layers with ``weight_quant="int8"`` (capacity dispatch, bf16 compute;
+   random weights, seed 0, std 0.02, quantized layer by layer as they are
+   made on the card, so the 93 GB float model never exists), phase 4's
+   engine and requests. Asserts every request completes, one step shape,
+   K1 launched 32 x steps and no grouped GLU; times one step's expert
+   dequantize, capacity einsums and K1 with CUDA events
+   (``probe_step``).
+28. serve_quant_tiers: ``ServingEngine`` handed Llama-3-8B's float bf16
+   state dict on the card with ``weight_quant`` ``fp8``, ``mxfp8`` and
+   ``mxfp4`` (the engine quantizes it there), 4 of phase 4's requests
+   each; asserts completion, one step shape and K1 layers x steps; prints
+   each tier's weight GiB and step p50.
+29. quant_cross_check: full width, 1 layer, fp32: Llama-3-8B at ``mxfp4``
+   and ``fp8``, Mixtral 8x7B at ``int8`` and ``mxfp8`` (its experts in the
+   tier's format), quantized on the card and on the CPU (codes and scales
+   equal bit for bit), one packed step each, logits within 1e-3 x
+   max|logit|.
+30. serve_dbrx, serve_dbrx_disagg: ``DBRX``'s widths cut to 8 layers in
+   bf16, blockwise with block 64, as phases 11 and 12 (K5 for 2048 pairs a
+   packed step; the 4-wide decode worker puts 16 pairs on K6's sentinel
+   metadata).
+31. moe_variants_cross_check: Mixtral 8x7B's widths, 1 layer, fp32,
+   capacity dispatch, the Sinkhorn and the group-limited router, each with
+   shared experts of intermediate 14336: one packed step on the card and
+   on the CPU, logits within 1e-3 x max|logit|.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -454,9 +485,15 @@ def phase_kernel_vs_plain():
         ("packed_prefill", dict(kind="prefill"), 2e-2),
         ("packed_decode", dict(kind="decode"), 2e-2),
         ("decode_worker", dict(kind="worker", t=4), 2e-2),
+        # DBRX's heads (N=48 over KV=8: n_rep=6, so a tensor-core tile
+        # packs 10 tokens and masks 4 of its 64 rows)
+        ("dbrx_bf16", dict(n=48), 2e-2),
+        ("dbrx_packed_decode", dict(n=48, kind="decode", max_pos=32767),
+         2e-2),
     ]
     timed = ("bf16", "fp32", "int8_q_bf16", "packed_prefill",
-             "packed_decode", "decode_worker")
+             "packed_decode", "decode_worker", "dbrx_bf16",
+             "dbrx_packed_decode")
     results = []
     for i, (name, kw, tol) in enumerate(cases):
         args = paged_case(100 + i, **kw)
@@ -510,10 +547,15 @@ def phase_kernel_vs_plain():
 # phases 4-6: the serving engine
 # ---------------------------------------------------------------------------
 
-def serve(cfg, ecfg, label):
+def serve(cfg, ecfg, label, probe=None):
     """Serve 8 requests through ``ServingEngine`` and check the launch
-    counts: K1 once per layer per worker run; for Mixtral K5 once per layer
-    per packed or prefill run and K6 once per layer per decode run."""
+    counts: K1 once per layer per worker run; for a blockwise Mixtral K5
+    once per layer per packed or prefill run and K6 once per layer per
+    decode run (a capacity-dispatch Mixtral launches neither). A weight
+    quantized ``cfg`` gets its weights quantized layer by layer as they are
+    made (``init_state_dict``). ``probe(eng)``, when given, runs one step
+    of its own right after the mid-flight admissions and returns fields
+    for the phase's line."""
     from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
     from neuronx_distributed_tpu_torch.models import llama, mixtral
     from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
@@ -521,6 +563,7 @@ def serve(cfg, ecfg, label):
         paged_attention)
 
     moe = isinstance(cfg, mixtral.MixtralConfig)
+    glu = moe and cfg.moe_dispatch == "blockwise"
     torch.cuda.reset_peak_memory_stats()
     # serving holds its weights in the compute dtype: make them there
     sd = (mixtral if moe else llama).init_state_dict(
@@ -541,6 +584,7 @@ def serve(cfg, ecfg, label):
         eng.step()
     for i in (6, 7):                  # admitted mid-flight
         eng.submit(prompts[i], new, uid=f"r{i}")
+    probed = probe(eng) if probe is not None else {}
     res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -559,14 +603,15 @@ def serve(cfg, ecfg, label):
     nl = cfg.num_layers
     wide = runs.get("packed", 0) + runs.get("prefill", 0)
     want = {"paged_attention": nl * sum(runs.values()),
-            "grouped_glu": nl * wide if moe else 0,
-            "grouped_glu_decode": nl * runs.get("decode", 0) if moe else 0}
+            "grouped_glu": nl * wide if glu else 0,
+            "grouped_glu_decode": nl * runs.get("decode", 0) if glu else 0}
     if launches != want or launches["paged_attention"] == 0 or (
-            moe and launches["grouped_glu"] == 0):
+            glu and launches["grouped_glu"] == 0):
         raise AssertionError(f"{label}: launches {launches}, want {want} "
                              f"(layers x worker runs {runs})")
     rep = eng.stats.report()
     emit(label, layers=cfg.num_layers, dtype=str(cfg.dtype),
+         weight_quant=cfg.weight_quant, weight_gib=state_gib(eng.model),
          quantized_pool=ecfg.quantized,
          disaggregated=ecfg.disaggregated, requests=len(res),
          prompt_tokens=int(lens.sum()), new_tokens=8 * new, steps=steps,
@@ -576,10 +621,74 @@ def serve(cfg, ecfg, label):
          ttft_p50_ms=rep["ttft_p50_ms"], ttft_p99_ms=rep["ttft_p99_ms"],
          step_latency_p50_ms=rep["step_latency_p50_ms"],
          step_latency_p99_ms=rep["step_latency_p99_ms"],
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         **probed)
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def state_gib(model):
+    """GiB of a model's weights as it holds them."""
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values()) / 2 ** 30
+
+
+class SpanTimer:
+    """CUDA events around every call of the functions it wraps, summed per
+    label: the device time between each call's first and last launch (the
+    card runs behind the host here, so no host gap falls inside)."""
+
+    def __init__(self):
+        self.spans, self.undo = {}, []
+
+    def wrap(self, owner, attr, label):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.spans.setdefault(label, []).append((start, end))
+            return out
+        setattr(owner, attr, timed)
+        self.undo.append((owner, attr, fn))
+
+    def restore(self):
+        for owner, attr, fn in reversed(self.undo):
+            setattr(owner, attr, fn)
+        self.undo = []
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.spans.items()}
+
+
+def expert_step_probe(eng):
+    """One serving step of a quantized-expert Mixtral with its device time
+    split: the expert bank's dequantize, the capacity path (dispatch mask
+    and the four einsums), K1; and the step's host time."""
+    from neuronx_distributed_tpu_torch.models import llama
+    from neuronx_distributed_tpu_torch.modules.moe import expert_mlps
+    from neuronx_distributed_tpu_torch.quantization import (
+        quantization_layers as ql)
+
+    timer = SpanTimer()
+    timer.wrap(ql.QuantizedExpertMLPs, "bank", "expert_dequantize_ms")
+    timer.wrap(expert_mlps, "capacity_glu", "expert_einsums_ms")
+    timer.wrap(llama, "paged_attention", "k1_ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        eng.step()
+        torch.cuda.synchronize()
+    finally:
+        timer.restore()
+    wall = (time.perf_counter() - t0) * 1e3
+    return {"probe_step": {"wall_ms": wall, **timer.ms()}}
 
 
 def phase_cross_check(base_cfg):
@@ -749,12 +858,24 @@ def moe_bwd_library(xs, gate_up, down, be, bs, dy, kind):
 
 
 def phase_moe_vs_plain():
-    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    """K5 and K6 against their plain versions at Mixtral 8x7B's widths, then
+    at DBRX's (E=16, top-4, H=6144, I=10752: K5 at 512 tokens, 2048 pairs;
+    K6 at 4 tokens, 16 pairs on sentinel metadata)."""
+    from neuronx_distributed_tpu_torch.models.mixtral import (DBRX,
+                                                              MIXTRAL_8X7B)
+
+    results = []
+    for prefix, cfg, seed in (("", MIXTRAL_8X7B, 300), ("dbrx_", DBRX, 310)):
+        results += moe_vs_plain_at(prefix, cfg, seed)
+    emit("moe_vs_plain", cases=results)
+    return results
+
+
+def moe_vs_plain_at(prefix, cfg, seed):
     from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
 
-    cfg = MIXTRAL_8X7B
     e, h, i = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
-    gen = torch.Generator(device="cuda").manual_seed(300)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     w32 = (torch.randn((e, h, 2, i), generator=gen, device="cuda") * 0.02,
            torch.randn((e, i, h), generator=gen, device="cuda") * 0.02)
     weights = {torch.float32: w32,
@@ -771,7 +892,9 @@ def phase_moe_vs_plain():
     bi = min(512, i)
     results = []
     for n, (case, name, tokens, dtype, sentinel, tol) in enumerate(cases):
-        args = moe_case(400 + n, tokens, weights[dtype], sentinel)
+        case = prefix + case
+        args = moe_case(seed + 100 + n, tokens, weights[dtype], sentinel,
+                        k=cfg.top_k)
         xs, gate_up, down, be, bs = args
         kernel, plain = kernels[name]
         got = kernel(*args, bi)
@@ -796,6 +919,7 @@ def phase_moe_vs_plain():
             raise AssertionError(f"{case}: error {rel} of |ref| + rms(row) "
                                  f"above {tol}, or sentinel rows not zero")
         res = dict(case=case, kernel=name, tokens=tokens, dtype=str(dtype),
+                   experts=e, top_k=cfg.top_k, hidden=h, intermediate=i,
                    rows=xs.shape[0], blocks=be.numel(), tol=tol,
                    max_rel_err=rel,
                    max_abs_err=(got.float() - ref.float()).abs().max().item(),
@@ -817,7 +941,6 @@ def phase_moe_vs_plain():
         torch.cuda.empty_cache()
     del weights, w32
     torch.cuda.empty_cache()
-    emit("moe_vs_plain", cases=results)
     return results
 
 
@@ -885,6 +1008,196 @@ def phase_mixtral_cross_check(base_cfg):
          max_rel_diff=worst, tol=1e-3, cpu_s=cpu_s)
     del sides
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 28-31: weight-quantized serving, DBRX, the other MoE routers
+# ---------------------------------------------------------------------------
+
+def phase_serve_quant_tiers(cfg, ecfg, tiers=("fp8", "mxfp8", "mxfp4"),
+                            new=64):
+    """Hand ``ServingEngine`` a float bf16 state dict on the card with
+    ``EngineConfig.weight_quant`` set, so the engine quantizes it there,
+    and serve 4 of phase 4's requests per tier. Asserts every request
+    completes, one step shape and K1 launched layers x steps."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.models import llama
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    sd = llama.init_state_dict(dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                               seed=0, std=0.02)
+    float_gib = sum(t.numel() * t.element_size()
+                    for t in sd.values()) / 2 ** 30
+    rng = np.random.RandomState(0)
+    lens = rng.randint(128, 1025, 8)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens][:4]
+    out, launches = {}, 0
+    for tier in tiers:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, sd,
+                            dataclasses.replace(ecfg, weight_quant=tier))
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        for i, prompt in enumerate(prompts):
+            eng.submit(prompt, new, uid=f"r{i}")
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [u for u, r in res.items()
+               if r.status != "completed" or len(r.tokens) != new]
+        if len(res) != len(prompts) or bad or eng.compile_count() != 1:
+            raise AssertionError(f"serve_quant_tiers {tier}: requests {bad} "
+                                 f"not completed or {eng.compile_count()} "
+                                 "step shapes")
+        want = cfg.num_layers * eng.stats.steps
+        if paged_attention.launches != want:
+            raise AssertionError(f"serve_quant_tiers {tier}: K1 launched "
+                                 f"{paged_attention.launches}, want {want}")
+        launches += paged_attention.launches
+        rep = eng.stats.report()
+        out[tier] = dict(
+            weight_gib=state_gib(eng.model), convert_s=convert_s,
+            steps=eng.stats.steps, launches=paged_attention.launches,
+            output_tok_per_s=len(prompts) * new / wall,
+            step_latency_p50_ms=rep["step_latency_p50_ms"],
+            step_latency_p99_ms=rep["step_latency_p99_ms"],
+            ttft_p50_ms=rep["ttft_p50_ms"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del eng
+        torch.cuda.empty_cache()
+    del sd
+    torch.cuda.empty_cache()
+    emit("serve_quant_tiers", layers=cfg.num_layers, requests=len(prompts),
+         new_tokens=new, float_weight_gib=float_gib, tiers=out)
+    return launches
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same dtype, shape and bits."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.element_size() in (1, 2, 4, 8):
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(ints), b.view(ints))
+    return torch.equal(a, b)
+
+
+def card_vs_cpu_step(cfg, sds, width=64):
+    """One packed step of ``cfg`` (two prompts of 40 and 20 tokens, pad rows
+    up to ``width``) on the card and on the port's CPU path, ``sds``
+    mapping each device to its state dict. Returns max |diff| over max
+    |logit| of the real rows."""
+    from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
+    from neuronx_distributed_tpu_torch.inference.paging import (
+        init_paged_kv_cache)
+    from neuronx_distributed_tpu_torch.models import llama, mixtral
+
+    moe = isinstance(cfg, mixtral.MixtralConfig)
+    family = mixtral if moe else llama
+    forward = (mixtral.mixtral_forward_with_cache if moe
+               else llama.llama_forward_with_cache)
+    bs, nb, maxb = 16, 64, 8
+    tables = np.full((2, maxb), -1, np.int32)
+    tables[0, :3] = [17, 3, 40]
+    tables[1, :2] = [8, 62]
+    pos, slots = list(range(40)) + list(range(20)), [0] * 40 + [1] * 20
+    n = len(pos)
+    toks = np.zeros((1, width), np.int32)
+    toks[0, :n] = np.random.RandomState(2).randint(0, cfg.vocab_size, n)
+    p = np.full((1, width), PAD_POSITION, np.int32)
+    p[0, :n] = pos
+    s = np.full((width,), 2, np.int32)
+    s[:n] = slots
+    out = {}
+    for dev, sd in sds.items():
+        model = family.build_model(cfg, sd, dev)
+        cache = init_paged_kv_cache(
+            cfg.num_layers, nb, bs, cfg.num_kv_heads, cfg.head_dim_, 2, maxb,
+            dtype=torch.float32, device=dev)
+        cache.block_tables.copy_(torch.from_numpy(tables))
+        logits, _ = forward(model, torch.from_numpy(toks).to(dev),
+                            torch.from_numpy(p).to(dev), cache,
+                            torch.from_numpy(s).to(dev))
+        out[dev] = logits[0, :n].float().cpu()
+        del model, cache, logits
+    diff = (out["cuda"] - out["cpu"]).abs().max().item()
+    return diff / out["cpu"].abs().max().item()
+
+
+def phase_quant_cross_check():
+    """Full width, 1 layer, fp32: the float weights (seed 1) quantized on
+    the card and on the CPU, the codes and scales compared bit for bit, then
+    one packed step each, logits within 1e-3 x max|logit|. Llama-3-8B at
+    ``mxfp4`` and ``fp8``, Mixtral 8x7B at ``int8`` and ``mxfp8`` (its
+    experts in the tier's format)."""
+    from neuronx_distributed_tpu_torch.models import llama, mixtral
+    from neuronx_distributed_tpu_torch.quantization.serving import (
+        quantize_params_for_serving)
+
+    results = []
+    for base, fmt in ((llama.LLAMA3_8B, "mxfp4"), (llama.LLAMA3_8B, "fp8"),
+                      (mixtral.MIXTRAL_8X7B, "int8"),
+                      (mixtral.MIXTRAL_8X7B, "mxfp8")):
+        family = mixtral if isinstance(base, mixtral.MixtralConfig) else llama
+        cfg = dataclasses.replace(base, num_layers=1, dtype=torch.float32,
+                                  param_dtype=torch.float32,
+                                  weight_quant=fmt)
+        t0 = time.perf_counter()
+        fsd = family.init_state_dict(
+            dataclasses.replace(cfg, weight_quant=None), seed=1, std=0.02,
+            device="cpu")
+        cpu_q = quantize_params_for_serving(cfg, fsd)
+        cpu_s = time.perf_counter() - t0
+        card_q = quantize_params_for_serving(
+            cfg, {k: v.cuda() for k, v in fsd.items()})
+        del fsd
+        differ = [k for k in cpu_q if not same_bits(card_q[k], cpu_q[k])]
+        if differ or set(card_q) != set(cpu_q):
+            raise AssertionError(f"quant_cross_check {fmt}: the card's "
+                                 f"codes differ from the CPU's at {differ}")
+        rel = card_vs_cpu_step(cfg, {"cuda": card_q, "cpu": cpu_q})
+        if not rel <= 1e-3:
+            raise AssertionError(f"quant_cross_check {fmt}: max |diff| "
+                                 f"{rel} x max|logit|, above 1e-3")
+        results.append(dict(model=type(base).__name__, weight_quant=fmt,
+                            tensors=len(cpu_q), codes_equal=True,
+                            max_rel_diff=rel, cpu_quantize_s=cpu_s))
+        del cpu_q, card_q
+        torch.cuda.empty_cache()
+    emit("quant_cross_check", layers=1, tol=1e-3, cases=results)
+
+
+def phase_moe_variants_cross_check():
+    """Mixtral 8x7B's widths, 1 layer, fp32, capacity dispatch, with the
+    Sinkhorn router and with the group-limited one, each beside shared
+    experts of intermediate 14336: one packed step on the card and on the
+    CPU path, logits within 1e-3 x max|logit|."""
+    from neuronx_distributed_tpu_torch.models import mixtral
+
+    results = []
+    for router in ("sinkhorn", "group_limited"):
+        cfg = dataclasses.replace(
+            mixtral.MIXTRAL_8X7B, num_layers=1, dtype=torch.float32,
+            param_dtype=torch.float32, router_type=router,
+            shared_expert_intermediate=14336)
+        sd = mixtral.init_state_dict(cfg, seed=1, std=0.02, device="cpu")
+        rel = card_vs_cpu_step(cfg, {"cuda": sd, "cpu": sd})
+        if not rel <= 1e-3:
+            raise AssertionError(f"moe_variants_cross_check {router}: max "
+                                 f"|diff| {rel} x max|logit|, above 1e-3")
+        results.append(dict(router_type=router,
+                            shared_expert_intermediate=14336,
+                            max_rel_diff=rel))
+        del sd
+        torch.cuda.empty_cache()
+    emit("moe_variants_cross_check", layers=1, tol=1e-3, cases=results)
 
 
 def phase_moe_bwd_vs_plain(tokens=4096):
@@ -2578,7 +2891,8 @@ def main() -> None:
 
     from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
-    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.models.mixtral import (DBRX,
+                                                              MIXTRAL_8X7B)
     from neuronx_distributed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2604,6 +2918,18 @@ def main() -> None:
                                          max_slots=4, prefill_budget=512),
             "serve_mixtral_disagg")["grouped_glu_decode"]}
     phase_mixtral_cross_check(MIXTRAL_8X7B)
+    int8_launches = serve(dataclasses.replace(MIXTRAL_8X7B, weight_quant="int8"),
+                          ecfg, "serve_mixtral_int8",
+                          probe=expert_step_probe)["paged_attention"]
+    tier_launches = phase_serve_quant_tiers(LLAMA3_8B, ecfg)
+    phase_quant_cross_check()
+    dbrx = dataclasses.replace(DBRX, num_layers=8, moe_dispatch="blockwise",
+                               moe_block_size=64)
+    dbrx_launches = serve(dbrx, ecfg, "serve_dbrx")
+    dbrx_disagg_launches = serve(
+        dbrx, dataclasses.replace(ecfg, disaggregated=True, max_slots=4,
+                                  prefill_budget=512), "serve_dbrx_disagg")
+    phase_moe_variants_cross_check()
     bwd_cases = phase_moe_bwd_vs_plain()
     flash_cases = phase_flash_vs_plain()
     flash_launches = phase_train()
@@ -2645,7 +2971,12 @@ def main() -> None:
         "cases_ms": {c["case"]: c["kernel_ms"] for c in cases
                      if "kernel_ms" in c},
         "path_launches": {"serve": launches,
-                          "serve_prefix": prefix_launches}}]
+                          "serve_prefix": prefix_launches,
+                          "serve_mixtral_int8": int8_launches,
+                          "serve_quant_tiers": tier_launches,
+                          "serve_dbrx": dbrx_launches["paged_attention"],
+                          "serve_dbrx_disagg":
+                              dbrx_disagg_launches["paged_attention"]}}]
     flash_main = next(c for c in flash_cases if c["case"] == "bf16")
     outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
@@ -2680,9 +3011,15 @@ def main() -> None:
             "library_ms": main_case["library_ms"],
             "kernel_ms": main_case["kernel_ms"], "max_err": err,
             "design": main_case["design"],
+            "cases_ms": {c["case"]: c["kernel_ms"] for c in moe_cases
+                         if c["kernel"] == name},
             "path_launches": {
                 "serve_mixtral_disagg" if name.endswith("decode")
                 else "serve_mixtral": moe_launches[name],
+                "serve_dbrx_disagg" if name.endswith("decode")
+                else "serve_dbrx": (dbrx_disagg_launches
+                                    if name.endswith("decode")
+                                    else dbrx_launches)[name],
                 "generate_mixtral": gen_moe_launches[name],
                 "train_mixtral": train_launches[name],
                 "train_mixtral_remat": remat_launches[name]}})

@@ -131,7 +131,8 @@ def configure_model(cfg: NxDConfig, model_cfg: Any) -> Any:
     reference's ``configure_model`` (``config.py:17-60``) does for the
     fields the port's configs have: ``remat = activation_checkpoint.mode
     != "none"`` and ``dtype`` from ``mixed_precision.compute_dtype``. The
-    policy is not carried (the reference does not carry it either)."""
+    policy is not carried (the reference does not carry it either). An MoE
+    config is then held to :func:`.modules.moe.validate_moe_config`."""
     updates = {}
     fields = {f.name for f in dataclasses.fields(model_cfg)}
     if "remat" in fields:
@@ -142,4 +143,9 @@ def configure_model(cfg: NxDConfig, model_cfg: Any) -> Any:
             raise ValueError("unknown compute_dtype "
                              f"{cfg.mixed_precision.compute_dtype!r}")
         updates["dtype"] = dtype
-    return dataclasses.replace(model_cfg, **updates)
+    model_cfg = dataclasses.replace(model_cfg, **updates)
+    if "num_experts" in fields:
+        from .modules.moe.config_validator import validate_moe_config
+
+        model_cfg = validate_moe_config(model_cfg, cfg)
+    return model_cfg

@@ -52,6 +52,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import llama, mixtral
 from ..models.llama import LlamaConfig
+from ..quantization.serving import quantize_params_for_serving
 from .kv_cache import PAD_POSITION
 from .paging import (BlockAllocator, CacheExhaustedError, PrefixCache,
                      cow_copy_blocks, init_paged_kv_cache,
@@ -82,7 +83,13 @@ class EngineConfig:
     ``prefill_budget`` (default ``token_budget``) wide. ``prefix_sharing``
     maps cached prompt prefixes instead of prefilling them; it is off by
     default because the trie keeps blocks allocated past a request's
-    retirement (:meth:`ServingEngine.release_prefix_cache` drops them)."""
+    retirement (:meth:`ServingEngine.release_prefix_cache` drops them).
+    ``weight_quant`` serves every projection kernel quantized (``"int8"``,
+    ``"fp8"``, ``"mxfp4"``, ``"mxfp8"``): the engine stamps the format onto
+    the model config and converts a float state dict at construction
+    (:func:`..quantization.serving.quantize_params_for_serving`, where the
+    tensors lie); a quantized one passes through. It is independent of
+    ``quantized`` (the pool's int8 blocks)."""
 
     block_size: int = 16
     num_blocks: int = 64
@@ -91,6 +98,7 @@ class EngineConfig:
     token_budget: int = 32
     quantized: bool = False
     kv_dtype: Optional[torch.dtype] = None   # None -> model dtype
+    weight_quant: Optional[str] = None
     eos_id: Optional[int] = None
     sampling: SamplingConfig = SamplingConfig(greedy=True)
     prefix_sharing: bool = False
@@ -227,6 +235,15 @@ class ServingEngine:
                  clock: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        wq = engine_cfg.weight_quant
+        if wq is not None:
+            if wq not in llama.WEIGHT_QUANT_FORMATS:
+                raise ValueError(
+                    f"EngineConfig.weight_quant must be one of "
+                    f"{llama.WEIGHT_QUANT_FORMATS} or None, got {wq!r}")
+            if model_cfg.weight_quant != wq:
+                model_cfg = dataclasses.replace(model_cfg, weight_quant=wq)
+            params = quantize_params_for_serving(model_cfg, params)
         self.model_cfg = model_cfg
         self.ecfg = engine_cfg
         family = (mixtral if isinstance(model_cfg, mixtral.MixtralConfig)

@@ -1,79 +1,76 @@
-"""Weight bridge from the JAX package's Llama param tree.
+"""Weight bridge from the JAX package's Llama and Mixtral param trees.
 
 The JAX ``LlamaForCausalLM`` tree (``scan_layers=True``) stacks every
-decoder layer on a leading dim under ``params/model/layers/layer``, with
-``q/k/v_kernel`` ``[L, H, *]``, ``o_proj/kernel``, ``mlp/gate_up_kernel
-[L, H, 2, I]`` and ``mlp/down/kernel``. The port keeps the names and
-layouts per layer, so the bridge only unstacks and renames. A Mixtral tree
-has ``moe/router/kernel [L, H, E]``, ``moe/experts/gate_up [L, E, H, 2, I]``
-and ``moe/experts/down [L, E, I, H]`` in place of the MLP. A tied config
-(``tie_embeddings``) has no ``lm_head`` in either tree. It reads numpy
-arrays and imports nothing of JAX.
+decoder layer on a leading dim under ``params/model/layers/layer``. The
+port keeps the names and layouts per layer, and a port name is the JAX path
+under the layer joined by dots (``attn/qkv/q_kernel`` is
+``layers.{i}.attn.qkv.q_kernel``, ``moe/experts/gate_up`` is
+``layers.{i}.moe.experts.gate_up``), so the bridge only unstacks and
+renames, whatever the layer holds: the MLP or the MoE (router, experts,
+shared experts), float or quantized (``*_q``, ``*_packed`` and ``*_scale``
+leaves cross by name). A tied config (``tie_embeddings``) has no
+``lm_head`` in either tree.
+
+It reads numpy arrays and imports nothing of JAX nor ``ml_dtypes``: an
+fp8 array (an ``ml_dtypes`` type) crosses as its bytes, viewed as the torch
+type of the same name.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from .llama import LlamaConfig, LlamaForCausalLM
-from .mixtral import MixtralConfig
 
-# port name within layer i -> path under the JAX "layers/layer" subtree
-_LAYER_KEYS = {
-    "input_norm.scale": ("input_norm", "scale"),
-    "attn.qkv.q_kernel": ("attn", "qkv", "q_kernel"),
-    "attn.qkv.k_kernel": ("attn", "qkv", "k_kernel"),
-    "attn.qkv.v_kernel": ("attn", "qkv", "v_kernel"),
-    "attn.o_proj.kernel": ("attn", "o_proj", "kernel"),
-    "post_norm.scale": ("post_norm", "scale"),
-}
-_MLP_KEYS = {
-    "mlp.gate_up_kernel": ("mlp", "gate_up_kernel"),
-    "mlp.down.kernel": ("mlp", "down", "kernel"),
-}
-_MOE_KEYS = {
-    "moe.router.kernel": ("moe", "router", "kernel"),
-    "moe.experts.gate_up": ("moe", "experts", "gate_up"),
-    "moe.experts.down": ("moe", "experts", "down"),
-}
+# numpy dtype name of an ml_dtypes fp8 array -> the torch dtype
+_FP8_TYPES = {"float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2}
 
 
-def _get(tree: Mapping[str, Any], path) -> np.ndarray:
-    for k in path:
-        tree = tree[k]
-    return np.asarray(tree)
+def _tensor(a: Any) -> torch.Tensor:
+    """A writable torch copy of a numpy (or JAX) array."""
+    a = np.asarray(a)
+    fp8 = _FP8_TYPES.get(a.dtype.name)
+    if fp8 is not None:
+        return torch.from_numpy(np.array(a.view(np.uint8))).view(fp8)
+    return torch.from_numpy(np.array(a))
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def params_from_jax(cfg: LlamaConfig,
                     tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``LlamaForCausalLM`` or ``MixtralForCausalLM`` params (numpy
     arrays, with or without the outer ``"params"`` key) -> the port's state
-    dict, in the tree's own dtype."""
+    dict, in the tree's own dtypes."""
     p = tree.get("params", tree)
     if ("lm_head" in p) == cfg.tie_embeddings:
         raise ValueError(
             f"the tree {'has' if 'lm_head' in p else 'has no'} lm_head but "
             f"the config has tie_embeddings={cfg.tie_embeddings}")
-    model, layers = p["model"], p["model"]["layers"]["layer"]
-
-    def tensor(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(a))   # a writable copy
-
-    sd = {"embed.embedding": tensor(_get(model, ("embed", "embedding"))),
-          "norm.scale": tensor(_get(model, ("norm", "scale")))}
-    if not cfg.tie_embeddings:
-        sd["lm_head.kernel"] = tensor(_get(p, ("lm_head", "kernel")))
-    ffn = _MOE_KEYS if isinstance(cfg, MixtralConfig) else _MLP_KEYS
-    for name, path in {**_LAYER_KEYS, **ffn}.items():
-        stacked = _get(layers, path)
+    model = p["model"]
+    sd = {"embed.embedding": _tensor(model["embed"]["embedding"]),
+          "norm.scale": _tensor(model["norm"]["scale"])}
+    for path, a in _leaves(p.get("lm_head", {}), ("lm_head",)):
+        sd[".".join(path)] = _tensor(a)
+    for path, stacked in _leaves(model["layers"]["layer"]):
+        stacked = np.asarray(stacked)
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(f"{'/'.join(path)} stacks {stacked.shape[0]} "
                              f"layers, config has {cfg.num_layers}")
+        name = ".".join(path)
         for i in range(cfg.num_layers):
-            sd[f"layers.{i}.{name}"] = tensor(stacked[i])
+            sd[f"layers.{i}.{name}"] = _tensor(stacked[i])
     return sd
 
 

@@ -40,11 +40,38 @@ from ..parallel.layers import (GQAQKVColumnParallelLinear, Linear,
                                ParallelEmbedding)
 from ..parallel.loss_functions import (causal_lm_loss,
                                        fused_linear_cross_entropy)
+from ..quantization import mx_layers, quantization_layers as ql
+from ..quantization.microscaling import MX_BLOCK
+from ..quantization.quantization_utils import QuantizedDtype, dequantize
 from ..utils.remat import remat_call, validate_remat_policy
 
 #: ``(dropout_p, dropout_seed)`` of one attention call, as
 #: :func:`..modules.attention.attention_dropout_seed` draws it
 Dropout = Tuple[float, Optional[int]]
+
+#: the serving weight-quantization tiers: per-out-channel symmetric w8a16
+#: (``int8``, ``fp8``) or packed OCP microscaling (``mxfp4``, ``mxfp8``)
+WEIGHT_QUANT_FORMATS = ("int8", "fp8", "mxfp4", "mxfp8")
+
+
+def weight_quant_dtype(fmt: str) -> QuantizedDtype:
+    """The element type of the ``int8``/``fp8`` tiers."""
+    return QuantizedDtype.INT8 if fmt == "int8" else QuantizedDtype.FP8E4M3
+
+
+def quant_linear(cfg: "LlamaConfig", in_features: int, out_features: int,
+                 device) -> nn.Module:
+    """The linear of ``cfg.weight_quant``'s tier (``kernel_q`` or
+    ``kernel_packed`` beside ``kernel_scale``): every projection of a
+    quantized model, the LM head included."""
+    fmt = cfg.weight_quant
+    if fmt.startswith("mx"):
+        return mx_layers.MXQuantizedColumnParallel(
+            in_features, out_features, mx_format=fmt[2:], dtype=cfg.dtype,
+            device=device)
+    return ql.QuantizedColumnParallel(
+        in_features, out_features, quantized_dtype=weight_quant_dtype(fmt),
+        dtype=cfg.dtype, device=device)
 
 
 @dataclass(frozen=True)
@@ -60,7 +87,11 @@ class LlamaConfig:
     through the LM head (:func:`..parallel.loss_functions.
     fused_linear_cross_entropy`) instead of building ``[B, S, V]``
     logits; it needs the LM-head kernel, so it refuses ``tie_embeddings``,
-    as the reference does (``models/llama.py:246-261``)."""
+    as the reference does (``models/llama.py:246-261``).
+    ``weight_quant`` (one of :data:`WEIGHT_QUANT_FORMATS`): every
+    projection kernel and the LM head are held quantized (the embedding
+    stays float); convert a float state dict with
+    :func:`..quantization.serving.quantize_params_for_serving`."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -81,9 +112,12 @@ class LlamaConfig:
     remat: bool = False
     remat_policy: str = "nothing"
     loss_chunk: Optional[int] = None
+    weight_quant: Optional[str] = None
 
     def __post_init__(self) -> None:
         validate_remat_policy(self.remat_policy)
+        if self.weight_quant is not None:
+            self._validate_weight_quant()
         if self.loss_chunk is not None:
             if self.loss_chunk <= 0:
                 raise ValueError(
@@ -94,6 +128,35 @@ class LlamaConfig:
                     "the fused chunked loss streams through a dedicated "
                     "lm_head kernel param; unset loss_chunk for this "
                     "configuration")
+
+    def _validate_weight_quant(self) -> None:
+        """The reference's checks (``models/llama.py:211-245``) for the
+        fields the port has."""
+        if self.weight_quant not in WEIGHT_QUANT_FORMATS:
+            raise ValueError(
+                f"weight_quant must be one of {WEIGHT_QUANT_FORMATS} "
+                f"or None, got {self.weight_quant!r}")
+        incompatible = (
+            "tie_embeddings=True (the embedding table stays float)"
+            if self.tie_embeddings else
+            "loss_chunk (the fused loss streams a float lm_head kernel)"
+            if self.loss_chunk is not None else None)
+        if incompatible:
+            raise ValueError(
+                f"weight_quant={self.weight_quant!r} is incompatible "
+                f"with {incompatible}")
+        if self.weight_quant.startswith("mx"):
+            q_features = self.num_heads * self.head_dim_
+            bad = ("hidden_size" if self.hidden_size % MX_BLOCK else
+                   "intermediate_size"
+                   if self.intermediate_size % MX_BLOCK else
+                   "num_heads * head_dim"
+                   if q_features % MX_BLOCK else None)
+            if bad:
+                raise ValueError(
+                    f"weight_quant={self.weight_quant!r} needs {bad} "
+                    f"divisible by the MX block ({MX_BLOCK}): all "
+                    "contraction dims are block-scaled")
 
     @property
     def head_dim_(self) -> int:
@@ -195,12 +258,25 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.head_dim_
-        self.qkv = GQAQKVColumnParallelLinear(
-            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d,
-            dtype=cfg.dtype, device=device, param_dtype=cfg.param_dtype)
-        self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
-                             dtype=cfg.dtype, device=device,
-                             param_dtype=cfg.param_dtype)
+        qkv_args = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d)
+        fmt = cfg.weight_quant
+        if fmt is None:
+            self.qkv = GQAQKVColumnParallelLinear(
+                *qkv_args, dtype=cfg.dtype, device=device,
+                param_dtype=cfg.param_dtype)
+            self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
+                                 dtype=cfg.dtype, device=device,
+                                 param_dtype=cfg.param_dtype)
+            return
+        if fmt.startswith("mx"):
+            self.qkv = mx_layers.MXGQAQKVColumnParallelLinear(
+                *qkv_args, mx_format=fmt[2:], dtype=cfg.dtype, device=device)
+        else:
+            self.qkv = ql.QuantizedGQAQKVColumnParallelLinear(
+                *qkv_args, quantized_dtype=weight_quant_dtype(fmt),
+                dtype=cfg.dtype, device=device)
+        self.o_proj = quant_linear(cfg, cfg.num_heads * d, cfg.hidden_size,
+                                   device)
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[CacheView] = None,
@@ -228,24 +304,50 @@ class LlamaAttention(nn.Module):
 
 class LlamaMLP(nn.Module):
     """SwiGLU with the fused ``gate_up_kernel [H, 2, I]`` (index 0 = gate,
-    1 = up) and ``down``."""
+    1 = up) and ``down``. Under ``weight_quant`` the fused kernel is held
+    as ``gate_up_q [H, 2, I]`` with ``gate_up_scale [2, I]`` (int8, fp8),
+    or as ``gate_up_packed [2, I, H/pack]`` with ``gate_up_scale [2, I,
+    H/32]`` (MX, contraction dim last), and ``down`` is quantized too."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.gate_up_kernel = nn.Parameter(torch.empty(
-            (cfg.hidden_size, 2, cfg.intermediate_size),
-            dtype=cfg.param_dtype, device=device))
-        self.down = Linear(cfg.intermediate_size, cfg.hidden_size,
-                           dtype=cfg.dtype, device=device,
-                           param_dtype=cfg.param_dtype)
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        fmt = cfg.weight_quant
+        if fmt is None:
+            self.gate_up_kernel = nn.Parameter(torch.empty(
+                (h, 2, i), dtype=cfg.param_dtype, device=device))
+            self.down = Linear(i, h, dtype=cfg.dtype, device=device,
+                               param_dtype=cfg.param_dtype)
+            return
+        if fmt.startswith("mx"):
+            pack, store = mx_layers.mx_storage(fmt[2:])
+            self.gate_up_packed = ql.frozen((2, i, h // pack), store, device)
+            self.gate_up_scale = ql.frozen((2, i, h // MX_BLOCK),
+                                           torch.float32, device)
+        else:
+            self.gate_up_q = ql.frozen(
+                (h, 2, i), weight_quant_dtype(fmt).torch_dtype, device)
+            self.gate_up_scale = ql.frozen((2, i), torch.float32, device)
+        self.down = quant_linear(cfg, i, h, device)
+
+    def gate_up(self) -> torch.Tensor:
+        """The fused kernel as ``[H, 2 I]`` in the compute dtype."""
+        cfg = self.cfg
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        fmt = cfg.weight_quant
+        if fmt is None:
+            return self.gate_up_kernel.reshape(h, 2 * i).to(cfg.dtype)
+        if fmt.startswith("mx"):
+            w = mx_layers.mx_dequant(self.gate_up_packed, self.gate_up_scale,
+                                     fmt[2:], cfg.dtype)     # [2, I, H]
+            return w.reshape(2 * i, h).t()
+        return dequantize(self.gate_up_q, self.gate_up_scale[None],
+                          cfg.dtype).reshape(h, 2 * i)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h_dim, _, i_dim = self.gate_up_kernel.shape
-        h = torch.matmul(x.to(self.cfg.dtype),
-                         self.gate_up_kernel.reshape(h_dim, 2 * i_dim).to(
-                             self.cfg.dtype))
-        h = h.unflatten(-1, (2, i_dim))
+        h = torch.matmul(x.to(self.cfg.dtype), self.gate_up())
+        h = h.unflatten(-1, (2, self.cfg.intermediate_size))
         return self.down(F.silu(h[..., 0, :]) * h[..., 1, :])
 
 
@@ -287,7 +389,10 @@ class LlamaForCausalLM(nn.Module):
         self.layers = nn.ModuleList(
             [self.layer_cls(cfg, dev) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev, pdt)
-        if not cfg.tie_embeddings:
+        if cfg.weight_quant is not None:
+            self.lm_head = quant_linear(cfg, cfg.hidden_size,
+                                        cfg.vocab_size, dev)
+        elif not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
                                   dtype=cfg.dtype, device=dev,
                                   param_dtype=pdt)
@@ -401,17 +506,39 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     normal(0, ``std``) kernels and embeddings, unit norm scales, made on
     ``device`` in each parameter's dtype (``cfg.param_dtype``, or fp32 for
-    a parameter held so)."""
+    a parameter held so).
+
+    Under ``cfg.weight_quant`` the float weights are drawn as for the
+    float model and quantized one layer at a time
+    (:func:`..quantization.serving.quantize_params_for_serving`), so no
+    more than one float layer exists at once: a model too large for the
+    card in bf16 is made on it quantized."""
+    from ..quantization.serving import quantize_params_for_serving
+
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shapes = model_cls(cfg, device="meta").state_dict()
-    sd = {}
+    shapes = model_cls(replace(cfg, weight_quant=None),
+                       device="meta").state_dict()
+    sd, group, group_of = {}, {}, None
+
+    def flush():
+        sd.update(quantize_params_for_serving(cfg, group)
+                  if cfg.weight_quant else group)
+        group.clear()
+
     for name, t in shapes.items():
+        # a layer's tensors are quantized together, the others one by one
+        key = ".".join(name.split(".")[:2]) if name.startswith(
+            "layers.") else name
+        if key != group_of:
+            flush()
+            group_of = key
         if name.endswith(".scale"):
-            sd[name] = torch.ones(t.shape, dtype=t.dtype, device=dev)
+            group[name] = torch.ones(t.shape, dtype=t.dtype, device=dev)
         else:
-            sd[name] = torch.randn(t.shape, generator=gen, dtype=t.dtype,
-                                   device=dev).mul_(std)
+            group[name] = torch.randn(t.shape, generator=gen, dtype=t.dtype,
+                                      device=dev).mul_(std)
+    flush()
     return sd
 
 

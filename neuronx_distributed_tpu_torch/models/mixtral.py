@@ -4,8 +4,14 @@ decoder with the MLP swapped for :class:`..modules.moe.MoE`.
 
 The state dict keeps the JAX names and layouts: per layer
 ``moe.router.kernel [H, E]`` (held in fp32), ``moe.experts.gate_up [E, H, 2,
-I]`` and ``moe.experts.down [E, I, H]``, beside Llama's attention and norm
+I]`` and ``moe.experts.down [E, I, H]`` (or the quantized bank's pairs),
+``moe.shared.*`` with shared experts, beside Llama's attention and norm
 keys, so :mod:`.convert` maps a JAX Mixtral tree across.
+
+The router is ``top_k``, ``sinkhorn`` or ``group_limited``. Under
+``weight_quant`` the experts are quantized in the tier's format unless
+``moe_expert_impl`` pins another bank (``moe_expert_impl_``); a quantized
+bank needs capacity dispatch, as in JAX.
 
 Training goes through :meth:`MixtralForCausalLM.loss`, the JAX loss: the
 causal-LM cross entropy plus the router's load-balance and z losses summed
@@ -31,7 +37,7 @@ from torch import nn
 
 from ..device import DeviceLike
 from ..inference.kv_cache import QuantizedKVCache
-from ..modules.moe import MoE
+from ..modules.moe import ROUTERS, MoE
 from ..modules.norms import RMSNorm
 from ..parallel.loss_functions import causal_lm_loss
 from . import llama
@@ -50,7 +56,10 @@ class MixtralConfig(LlamaConfig):
     moe_block_size: int = 512
     # blocks of no real row become sentinels (forward only)
     moe_sentinel_empty: bool = False
+    # expert bank: "float" | "int8" | "fp8" | "mx_fp4" | "mx_fp8"
+    moe_expert_impl: str = "float"
     router_type: str = "top_k"
+    shared_expert_intermediate: int = 0
     # weights of the router's aux losses in the train loss
     router_aux_coef: float = 0.02
     router_z_coef: float = 0.001
@@ -63,17 +72,46 @@ class MixtralConfig(LlamaConfig):
         if later:
             raise ValueError(f"{', '.join(later)}: not ported for Mixtral "
                              "yet (a later slice)")
-        if self.moe_dispatch not in ("capacity", "blockwise"):
-            raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
-        if self.router_type != "top_k":
-            raise ValueError(f"router_type {self.router_type!r} is not "
-                             "ported; only 'top_k' is")
+        if self.moe_dispatch not in _DISPATCH_MODES:
+            raise ValueError(f"moe_dispatch must be one of {_DISPATCH_MODES}"
+                             f", got {self.moe_dispatch!r}")
+        if self.router_type not in ROUTERS:
+            raise ValueError(f"router_type must be one of {tuple(ROUTERS)}, "
+                             f"got {self.router_type!r}")
+        if (self.weight_quant is not None
+                and self.moe_dispatch != "capacity"
+                and self.moe_expert_impl == "float"):
+            raise ValueError(
+                f"weight_quant={self.weight_quant!r} serves experts "
+                "quantized, which requires moe_dispatch='capacity' (got "
+                f"{self.moe_dispatch!r}); set moe_dispatch='capacity' or "
+                "pin moe_expert_impl explicitly")
+
+    @property
+    def moe_expert_impl_(self) -> str:
+        """The expert bank in use: a ``weight_quant`` tier quantizes the
+        experts too unless ``moe_expert_impl`` was pinned."""
+        if self.weight_quant is not None and self.moe_expert_impl == "float":
+            return _WEIGHT_QUANT_EXPERT_IMPL[self.weight_quant]
+        return self.moe_expert_impl
+
+
+_DISPATCH_MODES = ("capacity", "blockwise")
+# weight_quant tier -> its quantized expert bank
+_WEIGHT_QUANT_EXPERT_IMPL = {"int8": "int8", "fp8": "fp8",
+                             "mxfp4": "mx_fp4", "mxfp8": "mx_fp8"}
 
 
 MIXTRAL_8X7B = MixtralConfig(
     vocab_size=32000, hidden_size=4096, intermediate_size=14336,
     num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1e6,
     num_experts=8, top_k=2)
+
+# DBRX's widths: 16 fine-grained experts, top-4, GQA with 8 kv heads
+DBRX = MixtralConfig(
+    vocab_size=100352, hidden_size=6144, intermediate_size=10752,
+    num_layers=40, num_heads=48, num_kv_heads=8, rope_theta=5e5,
+    max_seq_len=32768, num_experts=16, top_k=4)
 
 
 def tiny_moe_config(**kw) -> MixtralConfig:
@@ -97,8 +135,13 @@ class MixtralDecoderLayer(nn.Module):
                        capacity_factor=cfg.capacity_factor,
                        dispatch_mode=cfg.moe_dispatch,
                        block_size=cfg.moe_block_size,
-                       sentinel_empty=cfg.moe_sentinel_empty, dtype=cfg.dtype,
-                       param_dtype=cfg.param_dtype, device=device)
+                       sentinel_empty=cfg.moe_sentinel_empty,
+                       expert_impl=cfg.moe_expert_impl_,
+                       router_type=cfg.router_type,
+                       shared_expert_intermediate=(
+                           cfg.shared_expert_intermediate),
+                       dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                       device=device)
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[llama.CacheView] = None,
@@ -184,7 +227,9 @@ def init_state_dict(cfg: MixtralConfig, seed: int = 0, std: float = 0.02,
 def decode_sentinel_empty(cfg: MixtralConfig, num_tokens: int) -> bool:
     """Whether a step of ``num_tokens`` runs the decode grouped GLU on
     sentinel metadata: blockwise dispatch and ``tokens x top_k <=
-    num_experts``, or ``moe_sentinel_empty`` set."""
+    num_experts``, or ``moe_sentinel_empty`` set. It reads the config's
+    ``top_k`` whatever the router, as the JAX model does (the Sinkhorn
+    router's one choice a token leaves the rule conservative)."""
     return cfg.moe_sentinel_empty or (
         cfg.moe_dispatch == "blockwise"
         and num_tokens * cfg.top_k <= cfg.num_experts)

@@ -57,12 +57,37 @@ def build_dispatch_combine(gates: torch.Tensor, idx: torch.Tensor,
     return dispatch, combine, dropped
 
 
+def capacity_glu(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
+                 num_experts: int, capacity: int, gate_up: torch.Tensor,
+                 down: torch.Tensor, dtype: torch.dtype,
+                 contraction_last: bool = False
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The capacity path's mask einsums in ``dtype``: dispatch the tokens
+    to ``capacity`` slots per expert, ``silu(x Wg) (x Wu) Wd`` per slot,
+    combine by gate. ``gate_up [E, H, 2, I]`` and ``down [E, I, H]``, or
+    with ``contraction_last`` (the MX banks' layout) ``[E, 2, I, H]`` and
+    ``[E, H, I]``. Returns ``(y [T, H], {"dropped_fraction"})``."""
+    dispatch, combine, dropped = build_dispatch_combine(
+        gates, idx, num_experts, capacity)
+    xin = torch.einsum("tec,th->ech", dispatch.to(dtype), x.to(dtype))
+    h = torch.einsum("ech,ekih->ecki" if contraction_last
+                     else "ech,ehki->ecki", xin, gate_up)
+    h = ops_bw._silu(h[..., 0, :]) * h[..., 1, :]
+    out = torch.einsum("eci,ehi->ech" if contraction_last
+                       else "eci,eih->ech", h, down)
+    y = torch.einsum("tec,ech->th", combine.to(dtype), out)
+    return y.to(dtype), {"dropped_fraction": dropped}
+
+
 class ExpertMLPs(nn.Module):
     """Stacked GLU experts at tp = ep = 1. ``block_i`` is the intermediate
-    tile of the plain grouped GLU, the Pallas kernel's ``block_i``."""
+    tile of the plain grouped GLU, the Pallas kernel's ``block_i``. The
+    capacity path reads ``top_k`` from the router's choices (``idx [T,
+    K]``), as JAX builds its bank with ``top_k = gates.shape[-1]``: the
+    Sinkhorn router picks one expert whatever the config's ``top_k``."""
 
     def __init__(self, num_experts: int, hidden: int, intermediate: int,
-                 top_k: int = 2, capacity_factor: float = 2.0,
+                 capacity_factor: float = 2.0,
                  dispatch_mode: str = "capacity", block_size: int = 512,
                  block_i: int = 512, sentinel_empty: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
@@ -71,7 +96,6 @@ class ExpertMLPs(nn.Module):
         if dispatch_mode not in ("capacity", "blockwise"):
             raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
         self.num_experts = num_experts
-        self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.dispatch_mode = dispatch_mode
         self.block_size = block_size
@@ -94,17 +118,11 @@ class ExpertMLPs(nn.Module):
             se = self.sentinel_empty if sentinel_empty is None \
                 else sentinel_empty
             return self._forward_blockwise(x, gates, idx, se)
-        capacity = compute_capacity(x.shape[0], self.num_experts, self.top_k,
-                                    self.capacity_factor)
-        dispatch, combine, dropped = build_dispatch_combine(
-            gates, idx, self.num_experts, capacity)
-        dt = self.dtype
-        xin = torch.einsum("tec,th->ech", dispatch.to(dt), x.to(dt))
-        h = torch.einsum("ech,ehki->ecki", xin, self.gate_up.to(dt))
-        h = ops_bw._silu(h[..., 0, :]) * h[..., 1, :]
-        out = torch.einsum("eci,eih->ech", h, self.down.to(dt))
-        y = torch.einsum("tec,ech->th", combine.to(dt), out)
-        return y.to(dt), {"dropped_fraction": dropped}
+        capacity = compute_capacity(x.shape[0], self.num_experts,
+                                    idx.shape[-1], self.capacity_factor)
+        return capacity_glu(x, gates, idx, self.num_experts, capacity,
+                            self.gate_up.to(self.dtype),
+                            self.down.to(self.dtype), self.dtype)
 
     def _run_grouped_glu(self, xs, be, sentinel_empty: bool):
         """K5 (differentiable: K7 and K8 in the backward), or K6 with

@@ -1,10 +1,13 @@
-"""The top-k MoE router (counterpart of ``RouterTopK`` in
-``neuronx_distributed_tpu/modules/moe/routing.py``).
+"""The MoE routers (counterpart of
+``neuronx_distributed_tpu/modules/moe/routing.py``): top-k, Sinkhorn
+(top-1, balanced) and group-limited (top-k within the best groups).
 
-The router computes in fp32 from an fp32 kernel, whatever the model's
-dtypes: a serving model that holds its other weights in bf16 keeps this one
-in fp32, so it routes as the JAX package does from the same checkpoint.
-The Sinkhorn and group-limited routers are not ported yet.
+A router computes in fp32 from an fp32 kernel ``[H, E]``, whatever the
+model's dtypes: a serving model that holds its other weights in bf16 keeps
+this one in fp32, so it routes as the JAX package does from the same
+checkpoint. Each returns ``(gates [T, k] fp32, idx [T, k] int32, aux)``,
+aux holding ``load_balance_loss`` and ``z_loss``; ties go to the lowest
+expert index, as ``jax.lax.top_k`` and ``jnp.argmax`` break them.
 """
 
 from __future__ import annotations
@@ -38,29 +41,112 @@ def top_k_lowest_first(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-class RouterTopK(nn.Module):
-    """Top-k softmax router with the top-k gates renormalised to sum 1.
-    ``kernel [H, E]`` is held in fp32."""
+def _aux(logits: torch.Tensor, probs: torch.Tensor,
+         idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The load-balance loss over the chosen experts ``idx [T, k]`` and the
+    z-loss."""
+    mask = torch.zeros_like(probs).scatter_add_(
+        1, idx, torch.ones(idx.shape, dtype=probs.dtype, device=idx.device))
+    return {"load_balance_loss": _load_balance_loss(probs, mask),
+            "z_loss": _z_loss(logits)}
 
-    def __init__(self, hidden: int, num_experts: int, top_k: int = 2,
-                 device=None):
+
+class RouterBase(nn.Module):
+    """The fp32 linear router: ``logits = x @ kernel`` with ``kernel [H,
+    E]`` held in fp32."""
+
+    def __init__(self, hidden: int, num_experts: int, device=None):
         super().__init__()
-        self.top_k = top_k
+        self.num_experts = num_experts
         self.kernel = nn.Parameter(torch.empty((hidden, num_experts),
                                                dtype=torch.float32,
                                                device=device))
 
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float() @ self.kernel.float()
+
+
+class RouterTopK(RouterBase):
+    """Top-k softmax router with the top-k gates renormalised to sum 1."""
+
+    def __init__(self, hidden: int, num_experts: int, top_k: int = 2,
+                 device=None):
+        super().__init__(hidden, num_experts, device)
+        self.top_k = top_k
+
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Dict[str, torch.Tensor]]:
-        """``x [T, H]`` -> ``(gates [T, k] fp32, idx [T, k] int32, aux)``,
-        aux holding ``load_balance_loss`` and ``z_loss``."""
-        logits = x.float() @ self.kernel
+        """``x [T, H]`` -> ``(gates [T, k] fp32, idx [T, k] int32, aux)``."""
+        logits = self.logits(x)
         probs = torch.softmax(logits, dim=-1)
         gates, idx = top_k_lowest_first(probs, self.top_k)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-        mask = torch.zeros_like(probs).scatter_add_(
-            1, idx, torch.ones_like(gates))
-        aux = {"load_balance_loss": _load_balance_loss(probs, mask),
-               "z_loss": _z_loss(logits)}
-        return gates, idx.to(torch.int32), aux
+        return gates, idx.to(torch.int32), _aux(logits, probs, idx)
+
+
+class RouterSinkhorn(RouterBase):
+    """Sinkhorn-balanced top-1 router: ``num_iters`` alternating column and
+    row normalisations of ``exp(logits - logsumexp(all logits))`` push the
+    token x expert matrix toward doubly stochastic before the argmax; the
+    gate is the chosen expert's raw softmax probability."""
+
+    def __init__(self, hidden: int, num_experts: int, num_iters: int = 4,
+                 device=None):
+        super().__init__(hidden, num_experts, device)
+        self.num_iters = num_iters
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Dict[str, torch.Tensor]]:
+        """``x [T, H]`` -> ``(gates [T, 1] fp32, idx [T, 1] int32, aux)``."""
+        logits = self.logits(x)
+        probs = torch.softmax(logits, dim=-1)
+        pi = torch.exp(logits - torch.logsumexp(logits, dim=(0, 1)))
+        for _ in range(self.num_iters):
+            pi = pi / torch.clamp(pi.sum(0, keepdim=True), min=1e-9)
+            pi = pi / torch.clamp(pi.sum(1, keepdim=True), min=1e-9)
+        idx = torch.argmax(pi, dim=-1)[:, None]
+        gates = torch.gather(probs, 1, idx)
+        return gates, idx.to(torch.int32), _aux(logits, probs, idx)
+
+
+class GroupLimitedRouter(RouterBase):
+    """Node-limited routing: the experts form ``num_groups`` groups; each
+    token keeps its best ``topk_groups`` groups by their best probability,
+    then takes its top-k experts inside them (gates renormalised)."""
+
+    def __init__(self, hidden: int, num_experts: int, top_k: int = 2,
+                 num_groups: int = 2, topk_groups: int = 1, device=None):
+        super().__init__(hidden, num_experts, device)
+        if num_experts % num_groups != 0:
+            raise ValueError("num_experts must divide into num_groups")
+        allowed = topk_groups * (num_experts // num_groups)
+        if top_k > allowed:
+            raise ValueError(
+                f"top_k {top_k} exceeds the {allowed} experts reachable "
+                f"through topk_groups={topk_groups} (zero-gated -inf "
+                "picks would waste expert capacity)")
+        self.top_k = top_k
+        self.num_groups = num_groups
+        self.topk_groups = topk_groups
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Dict[str, torch.Tensor]]:
+        logits = self.logits(x)
+        probs = torch.softmax(logits, dim=-1)
+        t, g = logits.shape[0], self.num_groups
+        per_group = self.num_experts // g
+        group_score = probs.reshape(t, g, per_group).amax(-1)     # [T, G]
+        _, top_groups = top_k_lowest_first(group_score, self.topk_groups)
+        group_allowed = torch.zeros_like(group_score).scatter_(
+            1, top_groups, 1.0)
+        allowed = torch.repeat_interleave(group_allowed, per_group, dim=-1)
+        masked = torch.where(allowed > 0, probs,
+                             torch.full_like(probs, -float("inf")))
+        gates, idx = top_k_lowest_first(masked, self.top_k)
+        gates = torch.where(torch.isfinite(gates), gates,
+                            torch.zeros_like(gates))
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates, idx.to(torch.int32), _aux(logits, probs, idx)

@@ -227,6 +227,9 @@ K1_CASES = [
     ("decode", 21, 1, 16, 128),
     ("worker", 4, 4, 16, 128), ("worker", 3, 8, 5, 64),
     ("worker", 4, 2, 256, 128),
+    # DBRX's n_rep: a 10-token tile, 4 of its 64 rows spare
+    ("random", 48, 6, 16, 128), ("decode", 512, 6, 16, 128),
+    ("worker", 4, 6, 16, 128),
 ]
 
 
@@ -238,7 +241,8 @@ def test_paged_attention_bf16_kernel_matches_plain(cuda, kind, t, n_rep, bs,
     engine's (prefill chunks whose runs straddle token tiles, decode and
     pad rows, the decode worker, where each run's table is split across
     CTAs), T not a multiple of the 64 // n_rep token tile, n_rep 1, 2, 3
-    (one spare row a tile), 4 and 8, block sizes 5, 16, 32 and 256, and
+    (one spare row a tile), 4, 6 (four spare rows) and 8, block sizes 5,
+    16, 32 and 256, and
     rows with no valid key, which give zeros. One launch is counted."""
     args = _step_case(cuda, t + bs + n_rep, kind, t, n_rep, bs, d)
     before = tpa.paged_attention.launches
@@ -266,12 +270,14 @@ def test_paged_attention_bf16_candidates_agree(cuda, kind, t, n_rep, bs, d):
         assert not got[_no_valid_key(args)].any(), splits
 
 
-@pytest.mark.parametrize("kind,t", [("prefill", 512), ("worker", 4),
-                                    ("random", 48)])
-def test_paged_attention_bf16_is_deterministic(cuda, kind, t):
+@pytest.mark.parametrize("kind,t,n_rep,kv", [
+    ("prefill", 512, 4, 2), ("worker", 4, 4, 2), ("random", 48, 4, 2),
+    ("random", 512, 6, 8), ("decode", 512, 6, 8), ("worker", 4, 6, 8)])
+def test_paged_attention_bf16_is_deterministic(cuda, kind, t, n_rep, kv):
     """Each run's sums stay in one CTA, and the splits merge in a fixed
-    order: two launches on the same inputs agree bit for bit."""
-    args = _step_case(cuda, 3, kind, t, 4, 16, 128)
+    order: two launches on the same inputs agree bit for bit (also at
+    DBRX's 48 heads over 8 kv heads)."""
+    args = _step_case(cuda, 3, kind, t, n_rep, 16, 128, kv=kv)
     first, second = (tpa.paged_attention(*args) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
@@ -666,10 +672,15 @@ def _moe_case(device, seed, dtype, t=40, k=2, e=5, h=200, i=176, bs=16,
             down.to(device, dtype), be.to(device), bs)
 
 
-# bf16 forward cases beyond H=200, I=176 over 5 experts (ragged against
-# every tile): "bf16_wide" at H=256, I=384 over 8 experts (whole tiles),
-# "bf16_rev" with the block table reversed
-_FWD_SHAPES = {"bf16_wide": dict(h=256, i=384, e=8)}
+# forward cases beyond H=200, I=176 over 5 experts (ragged against every
+# tile): "bf16_wide" at H=256, I=384 over 8 experts (whole tiles),
+# "bf16_rev" with the block table reversed; "*_e16" DBRX's routing, top-4
+# over 16 experts ("bf16_e16_4" with 4 tokens, the decode worker's 16
+# pairs)
+_FWD_SHAPES = {"bf16_wide": dict(h=256, i=384, e=8),
+               "bf16_e16": dict(h=256, i=384, e=16, k=4),
+               "fp32_e16": dict(e=16, k=4),
+               "bf16_e16_4": dict(h=256, i=384, e=16, k=4, t=4)}
 
 
 @pytest.mark.parametrize("decode", [False, True])
@@ -677,6 +688,7 @@ _FWD_SHAPES = {"bf16_wide": dict(h=256, i=384, e=8)}
     ("fp32", 16, False), ("bf16", 16, False), ("fp32", 80, True),
     ("bf16", 64, True), ("fp32", 64, False), ("bf16", 80, False),
     ("bf16_wide", 64, False), ("bf16_rev", 16, True),
+    ("bf16_e16", 64, False), ("fp32_e16", 16, True), ("bf16_e16_4", 64, True),
 ])
 def test_grouped_glu_kernels_match_plain(cuda, decode, name, bs,
                                          sentinel_empty):
@@ -1081,3 +1093,120 @@ def test_remat_on_card_is_bitwise_and_skips_k2_under_save_attention(cuda,
         assert torch.equal(loss, loss_ref), policy
         for name, g in got.items():
             assert torch.equal(g, ref[name]), (policy, name)
+
+
+# ---------------------------------------------------------------------------
+# weight-quantized serving: the quantizers on the card, the engine's tier
+# ---------------------------------------------------------------------------
+
+def _as_bits(t):
+    return t.cpu().view({1: torch.uint8, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("fmt,shape,axis", [
+    ("int8", (4096, 2, 14336), 0),     # Llama-3-8B's fused gate_up
+    ("fp8", (8, 14336, 4096), 1),      # Mixtral 8x7B's expert down
+    ("mxfp4", (4096, 2, 14336), 0),
+    ("mxfp8", (4096, 128256), 0),      # Llama-3-8B's LM head
+])
+def test_device_quantizers_match_cpu_bit_for_bit(cuda, fmt, shape, axis):
+    """The serving converter's quantizers on the card give the CPU's codes
+    and scales bit for bit at full-width layer shapes (bf16 weights, as
+    serving makes them)."""
+    from neuronx_distributed_tpu_torch.quantization import serving as qs
+    from neuronx_distributed_tpu_torch.quantization.quantization_utils import (
+        QuantizedDtype)
+
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn(shape, generator=gen) * 0.02).to(torch.bfloat16)
+    if fmt.startswith("mx"):
+        def quant(x):
+            return qs.mx_pair(x, axis, fmt[2:])
+    else:
+        qdt = QuantizedDtype.INT8 if fmt == "int8" else QuantizedDtype.FP8E4M3
+
+        def quant(x):
+            return qs.symmetric_pair(x, axis, qdt)
+    for got, ref in zip(quant(w.to(cuda)), quant(w)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.equal(_as_bits(got), _as_bits(ref))
+
+
+@pytest.mark.parametrize("fmt", ["fp4", "fp8"])
+def test_device_mx_scales_hold_at_powers_of_two(cuda, fmt):
+    """MX scale exponents at and within 3 ulps of the block maxima where
+    ``ceil(log2(amax / max))`` steps (every power of two times 6 or 448,
+    over fp32's whole normal range): the card's equal the CPU's."""
+    from neuronx_distributed_tpu_torch.quantization import microscaling as mx
+
+    elem_max = 6.0 if fmt == "fp4" else 448.0
+    pows = torch.exp2(torch.arange(-120, 100, dtype=torch.float64))
+    amax = (pows * elem_max).float()
+    near = [amax]
+    for direction in (float("inf"), 0.0):
+        x = amax
+        for _ in range(3):
+            x = torch.nextafter(x, torch.full_like(x, direction))
+            near.append(x)
+    amax = torch.cat(near)
+    gen = torch.Generator().manual_seed(1)
+    blocks = torch.rand((amax.numel(), 32), generator=gen) * amax[:, None]
+    blocks[:, 0] = amax
+    quant = mx.mx_quantize_fp4 if fmt == "fp4" else mx.mx_quantize_fp8
+    for got, ref in zip(quant(blocks.to(cuda)), quant(blocks)):
+        assert torch.equal(_as_bits(got), _as_bits(ref))
+
+
+def test_engine_weight_quant_serves_on_the_card_by_default(cuda):
+    """``EngineConfig(weight_quant=...)`` with ``device=None`` quantizes a
+    float state dict on the card and serves there; greedy ids equal the
+    same engine's on the CPU (fp32)."""
+    cfg = tl.tiny_config(dtype=torch.float32, param_dtype=torch.float32,
+                         hidden_size=256, num_heads=4,
+                         num_kv_heads=2)                     # head_dim 64
+    sd = tl.init_state_dict(cfg, seed=0, device="cpu")
+    ecfg = te.EngineConfig(block_size=4, num_blocks=16, max_slots=2,
+                           max_blocks_per_seq=8, token_budget=8,
+                           weight_quant="int8")
+    prompt = list(range(1, 8))
+    out = {}
+    for dev in (None, "cpu"):
+        eng = te.ServingEngine(cfg, {k: v.to(dev or cuda) for k, v in
+                                     sd.items()}, ecfg, device=dev)
+        assert eng.model.layers[0].mlp.gate_up_q.device.type == (
+            dev or "cuda")
+        eng.submit(prompt, 6, uid="a")
+        out[dev] = eng.run()["a"].tokens
+        assert eng.compile_count() == 1
+    assert out[None] == out["cpu"]
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "mxfp4", "mxfp8"])
+def test_device_dequantizers_match_cpu_bit_for_bit(cuda, fmt):
+    """Dequantizing on the card (one pass for int8 codes: the fp32 product
+    rounded to bf16 as it is stored) gives the CPU's bits, in bf16 and
+    fp32, at Mixtral 8x7B's expert gate_up shape."""
+    from neuronx_distributed_tpu_torch.quantization import mx_layers
+    from neuronx_distributed_tpu_torch.quantization import serving as qs
+    from neuronx_distributed_tpu_torch.quantization.quantization_utils import (
+        QuantizedDtype, dequantize)
+
+    gen = torch.Generator().manual_seed(1)
+    w = (torch.randn((8, 4096, 2, 1792), generator=gen) * 0.02).to(
+        torch.bfloat16)
+    if fmt.startswith("mx"):
+        q, s = qs.mx_pair(w, 1, fmt[2:])
+
+        def deq(q, s, dtype):
+            return mx_layers.mx_dequant(q, s, fmt[2:], dtype)
+    else:
+        q, s = qs.symmetric_pair(w, 1, QuantizedDtype.INT8 if fmt == "int8"
+                                 else QuantizedDtype.FP8E4M3)
+        s = s[:, None]
+
+        def deq(q, s, dtype):
+            return dequantize(q, s, dtype)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = deq(q.to(cuda), s.to(cuda), dtype)
+        assert torch.equal(got.cpu().view(torch.uint8),
+                           deq(q, s, dtype).view(torch.uint8))

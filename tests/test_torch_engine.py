@@ -204,6 +204,7 @@ _ISOLATED = textwrap.dedent("""
     class Refuse:
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                      "ml_dtypes",
                                       "neuronx_distributed_tpu"):
                 raise ImportError("refused: " + name)
             return None
@@ -220,7 +221,13 @@ _ISOLATED = textwrap.dedent("""
               "ops.blockwise_moe", "modules.moe", "modules.moe.blockwise",
               "modules.moe.expert_mlps", "modules.moe.model",
               "modules.moe.routing", "models.mixtral",
-              "inference.generation"):
+              "inference.generation", "modules.moe.config_validator",
+              "modules.moe.token_shuffling", "quantization",
+              "quantization.quantization_utils",
+              "quantization.microscaling",
+              "quantization.quantization_layers",
+              "quantization.mx_layers", "quantization.serving",
+              "quantization.quantize"):
         assert pkg.__name__ + "." + m in mods, m
     from neuronx_distributed_tpu_torch.inference import engine as te
     from neuronx_distributed_tpu_torch.models import llama as tl
@@ -249,9 +256,18 @@ _ISOLATED = textwrap.dedent("""
     res = eng.run()
     assert [len(res[u].tokens) for u in "mn"] == [4, 3]
     assert eng.worker_compile_counts() == {"prefill": 1, "decode": 1}
+    for fmt in ("int8", "mxfp4"):
+        eng = te.ServingEngine(
+            tm.tiny_moe_config(dtype=torch.float32), tm.init_state_dict(
+                tm.tiny_moe_config(), device="cpu"),
+            te.EngineConfig(block_size=4, num_blocks=16, max_slots=2,
+                            max_blocks_per_seq=8, token_budget=8,
+                            weight_quant=fmt), device="cpu")
+        eng.submit([1, 2, 3, 4, 5], 4, uid="q")
+        assert len(eng.run()["q"].tokens) == 4
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "neuronx_distributed_tpu")]
+                                  "ml_dtypes", "neuronx_distributed_tpu")]
     assert not bad, bad
     print("isolated", len(mods))
 """)

@@ -22,6 +22,8 @@ import neuronx_distributed_tpu as nxd
 from neuronx_distributed_tpu.inference import engine as je
 from neuronx_distributed_tpu.inference import paging as jpg
 from neuronx_distributed_tpu.models import mixtral as jm
+from neuronx_distributed_tpu.modules.moe import (validate_moe_config as
+                                                 jvalidate)
 from neuronx_distributed_tpu.parallel import mesh as ps
 from neuronx_distributed_tpu.trainer import trainer as jtr
 from neuronx_distributed_tpu_torch import trainer as ttr
@@ -90,8 +92,12 @@ def test_serving_model_keeps_the_router_in_fp32(params):
     sd = tm.init_state_dict(cfg, seed=0, device="cpu")
     assert sd["layers.0.moe.router.kernel"].dtype == torch.float32
     assert sd["layers.0.moe.experts.down"].dtype == torch.float32
-    with pytest.raises(ValueError, match="not ported"):
-        tm.tiny_moe_config(router_type="sinkhorn")
+    # every router of the reference is ported; an unknown one raises with
+    # the message of the reference's validator
+    with pytest.raises(ValueError, match="router_type must be one of"):
+        tm.tiny_moe_config(router_type="bogus")
+    with pytest.raises(ValueError, match="router_type must be one of"):
+        jvalidate(jm.tiny_moe_config(router_type="bogus"))
 
 
 @pytest.mark.parametrize("mode", ["capacity", "blockwise"])
