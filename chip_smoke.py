@@ -214,6 +214,34 @@ script exits non-zero and prints no result:
    capacity dispatch, the Sinkhorn and the group-limited router, each with
    shared experts of intermediate 14336: one packed step on the card and
    on the CPU, logits within 1e-3 x max|logit|.
+32. serve_spec (run after phase 21): phase 4's model on 8 requests of
+   200-1000 prompt tokens, 64 new, served plain, with
+   ``SpeculationConfig(4, num_branches=2)`` and a draft of Llama-3.2-1B's
+   widths (``llama32_1b_widths``, seed 1), and with a self-draft. Asserts
+   completion, one shape per worker and K1 launched once per layer per
+   forward of each worker; holds K1's first launch in the draft worker
+   (head_dim 64) and in the verify worker to its plain version within
+   2e-2 on the path's inputs, equal bits on a relaunch, and times them
+   beside the bound and SDPA; prints step p50/p99, each worker's device
+   ms, accepted tokens a round, output tokens/s and the bf16 greedy match
+   share against the plain run (recorded, not limited).
+33. spec_cross_check: full width, 2 layers, fp32: greedy ids with a
+   self-draft and with a 1-layer draft, on the card and on the CPU, equal
+   the card's ids without speculation, or part only at a near tie (top-2
+   gap under 1e-4 x max|logit|, printed).
+34. serve_mixtral_spec: phase 11's model with a self-draft and two
+   speculating slots: K6 in the draft worker, K5 in the verify worker (and
+   twice a packed run), each held to its plain version within 1e-2 with
+   equal bits on a relaunch; launch counts asserted.
+35. migrate: two engines sharing one Llama-3-8B at 32 layers in bf16;
+   sessions exported mid-decode with integrity on, through ``to_bytes`` /
+   ``from_bytes``, into the other engine (``import_session`` and the
+   stream import) finish with the unmigrated ids bit for bit; a flipped
+   byte on the wire and a flipped bit in a parsed ticket are refused with
+   the destination unchanged; an int8 pool's tickets round-trip; prefix
+   shipping gives the promised hits; an evicted request resubmitted
+   elsewhere gives the same ids; prints ticket bytes a token and the ms of
+   each step of a move.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -635,12 +663,13 @@ def state_gib(model):
 
 
 class SpanTimer:
-    """CUDA events around every call of the functions it wraps, summed per
-    label: the device time between each call's first and last launch (the
-    card runs behind the host here, so no host gap falls inside)."""
+    """CUDA events around every call of the functions it wraps, by label:
+    the device time between each call's first and last launch (the card
+    runs behind the host here, so no host gap falls inside). ``now`` is the
+    label of the call running now (None between calls)."""
 
     def __init__(self):
-        self.spans, self.undo = {}, []
+        self.spans, self.undo, self.now = {}, [], None
 
     def wrap(self, owner, attr, label):
         fn = getattr(owner, attr)
@@ -648,11 +677,14 @@ class SpanTimer:
         def timed(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            self.now = label
             start.record()
-            out = fn(*args, **kw)
-            end.record()
-            self.spans.setdefault(label, []).append((start, end))
-            return out
+            try:
+                return fn(*args, **kw)
+            finally:
+                end.record()
+                self.now = None
+                self.spans.setdefault(label, []).append((start, end))
         setattr(owner, attr, timed)
         self.undo.append((owner, attr, fn))
 
@@ -665,6 +697,16 @@ class SpanTimer:
         torch.cuda.synchronize()
         return {k: sum(s.elapsed_time(e) for s, e in v)
                 for k, v in self.spans.items()}
+
+    def per_call(self):
+        """Calls, and the mean and median device ms of a call, by label."""
+        torch.cuda.synchronize()
+        out = {}
+        for k, v in self.spans.items():
+            times = [s.elapsed_time(e) for s, e in v]
+            out[k] = dict(runs=len(times), mean_ms=float(np.mean(times)),
+                          p50_ms=float(np.median(times)))
+        return out
 
 
 def expert_step_probe(eng):
@@ -2875,6 +2917,528 @@ def check_scan_steps(base_cfg, seq):
     free_cuda()
 
 
+# ---------------------------------------------------------------------------
+# phases 32-35: speculative decoding and session migration in the engine
+# ---------------------------------------------------------------------------
+
+def llama32_1b_widths(base):
+    """Llama-3.2-1B's published widths (the ``meta-llama/Llama-3.2-1B``
+    config: hidden 2048, 16 layers, 32 heads over 8 kv heads, head_dim 64,
+    intermediate 8192, vocab 128256, tied embeddings, rope theta 500000),
+    in ``base``'s dtypes and context length; no preset of the package."""
+    return dataclasses.replace(
+        base, hidden_size=2048, num_layers=16, num_heads=32, num_kv_heads=8,
+        head_dim=64, intermediate_size=8192, vocab_size=128256,
+        tie_embeddings=True, rope_theta=500000.0)
+
+
+def spec_timer(eng):
+    """A ``SpanTimer`` around an engine's two speculation workers (its
+    ``now`` names the worker running, for ``Capture``'s ``want``)."""
+    timer = SpanTimer()
+    for name in ("spec_draft", "spec_verify"):
+        timer.wrap(eng, f"_{name}_fn", name)
+    return timer
+
+
+def hold_and_time_k1(call, flush, tol=2e-2):
+    """A K1 launch the path made (``Capture``'d): its output against the
+    plain version on the same inputs within ``tol``, a second launch equal
+    bit for bit, and the kernel's, the plain version's and SDPA's times
+    beside the bound."""
+    from neuronx_distributed_tpu_torch.ops import paged_attention as pa
+
+    args, kw, got = call
+    full = tuple(args) + (None,) * (8 - len(args))
+    ref = pa.paged_attention_plain(*args, **kw)
+    again = pa.paged_attention_cuda(*args, **kw)
+    bound, by, nbytes, flops = paged_bound(full)
+    res = dict(tokens=args[0].shape[0], heads=args[0].shape[1],
+               head_dim=args[0].shape[2], table_width=args[4].shape[1],
+               tol=tol,
+               max_abs_err=(got.float() - ref.float()).abs().max().item(),
+               same_bits_again=bool(torch.equal(got, again)),
+               kernel_ms=time_ms(lambda: pa.paged_attention_cuda(*args,
+                                                                 **kw),
+                                 flush=flush),
+               plain_ms=time_ms(lambda: pa.paged_attention_plain(*args,
+                                                                 **kw),
+                                reps=10, flush=flush),
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    res["library_ms"] = time_ms(sdpa_on_gathered(full), flush=flush)
+    if not (res["max_abs_err"] <= tol) or not torch.isfinite(got).all() \
+            or not res["same_bits_again"]:
+        raise AssertionError(f"K1 on the path's inputs: {res}")
+    return res
+
+
+def spec_launches_want(eng, target_layers, draft_layers, k):
+    """K1 launches a speculating engine's run must make: the packed worker
+    runs the target and the draft over its rows, the draft worker the
+    draft k+1 times, the verify worker the target once."""
+    runs = eng.worker_runs
+    return ((target_layers + draft_layers) * runs["packed"]
+            + draft_layers * (k + 1) * runs["spec_draft"]
+            + target_layers * runs["spec_verify"])
+
+
+def phase_serve_spec(cfg, ecfg, new=64, k=4, nb=2):
+    """``ServingEngine`` with Llama-3-8B at all 32 layers in bf16 (random
+    weights, seed 0, std 0.02) on 8 requests of 200-1000 prompt tokens,
+    64 new tokens each: without speculation, with
+    ``SpeculationConfig(k=4, num_branches=2)`` and a draft of Llama-3.2-1B's
+    widths (seed 1), and with a self-draft. Asserts every request completes,
+    one shape per worker, K1 launched once per layer per forward of each
+    worker; holds K1's first launch in the draft worker (head_dim 64) and in
+    the verify worker to its plain version on the inputs the path gave it,
+    with the same bits on a relaunch, and times each; prints step p50/p99,
+    each worker's device ms, accepted tokens per round, output tokens/s and
+    the share of greedy ids equal to the run without speculation (recorded,
+    not asserted: the verify worker's width gives other bf16 bits)."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.inference.speculative import (
+        SpeculationConfig)
+    from neuronx_distributed_tpu_torch.models import llama
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    bf16 = dict(param_dtype=cfg.dtype)
+    sd = llama.init_state_dict(dataclasses.replace(cfg, **bf16), seed=0,
+                               std=0.02)
+    dcfg = llama32_1b_widths(cfg)
+    dsd = llama.init_state_dict(dataclasses.replace(dcfg, **bf16), seed=1,
+                                std=0.02)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(200, 1001, 8)]
+    runs, tokens, held = {}, {}, {}
+    for label, spec, draft in (("plain", False, None),
+                               ("draft_1b", True, (dcfg, dsd)),
+                               ("self_draft", True, None)):
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(draft_cfg=draft[0], draft_params=draft[1]) if draft else {}
+        eng = ServingEngine(cfg, sd, dataclasses.replace(
+            ecfg, speculation=SpeculationConfig(k, nb) if spec else None),
+            **kw)
+        timer = spec_timer(eng) if spec else None
+        dl = (draft[0] if draft else cfg).num_layers
+        pick = {}
+        if spec:
+            def want(q, *a, worker, **kw):
+                return timer.now == worker and worker not in pick and \
+                    pick.setdefault(worker, True)
+        with Capture(llama, "paged_attention", limit=1 if spec else 0,
+                     want=lambda *a, **kw: want(*a, worker="spec_draft",
+                                                **kw)) as k1d, \
+                Capture(llama, "paged_attention", limit=1 if spec else 0,
+                        want=lambda *a, **kw: want(*a, worker="spec_verify",
+                                                   **kw)) as k1v:
+            paged_attention.launches = 0
+            tokens[label], wall = serve_shared(eng, prompts, new)
+            launches = paged_attention.launches
+        rep = eng.stats.report()
+        runs[label] = dict(
+            steps=eng.stats.steps, worker_runs=dict(eng.worker_runs),
+            k1_launches=launches, output_tok_per_s=len(prompts) * new / wall,
+            wall_s=wall, step_latency_p50_ms=rep["step_latency_p50_ms"],
+            step_latency_p99_ms=rep["step_latency_p99_ms"],
+            ttft_p50_ms=rep["ttft_p50_ms"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if set(eng.worker_compile_counts().values()) != {1}:
+            raise AssertionError(f"serve_spec {label}: step shapes "
+                                 f"{eng.worker_compile_counts()}")
+        want_k1 = (spec_launches_want(eng, cfg.num_layers, dl, k) if spec
+                   else cfg.num_layers * eng.worker_runs["packed"])
+        if launches != want_k1 or launches == 0:
+            raise AssertionError(f"serve_spec {label}: K1 launches "
+                                 f"{launches}, want {want_k1}")
+        if spec:
+            if not (eng.worker_runs["spec_draft"]
+                    and eng.worker_runs["spec_verify"]):
+                raise AssertionError(f"serve_spec {label}: a speculation "
+                                     f"worker never ran: {eng.worker_runs}")
+            runs[label].update(
+                spec_rounds=eng.stats.spec_rounds,
+                accepted_per_round=rep["spec_accept_mean"],
+                workers=timer.per_call(),
+                draft_layers=dl, draft_head_dim=(draft[0] if draft
+                                                  else cfg).head_dim_)
+            if len(k1d.calls) != 1 or len(k1v.calls) != 1:
+                raise AssertionError(f"serve_spec {label}: K1 launches "
+                                     "captured in the workers: "
+                                     f"{len(k1d.calls)}, {len(k1v.calls)}")
+            held[label] = {
+                "spec_draft": hold_and_time_k1(k1d.calls[0], flush),
+                "spec_verify": hold_and_time_k1(k1v.calls[0], flush)}
+            timer.restore()     # the wrappers refer to the timer: no cycle
+        del eng, k1d, k1v, timer
+        torch.cuda.empty_cache()
+    base = np.concatenate([np.asarray(t) for t in tokens["plain"]])
+    share = {label: float(np.mean(np.concatenate(
+        [np.asarray(t) for t in tokens[label]]) == base))
+        for label in ("draft_1b", "self_draft")}
+    emit("serve_spec", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         requests=len(prompts), prompt_tokens=sum(map(len, prompts)),
+         new_tokens=len(prompts) * new, speculation_length=k,
+         num_branches=nb, runs=runs, k1_held_to_plain=held,
+         greedy_match_share=share)
+    del sd, dsd, flush
+    torch.cuda.empty_cache()
+    return {label: r["k1_launches"] for label, r in runs.items()}, held
+
+
+def first_parting(a, b):
+    """Index of the first position where two id lists differ, or None."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def phase_spec_cross_check(base_cfg, new=8, k=3, nb=2):
+    """Speculation at full width, 2 layers, fp32, block 16: three requests
+    of 20-40 prompt tokens, 8 new tokens, served on the card without
+    speculation, with a self-draft and with a 1-layer draft (seed 7), and
+    on the CPU without and with the self-draft. Every run's greedy ids must
+    equal the card's run without speculation; two runs may part only at a
+    near tie: the top-2 gap of the reference's logits at the parting
+    position under 1e-4 x max|logit| (each parting is printed with its
+    gap)."""
+    from neuronx_distributed_tpu_torch.inference.engine import (
+        EngineConfig, ServingEngine)
+    from neuronx_distributed_tpu_torch.inference.speculative import (
+        SpeculationConfig)
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+
+    cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
+    sd = init_state_dict(cfg, seed=4, std=0.02)
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    dsd = init_state_dict(dcfg, seed=7, std=0.02)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(20, 41, 3)]
+    ecfg = EngineConfig(block_size=16, num_blocks=64, max_slots=3,
+                        max_blocks_per_seq=8, token_budget=32)
+    spec = SpeculationConfig(k, nb)
+    # (run, device, speculate, draft); None: the card, the default
+    plans = [("card_plain", None, False, None),
+             ("card_self_draft", None, True, None),
+             ("card_draft_1l", None, True, (dcfg, dsd)),
+             ("cpu_plain", "cpu", False, None),
+             ("cpu_self_draft", "cpu", True, None)]
+    ids, stats, ref_model = {}, {}, None
+    for label, dev, speculate, draft in plans:
+        kw = dict(draft_cfg=draft[0], draft_params=draft[1]) if draft else {}
+        eng = ServingEngine(cfg, sd, dataclasses.replace(
+            ecfg, speculation=spec if speculate else None), device=dev, **kw)
+        ids[label], _ = serve_shared(eng, prompts, new)
+        stats[label] = dict(steps=eng.stats.steps,
+                            spec_rounds=eng.stats.spec_rounds,
+                            accepted=eng.stats.spec_accepted_tokens,
+                            worker_runs=dict(eng.worker_runs))
+        if speculate and not eng.stats.spec_rounds:
+            raise AssertionError(f"spec_cross_check {label}: no round ran")
+        if label == "card_plain":
+            ref_model = eng.model
+        del eng
+    partings = []
+    for label in ids:
+        for r, (got, want) in enumerate(zip(ids[label], ids["card_plain"])):
+            j = first_parting(got, want)
+            if j is None:
+                continue
+            seq = torch.tensor([prompts[r] + want[:j]],
+                               device=ref_model.embed.embedding.device)
+            with torch.no_grad():
+                logits = ref_model(seq)[0, -1].float()
+            top = torch.topk(logits, 2).values
+            gap = (top[0] - top[1]).item()
+            limit = 1e-4 * logits.abs().max().item()
+            partings.append(dict(run=label, request=r, position=j,
+                                 top2_gap=gap, limit=limit))
+            if not gap < limit:
+                raise AssertionError(
+                    f"spec_cross_check: {label} request {r} parts from the "
+                    f"card's plain ids at {j} with a top-2 gap {gap} not "
+                    f"under {limit}")
+    emit("spec_cross_check", layers=cfg.num_layers, requests=len(prompts),
+         new_tokens=new, speculation_length=k, num_branches=nb,
+         runs=stats, partings=partings,
+         ids_equal={label: ids[label] == ids["card_plain"] for label in ids})
+    del ref_model, sd, dsd
+    torch.cuda.empty_cache()
+
+
+def hold_glu_again(call, cuda_fn, plain):
+    """``hold_glu``, and a second launch on the same inputs equal to the
+    path's bit for bit."""
+    res = hold_glu(call, plain)
+    args, kw, got = call
+    res["same_bits_again"] = bool(torch.equal(got, cuda_fn(*args, **kw)))
+    if not res["same_bits_again"]:
+        raise AssertionError(f"{plain.__name__}: a relaunch gave other bits")
+    return res
+
+
+def phase_serve_mixtral_spec(cfg, ecfg, new=64, k=4, nb=2, spec_slots=2):
+    """``ServingEngine`` with Mixtral 8x7B's widths at 8 layers (as
+    ``serve_mixtral``) and a self-draft, ``SpeculationConfig(k=4,
+    num_branches=2, max_spec_slots=2)``: the draft worker's 4 rows put 8
+    pairs on sentinel metadata (K6), the verify worker's 20 rows run K5, and
+    the packed worker runs K5 twice (target and draft). Asserts completion,
+    one shape per worker and the launch counts of K1, K5 and K6; holds the
+    first K5 launch of the verify worker and the first K6 launch of the
+    draft worker to their plain versions within 1e-2, with the same bits
+    on a relaunch."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.inference.speculative import (
+        SpeculationConfig)
+    from neuronx_distributed_tpu_torch.models import mixtral
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    torch.cuda.reset_peak_memory_stats()
+    sd = mixtral.init_state_dict(
+        dataclasses.replace(cfg, param_dtype=cfg.dtype), seed=0, std=0.02)
+    eng = ServingEngine(cfg, sd, dataclasses.replace(
+        ecfg, speculation=SpeculationConfig(k, nb,
+                                            max_spec_slots=spec_slots)))
+    del sd
+    timer = spec_timer(eng)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(128, 1025, 8)]
+    with Capture(bm, "grouped_glu_cuda", by_ref=(1, 2),
+                 want=lambda *a, **kw: timer.now == "spec_verify") as k5, \
+            Capture(bm, "grouped_glu_decode_cuda", by_ref=(1, 2),
+                    want=lambda *a, **kw: timer.now == "spec_draft") as k6:
+        paged_attention.launches = 0
+        bm.grouped_glu.launches = bm.grouped_glu_decode.launches = 0
+        _, wall = serve_shared(eng, prompts, new)
+        launches = {"paged_attention": paged_attention.launches,
+                    "grouped_glu": bm.grouped_glu.launches,
+                    "grouped_glu_decode": bm.grouped_glu_decode.launches}
+    nl, runs = cfg.num_layers, eng.worker_runs
+    want = {"paged_attention": spec_launches_want(eng, nl, nl, k),
+            "grouped_glu": nl * (2 * runs["packed"] + runs["spec_verify"]),
+            "grouped_glu_decode": nl * (k + 1) * runs["spec_draft"]}
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"serve_mixtral_spec: launches {launches}, want "
+                             f"{want} (worker runs {runs})")
+    if set(eng.worker_compile_counts().values()) != {1}:
+        raise AssertionError("serve_mixtral_spec: step shapes "
+                             f"{eng.worker_compile_counts()}")
+    held = {"grouped_glu_verify": hold_glu_again(
+                k5.calls[0], bm.grouped_glu_cuda, bm.grouped_glu_plain),
+            "grouped_glu_decode_draft": hold_glu_again(
+                k6.calls[0], bm.grouped_glu_decode_cuda,
+                bm.grouped_glu_decode_plain)}
+    rep = eng.stats.report()
+    emit("serve_mixtral_spec", layers=nl, dtype=str(cfg.dtype),
+         requests=len(prompts), new_tokens=len(prompts) * new,
+         speculation_length=k, num_branches=nb, spec_slots=spec_slots,
+         steps=eng.stats.steps, worker_runs=dict(runs), launches=launches,
+         held_to_plain=held, spec_rounds=eng.stats.spec_rounds,
+         accepted_per_round=rep["spec_accept_mean"],
+         workers=timer.per_call(),
+         output_tok_per_s=len(prompts) * new / wall, wall_s=wall,
+         step_latency_p50_ms=rep["step_latency_p50_ms"],
+         step_latency_p99_ms=rep["step_latency_p99_ms"],
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    timer.restore()
+    del eng, k5, k6, timer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def migrate_sessions(src, dst, uids, stream=False):
+    """Export ``uids`` from ``src`` (integrity on), through ``to_bytes`` /
+    ``from_bytes``, into ``dst`` (the stream import: begin, one chunk a
+    tensor and layer, commit); returns the timings and sizes of each."""
+    from neuronx_distributed_tpu_torch.inference.engine import SessionTicket
+
+    out = []
+    for uid in uids:
+        t0 = time.perf_counter()
+        ticket = src.export_session(uid)
+        t1 = time.perf_counter()
+        raw = ticket.to_bytes()
+        t2 = time.perf_counter()
+        back = SessionTicket.from_bytes(raw)
+        t3 = time.perf_counter()
+        if stream:
+            handle = dst.begin_stream_import(dataclasses.replace(back,
+                                                                 kv=None))
+            for name, arr in back.kv.items():
+                if name == "pos":
+                    dst.stream_inject(handle, "pos", 0, arr)
+                else:
+                    for layer in range(arr.shape[0]):
+                        dst.stream_inject(handle, name, layer, arr[layer])
+            dst.commit_stream_import(handle)
+        else:
+            dst.import_session(back)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        out.append(dict(uid=uid, n_cached=ticket.n_cached,
+                        n_blocks=ticket.n_blocks, bytes=len(raw),
+                        bytes_per_token=len(raw) / ticket.n_cached,
+                        export_ms=(t1 - t0) * 1e3,
+                        serialize_ms=(t2 - t1) * 1e3,
+                        parse_ms=(t3 - t2) * 1e3,
+                        import_ms=(t4 - t3) * 1e3, stream=stream))
+    return out
+
+
+def phase_migrate(cfg, ecfg, new=32, n=4):
+    """Session migration between two engines in one process that share one
+    Llama-3-8B model at 32 layers in bf16 (random weights, seed 0, std
+    0.02). ``n`` requests of 200-500 prompt tokens, 32 new tokens: run on
+    engine A without moving (the reference ids); then again on A, each
+    exported mid-decode with ``integrity=True``, passed through
+    ``to_bytes``/``from_bytes`` and landed on B, half through
+    ``import_session``, half through the stream import; their ids must
+    equal the reference bit for bit, with no prefill on B. A ticket with
+    one flipped payload byte is refused on the wire (``TicketWireError``),
+    and a parsed ticket whose KV lost one bit is refused with
+    ``IntegrityError`` with B's allocator and pool unchanged. An int8-pool
+    pair of engines migrates a session to the same ids. ``export_prefixes``
+    / ``import_prefixes`` give B the prefix hits the donor's trie promised.
+    ``evict`` on A and a resubmission on B give the reference ids. Prints
+    ticket bytes per cached token (bf16 at 32 layers: 32 x 2 x 8 x 128 x
+    2 B = 128 KiB, plus the positions and the last block's unused rows) and
+    export, serialize, parse and import ms a session; K1 launches on the
+    migrated run."""
+    from neuronx_distributed_tpu_torch.inference.engine import (
+        ServingEngine, TicketWireError)
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+    from neuronx_distributed_tpu_torch.resilience.integrity import (
+        IntegrityError)
+
+    sd = init_state_dict(dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                         seed=0, std=0.02)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, m).tolist()
+               for m in rng.randint(200, 501, n)]
+    icfg = dataclasses.replace(ecfg, integrity=True)
+    a = ServingEngine(cfg, sd, icfg, name="a")
+    b = ServingEngine(cfg, sd, icfg, name="b")
+    if a.model.embed.embedding.data_ptr() != \
+            b.model.embed.embedding.data_ptr():
+        raise AssertionError("migrate: the engines do not share the model")
+    want, _ = serve_shared(a, prompts, new)
+
+    def decode_a_while(eng, uids, steps=4):
+        for i, uid in enumerate(uids):
+            eng.submit(prompts[i], new, uid=uid)
+        while not all(eng.handoff_ready(u) for u in uids):
+            eng.step()
+        for _ in range(steps):
+            eng.step()
+
+    uids = [f"r{i}" for i in range(n)]
+    paged_attention.launches = 0
+    decode_a_while(a, uids)
+    prefill_b = b.stats.prefill_tokens
+    moved = (migrate_sessions(a, b, uids[:n // 2])
+             + migrate_sessions(a, b, uids[n // 2:], stream=True))
+    res = b.run()
+    k1 = paged_attention.launches
+    got = [res[u].tokens for u in uids]
+    if got != want or b.stats.prefill_tokens != prefill_b \
+            or a.allocator.num_allocated or a.has_work():
+        raise AssertionError(
+            f"migrate: ids equal {[g == w for g, w in zip(got, want)]}, B "
+            f"prefilled {b.stats.prefill_tokens - prefill_b} tokens, A "
+            f"holds {a.allocator.num_allocated} blocks")
+    # corruption: on the wire, and inside a parsed ticket
+    a.submit(prompts[0], new, uid="c")
+    while not a.handoff_ready("c"):
+        a.step()
+    ticket = a.export_session("c")
+    raw = ticket.to_bytes()
+    refused = {}
+    try:
+        flipped = bytearray(raw)
+        flipped[-100] ^= 0x10
+        type(ticket).from_bytes(bytes(flipped))
+    except TicketWireError as e:
+        refused["wire"] = type(e).__name__
+    before = (list(b.allocator._free), dict(b.allocator._refs),
+              b.cache.pos.clone(), b._tables.copy())
+    bad = type(ticket).from_bytes(raw)
+    bad.kv["k"].reshape(-1)[7:8].view(np.uint8)[0] ^= 0x01
+    try:
+        b.import_session(bad)
+    except IntegrityError as e:
+        refused["kv"] = type(e).__name__
+    after = (list(b.allocator._free), dict(b.allocator._refs),
+             b.cache.pos, b._tables)
+    unchanged = (before[0] == after[0] and before[1] == after[1]
+                 and torch.equal(before[2], after[2])
+                 and (before[3] == after[3]).all())
+    if set(refused) != {"wire", "kv"} or not unchanged \
+            or b.stats.integrity_rejects != 1:
+        raise AssertionError(f"migrate: corrupt tickets refused {refused}, "
+                             f"B unchanged {unchanged}")
+    # evict on A, resubmit on B: the reference ids
+    a.submit(prompts[1], new, uid="e")
+    for _ in range(3):
+        a.step()
+    prompt, _ = a.evict("e")
+    b.submit(prompt, new, uid="e")
+    evicted_equal = b.run()["e"].tokens == want[1]
+    if not evicted_equal or a.stats.resubmitted != 1:
+        raise AssertionError("migrate: the evicted request resubmitted on B "
+                             "gave other ids")
+    del a, b
+    torch.cuda.empty_cache()
+    # an int8 pool
+    q8 = dataclasses.replace(icfg, quantized=True)
+    a8, b8 = (ServingEngine(cfg, sd, q8, name=nm) for nm in ("a8", "b8"))
+    want8, _ = serve_shared(a8, prompts[:1], new)
+    decode_a_while(a8, ["r0"])
+    moved8 = migrate_sessions(a8, b8, ["r0"])
+    if b8.run()["r0"].tokens != want8[0]:
+        raise AssertionError("migrate: the int8 pool's session gave other "
+                             "ids")
+    del a8, b8
+    torch.cuda.empty_cache()
+    # prefix shipping
+    pcfg = dataclasses.replace(icfg, prefix_sharing=True)
+    donor, fresh = (ServingEngine(cfg, sd, pcfg, name=nm)
+                    for nm in ("donor", "fresh"))
+    system = rng.randint(0, cfg.vocab_size, 1000).tolist()
+    donor.submit(system + prompts[0][:40], 4, uid="d")
+    donor.run()
+    asker = system + prompts[1][:30]
+    promised = donor.prefix_lookup(asker)
+    shipment = donor.export_prefixes()
+    nodes = fresh.import_prefixes(shipment)
+    fresh.submit(asker, 4, uid="f")
+    fresh.run()
+    if not promised or fresh.stats.prefix_hit_tokens != promised \
+            or nodes != len(shipment["nodes"]):
+        raise AssertionError(
+            f"migrate: B hit {fresh.stats.prefix_hit_tokens} prefix tokens, "
+            f"the donor promised {promised}; {nodes} nodes landed")
+    emit("migrate", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         requests=n, new_tokens=new, sessions=moved, int8_sessions=moved8,
+         kv_bytes_per_token_bf16=2 * cfg.num_layers * cfg.num_kv_heads
+         * cfg.head_dim_ * 2,
+         ids_equal=True, refused=refused, b_unchanged_after_refusal=True,
+         evicted_resubmitted_equal=evicted_equal, prefix_nodes=nodes,
+         prefix_hit_tokens=fresh.stats.prefix_hit_tokens,
+         k1_launches=k1)
+    del donor, fresh, sd
+    torch.cuda.empty_cache()
+    return k1
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2945,6 +3509,10 @@ def main() -> None:
     gen_moe_launches = phase_generate_mixtral(mixtral)
     prefix_launches = phase_serve_prefix(LLAMA3_8B, ecfg)
     phase_prefix_cross_check(LLAMA3_8B)
+    spec_launches, spec_held = phase_serve_spec(LLAMA3_8B, ecfg)
+    phase_spec_cross_check(LLAMA3_8B)
+    spec_moe_launches = phase_serve_mixtral_spec(mixtral, ecfg)
+    migrate_launches = phase_migrate(LLAMA3_8B, ecfg)
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=build)
@@ -2960,7 +3528,9 @@ def main() -> None:
     summary = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(c["max_err"] for c in cases),
+        "max_abs_err": max([c["max_err"] for c in cases] + [
+            h["max_abs_err"] for run in spec_held.values()
+            for h in run.values()]),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
@@ -2970,7 +3540,17 @@ def main() -> None:
                   + K1_DESIGN["cuda_cores"],
         "cases_ms": {c["case"]: c["kernel_ms"] for c in cases
                      if "kernel_ms" in c},
+        "spec_cases": {f"{run}/{worker}": {
+            key: h[key] for key in ("tokens", "head_dim", "kernel_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_abs_err")}
+            for run, workers in spec_held.items()
+            for worker, h in workers.items()},
         "path_launches": {"serve": launches,
+                          "serve_spec": spec_launches,
+                          "serve_mixtral_spec":
+                              spec_moe_launches["paged_attention"],
+                          "migrate": migrate_launches,
                           "serve_prefix": prefix_launches,
                           "serve_mixtral_int8": int8_launches,
                           "serve_quant_tiers": tier_launches,
@@ -3021,6 +3601,7 @@ def main() -> None:
                                     if name.endswith("decode")
                                     else dbrx_launches)[name],
                 "generate_mixtral": gen_moe_launches[name],
+                "serve_mixtral_spec": spec_moe_launches[name],
                 "train_mixtral": train_launches[name],
                 "train_mixtral_remat": remat_launches[name]}})
     bwd_main = next(c for c in bwd_cases if c["case"] == "bf16")
@@ -3044,5 +3625,39 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def run_only(names) -> None:
+    """``--only a,b``: the device line, the build and the named phases of
+    the speculation and migration group alone, for a short run while such
+    a phase is worked on; no summary and no result line."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.ops import _build
+
+    emit("device", kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    emit("build", seconds=time.perf_counter() - t0,
+         kernels=sorted(_build.build()))
+    ecfg = EngineConfig(block_size=16, num_blocks=2048, max_slots=8,
+                        max_blocks_per_seq=128, token_budget=512)
+    mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=8,
+                                  moe_dispatch="blockwise", moe_block_size=64)
+    phases = {"serve_spec": lambda: phase_serve_spec(LLAMA3_8B, ecfg),
+              "spec_cross_check": lambda: phase_spec_cross_check(LLAMA3_8B),
+              "serve_mixtral_spec":
+                  lambda: phase_serve_mixtral_spec(mixtral, ecfg),
+              "migrate": lambda: phase_migrate(LLAMA3_8B, ecfg)}
+    for name in names:
+        phases[name]()
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        run_only(sys.argv[2].split(","))
+    else:
+        main()

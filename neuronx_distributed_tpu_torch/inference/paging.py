@@ -19,17 +19,22 @@ size the pool is 4 GiB, and a functional update would hold a second copy.
 Prefix sharing (:class:`PrefixCache`, :func:`cow_copy_blocks`) lets later
 requests map the pool blocks of an earlier prompt's full blocks instead of
 prefilling them again; a block that several owners map is cloned before a
-divergent write.
+divergent write. :func:`mask_pool_positions` un-publishes rows (the
+speculation rollback), and :func:`extract_blocks` / :func:`inject_blocks`
+carry blocks between pools as host arrays (session migration, prefix
+shipping).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils.bfloat16 import to_host, to_torch
 from .kv_cache import PAD_POSITION
 
 
@@ -44,9 +49,11 @@ class PagedKVCache:
     ``k``/``v`` ``[L, num_blocks, block_size, KV, D]``; ``pos``
     ``[num_blocks, block_size]`` int32 true token position per pool slot
     (PAD_POSITION when empty; shared by all layers); ``block_tables``
-    ``[max_slots, max_blocks_per_seq]`` int32, entry ``-1`` = unmapped;
-    ``lengths`` ``[max_slots]`` int32 tokens resident per slot
-    (host-maintained bookkeeping, not read by the step).
+    ``[rows, max_blocks_per_seq]`` int32, entry ``-1`` = unmapped, one row
+    per table row of the engine (its slots, then the speculation lanes;
+    ``max_slots`` below names that row count, as in the JAX cache);
+    ``lengths`` ``[rows]`` int32 tokens resident per row (host-maintained
+    bookkeeping, not read by the step).
     """
 
     k: torch.Tensor
@@ -83,6 +90,15 @@ class QuantizedPagedKVCache(PagedKVCache):
     v_scale: Optional[torch.Tensor] = None
 
 
+def _pool_tensors(cache: PagedKVCache) -> Dict[str, torch.Tensor]:
+    """The pool's per-layer tensors by name: k, v, and an int8 pool's
+    scales."""
+    out = {"k": cache.k, "v": cache.v}
+    if isinstance(cache, QuantizedPagedKVCache):
+        out.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    return out
+
+
 @dataclass
 class PagedCacheView:
     """One layer's pool slice plus this step's routing, handed to
@@ -101,13 +117,15 @@ class PagedCacheView:
     at: torch.Tensor
 
 
-def _routing(num_blocks, block_size, max_slots, max_blocks_per_seq, dev):
+def _routing(num_blocks, block_size, table_rows, max_blocks_per_seq, dev):
+    """The stored positions and the routing tensors, sized by the table's
+    rows (the serving engine's slots plus its speculation lanes)."""
     return dict(
         pos=torch.full((num_blocks, block_size), PAD_POSITION,
                        dtype=torch.int32, device=dev),
-        block_tables=torch.full((max_slots, max_blocks_per_seq), -1,
+        block_tables=torch.full((table_rows, max_blocks_per_seq), -1,
                                 dtype=torch.int32, device=dev),
-        lengths=torch.zeros((max_slots,), dtype=torch.int32, device=dev),
+        lengths=torch.zeros((table_rows,), dtype=torch.int32, device=dev),
         block_size=block_size)
 
 
@@ -123,6 +141,25 @@ def init_paged_kv_cache(num_layers: int, num_blocks: int, block_size: int,
         v=torch.zeros(shape, dtype=dtype, device=dev),
         **_routing(num_blocks, block_size, max_slots, max_blocks_per_seq,
                    dev))
+
+
+def pool_accounting(num_layers: int, num_blocks: int, block_size: int,
+                    num_kv_heads: int, head_dim: int, *,
+                    kv_bytes: int = 2, quantized: bool = False,
+                    tp_size: int = 1, cp_size: int = 1) -> float:
+    """Bytes per device of the K+V pool tensors the two init functions
+    allocate (K and V ``[L, num_blocks, block_size, KV, D]``; the int8
+    variant stores one byte a value plus one fp32 scale a pool vector).
+    The KV-head dimension shards over ``tp_size`` and the block dimension
+    over ``cp_size``, as the reference's planner charges them."""
+    if cp_size < 1:
+        raise ValueError(f"cp_size must be >= 1, got {cp_size}")
+    elems = num_layers * num_blocks * block_size * num_kv_heads * head_dim
+    if quantized:
+        per_pool = elems * 1 + (elems // max(1, head_dim)) * 4
+    else:
+        per_pool = elems * kv_bytes
+    return 2.0 * per_pool / max(1, tp_size) / cp_size
 
 
 def init_quantized_paged_kv_cache(num_layers: int, num_blocks: int,
@@ -315,6 +352,26 @@ def write_pool_positions(pos: torch.Tensor, positions: torch.Tensor,
     return write_pool_rows(pos, positions, flat_idx)
 
 
+def mask_pool_positions(pos: torch.Tensor, flat_idx: torch.Tensor,
+                        reject: torch.Tensor) -> torch.Tensor:
+    """In place: set the stored position of every ``flat_idx[i]`` with
+    ``reject[i]`` to PAD_POSITION, so that those K/V rows never pass the
+    causal mask again (the speculation rollback). Indices outside the pool
+    (pad rows carry ``capacity``) drop.
+
+    One fixed-shape scatter with no host sync: an ``amax`` scatter of
+    PAD_POSITION at the rejected rows and of -1 (below every stored
+    position) elsewhere, which leaves those rows as they were."""
+    nb, bs = pos.shape
+    flat_idx = flat_idx.long()
+    hit = reject & (flat_idx >= 0) & (flat_idx < nb * bs)
+    vals = torch.where(hit, torch.full_like(flat_idx, PAD_POSITION),
+                       torch.full_like(flat_idx, -1)).to(pos.dtype)
+    pos.view(-1).scatter_reduce_(0, torch.where(hit, flat_idx, 0), vals,
+                                 "amax")
+    return pos
+
+
 # ---------------------------------------------------------------------------
 # Prefix sharing: a host-side trie over full prompt blocks. KV for a token
 # depends only on (token, position, params), so two prompts with a common
@@ -469,6 +526,58 @@ class PrefixCache:
         self._children.setdefault(chain, set())
         return chain, True
 
+    def snapshot(self, max_nodes: Optional[int] = None
+                 ) -> List[Dict[str, Any]]:
+        """Portable dump of (up to ``max_nodes``) trie nodes for another
+        replica, hottest subtrees first.
+
+        Chain hashes are per process, so an entry names its parent by index
+        into this list: ``{"parent": index | None, "tokens": tuple,
+        "block": local block id}``, parents before their children (the
+        importer replays the list in order through :meth:`insert`). When
+        truncating, whole root-to-leaf paths survive, ranked by the
+        subtree's most recent match."""
+        # a node's heat is the newest tick anywhere below it, so that a hot
+        # leaf keeps its whole ancestor path ahead of cold siblings
+        hot: Dict[int, int] = {}
+
+        def heat(chain: int) -> int:
+            got = hot.get(chain)
+            if got is None:
+                node = self._nodes[chain]
+                got = max([node.tick] + [heat(c) for c in
+                                         self._children.get(chain, ())])
+                hot[chain] = got
+            return got
+
+        out: List[Dict[str, Any]] = []
+        index: Dict[int, int] = {}
+
+        def walk(parent: Optional[int]) -> None:
+            kids = sorted(self._children.get(parent, ()),
+                          key=heat, reverse=True)
+            for chain in kids:
+                if max_nodes is not None and len(out) >= max_nodes:
+                    return
+                node = self._nodes[chain]
+                index[chain] = len(out)
+                out.append({"parent": index.get(parent),
+                            "tokens": node.tokens, "block": node.block})
+                walk(chain)
+
+        walk(None)
+        return out
+
+    def chain_of(self, parent: Optional[int],
+                 tokens: Sequence[int]) -> Optional[int]:
+        """Chain hash of the live node for ``tokens`` under ``parent``, or
+        None (resolves local chains without inserting)."""
+        chain = self._hash(parent, tuple(tokens))
+        node = self._nodes.get(chain)
+        if node is None or node.tokens != tuple(tokens):
+            return None
+        return chain
+
     def evict(self, want_free: int) -> List[int]:
         """Drop least-recently-matched *leaf* nodes until ``want_free``
         blocks have returned to the pool (a dropped node whose block other
@@ -516,11 +625,62 @@ def cow_copy_blocks(cache: PagedKVCache, src, dst, keep_upto
     dev = cache.pos.device
     src, dst, keep = (torch.as_tensor(a, dtype=torch.long).to(dev)
                       for a in (src, dst, keep_upto))
-    pools = [cache.k, cache.v]
-    if isinstance(cache, QuantizedPagedKVCache):
-        pools += [cache.k_scale, cache.v_scale]
-    for pool in pools:
+    for pool in _pool_tensors(cache).values():
         pool[:, dst] = pool[:, src]
     rows = cache.pos[src]
     cache.pos[dst] = rows.masked_fill(rows >= keep[:, None], PAD_POSITION)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Block transport: lift a block set out of one engine's pool and land it in
+# another's (session migration, prefix-trie shipping). Host code at step
+# boundaries; the payload is host numpy (bf16 as its raw words,
+# :class:`..utils.bfloat16.BF16Words`), so it can cross a process.
+# ---------------------------------------------------------------------------
+
+#: block axis of each :func:`extract_blocks` payload tensor: ``k``/``v``
+#: and their scales are pool-shaped ``[layers, blocks, ...]``, ``pos`` is
+#: ``[blocks, block_size]`` (the per-block integrity fingerprints read it)
+PAYLOAD_BLOCK_AXES = {"k": 1, "v": 1, "pos": 0, "k_scale": 1, "v_scale": 1}
+
+
+def extract_blocks(cache: PagedKVCache, blocks: Sequence[int],
+                   keep_upto: int) -> Dict[str, np.ndarray]:
+    """Lift ``blocks`` out of the pool as host arrays, ordered like
+    ``blocks``. Rows with stored position ``>= keep_upto`` are PAD_POSITION
+    in the extracted ``pos`` (a migrating session carries only its own
+    ``n_cached`` tokens, never a donor's stale rows); ``keep_upto=
+    PAD_POSITION`` keeps every real row (prefix shipments)."""
+    idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                          device=cache.pos.device)
+    pos = cache.pos[idx]
+    pos = torch.where(pos < keep_upto, pos, torch.full_like(pos,
+                                                            PAD_POSITION))
+    pools = _pool_tensors(cache)
+    # the reference's key order (k, v, pos, scales): the per-block
+    # fingerprints and a ticket's header list them in it
+    payload = {"k": pools.pop("k")[:, idx], "v": pools.pop("v")[:, idx],
+               "pos": pos}
+    payload.update((name, t[:, idx]) for name, t in pools.items())
+    return {name: to_host(t) for name, t in payload.items()}
+
+
+def inject_blocks(cache: PagedKVCache, blocks: Sequence[int],
+                  payload: Dict[str, Any]) -> PagedKVCache:
+    """In place: land an :func:`extract_blocks` payload at ``blocks`` (the
+    same order; freshly allocated by the destination). Every row of the
+    target blocks — K, V, scales and positions — is overwritten, so they
+    need no freed-position wipe."""
+    if len(blocks) != payload["pos"].shape[0]:
+        raise ValueError(
+            f"payload carries {payload['pos'].shape[0]} block(s) but "
+            f"{len(blocks)} destination ids were given")
+    dev = cache.pos.device
+    idx = torch.as_tensor(list(blocks), dtype=torch.long, device=dev)
+    for name, pool in _pool_tensors(cache).items():
+        pool[:, idx] = to_torch(payload[name]).to(device=dev,
+                                                  dtype=pool.dtype)
+    cache.pos[idx] = to_torch(payload["pos"]).to(device=dev,
+                                                 dtype=torch.int32)
     return cache

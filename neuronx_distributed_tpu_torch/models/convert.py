@@ -9,7 +9,8 @@ under the layer joined by dots (``attn/qkv/q_kernel`` is
 renames, whatever the layer holds: the MLP or the MoE (router, experts,
 shared experts), float or quantized (``*_q``, ``*_packed`` and ``*_scale``
 leaves cross by name). A tied config (``tie_embeddings``) has no
-``lm_head`` in either tree.
+``lm_head`` in either tree. A draft model crosses like any model;
+:func:`medusa_params_from_jax` carries Medusa heads across.
 
 It reads numpy arrays and imports nothing of JAX nor ``ml_dtypes``: an
 fp8 array (an ``ml_dtypes`` type) crosses as its bytes, viewed as the torch
@@ -80,3 +81,13 @@ def load_jax_params(model: LlamaForCausalLM,
     device)."""
     model.load_state_dict(params_from_jax(model.cfg, tree), strict=True)
     return model
+
+
+def medusa_params_from_jax(tree: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``MedusaHeads`` params (with or without the outer ``"params"``
+    key: ``res_{k}/{kernel,bias}``, ``head_{k}/kernel``) -> the state dict
+    of the port's :class:`..inference.speculative.MedusaHeads` (the same
+    names joined by dots, the same layouts)."""
+    return {".".join(path): _tensor(a)
+            for path, a in _leaves(tree.get("params", tree))}

@@ -545,12 +545,14 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
 def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
                   positions: torch.Tensor, kv_cache: PagedKVCache,
                   slot_ids: torch.Tensor,
-                  run_layer: Callable[..., torch.Tensor]):
+                  run_layer: Callable[..., torch.Tensor],
+                  return_hidden: bool = False):
     """The paged plumbing shared by the model families: embedding, rope,
     each token's block table and pool write index, the stored positions,
     then ``x = run_layer(layer, x, cos, sin, rope_pos, view)`` per layer,
     the final norm and the LM head. Returns ``(logits [1, T, V],
-    kv_cache)``; the pool is written in place."""
+    kv_cache)``, and the final-norm hidden states after them with
+    ``return_hidden``; the pool is written in place."""
     cfg = model.cfg
     if input_ids.dim() != 2 or input_ids.shape[0] != 1:
         raise ValueError("paged decode packs requests into one row batch "
@@ -581,13 +583,24 @@ def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
             v_scale=kv_cache.v_scale[i] if quantized else None,
             pos=kv_cache.pos, tables=tok_tables, rows=rows, at=at)
         x = run_layer(layer, x, cos, sin, rope_pos, view)
-    logits = model.logits(model.norm(x))
-    return logits, kv_cache
+    return _head(model, x, kv_cache, return_hidden)
+
+
+def _head(model: LlamaForCausalLM, x: torch.Tensor, kv_cache,
+          return_hidden: bool):
+    """The final norm and the LM head: ``(logits, cache)``, and the
+    post-norm hidden states (the Medusa heads' input) with
+    ``return_hidden``."""
+    x = model.norm(x)
+    if return_hidden:
+        return model.logits(x), kv_cache, x
+    return model.logits(x), kv_cache
 
 
 def contiguous_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
                        positions: torch.Tensor, kv_cache: KVCache,
-                       run_layer: Callable[..., torch.Tensor]):
+                       run_layer: Callable[..., torch.Tensor],
+                       return_hidden: bool = False):
     """The contiguous-cache plumbing shared by the model families (JAX
     ``models/llama.py:1146-1215``): embedding, rope, this step's positions
     recorded at ``index``, then ``x = run_layer(layer, x, cos, sin,
@@ -622,14 +635,14 @@ def contiguous_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
             v_scale=kv_cache.v_scale[i] if quantized else None,
             pos=kv_cache.pos, index=idx)
         x = run_layer(layer, x, cos, sin, rope_pos, view)
-    logits = model.logits(model.norm(x))
-    return logits, replace(kv_cache, index=idx + s)
+    return _head(model, x, replace(kv_cache, index=idx + s), return_hidden)
 
 
 def cached_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
                    positions: torch.Tensor, kv_cache,
                    slot_ids: Optional[torch.Tensor],
-                   run_layer: Callable[..., torch.Tensor]):
+                   run_layer: Callable[..., torch.Tensor],
+                   return_hidden: bool = False):
     """Dispatch on the cache's type, as the JAX
     ``llama_forward_with_cache`` does: a paged pool needs ``slot_ids`` and
     a batch of one packed row; a contiguous cache takes neither."""
@@ -637,16 +650,17 @@ def cached_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
         if slot_ids is None:
             raise ValueError("paged cache forward requires slot_ids [T]")
         return paged_forward(model, input_ids, positions, kv_cache,
-                             slot_ids, run_layer)
+                             slot_ids, run_layer, return_hidden)
     return contiguous_forward(model, input_ids, positions, kv_cache,
-                              run_layer)
+                              run_layer, return_hidden)
 
 
 @torch.no_grad()
 def llama_forward_with_cache(model: LlamaForCausalLM,
                              input_ids: torch.Tensor,
                              positions: torch.Tensor, kv_cache,
-                             slot_ids: Optional[torch.Tensor] = None):
+                             slot_ids: Optional[torch.Tensor] = None,
+                             return_hidden: bool = False):
     """KV-cached forward of one step.
 
     Paged pool (:class:`..inference.paging.PagedKVCache` or its int8
@@ -659,6 +673,9 @@ def llama_forward_with_cache(model: LlamaForCausalLM,
     Contiguous cache (:class:`..inference.kv_cache.KVCache` or
     ``QuantizedKVCache``): ``input_ids``/``positions`` ``[B, S]``, no
     ``slot_ids``; writes at ``kv_cache.index`` in place and returns
-    ``(logits [B, S, V], cache with index + S)``."""
+    ``(logits [B, S, V], cache with index + S)``.
+
+    ``return_hidden`` appends the final-norm hidden states ``[B, S, H]``
+    (the Medusa heads' input) to either return."""
     return cached_forward(model, input_ids, positions, kv_cache, slot_ids,
-                          lambda layer, *args: layer(*args))
+                          lambda layer, *args: layer(*args), return_hidden)

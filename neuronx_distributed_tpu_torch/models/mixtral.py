@@ -239,7 +239,8 @@ def decode_sentinel_empty(cfg: MixtralConfig, num_tokens: int) -> bool:
 def mixtral_forward_with_cache(model: MixtralForCausalLM,
                                input_ids: torch.Tensor,
                                positions: torch.Tensor, kv_cache,
-                               slot_ids: Optional[torch.Tensor] = None):
+                               slot_ids: Optional[torch.Tensor] = None,
+                               return_hidden: bool = False):
     """KV-cached forward of one step, as
     :func:`.llama.llama_forward_with_cache` (same arguments, same in-place
     writes) over a paged pool or a contiguous ``KVCache``. As in JAX there
@@ -250,4 +251,5 @@ def mixtral_forward_with_cache(model: MixtralForCausalLM,
                                      input_ids.shape[0] * input_ids.shape[1])
     return llama.cached_forward(
         model, input_ids, positions, kv_cache, slot_ids,
-        lambda layer, *args: layer(*args, sentinel_empty=sentinel)[0])
+        lambda layer, *args: layer(*args, sentinel_empty=sentinel)[0],
+        return_hidden)

@@ -45,6 +45,7 @@ import torch
 
 from ..obs.events import emit_event
 from ..obs.metrics import get_registry
+from ..utils.bfloat16 import is_bf16, widen_to_fp32_words
 from ..utils.logger import get_logger
 
 logger = get_logger(__name__)
@@ -219,6 +220,8 @@ def _is_float_np(dtype: np.dtype) -> bool:
 
 
 def _as_words_np(x: np.ndarray) -> np.ndarray:
+    if is_bf16(x):
+        return widen_to_fp32_words(x)
     a = np.ascontiguousarray(x)
     if a.dtype == np.bool_:
         return a.astype(np.uint32).reshape(-1)
@@ -233,10 +236,11 @@ def fingerprint_array_np(x: np.ndarray, blocks: int = 1) -> np.ndarray:
     constants, bit-identical output, in numpy's uint32 arithmetic, a
     million words at a time (the temporaries stay in cache). A bf16
     tensor reaches numpy as its exact fp32 widening
-    (``t.float().cpu().numpy()``)."""
+    (``t.float().cpu().numpy()``), or as its raw words in a
+    :class:`..utils.bfloat16.BF16Words` array, which folds the same."""
     if blocks < 1:
         raise ValueError(f"blocks must be >= 1, got {blocks}")
-    words = _as_words_np(np.asarray(x))
+    words = _as_words_np(np.asanyarray(x))
     if words.size == 0:
         words = np.zeros((blocks,), np.uint32)
     n = words.size
@@ -269,7 +273,7 @@ def fingerprint_blocks_np(arr: np.ndarray, axis: int) -> List[int]:
     """Per-slice fingerprints of a host array along ``axis`` (e.g. the
     block axis of an extracted KV payload): one int per block, so a
     corrupted shipped block is localized, not just detected."""
-    moved = np.moveaxis(np.asarray(arr), axis, 0)
+    moved = np.moveaxis(np.asanyarray(arr), axis, 0)
     return [int(fingerprint_array_np(moved[i])[0])
             for i in range(moved.shape[0])]
 

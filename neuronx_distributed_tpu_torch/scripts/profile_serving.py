@@ -9,16 +9,20 @@ Serves ``chip_smoke.py``'s phase-4 workload (Llama-3-8B at full width, all
 windows with ``torch.profiler``: the first prefill-heavy steps, and steady
 decode once every request is decoding. With ``--mixtral`` the model is
 phase 11's, Mixtral 8x7B's widths at 8 layers with blockwise dispatch,
-block 64 (add ``--disaggregated`` for phase 12's two workers). For each
-window it prints one JSON line: host wall time per step, device busy time
-per step, the device's idle share, the kernels by device time and the
-busy time by group (paged attention K1, the grouped GLU K5 and K6,
-cuBLAS products, the rest), each of the port's kernels by name (K1's
-``tc::paged_attention_wgmma`` and ``tc::paged_combine`` apart); and the
-wall time per decode step without the profiler. It also counts, over decode
-steps, how many pool key entries the attention kernel walked for real rows
-and for the step's pad rows (pad rows carry the last slot's block table,
-as in the JAX model, and their output is discarded).
+block 64 (add ``--disaggregated`` for phase 12's two workers). ``--spec``
+serves with speculation (``SpeculationConfig(4, 2)``, a self-draft, as
+``chip_smoke.py`` phase ``serve_spec``'s ``self_draft`` run) and traces
+steady speculation rounds (192 new tokens a request) in place of the
+decode window. For each window it prints one JSON line: host wall time per
+step, device busy time per step, the device's idle share, the kernels by
+device time and the busy time by group (paged attention K1, the grouped
+GLU K5 and K6, cuBLAS products, the rest), each of the port's kernels by
+name (K1's ``tc::paged_attention_wgmma`` and ``tc::paged_combine`` apart);
+and the wall time per decode step without the profiler. Without ``--spec``
+it also counts, over decode steps, how many pool key entries the attention
+kernel walked for real rows and for the step's pad rows (pad rows carry
+the last slot's block table, as in the JAX model, and their output is
+discarded).
 """
 
 from __future__ import annotations
@@ -134,6 +138,8 @@ def main() -> None:
                     help="Mixtral 8x7B widths at 8 layers, blockwise")
     ap.add_argument("--disaggregated", action="store_true",
                     help="two workers: decode 4 wide, prefill 512 wide")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculation, k=4, 2 branches, self-draft")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: CUDA is not available")
@@ -154,20 +160,28 @@ def main() -> None:
     if args.disaggregated:
         ecfg = dataclasses.replace(ecfg, disaggregated=True, max_slots=4,
                                    prefill_budget=512)
+    if args.spec:
+        from ..inference.speculative import SpeculationConfig
+
+        ecfg = dataclasses.replace(ecfg, speculation=SpeculationConfig(4, 2))
     eng = ServingEngine(cfg, family.init_state_dict(cfg, seed=0, std=0.02),
                         ecfg)
     rng = np.random.RandomState(0)
     for i, n in enumerate(rng.randint(128, 1025, 8)):
-        eng.submit(rng.randint(0, cfg.vocab_size, n).tolist(), 64,
-                   uid=f"r{i}")
+        # speculation lands about four tokens a round: enough tokens that
+        # every slot still speculates through both windows
+        eng.submit(rng.randint(0, cfg.vocab_size, n).tolist(),
+                   192 if args.spec else 64, uid=f"r{i}")
     eng.step()                          # first use: kernel build and load
     trace(eng.step, 1, "profiler_warmup")   # the first trace pays CUPTI's
     trace(eng.step, 3, "prefill")           # start
     while any(s is not None and not s.decoding for s in eng._slots):
         eng.step()
-    count_walked(eng, 3)
-    time_steps(eng.step, 5, "decode_unprofiled")
-    trace(eng.step, 5, "decode")
+    label = "spec_round" if args.spec else "decode"
+    if not args.spec:
+        count_walked(eng, 3)
+    time_steps(eng.step, 5, f"{label}_unprofiled")
+    trace(eng.step, 5, label)
     eng.run()
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
 

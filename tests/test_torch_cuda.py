@@ -1210,3 +1210,138 @@ def test_device_dequantizers_match_cpu_bit_for_bit(cuda, fmt):
         got = deq(q.to(cuda), s.to(cuda), dtype)
         assert torch.equal(got.cpu().view(torch.uint8),
                            deq(q, s, dtype).view(torch.uint8))
+
+
+def _spec_prompts():
+    rng = np.random.RandomState(3)
+    return [rng.randint(0, 256, n).tolist() for n in (9, 5, 12)]
+
+
+@pytest.mark.parametrize("draft", ["self", "one_layer"])
+def test_speculative_engine_on_card_matches_cpu(cuda, draft):
+    """An fp32 engine speculating (k=3, two branches) gives on the card the
+    CPU engine's greedy ids, speculation counters and allocator state, and
+    the plain engine's ids; K1 (head_dim 64) launches once per layer per
+    forward: the packed worker runs the target and the draft, the draft
+    worker the draft k+1 times, the verify worker the target once."""
+    from neuronx_distributed_tpu_torch.inference import speculative as tsp
+
+    cfg = tl.tiny_config(dtype=torch.float32, hidden_size=256, num_heads=4,
+                         num_kv_heads=2)                     # head_dim 64
+    sd = tl.init_state_dict(cfg, seed=0, std=0.02, device="cpu")
+    kw = {}
+    if draft == "one_layer":
+        dcfg = dataclasses.replace(cfg, num_layers=1)
+        kw = dict(draft_cfg=dcfg,
+                  draft_params=tl.init_state_dict(dcfg, seed=5, std=0.02,
+                                                  device="cpu"))
+    dl = kw["draft_cfg"].num_layers if kw else cfg.num_layers
+    k = 3
+    base = dict(block_size=4, num_blocks=48, max_slots=2,
+                max_blocks_per_seq=12, token_budget=16)
+    out = {}
+    for dev, spec in (("cpu", True), (cuda, True), (cuda, False)):
+        ecfg = te.EngineConfig(**base, speculation=(
+            tsp.SpeculationConfig(k, 2) if spec else None))
+        eng = te.ServingEngine(cfg, sd, ecfg, device=dev,
+                               **(kw if spec else {}))
+        before = tpa.paged_attention.launches
+        for i, p in enumerate(_spec_prompts()):
+            eng.submit(p, 10, uid=f"r{i}")
+            eng.step()
+        res = eng.run()
+        toks = {u: r.tokens for u, r in res.items()}
+        launches = tpa.paged_attention.launches - before
+        if not spec:
+            assert toks == out["cpu"][0]
+            continue
+        runs = eng.worker_runs
+        out["cpu" if dev == "cpu" else "card"] = (
+            toks, eng.stats.spec_rounds, eng.stats.spec_accepted_tokens,
+            eng.stats.steps, dict(runs), eng.allocator.num_allocated,
+            eng.worker_compile_counts())
+        assert launches == (0 if dev == "cpu" else
+                            (cfg.num_layers + dl) * runs["packed"]
+                            + dl * (k + 1) * runs["spec_draft"]
+                            + cfg.num_layers * runs["spec_verify"])
+    assert out["cpu"] == out["card"]
+    assert out["card"][1] > 0 and out["card"][5] == 0
+    assert set(out["card"][6].values()) == {1}
+
+
+@pytest.mark.parametrize("pool", ["fp32", "bf16", "int8"])
+def test_migration_on_card(cuda, pool):
+    """A session exported from a card engine mid-decode, through the wire,
+    lands on another card engine and finishes with the unmigrated card
+    run's ids (in fp32 also on a CPU engine); a ticket with a flipped
+    payload byte is refused on the wire, and a payload corrupted after
+    parsing fails the fingerprints with the destination untouched."""
+    from neuronx_distributed_tpu_torch.resilience.integrity import (
+        IntegrityError)
+
+    dtype = torch.bfloat16 if pool == "bf16" else torch.float32
+    cfg = tl.tiny_config(dtype=dtype, hidden_size=256, num_heads=4,
+                         num_kv_heads=2)
+    sd = tl.init_state_dict(cfg, seed=0, std=0.02, device="cpu")
+    ecfg = te.EngineConfig(block_size=4, num_blocks=32, max_slots=2,
+                           max_blocks_per_seq=12, token_budget=16,
+                           quantized=pool == "int8")
+    prompt = _spec_prompts()[2]
+    ref = te.ServingEngine(cfg, sd, ecfg, device=cuda)
+    ref.submit(prompt, 8, uid="m")
+    want = ref.run()["m"].tokens
+    src = te.ServingEngine(cfg, sd, ecfg, device=cuda)
+    src.submit(prompt, 8, uid="m")
+    for _ in range(3):
+        src.step()
+    raw = src.export_session("m").to_bytes()
+    assert src.allocator.num_allocated == 0
+    dst = te.ServingEngine(cfg, sd, ecfg, device=cuda)
+    dst.import_session(te.SessionTicket.from_bytes(raw))
+    assert dst.run()["m"].tokens == want
+    if pool == "fp32":
+        cpu = te.ServingEngine(cfg, sd, ecfg, device="cpu")
+        cpu.import_session(te.SessionTicket.from_bytes(raw))
+        assert cpu.run()["m"].tokens == want
+    with pytest.raises(te.TicketWireError):
+        te.SessionTicket.from_bytes(raw[:-7] + bytes([raw[-7] ^ 1])
+                                    + raw[-6:])
+    ticket = te.SessionTicket.from_bytes(raw)
+    ticket.kv["k"].reshape(-1)[:1].view(np.uint8)[0] ^= 1
+    free = dst.pool_free_blocks()
+    with pytest.raises(IntegrityError):
+        dst.import_session(ticket)
+    assert dst.pool_free_blocks() == free and not dst.has_work()
+
+
+def test_mask_pool_positions_and_block_transport_on_card(cuda):
+    """``mask_pool_positions`` and ``extract_blocks``/``inject_blocks`` on
+    the card give the CPU's results bit for bit (bf16 pool)."""
+    from neuronx_distributed_tpu_torch.inference import paging as tpg
+
+    rng = np.random.RandomState(0)
+    pos = torch.from_numpy(rng.randint(0, 90, (32, 16)).astype(np.int32))
+    flat = torch.from_numpy(rng.randint(0, 32 * 16 + 1, 300).astype(np.int32))
+    reject = torch.from_numpy(rng.rand(300) < 0.5)
+    got = tpg.mask_pool_positions(pos.to(cuda), flat.to(cuda),
+                                  reject.to(cuda))
+    assert torch.equal(got.cpu(), tpg.mask_pool_positions(pos.clone(), flat,
+                                                          reject))
+    caches = [tpg.init_paged_kv_cache(2, 32, 16, 2, 64, 3, 4,
+                                      dtype=torch.bfloat16, device=d)
+              for d in ("cpu", cuda)]
+    k = torch.randn(caches[0].k.shape).to(torch.bfloat16)
+    for c in caches:
+        c.k.copy_(k)
+        c.v.copy_(k * 2)
+        c.pos.copy_(pos)
+    payloads = [tpg.extract_blocks(c, [5, 1, 30], keep_upto=40)
+                for c in caches]
+    for name in payloads[0]:
+        assert np.array_equal(np.asarray(payloads[0][name]),
+                              np.asarray(payloads[1][name])), name
+    for c in caches:
+        tpg.inject_blocks(c, [7, 8, 9], payloads[0])
+    for name in ("k", "v", "pos"):
+        assert torch.equal(getattr(caches[0], name),
+                           getattr(caches[1], name).cpu()), name

@@ -185,7 +185,7 @@ def test_oversize_request_rejected_at_submit(models):
 
 def test_engine_config_has_no_later_slice_fields():
     with pytest.raises(TypeError):
-        te.EngineConfig(speculation=object())
+        te.EngineConfig(cp=2)
 
 
 def test_entry_points_default_to_cuda(models):
@@ -265,6 +265,33 @@ _ISOLATED = textwrap.dedent("""
                             weight_quant=fmt), device="cpu")
         eng.submit([1, 2, 3, 4, 5], 4, uid="q")
         assert len(eng.run()["q"].tokens) == 4
+    from neuronx_distributed_tpu_torch.inference import speculative as sp
+    for m in ("inference.speculative", "utils.bfloat16"):
+        assert pkg.__name__ + "." + m in mods, m
+    spec = te.EngineConfig(block_size=4, num_blocks=32, max_slots=2,
+                           max_blocks_per_seq=8, token_budget=8,
+                           speculation=sp.SpeculationConfig(2, 2))
+    plain = te.ServingEngine(cfg, sd, te.EngineConfig(
+        block_size=4, num_blocks=32, max_slots=2, max_blocks_per_seq=8,
+        token_budget=8), device="cpu")
+    plain.submit([1, 2, 3, 4, 5], 6, uid="a")
+    want = plain.run()["a"].tokens
+    eng = te.ServingEngine(cfg, sd, spec, device="cpu")
+    eng.submit([1, 2, 3, 4, 5], 6, uid="a")
+    assert eng.run()["a"].tokens == want
+    assert eng.stats.spec_rounds > 0
+    src = te.ServingEngine(cfg, sd, spec, device="cpu", name="src")
+    dst = te.ServingEngine(cfg, sd, spec, device="cpu", name="dst")
+    src.submit([1, 2, 3, 4, 5], 6, uid="a")
+    for _ in range(2):
+        src.step()
+    dst.import_session(te.SessionTicket.from_bytes(
+        src.export_session("a").to_bytes()))
+    assert dst.run()["a"].tokens == want
+    model = tl.build_model(cfg, sd, "cpu")
+    toks, _ = sp.speculative_generate(model, model, [[1, 2, 3, 4, 5]], [5],
+                                      4, speculation_length=2, buckets=(8,))
+    assert toks[0].tolist() == want[:4], toks
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                   "ml_dtypes", "neuronx_distributed_tpu")]
