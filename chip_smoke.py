@@ -242,6 +242,30 @@ script exits non-zero and prints no result:
    shipping gives the promised hits; an evicted request resubmitted
    elsewhere gives the same ids; prints ticket bytes a token and the ms of
    each step of a move.
+36. router: ``ReplicaRouter`` over 2 replicas of phase 4's engine sharing
+   one copy of the weights, 16 requests from two tenants (one on a finite
+   token bucket), ``r1`` crashed after 6 steps: availability 1.0, one
+   failover, resubmissions, one step shape per engine, K1 layers x worker
+   runs over every engine, one ``data_ptr`` for every replica's weights,
+   the crashed engine freed and the card's memory back to its baseline
+   after ``del`` (no garbage collection); prints fleet and single-replica
+   output tokens/s, TTFT p50/p99, resubmitted tokens and the bf16 greedy
+   match share (recorded, not limited).
+37. fabric: the two-tier prefill/decode fabric streaming every session
+   over the KV transport: a bf16 pool through the int8 wire codec, with
+   and without ``link_corrupt``, an int8 pool shipped raw (ids equal to
+   one engine's bit for bit) and a ``link_partition`` that tears every
+   stream (re-prefill); no leaked block, one decode step shape; prints
+   wire bytes a token, the ratio against fp32, chunks, retries and the
+   host ms a session of export, encode, transit and land.
+38. router_elastic: ``elastic_chaos_drill`` at full width on the real
+   clock (preemption with migration, ``scale_burst``, scale-down by
+   migration, revival, the SLO breach): availability 1.0, ids equal to
+   the reference, migrated tokens, one step shape.
+39. router_cross_check: full width, 2 layers, fp32: ``chaos_drill``,
+   ``sdc_serving_drill`` and ``fabric_chaos_drill`` on the card and on the
+   CPU give the same ids and dicts; the wire codec's codes and scales from
+   card tensors equal the CPU's bit for bit.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -261,6 +285,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -3439,6 +3464,452 @@ def phase_migrate(cfg, ecfg, new=32, n=4):
     return k1
 
 
+# ---------------------------------------------------------------------------
+# phases 36-39: the replica router and the two-tier fabric
+# ---------------------------------------------------------------------------
+
+class RouterTap:
+    """Within ``with RouterTap() as tap``, the router module builds its
+    engines, routers and streams as subclasses that record, and never
+    keep alive, what the router phases check: each engine's
+    ``worker_runs`` dict (K1 runs once per layer per worker run, crashed
+    engines included) and the host ms of its session exports, each
+    router's ``results`` dict, and each stream's host ms per stage:
+    ``encode`` (the codec and the fingerprints of every chunk), ``land``
+    (decode, verify and inject each delivered chunk, and the commit) and
+    ``transit`` (start to commit, less ``land``: the link and the router
+    loop's cadence). The module's own classes are back on exit."""
+
+    def __enter__(self):
+        from neuronx_distributed_tpu_torch.inference import router as rt
+
+        self._rt = rt
+        self._orig = (rt.ServingEngine, rt.ReplicaRouter,
+                      rt.KVStreamTransport)
+        runs, results, stages, exports, engines = [], [], [], [], []
+        self.runs, self.results = runs, results
+        self.stages, self.export_ms = stages, exports
+        self.engines = engines     # (name, weak reference), built in order
+
+        class Engine(rt.ServingEngine):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                runs.append(self.worker_runs)
+                engines.append((self.name, weakref.ref(self)))
+
+            def export_session(self, request_id):
+                t0 = time.perf_counter()
+                ticket = super().export_session(request_id)
+                exports.append((time.perf_counter() - t0) * 1e3)
+                return ticket
+
+        class Router(rt.ReplicaRouter):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                results.append(self.results)
+
+        class Stream(rt.KVStreamTransport):
+            def _encode_stream(self):
+                t0 = time.perf_counter()
+                wires = super()._encode_stream()
+                self._stage = {"encode_ms": (time.perf_counter() - t0)
+                               * 1e3, "land_ms": 0.0}
+                stages.append(self._stage)
+                return wires
+
+            def start(self, now):
+                self._stage["t0"] = time.perf_counter()
+                super().start(now)
+
+            def on_wire(self, data, now):
+                t0 = time.perf_counter()
+                super().on_wire(data, now)
+                t1 = time.perf_counter()
+                self._stage["land_ms"] += (t1 - t0) * 1e3
+                if self.state == "committed":
+                    self._stage["transit_ms"] = (
+                        (t1 - self._stage["t0"]) * 1e3
+                        - self._stage["land_ms"])
+
+        rt.ServingEngine, rt.ReplicaRouter, rt.KVStreamTransport = (
+            Engine, Router, Stream)
+        return self
+
+    def __exit__(self, *exc):
+        (self._rt.ServingEngine, self._rt.ReplicaRouter,
+         self._rt.KVStreamTransport) = self._orig
+        return False
+
+    def k1_want(self, layers):
+        return layers * sum(sum(r.values()) for r in self.runs)
+
+    def stage_ms(self):
+        """Mean host ms a session of each stage (committed streams for
+        transit)."""
+        out = {"export_ms": float(np.mean(self.export_ms))
+               if self.export_ms else None}
+        for key in ("encode_ms", "land_ms", "transit_ms"):
+            vals = [s[key] for s in self.stages if key in s]
+            out[key] = float(np.mean(vals)) if vals else None
+        return out
+
+
+def serving_weights(cfg):
+    """Llama weights made in the serving dtype on the card (seed 0)."""
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+
+    return init_state_dict(dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                           seed=0, std=0.02)
+
+
+def match_share(got, want):
+    """Share of requests whose ids equal the reference's, and share of
+    the ids (position by position)."""
+    same = sum(got[u] == want[u] for u in want)
+    pos = sum(a == b for u in want for a, b in zip(got[u], want[u]))
+    total = sum(len(want[u]) for u in want)
+    return same / max(1, len(want)), pos / max(1, total)
+
+
+def phase_router(cfg, ecfg, new=64, n=16):
+    """``ReplicaRouter`` with 2 replicas of phase 4's engine on one copy of
+    Llama-3-8B at 32 layers in bf16: 16 requests of 128-1024 prompt tokens
+    and 64 new tokens from two tenants, ``batch`` on a finite token bucket
+    (rate 0, a burst for 6 of its 8 requests: 2 throttled at submit), under
+    ``step|r1 : crash, after=6, times=1``; then the same requests on a
+    1-replica router with no fault. Asserts availability 1.0, one
+    failover, resubmits > 0, one step shape per replica engine that ran,
+    K1 launched layers x worker runs summed over every engine (the crashed
+    one too), one weight storage for every replica (``data_ptr``), the
+    crashed engine freed when dropped, and the card's allocated memory
+    back to its baseline after the router is deleted (no garbage
+    collection). Prints output tokens/s of the fleet beside the single
+    replica, TTFT p50/p99, resubmitted tokens and the bf16 greedy match
+    share against the single replica (recorded, not limited)."""
+    from neuronx_distributed_tpu_torch.inference import router as rt
+    from neuronx_distributed_tpu_torch.inference.engine import (
+        RequestRejected)
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+    from neuronx_distributed_tpu_torch.resilience.chaos import FaultPlan
+
+    sd = serving_weights(cfg)
+    rng = np.random.RandomState(3)
+    lens = rng.randint(128, 1025, n)
+    prompts = [rng.randint(0, cfg.vocab_size, m).tolist() for m in lens]
+    tenant_of = ["interactive" if i % 2 == 0 else "batch" for i in range(n)]
+    batch_cost = [int(lens[i]) + new for i in range(n)
+                  if tenant_of[i] == "batch"]
+    tenants = {"interactive": rt.TenantPolicy(priority=2),
+               "batch": rt.TenantPolicy(rate_tokens_per_s=0.0,
+                                        burst_tokens=float(
+                                            sum(batch_cost[:6])),
+                                        priority=1)}
+
+    def drive(num_replicas, chaos):
+        # the budget of the 2-replica fleet in both runs, so that both
+        # admit the same requests at the same load
+        router = rt.ReplicaRouter(
+            cfg, sd, ecfg, rt.RouterConfig(
+                num_replicas=num_replicas, tenants=tenants,
+                global_token_budget=2 * ecfg.num_blocks * ecfg.block_size),
+            chaos=chaos)
+        rejected = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, prompt in enumerate(prompts):
+            try:
+                router.submit(prompt, new, tenant=tenant_of[i], uid=f"r{i}")
+            except RequestRejected as e:
+                rejected.append((f"r{i}", e.reason))
+        res = router.run()
+        torch.cuda.synchronize()
+        return router, res, rejected, time.perf_counter() - t0
+
+    # the process's cuBLAS workspace (32 MiB on this card) comes with the
+    # first product on the stream and stays: make it before the baseline
+    torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with RouterTap() as tap:
+        paged_attention.launches = 0
+        router, res, rejected, wall = drive(2, FaultPlan.parse(
+            "step|r1 : crash, after=6, times=1"))
+        k1, k1_want = paged_attention.launches, tap.k1_want(cfg.num_layers)
+    # the first r1 crashed and was dropped: nothing may keep it alive
+    crashed_freed = next(ref for name, ref in tap.engines
+                         if name == "r1")() is None
+    sd_ptrs = {k: v.data_ptr() for k, v in sd.items()}
+    shared = all({k: v.data_ptr() for k, v in
+                  rep.engine.model.state_dict().items()} == sd_ptrs
+                 for rep in router.replicas if rep.engine is not None)
+    shapes = {rep.name: rep.engine.worker_compile_counts()
+              for rep in router.replicas if rep.engine is not None}
+    ran = {rep.name: sum(rep.engine.worker_runs.values())
+           for rep in router.replicas if rep.engine is not None}
+    one_shape = all(set(shapes[r].values()) == ({1} if ran[r] else {0})
+                    for r in shapes)
+    d = router.stats.to_dict()
+    admitted = d["admitted"]
+    got = {u: r.tokens for u, r in res.items() if r.status == "completed"}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del router, res
+    torch.cuda.synchronize()
+    leaked = torch.cuda.memory_allocated() - base
+    ref, ref_res, ref_rejected, ref_wall = drive(1, None)
+    want = {u: r.tokens for u, r in ref_res.items()
+            if r.status == "completed"}
+    del ref, ref_res
+    same_req, same_ids = match_share(got, want)
+    ok = (d["availability"] == 1.0 and d["failovers"] == 1
+          and d["resubmits"] > 0 and rejected == ref_rejected
+          and len(rejected) == 2 and set(got) == set(want)
+          and all(len(t) == new for t in got.values()))
+    if not ok:
+        raise AssertionError(f"router: stats {d}, rejected {rejected} "
+                             f"(reference {ref_rejected})")
+    if not shared or not one_shape or k1 != k1_want or k1 == 0 \
+            or not crashed_freed:
+        raise AssertionError(
+            f"router: shared weights {shared}, step shapes {shapes}, K1 "
+            f"{k1} want {k1_want}, crashed engine freed {crashed_freed}")
+    if leaked != 0:
+        raise AssertionError(f"router: {leaked} bytes still allocated "
+                             "after the router was deleted")
+    emit("router", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         replicas=2, requests=n, admitted=admitted, throttled=rejected,
+         new_tokens=new, prompt_tokens=int(lens.sum()),
+         fleet_output_tok_per_s=admitted * new / wall, fleet_wall_s=wall,
+         single_output_tok_per_s=admitted * new / ref_wall,
+         single_wall_s=ref_wall,
+         availability=d["availability"], failovers=d["failovers"],
+         resubmits=d["resubmits"],
+         resubmitted_tokens=d["resubmitted_tokens"],
+         revivals=d["revivals"], ttft_p50_ms=d["ttft_p50_ms"],
+         ttft_p99_ms=d["ttft_p99_ms"], steps=d["steps"],
+         greedy_match_requests=same_req, greedy_match_ids=same_ids,
+         step_shapes=shapes, shared_weights=shared,
+         crashed_engine_freed=crashed_freed,
+         weight_gib=sum(t.numel() * t.element_size()
+                        for t in sd.values()) / 2 ** 30,
+         peak_mem_gib=peak, leaked_bytes_after_delete=leaked,
+         k1_launches=k1)
+    del sd
+    free_cuda()
+    return k1
+
+
+def phase_fabric(cfg, ecfg, new=64, n=8):
+    """The two-tier fabric, ``FabricConfig(prefill_replicas=1,
+    decode_replicas=1)``, on one copy of phase 4's model: 8 requests of
+    200-1000 prompt tokens and 64 new tokens, every session streamed from
+    ``p0`` to ``d0`` once it has its first token over the default
+    ``StreamConfig`` link (25 GbE, 25 us). Four runs: a bf16 pool under
+    ``wire_dtype="auto"`` (the int8 blockwise codec); the same under
+    ``link|* : link_corrupt, p=0.2, times=4``; an int8 pool, shipped raw;
+    and a bf16 pool under a ``link_partition`` that tears every stream.
+    Asserts availability 1.0 and no pool block left allocated; the decode
+    tier's one step shape; with the int8 pool, ids equal bit for bit to
+    one colocated engine's (a raw passthrough is lossless); retries under
+    corruption; every stream aborted and re-prefilled under the partition;
+    K1 launched layers x worker runs. Prints wire bytes per cached token,
+    the wire ratio against fp32, chunks and retries, and the host ms a
+    session of each stage (export, encode, transit, land)."""
+    from neuronx_distributed_tpu_torch.inference import router as rt
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+    from neuronx_distributed_tpu_torch.resilience.chaos import FaultPlan
+
+    sd = serving_weights(cfg)
+    rng = np.random.RandomState(4)
+    lens = rng.randint(200, 1001, n)
+    prompts = [rng.randint(0, cfg.vocab_size, m).tolist() for m in lens]
+    int8 = dataclasses.replace(ecfg, quantized=True)
+    # the colocated reference for the lossless int8 passthrough
+    ref = ServingEngine(cfg, sd, int8, name="colocated")
+    for i, prompt in enumerate(prompts):
+        ref.submit(prompt, new, uid=f"r{i}")
+    want_int8 = {u: r.tokens for u, r in ref.run().items()}
+    del ref
+    runs = [("bf16", ecfg, ""),
+            ("bf16_corrupt", ecfg, "link|* : link_corrupt, p=0.2, times=4"),
+            ("int8", int8, ""),
+            ("bf16_partition", ecfg, "link|* : link_partition, times=1")]
+    out, k1_total = {}, 0
+    for label, e, plan in runs:
+        with RouterTap() as tap:
+            paged_attention.launches = 0
+            router = rt.ReplicaRouter(
+                cfg, sd, e,
+                rt.RouterConfig(fabric=rt.FabricConfig(
+                    prefill_replicas=1, decode_replicas=1)),
+                chaos=FaultPlan.parse(plan) if plan else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, prompt in enumerate(prompts):
+                router.submit(prompt, new, uid=f"r{i}")
+            res = router.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1, k1_want = (paged_attention.launches,
+                           tap.k1_want(cfg.num_layers))
+        d = router.stats.to_dict()
+        tiers = {rep.tier: rep.engine.worker_compile_counts()
+                 for rep in router.replicas}
+        leaked = sum(rep.engine.allocator.num_allocated
+                     for rep in router.replicas)
+        got = {u: r.tokens for u, r in res.items()}
+        payload = router.stats.handoff_wire_payload_bytes
+        del router, res
+        free_cuda()
+        k1_total += k1
+        problems = []
+        if d["availability"] != 1.0 or leaked or k1 != k1_want or not k1:
+            problems.append("availability, leak or K1")
+        if label == "bf16_partition":
+            if d["handoffs"] or d["handoff_aborts"] != n \
+                    or not d["reprefilled_tokens"]:
+                problems.append("partition did not tear every stream")
+            if set(tiers["decode"].values()) != {0}:
+                problems.append("the decode tier ran under the partition")
+        else:
+            if d["handoffs"] != n or d["handoff_aborts"]:
+                problems.append("not every session handed off")
+            if set(tiers["decode"].values()) != {1}:
+                problems.append("decode tier step shapes")
+        if label == "bf16_corrupt" and not d["handoff_retries"]:
+            problems.append("no retry under corruption")
+        if label == "int8" and got != want_int8:
+            problems.append("int8 passthrough ids differ from one engine's")
+        if problems:
+            raise AssertionError(f"fabric/{label}: {problems}: stats {d}, "
+                                 f"step shapes {tiers}, leaked {leaked}, K1 "
+                                 f"{k1} want {k1_want}")
+        out[label] = dict(
+            wall_s=wall, output_tok_per_s=n * new / wall,
+            handoffs=d["handoffs"], aborts=d["handoff_aborts"],
+            chunks=d["handoff_chunks"], retries=d["handoff_retries"],
+            wire_bytes=d["handoff_bytes"],
+            wire_payload_bytes_per_token=(
+                payload / d["migrated_tokens"] if d["handoffs"] else None),
+            wire_ratio=d["handoff_wire_ratio"],
+            migrated_tokens=d["migrated_tokens"],
+            reprefilled_tokens=d["reprefilled_tokens"],
+            ttft_p50_ms=d["ttft_p50_ms"], ttft_p99_ms=d["ttft_p99_ms"],
+            stages=tap.stage_ms(), decode_step_shapes=tiers["decode"],
+            k1_launches=k1)
+    emit("fabric", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         requests=n, new_tokens=new, prompt_tokens=int(lens.sum()),
+         int8_ids_equal_one_engine=True, runs=out, k1_launches=k1_total)
+    del sd
+    free_cuda()
+    return k1_total
+
+
+def phase_router_elastic(cfg, ecfg, n=8, prompt_len=256, new=16):
+    """``elastic_chaos_drill`` on phase 4's model at full width on the real
+    clock with 8 requests of 256 prompt tokens and 16 new: chaos preempts
+    ``r1`` (its sessions migrate out), a ``scale_burst`` scales up, a
+    scripted scale-down retires a replica by migration, ``r1`` revives,
+    and the drill's unmeetable TTFT objective breaches. Asserts
+    availability 1.0, greedy ids equal to the drill's 1-replica reference,
+    migrated tokens > 0, one step shape per engine, and K1 launched layers
+    x worker runs over every engine the drill built. Prints the drill's
+    dict."""
+    from neuronx_distributed_tpu_torch.inference import router as rt
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    sd = serving_weights(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RouterTap() as tap:
+        paged_attention.launches = 0
+        d = rt.elastic_chaos_drill(cfg, sd, ecfg, n_requests=n,
+                                   prompt_len=prompt_len,
+                                   max_new_tokens=new)
+        k1, k1_want = paged_attention.launches, tap.k1_want(cfg.num_layers)
+    wall = time.perf_counter() - t0
+    if (d["elastic_availability"] != 1.0
+            or d["elastic_greedy_match_ref"] != 1.0
+            or d["migrated_tokens"] <= 0 or d["max_compile_count"] != 1
+            or d["elastic_preemptions"] != 1 or k1 != k1_want or not k1):
+        raise AssertionError(f"router_elastic: {d}, K1 {k1} want {k1_want}")
+    emit("router_elastic", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         requests=n, prompt_len=prompt_len, new_tokens=new, wall_s=wall,
+         k1_launches=k1, **d)
+    del sd
+    free_cuda()
+    return k1
+
+
+def phase_router_cross_check(base_cfg):
+    """Full width, 2 layers, fp32, on the card and on the CPU from the same
+    weights under ``clock=lambda: 0.0``: ``chaos_drill``,
+    ``sdc_serving_drill`` and ``fabric_chaos_drill`` (int8 pool) give the
+    same ids in every router they build and the same dicts (TTFT keys left
+    out); the wire codec's int8 and fp8 codes and scales made from card
+    tensors (an fp32 weight slab and its bf16 cast, blocks of 256 and 7)
+    equal the CPU's bit for bit."""
+    from neuronx_distributed_tpu_torch.inference import router as rt
+    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+    from neuronx_distributed_tpu_torch.parallel import wire_codec as tw
+
+    cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
+    sd = init_state_dict(cfg, seed=0, std=0.02)
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    ecfg = EngineConfig(block_size=16, num_blocks=64, max_slots=4,
+                        max_blocks_per_seq=8, token_budget=16)
+    fab = dataclasses.replace(ecfg, quantized=True, max_slots=6)
+    drills = (("chaos_drill", ecfg), ("sdc_serving_drill", ecfg),
+              ("fabric_chaos_drill", fab))
+    sides = {}
+    for dev, weights in (("cuda", sd), ("cpu", sd_cpu)):
+        t0 = time.perf_counter()
+        with RouterTap() as tap:
+            dicts = {name: getattr(rt, name)(cfg, weights, e,
+                                             clock=lambda: 0.0, device=dev)
+                     for name, e in drills}
+        # chunk headers carry fingerprints of each side's own K/V, whose
+        # last bits differ: their digits move the byte count a little
+        sides[dev] = dict(
+            dicts={name: {k: v for k, v in d.items()
+                          if "ttft" not in k and k != "handoff_bytes"}
+                   for name, d in dicts.items()},
+            handoff_bytes=dicts["fabric_chaos_drill"]["handoff_bytes"],
+            ids=[{u: r.tokens for u, r in res.items()}
+                 for res in tap.results],
+            seconds=time.perf_counter() - t0)
+    hb = (sides["cuda"]["handoff_bytes"], sides["cpu"]["handoff_bytes"])
+    same_dicts = (sides["cuda"]["dicts"] == sides["cpu"]["dicts"]
+                  and abs(hb[0] - hb[1]) <= 1e-3 * hb[1])
+    same_ids = sides["cuda"]["ids"] == sides["cpu"]["ids"]
+    codes = {}
+    slab = sd["embed.embedding"][:4096]
+    for x in (slab, slab.bfloat16()):
+        for dtype in ("int8", "fp8"):
+            for block in (256, 7):
+                c = tw.CompressionConfig(dtype=dtype, block_size=block)
+                q, s_, _ = tw.quantize_blockwise(x, c)
+                qc, sc, _ = tw.quantize_blockwise(x.cpu(), c)
+                codes[f"{x.dtype}/{dtype}/{block}"] = (
+                    same_bits(q.cpu(), qc) and same_bits(s_.cpu(), sc))
+    if not (same_dicts and same_ids and all(codes.values())):
+        raise AssertionError(
+            f"router_cross_check: dicts equal {same_dicts}, ids equal "
+            f"{same_ids}, codes {codes}: {sides['cuda']['dicts']} against "
+            f"{sides['cpu']['dicts']}")
+    emit("router_cross_check", layers=cfg.num_layers, dtype="fp32",
+         drills=sides["cuda"]["dicts"], routers=len(sides["cuda"]["ids"]),
+         handoff_bytes_card_cpu=hb,
+         ids_equal=same_ids, dicts_equal=same_dicts, codec_bits_equal=codes,
+         card_s=sides["cuda"]["seconds"], cpu_s=sides["cpu"]["seconds"])
+    del sd, sd_cpu
+    free_cuda()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3513,6 +3984,10 @@ def main() -> None:
     phase_spec_cross_check(LLAMA3_8B)
     spec_moe_launches = phase_serve_mixtral_spec(mixtral, ecfg)
     migrate_launches = phase_migrate(LLAMA3_8B, ecfg)
+    router_launches = phase_router(LLAMA3_8B, ecfg)
+    fabric_launches = phase_fabric(LLAMA3_8B, ecfg)
+    elastic_launches = phase_router_elastic(LLAMA3_8B, ecfg)
+    phase_router_cross_check(LLAMA3_8B)
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=build)
@@ -3551,6 +4026,9 @@ def main() -> None:
                           "serve_mixtral_spec":
                               spec_moe_launches["paged_attention"],
                           "migrate": migrate_launches,
+                          "router": router_launches,
+                          "fabric": fabric_launches,
+                          "router_elastic": elastic_launches,
                           "serve_prefix": prefix_launches,
                           "serve_mixtral_int8": int8_launches,
                           "serve_quant_tiers": tier_launches,
@@ -3627,7 +4105,7 @@ def main() -> None:
 
 def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
-    the speculation and migration group alone, for a short run while such
+    the speculation, migration and router group alone, for a short run while such
     a phase is worked on; no summary and no result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3651,7 +4129,13 @@ def run_only(names) -> None:
               "spec_cross_check": lambda: phase_spec_cross_check(LLAMA3_8B),
               "serve_mixtral_spec":
                   lambda: phase_serve_mixtral_spec(mixtral, ecfg),
-              "migrate": lambda: phase_migrate(LLAMA3_8B, ecfg)}
+              "migrate": lambda: phase_migrate(LLAMA3_8B, ecfg),
+              "router": lambda: phase_router(LLAMA3_8B, ecfg),
+              "fabric": lambda: phase_fabric(LLAMA3_8B, ecfg),
+              "router_elastic": lambda: phase_router_elastic(LLAMA3_8B,
+                                                             ecfg),
+              "router_cross_check":
+                  lambda: phase_router_cross_check(LLAMA3_8B)}
     for name in names:
         phases[name]()
 

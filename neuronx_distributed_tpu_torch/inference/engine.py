@@ -794,6 +794,13 @@ class ServingEngine:
                 return list(req.prompt), list(req.generated)
         raise KeyError(f"request {request_id!r} is not live on this engine")
 
+    def aot_warm(self) -> bool:
+        """Whether every worker loaded from an executable cache: always
+        ``False``, the reference's answer for an engine whose workers were
+        not loaded from one (eager PyTorch compiles nothing a cache could
+        hold)."""
+        return False
+
     # -- live migration ---------------------------------------------------
 
     def export_session(self, request_id: str) -> SessionTicket:

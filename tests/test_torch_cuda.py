@@ -1345,3 +1345,117 @@ def test_mask_pool_positions_and_block_transport_on_card(cuda):
     for name in ("k", "v", "pos"):
         assert torch.equal(getattr(caches[0], name),
                            getattr(caches[1], name).cpu()), name
+
+
+def _wire_cases():
+    rng = np.random.RandomState(0)
+    cases = [torch.from_numpy((rng.randn(4099) * 3).astype(np.float32)),
+             torch.from_numpy((rng.randn(1000) * 1e-30).astype(np.float32)),
+             torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 126.5, 127.0, 3.5]),
+             torch.tensor([448.0, 447.99, -448.0, 1.0, 0.25, -3.0, 0.0]),
+             torch.tensor([1e-39, -5e-40, 0, 0, 1e-37, 3e-38, -1e-37, 0,
+                           1e-36, 1e-38, 0, -0.0])]
+    # a bf16 K/V slab, as the fabric ships it
+    cases.append(torch.from_numpy(rng.randn(64, 16, 8, 128).astype(
+        np.float32)).bfloat16())
+    return cases
+
+
+@pytest.mark.parametrize("block", [1, 4, 7, 256])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_wire_codec_on_card_matches_cpu_bit_for_bit(cuda, dtype, block):
+    """The blockwise wire codec on CUDA tensors gives the CPU's codes and
+    scales bit for bit (ties at .5, values at ±448, denormal and flushed
+    scales, a bf16 slab), and the payload codec too."""
+    from neuronx_distributed_tpu_torch.parallel import wire_codec as tw
+
+    cfg = tw.CompressionConfig(dtype=dtype, block_size=block)
+    for x in _wire_cases():
+        q_dev, s_dev, n_dev = tw.quantize_blockwise(x.to(cuda), cfg)
+        q, s, n = tw.quantize_blockwise(x, cfg)
+        assert n_dev == n and q_dev.device.type == "cuda"
+        assert torch.equal(_as_bits(q_dev), _as_bits(q))
+        assert torch.equal(_as_bits(s_dev), _as_bits(s))
+        d_dev = tw.dequantize_blockwise(q_dev, s_dev, x.shape, cfg).cpu()
+        d = tw.dequantize_blockwise(q, s, x.shape, cfg)
+        nan = torch.isnan(d)
+        assert torch.equal(torch.isnan(d_dev), nan)
+        assert torch.equal(_as_bits(d_dev[~nan]), _as_bits(d[~nan]))
+    x = _wire_cases()[-1]
+    q_dev, s_dev = tw.encode_payload(x.to(cuda), cfg)
+    q, s = tw.encode_payload(x, cfg)
+    assert torch.equal(_as_bits(q_dev), _as_bits(q))
+    assert torch.equal(_as_bits(s_dev), _as_bits(s))
+
+
+def _router_case(cuda, chaos=None, num_replicas=2):
+    from neuronx_distributed_tpu_torch.inference import router as tr
+
+    cfg = tl.tiny_config(dtype=torch.bfloat16, hidden_size=256, num_heads=4,
+                         num_kv_heads=2)
+    sd = tl.init_state_dict(cfg, seed=0, std=0.02, device="cpu")
+    ecfg = te.EngineConfig(block_size=4, num_blocks=64, max_slots=2,
+                           max_blocks_per_seq=12, token_budget=16)
+    return tr.ReplicaRouter(cfg, sd, ecfg,
+                            tr.RouterConfig(num_replicas=num_replicas),
+                            chaos=chaos, clock=lambda: 0.0, device=cuda)
+
+
+def test_router_replicas_share_one_weight_copy_on_card(cuda):
+    """Every replica, and a scale-up, holds the same weight storage: the
+    router moves the CPU state dict to the card once."""
+    before = torch.cuda.memory_allocated()
+    router = _router_case(cuda, num_replicas=1)
+    one = torch.cuda.memory_allocated() - before
+    router.scale_up("test")
+    router.scale_up("test")
+    ptrs = [{n: t.data_ptr() for n, t in r.engine.model.state_dict().items()}
+            for r in router.replicas]
+    assert len(ptrs) == 3 and ptrs[0] == ptrs[1] == ptrs[2]
+    assert all(router.params[n].data_ptr() == p for n, p in ptrs[0].items())
+    weights = sum(t.numel() * t.element_size()
+                  for t in router.params.values())
+    pool = one - weights
+    # two more replicas added two pools and no weights
+    assert torch.cuda.memory_allocated() - before == weights + 3 * pool
+
+
+def test_router_frees_a_crashed_replica_and_itself_without_gc(cuda):
+    """A crashed replica's engine and pool free when the router drops it,
+    and deleting the router returns the card's memory to its baseline, all
+    with the garbage collector off."""
+    import gc
+    import weakref
+
+    from neuronx_distributed_tpu_torch.resilience.chaos import FaultPlan
+
+    # the process's cuBLAS workspace comes with the first product on the
+    # stream and stays: make it before the baseline
+    torch.ones(8, 8, device=cuda) @ torch.ones(8, 8, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        router = _router_case(cuda, FaultPlan.parse(
+            "step|r1 : crash, after=2, times=1"))
+        doomed = weakref.ref(router.replicas[1].engine)
+        pool = router.replicas[1].engine.cache.k
+        pool_bytes = pool.numel() * pool.element_size() * 2
+        pool = weakref.ref(pool)
+        rng = np.random.RandomState(0)
+        for i in range(5):
+            router.submit(rng.randint(0, 256, 20).tolist(), 6, uid=f"r{i}")
+        router.step()   # each engine's first step makes what it keeps
+        before = torch.cuda.memory_allocated()
+        while router.stats.failovers == 0:
+            router.step()
+        assert doomed() is None and pool() is None
+        assert torch.cuda.memory_allocated() <= before - pool_bytes
+        res = router.run()
+        assert all(r.status == "completed" for r in res.values())
+        assert router.stats.revivals == 1
+        del router, res
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        gc.enable()

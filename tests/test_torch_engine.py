@@ -292,6 +292,15 @@ _ISOLATED = textwrap.dedent("""
     toks, _ = sp.speculative_generate(model, model, [[1, 2, 3, 4, 5]], [5],
                                       4, speculation_length=2, buckets=(8,))
     assert toks[0].tolist() == want[:4], toks
+    for m in ("inference.router", "inference.transport",
+              "parallel.wire_codec"):
+        assert pkg.__name__ + "." + m in mods, m
+    from neuronx_distributed_tpu_torch.inference import router as rt
+    d = rt.chaos_drill(cfg, sd, te.EngineConfig(
+        block_size=4, num_blocks=16, max_slots=2, max_blocks_per_seq=8,
+        token_budget=8), clock=lambda: 0.0, device="cpu")
+    assert d["router_availability"] == 1.0, d
+    assert d["router_greedy_match_ref"] == 1.0, d
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                   "ml_dtypes", "neuronx_distributed_tpu")]
