@@ -261,11 +261,42 @@ script exits non-zero and prints no result:
 38. router_elastic: ``elastic_chaos_drill`` at full width on the real
    clock (preemption with migration, ``scale_burst``, scale-down by
    migration, revival, the SLO breach): availability 1.0, ids equal to
-   the reference, migrated tokens, one step shape.
+   the reference, migrated tokens, one step shape. Every engine of the
+   drill serves through its executable cache (captured workers): K1 is
+   launched twice a layer by each capture (warm-up and capture) and runs
+   once a layer each replay, one replay a worker run;
+   ``router_elastic_aot`` prints the drill's spin-up times cold and warm
+   and the cache's hits and misses.
 39. router_cross_check: full width, 2 layers, fp32: ``chaos_drill``,
    ``sdc_serving_drill`` and ``fabric_chaos_drill`` on the card and on the
    CPU give the same ids and dicts; the wire codec's codes and scales from
    card tensors equal the CPU's bit for bit.
+
+40. serve_graph (run after phase 5): phase 4's model, engine config and
+   requests served eagerly and through ``ServingEngine(aot_cache=
+   AotExecutableCache())``, whose packed worker is a CUDA graph: greedy
+   ids equal bit for bit (also to phase 4's), one step shape, every step
+   of the captured run under ``torch.cuda.set_sync_debug_mode("error")``,
+   K1's output of every layer at a captured step equal to the eager
+   forward's on the same inputs and pool bit for bit; K1 launched only by
+   the capture (twice a layer), replays one a step. Prints each run's step
+   p50, and over five steady decode steps the wall ms a step, the
+   profiler's device busy ms a step and the idle share.
+41. aot_warm: phase 40's captured engine freed and a second built against
+   its cache: ``aot_warm()``, the same ids, construction ms cold (capture)
+   against warm (lease).
+42. serve_graph_mixtral (run after phase 12): phases 11 and 12 through the
+   cache, packed and disaggregated: ids equal to those phases', K5 (packed
+   step, prefill worker) and K6 (decode worker) launched only by the
+   captures and replayed each run.
+43. bundle: ``register_serving_workers`` on Llama-3-8B's widths at 4
+   layers (phase 12's disaggregated geometry) and a contiguous
+   ``context_encoding``/``token_generation`` bundle over the same weights,
+   both captured here, saved, and loaded in a fresh ``python3`` process on
+   the card: each key's logits there equal this process's bit for bit, and
+   ``bundle_generate`` gives the ids of ``generate`` in both.
+44. benchmark: ``python -m neuronx_distributed_tpu_torch.inference.
+   benchmark`` on the card; its JSON line is printed on a line of its own.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -600,6 +631,10 @@ def phase_kernel_vs_plain():
 # phases 4-6: the serving engine
 # ---------------------------------------------------------------------------
 
+#: each serve() run's greedy ids and stats report, by phase label
+SERVE_RUNS = {}
+
+
 def serve(cfg, ecfg, label, probe=None):
     """Serve 8 requests through ``ServingEngine`` and check the launch
     counts: K1 once per layer per worker run; for a blockwise Mixtral K5
@@ -663,6 +698,7 @@ def serve(cfg, ecfg, label, probe=None):
         raise AssertionError(f"{label}: launches {launches}, want {want} "
                              f"(layers x worker runs {runs})")
     rep = eng.stats.report()
+    SERVE_RUNS[label] = ({u: r.tokens for u, r in res.items()}, rep)
     emit(label, layers=cfg.num_layers, dtype=str(cfg.dtype),
          weight_quant=cfg.weight_quant, weight_gib=state_gib(eng.model),
          quantized_pool=ecfg.quantized,
@@ -2574,6 +2610,38 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
+def memory_base():
+    """Allocated bytes once the current stream has its cuBLAS workspace
+    (made by the process's first product on it, and kept)."""
+    torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
+    free_cuda()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def check_freed(label, base, slack=64 * 2 ** 20):
+    """Raise when more than ``slack`` bytes (the capture stream's cuBLAS
+    workspace, made once) stay allocated over ``base`` (``memory_base``)
+    once a phase dropped its objects; names the engines, captures and
+    caches still alive and what refers to them."""
+    import gc
+
+    from neuronx_distributed_tpu_torch.inference import aot_cache as ac
+    from neuronx_distributed_tpu_torch.inference import engine as te
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    if held > slack:
+        live = [(type(o).__name__, sorted({type(r).__name__ for r in
+                                           gc.get_referrers(o)}))
+                for o in gc.get_objects()
+                if isinstance(o, (te.ServingEngine, ac.CapturedStep,
+                                  ac.AotExecutableCache))]
+        raise AssertionError(f"{label}: {held / 2 ** 30:.3f} GiB still "
+                             f"allocated after the phase; alive: {live}")
+    return held
+
+
 def token_file(directory, vocab, seq, n_seqs=64, seed=0):
     """A flat uint32 token file of ``n_seqs`` sequences of ``seq + 1``
     tokens from numpy ``RandomState(seed)``."""
@@ -3473,7 +3541,9 @@ class RouterTap:
     engines, routers and streams as subclasses that record, and never
     keep alive, what the router phases check: each engine's
     ``worker_runs`` dict (K1 runs once per layer per worker run, crashed
-    engines included) and the host ms of its session exports, each
+    engines included), how many workers it captured (``captured``) and
+    each graph replay (``replays``), and the host ms of its session
+    exports, each
     router's ``results`` dict, and each stream's host ms per stage:
     ``encode`` (the codec and the fingerprints of every chunk), ``land``
     (decode, verify and inject each delivered chunk, and the commit) and
@@ -3486,8 +3556,12 @@ class RouterTap:
         self._rt = rt
         self._orig = (rt.ServingEngine, rt.ReplicaRouter,
                       rt.KVStreamTransport)
+        from neuronx_distributed_tpu_torch.inference import aot_cache
+
         runs, results, stages, exports, engines = [], [], [], [], []
+        captured, replays = [], []
         self.runs, self.results = runs, results
+        self.captured, self.replays = captured, replays
         self.stages, self.export_ms = stages, exports
         self.engines = engines     # (name, weak reference), built in order
 
@@ -3495,6 +3569,8 @@ class RouterTap:
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
                 runs.append(self.worker_runs)
+                captured.append(sum(not w.from_cache for w in
+                                    (self._aot_workers or {}).values()))
                 engines.append((self.name, weakref.ref(self)))
 
             def export_session(self, request_id):
@@ -3531,6 +3607,14 @@ class RouterTap:
                         (t1 - self._stage["t0"]) * 1e3
                         - self._stage["land_ms"])
 
+        worker_call = aot_cache.AotWorker.__call__
+
+        def counted(worker):
+            replays.append(1)
+            return worker_call(worker)
+
+        self._aot, self._worker_call = aot_cache, worker_call
+        aot_cache.AotWorker.__call__ = counted
         rt.ServingEngine, rt.ReplicaRouter, rt.KVStreamTransport = (
             Engine, Router, Stream)
         return self
@@ -3538,6 +3622,7 @@ class RouterTap:
     def __exit__(self, *exc):
         (self._rt.ServingEngine, self._rt.ReplicaRouter,
          self._rt.KVStreamTransport) = self._orig
+        self._aot.AotWorker.__call__ = self._worker_call
         return False
 
     def k1_want(self, layers):
@@ -3821,6 +3906,7 @@ def phase_router_elastic(cfg, ecfg, n=8, prompt_len=256, new=16):
     from neuronx_distributed_tpu_torch.ops.paged_attention import (
         paged_attention)
 
+    base = memory_base()
     sd = serving_weights(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3829,19 +3915,34 @@ def phase_router_elastic(cfg, ecfg, n=8, prompt_len=256, new=16):
         d = rt.elastic_chaos_drill(cfg, sd, ecfg, n_requests=n,
                                    prompt_len=prompt_len,
                                    max_new_tokens=new)
-        k1, k1_want = paged_attention.launches, tap.k1_want(cfg.num_layers)
+        k1 = paged_attention.launches
+        nl = cfg.num_layers
+        captures, replays = sum(tap.captured), len(tap.replays)
+        runs = sum(sum(r.values()) for r in tap.runs)
     wall = time.perf_counter() - t0
+    aot = {k: d.pop(k) for k in ("bundle_cold_start_ms",
+                                 "bundle_cold_start_warm_ms",
+                                 "bundle_cold_start_speedup",
+                                 "aot_warm_loaded", "aot_cache_hits",
+                                 "aot_cache_misses")}
     if (d["elastic_availability"] != 1.0
             or d["elastic_greedy_match_ref"] != 1.0
             or d["migrated_tokens"] <= 0 or d["max_compile_count"] != 1
-            or d["elastic_preemptions"] != 1 or k1 != k1_want or not k1):
-        raise AssertionError(f"router_elastic: {d}, K1 {k1} want {k1_want}")
-    emit("router_elastic", layers=cfg.num_layers, dtype=str(cfg.dtype),
-         requests=n, prompt_len=prompt_len, new_tokens=new, wall_s=wall,
+            or d["elastic_preemptions"] != 1 or k1 != 2 * nl * captures
+            or captures != aot["aot_cache_misses"] or replays != runs
+            or not runs or aot["aot_warm_loaded"] != 1.0):
+        raise AssertionError(f"router_elastic: {d}, {aot}, K1 launches {k1}"
+                             f" captures {captures}, replays {replays} runs "
+                             f"{runs}")
+    emit("router_elastic", layers=nl, dtype=str(cfg.dtype), requests=n,
+         prompt_len=prompt_len, new_tokens=new, wall_s=wall,
          k1_launches=k1, **d)
+    emit("router_elastic_aot", captures=captures, worker_replays=replays,
+         **aot)
     del sd
     free_cuda()
-    return k1
+    check_freed("router_elastic", base)
+    return k1, replays
 
 
 def phase_router_cross_check(base_cfg):
@@ -3910,6 +4011,559 @@ def phase_router_cross_check(base_cfg):
     free_cuda()
 
 
+# ---------------------------------------------------------------------------
+# phases 40-44: captured workers, the executable cache, bundles, benchmark
+# ---------------------------------------------------------------------------
+
+class SyncErrors:
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block: any
+    synchronizing call there raises."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        return False
+
+
+class K1Stash:
+    """While on, every call of the model's K1 keeps its output tensor, in
+    call order. Tensors kept during a capture live in the graph's pool: a
+    replay rewrites them, so after a replay they hold its outputs."""
+
+    def __init__(self):
+        from neuronx_distributed_tpu_torch.models import llama
+
+        self._llama, self._real = llama, llama.paged_attention
+        self.outs = outs = []
+        real = self._real
+
+        def stash(*args, **kw):     # holds no reference to the stash
+            out = real(*args, **kw)
+            outs.append(out)
+            return out
+
+        self._stash = stash
+
+    def __enter__(self):
+        self._llama.paged_attention = self._stash
+        return self
+
+    def __exit__(self, *exc):
+        self._llama.paged_attention = self._real
+        return False
+
+
+# a device kernel's profiler name -> the wrapper whose runs it counts,
+# first match wins (K1's split combine is not a run of its own; serving's
+# K5 is bf16, so ``glu_act`` is K5's first pass)
+TRACED_KERNELS = (("grouped_glu_decode", "glu_act_wgmma<true>"),
+                  ("grouped_glu", "glu_act"),
+                  ("paged_attention", "paged_attention_"))
+
+
+def traced_runs(prof):
+    """Runs of K1, K5 and K6 in a trace, counted by kernel name."""
+    from torch.autograd import DeviceType
+
+    runs = {name: 0 for name, _ in TRACED_KERNELS}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = next((n for n, part in TRACED_KERNELS if part in e.key),
+                        None)
+            if name is not None:
+                runs[name] += e.count
+    return runs
+
+
+def decode_window(eng, steps=5):
+    """Wall ms a step over ``steps`` steps, then the device busy ms a step
+    (the profiler's kernel time over ``steps`` more) and the idle share,
+    ``1 - busy / wall``. With captured workers also the graph replays in
+    the profiled steps (``profiled_replays``, by worker) and the runs of
+    K1, K5 and K6 that the trace holds (``traced_kernel_runs``). A trace
+    can miss kernels (ROADMAP §C, ``tools/probe_trace_loss.py``): a
+    throwaway trace starts the profiler first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    before = eng.worker_replays()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    win = {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+           "device_idle_share": 1.0 - busy / wall}
+    if before:
+        win["profiled_replays"] = {w: n - before[w] for w, n in
+                                   eng.worker_replays().items()}
+        win["traced_kernel_runs"] = traced_runs(prof)
+    return win
+
+
+def hold_traced(label, win, nl, moe=False):
+    """The runs of K1, K5 and K6 a window's trace holds against layers x
+    the profiled replays of the workers that run each (K1 every worker;
+    for a blockwise MoE ``moe``, K5 the packed or prefill one and K6 the
+    decode one). Each kernel the
+    workers ran must show in the trace, and none more often than they ran
+    it; a shortfall is reported, not failed, since a trace can miss
+    kernels. Returns ``{kernel: {"runs", "want"}}`` for the kernels run."""
+    r = win["profiled_replays"]
+    wide = r.get("packed", 0) + r.get("prefill", 0)
+    want = {"paged_attention": nl * sum(r.values()),
+            "grouped_glu": nl * wide if moe else 0,
+            "grouped_glu_decode": nl * r.get("decode", 0) if moe else 0}
+    got = win["traced_kernel_runs"]
+    out = {k: {"runs": got[k], "want": w} for k, w in want.items()
+           if w or got[k]}
+    if not want["paged_attention"] or any(
+            not 0 < v["runs"] <= v["want"] for v in out.values()):
+        raise AssertionError(f"{label}: traced kernel runs {got} against "
+                             f"layers x profiled replays {want} ({r})")
+    return out
+
+
+def serve_requests(cfg, seed=0, n=8):
+    """Phase 4's prompts: 8 of 128-1024 tokens."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(128, 1025, n)
+    return [rng.randint(0, cfg.vocab_size, k).tolist() for k in lens]
+
+
+def drive_serve(eng, prompts, new, window=False, strict=False):
+    """Phase 4's schedule: six requests, the first token, two more
+    admitted mid-flight, run to the end; with ``window`` five steady
+    decode steps are timed and five profiled once every request decodes;
+    with ``strict`` every step outside the profiler runs under
+    :class:`SyncErrors`. Returns (ids, wall s, window or None)."""
+    import contextlib
+
+    guard = SyncErrors if strict else contextlib.nullcontext
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(6):
+        eng.submit(prompts[i], new, uid=f"r{i}")
+    with guard():
+        while eng.stats.tokens_generated == 0:
+            eng.step()
+    for i in (6, 7):
+        eng.submit(prompts[i], new, uid=f"r{i}")
+    win = None
+    if window:
+        with guard():
+            while eng._queue or any(
+                    s is not None and not s.decoding for s in eng._slots):
+                eng.step()
+        win = decode_window(eng)
+    with guard():
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [u for u, r in res.items()
+           if r.status != "completed" or len(r.tokens) != new]
+    if len(res) != len(prompts) or bad:
+        raise AssertionError(f"requests not completed: {bad}")
+    return {u: r.tokens for u, r in res.items()}, wall, win
+
+
+def phase_serve_graph(cfg, ecfg, new=64):
+    """Phases 40 and 41: phase 4's serving, eager against captured, then
+    the captured engine's warm successor. Returns K1's launches, the
+    worker replays of both captured engines, and K1's runs in the traced
+    window against layers x its replays (:func:`hold_traced`)."""
+    from neuronx_distributed_tpu_torch.inference.aot_cache import (
+        AotExecutableCache)
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.models import llama
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    base = memory_base()
+    sd = serving_weights(cfg)
+    prompts = serve_requests(cfg)
+    eng = ServingEngine(cfg, sd, ecfg)
+    eager, eager_wall, eager_win = drive_serve(eng, prompts, new, True)
+    eager_rep = eng.stats.report()
+    del eng
+    torch.cuda.empty_cache()
+    cache = AotExecutableCache()
+    torch.cuda.synchronize()
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    with K1Stash() as stash:
+        eng = ServingEngine(cfg, sd, ecfg, aot_cache=cache)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    nl = cfg.num_layers
+    graph_k1 = stash.outs[-nl:]     # the capture's, after the warm-up's
+    capture_launches = paged_attention.launches
+    got, wall, win = drive_serve(eng, prompts, new, True, strict=True)
+    rep = eng.stats.report()
+    launches = paged_attention.launches
+    # one more captured step on fresh requests, then the eager forward on
+    # the same inputs and pool: K1's outputs layer by layer
+    eng.submit(prompts[0][:200], 4, uid="k1")
+    eng.step()
+    eng.step()
+    graph_out = [t.clone() for t in graph_k1]
+    ex = eng._aot_workers["packed"].executable
+    tokens, positions, slot_ids = (t.clone() for t in ex.inputs)
+    with K1Stash() as eager_stash, torch.no_grad():
+        llama.llama_forward_with_cache(eng.model, tokens, positions,
+                                       eng.cache, slot_ids=slot_ids)
+    k1_equal = all(torch.equal(a, b)
+                   for a, b in zip(graph_out, eager_stash.outs))
+    eng.run()
+    replays = eng.worker_replays()
+    runs = dict(eng.worker_runs)
+    traced = hold_traced("serve_graph", win, nl)
+    if SERVE_RUNS.get("serve") and SERVE_RUNS["serve"][0] != eager:
+        raise AssertionError("serve_graph: the eager run's ids differ from "
+                             "phase serve's")
+    if (got != eager or eng.compile_count() != 1
+            or capture_launches != 2 * nl or launches != 2 * nl
+            or replays != runs or not k1_equal
+            or len(eager_stash.outs) != nl):
+        raise AssertionError(
+            f"serve_graph: ids equal {got == eager}, compile_count "
+            f"{eng.compile_count()}, K1 launches {capture_launches}/"
+            f"{launches} want {2 * nl}, replays {replays} runs {runs}, "
+            f"K1 bits equal {k1_equal}")
+    emit("serve_graph", layers=nl, dtype=str(cfg.dtype), requests=len(got),
+         new_tokens=len(got) * new, ids_equal_eager=True,
+         ids_equal_phase_serve=bool(SERVE_RUNS.get("serve")),
+         compile_count=eng.compile_count(), sync_debug_mode="error",
+         k1_bits_equal_eager=k1_equal, k1_capture_launches=capture_launches,
+         worker_replays=replays, traced_kernel_runs=traced,
+         capture_ms=cold_ms,
+         graph=dict(step_latency_p50_ms=rep["step_latency_p50_ms"],
+                    step_latency_p99_ms=rep["step_latency_p99_ms"],
+                    output_tok_per_s=len(got) * new / wall, **win),
+         eager=dict(step_latency_p50_ms=eager_rep["step_latency_p50_ms"],
+                    step_latency_p99_ms=eager_rep["step_latency_p99_ms"],
+                    output_tok_per_s=len(got) * new / eager_wall,
+                    **eager_win),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    total = sum(replays.values())
+    del eng, ex, stash, graph_k1, graph_out
+    # phase 41: the engine is gone, its capture waits in the cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = ServingEngine(cfg, sd, ecfg, aot_cache=cache)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    again, _, _ = drive_serve(warm, prompts, new, strict=True)
+    if not warm.aot_warm() or again != eager or cache.stats()["hits"] != 1:
+        raise AssertionError(f"aot_warm: warm {warm.aot_warm()}, ids equal "
+                             f"{again == eager}, {cache.stats()}")
+    emit("aot_warm", aot_warm=True, ids_equal_eager=True,
+         construct_cold_ms=cold_ms, construct_warm_ms=warm_ms,
+         speedup=cold_ms / warm_ms, cache=cache.stats())
+    total += sum(warm.worker_replays().values())
+    del warm, cache, sd, eager_stash
+    free_cuda()
+    check_freed("serve_graph", base)
+    return launches, total, traced
+
+
+def phase_serve_graph_mixtral(cfg, ecfg, new=64):
+    """Phase 42: phases 11 and 12 through the executable cache. Returns
+    per kernel its launches, the replays of the workers that run it, and
+    its runs in each run's traced window against layers x those replays
+    (:func:`hold_traced`)."""
+    from neuronx_distributed_tpu_torch.inference.aot_cache import (
+        AotExecutableCache)
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.models import mixtral
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as bm
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    base = memory_base()
+    sd = mixtral.init_state_dict(dataclasses.replace(
+        cfg, param_dtype=cfg.dtype), seed=0, std=0.02)
+    prompts = serve_requests(cfg)
+    nl = cfg.num_layers
+    out = {k: {"launches": 0, "worker_replays": 0, "traced": {}}
+           for k in ("paged_attention", "grouped_glu", "grouped_glu_decode")}
+    runs_line = {}
+    disagg = dataclasses.replace(ecfg, disaggregated=True, max_slots=4,
+                                 prefill_budget=512)
+    for label, e in (("serve_mixtral", ecfg),
+                     ("serve_mixtral_disagg", disagg)):
+        if label not in SERVE_RUNS:
+            serve(cfg, e, label)
+        want, want_rep = SERVE_RUNS[label]
+        paged_attention.launches = 0
+        bm.grouped_glu.launches = bm.grouped_glu_decode.launches = 0
+        eng = ServingEngine(cfg, sd, e, aot_cache=AotExecutableCache())
+        got, wall, win = drive_serve(eng, prompts, new, True, strict=True)
+        launches = {"paged_attention": paged_attention.launches,
+                    "grouped_glu": bm.grouped_glu.launches,
+                    "grouped_glu_decode": bm.grouped_glu_decode.launches}
+        replays = eng.worker_replays()
+        wide = replays.get("packed", 0) + replays.get("prefill", 0)
+        ran = {"paged_attention": sum(replays.values()),
+               "grouped_glu": wide,
+               "grouped_glu_decode": replays.get("decode", 0)}
+        traced = hold_traced(f"serve_graph_mixtral/{label}", win, nl,
+                             moe=True)
+        want_l = {"paged_attention": 2 * nl * len(replays),
+                  "grouped_glu": 2 * nl,
+                  "grouped_glu_decode": 2 * nl if e.disaggregated else 0}
+        if (got != want or launches != want_l or replays != eng.worker_runs
+                or set(eng.worker_compile_counts().values()) != {1}
+                or not ran["grouped_glu"]
+                or (e.disaggregated and not ran["grouped_glu_decode"])):
+            raise AssertionError(
+                f"serve_graph_mixtral/{label}: ids equal {got == want}, "
+                f"launches {launches} want {want_l}, replays {replays}, "
+                f"runs {eng.worker_runs}")
+        for k in out:
+            out[k]["launches"] += launches[k]
+            out[k]["worker_replays"] += ran[k]
+            if k in traced:
+                out[k]["traced"][label] = traced[k]
+        rep = eng.stats.report()
+        runs_line[label] = dict(
+            ids_equal_eager=True, worker_replays=replays,
+            capture_launches=launches, traced_kernel_runs=traced,
+            window=win,
+            step_latency_p50_ms=rep["step_latency_p50_ms"],
+            eager_step_latency_p50_ms=want_rep["step_latency_p50_ms"],
+            output_tok_per_s=len(got) * new / wall)
+        del eng
+        torch.cuda.empty_cache()
+    emit("serve_graph_mixtral", layers=nl, dtype=str(cfg.dtype),
+         sync_debug_mode="error", **runs_line)
+    del sd
+    free_cuda()
+    check_freed("serve_graph_mixtral", base)
+    return out
+
+
+def bundle_inputs(cfg, ecfg):
+    """The bundle phase's inputs, made from seed 5 on the CPU: two prompts
+    (300 and 200 tokens) packed into the prefill worker's width over slots
+    0 and 1, their next tokens in the decode worker's, and two contiguous
+    prompts (100 and 73 tokens)."""
+    from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
+
+    rng = np.random.RandomState(5)
+    e = ecfg
+    tables = np.full((e.max_slots, e.max_blocks_per_seq), -1, np.int32)
+    blocks = rng.permutation(e.num_blocks)
+    tables[0, :19] = blocks[:19]          # 300 tokens, block 16
+    tables[1, :13] = blocks[19:32]        # 200 tokens
+    width = e.prefill_budget or e.token_budget
+    tokens = np.zeros((1, width), np.int32)
+    positions = np.full((1, width), PAD_POSITION, np.int32)
+    slots = np.full((width,), e.max_slots, np.int32)
+    tokens[0, :500] = rng.randint(0, cfg.vocab_size, 500)
+    positions[0, :300] = np.arange(300)
+    positions[0, 300:500] = np.arange(200)
+    slots[:300], slots[300:500] = 0, 1
+    dtok = np.zeros((1, e.max_slots), np.int32)
+    dpos = np.full((1, e.max_slots), PAD_POSITION, np.int32)
+    dslots = np.full((e.max_slots,), e.max_slots, np.int32)
+    dtok[0, :2] = rng.randint(0, cfg.vocab_size, 2)
+    dpos[0, :2] = (300, 200)
+    dslots[:2] = (0, 1)
+    ids = rng.randint(0, cfg.vocab_size, (2, 100))
+    t = torch.from_numpy
+    return dict(tables=t(tables), prefill=(t(tokens), t(positions),
+                                            t(slots)),
+                decode=(t(dtok), t(dpos), t(dslots)), ids=ids,
+                plen=np.array([100, 73]))
+
+
+#: the contiguous bundle's prompt bucket and new tokens
+BUNDLE_BUCKET, BUNDLE_NEW = 128, 16
+
+
+def run_bundles(paged, contig, cfg, ecfg):
+    """Each key of the two bundles on :func:`bundle_inputs`, and
+    ``bundle_generate``: CPU tensors by name."""
+    from neuronx_distributed_tpu_torch.inference import model_builder as mb
+    from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
+
+    dev = torch.device("cuda")
+    x = bundle_inputs(cfg, ecfg)
+    out = {}
+    state = paged.init_state()
+    state.block_tables.copy_(x["tables"])
+    out["chunked_prefill"], state = paged.forward(
+        "chunked_prefill", paged.params, state,
+        *(a.to(dev) for a in x["prefill"]))
+    out["token_decode"], _ = paged.forward(
+        "token_decode", paged.params, state,
+        *(a.to(dev) for a in x["decode"]))
+    ids = torch.from_numpy(np.pad(x["ids"], ((0, 0), (0, BUNDLE_BUCKET
+                                                      - 100)))).to(dev)
+    plen = torch.from_numpy(x["plen"]).to(dev, torch.int32)
+    ar = torch.arange(BUNDLE_BUCKET, dtype=torch.int32, device=dev)
+    positions = torch.where(ar[None] < plen[:, None], ar[None],
+                            torch.full_like(ar[None], PAD_POSITION))
+    cache = contig.init_state()
+    out["context_encoding"], cache = contig.forward(
+        "context_encoding", contig.params, ids.to(torch.int32), positions,
+        cache)
+    rows = torch.arange(2, device=dev)
+    tok = out["context_encoding"][rows, plen.long() - 1].argmax(-1)
+    out["token_generation"], _ = contig.forward(
+        "token_generation", contig.params, tok[:, None].to(torch.int32),
+        plen[:, None], cache)
+    out["ids"] = mb.bundle_generate(contig, x["ids"], x["plen"], BUNDLE_NEW)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+_BUNDLE_CHILD = """
+import sys, torch
+import chip_smoke as cs
+from neuronx_distributed_tpu_torch.inference import model_builder as mb
+from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+paged, contig, out = sys.argv[1:4]
+cfg, ecfg = cs.bundle_configs(LLAMA3_8B, EngineConfig)
+res = cs.run_bundles(mb.NxDModel.load(paged), mb.NxDModel.load(contig),
+                     cfg, ecfg)
+torch.save(res, out)
+print("bundle child ok", flush=True)
+"""
+
+
+def bundle_configs(base, engine_config_cls):
+    """Llama-3-8B's widths at 4 layers and phase 12's disaggregated
+    geometry with 8 slots."""
+    cfg = dataclasses.replace(base, num_layers=4)
+    ecfg = engine_config_cls(block_size=16, num_blocks=2048, max_slots=8,
+                             max_blocks_per_seq=128, token_budget=512,
+                             disaggregated=True, prefill_budget=512)
+    return cfg, ecfg
+
+
+def phase_bundle(base):
+    """Phase 43. Returns K1's launches in this process (the captures)."""
+    import functools
+
+    from neuronx_distributed_tpu_torch.inference import model_builder as mb
+    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+    from neuronx_distributed_tpu_torch.inference.generation import generate
+    from neuronx_distributed_tpu_torch.inference.kv_cache import (
+        init_kv_cache)
+    from neuronx_distributed_tpu_torch.models import llama
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    cfg, ecfg = bundle_configs(base, EngineConfig)
+    start = memory_base()
+    sd = serving_weights(cfg)
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    paged = mb.register_serving_workers(mb.ModelBuilder(), cfg, ecfg,
+                                        sd).trace().compile()
+    spec = mb.serving_state_spec(cfg, ecfg)
+    paged.state_spec, paged.params = spec, sd
+    paged.device = torch.device("cuda")
+    b, max_len = 2, BUNDLE_BUCKET + 64       # generate's cache length
+    cspec = dict(num_layers=cfg.num_layers, batch=b, max_len=max_len,
+                 num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+                 dtype="bfloat16")
+    cache0 = init_kv_cache(**{**cspec, "dtype": torch.bfloat16})
+    fn = functools.partial(mb.cached_step, model_cfg=cfg)
+
+    def z(*s):
+        return torch.zeros(s, dtype=torch.int32, device="cuda")
+
+    contig = (mb.ModelBuilder()
+              .add("context_encoding", fn, [(sd, z(b, BUNDLE_BUCKET),
+                                             z(b, BUNDLE_BUCKET), cache0)])
+              .add("token_generation", fn, [(sd, z(b, 1), z(b, 1), cache0)])
+              .trace().compile())
+    contig.state_spec, contig.params = cspec, sd
+    contig.generation_config = {"buckets": [BUNDLE_BUCKET]}
+    contig.device = torch.device("cuda")
+    capture_s = time.perf_counter() - t0
+    here = run_bundles(paged, contig, cfg, ecfg)
+    x = bundle_inputs(cfg, ecfg)
+    ref = generate(llama.build_model(cfg, sd), x["ids"], x["plen"],
+                   BUNDLE_NEW, buckets=(BUNDLE_BUCKET,)).cpu()
+    launches = paged_attention.launches
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_bundle_", dir=build)
+    try:
+        paths = [os.path.join(workdir, n) for n in ("paged.nxd", "contig.nxd",
+                                                      "child.pt")]
+        t0 = time.perf_counter()
+        paged.save(paths[0], params=sd, state_spec=spec)
+        contig.save(paths[1], params=sd, state_spec=cspec,
+                    generation_config={"buckets": [BUNDLE_BUCKET]})
+        save_s = time.perf_counter() - t0
+        sizes = [os.path.getsize(p) for p in paths[:2]]
+        del paged, contig, cache0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", _BUNDLE_CHILD, *paths],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=400)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"bundle child failed:\n"
+                                 f"{child.stderr[-3000:]}")
+        there = torch.load(paths[2])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    same = {k: torch.equal(here[k], there[k]) for k in here}
+    if (not all(same.values()) or not torch.equal(here["ids"], ref)
+            or not torch.equal(there["ids"], ref) or not launches):
+        raise AssertionError(f"bundle: bits equal {same}, ids equal here "
+                             f"{torch.equal(here['ids'], ref)} there "
+                             f"{torch.equal(there['ids'], ref)}")
+    emit("bundle", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         keys={"paged": ["chunked_prefill", "token_decode"],
+               "contiguous": ["context_encoding", "token_generation"]},
+         fresh_process_bits_equal=same, generate_ids_equal=True,
+         capture_s=capture_s, save_s=save_s, fresh_process_s=child_s,
+         bundle_bytes=sizes, k1_capture_launches=launches)
+    del sd
+    free_cuda()
+    check_freed("bundle", start)
+    return launches
+
+
+def phase_benchmark():
+    """Phase 44: the benchmark command line on the card."""
+    out = subprocess.run(
+        [sys.executable, "-m", "neuronx_distributed_tpu_torch.inference."
+         "benchmark"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300, check=True)
+    line = out.stdout.strip().splitlines()[-1]
+    parsed = json.loads(line)
+    if (parsed["metric"] != "decode_tokens_per_sec_gpu"
+            or not parsed["value"] > 0):
+        raise AssertionError(f"benchmark: {line}")
+    print(line, flush=True)
+    emit("benchmark", metric=parsed["metric"], value=parsed["value"],
+         unit=parsed["unit"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -3942,6 +4596,7 @@ def main() -> None:
     launches = serve(LLAMA3_8B, ecfg, "serve")["paged_attention"]
     serve(dataclasses.replace(LLAMA3_8B, num_layers=4),
           dataclasses.replace(ecfg, quantized=True), "serve_int8")
+    graph_k1 = phase_serve_graph(LLAMA3_8B, ecfg)
     phase_cross_check(LLAMA3_8B)
     moe_cases = phase_moe_vs_plain()
     mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=8,
@@ -3952,6 +4607,7 @@ def main() -> None:
             mixtral, dataclasses.replace(ecfg, disaggregated=True,
                                          max_slots=4, prefill_budget=512),
             "serve_mixtral_disagg")["grouped_glu_decode"]}
+    graph_moe = phase_serve_graph_mixtral(mixtral, ecfg)
     phase_mixtral_cross_check(MIXTRAL_8X7B)
     int8_launches = serve(dataclasses.replace(MIXTRAL_8X7B, weight_quant="int8"),
                           ecfg, "serve_mixtral_int8",
@@ -3986,8 +4642,11 @@ def main() -> None:
     migrate_launches = phase_migrate(LLAMA3_8B, ecfg)
     router_launches = phase_router(LLAMA3_8B, ecfg)
     fabric_launches = phase_fabric(LLAMA3_8B, ecfg)
-    elastic_launches = phase_router_elastic(LLAMA3_8B, ecfg)
+    elastic_launches, elastic_replayed = phase_router_elastic(LLAMA3_8B,
+                                                              ecfg)
     phase_router_cross_check(LLAMA3_8B)
+    bundle_launches = phase_bundle(LLAMA3_8B)
+    phase_benchmark()
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=build)
@@ -4034,7 +4693,24 @@ def main() -> None:
                           "serve_quant_tiers": tier_launches,
                           "serve_dbrx": dbrx_launches["paged_attention"],
                           "serve_dbrx_disagg":
-                              dbrx_disagg_launches["paged_attention"]}}]
+                              dbrx_disagg_launches["paged_attention"],
+                          "serve_graph": graph_k1[0],
+                          "serve_graph_mixtral":
+                              graph_moe["paged_attention"]["launches"],
+                          "bundle": bundle_launches},
+        # captured paths: a replay adds to no launch count. The graph
+        # replays of the workers that run the kernel, counted by each
+        # AotWorker, and the kernel's runs in a traced window of replays
+        # against layers x the replays in it
+        "path_worker_replays": {
+            "serve_graph": graph_k1[1],
+            "serve_graph_mixtral":
+                graph_moe["paged_attention"]["worker_replays"],
+            "router_elastic": elastic_replayed},
+        "path_traced_runs": {
+            "serve_graph": graph_k1[2]["paged_attention"],
+            **{f"serve_graph_mixtral/{label}": v for label, v in
+               graph_moe["paged_attention"]["traced"].items()}}}]
     flash_main = next(c for c in flash_cases if c["case"] == "bf16")
     outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
@@ -4081,7 +4757,13 @@ def main() -> None:
                 "generate_mixtral": gen_moe_launches[name],
                 "serve_mixtral_spec": spec_moe_launches[name],
                 "train_mixtral": train_launches[name],
-                "train_mixtral_remat": remat_launches[name]}})
+                "train_mixtral_remat": remat_launches[name],
+                "serve_graph_mixtral": graph_moe[name]["launches"]},
+            "path_worker_replays": {
+                "serve_graph_mixtral": graph_moe[name]["worker_replays"]},
+            "path_traced_runs": {
+                f"serve_graph_mixtral/{label}": v for label, v in
+                graph_moe[name]["traced"].items()}})
     bwd_main = next(c for c in bwd_cases if c["case"] == "bf16")
     for name, replaces in MOE_BWD_KERNELS:
         t = bwd_main["timing"][name]
@@ -4105,8 +4787,9 @@ def main() -> None:
 
 def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
-    the speculation, migration and router group alone, for a short run while such
-    a phase is worked on; no summary and no result line."""
+    the speculation, migration, router and captured-serving group alone,
+    for a short run while such a phase is worked on; no summary and no
+    result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4134,6 +4817,11 @@ def run_only(names) -> None:
               "fabric": lambda: phase_fabric(LLAMA3_8B, ecfg),
               "router_elastic": lambda: phase_router_elastic(LLAMA3_8B,
                                                              ecfg),
+              "serve_graph": lambda: phase_serve_graph(LLAMA3_8B, ecfg),
+              "serve_graph_mixtral":
+                  lambda: phase_serve_graph_mixtral(mixtral, ecfg),
+              "bundle": lambda: phase_bundle(LLAMA3_8B),
+              "benchmark": phase_benchmark,
               "router_cross_check":
                   lambda: phase_router_cross_check(LLAMA3_8B)}
     for name in names:

@@ -10,6 +10,11 @@
 * :mod:`.router` — the multi-replica front end: placement, admission,
   failover, drain, elastic scaling by migration, the two-tier fabric.
 * :mod:`.transport` — the cross-host KV handoff stream and its link.
+* :mod:`.aot_cache` — the executable cache: serving workers captured in
+  CUDA graphs, leased by later replicas (warm scale-up and revival).
+* :mod:`.model_builder` — the multi-key, multi-bucket builder and runtime
+  container (``ModelBuilder`` / ``NxDModel``) with its bundles.
+* :mod:`.benchmark` — latency and throughput of the decode paths.
 """
 
 import importlib
@@ -18,12 +23,18 @@ import importlib
 # ``kv_cache`` and ``paging`` from this package, and the engine imports the
 # models, so importing the engine here would be a cycle.
 _NAMES = {
+    "aot_cache": ("AotExecutableCache", "AotWorker"),
+    "benchmark": (),
     "engine": ("EngineConfig", "EngineStats", "RequestRejected",
                "RequestResult", "ServingEngine", "SessionTicket",
                "TICKET_MAGIC", "TicketWireError"),
     "generation": ("DECODE_BUCKETS", "decode_step", "generate",
                    "pick_bucket", "prefill"),
     "kv_cache": ("KVCache", "init_kv_cache"),
+    "model_builder": ("ModelBuilder", "NxDModel", "bundle_generate",
+                      "bundle_speculative_generate", "generate_buckets",
+                      "register_serving_workers", "serving_state_spec",
+                      "shard_checkpoint"),
     "paging": ("BlockAllocator", "CacheExhaustedError", "PagedKVCache",
                "PrefixCache", "QuantizedPagedKVCache", "cow_copy_blocks",
                "init_paged_kv_cache", "init_quantized_paged_kv_cache"),

@@ -58,6 +58,16 @@ with no prefill; :meth:`ServingEngine.export_prefixes` ships the prefix
 trie's hottest blocks to a fresh engine. :meth:`ServingEngine.drain` stops
 admission and :meth:`ServingEngine.evict` hands a request back for
 resubmission.
+
+With ``aot_cache=`` (an :class:`.aot_cache.AotExecutableCache`) each
+fixed-shape worker (the packed one, or prefill and decode) is a step
+captured in a CUDA graph over the engine's input buffers and KV pool
+(:class:`.aot_cache.AotWorker`), leased from the cache when an entry of the
+same key is free (a revived replica, a scale-up after a scale-down) and
+captured and published otherwise. The sampler runs outside the graph on
+its logits; every host-to-device copy before a step goes from pinned
+staging memory into a buffer that keeps its address, and the sampled ids
+come back through one event, so a step makes no hidden host sync.
 """
 
 from __future__ import annotations
@@ -84,6 +94,8 @@ from ..quantization.serving import quantize_params_for_serving
 from ..resilience.integrity import (IntegrityError, fingerprint_array_np,
                                     kv_payload_fingerprints)
 from ..utils.bfloat16 import dtype_name, from_buffer, to_torch
+from .aot_cache import (AotExecutableCache, AotWorker, CapturedStep,
+                        source_fingerprint)
 from .kv_cache import PAD_POSITION
 from .paging import (PAYLOAD_BLOCK_AXES, BlockAllocator, CacheExhaustedError,
                      PrefixCache, cow_copy_blocks, extract_blocks,
@@ -495,9 +507,17 @@ class ServingEngine:
                  clock: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None, name: Optional[str] = None,
                  draft_cfg: Optional[LlamaConfig] = None,
-                 draft_params: Optional[Dict[str, torch.Tensor]] = None):
+                 draft_params: Optional[Dict[str, torch.Tensor]] = None,
+                 aot_cache: Optional[AotExecutableCache] = None):
+        if aot_cache is not None and engine_cfg.speculation is not None:
+            raise NotImplementedError(
+                "aot_cache with EngineConfig.speculation: the speculation "
+                "workers run eagerly in the PyTorch port; pass aot_cache="
+                "None to speculate, or drop speculation to serve captured "
+                "workers")
         self.device = resolve_device(device)
         self.name = name
+        self._aot = aot_cache
         wq = engine_cfg.weight_quant
         if wq is not None:
             if wq not in llama.WEIGHT_QUANT_FORMATS:
@@ -554,7 +574,11 @@ class ServingEngine:
             workers += ("spec_draft", "spec_verify")
         self._signatures: Dict[str, set] = {w: set() for w in workers}
         self.worker_runs: Dict[str, int] = {w: 0 for w in workers}
-        self.cache = self._init_cache()
+        self._aot_workers: Optional[Dict[str, AotWorker]] = None
+        if aot_cache is None:
+            self.cache = self._init_cache()
+        else:
+            self._build_aot_workers()
         self.dcache = self._init_draft_cache()
         self._spec_draft_fn = self._spec_verify_fn = None
         if spec is not None:
@@ -642,6 +666,121 @@ class ServingEngine:
             m.num_layers, e.num_blocks, e.block_size, m.num_kv_heads,
             m.head_dim_, self._table_rows, e.max_blocks_per_seq,
             dtype=dtype, device=self.device)
+
+    # -- captured workers (aot_cache) --------------------------------------
+
+    def _worker_fingerprint(self) -> Tuple[Any, ...]:
+        """Everything besides the width that changes a captured worker
+        (the reference's parts: model config, the engine knobs the step
+        reads, the source of the forward and the sampler, the weights'
+        names, shapes and dtypes), plus what a graph binds by address: the
+        device and the weights' identity (their storage addresses)."""
+        e = self.ecfg
+        sd = self.model.state_dict()
+        params_spec = tuple((name, tuple(t.shape), str(t.dtype))
+                            for name, t in sd.items())
+        weights = tuple(t.data_ptr() for t in sd.values())
+        return (repr(self.model_cfg), e.block_size, e.num_blocks,
+                e.max_slots, e.max_blocks_per_seq, e.quantized,
+                str(e.kv_dtype), repr(e.sampling),
+                source_fingerprint(self._forward, sample), params_spec,
+                str(self.device), weights)
+
+    def _capture_worker(self, width: int, pool=None) -> CapturedStep:
+        """The ``width``-wide step over ``pool`` (a fresh pool when None)
+        as a :class:`CapturedStep`: its inputs are the token, position and
+        slot-id buffers, captured (and warmed up) as an all-pad batch,
+        which writes only the pool's spare rows."""
+        dev = self.device
+        pool = pool if pool is not None else self._init_cache()
+        tokens = torch.zeros((1, width), dtype=torch.int32, device=dev)
+        positions = torch.full((1, width), PAD_POSITION, dtype=torch.int32,
+                               device=dev)
+        slot_ids = torch.full((width,), self.ecfg.max_slots,
+                              dtype=torch.int32, device=dev)
+        model, forward = self.model, self._forward
+
+        def step(tokens, positions, slot_ids):
+            return forward(model, tokens, positions, pool,
+                           slot_ids=slot_ids)[0]
+
+        return CapturedStep(step, (tokens, positions, slot_ids),
+                            holds={"model": model, "cache": pool})
+
+    def _build_aot_workers(self) -> None:
+        """Lease (or capture and publish) one executable per worker. The
+        workers of one engine share its pool: after the first, a lookup
+        accepts only entries captured over the same pool. A leased pool is
+        reset, so the engine starts exactly like a fresh one; the leases
+        return to the cache when the engine is freed."""
+        e = self.ecfg
+        widths = ([("prefill", e.prefill_budget or e.token_budget),
+                   ("decode", e.max_slots)] if e.disaggregated
+                  else [("packed", e.token_budget)])
+        fp = self._worker_fingerprint()
+        pool, workers = None, {}
+        for worker, width in widths:
+            key = self._aot.key_for("engine-step", worker, width, *fp)
+            match = (None if pool is None
+                     else (lambda ex, p=pool: ex.holds["cache"] is p))
+            ex, from_cache = self._aot.compile_or_load(
+                key, self._capture_worker, (width, pool), match=match)
+            if pool is None:
+                pool = ex.holds["cache"]
+                if from_cache:
+                    self._reset_pool(pool)
+            workers[worker] = AotWorker(ex, from_cache)
+        # the graphs read the weights of the model they were captured with;
+        # the key holds its weights' addresses, so they are this engine's
+        self.model = next(iter(workers.values())).executable.holds["model"]
+        self.cache = pool
+        self._aot_workers = workers
+        self._pinned: Dict[str, torch.Tensor] = {}
+        self._freed_buf = torch.zeros((e.num_blocks,), dtype=torch.bool,
+                                      device=self.device)
+        weakref.finalize(self, self._aot.release,
+                         *(w.executable for w in workers.values()))
+
+    def _reset_pool(self, pool) -> None:
+        """A leased pool back to a fresh engine's: zero K/V, unit scales,
+        every stored position the pad sentinel, unmapped tables."""
+        for name in ("k", "v", "k_scale", "v_scale"):
+            t = getattr(pool, name, None)
+            if t is not None:
+                t.fill_(1 if name.endswith("scale") else 0)
+        pool.pos.fill_(PAD_POSITION)
+        pool.block_tables.fill_(-1)
+        pool.lengths.zero_()
+
+    def _upload(self, name: str, dst: torch.Tensor, src: np.ndarray) -> None:
+        """``dst.copy_(src)`` with no host sync: on CUDA from a pinned
+        staging buffer kept per ``name`` (its last copy finished at the
+        previous step's readback)."""
+        if dst.device.type != "cuda":
+            dst.copy_(torch.from_numpy(src))
+            return
+        stage = self._pinned.get(name)
+        if stage is None:
+            stage = self._pinned[name] = torch.empty(
+                src.shape, dtype=dst.dtype, pin_memory=True)
+        stage.numpy()[...] = src
+        dst.copy_(stage, non_blocking=True)
+
+    def _readback(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` on the host, through pinned memory and one CUDA event (no
+        synchronizing copy)."""
+        if t.device.type != "cuda":
+            return t.cpu().numpy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return host.numpy().copy()
+
+    def worker_replays(self) -> Dict[str, int]:
+        """Graph replays per captured worker (empty without a cache)."""
+        return {w: aw.replays for w, aw in (self._aot_workers or {}).items()}
 
     def worker_compile_counts(self) -> Dict[str, int]:
         """Distinct input-shape signatures per worker: ``{"packed": n}``
@@ -795,11 +934,11 @@ class ServingEngine:
         raise KeyError(f"request {request_id!r} is not live on this engine")
 
     def aot_warm(self) -> bool:
-        """Whether every worker loaded from an executable cache: always
-        ``False``, the reference's answer for an engine whose workers were
-        not loaded from one (eager PyTorch compiles nothing a cache could
-        hold)."""
-        return False
+        """True when every worker was leased from the executable cache:
+        this engine spun up without capturing anything (``False`` without
+        a cache, as the reference's engine without one)."""
+        return self._aot_workers is not None and all(
+            w.from_cache for w in self._aot_workers.values())
 
     # -- live migration ---------------------------------------------------
 
@@ -1322,6 +1461,16 @@ class ServingEngine:
             tokens[0, i] = tok
             positions[0, i] = pos
             slot_ids[i] = req.slot
+        if self._aot_workers is not None:
+            aw = self._aot_workers[worker]
+            bufs = aw.executable.inputs
+            for name, buf, a in zip(("tokens", "positions", "slot_ids"),
+                                    bufs, (tokens, positions, slot_ids)):
+                self._upload(f"{worker}/{name}", buf, a)
+            self._note_run(worker, *bufs)
+            logits = aw()
+            return self._readback(sample(logits[0], self._generator,
+                                         self.ecfg.sampling))
         dev = self.device
         args = [torch.from_numpy(a).to(dev)
                 for a in (tokens, positions, slot_ids)]
@@ -1620,7 +1769,11 @@ class ServingEngine:
             mask = np.zeros((self.ecfg.num_blocks,), np.bool_)
             mask[list(self._freed_dirty)] = True
             self._freed_dirty.clear()
-            fmask = torch.from_numpy(mask).to(self.device)
+            if self._aot_workers is not None:
+                fmask = self._freed_buf
+                self._upload("freed", fmask, mask)
+            else:
+                fmask = torch.from_numpy(mask).to(self.device)
             _clear_freed_positions(self.cache.pos, fmask)
             if self.dcache is not None:
                 _clear_freed_positions(self.dcache.pos, fmask)
@@ -1628,11 +1781,15 @@ class ServingEngine:
         for i, s in enumerate(self._slots):
             if s is not None:
                 lengths[i] = s.n_cached
-        tables = torch.from_numpy(self._tables)
-        for c in (self.cache, self.dcache):
-            if c is not None:
-                c.block_tables.copy_(tables)
-                c.lengths.copy_(torch.from_numpy(lengths))
+        if self._aot_workers is not None:
+            self._upload("tables", self.cache.block_tables, self._tables)
+            self._upload("lengths", self.cache.lengths, lengths)
+        else:
+            tables = torch.from_numpy(self._tables)
+            for c in (self.cache, self.dcache):
+                if c is not None:
+                    c.block_tables.copy_(tables)
+                    c.lengths.copy_(torch.from_numpy(lengths))
         e = self.ecfg
         if e.disaggregated:
             sampled = np.zeros((len(rows),), np.int32)

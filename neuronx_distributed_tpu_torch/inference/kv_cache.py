@@ -29,8 +29,10 @@ PAD_POSITION = (2 ** 31 - 1) // 2
 @dataclass
 class KVCache:
     """Stacked per-layer cache: k/v ``[L, B, S_max, KV, D]``, ``pos [B,
-    S_max]`` int32 and the next write slot ``index`` (a host int, so the
-    step reads no device value to place its write)."""
+    S_max]`` int32 and the next write slot ``index``: a host int (the
+    step reads no device value to place its write), or, as in the
+    reference, a 0-dim int32 tensor on the cache's device, which one
+    captured step serves at every position (a bundle's programs)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -113,3 +115,14 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def write_slots(index, steps: int, max_len: int):
+    """The slots a step of ``steps`` rows writes at ``index``: a slice for
+    a host int, an int64 index tensor for a device scalar (its start
+    clamped so that the rows fit, as the reference's
+    ``dynamic_update_slice`` clamps)."""
+    if isinstance(index, torch.Tensor):
+        start = torch.clamp(index.long(), 0, max_len - steps)
+        return start + torch.arange(steps, device=index.device)
+    return slice(index, index + steps)

@@ -15,6 +15,10 @@ causal mask is ``q_pos >= slot_pos``.
 Unlike the JAX version, which is functional and donates the pool to the
 step, the writes here update the pool **in place**: at Llama-3-8B's serving
 size the pool is 4 GiB, and a functional update would hold a second copy.
+The pool tensors' storage holds one spare block past each layer's last, so
+that a row the reference drops (JAX ``mode="drop"``) lands in a row nobody
+reads: each write is one fixed-shape scatter with no host sync, and the
+serving step can be captured in a CUDA graph.
 
 Prefix sharing (:class:`PrefixCache`, :func:`cow_copy_blocks`) lets later
 requests map the pool blocks of an earlier prompt's full blocks instead of
@@ -103,9 +107,12 @@ def _pool_tensors(cache: PagedKVCache) -> Dict[str, torch.Tensor]:
 class PagedCacheView:
     """One layer's pool slice plus this step's routing, handed to
     ``LlamaAttention``: ``tables [T, max_blocks_per_seq]`` is the per-token
-    block table (each packed token carries its slot's row), ``rows`` the
-    packed rows whose K/V land this step and ``at`` their flat pool
-    indices (pad rows are not in ``rows``)."""
+    block table (each packed token carries its slot's row), ``at [T]`` each
+    packed row's flat pool index (a spare row from ``capacity`` on for a
+    row that must not land, a pad row: :func:`spread_dropped_rows`) and
+    ``rows`` the layer's flat row views of k, v and the scales with their
+    spare block's rows (:func:`pool_rows`), which the step's K/V rows are
+    scattered into."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -113,16 +120,27 @@ class PagedCacheView:
     v_scale: Optional[torch.Tensor]
     pos: torch.Tensor
     tables: torch.Tensor
-    rows: torch.Tensor
+    rows: Dict[str, torch.Tensor]
     at: torch.Tensor
+
+
+def _with_spare(shape, fill, dtype, dev, block_dim: int) -> torch.Tensor:
+    """A pool tensor of ``shape`` (blocks at ``block_dim``) over storage
+    that holds one spare block past the last one of each layer; the spare
+    block's first row takes the writes the reference drops (see
+    :func:`pool_rows`)."""
+    backing = list(shape)
+    backing[block_dim] += 1
+    t = torch.full(backing, fill, dtype=dtype, device=dev)
+    return t.narrow(block_dim, 0, shape[block_dim])
 
 
 def _routing(num_blocks, block_size, table_rows, max_blocks_per_seq, dev):
     """The stored positions and the routing tensors, sized by the table's
     rows (the serving engine's slots plus its speculation lanes)."""
     return dict(
-        pos=torch.full((num_blocks, block_size), PAD_POSITION,
-                       dtype=torch.int32, device=dev),
+        pos=_with_spare((num_blocks, block_size), PAD_POSITION, torch.int32,
+                        dev, 0),
         block_tables=torch.full((table_rows, max_blocks_per_seq), -1,
                                 dtype=torch.int32, device=dev),
         lengths=torch.zeros((table_rows,), dtype=torch.int32, device=dev),
@@ -137,8 +155,8 @@ def init_paged_kv_cache(num_layers: int, num_blocks: int, block_size: int,
     dev = resolve_device(device)
     shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=dev),
-        v=torch.zeros(shape, dtype=dtype, device=dev),
+        k=_with_spare(shape, 0, dtype, dev, 1),
+        v=_with_spare(shape, 0, dtype, dev, 1),
         **_routing(num_blocks, block_size, max_slots, max_blocks_per_seq,
                    dev))
 
@@ -171,10 +189,10 @@ def init_quantized_paged_kv_cache(num_layers: int, num_blocks: int,
     dev = resolve_device(device)
     shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
     return QuantizedPagedKVCache(
-        k=torch.zeros(shape, dtype=torch.int8, device=dev),
-        v=torch.zeros(shape, dtype=torch.int8, device=dev),
-        k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev),
-        v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+        k=_with_spare(shape, 0, torch.int8, dev, 1),
+        v=_with_spare(shape, 0, torch.int8, dev, 1),
+        k_scale=_with_spare(shape[:-1], 1, torch.float32, dev, 1),
+        v_scale=_with_spare(shape[:-1], 1, torch.float32, dev, 1),
         **_routing(num_blocks, block_size, max_slots, max_blocks_per_seq,
                    dev))
 
@@ -298,8 +316,10 @@ class BlockAllocator:
 
 # ---------------------------------------------------------------------------
 # Pool writes. A row whose flat index is == capacity must not land (the JAX
-# scatters use mode="drop"); on CUDA an out-of-range index_put_ faults, so
-# the rows are filtered first.
+# scatters use mode="drop"). The pools of the init functions hold one spare
+# block past each layer's last, so such a row lands in one of its rows:
+# every write is one fixed-shape scatter with no host sync, and nothing
+# reads the spare block.
 # ---------------------------------------------------------------------------
 
 def flat_write_indices(tok_tables: torch.Tensor, positions: torch.Tensor,
@@ -319,29 +339,73 @@ def flat_write_indices(tok_tables: torch.Tensor, positions: torch.Tensor,
                        ).to(torch.int32)
 
 
-def valid_write_rows(flat_idx: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Row numbers (int64) whose write lands; computed once per step and
-    reused by every layer's scatter."""
-    return torch.nonzero(flat_idx < capacity).squeeze(1)
+def spread_dropped_rows(flat_idx: torch.Tensor, capacity: int,
+                        block_size: int) -> torch.Tensor:
+    """``flat_idx`` from :func:`flat_write_indices` with dropped row ``i``
+    (index == ``capacity``) sent to spare row ``capacity + i %
+    block_size``: the spare block's rows share a step's pad rows, so that
+    no one row takes hundreds of writes (on an H100 that contention cost
+    0.24 ms a decode step at Llama-3-8B's 504 pad rows, PERF.md)."""
+    spare = torch.remainder(torch.arange(flat_idx.shape[0],
+                                         device=flat_idx.device,
+                                         dtype=flat_idx.dtype), block_size)
+    return torch.where(flat_idx == capacity, flat_idx + spare, flat_idx)
 
 
-def scatter_pool_rows(pool: torch.Tensor, rows: torch.Tensor,
+def pool_rows(pool: torch.Tensor, layered: bool = True) -> torch.Tensor:
+    """The flat row view of a pool tensor made by the init functions, with
+    the spare block's rows after each layer's last: ``[L, (NB + 1)*BS,
+    ...]`` for a ``layered`` ``[L, NB, BS, ...]`` tensor (k, v and the
+    scales), ``[(NB + 1)*BS]`` for ``pos [NB, BS]``. Raises for a tensor
+    whose storage holds no spare block past its blocks."""
+    lead = 1 if layered else 0
+    nb, bs = pool.shape[lead:lead + 2]
+    rest = tuple(pool.shape[lead + 2:])
+    rest_strides = tuple(pool.stride()[lead + 2:])
+    row = pool.stride(lead + 1)
+    dense = torch.empty(rest, device="meta").stride() if rest else ()
+    ok = (rest_strides == tuple(dense)
+          and row == max(1, int(np.prod(rest, dtype=np.int64)))
+          and pool.stride(lead) == bs * row)
+    last = pool.storage_offset() + (nb + 1) * bs * row
+    if layered:
+        ok = ok and pool.stride(0) == (nb + 1) * bs * row
+        last += (pool.shape[0] - 1) * pool.stride(0)
+    if not ok or last > (pool.untyped_storage().nbytes()
+                         // pool.element_size()):
+        raise ValueError(
+            "pool tensor has no spare block past its blocks: make paged pools "
+            "with init_paged_kv_cache / init_quantized_paged_kv_cache")
+    size = ((pool.shape[0],) if layered else ()) + ((nb + 1) * bs,) + rest
+    stride = ((pool.stride(0),) if layered else ()) + (row,) + rest_strides
+    return pool.as_strided(size, stride, pool.storage_offset())
+
+
+def scatter_pool_rows(flat_rows: torch.Tensor, rows: torch.Tensor,
                       flat_idx: torch.Tensor) -> torch.Tensor:
-    """In place: ``pool`` viewed as ``[num_blocks * block_size, ...]``
-    takes ``rows[i]`` at ``flat_idx[i]``. Every index must be in range."""
-    nb, bs = pool.shape[:2]
-    flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
-    flat.index_copy_(0, flat_idx.long(), rows.to(pool.dtype))
-    return pool
+    """In place: ``flat_rows [capacity + block_size, ...]`` (a pool's rows
+    and the spare block's after them, :func:`pool_rows`) takes ``rows[i]``
+    at ``flat_idx[i]``. Indices from ``capacity`` on are spare rows
+    (:func:`spread_dropped_rows`), which nothing reads, so which of the
+    rows sent to one of them it keeps does not matter (the reference drops
+    them)."""
+    flat_rows.index_copy_(0, flat_idx.long(), rows.to(flat_rows.dtype))
+    return flat_rows
 
 
 def write_pool_rows(pool: torch.Tensor, rows: torch.Tensor,
                     flat_idx: torch.Tensor) -> torch.Tensor:
-    """Scatter ``rows [T, ...]`` into ``pool [num_blocks, block_size,
+    """Scatter ``rows [T, ...]`` into any ``pool [num_blocks, block_size,
     ...]`` in place at the flat indices from :func:`flat_write_indices`,
-    dropping rows whose index is the capacity sentinel."""
-    keep = valid_write_rows(flat_idx, pool.shape[0] * pool.shape[1])
-    return scatter_pool_rows(pool, rows[keep], flat_idx[keep])
+    dropping rows whose index is the capacity sentinel. The kept rows are
+    picked with a mask, a host sync on CUDA: the serving path scatters into
+    its pools' spare rows instead (:func:`pool_rows`,
+    :func:`scatter_pool_rows`)."""
+    nb, bs = pool.shape[:2]
+    keep = flat_idx < nb * bs
+    flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
+    flat.index_copy_(0, flat_idx[keep].long(), rows[keep].to(pool.dtype))
+    return pool
 
 
 def write_pool_positions(pos: torch.Tensor, positions: torch.Tensor,

@@ -57,11 +57,14 @@ and the link ``op="link"`` for the ``link_*`` kinds. See
 :func:`chaos_drill`, :func:`sdc_serving_drill`,
 :func:`elastic_chaos_drill` and :func:`fabric_chaos_drill`.
 
-What the port does not have yet is refused, not ignored: an executable
-cache (``aot_cache=``; eager PyTorch compiles nothing a cache could hold,
-so every engine's :meth:`~.engine.ServingEngine.aot_warm` is ``False``),
-the long-context replica class (``RouterConfig.long_context_*``, which
-needs context-parallel engines) and ``elastic_chaos_drill(cache_dir=)``.
+With ``aot_cache=`` (an :class:`~.aot_cache.AotExecutableCache`) every
+replica serves through captured workers: the first replica of a worker
+shape captures it, and a later construction (a scale-up, a revival) leases
+a capture that no live replica holds. The router makes no cache of its
+own (the reference's default is a memory cache): without one its engines
+run eagerly. What the port does not have yet is refused, not ignored: the
+long-context replica class (``RouterConfig.long_context_*``, which needs
+context-parallel engines).
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ from ..quantization.serving import quantize_params_for_serving
 from ..resilience.chaos import FaultPlan
 from ..resilience.preemption import EXIT_PREEMPTED, PreemptionGuard
 from ..resilience.watchdog import SpikeDetector, StallTimer
+from .aot_cache import AotExecutableCache
 from .engine import (EngineConfig, RequestRejected, ServingEngine, _family,
                      observe_request_metrics)
 from .paging import CacheExhaustedError
@@ -443,8 +447,8 @@ class ReplicaRouter:
     card) from ``params`` (a state dict), which is quantized and moved to
     the device once (:func:`shared_serving_weights`), so that every
     replica, revival and scale-up shares one copy of the weights. All
-    engines run on one ``clock``. ``aot_cache`` must be ``None``: the port
-    has no executable cache yet.
+    engines run on one ``clock``. ``aot_cache``: an executable cache
+    shared by every replica (None: eager engines).
     """
 
     def __init__(self, model_cfg, params,
@@ -454,14 +458,10 @@ class ReplicaRouter:
                  clock: Optional[Callable[[], float]] = None,
                  preemption_guard: Optional[PreemptionGuard] = None,
                  chaos: Optional[FaultPlan] = None,
-                 aot_cache: Any = None,
+                 aot_cache: Optional[AotExecutableCache] = None,
                  draft_cfg=None, draft_params=None,
                  device: DeviceLike = None):
-        if aot_cache is not None:
-            raise NotImplementedError(
-                "aot_cache: the PyTorch port compiles no executable that a "
-                "cache could hold (the CUDA-graph analog is a later "
-                "slice); pass aot_cache=None")
+        self._aot = aot_cache
         if (cfg.long_context_replicas or cfg.long_context_engine is not None
                 or cfg.long_context_threshold is not None):
             raise NotImplementedError(
@@ -556,7 +556,8 @@ class ReplicaRouter:
         eng = ServingEngine(self.model_cfg, self.params, self.ecfg,
                             clock=self._clock, device=self.device,
                             name=name, draft_cfg=self._draft_cfg,
-                            draft_params=self._draft_params)
+                            draft_params=self._draft_params,
+                            aot_cache=self._aot)
         eng._standalone_obs = False  # router owns request retirement
         return eng
 
@@ -1845,19 +1846,32 @@ def elastic_chaos_drill(model_cfg, params, engine_cfg: EngineConfig,
     (sessions migrate out), a ``scale_burst`` directive forces a scale-up,
     a scripted ``scale_down`` retires a replica by migration, and the
     preempted replica revives. Reports availability, migration vs
-    re-prefill token accounting, compile counts, and whether every
-    completed output equals the reference's. The reference's spin-up
-    timings and executable-cache counters (``bundle_cold_start_*``,
-    ``aot_*``) are left out: the port has no executable cache, and
-    ``cache_dir`` raises."""
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "elastic_chaos_drill(cache_dir=...): the PyTorch port has no "
-            "executable cache to persist yet")
+    re-prefill token accounting, replica spin-up cold (the first engine
+    captures its workers into the shared executable cache) against warm
+    (the second leases them), the cache's hits and misses, compile counts,
+    and whether every completed output equals the reference's. Every
+    engine of the drill serves through the cache. With a ``cache_dir``
+    the warm probe uses a fresh cache over that directory, as the
+    reference's does: a captured graph is not written to disk, so that
+    probe misses and captures."""
     prompts, rng = _drill_prompts(model_cfg, n_requests, prompt_len, seed)
     arrivals = np.cumsum(rng.exponential(0.02, n_requests))
     model_cfg, params = shared_serving_weights(model_cfg, params,
                                                engine_cfg, device)
+    aot = AotExecutableCache(cache_dir)
+
+    t0 = time.perf_counter()
+    ServingEngine(model_cfg, params, engine_cfg, clock=clock, device=device,
+                  aot_cache=aot, name="cold-probe")
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    warm_cache = AotExecutableCache(cache_dir) if cache_dir else aot
+    t0 = time.perf_counter()
+    warm_probe = ServingEngine(model_cfg, params, engine_cfg, clock=clock,
+                               device=device, aot_cache=warm_cache,
+                               name="warm-probe")
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_loaded = warm_probe.aot_warm()
+    del warm_probe
 
     def _submit_all(router: ReplicaRouter) -> None:
         for i, (p, at) in enumerate(zip(prompts, arrivals)):
@@ -1871,7 +1885,7 @@ def elastic_chaos_drill(model_cfg, params, engine_cfg: EngineConfig,
     ref = ReplicaRouter(model_cfg, params, engine_cfg,
                         RouterConfig(num_replicas=1,
                                      global_token_budget=budget),
-                        clock=clock, device=device)
+                        clock=clock, device=device, aot_cache=aot)
     _submit_all(ref)
     ref_results = ref.run()
     del ref
@@ -1892,7 +1906,7 @@ def elastic_chaos_drill(model_cfg, params, engine_cfg: EngineConfig,
                                        hysteresis_steps=2,
                                        cooldown_steps=2),
                      slo=slo),
-        clock=clock, chaos=plan, device=device)
+        clock=clock, chaos=plan, device=device, aot_cache=aot)
     _submit_all(router)
 
     def _arrival_gap(r: ReplicaRouter) -> float:
@@ -1931,6 +1945,12 @@ def elastic_chaos_drill(model_cfg, params, engine_cfg: EngineConfig,
         "migrated_sessions": d["migrated_sessions"],
         "migrated_tokens": d["migrated_tokens"],
         "reprefilled_tokens": d["reprefilled_tokens"],
+        "bundle_cold_start_ms": cold_ms,
+        "bundle_cold_start_warm_ms": warm_ms,
+        "bundle_cold_start_speedup": cold_ms / max(warm_ms, 1e-9),
+        "aot_warm_loaded": float(warm_loaded),
+        "aot_cache_hits": aot.hits,
+        "aot_cache_misses": aot.misses,
         "max_compile_count": max(compile_counts, default=0),
     }
 

@@ -24,7 +24,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..models.llama import LlamaForCausalLM, llama_forward_with_cache
 from ..parallel.layers import Linear
-from .kv_cache import PAD_POSITION, KVCache, init_kv_cache
+from .kv_cache import PAD_POSITION, KVCache, init_kv_cache, write_slots
 
 
 def verify_draft_greedy(target_logits: torch.Tensor,
@@ -177,8 +177,9 @@ def _mask_rejected_slots(cache: KVCache, start_index: int, num_slots: int,
     """In place: cache slots ``start_index + j`` with ``j > accepted`` get
     PAD_POSITION (the rollback that draft and Medusa speculation share)."""
     jj = torch.arange(num_slots, device=accepted.device)[None, :]
-    window = cache.pos[:, start_index:start_index + num_slots]
-    window.masked_fill_(jj > accepted[:, None], PAD_POSITION)
+    at = write_slots(start_index, num_slots, cache.max_len)
+    cache.pos[:, at] = cache.pos[:, at].masked_fill(jj > accepted[:, None],
+                                                    PAD_POSITION)
     return cache
 
 

@@ -27,10 +27,11 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..inference.kv_cache import (ContiguousCacheView, KVCache,
                                   QuantizedKVCache, dequantize_kv,
-                                  quantize_kv)
+                                  quantize_kv, write_slots)
 from ..inference.paging import (PagedCacheView, PagedKVCache,
                                 QuantizedPagedKVCache, flat_write_indices,
-                                scatter_pool_rows, valid_write_rows)
+                                pool_rows, scatter_pool_rows,
+                                spread_dropped_rows)
 from ..modules.attention import (apply_rotary, attention_dropout_seed,
                                  precompute_rope, repeat_kv, sdpa_reference)
 from ..modules.norms import RMSNorm
@@ -188,17 +189,17 @@ def _paged_cache_attend(cfg: LlamaConfig, q, k, v, positions,
     for an int8 pool), then attend through the per-token block tables. The
     write lands before the attention reads, so each token sees its own row.
     The packed batch is ``[1, T]``."""
-    k_rows, v_rows = k[0][view.rows], v[0][view.rows]    # [W, KV, D]
+    k_rows, v_rows = k[0], v[0]                          # [T, KV, D]
     if view.k_scale is not None:
         qk, ks = quantize_kv(k_rows)
         qv, vs = quantize_kv(v_rows)
-        scatter_pool_rows(view.k, qk, view.at)
-        scatter_pool_rows(view.v, qv, view.at)
-        scatter_pool_rows(view.k_scale, ks, view.at)
-        scatter_pool_rows(view.v_scale, vs, view.at)
+        scatter_pool_rows(view.rows["k"], qk, view.at)
+        scatter_pool_rows(view.rows["v"], qv, view.at)
+        scatter_pool_rows(view.rows["k_scale"], ks, view.at)
+        scatter_pool_rows(view.rows["v_scale"], vs, view.at)
     else:
-        scatter_pool_rows(view.k, k_rows, view.at)
-        scatter_pool_rows(view.v, v_rows, view.at)
+        scatter_pool_rows(view.rows["k"], k_rows, view.at)
+        scatter_pool_rows(view.rows["v"], v_rows, view.at)
     out = paged_attention(q[0], view.k, view.v, view.pos, view.tables,
                           positions[0], k_scale=view.k_scale,
                           v_scale=view.v_scale,
@@ -215,7 +216,7 @@ def _contiguous_cache_attend(cfg: LlamaConfig, q, k, v, positions,
     query attends to every real slot) turns to NaN. An int8 cache is
     dequantized to ``cfg.dtype`` for the read and only this step's slots
     are requantized, so slots already written never drift."""
-    at = slice(view.index, view.index + q.shape[1])
+    at = write_slots(view.index, q.shape[1], view.k.shape[1])
     if view.k_scale is not None:
         k_l = dequantize_kv(view.k, view.k_scale, cfg.dtype)
         v_l = dequantize_kv(view.v, view.v_scale, cfg.dtype)
@@ -567,21 +568,28 @@ def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
     rope_pos = torch.clamp(positions, max=cfg.max_seq_len - 1)
     # per-token routing: each packed token carries its slot's block table
     # row (pad slot ids clip to the last slot) and a flat pool index for
-    # this step's K/V write (== capacity for rows that must not land)
+    # this step's K/V write (a spare row past the pool's blocks for rows
+    # that must not land)
     slot = torch.clamp(slot_ids.long(), 0, kv_cache.max_slots - 1)
     tok_tables = kv_cache.block_tables[slot]
-    write_idx = flat_write_indices(tok_tables, positions[0],
-                                   kv_cache.block_size, kv_cache.capacity)
-    rows = valid_write_rows(write_idx, kv_cache.capacity)
-    at = write_idx[rows]
-    scatter_pool_rows(kv_cache.pos, positions[0][rows], at)
+    at = spread_dropped_rows(
+        flat_write_indices(tok_tables, positions[0], kv_cache.block_size,
+                           kv_cache.capacity),
+        kv_cache.capacity, kv_cache.block_size)
+    scatter_pool_rows(pool_rows(kv_cache.pos, layered=False), positions[0],
+                      at)
     quantized = isinstance(kv_cache, QuantizedPagedKVCache)
+    pools = {"k": kv_cache.k, "v": kv_cache.v}
+    if quantized:
+        pools.update(k_scale=kv_cache.k_scale, v_scale=kv_cache.v_scale)
+    flat = {name: pool_rows(t) for name, t in pools.items()}
     for i, layer in enumerate(model.layers):
         view = PagedCacheView(
             k=kv_cache.k[i], v=kv_cache.v[i],
             k_scale=kv_cache.k_scale[i] if quantized else None,
             v_scale=kv_cache.v_scale[i] if quantized else None,
-            pos=kv_cache.pos, tables=tok_tables, rows=rows, at=at)
+            pos=kv_cache.pos, tables=tok_tables,
+            rows={name: t[i] for name, t in flat.items()}, at=at)
         x = run_layer(layer, x, cos, sin, rope_pos, view)
     return _head(model, x, kv_cache, return_hidden)
 
@@ -616,7 +624,7 @@ def contiguous_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
     cfg = model.cfg
     b, s = input_ids.shape
     idx = kv_cache.index
-    if idx + s > kv_cache.max_len:
+    if not isinstance(idx, torch.Tensor) and idx + s > kv_cache.max_len:
         raise ValueError(f"a step of {s} tokens at slot {idx} overflows the "
                          f"cache's {kv_cache.max_len} slots")
     positions = positions.to(torch.int32)
@@ -626,7 +634,7 @@ def contiguous_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,
     # and the attention's query positions; the cache stores the true ones
     # (PAD_POSITION for pads)
     rope_pos = torch.clamp(positions, max=cfg.max_seq_len - 1)
-    kv_cache.pos[:, idx:idx + s] = positions
+    kv_cache.pos[:, write_slots(idx, s, kv_cache.max_len)] = positions
     quantized = isinstance(kv_cache, QuantizedKVCache)
     for i, layer in enumerate(model.layers):
         view = ContiguousCacheView(

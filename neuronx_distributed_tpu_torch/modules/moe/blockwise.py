@@ -6,7 +6,8 @@ rows padded to whole blocks; the grouped GLU (:mod:`...ops.blockwise_moe`)
 then runs each block through its expert. Every shape here is fixed by ``T``,
 ``K``, ``E`` and the block size: the worst case is ``T·K + E·B`` padded
 slots. The integer outputs equal the JAX package's bit for bit: a stable
-sort, ``bincount`` with ``minlength`` and ``searchsorted(right=True)``.
+sort, a ``scatter_add_`` count (JAX's ``bincount`` with ``minlength``) and
+``searchsorted(right=True)``; none reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +19,17 @@ import torch
 
 def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def expert_counts(flat: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """``bincount(flat, minlength=num_experts)`` as one fixed-shape
+    ``scatter_add_`` (int64): ``bincount``'s output length follows the
+    data, so on CUDA it reads a device value on the host. Integer sums, so
+    the same bits."""
+    flat = flat.long()
+    return torch.zeros((num_experts,), dtype=torch.long,
+                       device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
 
 
 def compute_block_metadata(idx: torch.Tensor, num_experts: int,
@@ -47,7 +59,7 @@ def compute_block_metadata(idx: torch.Tensor, num_experts: int,
     order = torch.sort(flat, stable=True).indices
     sorted_expert = flat[order]
     src = order // k
-    counts = torch.bincount(flat, minlength=num_experts)
+    counts = expert_counts(flat, num_experts)
     padded_counts = torch.clamp(
         (counts + block_size - 1) // block_size * block_size, min=block_size)
     starts = torch.cumsum(counts, 0) - counts

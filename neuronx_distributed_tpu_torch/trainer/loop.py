@@ -14,8 +14,8 @@ Observability, as in the reference (``obs``): the spans ``train/data``
 ``trainer/step``), which alerts when a second shape appears. ``train/step``
 is the host wall time of the step call, as in the reference; there it is
 the jitted step's dispatch, here the eager step's launches plus any host
-synchronisation inside it (the MoE router's ``bincount``, and
-``skip_nonfinite``'s reads of the loss and the norm), not the card's time.
+synchronisation inside it (``skip_nonfinite``'s reads of the loss and
+the norm), not the card's time.
 With obs disabled each hook costs one bool check.
 
 The port's step updates the state in place, and the state lives on the

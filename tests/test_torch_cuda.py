@@ -1459,3 +1459,188 @@ def test_router_frees_a_crashed_replica_and_itself_without_gc(cuda):
         assert torch.cuda.memory_allocated() == base
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# captured workers (the executable cache) and bundles
+# ---------------------------------------------------------------------------
+
+def _graph_engine_case(family, disaggregated=False):
+    if family == "llama":
+        cfg = tl.tiny_config(dtype=torch.bfloat16, hidden_size=256,
+                             num_heads=4, num_kv_heads=2)
+        sd = tl.init_state_dict(dataclasses.replace(
+            cfg, param_dtype=torch.bfloat16), seed=0, std=0.02,
+            device="cpu")
+    else:
+        cfg = tm.tiny_moe_config(dtype=torch.bfloat16,
+                                 moe_dispatch="blockwise", moe_block_size=8,
+                                 hidden_size=256, num_heads=4,
+                                 num_kv_heads=2)
+        sd = tm.init_state_dict(dataclasses.replace(
+            cfg, param_dtype=torch.bfloat16), seed=0, std=0.05,
+            device="cpu")
+    ecfg = te.EngineConfig(block_size=4, num_blocks=32, max_slots=2,
+                           max_blocks_per_seq=8, token_budget=16,
+                           disaggregated=disaggregated)
+    return cfg, sd, ecfg
+
+
+def _serve_three(eng, cfg):
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (7, 4, 9)]
+    eng.submit(prompts[0], 6, uid="a")
+    eng.step()
+    eng.submit(prompts[1], 5, uid="b")
+    eng.submit(prompts[2], 4, uid="c")
+    return {u: r.tokens for u, r in eng.run().items()}
+
+
+@pytest.mark.parametrize("family,disaggregated", [
+    ("llama", False), ("mixtral", False), ("mixtral", True)])
+def test_captured_engine_serves_the_eager_ids(cuda, family, disaggregated):
+    """An engine whose workers are CUDA graphs serves the eager engine's
+    greedy ids bit for bit with one step shape a worker; a replay adds to
+    no kernel's count (the capture launched each once a layer), and a
+    step raises nothing under ``set_sync_debug_mode("error")``."""
+    from neuronx_distributed_tpu_torch.inference.aot_cache import (
+        AotExecutableCache)
+
+    cfg, sd, ecfg = _graph_engine_case(family, disaggregated)
+    want = _serve_three(te.ServingEngine(cfg, sd, ecfg, device=cuda), cfg)
+    k1 = tpa.paged_attention.launches
+    eng = te.ServingEngine(cfg, sd, ecfg, device=cuda,
+                           aot_cache=AotExecutableCache())
+    workers = len(eng.worker_runs)
+    assert tpa.paged_attention.launches - k1 == 2 * workers * cfg.num_layers
+    k1 = tpa.paged_attention.launches
+    rng = np.random.RandomState(0)
+    eng.submit(rng.randint(0, cfg.vocab_size, 7).tolist(), 6, uid="a")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.evict("a")
+    got = _serve_three(eng, cfg)
+    assert got == want
+    assert tpa.paged_attention.launches == k1
+    assert eng.worker_replays() == eng.worker_runs
+    assert set(eng.worker_compile_counts().values()) == {1}
+
+
+def test_captured_step_logits_equal_the_eager_steps(cuda):
+    """One captured packed step and the eager forward on the same pool and
+    inputs give the same logits bit for bit."""
+    from neuronx_distributed_tpu_torch.inference.aot_cache import (
+        AotExecutableCache)
+
+    cfg, sd, ecfg = _graph_engine_case("llama")
+    eng = te.ServingEngine(cfg, sd, ecfg, device=cuda,
+                           aot_cache=AotExecutableCache())
+    eng.submit(list(range(1, 12)), 3, uid="a")
+    eng.step()
+    ex = eng._aot_workers["packed"].executable
+    tokens, positions, slot_ids = (t.clone() for t in ex.inputs)
+    positions[0, :11] = torch.arange(11, device=cuda)
+    tokens[0, :11] = torch.arange(1, 12, device=cuda)
+    slot_ids[:11] = 0
+    for buf, src in zip(ex.inputs, (tokens, positions, slot_ids)):
+        buf.copy_(src)
+    graph = ex.run().clone()
+    eager, _ = tl.llama_forward_with_cache(eng.model, tokens, positions,
+                                           eng.cache, slot_ids=slot_ids)
+    assert torch.equal(graph, eager)
+
+
+def test_leased_buffers_free_with_the_cache(cuda):
+    """Freeing an engine leaves its pool and graphs with the cache (a
+    later engine leases them); freeing the cache returns the memory."""
+    import gc
+    import weakref
+
+    from neuronx_distributed_tpu_torch.inference.aot_cache import (
+        AotExecutableCache)
+
+    cfg, sd, ecfg = _graph_engine_case("llama")
+    sd = {k: v.to(cuda) for k, v in sd.items()}
+    # the capture stream and its cuBLAS workspace come with the process's
+    # first capture and stay: make them before the baseline
+    te.ServingEngine(cfg, sd, ecfg, device=cuda,
+                     aot_cache=AotExecutableCache())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        cache = AotExecutableCache()
+        eng = te.ServingEngine(cfg, sd, ecfg, device=cuda, aot_cache=cache)
+        pool = weakref.ref(eng.cache.k)
+        held = torch.cuda.memory_allocated()
+        # the engine's own buffer (its freed-block mask), in 512-byte blocks
+        own = -(-eng._freed_buf.numel() * eng._freed_buf.element_size()
+                // 512) * 512
+        del eng
+        assert pool() is not None
+        assert torch.cuda.memory_allocated() == held - own
+        again = te.ServingEngine(cfg, sd, ecfg, device=cuda,
+                                 aot_cache=cache)
+        assert again.aot_warm() and again.cache.k is pool()
+        del again, cache
+        torch.cuda.synchronize()
+        assert pool() is None
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        gc.enable()
+
+
+def test_nxd_model_graph_matches_eager(cuda):
+    """A bundle's captured steps give the eager function's logits bit for
+    bit (contiguous context encoding and token generation, and a paged
+    worker), and ``bundle_generate`` the ids of ``generate``."""
+    import functools
+
+    from neuronx_distributed_tpu_torch.inference import model_builder as mb
+    from neuronx_distributed_tpu_torch.inference.generation import generate
+    from neuronx_distributed_tpu_torch.inference.kv_cache import (
+        init_kv_cache)
+
+    cfg, sd, ecfg = _graph_engine_case("llama")
+    sd = {k: v.to(cuda) for k, v in sd.items()}
+    b, bucket, new = 2, 16, 6
+    fn = functools.partial(mb.cached_step, model_cfg=cfg)
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda)  # noqa
+    spec = dict(num_layers=cfg.num_layers, batch=b, max_len=bucket + new,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+                dtype="bfloat16")
+    cache0 = init_kv_cache(**{**spec, "dtype": torch.bfloat16}, device=cuda)
+    model = (mb.ModelBuilder()
+             .add("context_encoding", fn, [(sd, z(b, bucket), z(b, bucket),
+                                            cache0)])
+             .add("token_generation", fn, [(sd, z(b, 1), z(b, 1), cache0)])
+             .trace().compile())
+    model.state_spec, model.params = spec, sd
+    model.generation_config = {"buckets": [bucket]}
+    model.device = cuda
+    rng = np.random.RandomState(13)
+    ids = rng.randint(0, cfg.vocab_size, (b, 10))
+    got = mb.bundle_generate(model, ids, np.array([10, 7]), new)
+    ref = generate(tl.build_model(cfg, sd, cuda), ids, [10, 7], new,
+                   buckets=(bucket,))
+    assert torch.equal(got.cpu(), ref.cpu())
+    state = model.init_state()
+    ids_t = torch.from_numpy(np.pad(ids, ((0, 0), (0, 6)))).to(
+        cuda, torch.int32)
+    pos = torch.arange(bucket, dtype=torch.int32, device=cuda).expand(
+        b, bucket).contiguous()
+    graph, state = model.forward("context_encoding", sd, ids_t, pos, state)
+    eager_state = mb._canonical(init_kv_cache(
+        **{**spec, "dtype": torch.bfloat16}, device=cuda))
+    with torch.no_grad():
+        eager, eager_state = fn(sd, ids_t, pos, eager_state)
+    assert torch.equal(graph, eager)
+    tok = ids_t[:, :1].contiguous()
+    at = torch.full((b, 1), bucket, dtype=torch.int32, device=cuda)
+    graph, _ = model.forward("token_generation", sd, tok, at, state)
+    with torch.no_grad():
+        eager, _ = fn(sd, tok, at, eager_state)
+    assert torch.equal(graph, eager)

@@ -227,7 +227,8 @@ _ISOLATED = textwrap.dedent("""
               "quantization.microscaling",
               "quantization.quantization_layers",
               "quantization.mx_layers", "quantization.serving",
-              "quantization.quantize"):
+              "quantization.quantize", "inference.aot_cache",
+              "inference.model_builder", "inference.benchmark"):
         assert pkg.__name__ + "." + m in mods, m
     from neuronx_distributed_tpu_torch.inference import engine as te
     from neuronx_distributed_tpu_torch.models import llama as tl

@@ -62,6 +62,27 @@ def test_block_metadata_bitwise(case, sentinel_empty):
         assert (got[3] == e).any()            # empty experts are sentinels
 
 
+@pytest.mark.parametrize("case", ["random", "skewed", "one_expert", "tiny",
+                                  "wide"])
+def test_expert_counts_equal_bincount_and_jax(case):
+    """The fixed-shape ``scatter_add_`` count equals ``torch.bincount``
+    (the path it replaced) and JAX's ``bincount`` bit for bit, experts
+    that no token picks included."""
+    if case == "wide":
+        rng = np.random.RandomState(7)
+        idx, e = rng.randint(0, 6, (4096, 2)), 64      # 58 empty experts
+    else:
+        idx, e, _ = _routing(case)
+    flat = torch.from_numpy(idx.reshape(-1))
+    got = tbw.expert_counts(flat, e)
+    assert got.dtype == torch.int64 and got.shape == (e,)
+    assert torch.equal(got, torch.bincount(flat, minlength=e))
+    ref = np.asarray(jnp.bincount(jnp.asarray(idx.reshape(-1), jnp.int32),
+                                  length=e))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (got == 0).any() or case == "random"
+
+
 def test_scatter_and_combine_match_jax():
     idx, e, b = _routing("random")
     rng = np.random.RandomState(1)

@@ -2,6 +2,8 @@
 JAX package: the refcounted block allocator, the flat write indices and the
 pool scatters (bitwise), and the int8 KV quantizer (bitwise codes)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -151,3 +153,86 @@ def test_init_paged_caches_match_jax_layout():
             a.capacity, a.max_slots, a.max_blocks_per_seq)
     np.testing.assert_array_equal(tq.k_scale.numpy(), np.asarray(jq.k_scale))
     assert tq.k.dtype == torch.int8
+
+
+def _old_path_write(pool, rows, idx):
+    """The write the serving path used before: keep the rows whose index
+    lands (``torch.nonzero``, a host sync on CUDA), then one scatter."""
+    nb, bs = pool.shape[:2]
+    keep = torch.nonzero(idx < nb * bs).squeeze(1)
+    flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
+    flat.index_copy_(0, idx[keep].long(), rows[keep].to(pool.dtype))
+    return pool
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fixed_shape_pool_write_matches_old_path_and_jax(seed, quantized):
+    """The serving path's write scatters every row and sends the dropped
+    ones (index == capacity, several at once, more than the block's rows)
+    to the spare block's rows past the pool: k, v, the scales and the
+    positions equal the old path's and JAX's drop-mode writes bit for bit,
+    the other layer is untouched and the public shapes are JAX's."""
+    rng = np.random.RandomState(seed)
+    nl, nb, bs, kv, d, t = 2, 6, 4, 2, 8, 12
+    cap = nb * bs
+    init = (tpg.init_quantized_paged_kv_cache if quantized else
+            functools.partial(tpg.init_paged_kv_cache, dtype=torch.float32))
+    cache = init(nl, nb, bs, kv, d, 3, 5, device="cpu")
+    pools = {"k": cache.k, "v": cache.v}
+    if quantized:
+        pools.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    for name, p in pools.items():
+        src = rng.randn(*p.shape) * 50
+        p.copy_(torch.from_numpy(src).to(p.dtype))
+    cache.pos.copy_(torch.from_numpy(rng.randint(0, 50, (nb, bs))))
+    idx = rng.permutation(cap)[:t].astype(np.int32)
+    idx[[1, 4, 7, 8, 9, 11]] = cap                   # dropped, repeated
+    idx_t = torch.from_numpy(idx)
+    spread = tpg.spread_dropped_rows(idx_t, cap, bs)
+    assert torch.equal(spread[idx_t < cap], idx_t[idx_t < cap])
+    assert spread[idx_t == cap].tolist() == [cap + i % bs
+                                             for i in (1, 4, 7, 8, 9, 11)]
+    layer = 1
+    for name, p in pools.items():
+        rows = torch.from_numpy(rng.randn(t, *p.shape[3:]) * 50).to(p.dtype)
+        before = p.clone()
+        old = _old_path_write(before[layer].clone(), rows, idx_t)
+        ref = np.asarray(jpg.write_pool_rows(
+            jnp.asarray(before[layer].numpy()), jnp.asarray(rows.numpy()),
+            jnp.asarray(idx)))
+        tpg.scatter_pool_rows(tpg.pool_rows(p)[layer], rows, spread)
+        assert torch.equal(p[layer], old), name
+        np.testing.assert_array_equal(p[layer].numpy(), ref, err_msg=name)
+        assert torch.equal(p[0], before[0]), name
+    new_pos = torch.from_numpy(rng.randint(0, 50, (t,)).astype(np.int32))
+    old = _old_path_write(cache.pos.clone(), new_pos, idx_t)
+    ref = np.asarray(jpg.write_pool_positions(
+        jnp.asarray(cache.pos.numpy()), jnp.asarray(new_pos.numpy()),
+        jnp.asarray(idx)))
+    tpg.scatter_pool_rows(tpg.pool_rows(cache.pos, layered=False), new_pos,
+                          spread)
+    assert torch.equal(cache.pos, old)
+    np.testing.assert_array_equal(cache.pos.numpy(), ref)
+    jinit = (jpg.init_quantized_paged_kv_cache(nl, nb, bs, kv, d, 3, 5)
+             if quantized else jpg.init_paged_kv_cache(
+                 nl, nb, bs, kv, d, 3, 5, dtype=jnp.float32))
+    for name in list(pools) + ["pos"]:
+        assert tuple(getattr(cache, name).shape) == tuple(
+            getattr(jinit, name).shape), name
+    assert cache.capacity == jinit.capacity == cap
+
+
+def test_pool_rows_needs_the_spare_row():
+    """The flat view holds the spare block's rows; a pool made otherwise
+    has none, and its flat view is refused (for a middle layer too, whose
+    next row is the next layer's)."""
+    cache = tpg.init_paged_kv_cache(3, 4, 2, 1, 8, 2, 2,
+                                    dtype=torch.float32, device="cpu")
+    assert tpg.pool_rows(cache.k).shape == (3, 10, 1, 8)
+    assert tpg.pool_rows(cache.pos, layered=False).shape == (10,)
+    for plain, layered in ((torch.zeros(3, 4, 2, 1, 8), True),
+                           (torch.zeros(4, 2, dtype=torch.int32), False),
+                           (cache.k.contiguous(), True)):
+        with pytest.raises(ValueError, match="spare block"):
+            tpg.pool_rows(plain, layered)

@@ -8,7 +8,8 @@ weights, prompts and ``FaultPlan`` under ``clock=lambda: 0.0``, and every
 
 Then what is the port's own: one copy of the weights for every replica,
 a dropped replica's engine freed without a garbage collection, and the
-refusals (``aot_cache``, ``RouterConfig.long_context_*``)."""
+refusal of ``RouterConfig.long_context_*`` and the executable cache's
+leases under scaling."""
 
 import dataclasses
 import gc
@@ -34,6 +35,7 @@ from neuronx_distributed_tpu.resilience.chaos import FaultPlan as JPlan
 from neuronx_distributed_tpu.resilience import preemption as jpre
 from neuronx_distributed_tpu.obs.slo import SloPolicy as JSloPolicy
 import neuronx_distributed_tpu_torch.obs as tobs
+from neuronx_distributed_tpu_torch.inference import aot_cache as tac
 from neuronx_distributed_tpu_torch.inference import engine as te
 from neuronx_distributed_tpu_torch.inference import router as tr
 from neuronx_distributed_tpu_torch.models import llama as tl
@@ -586,6 +588,10 @@ def test_crashed_replica_engine_is_freed_without_gc(models):
 
 
 def test_aot_warm_is_false_and_scale_up_reports_it(models):
+    """Without a cache no engine is warm. With one, a scale-up while every
+    capture is held by a live replica captures its own (``warm=False``),
+    and one after a scale-down leases the retired replica's
+    (``warm=True``); the events carry ``aot_warm()``."""
     p = Pkg("torch", models)
     seen = []
     unsub = tsubscribe(lambda e, f: seen.append((e, f)))
@@ -596,18 +602,28 @@ def test_aot_warm_is_false_and_scale_up_reports_it(models):
         assert router.scale_up("test") == "r1"
         assert router._budget == 2 * budget
         assert router.scale_up("test") is None
+        assert all(not r.engine.aot_warm() for r in router.replicas)
+        cache = tac.AotExecutableCache()
+        cached = p.router(p.rt.RouterConfig(
+            num_replicas=1, scale=p.rt.ScalePolicy(max_replicas=2)),
+            aot_cache=cache)
+        assert cached.scale_up("test") == "r1"
+        assert not any(r.engine.aot_warm() for r in cached.replicas)
+        assert cached.scale_down("test") == "r1"
+        assert cached.scale_up("test") == "r2"
+        assert cached.replicas[-1].engine.aot_warm()
     finally:
         unsub()
-    assert all(not r.engine.aot_warm() for r in router.replicas)
     evt = [f for e, f in seen if e == "router_scale_up"]
-    assert len(evt) == 1 and evt[0]["warm"] is False
-    assert evt[0]["replica"] == "r1" and evt[0]["fleet"] == 2
+    assert [(f["replica"], f["fleet"], f["warm"]) for f in evt] == [
+        ("r1", 2, False), ("r1", 2, False), ("r2", 2, True)]
+    assert cache.stats() == {"hits": 1, "misses": 2, "puts": 2,
+                             "evictions": 0, "serialize_skips": 0,
+                             "mem_entries": 2}
 
 
 def test_later_slice_router_options_raise(models):
     p = Pkg("torch", models)
-    with pytest.raises(NotImplementedError, match="aot_cache"):
-        p.router(aot_cache=object())
     for kw in (dict(long_context_replicas=1),
                dict(long_context_engine=p.ecfg()),
                dict(long_context_threshold=64)):
