@@ -298,6 +298,30 @@ script exits non-zero and prints no result:
 44. benchmark: ``python -m neuronx_distributed_tpu_torch.inference.
    benchmark`` on the card; its JSON line is printed on a line of its own.
 
+45. flash_families: ``flash_attention`` (K2-K4; a head width other than 64
+   or 128 zero-padded around them) at GPT-NeoX-20B's attention (B=1,
+   S=2048, N=64, D=96, causal; bf16 and fp32), BERT-large's (B=8, S=512,
+   N=16, D=64, bidirectional; bf16, and with dropout 0.1), ViT-Huge/14's
+   (B=32, S=257, N=16, D=80) and ViT-Base's (B=32, S=197, N=12, D=64)
+   against the plain versions at the unpadded width, element by element
+   (bf16 2e-2, fp32 1e-4), each kernel launched once, in bf16 a second run
+   equal bit for bit; each kernel's ms, its plain version's, SDPA's and the
+   bound of the useful work; NeoX's forward entry at D=96 against K2 at
+   D=128 (the padding's cost).
+46. train_families: ``make_train_step`` (fp32 params, bf16 compute, flash,
+   AdamW clipped at 1.0, 5 steps on one batch) on GPT-NeoX-20B's widths at
+   4 layers (B=1, S=2048), BERT-large at 24 layers with the tied MLM head
+   (B=8, S=512, 15% labelled) and ViT-Huge/14 at 32 layers (B=32 images):
+   finite losses, K2-K4 launched layers x steps; step p50 and peak GiB.
+47. vit_serve: ViT-Huge/14 at 32 layers in bf16 through ``ModelBuilder``
+   with buckets 1, 8, 32: a batch of 5 routes to bucket 8, captured logits
+   equal the eager forward's bit for bit, K2 launched only by the captures;
+   p50 ms per bucket and images/s.
+48. families_cross_check: fp32, full width, 1 layer, card against CPU:
+   GPT-NeoX-20B and BERT-large at S=128, ViT-Huge at B=2: logits within
+   1e-4 x max|logit|, the loss within 1e-5, every gradient within 1e-3 of
+   its norm.
+
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
 The last two lines are the kernels' JSON summary (``path_launches`` gives
@@ -4564,6 +4588,407 @@ def phase_benchmark():
          unit=parsed["unit"])
 
 
+# ---------------------------------------------------------------------------
+# phases 45-48: GPT-NeoX, BERT and ViT
+# ---------------------------------------------------------------------------
+
+#: (case, dtype, B, S, N, D, causal, dropout p): the families' attention
+#: at their published widths (D 96 and 80 padded to the kernels' 128)
+FAMILY_FLASH_CASES = (
+    ("neox20b_bf16", torch.bfloat16, 1, 2048, 64, 96, True, 0.0),
+    ("neox20b_fp32", torch.float32, 1, 2048, 64, 96, True, 0.0),
+    ("bert_large_bf16", torch.bfloat16, 8, 512, 16, 64, False, 0.0),
+    ("bert_large_bf16_dropout", torch.bfloat16, 8, 512, 16, 64, False, 0.1),
+    ("vit_huge_bf16", torch.bfloat16, 32, 257, 16, 80, False, 0.0),
+    ("vit_base_bf16", torch.bfloat16, 32, 197, 12, 64, False, 0.0),
+)
+
+
+def family_flash_run(q, k, v, g, causal, p, seed):
+    """``(out, dq, dk, dv)`` of ``flash_attention`` (K2-K4, a D that is not
+    64 or 128 zero-padded around them) with ``g`` as out's gradient."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal, dropout_p=p,
+                             dropout_seed=seed)
+    out.backward(g)
+    return (out.detach(), *(t.grad for t in leaves))
+
+
+def padded_flash_inputs(q, k, v, g):
+    """q, k, v and g zero-padded to the kernels' head width, as
+    ``flash_attention`` pads them, and the unpadded width's scale."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    d = q.shape[-1]
+    width = fa.kernel_head_dim(d)
+    return [F.pad(t, (0, width - d)) for t in (q, k, v, g)], 1.0 / np.sqrt(d)
+
+
+def family_flash_timing(q, k, v, g, causal, p, seed, flush):
+    """Each kernel's ms and its plain version's on the padded tensors they
+    take, SDPA's forward and backward (undropped) on the unpadded tensors,
+    the bound of the useful (unpadded) work, and the forward entry's ms
+    (pad, K2, slice)."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    (qp, kp, vp, gp), scale = padded_flash_inputs(q, k, v, g)
+    outp, lsep = fa.flash_fwd_cuda(qp, kp, vp, causal, scale, p, seed)
+    bwdp = (qp, kp, vp, gp, lsep, fa.attention_delta(gp, outp), causal,
+            scale, p, seed)
+    calls = {"flash_fwd": (
+                 lambda: fa.flash_fwd_cuda(qp, kp, vp, causal, scale, p,
+                                           seed),
+                 lambda: fa.flash_fwd_plain(qp, kp, vp, causal, scale, p,
+                                            seed)),
+             "flash_bwd_dq": (lambda: fa.flash_bwd_dq_cuda(*bwdp),
+                              lambda: fa.flash_bwd_dq_plain(*bwdp)),
+             "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_cuda(*bwdp),
+                               lambda: fa.flash_bwd_dkv_plain(*bwdp))}
+    bounds = flash_bounds(q, k, causal)
+    fwd_ms, bwd_ms = sdpa_yardsticks(q, k, v, g, causal, flush)
+    timing = {}
+    for name, (kern, plain) in calls.items():
+        t = timing[name] = dict(kernel_ms=time_ms(kern, flush=flush),
+                                plain_ms=time_ms(plain, reps=3, warmup=1,
+                                                 flush=flush),
+                                library_ms=fwd_ms if name == "flash_fwd"
+                                else bwd_ms, **bounds[name])
+        t["useful_tflops"] = t["flops"] / t["kernel_ms"] / 1e9
+    with torch.no_grad():
+        timing["flash_fwd"]["entry_ms"] = time_ms(
+            lambda: fa.flash_attention(q, k, v, causal=causal, dropout_p=p,
+                                       dropout_seed=seed), flush=flush)
+    return timing
+
+
+def family_flash_case(i, case, dtype, b, s, n, d, causal, p, flush):
+    """One ``FAMILY_FLASH_CASES`` row of phase 45: its errors, bits and
+    times."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = flash_inputs(300 + i, b=b, s=s, n=n, kv=n, d=d, dtype=dtype)
+    seed = 4321 + i
+    counters = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv]
+    before = [c.launches for c in counters]
+    got = family_flash_run(q, k, v, g, causal, p, seed)
+    torch.cuda.synchronize()
+    launched = [c.launches - x for c, x in zip(counters, before)]
+    if launched != [1, 1, 1]:
+        raise AssertionError(f"flash_families {case}: K2-K4 launched "
+                             f"{launched}, want once each")
+    (qp, kp, vp, gp), scale = padded_flash_inputs(q, k, v, g)
+    out, lse = fa.flash_fwd_plain(qp, kp, vp, causal, scale, p, seed)
+    args = (qp, kp, vp, gp, lse, fa.attention_delta(gp, out), causal, scale,
+            p, seed)
+    ref = [t[..., :d] for t in (out, fa.flash_bwd_dq_plain(*args),
+                                *fa.flash_bwd_dkv_plain(*args))]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    names = ("out", "dq", "dk", "dv")
+    errs, rels = {}, {}
+    for name, a, r in zip(names, got, ref):
+        rel = flash_rel_err(a, r)
+        if not (rel <= tol) or not torch.isfinite(a).all():
+            raise AssertionError(f"flash_families {case} {name}: error "
+                                 f"{rel} of |ref| + rms(row) above {tol}")
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        rels[name] = rel
+    res = dict(case=case, dtype=str(dtype), shape=[b, s, n, d],
+               kernel_head_dim=fa.kernel_head_dim(d), causal=causal,
+               dropout_p=p, tol=tol, max_abs_err=errs, max_rel_err=rels)
+    if dtype == torch.bfloat16:
+        again = family_flash_run(q, k, v, g, causal, p, seed)
+        torch.cuda.synchronize()
+        for name, a, c in zip(names, got, again):
+            if not torch.equal(a, c):
+                raise AssertionError(f"flash_families {case} {name}: two "
+                                     "runs on the same inputs differ")
+        res["deterministic"] = True
+    res["timing"] = family_flash_timing(q, k, v, g, causal, p, seed, flush)
+    return res
+
+
+def neox_padding_cost(flush):
+    """What the padding costs NeoX's forward: the entry at D=96 (pad, K2 at
+    128, slice) against K2 on D=128 tensors of the same B, S and N."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = flash_inputs(399, b=1, s=2048, n=64, kv=64, d=96)
+    q8, k8, v8, _ = flash_inputs(398, b=1, s=2048, n=64, kv=64, d=128)
+    with torch.no_grad():
+        pad = dict(
+            entry_d96_ms=time_ms(lambda: fa.flash_attention(q, k, v),
+                                 flush=flush),
+            k2_d128_ms=time_ms(lambda: fa.flash_fwd_cuda(q8, k8, v8),
+                               flush=flush),
+            k2_d96_bound_ms=flash_bounds(q, k, True)["flash_fwd"]["bound_ms"],
+            k2_d128_bound_ms=flash_bounds(q8, k8, True)["flash_fwd"][
+                "bound_ms"])
+    pad["pad_overhead_ms"] = pad["entry_d96_ms"] - pad["k2_d128_ms"]
+    pad["useful_share"] = 96 / 128
+    return pad
+
+
+def phase_flash_families():
+    """Phase 45: ``flash_attention`` at GPT-NeoX-20B's, BERT-large's,
+    ViT-Huge/14's and ViT-Base's attention shapes (``FAMILY_FLASH_CASES``)
+    against the plain versions on the inputs the kernels take (zero-padded
+    to their width, the output sliced back), element by element
+    (``flash_rel_err``: bf16 2e-2, fp32 1e-4), each of K2, K3 and K4
+    launched once; in bf16 a second run equal to the first bit for bit.
+    (At the unpadded width the plain delta sums 96 terms where the path's
+    sums 128, and causal dq's first row, zero but for rounding, then parts
+    by 3e-4 of the 1e-3 max|dq| term in fp32, as the plain fp32 version
+    itself does from a float64 one; the CPU tests hold the padded against
+    the unpadded plain versions within 1e-6.)
+    Times each kernel, its plain version and SDPA beside the bound, and
+    the cost of padding (``neox_padding_cost``)."""
+    base = memory_base()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    results = [family_flash_case(i, *row, flush)
+               for i, row in enumerate(FAMILY_FLASH_CASES)]
+    emit("flash_families", cases=results,
+         neox_padding=neox_padding_cost(flush))
+    del flush
+    free_cuda()
+    check_freed("flash_families", base)
+    return results
+
+
+def phase_train_families(steps=5):
+    """Phase 46: ``make_train_step`` (fp32 params, bf16 compute, flash
+    attention, AdamW lr 1e-4 clipped at 1.0) for ``steps`` steps on one
+    batch of each family (``scripts.workloads.family_train_workload``):
+    GPT-NeoX-20B's widths at 4 layers (B=1, S=2048), BERT-large at 24
+    layers with the tied MLM head (B=8, S=512, 15% labelled), ViT-Huge/14 at
+    32 layers (B=32 images). Finite losses and grad norms; K2, K3 and K4
+    each launched layers x steps times (K2 twice that under remat); the
+    model freed by ``del``. Returns each kernel's launches per family."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.scripts.workloads import (
+        family_train_workload)
+
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    out = {}
+    for family in ("neox", "bert", "vit"):
+        base = memory_base()
+        torch.cuda.reset_peak_memory_stats()
+        w = family_train_workload(family)
+        cfg, state, step, batch = w.cfg, w.state, w.step, w.batch
+        n_params = sum(p.numel() for p in state.params.values())
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        losses, norms, times = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+        launches = {name: c.launches for name, c in counters.items()}
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            raise AssertionError(f"train_families {family}: non-finite loss "
+                                 f"or grad norm: {losses} {norms}")
+        for name, n in launches.items():
+            want = cfg.num_layers * steps * (
+                2 if cfg.remat and name == "flash_fwd" else 1)
+            if n != want:
+                raise AssertionError(f"train_families {family}: {name} "
+                                     f"launched {n} times, want {want} "
+                                     "(layers x steps)")
+        p50 = float(np.median(times))
+        rows = next(iter(batch.values())).shape[0]
+        out[family] = launches
+        emit(f"train_{family}", config=type(cfg).__name__,
+             layers=cfg.num_layers, params=n_params, batch=rows,
+             head_dim=cfg.hidden_size // cfg.num_heads,
+             compute_dtype=str(cfg.dtype), param_dtype=str(cfg.param_dtype),
+             steps=steps, losses=losses, grad_norms=norms, step_ms=times,
+             step_ms_p50=p50, samples_per_s=rows / (p50 / 1e3),
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches=launches)
+        del w, cfg, state, step, batch, m
+        free_cuda()
+        check_freed(f"train_{family}", base)
+    return out
+
+
+def phase_vit_serve(buckets=(1, 8, 32), reps=20):
+    """Phase 47: ViT-Huge/14 at all 32 layers in bf16 (flash attention,
+    random weights, seed 0, std 0.02) through ``ModelBuilder`` with batch
+    buckets 1, 8 and 32 (``register_image_encoder``, the reference's
+    ``vit_serve.py``): a batch of 5 routes to bucket 8; each bucket's
+    captured logits equal the eager forward's on the same (padded) batch
+    bit for bit; K2 launched only by the captures (warm-up and capture: 2
+    x layers a bucket), never by a replay. Prints p50 ms per bucket (CUDA
+    events around ``forward``) and images/s. Returns K2's capture
+    launches."""
+    from neuronx_distributed_tpu_torch.inference import model_builder as mb
+    from neuronx_distributed_tpu_torch.models import vit
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    base = memory_base()
+    cfg = dataclasses.replace(vit.VIT_HUGE, use_flash_attention=True)
+    sd = vit.init_state_dict(dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                             seed=0, std=0.02)
+    weight_gib = sum(t.numel() * t.element_size()
+                     for t in sd.values()) / 2 ** 30
+    fa.flash_fwd.launches = 0
+    t0 = time.perf_counter()
+    served = mb.register_image_encoder(mb.ModelBuilder(), cfg, sd,
+                                       buckets).trace().compile()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captures = fa.flash_fwd.launches
+    if captures != 2 * cfg.num_layers * len(buckets):
+        raise AssertionError(f"vit_serve: K2 launched {captures} times by "
+                             f"the captures, want 2 x {cfg.num_layers} x "
+                             f"{len(buckets)}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (cfg.num_channels, cfg.image_size, cfg.image_size)
+    px5 = torch.randn((5,) + shape, generator=gen, device="cuda")
+    routed = served.router("image_encoder", (sd, px5)).leaves[-1].shape[0]
+    if routed != 8:
+        raise AssertionError(f"vit_serve: a batch of 5 routed to bucket "
+                             f"{routed}, want 8")
+    fa.flash_fwd.launches = 0
+    batches = {b: torch.randn((b,) + shape, generator=gen, device="cuda")
+               for b in buckets}
+    graph = {5: served.forward("image_encoder", sd, px5, pad_inputs=True)}
+    p50 = {}
+    for b, px in batches.items():
+        graph[b] = served.forward("image_encoder", sd, px)
+        p50[b] = time_ms(lambda: served.forward("image_encoder", sd, px),
+                         reps=reps)
+    torch.cuda.synchronize()
+    replay_launches = fa.flash_fwd.launches
+    if replay_launches:
+        raise AssertionError(f"vit_serve: replays launched K2 "
+                             f"{replay_launches} times")
+    model = vit.build_model(cfg, sd)
+    with torch.no_grad():
+        eager = {5: model(F.pad(px5, (0, 0, 0, 0, 0, 0, 0, 3)))}
+        eager.update({b: model(px) for b, px in batches.items()})
+    same = {b: torch.equal(graph[b], eager[b]) for b in graph}
+    finite = all(torch.isfinite(x).all().item() for x in graph.values())
+    if not all(same.values()) or not finite or graph[5].shape != (
+            8, cfg.num_labels):
+        raise AssertionError(f"vit_serve: captured logits equal eager "
+                             f"{same}, finite {finite}, batch-5 shape "
+                             f"{tuple(graph[5].shape)}")
+    emit("vit_serve", layers=cfg.num_layers, dtype=str(cfg.dtype),
+         weight_gib=weight_gib, buckets=list(buckets), batch5_bucket=routed,
+         capture_s=capture_s, k2_capture_launches=captures,
+         k2_replay_launches=replay_launches, bits_equal_eager=same,
+         p50_ms={str(b): v for b, v in p50.items()},
+         images_per_s={str(b): b / (v / 1e3) for b, v in p50.items()})
+    del served, model, sd, graph, eager, batches, px5
+    free_cuda()
+    check_freed("vit_serve", base)
+    return captures
+
+
+def family_cross_inputs(family, cfg):
+    """Phase 48's inputs (numpy seed 2, on the CPU) and the loss."""
+    rng = np.random.RandomState(2)
+    if family == "vit":
+        px = torch.from_numpy(rng.randn(2, cfg.num_channels, cfg.image_size,
+                                        cfg.image_size).astype(np.float32))
+        labels = torch.from_numpy(rng.randint(0, cfg.num_labels, (2,)))
+        return (px,), labels
+    b = 1 if family == "neox" else 2
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, 129)))
+    if family == "neox":
+        return (ids[:, :-1],), ids[:, 1:]
+    labels = torch.where(torch.from_numpy(rng.rand(b, 128) < 0.15),
+                         ids[:, :-1], -100)
+    return (ids[:, :-1],), labels
+
+
+def phase_families_cross_check():
+    """Phase 48: fp32, full width, 1 layer, flash attention, card against
+    CPU from the same weights (made on the card, seed 1): GPT-NeoX-20B and
+    BERT-large (tied MLM head) at S=128, ViT-Huge/14 at B=2. Logits within
+    1e-4 x max|logit|, the loss within 1e-5 relative, every gradient within
+    1e-3 of its norm. Without rotary (BERT, ViT) a key bias's exact
+    gradient is zero (the softmax ignores a per-query constant), so its
+    scale is its key kernel's gradient norm."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+    from neuronx_distributed_tpu_torch.models import bert, gpt_neox, vit
+
+    base = memory_base()
+    fp32 = dict(num_layers=1, dtype=torch.float32, param_dtype=torch.float32,
+                use_flash_attention=True)
+    cells = {"neox": (gpt_neox, gpt_neox.GPTNeoXForCausalLM,
+                      dataclasses.replace(gpt_neox.GPT_NEOX_20B, **fp32)),
+             "bert": (bert, bert.BertForPreTraining,
+                      dataclasses.replace(bert.BERT_LARGE, mlm_transform=True,
+                                          **fp32)),
+             "vit": (vit, vit.ViTForImageClassification,
+                     dataclasses.replace(vit.VIT_HUGE, **fp32))}
+    report = {}
+    for family, (mod, cls, cfg) in cells.items():
+        inputs, labels = family_cross_inputs(family, cfg)
+        sd = mod.init_state_dict(cfg, seed=1, std=0.02)
+        side = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            pm, params = trainer.initialize_parallel_model(
+                neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
+            if type(pm.module) is not cls:
+                raise AssertionError(f"families_cross_check: {family} built "
+                                     f"a {type(pm.module).__name__}")
+            args = [x.to(dev) for x in inputs]
+            with torch.no_grad():
+                logits = pm.module(*args)
+            loss = pm.module.loss(*args, labels.to(dev))
+            loss.backward()
+            side[dev] = (logits.cpu(), loss.item(),
+                         {n: p.grad.cpu() for n, p in params.items()
+                          if p.grad is not None},
+                         time.perf_counter() - t0)
+            del pm, params, args, logits, loss
+        del sd
+        free_cuda()
+        (lg, sg, gg, tg), (lc, sc, gc, tc) = side["cuda"], side["cpu"]
+        logit_err = ((lg - lc).abs().max() / lc.abs().max()).item()
+        if not logit_err <= 1e-4:
+            raise AssertionError(f"families_cross_check {family}: logits "
+                                 f"differ by {logit_err} of max|logit|")
+        if not abs(sg - sc) <= 1e-5 * abs(sc):
+            raise AssertionError(f"families_cross_check {family}: loss {sg} "
+                                 f"vs CPU {sc}")
+        if gg.keys() != gc.keys():
+            raise AssertionError(f"families_cross_check {family}: gradients "
+                                 f"of {sorted(gg.keys() ^ gc.keys())} on one "
+                                 "side only")
+        worst, worst_name = 0.0, None
+        for name, ref in gc.items():
+            scale = ref
+            if family != "neox" and name.endswith("k_bias"):
+                scale = gc[name[:-len("k_bias")] + "k_kernel"]
+            rel = ((gg[name] - ref).norm() / scale.norm()).item()
+            if rel > worst:
+                worst, worst_name = rel, name
+            if not rel <= 1e-3:
+                raise AssertionError(f"families_cross_check {family}: "
+                                     f"{name}'s gradient differs by {rel} of "
+                                     "its norm")
+        report[family] = dict(
+            config=type(cfg).__name__, loss_card=sg, loss_cpu=sc,
+            logit_rel_err=logit_err, max_grad_rel_diff=worst,
+            max_grad_rel_diff_param=worst_name, card_s=tg, cpu_s=tc,
+            params=sum(t.numel() for t in gc.values()))
+        del side, gg, gc
+    emit("families_cross_check", layers=1, dtype="float32", **report)
+    free_cuda()
+    check_freed("families_cross_check", base)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -4657,6 +5082,10 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_train_loop_cross_check(LLAMA3_8B)
+    family_flash = phase_flash_families()
+    family_launches = phase_train_families()
+    vit_captures = phase_vit_serve()
+    phase_families_cross_check()
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -4716,8 +5145,14 @@ def main() -> None:
                "flash_bwd_dkv": ("dk", "dv")}
     for name, replaces in FLASH_KERNELS:
         t = flash_main["timing"][name]
-        err = max(c["max_abs_err"][o] for c in flash_cases
-                  for o in outputs[name])
+        err = max([c["max_abs_err"][o] for c in flash_cases
+                   for o in outputs[name]]
+                  + [c["max_abs_err"][o] for c in family_flash
+                     for o in outputs[name] if o != "lse"])
+        family_paths = {f"train_{f}": n[name]
+                        for f, n in family_launches.items()}
+        if name == "flash_fwd":
+            family_paths["vit_serve"] = vit_captures
         summary.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": flash_launches[name],
@@ -4730,7 +5165,12 @@ def main() -> None:
             "path_launches": {"train": flash_launches[name],
                               "train_loop": loop_launches[name],
                               "train_mixtral_remat": remat_launches[name],
-                              "train_integrity": integrity_launches[name]}})
+                              "train_integrity": integrity_launches[name],
+                              **family_paths},
+            "family_cases": {c["case"]: {
+                key: c["timing"][name][key] for key in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")} for c in family_flash}})
     for name, replaces in MOE_KERNELS:
         main_case = next(c for c in moe_cases
                          if c["kernel"] == name and c["case"].endswith("bf16"))
@@ -4787,9 +5227,9 @@ def main() -> None:
 
 def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
-    the speculation, migration, router and captured-serving group alone,
-    for a short run while such a phase is worked on; no summary and no
-    result line."""
+    the speculation, migration, router, captured-serving and model-family
+    groups alone, for a short run while such a phase is worked on; no
+    summary and no result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4801,6 +5241,10 @@ def run_only(names) -> None:
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
     t0 = time.perf_counter()
     emit("build", seconds=time.perf_counter() - t0,
          kernels=sorted(_build.build()))
@@ -4823,7 +5267,11 @@ def run_only(names) -> None:
               "bundle": lambda: phase_bundle(LLAMA3_8B),
               "benchmark": phase_benchmark,
               "router_cross_check":
-                  lambda: phase_router_cross_check(LLAMA3_8B)}
+                  lambda: phase_router_cross_check(LLAMA3_8B),
+              "flash_families": phase_flash_families,
+              "train_families": phase_train_families,
+              "vit_serve": phase_vit_serve,
+              "families_cross_check": phase_families_cross_check}
     for name in names:
         phases[name]()
 

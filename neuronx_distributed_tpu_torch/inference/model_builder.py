@@ -32,7 +32,9 @@ the port; every other output is a copy. A bundle loaded with :meth:`
 NxDModel.load` captures each bucket at its first call, bound to the
 bundle's weights and to the state :meth:`NxDModel.init_state` returns.
 
-The bundle workers of :func:`register_serving_workers` and the functions
+The bundle workers of :func:`register_serving_workers`, the ViT
+classifier of :func:`register_image_encoder` (:func:`image_encoder`, the
+reference's ``examples/inference/vit_serve.py``) and the functions
 :func:`cached_step` and :func:`speculation_round` take the bridge's state
 dict (:mod:`..models.convert`) as ``params`` through
 ``torch.func.functional_call`` on a weightless (``meta``) model: no second
@@ -206,10 +208,14 @@ def _torch_dtype(name) -> torch.dtype:
 def _json_dataclasses() -> Dict[str, type]:
     """The dataclasses a bundle's JSON arguments may build: the model
     configs."""
+    from ..models.bert import BertConfig
+    from ..models.gpt_neox import GPTNeoXConfig
     from ..models.llama import LlamaConfig
     from ..models.mixtral import MixtralConfig
+    from ..models.vit import ViTConfig
 
-    return {_qualified(c): c for c in (LlamaConfig, MixtralConfig)}
+    return {_qualified(c): c for c in (LlamaConfig, MixtralConfig,
+                                       GPTNeoXConfig, BertConfig, ViTConfig)}
 
 
 def _from_json(v):
@@ -742,15 +748,12 @@ def _meta_model(cfg, device: torch.device) -> nn.Module:
     """A weightless serving model of ``cfg`` (one per config and device:
     its rope tables, made at the first call, stay where a captured step
     reads them)."""
-    from .engine import _family
+    from ..models import family_of
 
     key = (repr(cfg), str(device))
     m = _META.get(key)
     if m is None:
-        family, _ = _family(cfg)
-        cls = (family.MixtralForCausalLM if hasattr(family,
-                                                    "MixtralForCausalLM")
-               else family.LlamaForCausalLM)
+        _, cls = family_of(cfg)
         m = _META[key] = cls(dataclasses.replace(cfg, param_dtype=cfg.dtype),
                              device="meta").requires_grad_(False)
     return m
@@ -792,6 +795,16 @@ def paged_worker(params: Dict[str, torch.Tensor], cache,
     _, forward = _family(model_cfg)
     return _call_with(forward, [model_cfg], [params], tokens, positions,
                       cache, slot_ids=slot_ids)
+
+
+@bundle_function
+def image_encoder(params: Dict[str, torch.Tensor],
+                  pixel_values: torch.Tensor, *, model_cfg):
+    """The ViT classifier of a bundle (``"image_encoder"``): ``(params,
+    pixel_values [B, C, H, W]) -> fp32 logits [B, num_labels]``."""
+    with torch.no_grad():
+        return _call_with(lambda model, px: model(px), [model_cfg], [params],
+                          pixel_values)
 
 
 @bundle_function
@@ -987,6 +1000,33 @@ def register_serving_workers(builder: ModelBuilder, model_cfg, engine_cfg,
                 [_args(e.prefill_budget or e.token_budget)],
                 priority_model=True)
     builder.add("token_decode", worker, [_args(e.max_slots)])
+    return builder
+
+
+def register_image_encoder(builder: ModelBuilder, model_cfg,
+                           params: Dict[str, torch.Tensor],
+                           buckets: Sequence[int],
+                           device: DeviceLike = None) -> ModelBuilder:
+    """Register a ViT classifier as ``"image_encoder"`` (the priority
+    model), one batch bucket each (:func:`image_encoder`), as the
+    reference's ``examples/inference/vit_serve.py`` does. ``params`` (a
+    state dict) is moved to ``device`` in ``model_cfg.dtype`` once and
+    bound; one already there (``init_state_dict(replace(cfg,
+    param_dtype=cfg.dtype))``) is bound as it is, and passing it to
+    ``forward`` copies nothing. The example batches are zeros in fp32.
+    Serve a batch with ``forward("image_encoder", params, pixel_values,
+    pad_inputs=True)``: it runs the tightest bucket, and the logits come
+    back at the bucket's batch."""
+    from ..models.vit import build_model
+
+    dev = resolve_device(device)
+    params = dict(build_model(model_cfg, params, dev).state_dict())
+    shape = (model_cfg.num_channels, model_cfg.image_size,
+             model_cfg.image_size)
+    builder.add("image_encoder",
+                functools.partial(image_encoder, model_cfg=model_cfg),
+                [(params, torch.zeros((b,) + shape, device=dev))
+                 for b in sorted(set(buckets))], priority_model=True)
     return builder
 
 

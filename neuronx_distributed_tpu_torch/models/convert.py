@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX package's Llama and Mixtral param trees.
+"""Weight bridge from the JAX package's param trees: Llama and Mixtral,
+and the GPT-NeoX, BERT and ViT families.
 
 The JAX ``LlamaForCausalLM`` tree (``scan_layers=True``) stacks every
 decoder layer on a leading dim under ``params/model/layers/layer``. The
@@ -12,6 +13,12 @@ leaves cross by name). A tied config (``tie_embeddings``) has no
 ``lm_head`` in either tree. A draft model crosses like any model;
 :func:`medusa_params_from_jax` carries Medusa heads across.
 
+The GPT-NeoX, BERT and ViT trees stack their layers under
+``params/layers/layer`` beside leaves of their own (``embed``,
+``position_embedding``, ``type_embedding``, ``mlm_bias``, ``cls_token``,
+``patch_proj``, ``classifier``, the norms and heads), which keep their JAX
+path joined by dots.
+
 It reads numpy arrays and imports nothing of JAX nor ``ml_dtypes``: an
 fp8 array (an ``ml_dtypes`` type) crosses as its bytes, viewed as the torch
 type of the same name.
@@ -24,7 +31,13 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
+from .bert import BertConfig
+from .gpt_neox import GPTNeoXConfig
 from .llama import LlamaConfig, LlamaForCausalLM
+from .vit import ViTConfig
+
+#: the configs whose trees stack their layers under ``params/layers/layer``
+FAMILY_CONFIGS = (GPTNeoXConfig, BertConfig, ViTConfig)
 
 # numpy dtype name of an ml_dtypes fp8 array -> the torch dtype
 _FP8_TYPES = {"float8_e4m3fn": torch.float8_e4m3fn,
@@ -49,12 +62,46 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), v
 
 
+def _unstack(cfg, path: Tuple[str, ...], stacked: Any
+             ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(layers.{i}.<path>, tensor)`` of one leaf stacked over the layers."""
+    stacked = np.asarray(stacked)
+    if stacked.shape[0] != cfg.num_layers:
+        raise ValueError(f"{'/'.join(path)} stacks {stacked.shape[0]} "
+                         f"layers, config has {cfg.num_layers}")
+    name = ".".join(path)
+    for i in range(cfg.num_layers):
+        yield f"layers.{i}.{name}", _tensor(stacked[i])
+
+
+def _family_params_from_jax(cfg, p: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """A GPT-NeoX, BERT or ViT tree (``scan_layers=True``). A BERT tree
+    made without token types has no ``type_embedding``: it gets zeros,
+    which a forward without ``token_type_ids`` never reads."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _leaves(p):
+        if path[:2] == ("layers", "layer"):
+            sd.update(_unstack(cfg, path[2:], a))
+        else:
+            sd[".".join(path)] = _tensor(a)
+    if isinstance(cfg, BertConfig) and "type_embedding" not in sd:
+        table = sd["embed.embedding"]
+        sd["type_embedding"] = torch.zeros(
+            (cfg.type_vocab_size, table.shape[1]), dtype=table.dtype)
+    return sd
+
+
 def params_from_jax(cfg: LlamaConfig,
                     tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``LlamaForCausalLM`` or ``MixtralForCausalLM`` params (numpy
-    arrays, with or without the outer ``"params"`` key) -> the port's state
-    dict, in the tree's own dtypes."""
+    """JAX ``LlamaForCausalLM``, ``MixtralForCausalLM``,
+    ``GPTNeoXForCausalLM``, ``BertForPreTraining`` or
+    ``ViTForImageClassification`` params (numpy arrays, with or without the
+    outer ``"params"`` key) -> the port's state dict, in the tree's own
+    dtypes. ``cfg`` names the family."""
     p = tree.get("params", tree)
+    if isinstance(cfg, FAMILY_CONFIGS):
+        return _family_params_from_jax(cfg, p)
     if ("lm_head" in p) == cfg.tie_embeddings:
         raise ValueError(
             f"the tree {'has' if 'lm_head' in p else 'has no'} lm_head but "
@@ -65,13 +112,7 @@ def params_from_jax(cfg: LlamaConfig,
     for path, a in _leaves(p.get("lm_head", {}), ("lm_head",)):
         sd[".".join(path)] = _tensor(a)
     for path, stacked in _leaves(model["layers"]["layer"]):
-        stacked = np.asarray(stacked)
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(f"{'/'.join(path)} stacks {stacked.shape[0]} "
-                             f"layers, config has {cfg.num_layers}")
-        name = ".".join(path)
-        for i in range(cfg.num_layers):
-            sd[f"layers.{i}.{name}"] = _tensor(stacked[i])
+        sd.update(_unstack(cfg, path, stacked))
     return sd
 
 

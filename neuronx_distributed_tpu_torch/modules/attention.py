@@ -60,6 +60,20 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_partial_rotary(x: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor, rotary_dim: int,
+                         positions: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Rotate the first ``rotary_dim`` of each head of ``x [B, S, N, D]``
+    and keep the rest (GPT-NeoX's ``rotary_pct``); cos/sin are the tables
+    of ``precompute_rope(max(2, rotary_dim), ...)``. ``rotary_dim`` 0 leaves
+    ``x`` as it is."""
+    if rotary_dim == 0:
+        return x
+    return torch.cat([apply_rotary(x[..., :rotary_dim], cos, sin, positions),
+                      x[..., rotary_dim:]], dim=-1)
+
+
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """[B, S, K, D] -> [B, S, K*n_rep, D] (GQA head expansion: query head
     ``n`` reads kv head ``n // n_rep``)."""
@@ -111,3 +125,22 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_p)), 0.0)
     out = torch.einsum("bnqk,bknd->bqnd", probs, v.float())
     return out.to(q.dtype)
+
+
+def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, use_flash: bool,
+                   dropout: Optional[Tuple[float, Optional[int]]] = None
+                   ) -> torch.Tensor:
+    """Multi-head self-attention of the model families without a cache
+    (GPT-NeoX causal, BERT and ViT bidirectional), ``q``/``k``/``v`` ``[B,
+    S, N, D]`` with as many K/V heads as query heads: flash attention (the
+    kernels K2-K4 on the card, any D up to 128) or the dense reference.
+    ``dropout = (p, seed)`` as :func:`attention_dropout_seed` draws it."""
+    dropout_p, seed = dropout or (0.0, None)
+    if use_flash:
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, dropout_p=dropout_p,
+                               dropout_seed=seed)
+    return sdpa_reference(q, k, v, causal=causal, dropout_p=dropout_p,
+                          dropout_seed=seed)

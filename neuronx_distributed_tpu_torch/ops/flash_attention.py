@@ -26,6 +26,14 @@ K/V may carry fewer heads than q (grouped-query attention): ``k``/``v``
 ``n // (N // KV)``, as ``repeat_kv`` would arrange them. The JAX functions
 take K/V already expanded; passing ``KV == N`` is that interface.
 
+The kernels take head_dim 64 or 128. :func:`flash_attention` serves any
+width up to 128 by zero-padding D to the kernel width (64 for D <= 64,
+else 128) and slicing the output back, with the softmax scale of the
+unpadded D, as the JAX dispatcher pads (its ``flash_attention``): zero
+columns add nothing to QK^T, and padded V columns only make output columns
+that are dropped. The pad runs on every device, so the CPU's plain
+versions see the padded shapes too.
+
 Attention dropout uses the JAX package's counter hash
 (:func:`dropout_keep_mask`, :func:`flat_bh`) on global (q, k) coordinates
 and the flat batch x query-head index, so the plain versions, the kernels
@@ -39,6 +47,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 # The first call of a custom operator (flash_fwd_op below) imports
 # torch._dynamo, and one of its modules applies torch.fx.wrap at import,
 # whose frame refers to itself. Imported from inside a forward, that cycle
@@ -457,16 +466,35 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def kernel_head_dim(d: int) -> int:
+    """The kernels' head width that serves ``d``: 64 for ``d <= 64``, else
+    128; above 128 raises."""
+    if not 0 < d <= 128:
+        raise ValueError(f"flash_attention: head_dim {d} not in 1..128 (the "
+                         "kernels take 64 or 128; narrower heads are "
+                         "zero-padded)")
+    return 64 if d <= 64 else 128
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     dropout_p: float = 0.0,
                     dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Flash attention, differentiable. ``q [B, S, N, D]``; ``k``/``v``
-    ``[B, S, KV, D]`` with ``N % KV == 0``; returns ``[B, S, N, D]`` in q's
-    dtype. ``dropout_p > 0`` needs ``dropout_seed`` (a uint32): the softmax
-    normaliser sums the undropped probabilities, dropped entries are zeroed
-    and survivors rescaled by 1/(1-p), and the same mask regenerates in the
-    backward."""
+    ``[B, S, KV, D]`` with ``N % KV == 0`` and ``D <= 128``; returns ``[B,
+    S, N, D]`` in q's dtype. A D other than 64 or 128 is zero-padded to
+    :func:`kernel_head_dim` and the output sliced back; the default scale
+    is ``1/sqrt(D)`` of the unpadded D. ``dropout_p > 0`` needs
+    ``dropout_seed`` (a uint32): the softmax normaliser sums the undropped
+    probabilities, dropped entries are zeroed and survivors rescaled by
+    1/(1-p), and the same mask regenerates in the backward."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    if width != d:
+        scale = _scale(q, scale)
+        q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
+        return flash_attention(q, k, v, causal, scale, dropout_p,
+                               dropout_seed)[..., :d]
     if dropout_p > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_p > 0 requires dropout_seed (a uint32 "

@@ -1,11 +1,15 @@
-"""The single-device train step of Llama and Mixtral (counterpart of
+"""The single-device train step of every model family of the port: Llama,
+Mixtral, GPT-NeoX, BERT and ViT (counterpart of
 ``neuronx_distributed_tpu/trainer/trainer.py``).
 
 The JAX package builds one jitted step (loss, grad, clip, AdamW) over
 sharded params. Here the step runs eagerly on one device: the model's loss
-(``LlamaForCausalLM.loss``, or ``MixtralForCausalLM.loss`` with the
-router's aux losses) through autograd, with causal flash attention on the
-flash kernels when ``use_flash_attention`` is set and, for Mixtral with
+(``LlamaForCausalLM.loss``, ``MixtralForCausalLM.loss`` with the router's
+aux losses, ``GPTNeoXForCausalLM.loss``, ``BertForPreTraining.loss``; ViT
+through a ``loss_fn`` over ``pixel_values`` and ``labels``, as in the
+reference) through autograd, with flash attention on the flash kernels
+when ``use_flash_attention`` is set (causal, or bidirectional for BERT and
+ViT, at any head width up to 128) and, for Mixtral with
 ``moe_dispatch="blockwise"``, the experts on the grouped-GLU kernels (K5
 forward, K7 and K8 backward), then the global gradient norm and the
 optimizer. The model's parameters are the state:
@@ -26,8 +30,7 @@ import torch
 
 from ..config import NxDConfig
 from ..device import DeviceLike, resolve_device
-from ..models import llama, mixtral
-from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..models import family_of
 from . import optimizer as opt_mod
 
 
@@ -46,29 +49,28 @@ class ParallelModel:
     """What :func:`initialize_parallel_model` returns beside the params:
     the module, the config and the device."""
 
-    module: LlamaForCausalLM
+    module: torch.nn.Module
     config: NxDConfig
     device: torch.device
 
 
 def initialize_parallel_model(
-        cfg: NxDConfig, model_cfg: LlamaConfig, seed: int = 0,
+        cfg: NxDConfig, model_cfg: Any, seed: int = 0,
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         device: DeviceLike = None, std: float = 0.02
 ) -> Tuple[ParallelModel, Dict[str, torch.nn.Parameter]]:
     """Build the model on ``device`` (None: the CUDA card) with parameters
     that require gradients: random normal(0, ``std``) from ``seed`` (unit
-    norm scales), or copies of ``state_dict`` (e.g.
+    norm scales, zero biases), or copies of ``state_dict`` (e.g.
     :func:`..models.convert.params_from_jax`), which is left as it is. The
-    family follows the config's type: a ``MixtralConfig`` builds a
-    ``MixtralForCausalLM``. Parameters are in ``model_cfg.param_dtype``, but
-    for those the model holds in fp32 (the MoE router's kernel). Returns
-    ``(ParallelModel, params)``."""
+    family follows the config's type (:func:`..models.family_of`): a
+    ``MixtralConfig`` builds a ``MixtralForCausalLM``, a ``GPTNeoXConfig``
+    a ``GPTNeoXForCausalLM``, a ``BertConfig`` a ``BertForPreTraining``, a
+    ``ViTConfig`` a ``ViTForImageClassification``. Parameters are in
+    ``model_cfg.param_dtype``, but for those the model holds in fp32 (the
+    MoE router's kernel). Returns ``(ParallelModel, params)``."""
     dev = resolve_device(device)
-    if isinstance(model_cfg, mixtral.MixtralConfig):
-        family, model_cls = mixtral, mixtral.MixtralForCausalLM
-    else:
-        family, model_cls = llama, LlamaForCausalLM
+    family, model_cls = family_of(model_cfg)
     model = model_cls(model_cfg, device="meta")
     if state_dict is None:
         sd = family.init_state_dict(model_cfg, seed=seed, std=std, device=dev)
@@ -111,7 +113,9 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     ignored). ``tx`` is the optimizer, or it wrapped by
     :func:`.mixed_precision.with_fp32_master_weights`. ``metrics`` holds
     0-dim device tensors: ``loss`` and ``grad_norm``, the global norm
-    before clipping.
+    before clipping. A parameter the loss does not reach (BERT's
+    ``type_embedding`` under a loss without token types) gets a zero
+    gradient, as under ``jax.grad``.
 
     ``loss_fn(module, params, batch) -> scalar``: the loss to
     differentiate instead of the model's own (``params`` is
@@ -190,6 +194,9 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
             mb_loss.backward()
             mb_loss = mb_loss.detach()
             loss = mb_loss if loss is None else loss + mb_loss
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if a > 1:
             loss = loss * (1.0 / a)

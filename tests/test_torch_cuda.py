@@ -25,8 +25,11 @@ from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
 from neuronx_distributed_tpu_torch.inference import engine as te
 from neuronx_distributed_tpu_torch.inference.kv_cache import (PAD_POSITION,
                                                               quantize_kv)
+from neuronx_distributed_tpu_torch.models import bert as tbert
+from neuronx_distributed_tpu_torch.models import gpt_neox as tneox
 from neuronx_distributed_tpu_torch.models import llama as tl
 from neuronx_distributed_tpu_torch.models import mixtral as tm
+from neuronx_distributed_tpu_torch.models import vit as tvit
 from neuronx_distributed_tpu_torch.modules.moe import blockwise as tbw
 from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
 from neuronx_distributed_tpu_torch.ops import flash_attention as tfa
@@ -460,6 +463,117 @@ def test_flash_wrappers_refuse_what_they_do_not_take(cuda):
         tfa.flash_fwd_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="every tensor on"):
         tfa.flash_fwd_cuda(q, k.cpu(), v)
+
+
+# the model families' attention shapes (chip_smoke.py flash_families):
+# GPT-NeoX-20B (D=96, padded to 128, causal), BERT-large (D=64,
+# bidirectional, with dropout), ViT-Huge/14 (D=80 padded, S=257), ViT-Base
+# (S=197)
+_FAMILY_SHAPES = [
+    ("neox20b", torch.bfloat16, 1, 2048, 64, 96, True, 0.0),
+    ("neox20b_fp32", torch.float32, 1, 512, 64, 96, True, 0.0),
+    ("bert_large", torch.bfloat16, 8, 512, 16, 64, False, 0.1),
+    ("vit_huge", torch.bfloat16, 32, 257, 16, 80, False, 0.0),
+    ("vit_base", torch.bfloat16, 32, 197, 12, 64, False, 0.0),
+]
+
+
+@pytest.mark.parametrize("name,dtype,b,s,n,d,causal,p", _FAMILY_SHAPES)
+def test_flash_attention_at_family_shapes_matches_plain(cuda, name, dtype, b,
+                                                        s, n, d, causal, p):
+    """``flash_attention`` (K2-K4, each launched once, a D that is not 64
+    or 128 padded around them) against the plain versions on the inputs
+    the kernels take (padded, the outputs sliced back): out, dq, dk and dv
+    element by element (bf16 2e-2, fp32 1e-4); the wrappers themselves
+    still refuse the width. (Against the plain versions at the unpadded
+    width, causal dq's first row, zero but for rounding, parts by 3e-4 of
+    its limit's 1e-3 max|dq| term in fp32, as the plain fp32 version does
+    from a float64 one: delta sums 96 terms there and 128 here.)"""
+    q, k, v, g = _flash_case(cuda, 5, dtype, b=b, s=s, n=n, kv=n, d=d)
+    fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    counts = [f.launches for f in fns]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal, dropout_p=p,
+                              dropout_seed=77)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    w = tfa.kernel_head_dim(d)
+    qp, kp, vp, gp = (torch.nn.functional.pad(t, (0, w - d))
+                      for t in (q, k, v, g))
+    scale = 1.0 / np.sqrt(d)
+    ref_out, lse = tfa.flash_fwd_plain(qp, kp, vp, causal, scale, p, 77)
+    args = (qp, kp, vp, gp, lse, tfa.attention_delta(gp, ref_out), causal,
+            scale, p, 77)
+    refs = [t[..., :d] for t in (ref_out, tfa.flash_bwd_dq_plain(*args),
+                                 *tfa.flash_bwd_dkv_plain(*args))]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for label, a, r in zip(("out", "dq", "dk", "dv"),
+                           (out, *(t.grad for t in leaves)), refs):
+        assert a.shape == r.shape and a.dtype == r.dtype, label
+        rel = flash_rel_err(a.detach(), r)
+        assert rel <= tol, (label, rel)
+    if d not in (64, 128):
+        with pytest.raises(ValueError, match="head_dim must be 64 or 128"):
+            tfa.flash_fwd_cuda(q, k, v)
+
+
+def _family_case(family):
+    """1 layer at a family's head width, fp32, and its inputs and loss."""
+    rng = np.random.RandomState(0)
+    if family == "vit":
+        cfg = tvit.tiny_vit_config(dtype=torch.float32, num_layers=1,
+                                   hidden_size=320, num_heads=4,
+                                   image_size=28, patch_size=14)
+        px = torch.from_numpy(rng.randn(2, 3, 28, 28).astype(np.float32))
+        labels = torch.tensor([3, 6])
+        return tvit, cfg, lambda m: m.loss(px.cuda(), labels.cuda())
+    ids = torch.from_numpy(rng.randint(0, 256, (2, 97)))
+    if family == "neox":
+        cfg = tneox.tiny_neox_config(dtype=torch.float32, num_layers=1,
+                                     hidden_size=384, num_heads=4)
+        labels = ids[:, 1:]
+        mod = tneox
+    else:
+        cfg = tbert.tiny_bert_config(dtype=torch.float32, num_layers=1,
+                                     hidden_size=256, num_heads=4,
+                                     max_seq_len=128, mlm_transform=True)
+        labels = torch.where(ids[:, 1:] % 4 == 0, ids[:, 1:], -100)
+        mod = tbert
+    return mod, cfg, lambda m: m.loss(ids[:, :-1].cuda(), labels.cuda())
+
+
+@pytest.mark.parametrize("family", ["neox", "bert", "vit"])
+def test_family_step_on_card_matches_plain(cuda, family):
+    """One fp32 forward and backward of each family at 1 layer (head
+    widths 96, 64 and 80) with flash attention on the kernels against the
+    same with the plain attention: loss within 1e-5, every gradient within
+    1e-4 of its max; K2, K3 and K4 launched once each."""
+    mod, cfg, loss_of = _family_case(family)
+    sd = mod.init_state_dict(cfg, seed=2, std=0.05, device=cuda)
+    fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    runs = {}
+    for flash in (True, False):
+        c = dataclasses.replace(cfg, use_flash_attention=flash)
+        pm, params = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), c, state_dict=sd, device=cuda)
+        counts = [f.launches for f in fns]
+        loss = loss_of(pm.module)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(fns, counts)] == (
+            [1, 1, 1] if flash else [0, 0, 0])
+        runs[flash] = (loss.item(), {n: p.grad for n, p in params.items()
+                                     if p.grad is not None})
+    (lk, gk), (lp, gp) = runs[True], runs[False]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    assert gk.keys() == gp.keys()
+    for name, ref in gp.items():
+        # a key bias's exact gradient is zero without rotary (the softmax
+        # ignores a per-query constant): both sides hold rounding noise of
+        # the key kernel's gradient terms, so that is its scale
+        scale = gp[name.replace("k_bias", "k_kernel")].abs().max().item()
+        torch.testing.assert_close(gk[name], ref, rtol=0, atol=1e-4 * scale)
 
 
 def _bwd_inputs(device, seed, dtype, s, n_rep, d, causal, p, b=1, kv=2):

@@ -11,6 +11,7 @@ that never stepped counts 0 step shapes where JAX's engine, compiled at
 construction, counts 1."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -21,8 +22,10 @@ import jax.numpy as jnp
 from flax.core import meta
 
 from neuronx_distributed_tpu.models import llama as jl
+from neuronx_distributed_tpu.obs import tracing as jtracing
 from neuronx_distributed_tpu.parallel import mesh as ps
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.obs import tracing as ttracing
 from neuronx_distributed_tpu_torch.models.convert import params_from_jax
 
 from test_torch_router import Pkg, _both, _one_thread  # noqa
@@ -118,7 +121,21 @@ def _bytes_free(d):
     return d.pop("handoff_bytes"), d
 
 
-def test_fabric_router_stats_expose_handoff_accounting(models):
+@pytest.fixture
+def fake_trace_clock(monkeypatch):
+    """The scenario's fake clock (``clock=lambda: 0.0``) for both
+    packages' request tracers too. A session's meta chunk carries its
+    trace (``phase_us``, ``elapsed_us``), which the tracers take from
+    ``time.perf_counter_ns``: on the host's clock the floats, and with
+    them the chunk's JSON length and ``handoff_bytes``, followed the
+    timing of the run."""
+    fake = types.SimpleNamespace(perf_counter_ns=lambda: 0)
+    for mod in (jtracing, ttracing):
+        monkeypatch.setattr(mod, "time", fake)
+
+
+def test_fabric_router_stats_expose_handoff_accounting(models,
+                                                       fake_trace_clock):
     def scenario(pkg):
         router = pkg.router(
             pkg.rt.RouterConfig(fabric=pkg.rt.FabricConfig(

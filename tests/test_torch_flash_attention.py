@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from neuronx_distributed_tpu.modules import attention as jattn
@@ -21,6 +22,18 @@ from neuronx_distributed_tpu_torch.modules import attention as tattn
 from neuronx_distributed_tpu_torch.ops import flash_attention as tfa
 
 TOL = 1e-5            # fp32, the same algorithm summed in another order
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests run many tiny ops (the gradcheck's
+    float64 evaluations at a head width padded to 64 above all), which
+    run 5-50x slower on torch's default threads beside other test
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", [0, 0x9E3779B9, 0xFFFFFFFF])
@@ -140,6 +153,83 @@ def test_ragged_length_matches_jax_sdpa():
                               dropout_p=0.2, dropout_seed=5)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
                                rtol=TOL, atol=TOL)
+
+
+def _padded_case(d, s, causal, n_rep=2, seed=None):
+    """Port flash attention at head width ``d`` (padded to the kernels'
+    width inside ``flash_attention``): out and dq, dk, dv of ``sum(out *
+    g)``."""
+    q, k, v, g = _inputs(d * 100 + s, d, n_rep, s=s)
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal, dropout_p=0.1,
+                              dropout_seed=SEED)
+    out.backward(torch.from_numpy(g))
+    return (q, k, v, g), out.detach().numpy(), [
+        t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("s", [5, 32, 33])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 80, 96])
+def test_padded_head_width_matches_jax(d, causal, s):
+    """Head widths the kernels do not take (BERT-tiny's 16, ViT-Huge's 80,
+    GPT-NeoX-20B's 96) pass through the zero padding with the unpadded
+    width's scale: out and gradients against JAX's ``flash_attention``, on
+    its padded Pallas kernel (interpret mode) where S tiles by 8 and its
+    XLA scan otherwise, with dropout."""
+    n_rep = 2
+    (q, k, v, g), out, (dq, dk, dv) = _padded_case(d, s, causal, n_rep)
+    jq, jk, jv, jg = map(jnp.asarray, (q, _expand(k, n_rep),
+                                       _expand(v, n_rep), g))
+    ref, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=causal, block_q=16, block_k=8,
+        force_pallas=s % 8 == 0, dropout_p=0.1,
+        dropout_seed=jnp.uint32(SEED)), jq, jk, jv)
+    rdq, rdk, rdv = vjp(jg)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dq, np.asarray(rdq), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dk, _fold(np.asarray(rdk), n_rep), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(dv, _fold(np.asarray(rdv), n_rep), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("s", [5, 33])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 80, 96])
+def test_padded_head_width_matches_unpadded_plain(d, causal, s):
+    """The padded path against the plain versions run at the unpadded
+    width (which take any D): zero columns change nothing but the order of
+    the sums, within 1e-6."""
+    (q, k, v, g), out, (dq, dk, dv) = _padded_case(d, s, causal)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    ref, lse = tfa.flash_fwd_plain(tq, tk, tv, causal, None, 0.1, SEED)
+    args = (tq, tk, tv, tg, lse, tfa.attention_delta(tg, ref), causal, None,
+            0.1, SEED)
+    rdk, rdv = tfa.flash_bwd_dkv_plain(*args)
+    for got, want in ((out, ref), (dq, tfa.flash_bwd_dq_plain(*args)),
+                      (dk, rdk), (dv, rdv)):
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_head_dim_and_the_padded_scale():
+    """64 and 128 pass as they are, narrower heads pad to 64, the rest to
+    128, above 128 raises; the default scale is the unpadded width's, so
+    an explicit ``1/sqrt(D)`` gives the same bits and the padded width's
+    scale would not."""
+    assert [tfa.kernel_head_dim(d) for d in (1, 16, 64, 65, 80, 96, 128)] \
+        == [64, 64, 64, 128, 128, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 160"):
+        tfa.kernel_head_dim(160)
+    q, k, v, _ = map(torch.from_numpy, _inputs(8, 160, 1, s=4))
+    with pytest.raises(ValueError, match="head_dim 160"):
+        tfa.flash_attention(q, k, v)
+    q, k, v, _ = map(torch.from_numpy, _inputs(9, 80, 1, s=12))
+    got = tfa.flash_attention(q, k, v, causal=False)
+    assert torch.equal(got, tfa.flash_attention(q, k, v, causal=False,
+                                                scale=1 / np.sqrt(80)))
+    assert not torch.allclose(got, tfa.flash_attention(
+        q, k, v, causal=False, scale=1 / np.sqrt(128)), atol=1e-4)
 
 
 @pytest.mark.parametrize("causal", [True, False])
