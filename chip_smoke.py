@@ -322,6 +322,35 @@ script exits non-zero and prints no result:
    1e-4 x max|logit|, the loss within 1e-5, every gradient within 1e-3 of
    its norm.
 
+49. lora_train: LoRA fine-tuning of ``LLAMA3_8B`` at all 32 layers: an
+   HF-layout bf16 checkpoint made on the card from seed 0, converted by
+   ``scripts.checkpoint_converter`` (the round trip back to HF bit for
+   bit), held in fp32; ``LoraConfig(r=16, alpha=32)`` on qkv, o_proj,
+   gate_up and down, fresh adapters (seed 1); ``make_lora_optimizer`` over
+   AdamW (lr 1e-4, clipped at 1.0), bf16 compute, flash attention, remat
+   (``save_attention``), ``loss_chunk=512``; B=1, S=4096 from
+   ``pack_tokens`` -> a ``.bin`` -> the native loader; 5 steps on that
+   batch inside a ``Timeline`` saved under ``build/``. Asserts finite,
+   falling losses, every frozen tensor's fingerprint unchanged, every B
+   moved off zero, K2-K4 each launched 32 x 5 times and the timeline's
+   step events; prints step p50, tokens/s, peak GiB, trainable and frozen
+   parameter counts.
+50. lora_serve: the adapters through ``torch.save`` /
+   ``torch.load(weights_only=True)`` and ``merge_lora_state`` into a
+   freshly converted base (bit for bit); the unmerged LoRA model's
+   prefill logits and ``generate``; ``merge_lora_params`` into the base
+   config, served by a ``ServingEngine`` with an ``AotExecutableCache``
+   (4 requests, 32 new; K1 launched twice a layer at the capture, then
+   replayed); merged prefill logits within 1e-4 of max|logit| of the
+   unmerged ones in fp32, and in bf16 within the bf16 floor (the base
+   model bf16 against fp32 on the same prompt) plus 2e-2.
+51. lora_cross_check: ``LLAMA3_8B``'s widths at 2 layers, fp32, LoRA on
+   all six targets, S=256: one backward and two steps on the card and on
+   the CPU from the same state: losses 1e-4, grad norms 1e-3, each adapter
+   gradient and update within 1e-3 of its norm, the base unchanged; the
+   largest per-module gaps through ``tensor_capture``; a conv LoRA pair
+   (bf16 compute) card against CPU within 2e-2 of max|y|.
+
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
 The last two lines are the kernels' JSON summary (``path_launches`` gives
@@ -4989,6 +5018,535 @@ def phase_families_cross_check():
     check_freed("families_cross_check", base)
 
 
+# ---------------------------------------------------------------------------
+# phases 49-51: LoRA fine-tuning at full depth, merged and served
+# ---------------------------------------------------------------------------
+
+def lora_config():
+    """The LoRA of phases 49-50: r=16, alpha 32 on qkv, o_proj, gate_up and
+    down."""
+    from neuronx_distributed_tpu_torch.lora import LoraConfig
+
+    return LoraConfig(r=16, alpha=32.0,
+                      target_modules=("qkv", "o_proj", "gate_up", "down"))
+
+
+def hf_llama_state_dict(cfg, seed, dtype=torch.bfloat16, device="cuda"):
+    """An HF-layout Llama state dict of ``cfg``'s widths made on
+    ``device`` from a generator seeded with ``seed``: normal(0, 0.02)
+    projections, embedding and head (``[out, in]``), unit norm scales."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+    shapes = {"model.embed_tokens.weight": (v, h)}
+    for n in range(cfg.num_layers):
+        pre = f"model.layers.{n}."
+        shapes.update({
+            pre + "self_attn.q_proj.weight": (q, h),
+            pre + "self_attn.k_proj.weight": (kv, h),
+            pre + "self_attn.v_proj.weight": (kv, h),
+            pre + "self_attn.o_proj.weight": (h, q),
+            pre + "mlp.gate_proj.weight": (i, h),
+            pre + "mlp.up_proj.weight": (i, h),
+            pre + "mlp.down_proj.weight": (h, i),
+            pre + "input_layernorm.weight": (h,),
+            pre + "post_attention_layernorm.weight": (h,)})
+    shapes.update({"model.norm.weight": (h,), "lm_head.weight": (v, h)})
+    return {name: (torch.ones(s, dtype=dtype, device=device)
+                   if len(s) == 1 else
+                   torch.randn(s, generator=gen, dtype=dtype,
+                               device=device).mul_(0.02))
+            for name, s in shapes.items()}
+
+
+def converted_base(cfg, seed=0):
+    """Phase 49's base: an HF bf16 Llama made on the card (``seed``),
+    converted by ``scripts.checkpoint_converter``; the round trip back to
+    HF must give every tensor bit for bit. The HF dict is freed. Returns
+    (state dict, seconds to make, seconds to convert)."""
+    from neuronx_distributed_tpu_torch.scripts import checkpoint_converter
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf = hf_llama_state_dict(cfg, seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sd = checkpoint_converter.convert_hf_llama_to_nxd(hf, cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    back = checkpoint_converter.convert_nxd_to_hf_llama(sd, cfg)
+    if back.keys() != hf.keys() or not all(torch.equal(back[k], t)
+                                           for k, t in hf.items()):
+        raise AssertionError("lora: the converter's round trip to HF is "
+                             "not bit for bit")
+    del hf, back
+    return sd, t1 - t0, t2 - t1
+
+
+def lora_batch(workdir, vocab, seq):
+    """One ``[1, seq]`` batch through the data path: numpy seed 0 documents
+    packed by ``scripts.prepare_dataset.pack_tokens`` into a uint32
+    ``.bin``, read by the native ``TokenBatchLoader``."""
+    from neuronx_distributed_tpu_torch.data import TokenBatchLoader
+    from neuronx_distributed_tpu_torch.scripts.prepare_dataset import (
+        pack_tokens)
+
+    rng = np.random.RandomState(0)
+    docs = [rng.randint(0, vocab, rng.randint(500, 3000)) for _ in range(40)]
+    path = os.path.join(workdir, "lora_tokens.bin")
+    pack_tokens(docs, seq, np.dtype(np.uint32)).tofile(path)
+    loader = TokenBatchLoader(path, batch=1, seqlen=seq, seed=0,
+                              dtype="uint32", nthreads=2)
+    try:
+        if not loader.native:
+            raise AssertionError("lora_train: the native loader did not "
+                                 "build")
+        return next(iter(loader))
+    finally:
+        loader.close()
+
+
+def phase_lora_train(workdir, steps=5, seq=4096, lr=1e-4):
+    """Phase 49: LoRA fine-tuning of ``LLAMA3_8B`` at all 32 layers on one
+    card. The base is an HF bf16 checkpoint made on the card, converted
+    (round trip bit for bit) and held in fp32; fresh adapters
+    (``init_lora_state``, seed 1) of :func:`lora_config`;
+    ``make_lora_optimizer`` over AdamW (lr ``lr``, clipped at 1.0), bf16
+    compute, flash attention, remat with ``save_attention``,
+    ``loss_chunk=512``; ``steps`` steps on one native-loader batch inside a
+    ``utils.timeline.Timeline`` saved under ``workdir``. Asserts finite
+    and falling losses, every frozen tensor's ``fingerprint_array``
+    unchanged, every B moved off zero, K2-K4 each launched layers x steps,
+    the timeline's step events. Saves the adapters with ``torch.save``
+    under ``workdir`` for phase 50; returns (path, launches)."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+    from neuronx_distributed_tpu_torch.lora import (extract_lora_state,
+                                                    is_lora_path,
+                                                    make_lora_optimizer,
+                                                    merge_lora_state)
+    from neuronx_distributed_tpu_torch.models.llama import (LLAMA3_8B,
+                                                            init_lora_state)
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.resilience.integrity import (
+        fingerprint_array)
+    from neuronx_distributed_tpu_torch.utils.timeline import Timeline
+
+    base_mem = memory_base()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(
+        LLAMA3_8B, param_dtype=torch.float32, use_flash_attention=True,
+        remat=True, remat_policy="save_attention", loss_chunk=512,
+        lora=lora_config())
+    sd, make_s, convert_s = converted_base(cfg)
+    sd = merge_lora_state(sd, init_lora_state(cfg, seed=1))
+    ncfg = neuronx_distributed_config()
+    pm, params = trainer.initialize_parallel_model(ncfg, cfg, state_dict=sd)
+    del sd
+    free_cuda()
+    tx = make_lora_optimizer(trainer.make_optimizer(ncfg, learning_rate=lr),
+                             params)
+    state = trainer.TrainState(0, params, tx.init(trainer.trainable(params)))
+    step = trainer.make_train_step(pm, tx)
+    frozen = {n: fingerprint_array(p.detach()) for n, p in params.items()
+              if not is_lora_path(n)}
+    n_train = sum(p.numel() for p in trainer.trainable(params))
+    n_frozen = sum(p.numel() for n, p in params.items() if n in frozen)
+    batch = lora_batch(workdir, cfg.vocab_size, seq)
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    timeline = Timeline(os.path.join(workdir, "lora_timeline.json"))
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        with timeline.event(f"lora_step_{i}"):
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    launches = {name: c.launches for name, c in counters.items()}
+    saved = json.load(open(timeline.save()))["traceEvents"]
+    events = [e["name"] for e in saved if e["ph"] == "X"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = [n for n, p in params.items() if n.endswith("lora_b")
+             and bool((p.detach() != 0).any())]
+    n_b = sum(n.endswith("lora_b") for n in params)
+    changed = [n for n, fp in frozen.items()
+               if not torch.equal(fingerprint_array(params[n].detach()), fp)]
+    want = cfg.num_layers * steps
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"lora_train: losses {losses}, norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lora_train: loss did not fall: {losses}")
+    if changed:
+        raise AssertionError(f"lora_train: frozen tensors changed: "
+                             f"{changed[:5]} ({len(changed)})")
+    if len(moved) != n_b:
+        raise AssertionError(f"lora_train: {n_b - len(moved)} of {n_b} B "
+                             "adapters still zero")
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"lora_train: launches {launches}, want "
+                             f"layers x steps = {want} each")
+    if events != [f"lora_step_{i}" for i in range(steps)]:
+        raise AssertionError(f"lora_train: timeline events {events}")
+    path = os.path.join(workdir, "lora_adapters.pt")
+    torch.save(extract_lora_state({n: p.detach()
+                                   for n, p in params.items()}), path)
+    p50 = float(np.median(times))
+    emit("lora_train", layers=cfg.num_layers, seq=seq, steps=steps,
+         lora=dataclasses.asdict(cfg.lora), lr=lr,
+         remat_policy=cfg.remat_policy, loss_chunk=cfg.loss_chunk,
+         compute_dtype=str(cfg.dtype), param_dtype=str(cfg.param_dtype),
+         trainable_params=n_train, frozen_params=n_frozen,
+         frozen_tensors=len(frozen), frozen_fingerprints_unchanged=True,
+         b_adapters_moved=len(moved), hf_make_s=make_s, convert_s=convert_s,
+         converter_round_trip_bitwise=True, losses=losses, grad_norms=norms,
+         step_ms=times, step_ms_p50=p50, tokens_per_s=seq / (p50 / 1e3),
+         peak_mem_gib=peak, load_peak_mem_gib=load_peak, launches=launches,
+         timeline_events=len(events),
+         adapter_bytes=os.path.getsize(path))
+    del pm, params, state, step, tx, m, frozen
+    free_cuda()
+    check_freed("lora_train", base_mem)
+    return path, launches
+
+
+def lora_prefill_logits(model, ids, lens):
+    """Last-prompt-token logits of ``generation.prefill`` over a fresh bf16
+    contiguous cache, in fp32."""
+    from neuronx_distributed_tpu_torch.inference import generation, kv_cache
+
+    cfg = model.cfg
+    cache = kv_cache.init_kv_cache(cfg.num_layers, ids.shape[0],
+                                   ids.shape[1], cfg.num_kv_heads,
+                                   cfg.head_dim_, dtype=cfg.dtype,
+                                   device="cuda")
+    with torch.no_grad():
+        logits, _ = generation.prefill(model, ids, lens, cache)
+    return logits.float()
+
+
+def phase_lora_serve(adapter_path, ecfg, new=32, n=4, bf16_layers=1):
+    """Phase 50: phase 49's adapters through ``torch.save`` /
+    ``torch.load(weights_only=True)`` and ``merge_lora_state`` into a
+    freshly converted bf16 base (the adapters bit for bit); the unmerged
+    LoRA model's ``generate``; ``merge_lora_params`` into the base config,
+    served on ``n`` requests by an eager ``ServingEngine`` and by one with
+    an ``AotExecutableCache`` (K1 launched at the capture, twice a layer,
+    then replayed), whose ids must equal the eager engine's.
+
+    The merge is held at full depth in fp32: merged and unmerged prefill
+    logits within 1e-4 of max|logit|, while the base model (what a merge
+    that dropped every adapter would serve) lies more than ten times that
+    from them. bf16 cannot hold the merge at 32 random layers: the two
+    forms round differently (o_proj and down add their adapters in
+    activation space, a merged kernel re-rounds), and the depth amplifies
+    any rounding to about 6% of max|logit|, as far as the trained
+    adapters' own effect (``scripts/lora_bf16_floor.py``). So bf16 is held
+    at ``bf16_layers`` layers of the same base, every target at full
+    width, with adapters drawn normal(0, 0.02) (seed 1): merged within
+    2e-2 of max|logit| of the unmerged logits, the base beyond 2e-2. On an
+    H100 ``lora_bf16_floor`` read 0.0128 and 0.62 for these at 1 layer,
+    0.0173 and 0.79 at 2 (the merged gap is bf16's own floor, 0.0124 and
+    0.0157, whatever the adapters' size). Returns (K1 launches, worker
+    replays)."""
+    from neuronx_distributed_tpu_torch.inference import generation
+    from neuronx_distributed_tpu_torch.inference.aot_cache import (
+        AotExecutableCache)
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.lora import (is_lora_path,
+                                                    merge_lora_params,
+                                                    merge_lora_state)
+    from neuronx_distributed_tpu_torch.models.llama import (LLAMA3_8B,
+                                                            build_model)
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention)
+
+    base_mem = memory_base()
+    torch.cuda.reset_peak_memory_stats()
+    lora = lora_config()
+    scfg = dataclasses.replace(LLAMA3_8B, use_flash_attention=True)
+    lcfg = dataclasses.replace(scfg, lora=lora)
+    fp32 = dict(dtype=torch.float32)
+    adapters = torch.load(adapter_path, map_location="cuda",
+                          weights_only=True)
+    base, _, _ = converted_base(scfg)
+    sd = merge_lora_state(base, adapters)
+    if not all(torch.equal(sd[k], t) for k, t in adapters.items()):
+        raise AssertionError("lora_serve: merged adapters differ")
+    rng = np.random.RandomState(5)
+    lens = np.array([200, 137])
+    ids = np.zeros((2, 256), np.int64)
+    for r, k in enumerate(lens):
+        ids[r, :k] = rng.randint(0, scfg.vocab_size, k)
+    ids_t, lens_t = torch.from_numpy(ids).cuda(), torch.from_numpy(lens).cuda()
+
+    def prefill(cfg, weights):
+        model = build_model(cfg, weights)
+        out = lora_prefill_logits(model, ids_t, lens_t)
+        del model
+        free_cuda()
+        return out
+
+    def gap(a, b):
+        return ((logits[a] - logits[b]).abs().max()
+                / logits[b].abs().max()).item()
+
+    # bf16 at bf16_layers layers of the same base, adapters of a size
+    # that bf16 can see
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shallow = {k: t for k, t in base.items()
+               if not k.startswith("layers.")
+               or int(k.split(".")[1]) < bf16_layers}
+    shallow.update({k: torch.randn(t.shape, generator=gen, device="cuda")
+                    * 0.02 for k, t in adapters.items()
+                    if int(k.split(".")[1]) < bf16_layers})
+    c2 = dataclasses.replace(scfg, num_layers=bf16_layers)
+    lc2 = dataclasses.replace(c2, lora=lora)
+    logits = {"base_bf16": prefill(c2, {k: t for k, t in shallow.items()
+                                        if not is_lora_path(k)}),
+              "base_fp32": prefill(dataclasses.replace(c2, **fp32),
+                                   {k: t for k, t in shallow.items()
+                                    if not is_lora_path(k)}),
+              "unmerged_bf16": prefill(lc2, shallow)}
+    logits["merged_bf16"] = prefill(c2, {
+        k: t.to(scfg.dtype)
+        for k, t in merge_lora_params(shallow, lora).items()})
+    shallow_gaps = {"merged_vs_unmerged_bf16": gap("merged_bf16",
+                                                   "unmerged_bf16"),
+                    "dropped_merge_vs_unmerged_bf16": gap("base_bf16",
+                                                          "unmerged_bf16"),
+                    "bf16_floor_base": gap("base_bf16", "base_fp32")}
+    finite = all(torch.isfinite(t).all() for t in logits.values())
+    del shallow
+    # fp32 at full depth
+    model = build_model(lcfg, sd)
+    unmerged_ids = generation.generate(model, ids, lens, 8, buckets=(256,))
+    del model
+    logits = {"unmerged_fp32": prefill(dataclasses.replace(lcfg, **fp32),
+                                       sd),
+              "base_fp32": prefill(dataclasses.replace(scfg, **fp32), base)}
+    t0 = time.perf_counter()
+    merged = merge_lora_params(sd, lora)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    del sd, base, adapters
+    logits["merged_fp32"] = prefill(dataclasses.replace(scfg, **fp32),
+                                    merged)
+    for k in list(merged):        # bf16 one tensor at a time
+        merged[k] = merged[k].to(scfg.dtype)
+    free_cuda()
+    # the merged model served, eager then captured
+    prompts = [p[:512] for p in serve_requests(scfg, seed=3, n=n)]
+    served = {}
+    for name in ("eager", "graph"):
+        cache = AotExecutableCache() if name == "graph" else None
+        torch.cuda.synchronize()
+        paged_attention.launches = 0
+        eng = ServingEngine(scfg, merged, ecfg, aot_cache=cache)
+        capture_launches = paged_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r, p in enumerate(prompts):
+            eng.submit(p, new, uid=f"r{r}")
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [u for u, r in res.items()
+               if r.status != "completed" or len(r.tokens) != new]
+        if bad or len(res) != n:
+            raise AssertionError(f"lora_serve: {name} requests incomplete: "
+                                 f"{bad}")
+        served[name] = {u: r.tokens for u, r in res.items()}
+        if name == "eager":
+            del eng
+            free_cuda()
+    replays = sum(eng.worker_replays().values())
+    logits["merged_bf16"] = lora_prefill_logits(eng.model, ids_t, lens_t)
+    merged_ids = generation.generate(eng.model, ids, lens, 8, buckets=(256,))
+    gaps = {"merged_vs_unmerged_fp32": gap("merged_fp32", "unmerged_fp32"),
+            "adapter_effect_fp32": gap("base_fp32", "unmerged_fp32"),
+            "merged_bf16_vs_unmerged_fp32": gap("merged_bf16",
+                                                "unmerged_fp32")}
+    nl = scfg.num_layers
+    emit("lora_serve", layers=nl, requests=n, new_tokens=n * new,
+         adapters_bitwise=True, merge_s=merge_s,
+         k1_capture_launches=capture_launches, worker_replays=replays,
+         ids_equal_eager=served["graph"] == served["eager"],
+         logit_gaps_of_max=gaps, bf16_layers=bf16_layers,
+         bf16_logit_gaps_of_max=shallow_gaps,
+         unmerged_ids=unmerged_ids.tolist(), merged_ids=merged_ids.tolist(),
+         greedy_match_share_bf16_vs_unmerged=match_share(
+             dict(enumerate(merged_ids.tolist())),
+             dict(enumerate(unmerged_ids.tolist()))),
+         output_tok_per_s=n * new / wall,
+         step_latency_p50_ms=eng.stats.report()["step_latency_p50_ms"],
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if (capture_launches != 2 * nl or paged_attention.launches != 2 * nl
+            or not replays):
+        raise AssertionError(
+            f"lora_serve: K1 launches {capture_launches}/"
+            f"{paged_attention.launches} want {2 * nl}, replays {replays}")
+    if served["graph"] != served["eager"]:
+        raise AssertionError("lora_serve: the captured engine's ids differ "
+                             "from the eager engine's")
+    if not (finite and all(torch.isfinite(t).all()
+                           for t in logits.values())):
+        raise AssertionError("lora_serve: non-finite logits")
+    if not (gaps["merged_vs_unmerged_fp32"] <= 1e-4
+            and gaps["adapter_effect_fp32"] > 1e-3):
+        raise AssertionError(
+            f"lora_serve: fp32 merged logits differ by "
+            f"{gaps['merged_vs_unmerged_fp32']} of max (limit 1e-4), the "
+            f"adapters' effect {gaps['adapter_effect_fp32']} (above 1e-3)")
+    if not (shallow_gaps["merged_vs_unmerged_bf16"] <= 2e-2
+            < shallow_gaps["dropped_merge_vs_unmerged_bf16"]):
+        raise AssertionError(
+            f"lora_serve: at {bf16_layers} layers bf16 merged logits differ "
+            f"by {shallow_gaps['merged_vs_unmerged_bf16']} of max (limit "
+            "2e-2), the base by "
+            f"{shallow_gaps['dropped_merge_vs_unmerged_bf16']} (above it)")
+    launches = paged_attention.launches
+    del eng, cache, merged, logits
+    free_cuda()
+    check_freed("lora_serve", base_mem)
+    return launches, replays
+
+
+def phase_lora_cross_check(layers=2, seq=256, steps=2):
+    """Phase 51: ``LLAMA3_8B``'s widths at 2 layers, fp32, LoRA on all six
+    targets (B made nonzero, seed 2), S=256: one backward and ``steps``
+    steps of ``make_lora_optimizer`` on the card and on the CPU from the
+    same state: each loss within 1e-4 relative and ``grad_norm`` within
+    1e-3, each adapter gradient and each adapter's update within 1e-3 of
+    its norm, the base unchanged on both. Prints the largest per-module
+    gaps of one forward through ``tensor_capture.capture_intermediates``
+    and ``max_diff``. Then one conv LoRA pair (Output- then
+    InputChannelParallelConv2d, 3x3, 64 -> 128 -> 64 channels, rank 8,
+    bf16 compute) on the card against the CPU, within 2e-2 of max|y|."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+    from neuronx_distributed_tpu_torch.lora import (LoraConfig, is_lora_path,
+                                                    make_lora_optimizer)
+    from neuronx_distributed_tpu_torch.models.llama import (LLAMA3_8B,
+                                                            init_state_dict)
+    from neuronx_distributed_tpu_torch.parallel import layers as pl
+    from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
+    from neuronx_distributed_tpu_torch.utils.tensor_capture import (
+        capture_intermediates, max_diff)
+
+    base_mem = memory_base()
+    cfg = dataclasses.replace(
+        LLAMA3_8B, num_layers=layers, dtype=torch.float32,
+        param_dtype=torch.float32, use_flash_attention=True,
+        lora=LoraConfig(r=16, alpha=32.0, target_modules=(
+            "qkv", "o_proj", "gate_up", "down", "embed", "lm_head")))
+    sd = init_state_dict(cfg, seed=1, std=0.02, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    for n, t in sd.items():
+        if is_lora_path(n) and not t.any():
+            sd[n] = torch.randn(t.shape, generator=gen) * 0.02
+    batch = train_batch(cfg.vocab_size, seq, seed=1)
+    side = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        ncfg = neuronx_distributed_config()
+        pm, params = trainer.initialize_parallel_model(ncfg, cfg,
+                                                       state_dict=sd,
+                                                       device=dev)
+        tx = make_lora_optimizer(trainer.make_optimizer(
+            ncfg, learning_rate=1e-3), params)
+        ids = batch["input_ids"].to(dev)
+        with torch.no_grad():
+            _, caps = capture_intermediates(
+                pm.module, ids, filter_fn=lambda m, p: p.count(".") <= 2)
+        caps = {k: tuple(t.cpu() if torch.is_tensor(t) else t for t in v)
+                for k, v in caps.items() if all(torch.is_tensor(t)
+                                                for t in v)}
+        pm.module.loss(ids, batch["labels"].to(dev)).backward()
+        grads = {n: p.grad.cpu() for n, p in params.items()
+                 if p.grad is not None}
+        for p in params.values():
+            p.grad = None
+        state = trainer.TrainState(0, params,
+                                   tx.init(trainer.trainable(params)))
+        step = trainer.make_train_step(pm, tx)
+        metrics = [step(state, batch)[1] for _ in range(steps)]
+        side[dev] = ([(m["loss"].item(), m["grad_norm"].item())
+                      for m in metrics], grads,
+                     {n: p.detach().cpu() - sd[n] for n, p in params.items()},
+                     caps, time.perf_counter() - t0)
+        del pm, params, tx, state, step, metrics
+    free_cuda()
+    (mg, gg, ug, cg, tg), (mc, gc, uc, cc, tc) = side["cuda"], side["cpu"]
+    for i, ((lg, ng), (lc, nc)) in enumerate(zip(mg, mc)):
+        if not (abs(lg - lc) <= 1e-4 * abs(lc)
+                and abs(ng - nc) <= 1e-3 * abs(nc)):
+            raise AssertionError(f"lora_cross_check: step {i + 1} loss/norm "
+                                 f"{lg}/{ng} vs CPU {lc}/{nc}")
+    if gg.keys() != gc.keys() or not all(is_lora_path(n) for n in gc):
+        raise AssertionError("lora_cross_check: gradients of "
+                             f"{sorted(gg.keys() ^ gc.keys())[:4]} on one "
+                             "side, or of a frozen tensor")
+    worst = {}
+    for what, card, cpu in (("grad", gg, gc), ("update", ug, uc)):
+        w = (0.0, None)
+        for name, ref in cpu.items():
+            if not is_lora_path(name):
+                if ref.any() or card[name].any():
+                    raise AssertionError(f"lora_cross_check: frozen {name} "
+                                         "moved")
+                continue
+            rel = ((card[name] - ref).norm() / ref.norm()).item()
+            if rel >= w[0]:
+                w = (rel, name)
+            if not rel <= 1e-3:
+                raise AssertionError(f"lora_cross_check: {name}'s {what} "
+                                     f"differs by {rel} of its norm")
+        worst[what] = w
+    gaps = max_diff(cg, cc)
+    top = dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:6])
+    # the conv LoRA pair, card against CPU, bf16 compute
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 32, 32, 64).astype(np.float32))
+    conv = {}
+    for dev in ("cpu", "cuda"):
+        kw = dict(kernel_size=(3, 3), dtype=torch.bfloat16, device=dev,
+                  param_dtype=torch.float32, lora_rank=8)
+        col = pl.OutputChannelParallelConv2d(64, 128, **kw)
+        row = pl.InputChannelParallelConv2d(128, 64, **kw)
+        cgen = torch.Generator().manual_seed(4)
+        for layer in (col, row):
+            for name, p in layer.named_parameters():
+                p.data = (torch.randn(p.shape, generator=cgen)
+                          * 0.05).to(dev)
+        with torch.no_grad():
+            conv[dev] = row(col(x.to(dev))).float().cpu()
+    conv_gap = ((conv["cuda"] - conv["cpu"]).abs().max()
+                / conv["cpu"].abs().max()).item()
+    if not conv_gap <= 2e-2:
+        raise AssertionError(f"lora_cross_check: the conv pair differs by "
+                             f"{conv_gap} of max|y|")
+    emit("lora_cross_check", layers=layers, seq=seq, steps=steps,
+         loss_card=[m[0] for m in mg], loss_cpu=[m[0] for m in mc],
+         grad_norm_card=[m[1] for m in mg], grad_norm_cpu=[m[1] for m in mc],
+         max_adapter_grad_rel_diff=worst["grad"][0],
+         max_adapter_grad_rel_diff_param=worst["grad"][1],
+         max_adapter_update_rel_diff=worst["update"][0],
+         max_adapter_update_rel_diff_param=worst["update"][1],
+         adapters=sum(is_lora_path(n) for n in gc),
+         module_max_abs_gaps=top, conv_pair_gap_of_max=conv_gap,
+         card_s=tg, cpu_s=tc)
+    del side, sd, gg, gc, ug, uc, cg, cc
+    free_cuda()
+    check_freed("lora_cross_check", base_mem)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -5086,6 +5644,13 @@ def main() -> None:
     family_launches = phase_train_families()
     vit_captures = phase_vit_serve()
     phase_families_cross_check()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lora_", dir=build)
+    try:
+        adapters, lora_launches = phase_lora_train(workdir)
+        lora_k1, lora_replays = phase_lora_serve(adapters, ecfg)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_lora_cross_check()
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -5124,6 +5689,7 @@ def main() -> None:
                           "serve_dbrx_disagg":
                               dbrx_disagg_launches["paged_attention"],
                           "serve_graph": graph_k1[0],
+                          "lora_serve": lora_k1,
                           "serve_graph_mixtral":
                               graph_moe["paged_attention"]["launches"],
                           "bundle": bundle_launches},
@@ -5135,7 +5701,8 @@ def main() -> None:
             "serve_graph": graph_k1[1],
             "serve_graph_mixtral":
                 graph_moe["paged_attention"]["worker_replays"],
-            "router_elastic": elastic_replayed},
+            "router_elastic": elastic_replayed,
+            "lora_serve": lora_replays},
         "path_traced_runs": {
             "serve_graph": graph_k1[2]["paged_attention"],
             **{f"serve_graph_mixtral/{label}": v for label, v in
@@ -5166,6 +5733,7 @@ def main() -> None:
                               "train_loop": loop_launches[name],
                               "train_mixtral_remat": remat_launches[name],
                               "train_integrity": integrity_launches[name],
+                              "lora_train": lora_launches[name],
                               **family_paths},
             "family_cases": {c["case"]: {
                 key: c["timing"][name][key] for key in (
@@ -5227,12 +5795,13 @@ def main() -> None:
 
 def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
-    the speculation, migration, router, captured-serving and model-family
-    groups alone, for a short run while such a phase is worked on; no
-    summary and no result line."""
+    the speculation, migration, router, captured-serving, model-family and
+    LoRA groups alone (``lora`` is phases 49 and 50 together), for a short
+    run while such a phase is worked on; no summary and no result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
     from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
@@ -5271,9 +5840,24 @@ def run_only(names) -> None:
               "flash_families": phase_flash_families,
               "train_families": phase_train_families,
               "vit_serve": phase_vit_serve,
-              "families_cross_check": phase_families_cross_check}
+              "families_cross_check": phase_families_cross_check,
+              "lora": lambda: run_lora(ecfg),
+              "lora_cross_check": phase_lora_cross_check}
     for name in names:
         phases[name]()
+
+
+def run_lora(ecfg):
+    """``--only lora``: phases 49 and 50 in a temporary directory under
+    ``build/``, removed at the end."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lora_", dir=build)
+    try:
+        adapters, _ = phase_lora_train(workdir)
+        phase_lora_serve(adapters, ecfg)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 if __name__ == "__main__":

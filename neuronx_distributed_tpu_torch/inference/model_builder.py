@@ -207,7 +207,8 @@ def _torch_dtype(name) -> torch.dtype:
 
 def _json_dataclasses() -> Dict[str, type]:
     """The dataclasses a bundle's JSON arguments may build: the model
-    configs."""
+    configs, and the LoRA config a Llama config may hold."""
+    from ..lora import LoraConfig
     from ..models.bert import BertConfig
     from ..models.gpt_neox import GPTNeoXConfig
     from ..models.llama import LlamaConfig
@@ -215,7 +216,8 @@ def _json_dataclasses() -> Dict[str, type]:
     from ..models.vit import ViTConfig
 
     return {_qualified(c): c for c in (LlamaConfig, MixtralConfig,
-                                       GPTNeoXConfig, BertConfig, ViTConfig)}
+                                       GPTNeoXConfig, BertConfig, ViTConfig,
+                                       LoraConfig)}
 
 
 def _from_json(v):

@@ -25,10 +25,10 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..modules.attention import self_attention
 from ..parallel.layers import (GQAQKVColumnParallelLinear, ParallelEmbedding,
-                               embedding_attend)
+                               dropout, embedding_attend)
 from ..parallel.loss_functions import causal_lm_loss
 from .common import (FamilyModel, LayerDropout, build_serving_model,
-                     hidden_dropout, hidden_generator, layer_norm, linear,
+                     hidden_generator, layer_norm, linear,
                      random_state_dict)
 
 
@@ -87,21 +87,20 @@ class BertLayer(nn.Module):
         self.ln_mlp = layer_norm(cfg, device)
 
     def forward(self, x: torch.Tensor,
-                dropout: Optional[LayerDropout] = None) -> torch.Tensor:
+                seeds: Optional[LayerDropout] = None) -> torch.Tensor:
         cfg = self.cfg
         b, s = x.shape[:2]
-        attn_drop, hidden = dropout or (None, None)
+        attn_drop, hidden = seeds or (None, None)
         gen = hidden_generator(hidden, x.device)
         q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim)
                    for t in self.qkv(x))
         attn = self_attention(q, k, v, causal=False,
                               use_flash=cfg.use_flash_attention,
                               dropout=attn_drop)
-        attn = hidden_dropout(self.o_proj(attn.reshape(b, s, -1)),
-                              cfg.hidden_dropout, gen)
+        attn = dropout(self.o_proj(attn.reshape(b, s, -1)),
+                       cfg.hidden_dropout, gen)
         x = self.ln_attn(x + attn)
-        h = hidden_dropout(self.down(F.gelu(self.up(x))), cfg.hidden_dropout,
-                           gen)
+        h = dropout(self.down(F.gelu(self.up(x))), cfg.hidden_dropout, gen)
         return self.ln_mlp(x + h)
 
 

@@ -28,7 +28,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..modules.attention import attention_dropout_seed
 from ..modules.norms import LayerNorm
-from ..parallel.layers import Linear
+from ..parallel.layers import Linear, dropout
 from ..utils.remat import remat_call
 
 #: ``(p, seed)`` of one dropout site, as ``attention_dropout_seed`` draws it
@@ -60,22 +60,10 @@ def hidden_generator(dropout: Optional[Dropout], device: torch.device
     return torch.Generator(device=device).manual_seed(dropout[1])
 
 
-def hidden_dropout(x: torch.Tensor, p: float,
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep each element with probability ``1 - p``
-    and scale the kept ones by ``1 / (1 - p)``; ``x`` unchanged without a
-    generator or at ``p == 0``."""
-    if generator is None or p <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
-
-
 class FamilyModel(nn.Module):
     """Base of the three families' top modules: ``self.cfg`` and
     ``self.layers`` (an ``nn.ModuleList`` whose layers take ``(x, *args,
-    dropout)``)."""
+    seeds)``, the layer's two dropout seeds)."""
 
     cfg = None
     layers: nn.ModuleList
@@ -89,15 +77,15 @@ class FamilyModel(nn.Module):
         before it runs."""
         cfg = self.cfg
         for layer in self.layers:
-            dropout = (attention_dropout_seed(cfg.attention_dropout,
-                                              dropout_generator),
-                       attention_dropout_seed(
-                           getattr(cfg, "hidden_dropout", 0.0),
-                           dropout_generator))
+            seeds = (attention_dropout_seed(cfg.attention_dropout,
+                                            dropout_generator),
+                     attention_dropout_seed(
+                         getattr(cfg, "hidden_dropout", 0.0),
+                         dropout_generator))
             if cfg.remat:
-                x = remat_call(layer, x, *args, dropout, policy="nothing")
+                x = remat_call(layer, x, *args, seeds, policy="nothing")
             else:
-                x = layer(x, *args, dropout)
+                x = layer(x, *args, seeds)
         return x
 
     def embed_dropout(self, x: torch.Tensor,
@@ -105,7 +93,7 @@ class FamilyModel(nn.Module):
                       ) -> torch.Tensor:
         """The hidden dropout after the embeddings (BERT, ViT)."""
         d = attention_dropout_seed(self.cfg.hidden_dropout, dropout_generator)
-        return hidden_dropout(x, d[0], hidden_generator(d, x.device))
+        return dropout(x, d[0], hidden_generator(d, x.device))
 
 
 def random_state_dict(model_cls, cfg, seed: int = 0, std: float = 0.02,

@@ -9,7 +9,8 @@ under the layer joined by dots (``attn/qkv/q_kernel`` is
 ``layers.{i}.moe.experts.gate_up``), so the bridge only unstacks and
 renames, whatever the layer holds: the MLP or the MoE (router, experts,
 shared experts), float or quantized (``*_q``, ``*_packed`` and ``*_scale``
-leaves cross by name). A tied config (``tie_embeddings``) has no
+leaves cross by name), with or without LoRA adapters (``*lora_a``,
+``*lora_b``, in the layers, the embedding and the LM head). A tied config (``tie_embeddings``) has no
 ``lm_head`` in either tree. A draft model crosses like any model;
 :func:`medusa_params_from_jax` carries Medusa heads across.
 
@@ -20,8 +21,8 @@ The GPT-NeoX, BERT and ViT trees stack their layers under
 path joined by dots.
 
 It reads numpy arrays and imports nothing of JAX nor ``ml_dtypes``: an
-fp8 array (an ``ml_dtypes`` type) crosses as its bytes, viewed as the torch
-type of the same name.
+fp8 or bf16 array (an ``ml_dtypes`` type) crosses as its bits, viewed as
+the torch type of the same name.
 """
 
 from __future__ import annotations
@@ -39,17 +40,19 @@ from .vit import ViTConfig
 #: the configs whose trees stack their layers under ``params/layers/layer``
 FAMILY_CONFIGS = (GPTNeoXConfig, BertConfig, ViTConfig)
 
-# numpy dtype name of an ml_dtypes fp8 array -> the torch dtype
-_FP8_TYPES = {"float8_e4m3fn": torch.float8_e4m3fn,
-              "float8_e5m2": torch.float8_e5m2}
+# numpy dtype name of an ml_dtypes array -> (the numpy integer type of its
+# bits, the torch dtype)
+_ML_DTYPES = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+              "float8_e5m2": (np.uint8, torch.float8_e5m2),
+              "bfloat16": (np.uint16, torch.bfloat16)}
 
 
 def _tensor(a: Any) -> torch.Tensor:
     """A writable torch copy of a numpy (or JAX) array."""
     a = np.asarray(a)
-    fp8 = _FP8_TYPES.get(a.dtype.name)
-    if fp8 is not None:
-        return torch.from_numpy(np.array(a.view(np.uint8))).view(fp8)
+    bits = _ML_DTYPES.get(a.dtype.name)
+    if bits is not None:
+        return torch.from_numpy(np.array(a.view(bits[0]))).view(bits[1])
     return torch.from_numpy(np.array(a))
 
 
@@ -107,10 +110,13 @@ def params_from_jax(cfg: LlamaConfig,
             f"the tree {'has' if 'lm_head' in p else 'has no'} lm_head but "
             f"the config has tie_embeddings={cfg.tie_embeddings}")
     model = p["model"]
-    sd = {"embed.embedding": _tensor(model["embed"]["embedding"]),
-          "norm.scale": _tensor(model["norm"]["scale"])}
-    for path, a in _leaves(p.get("lm_head", {}), ("lm_head",)):
-        sd[".".join(path)] = _tensor(a)
+    sd = {"norm.scale": _tensor(model["norm"]["scale"])}
+    # the embedding table, and a LoRA config's adapters beside it and the
+    # LM head's kernel
+    for sub, tree in (("embed", model["embed"]),
+                      ("lm_head", p.get("lm_head", {}))):
+        for path, a in _leaves(tree, (sub,)):
+            sd[".".join(path)] = _tensor(a)
     for path, stacked in _leaves(model["layers"]["layer"]):
         sd.update(_unstack(cfg, path, stacked))
     return sd

@@ -32,6 +32,7 @@ from ..inference.paging import (PagedCacheView, PagedKVCache,
                                 QuantizedPagedKVCache, flat_write_indices,
                                 pool_rows, scatter_pool_rows,
                                 spread_dropped_rows)
+from ..lora import LoraConfig, is_lora_path
 from ..modules.attention import (apply_rotary, attention_dropout_seed,
                                  precompute_rope, repeat_kv, sdpa_reference)
 from ..modules.norms import RMSNorm
@@ -39,12 +40,14 @@ from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..parallel.layers import (GQAQKVColumnParallelLinear, Linear,
                                ParallelEmbedding)
+from ..parallel.layers import dropout as adapter_dropout
 from ..parallel.loss_functions import (causal_lm_loss,
                                        fused_linear_cross_entropy)
 from ..quantization import mx_layers, quantization_layers as ql
 from ..quantization.microscaling import MX_BLOCK
 from ..quantization.quantization_utils import QuantizedDtype, dequantize
 from ..utils.remat import remat_call, validate_remat_policy
+from .common import hidden_generator
 
 #: ``(dropout_p, dropout_seed)`` of one attention call, as
 #: :func:`..modules.attention.attention_dropout_seed` draws it
@@ -53,6 +56,16 @@ Dropout = Tuple[float, Optional[int]]
 #: the serving weight-quantization tiers: per-out-channel symmetric w8a16
 #: (``int8``, ``fp8``) or packed OCP microscaling (``mxfp4``, ``mxfp8``)
 WEIGHT_QUANT_FORMATS = ("int8", "fp8", "mxfp4", "mxfp8")
+
+
+def _lora_kw(cfg: "LlamaConfig", name: str) -> dict:
+    """The adapter arguments of sublayer ``name`` (``qkv``, ``o_proj``,
+    ``gate_up``, ``down``, ``embed``, ``lm_head``) when ``cfg.lora``
+    targets it, else none (JAX ``models/llama.py:42``)."""
+    if cfg.lora is not None and name in cfg.lora.target_modules:
+        return {"lora_rank": cfg.lora.r, "lora_alpha": cfg.lora.alpha,
+                "lora_dropout": cfg.lora.dropout}
+    return {}
 
 
 def weight_quant_dtype(fmt: str) -> QuantizedDtype:
@@ -92,7 +105,11 @@ class LlamaConfig:
     ``weight_quant`` (one of :data:`WEIGHT_QUANT_FORMATS`): every
     projection kernel and the LM head are held quantized (the embedding
     stays float); convert a float state dict with
-    :func:`..quantization.serving.quantize_params_for_serving`."""
+    :func:`..quantization.serving.quantize_params_for_serving`.
+    ``lora`` (:class:`..lora.LoraConfig`): adapters in the sublayers it
+    targets; train them with :func:`..lora.make_lora_optimizer`, serve
+    them as they are or folded by :func:`..lora.merge_lora_params` into a
+    config without ``lora``."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -114,6 +131,7 @@ class LlamaConfig:
     remat_policy: str = "nothing"
     loss_chunk: Optional[int] = None
     weight_quant: Optional[str] = None
+    lora: Optional[LoraConfig] = None
 
     def __post_init__(self) -> None:
         validate_remat_policy(self.remat_policy)
@@ -123,10 +141,13 @@ class LlamaConfig:
             if self.loss_chunk <= 0:
                 raise ValueError(
                     f"loss_chunk must be positive, got {self.loss_chunk}")
-            if self.tie_embeddings:
+            unsupported = ("tie_embeddings=True" if self.tie_embeddings
+                           else "LoRA targeting 'lm_head'"
+                           if _lora_kw(self, "lm_head") else None)
+            if unsupported:
                 raise ValueError(
-                    "loss_chunk is incompatible with tie_embeddings=True: "
-                    "the fused chunked loss streams through a dedicated "
+                    f"loss_chunk is incompatible with {unsupported}: the "
+                    "fused chunked loss streams through a dedicated "
                     "lm_head kernel param; unset loss_chunk for this "
                     "configuration")
 
@@ -138,6 +159,8 @@ class LlamaConfig:
                 f"weight_quant must be one of {WEIGHT_QUANT_FORMATS} "
                 f"or None, got {self.weight_quant!r}")
         incompatible = (
+            "LoRA (adapters assume float kernels)"
+            if self.lora is not None else
             "tie_embeddings=True (the embedding table stays float)"
             if self.tie_embeddings else
             "loss_chunk (the fused loss streams a float lm_head kernel)"
@@ -264,10 +287,11 @@ class LlamaAttention(nn.Module):
         if fmt is None:
             self.qkv = GQAQKVColumnParallelLinear(
                 *qkv_args, dtype=cfg.dtype, device=device,
-                param_dtype=cfg.param_dtype)
+                param_dtype=cfg.param_dtype, **_lora_kw(cfg, "qkv"))
             self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
                                  dtype=cfg.dtype, device=device,
-                                 param_dtype=cfg.param_dtype)
+                                 param_dtype=cfg.param_dtype,
+                                 **_lora_kw(cfg, "o_proj"))
             return
         if fmt.startswith("mx"):
             self.qkv = mx_layers.MXGQAQKVColumnParallelLinear(
@@ -281,13 +305,17 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[CacheView] = None,
-                dropout: Optional[Dropout] = None):
+                dropout: Optional[Dropout] = None,
+                lora_generator: Optional[torch.Generator] = None):
         """With a cache ``view`` (paged or contiguous), the serving step;
         without, causal self-attention over the sequence (training), with
-        ``dropout = (p, seed)`` when given."""
+        ``dropout = (p, seed)`` when given. ``lora_generator`` draws the
+        adapters' dropout masks (a quantized model has no adapters)."""
         cfg = self.cfg
         d = cfg.head_dim_
-        q, k, v = self.qkv(x)
+        lora = {} if lora_generator is None else {
+            "lora_generator": lora_generator}
+        q, k, v = self.qkv(x, **lora)
         b, s = q.shape[:2]
         q = apply_rotary(q.reshape(b, s, cfg.num_heads, d), cos, sin,
                          positions)
@@ -300,7 +328,7 @@ class LlamaAttention(nn.Module):
             out = _contiguous_cache_attend(cfg, q, k, v, positions, view)
         else:
             out = _causal_attend(cfg, q, k, v, dropout)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * d))
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * d), **lora)
 
 
 class LlamaMLP(nn.Module):
@@ -308,7 +336,12 @@ class LlamaMLP(nn.Module):
     1 = up) and ``down``. Under ``weight_quant`` the fused kernel is held
     as ``gate_up_q [H, 2, I]`` with ``gate_up_scale [2, I]`` (int8, fp8),
     or as ``gate_up_packed [2, I, H/pack]`` with ``gate_up_scale [2, I,
-    H/32]`` (MX, contraction dim last), and ``down`` is quantized too."""
+    H/32]`` (MX, contraction dim last), and ``down`` is quantized too.
+
+    A ``gate_up`` adapter is ``lora_a [H, r]`` with ``lora_b [r, 2, I]``,
+    folded into the fused kernel in the parameter dtype (``hr,rki->hki``,
+    JAX ``models/llama.py:596-607``), or added in activation space under
+    live dropout (``:642-647``)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -316,10 +349,18 @@ class LlamaMLP(nn.Module):
         h, i = cfg.hidden_size, cfg.intermediate_size
         fmt = cfg.weight_quant
         if fmt is None:
+            pdt = cfg.param_dtype
             self.gate_up_kernel = nn.Parameter(torch.empty(
-                (h, 2, i), dtype=cfg.param_dtype, device=device))
+                (h, 2, i), dtype=pdt, device=device))
             self.down = Linear(i, h, dtype=cfg.dtype, device=device,
-                               param_dtype=cfg.param_dtype)
+                               param_dtype=pdt, **_lora_kw(cfg, "down"))
+            r = _lora_kw(cfg, "gate_up").get("lora_rank", 0)
+            self.lora_a = self.lora_b = None
+            if r:
+                self.lora_a = nn.Parameter(torch.empty(
+                    (h, r), dtype=pdt, device=device))
+                self.lora_b = nn.Parameter(torch.empty(
+                    (r, 2, i), dtype=pdt, device=device))
             return
         if fmt.startswith("mx"):
             pack, store = mx_layers.mx_storage(fmt[2:])
@@ -332,13 +373,18 @@ class LlamaMLP(nn.Module):
             self.gate_up_scale = ql.frozen((2, i), torch.float32, device)
         self.down = quant_linear(cfg, i, h, device)
 
-    def gate_up(self) -> torch.Tensor:
-        """The fused kernel as ``[H, 2 I]`` in the compute dtype."""
+    def gate_up(self, fold: bool = False) -> torch.Tensor:
+        """The fused kernel as ``[H, 2 I]`` in the compute dtype; with
+        ``fold``, the adapter folded in first, in the parameter dtype."""
         cfg = self.cfg
         h, i = cfg.hidden_size, cfg.intermediate_size
         fmt = cfg.weight_quant
         if fmt is None:
-            return self.gate_up_kernel.reshape(h, 2 * i).to(cfg.dtype)
+            kernel = self.gate_up_kernel
+            if fold:
+                kernel = kernel + cfg.lora.scale * torch.einsum(
+                    "hr,rki->hki", self.lora_a, self.lora_b)
+            return kernel.reshape(h, 2 * i).to(cfg.dtype)
         if fmt.startswith("mx"):
             w = mx_layers.mx_dequant(self.gate_up_packed, self.gate_up_scale,
                                      fmt[2:], cfg.dtype)     # [2, I, H]
@@ -346,10 +392,24 @@ class LlamaMLP(nn.Module):
         return dequantize(self.gate_up_q, self.gate_up_scale[None],
                           cfg.dtype).reshape(h, 2 * i)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.matmul(x.to(self.cfg.dtype), self.gate_up())
-        h = h.unflatten(-1, (2, self.cfg.intermediate_size))
-        return self.down(F.silu(h[..., 0, :]) * h[..., 1, :])
+    def forward(self, x: torch.Tensor,
+                lora_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        cfg = self.cfg
+        x = x.to(cfg.dtype)
+        adapter = getattr(self, "lora_a", None) is not None
+        live = (adapter and cfg.lora.dropout > 0.0
+                and lora_generator is not None)
+        h = torch.matmul(x, self.gate_up(fold=adapter and not live))
+        if live:
+            x_l = adapter_dropout(x, cfg.lora.dropout, lora_generator)
+            h = h + cfg.lora.scale * torch.matmul(
+                torch.matmul(x_l, self.lora_a.to(cfg.dtype)),
+                self.lora_b.to(cfg.dtype).flatten(1))
+        h = h.unflatten(-1, (2, cfg.intermediate_size))
+        lora = {} if lora_generator is None else {
+            "lora_generator": lora_generator}
+        return self.down(F.silu(h[..., 0, :]) * h[..., 1, :], **lora)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -364,10 +424,15 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[CacheView] = None,
-                dropout: Optional[Dropout] = None):
+                dropout: Optional[Dropout] = None,
+                lora_dropout: Optional[Dropout] = None):
+        """``lora_dropout = (p, seed)``: the adapters' dropout masks come
+        from a generator seeded here, so a recompute draws the same ones
+        (qkv, o_proj, gate_up, down in turn)."""
+        gen = hidden_generator(lora_dropout, x.device)
         x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
-                          dropout)
-        return x + self.mlp(self.post_norm(x))
+                          dropout, gen)
+        return x + self.mlp(self.post_norm(x), gen)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -386,7 +451,8 @@ class LlamaForCausalLM(nn.Module):
         self.cfg = cfg
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
                                        dtype=cfg.dtype, device=dev,
-                                       param_dtype=pdt)
+                                       param_dtype=pdt,
+                                       **_lora_kw(cfg, "embed"))
         self.layers = nn.ModuleList(
             [self.layer_cls(cfg, dev) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, dev, pdt)
@@ -396,7 +462,8 @@ class LlamaForCausalLM(nn.Module):
         elif not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
                                   dtype=cfg.dtype, device=dev,
-                                  param_dtype=pdt)
+                                  param_dtype=pdt,
+                                  **_lora_kw(cfg, "lm_head"))
         self._rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def hidden(self, input_ids: torch.Tensor,
@@ -417,30 +484,53 @@ class LlamaForCausalLM(nn.Module):
     def run_layer(self, layer: nn.Module, x, cos, sin, positions,
                   dropout_generator: Optional[torch.Generator]):
         """One training layer, under remat when ``cfg.remat``. The layer's
-        attention-dropout seed is drawn here, before the layer runs, so
-        that a recompute sees the same seed and the generator advances
-        once per layer with or without remat."""
+        attention-dropout seed, then its adapters' dropout seed (when
+        ``cfg.lora.dropout`` is live), are drawn here, before the layer
+        runs, so that a recompute sees the same seeds and the generator
+        advances as often with or without remat."""
         cfg = self.cfg
         dropout = attention_dropout_seed(cfg.attention_dropout,
                                          dropout_generator)
+        args = (x, cos, sin, positions, None, dropout)
+        lora_d = self.lora_dropout_seed(dropout_generator)
+        if lora_d is not None:
+            args += (lora_d,)
         if cfg.remat:
-            return remat_call(layer, x, cos, sin, positions, None, dropout,
-                              policy=self.layer_remat_policy)
-        return layer(x, cos, sin, positions, None, dropout)
+            return remat_call(layer, *args, policy=self.layer_remat_policy)
+        return layer(*args)
+
+    def lora_dropout_seed(self, dropout_generator: Optional[torch.Generator]
+                          ) -> Optional[Dropout]:
+        """``(p, seed)`` for one site's adapter dropout, drawn from
+        ``dropout_generator``, or None when it is not live."""
+        lora = self.cfg.lora
+        if lora is None or lora.dropout <= 0.0 or dropout_generator is None:
+            return None
+        return attention_dropout_seed(lora.dropout, dropout_generator)
 
     @property
     def layer_remat_policy(self) -> str:
         """The remat policy of a decoder layer: ``cfg.remat_policy``."""
         return self.cfg.remat_policy
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
+    def logits(self, x: torch.Tensor,
+               lora_dropout: Optional[Dropout] = None) -> torch.Tensor:
         """``x @ lm_head`` in ``cfg.dtype``, or with ``tie_embeddings``
         ``x @ embedding^T`` (the JAX ``embedding_attend``); the table's
-        gradient then sums over both its uses."""
-        if self.cfg.tie_embeddings:
-            dt = self.cfg.dtype
+        gradient then sums over both its uses. ``lora_dropout`` seeds the
+        LM head's adapter dropout."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            if _lora_kw(cfg, "lm_head"):
+                raise ValueError(
+                    "LoRA on 'lm_head' is incompatible with "
+                    "tie_embeddings=True (there is no lm_head param); "
+                    "target 'embed' instead")
+            dt = cfg.dtype
             return torch.matmul(x.to(dt), self.embed.embedding.to(dt).t())
-        return self.lm_head(x)
+        gen = hidden_generator(lora_dropout, x.device)
+        return self.lm_head(x) if gen is None else self.lm_head(
+            x, lora_generator=gen)
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -454,12 +544,13 @@ class LlamaForCausalLM(nn.Module):
         with ``cfg.loss_chunk``)."""
         cfg = self.cfg
         x = self.hidden(input_ids, positions, dropout_generator)
-        if labels is not None and cfg.loss_chunk:
+        if (labels is not None and cfg.loss_chunk
+                and not _lora_kw(cfg, "lm_head")):
             return fused_linear_cross_entropy(
                 x.to(cfg.dtype), self.lm_head.kernel, labels,
                 ignore_index=ignore_index, chunk=cfg.loss_chunk,
                 dtype=cfg.dtype)
-        logits = self.logits(x)
+        logits = self.logits(x, self.lora_dropout_seed(dropout_generator))
         if labels is not None:
             return causal_lm_loss(logits, labels, ignore_index=ignore_index)
         return logits
@@ -509,6 +600,11 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
     ``device`` in each parameter's dtype (``cfg.param_dtype``, or fp32 for
     a parameter held so).
 
+    LoRA adapters are drawn after every base weight, so the base equals
+    the same config's without ``lora``: normal(0, ``std``) A (B for the
+    embedding) and a zero B (A for the embedding), as the reference
+    zero-initialises, so a fresh adapter changes no output.
+
     Under ``cfg.weight_quant`` the float weights are drawn as for the
     float model and quantized one layer at a time
     (:func:`..quantization.serving.quantize_params_for_serving`), so no
@@ -527,20 +623,43 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
                   if cfg.weight_quant else group)
         group.clear()
 
-    for name, t in shapes.items():
+    for name in sorted(shapes, key=is_lora_path):
+        t = shapes[name]
         # a layer's tensors are quantized together, the others one by one
         key = ".".join(name.split(".")[:2]) if name.startswith(
             "layers.") else name
         if key != group_of:
             flush()
             group_of = key
-        if name.endswith(".scale"):
-            group[name] = torch.ones(t.shape, dtype=t.dtype, device=dev)
-        else:
-            group[name] = torch.randn(t.shape, generator=gen, dtype=t.dtype,
-                                      device=dev).mul_(std)
+        group[name] = _draw(name, t, gen, std, dev)
     flush()
     return sd
+
+
+def _draw(name: str, t: torch.Tensor, gen: torch.Generator, std: float,
+          dev: torch.device) -> torch.Tensor:
+    """One tensor of :func:`init_state_dict`: ones for a norm scale, zeros
+    for an adapter's zero factor, normal(0, ``std``) otherwise."""
+    if name.endswith(".scale"):
+        return torch.ones(t.shape, dtype=t.dtype, device=dev)
+    if is_lora_path(name) and name.endswith(
+            "lora_a" if name.startswith("embed.") else "lora_b"):
+        return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+    return torch.randn(t.shape, generator=gen, dtype=t.dtype,
+                       device=dev).mul_(std)
+
+
+def init_lora_state(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Fresh adapters of ``cfg.lora`` alone, as :func:`init_state_dict`
+    makes them (a zero B, or A for the embedding), from a generator seeded
+    with ``seed``: what :func:`..lora.merge_lora_state` adds to a base
+    checkpoint (a converted one, say) to start LoRA training."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = LlamaForCausalLM(cfg, device="meta").state_dict()
+    return {name: _draw(name, t, gen, std, dev)
+            for name, t in shapes.items() if is_lora_path(name)}
 
 
 def paged_forward(model: LlamaForCausalLM, input_ids: torch.Tensor,

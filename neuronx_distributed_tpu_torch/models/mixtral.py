@@ -17,8 +17,8 @@ Training goes through :meth:`MixtralForCausalLM.loss`, the JAX loss: the
 causal-LM cross entropy plus the router's load-balance and z losses summed
 over the layers, weighted by ``router_aux_coef`` and ``router_z_coef``;
 ``remat`` recomputes each layer whole. ``tie_embeddings`` (which the
-reference refuses too) and ``loss_chunk`` (which the reference ignores)
-raise.
+reference refuses too), ``loss_chunk`` (which the reference ignores) and
+``lora`` (the reference's Mixtral has no LoRA of its own) raise.
 Serving goes through :func:`mixtral_forward_with_cache`, the cached step
 of :func:`.llama.cached_forward` over a paged pool or a contiguous cache.
 With ``moe_dispatch="blockwise"`` the experts run the grouped GLU: K5 on a
@@ -69,6 +69,10 @@ class MixtralConfig(LlamaConfig):
         later = ["tie_embeddings"] if self.tie_embeddings else []
         if self.loss_chunk is not None:
             later.append("loss_chunk")
+        if self.lora is not None:
+            # the reference's Mixtral would get adapters only in the
+            # attention it shares with Llama; the port adds none
+            later.append("lora")
         if later:
             raise ValueError(f"{', '.join(later)}: not ported for Mixtral "
                              "yet (a later slice)")

@@ -24,9 +24,9 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..modules.attention import self_attention
-from ..parallel.layers import GQAQKVColumnParallelLinear
+from ..parallel.layers import GQAQKVColumnParallelLinear, dropout
 from .common import (FamilyModel, LayerDropout, build_serving_model,
-                     hidden_dropout, hidden_generator, layer_norm, linear,
+                     hidden_generator, layer_norm, linear,
                      random_state_dict)
 
 
@@ -111,20 +111,20 @@ class ViTLayer(nn.Module):
                            device)
 
     def forward(self, x: torch.Tensor,
-                dropout: Optional[LayerDropout] = None) -> torch.Tensor:
+                seeds: Optional[LayerDropout] = None) -> torch.Tensor:
         cfg = self.cfg
         b, s = x.shape[:2]
-        attn_drop, hidden = dropout or (None, None)
+        attn_drop, hidden = seeds or (None, None)
         gen = hidden_generator(hidden, x.device)
         q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim)
                    for t in self.qkv(self.ln_before(x)))
         attn = self_attention(q, k, v, causal=False,
                               use_flash=cfg.use_flash_attention,
                               dropout=attn_drop)
-        x = x + hidden_dropout(self.o_proj(attn.reshape(b, s, -1)),
-                               cfg.hidden_dropout, gen)
+        x = x + dropout(self.o_proj(attn.reshape(b, s, -1)),
+                        cfg.hidden_dropout, gen)
         h = self.down(F.gelu(self.up(self.ln_after(x))))
-        return x + hidden_dropout(h, cfg.hidden_dropout, gen)
+        return x + dropout(h, cfg.hidden_dropout, gen)
 
 
 class ViTForImageClassification(FamilyModel):

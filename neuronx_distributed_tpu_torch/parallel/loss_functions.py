@@ -112,16 +112,19 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
         kern = kernel.to(dtype)
         scale = g.float() / denom
         dx = torch.empty(x.shape, dtype=dtype, device=x.device)
-        dw = torch.zeros_like(kern)
+        # a frozen kernel (LoRA's base) gets no dW
+        dw = torch.zeros_like(kern) if ctx.needs_input_grad[1] else None
         for c in reversed(range(x.shape[1] // chunk)):
             at = slice(c * chunk, (c + 1) * chunk)
             xc = x[:, at].to(dtype)
             dlogits = _chunk_softmax_grad(torch.matmul(xc, kern),
                                           labels[:, at], ignore_index, scale)
             dx[:, at] = torch.matmul(dlogits, kern.t())
-            dw = dw + torch.matmul(xc.flatten(0, 1).t(),
-                                   dlogits.flatten(0, 1))
-        return (dx[:, :s].to(x.dtype), dw.to(kernel.dtype), None, None,
+            if dw is not None:
+                dw = dw + torch.matmul(xc.flatten(0, 1).t(),
+                                       dlogits.flatten(0, 1))
+        return (dx[:, :s].to(x.dtype),
+                None if dw is None else dw.to(kernel.dtype), None, None,
                 None, None)
 
 

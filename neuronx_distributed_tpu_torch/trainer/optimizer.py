@@ -73,6 +73,9 @@ class AdamW:
     max_grad_norm: Optional[float] = 1.0
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
+        """Zero moments for ``params``, which must be the tensors (and the
+        order) that :meth:`update` will be given: the train step gives the
+        trainable ones (``trainer.trainable``)."""
         return AdamWState(count=0,
                           mu=[torch.zeros_like(p) for p in params],
                           nu=[torch.zeros_like(p) for p in params])
@@ -88,7 +91,13 @@ class AdamW:
         """Clip ``grads`` (in place), then apply one AdamW update to
         ``params`` and ``state`` in place. ``grad_norm``, when given, is the
         global norm of ``grads`` already computed by the caller."""
-        grads = list(grads)
+        params, grads = list(params), list(grads)
+        if not len(params) == len(grads) == len(state.mu):
+            raise ValueError(
+                f"AdamW.update: {len(params)} parameters, {len(grads)} "
+                f"gradients, moments for {len(state.mu)}: init() must be "
+                "given the parameters update() is (with LoRA, call "
+                "make_lora_optimizer before init)")
         if self.max_grad_norm is not None:
             norm = global_norm(grads) if grad_norm is None else grad_norm
             factor = torch.where(norm < self.max_grad_norm,
@@ -101,7 +110,8 @@ class AdamW:
         bc2 = 1.0 - self.b2 ** state.count
         # one parameter at a time: the temporaries stay the size of the
         # largest parameter, not of the model
-        for p, g, m, v in zip(params, grads, state.mu, state.nu):
+        for p, g, m, v in zip(params, grads, state.mu, state.nu,
+                              strict=True):
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))

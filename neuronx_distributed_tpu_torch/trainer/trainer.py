@@ -24,7 +24,7 @@ slices, and passing one raises.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -91,12 +91,22 @@ def initialize_parallel_optimizer(
         weight_decay: float = 0.01, **adam_kw
 ) -> Tuple[opt_mod.AdamW, TrainState]:
     """The optimizer (:func:`.optimizer.make_optimizer`) and a
-    :class:`TrainState` at step 0 with zeroed moments."""
+    :class:`TrainState` at step 0 with zeroed moments for the
+    :func:`trainable` parameters."""
     tx = opt_mod.make_optimizer(pm.config, learning_rate=learning_rate,
                                 weight_decay=weight_decay, **adam_kw)
     params = dict(params)
     return tx, TrainState(step=0, params=params,
-                          opt_state=tx.init(list(params.values())))
+                          opt_state=tx.init(trainable(params)))
+
+
+def trainable(params: Mapping[str, torch.nn.Parameter]
+              ) -> List[torch.nn.Parameter]:
+    """The parameters the step differentiates and the optimizer updates,
+    in ``params``' order: those that require gradients. A frozen one
+    (``requires_grad=False``, as :func:`..lora.make_lora_optimizer` leaves
+    the base) gets no gradient, no moments and no update."""
+    return [p for p in params.values() if p.requires_grad]
 
 
 def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
@@ -115,7 +125,11 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     0-dim device tensors: ``loss`` and ``grad_norm``, the global norm
     before clipping. A parameter the loss does not reach (BERT's
     ``type_embedding`` under a loss without token types) gets a zero
-    gradient, as under ``jax.grad``.
+    gradient, as under ``jax.grad``. Only the :func:`trainable` parameters
+    are differentiated and updated: under LoRA
+    (:func:`..lora.make_lora_optimizer`) the adapters, and ``grad_norm`` is
+    then their norm, where the reference's covers the frozen base's
+    gradient too, which the port does not compute.
 
     ``loss_fn(module, params, batch) -> scalar``: the loss to
     differentiate instead of the model's own (``params`` is
@@ -178,7 +192,7 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
 
     def one_step(state: TrainState, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, Any]:
-        params = list(state.params.values())
+        params = trainable(state.params)
         a = grad_accum_steps
         for name, x in batch.items():
             if x.shape[0] % a:
@@ -220,7 +234,7 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
                 metrics["integrity_fp"] = fingerprint_tree(state.params)
             else:
                 metrics["integrity_fp"] = torch.zeros(
-                    len(params), dtype=torch.int32, device=pm.device)
+                    len(state.params), dtype=torch.int32, device=pm.device)
         state.step += 1
         return metrics
 

@@ -1758,3 +1758,92 @@ def test_nxd_model_graph_matches_eager(cuda):
     with torch.no_grad():
         eager, _ = fn(sd, tok, at, eager_state)
     assert torch.equal(graph, eager)
+
+
+# ---------------------------------------------------------------------------
+# LoRA, the conv layers and the converter on the card
+# ---------------------------------------------------------------------------
+
+def _lora_cfg(**kw):
+    from neuronx_distributed_tpu_torch.lora import LoraConfig
+
+    return tl.tiny_config(
+        dtype=torch.float32, num_layers=2, use_flash_attention=True,
+        lora=LoraConfig(r=4, alpha=8.0, target_modules=(
+            "qkv", "o_proj", "gate_up", "down", "embed", "lm_head")), **kw)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_lora_adapter_grads_on_card_match_cpu(cuda, remat):
+    """A LoRA Llama's loss and adapter gradients on the card against the
+    CPU (fp32, flash attention on K2-K4): loss 1e-5, each gradient within
+    1e-4 of its norm; the frozen base gets none."""
+    from neuronx_distributed_tpu_torch import lora
+
+    cfg = _lora_cfg(remat=remat, remat_policy="save_attention")
+    sd = tl.init_state_dict(cfg, seed=3, device="cpu")
+    # random adapters: a constant B would give the head's A a gradient of
+    # exactly zero (the softmax's gradient sums to zero over the vocab)
+    gen = torch.Generator().manual_seed(4)
+    sd = {n: torch.randn(t.shape, generator=gen) * 0.05
+          if lora.is_lora_path(n) else t for n, t in sd.items()}
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 33)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pm, params = ttr.initialize_parallel_model(
+            neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
+        lora.make_lora_optimizer(None, params)
+        loss = pm.module.loss(ids[:, :-1].to(dev), ids[:, 1:].to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in params.items()
+                                  if p.grad is not None})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    assert out["cuda"][1].keys() == out["cpu"][1].keys() == {
+        n for n in sd if lora.is_lora_path(n)}
+    for n, ref in out["cpu"][1].items():
+        assert (out["cuda"][1][n] - ref).norm() <= 1e-4 * ref.norm(), n
+
+
+def test_conv_pair_on_card_matches_cpu(cuda, monkeypatch):
+    """The conv LoRA pair (SAME, stride 2 then VALID) on the card against
+    the CPU: fp32 within 1e-5 of max|y|, bf16 compute within 2e-2."""
+    from neuronx_distributed_tpu_torch.parallel import layers as pl
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                        False)   # fp32 convolutions in fp32, restored after
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 17, 16, 8).astype(np.float32))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        y = {}
+        for dev in ("cpu", "cuda"):
+            gen = torch.Generator().manual_seed(2)
+            col = pl.OutputChannelParallelConv2d(
+                8, 16, strides=(2, 2), dtype=dtype, device=dev,
+                param_dtype=torch.float32, lora_rank=4)
+            row = pl.InputChannelParallelConv2d(
+                16, 8, padding="VALID", dtype=dtype, device=dev,
+                param_dtype=torch.float32, lora_rank=4)
+            for layer in (col, row):
+                for p in layer.parameters():
+                    p.data = (torch.randn(p.shape, generator=gen)
+                              * 0.1).to(dev)
+            with torch.no_grad():
+                y[dev] = row(col(x.to(dev))).float().cpu()
+        assert y["cuda"].shape == y["cpu"].shape == (2, 7, 6, 8)
+        assert ((y["cuda"] - y["cpu"]).abs().max()
+                <= tol * y["cpu"].abs().max()), dtype
+
+
+def test_converter_round_trip_on_card_in_bf16(cuda):
+    """The Llama converter on card tensors keeps them there, in bf16, and
+    the round trip gives every tensor back bit for bit."""
+    from chip_smoke import hf_llama_state_dict
+    from neuronx_distributed_tpu_torch.scripts import checkpoint_converter
+
+    cfg = tl.tiny_config(num_layers=2)
+    hf = hf_llama_state_dict(cfg, seed=0)
+    sd = checkpoint_converter.convert_hf_llama_to_nxd(hf, cfg)
+    assert all(t.is_cuda and t.dtype == torch.bfloat16 for t in sd.values())
+    back = checkpoint_converter.convert_nxd_to_hf_llama(sd, cfg)
+    assert back.keys() == hf.keys()
+    assert all(torch.equal(back[k], t) for k, t in hf.items())

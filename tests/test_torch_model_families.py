@@ -48,6 +48,7 @@ from neuronx_distributed_tpu_torch.models import vit as tv
 from neuronx_distributed_tpu_torch.models.convert import params_from_jax
 from neuronx_distributed_tpu_torch.modules import attention as tattn
 from neuronx_distributed_tpu_torch.modules import norms as tnorms
+from neuronx_distributed_tpu_torch.parallel import layers as tlayers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S = 2, 16
@@ -347,12 +348,12 @@ def test_hidden_dropout_keep_rate_and_scale():
     x = torch.rand(256, 512) + 0.5
     for p in (0.1, 0.5):
         gen = torch.Generator().manual_seed(0)
-        y = common.hidden_dropout(x, p, gen)
+        y = tlayers.dropout(x, p, gen)
         kept = y != 0
         assert abs(kept.float().mean().item() - (1 - p)) < 0.01
         assert torch.equal(y[kept], x[kept] / (1 - p))
-    assert common.hidden_dropout(x, 0.1, None) is x
-    assert common.hidden_dropout(x, 0.0, torch.Generator()) is x
+    assert tlayers.dropout(x, 0.1, None) is x
+    assert tlayers.dropout(x, 0.0, torch.Generator()) is x
     # without a generator a model with dropout configured is JAX's without
     # a "dropout" rng
     for family in ("bert", "vit"):

@@ -577,6 +577,25 @@ assert torch.equal(m["integrity_fp"], integrity.fingerprint_tree(
 assert obs.get_registry().to_prometheus() == ""
 assert chaos.FaultPlan.parse("seed=1; save_text : transient").rules
 print("integrity", state.step)
+from neuronx_distributed_tpu_torch import lora
+cfg = tl.tiny_config(dtype=torch.float32, num_layers=1,
+                     use_flash_attention=True,
+                     lora=lora.LoraConfig(r=4, target_modules=("qkv",
+                                                               "gate_up")))
+pm, params = ttr.initialize_parallel_model(neuronx_distributed_config(), cfg,
+                                           device="cpu")
+base = {n: p.detach().clone() for n, p in params.items()
+        if not lora.is_lora_path(n)}
+tx = lora.make_lora_optimizer(ttr.make_optimizer(
+    neuronx_distributed_config(), learning_rate=1e-2), params)
+state = ttr.TrainState(0, params, tx.init(ttr.trainable(params)))
+step = ttr.make_train_step(pm, tx)
+losses = [step(state, batch)[1]["loss"].item() for _ in range(3)]
+assert losses[-1] < losses[0], losses
+assert all(torch.equal(params[n], t) for n, t in base.items())
+merged = lora.merge_lora_params(dict(params), cfg.lora)
+assert not lora.extract_lora_state(merged)
+print("lora", state.step)
 """
 
 
@@ -587,4 +606,4 @@ def test_train_step_imports_nothing_of_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.splitlines() == ["trained 3", "trained mixtral 3",
-                                       "integrity 4"]
+                                       "integrity 4", "lora 3"]

@@ -264,7 +264,14 @@ def test_config_accepts_what_jax_accepts_and_lacks_later_fields():
     for fmt in FORMATS:
         assert tl.tiny_config(weight_quant=fmt).weight_quant == fmt
         jl.tiny_config(weight_quant=fmt)
-    # LoRA and sequence parallelism are not fields of the port
-    for field in ("lora", "sequence_parallel"):
-        with pytest.raises(TypeError):
-            tl.tiny_config(weight_quant="int8", **{field: True})
+    # LoRA with weight_quant raises JAX's ValueError; sequence parallelism
+    # is not a field of the port
+    from neuronx_distributed_tpu.lora import LoraConfig as JLoraConfig
+    from neuronx_distributed_tpu_torch.lora import LoraConfig
+
+    for cfg_fn, lora in ((jl.tiny_config, JLoraConfig()),
+                         (tl.tiny_config, LoraConfig())):
+        with pytest.raises(ValueError, match="incompatible with LoRA"):
+            cfg_fn(weight_quant="int8", lora=lora)
+    with pytest.raises(TypeError):
+        tl.tiny_config(weight_quant="int8", sequence_parallel=True)
