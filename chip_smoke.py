@@ -350,6 +350,30 @@ script exits non-zero and prints no result:
    gradient and update within 1e-3 of its norm, the base unchanged; the
    largest per-module gaps through ``tensor_capture``; a conv LoRA pair
    (bf16 compute) card against CPU within 2e-2 of max|y|.
+52. train_tp: four ranks on the one card, each a process of its own
+   (``utils.cpu_mesh.run_ranks``) joined over gloo with CUDA tensors
+   (NCCL refuses two ranks on one device): ``neuronx_distributed_config(
+   tensor_parallel_size=2, sequence_parallel=True, ZeRO-1)`` ->
+   ``initialize_parallel_model`` -> ``initialize_parallel_optimizer`` ->
+   ``make_train_step`` on Llama-3-8B's widths at 2 layers (each rank
+   makes the whole weights from seed 0 on the card and keeps its shards),
+   bf16 compute over fp32 parameters, flash attention on each rank's 16
+   query heads over 4 kv heads, global batch 2 at S=4096 (one row a data
+   rank), 3 steps. Asserts on every rank finite losses and grad norms
+   equal to rank 0's, a falling loss, K2, K3 and K4 each launched layers x
+   steps times, the first launch of each held to its plain version on the
+   path's inputs within 2e-2 (``flash_rel_err``), nothing staged through
+   the host by ``parallel/comm.py``, and equal parameters on the data
+   ranks of one tp rank; prints per rank the step times, peak GiB (while
+   loading and while stepping) and the bytes of gloo's collectives, and
+   K2-K4 timed at the local shape by rank 0 while the others wait.
+   Phases 52 and 53 share one start of the four processes.
+53. train_tp_cross_check: the same path at full width, 2 layers, S=256,
+   fp32, global batch 2, 2 steps, against the port's tp=1 step on the card
+   from the same weights (both made on the card from seed 1): losses
+   within 1e-4 relative, grad norms within 1e-3, each parameter's update
+   (the tp shards gathered) within 1e-3 of its norm; the kernels' first
+   launches within 1e-4 of plain.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -5547,6 +5571,387 @@ def phase_lora_cross_check(layers=2, seq=256, steps=2):
     check_freed("lora_cross_check", base_mem)
 
 
+# ---------------------------------------------------------------------------
+# phases 52-53: tensor, sequence and data parallelism, four ranks on one card
+# ---------------------------------------------------------------------------
+
+TP_WORLD, TP_SIZE = 4, 2     # tp=2 x dp=2
+
+
+def tp_batch(vocab, seq, rows, seed):
+    """A global ``[rows, seq]`` batch from numpy's ``RandomState(seed)``,
+    labels shifted by one."""
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, vocab, (rows, seq + 1)))
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def tp_holds(k2, k3, k4):
+    """The first launch of K2, K3 and K4 a rank made on the path, each
+    held element by element (``flash_rel_err``) to its plain version on
+    the inputs the path gave it."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for name, cap, plain in (("flash_fwd", k2, fa.flash_fwd_plain),
+                             ("flash_bwd_dq", k3, fa.flash_bwd_dq_plain),
+                             ("flash_bwd_dkv", k4, fa.flash_bwd_dkv_plain)):
+        args, kw, out = cap.calls[0]
+        ref = plain(*args, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs[name] = max(flash_rel_err(a, r) for a, r in zip(out, ref))
+    return errs, k2.calls[0][0][:3], k3.calls[0][0][3]
+
+
+def tp_local_timing(q, k, v, g):
+    """K2-K4 at a rank's local shape, each against its plain version, its
+    bound and SDPA, timed by one rank while the others wait."""
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out, lse = fa.flash_fwd_cuda(q, k, v, True)
+    delta = fa.attention_delta(g, out)
+    bwd = (q, k, v, g, lse, delta, True)
+    bounds = flash_bounds(q, k, True)
+    fwd_ms, bwd_ms = sdpa_yardsticks(q, k, v, g, True, flush)
+    timing = {}
+    for name, cuda, plain, args in (
+            ("flash_fwd", fa.flash_fwd_cuda, fa.flash_fwd_plain,
+             (q, k, v, True)),
+            ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_plain,
+             bwd),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_plain,
+             bwd)):
+        timing[name] = dict(
+            kernel_ms=time_ms(lambda: cuda(*args), flush=flush),
+            plain_ms=time_ms(lambda: plain(*args), reps=3, warmup=1),
+            library_ms=fwd_ms if name == "flash_fwd" else bwd_ms,
+            **bounds[name])
+    return timing
+
+
+def tp_rank(specs):
+    """One rank of ``train_tp`` and ``train_tp_cross_check``, in a process
+    of its own (``utils.cpu_mesh.run_ranks``; this module is imported by
+    name there): :func:`tp_rank_once` for each spec in turn, the first's
+    memory freed before the next; each result carries its seconds from
+    the rank's start."""
+    start = time.perf_counter()
+    out = []
+    for spec in specs:
+        res = tp_rank_once(spec)
+        res["done_s"] = time.perf_counter() - start
+        out.append(res)
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_once(spec):
+    """The public path at tp=2 with ``sequence_parallel`` and ZeRO-1 on
+    ``cuda:0``, the whole weights made from ``spec["seed"]`` on the card,
+    then ``spec["steps"]`` steps on the global batch. The flash kernels'
+    counts are set to 0 just before the steps and read just after; their
+    first launches are held to their plain versions."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        MixedPrecisionConfig, OptimizerConfig, configure_model,
+        neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.parallel import comm, mesh
+    from neuronx_distributed_tpu_torch.resilience.integrity import \
+        fingerprint_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ncfg = neuronx_distributed_config(
+        tensor_parallel_size=TP_SIZE, sequence_parallel=True,
+        optimizer_config=OptimizerConfig(zero_one_enabled=True),
+        mixed_precision_config=MixedPrecisionConfig(
+            compute_dtype=spec["compute"]))
+    cfg = configure_model(ncfg, dataclasses.replace(
+        LLAMA3_8B, num_layers=spec["layers"], use_flash_attention=True,
+        param_dtype=torch.float32))
+    torch.cuda.reset_peak_memory_stats()
+    pm, params = trainer.initialize_parallel_model(
+        ncfg, cfg, seed=spec["seed"], std=0.02, device="cuda")
+    load_peak = torch.cuda.max_memory_allocated()
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    step = trainer.make_train_step(pm, tx)
+    counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    comm.collective_bytes.clear()
+    comm.host_staged_bytes.clear()
+    init_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, times = [], [], []
+    with Capture(fa, "flash_fwd_cuda") as k2, \
+            Capture(fa, "flash_bwd_dq_cuda") as k3, \
+            Capture(fa, "flash_bwd_dkv_cuda") as k4:
+        for _ in range(spec["steps"]):
+            t_step = time.perf_counter()
+            _, m = step(state, spec["batch"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    moved = dict(comm.collective_bytes)
+    staged = dict(comm.host_staged_bytes)
+    ring = tp_ppermute_ring(comm, mesh)
+    holds, (q, k, v), g = tp_holds(k2, k3, k4)
+    del k2, k3, k4
+    timing = None
+    dist.barrier()
+    if spec["time_kernels"] and dist.get_rank() == 0:
+        timing = tp_local_timing(q, k, v, g)
+    dist.barrier()
+    coords = mesh.coords()
+    keep = spec["return_params"] and coords["dp"] == 0
+    return dict(coords=coords, losses=losses, grad_norms=norms,
+                init_s=init_s, run_s=time.perf_counter() - t0,
+                step_ms=times, launches=launches, holds=holds,
+                local_shape=dict(zip("bsnd", q.shape), kv=k.shape[2]),
+                timing=timing, load_peak_gib=load_peak / 2 ** 30,
+                peak_gib=peak / 2 ** 30, collective_bytes=moved,
+                host_staged_bytes=staged, ppermute_ring=ring,
+                fingerprint=fingerprint_tree(params),
+                params=({n: p.detach().cpu() for n, p in params.items()}
+                        if keep else None))
+
+
+def tp_ppermute_ring(comm, mesh, n=1 << 20):
+    """``comm.ppermute`` of a CUDA tensor around the tp ring, the one op
+    ``comm`` stages through the host on gloo (off the train path): whether
+    each rank got its left neighbour's tensor on the card, and the bytes
+    staged against the two copies of the payload it should take."""
+    tp = mesh.axis_size(mesh.TP_AXIS)
+    me = mesh.axis_rank(mesh.TP_AXIS)
+    base = torch.arange(n, dtype=torch.float32, device="cuda")
+    comm.host_staged_bytes.clear()
+    got = comm.ppermute(base + 1e7 * me, mesh.TP_AXIS,
+                        [(i, (i + 1) % tp) for i in range(tp)])
+    staged = comm.host_staged_bytes["ppermute"]
+    comm.host_staged_bytes.clear()
+    return dict(right=bool(got.is_cuda and torch.equal(
+                    got, base + 1e7 * ((me - 1) % tp))),
+                staged_bytes=staged, want_bytes=2 * n * 4)
+
+
+def run_tp_world(specs):
+    """``tp_rank`` on ``TP_WORLD`` ranks sharing ``cuda:0`` over gloo with
+    CUDA tensors (NCCL refuses two ranks on one device), through a
+    ``file://`` store under ``build/``, removed after: per spec, each
+    rank's result."""
+    import importlib
+
+    from neuronx_distributed_tpu_torch.utils.cpu_mesh import run_ranks
+
+    me = importlib.import_module("chip_smoke")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=build)
+    try:
+        ranks = run_ranks(me.tp_rank, TP_WORLD, backend="gloo",
+                          device="cuda:0", store_dir=workdir, args=(specs,),
+                          timeout=600, threads=2)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return [[r[i] for r in ranks] for i in range(len(specs))]
+
+
+def check_tp_ranks(phase, outs, steps, layers):
+    """What every rank must show: finite metrics equal across ranks, each
+    flash kernel launched layers x steps times and held within 2e-2 (bf16,
+    ``train_tp``) or 1e-4 (fp32), nothing staged through the host by
+    ``comm`` on the train path, ``comm.ppermute`` of a CUDA tensor right
+    and staged at twice its payload, and the data-parallel twins'
+    parameters equal bit for bit."""
+    ref = outs[0]
+    for r, out in enumerate(outs):
+        if not (np.isfinite(out["losses"]).all()
+                and np.isfinite(out["grad_norms"]).all()):
+            raise AssertionError(f"{phase}: rank {r} non-finite: {out}")
+        for key in ("losses", "grad_norms"):
+            if not np.allclose(out[key], ref[key], rtol=1e-6, atol=0):
+                raise AssertionError(f"{phase}: rank {r} {key} "
+                                     f"{out[key]} vs rank 0 {ref[key]}")
+        for name, n in out["launches"].items():
+            if n != layers * steps:
+                raise AssertionError(f"{phase}: rank {r} launched {name} "
+                                     f"{n} times, want {layers * steps}")
+        tol = 2e-2 if phase == "train_tp" else 1e-4
+        for name, err in out["holds"].items():
+            if not err <= tol:
+                raise AssertionError(f"{phase}: rank {r} {name} differs "
+                                     f"from its plain version by {err}")
+        if any(out["host_staged_bytes"].values()):
+            raise AssertionError(f"{phase}: rank {r} staged "
+                                 f"{out['host_staged_bytes']}")
+        ring = out["ppermute_ring"]
+        if not (ring["right"] and ring["staged_bytes"] == ring["want_bytes"]):
+            raise AssertionError(f"{phase}: rank {r} ppermute {ring}")
+        twin = next(o for o in outs if o["coords"]["tp"] == out["coords"][
+            "tp"] and o["coords"]["dp"] == 0)
+        if not torch.equal(out["fingerprint"], twin["fingerprint"]):
+            raise AssertionError(f"{phase}: rank {r}'s parameters differ "
+                                 "from its data-parallel twin's")
+
+
+def tp_summary(outs):
+    """The fields of a phase line common to both phases."""
+    return dict(
+        world=TP_WORLD, tp=TP_SIZE, dp=TP_WORLD // TP_SIZE,
+        losses=outs[0]["losses"], grad_norms=outs[0]["grad_norms"],
+        step_ms_by_rank=[o["step_ms"] for o in outs],
+        peak_gib_by_rank=[o["peak_gib"] for o in outs],
+        load_peak_gib_by_rank=[o["load_peak_gib"] for o in outs],
+        launches_by_rank=[o["launches"] for o in outs],
+        held_err_by_rank=[o["holds"] for o in outs],
+        local_shape=outs[0]["local_shape"],
+        gloo_bytes_by_rank=[o["collective_bytes"] for o in outs],
+        gloo_bytes_total=sum(sum(o["collective_bytes"].values())
+                             for o in outs),
+        host_staged_bytes_total=sum(sum(o["host_staged_bytes"].values())
+                                    for o in outs),
+        ppermute_staged_bytes_by_rank=[o["ppermute_ring"]["staged_bytes"]
+                                       for o in outs],
+        rank_init_s=[o["init_s"] for o in outs],
+        rank_run_s=[o["run_s"] for o in outs],
+        rank_done_s=[o["done_s"] for o in outs])
+
+
+def phase_train_tp(smi, steps=3, seq=4096, layers=2, cross_layers=2,
+                   cross_seq=256, cross_steps=2):
+    """Phases 52 and 53 in one world of ranks (one start of the processes):
+    the tp=1 reference step of ``train_tp_cross_check`` first, in this
+    process, then the ranks run ``train_tp`` and the cross check's path in
+    turn. Returns ``train_tp``'s launches summed over the ranks."""
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+
+    free_cuda()
+    t0 = time.perf_counter()
+    ref = tp_reference(cross_layers, cross_seq, cross_steps)
+    t_ref = time.perf_counter() - t0
+    main, cross = run_tp_world([
+        dict(compute="bfloat16", layers=layers, seed=0, steps=steps,
+             return_params=False, time_kernels=True,
+             batch=tp_batch(LLAMA3_8B.vocab_size, seq,
+                            TP_WORLD // TP_SIZE, 0)),
+        dict(compute="float32", layers=cross_layers, seed=1,
+             steps=cross_steps, return_params=True, time_kernels=False,
+             batch=ref["batch"])])
+    wall = time.perf_counter() - t0
+    launches = check_train_tp(smi, main, steps, seq, layers)
+    check_train_tp_cross(smi, cross, ref, cross_layers, cross_seq,
+                         cross_steps, t_ref, wall)
+    return launches
+
+
+def check_train_tp(smi, outs, steps, seq, layers):
+    """``train_tp``: Llama-3-8B widths at 2 layers, bf16 compute over fp32
+    parameters, 4 ranks on the one card (tp=2 x dp=2, sequence parallel,
+    ZeRO-1), global batch 2 at S=4096, 3 steps; each rank's K2-K4 counts
+    and held launches, its step times and peak memory, the bytes gloo's
+    collectives moved (gloo passes CUDA tensors through pinned host
+    buffers) and what ``comm`` staged itself; rank 0 timed K2-K4 at the
+    local shape while the others waited."""
+    check_tp_ranks("train_tp", outs, steps, layers)
+    if not outs[0]["losses"][-1] < outs[0]["losses"][0]:
+        raise AssertionError(f"train_tp: loss did not fall: "
+                             f"{outs[0]['losses']}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name, _ in FLASH_KERNELS}
+    p50 = float(np.median([t for o in outs for t in o["step_ms"][1:]]))
+    emit("train_tp", card=smi, layers=layers, seq=seq, steps=steps,
+         global_batch=TP_WORLD // TP_SIZE, compute_dtype="bfloat16",
+         step_ms_p50=p50, timing_local_shape=outs[0]["timing"],
+         **tp_summary(outs))
+    TP_RESULTS["train_tp"] = dict(launches=launches, outs=outs)
+    return launches
+
+
+def tp_reference(layers, seq, steps):
+    """The port's tp=1 step on the card in this process: full width,
+    ``layers`` layers, fp32, the weights made on the card from seed 1, a
+    global batch of 2 rows of ``seq``; each step's loss and grad norm, the
+    weights and each parameter's update, on the host."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=layers,
+                              dtype=torch.float32, param_dtype=torch.float32,
+                              use_flash_attention=True)
+    batch = tp_batch(cfg.vocab_size, seq, TP_WORLD // TP_SIZE, 1)
+    sd = llama.init_state_dict(cfg, seed=1, std=0.02, device="cuda")
+    pm, params = trainer.initialize_parallel_model(
+        neuronx_distributed_config(), cfg, state_dict=sd, device="cuda")
+    start = {n: t.cpu() for n, t in sd.items()}
+    del sd
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    step = trainer.make_train_step(pm, tx)
+    metrics = [step(state, batch)[1] for _ in range(steps)]
+    metrics = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    upd = {n: p.detach().cpu() - start[n] for n, p in params.items()}
+    del pm, params, tx, state, step
+    free_cuda()
+    return dict(cfg=cfg, batch=batch, metrics=metrics, start=start,
+                updates=upd)
+
+
+def check_train_tp_cross(smi, outs, ref, layers, seq, steps, t_ref, wall):
+    """``train_tp_cross_check``: full width, 2 layers, S=256, fp32: the
+    world-4 path (tp=2 x dp=2, sequence parallel, ZeRO-1) against the
+    port's tp=1 step on the card (:func:`tp_reference`), from the same
+    weights (both made on the card from seed 1) and the same global batch
+    of 2, for 2 steps: each loss within 1e-4 relative, each grad norm
+    within 1e-3, each parameter's update (the tp shards gathered) within
+    1e-3 of its norm."""
+    from neuronx_distributed_tpu_torch.models import convert
+
+    check_tp_ranks("train_tp_cross_check", outs, steps, layers)
+    for i, ((lc, nc), lw, nw) in enumerate(zip(ref["metrics"],
+                                               outs[0]["losses"],
+                                               outs[0]["grad_norms"])):
+        if not abs(lw - lc) <= 1e-4 * abs(lc):
+            raise AssertionError(f"train_tp_cross_check: step {i + 1} loss "
+                                 f"{lw} vs tp=1 {lc}")
+        if not abs(nw - nc) <= 1e-3 * abs(nc):
+            raise AssertionError(f"train_tp_cross_check: step {i + 1} grad "
+                                 f"norm {nw} vs tp=1 {nc}")
+    first = sorted((o for o in outs if o["params"] is not None),
+                   key=lambda o: o["coords"]["tp"])
+    got = convert.gather_state_dict(
+        dataclasses.replace(ref["cfg"], tp_size=TP_SIZE),
+        [o["params"] for o in first])
+    worst, worst_name = 0.0, None
+    for name, upd in ref["updates"].items():
+        rel = ((got[name] - ref["start"][name] - upd).norm()
+               / upd.norm()).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not rel <= 1e-3:
+            raise AssertionError(f"train_tp_cross_check: {name}'s update "
+                                 f"differs by {rel} of its norm, above 1e-3")
+    emit("train_tp_cross_check", card=smi, layers=layers, seq=seq,
+         steps=steps, loss_tp1=[m[0] for m in ref["metrics"]],
+         grad_norm_tp1=[m[1] for m in ref["metrics"]],
+         max_update_rel_diff=worst, max_update_rel_diff_param=worst_name,
+         tp1_s=t_ref, wall_s_both_phases=wall, **tp_summary(outs))
+
+
+TP_RESULTS = {}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -5651,6 +6056,7 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_lora_cross_check()
+    tp_launches = phase_train_tp(smi)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -5718,6 +6124,8 @@ def main() -> None:
                      for o in outputs[name] if o != "lse"])
         family_paths = {f"train_{f}": n[name]
                         for f, n in family_launches.items()}
+        tp_outs = TP_RESULTS["train_tp"]["outs"]
+        tp_local = tp_outs[0]["timing"][name]
         if name == "flash_fwd":
             family_paths["vit_serve"] = vit_captures
         summary.append({
@@ -5734,7 +6142,15 @@ def main() -> None:
                               "train_mixtral_remat": remat_launches[name],
                               "train_integrity": integrity_launches[name],
                               "lora_train": lora_launches[name],
+                              "train_tp": tp_launches[name],
                               **family_paths},
+            "train_tp_by_rank": [o["launches"][name] for o in tp_outs],
+            "train_tp_max_rel_err": max(o["holds"][name] for o in tp_outs),
+            "train_tp_local_case": {
+                "shape": tp_outs[0]["local_shape"],
+                **{key: tp_local[key] for key in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}},
             "family_cases": {c["case"]: {
                 key: c["timing"][name][key] for key in (
                     "kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -5795,9 +6211,11 @@ def main() -> None:
 
 def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
-    the speculation, migration, router, captured-serving, model-family and
-    LoRA groups alone (``lora`` is phases 49 and 50 together), for a short
-    run while such a phase is worked on; no summary and no result line."""
+    the speculation, migration, router, captured-serving, model-family,
+    LoRA and tensor-parallel groups alone (``lora`` is phases 49 and 50
+    together, ``train_tp`` or ``train_tp_cross_check`` phases 52 and 53),
+    for a short run while such a phase is worked on; no summary and no
+    result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5810,10 +6228,11 @@ def run_only(names) -> None:
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
-    print(subprocess.run(
+    smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0], flush=True)
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
     t0 = time.perf_counter()
     emit("build", seconds=time.perf_counter() - t0,
          kernels=sorted(_build.build()))
@@ -5842,9 +6261,15 @@ def run_only(names) -> None:
               "vit_serve": phase_vit_serve,
               "families_cross_check": phase_families_cross_check,
               "lora": lambda: run_lora(ecfg),
-              "lora_cross_check": phase_lora_cross_check}
+              "lora_cross_check": phase_lora_cross_check,
+              "train_tp": lambda: phase_train_tp(smi)}
+    # one world of ranks runs both tensor-parallel phases
+    phases["train_tp_cross_check"] = phases["train_tp"]
+    done = []
     for name in names:
-        phases[name]()
+        if phases[name] not in done:
+            phases[name]()
+            done.append(phases[name])
 
 
 def run_lora(ecfg):

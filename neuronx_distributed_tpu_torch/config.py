@@ -1,9 +1,11 @@
 """The port's training config (counterpart of the parts of
-``neuronx_distributed_tpu/config.py`` that a single-device trainer reads).
+``neuronx_distributed_tpu/config.py`` that the port's trainer reads).
 
-Only one device and tensor-parallel size 1 exist until the parallel slice:
-:func:`neuronx_distributed_config` raises on anything else, and so does
-ZeRO-1, which needs data-parallel ranks to shard over.
+:func:`neuronx_distributed_config` lays the ranks of the default
+``torch.distributed`` process group out as the mesh (tensor and data
+parallel, ZeRO-1 over the data ranks); pipeline, context and expert
+parallelism, collective-matmul overlap and activation compression wait
+for later slices and raise.
 """
 
 from __future__ import annotations
@@ -15,18 +17,86 @@ from typing import Any, Optional
 import torch
 
 
+def mesh_factorization(
+    world: int,
+    tensor_parallel_size: int = 1,
+    pipeline_parallel_size: int = 1,
+    context_parallel_size: int = 1,
+    expert_parallel_size: int = 1,
+    data_parallel_size: Optional[int] = None,
+    dcn_data_parallel_size: Optional[int] = None,
+) -> dict:
+    """Validate a factorization of ``world`` ranks and return the resolved
+    axis sizes ``{pp, dp, cp, tp, ep, dp_exp, dcn_dp, world}``, with the
+    reference's messages (JAX ``config.py:63``)."""
+    tp, pp, cp, ep = (tensor_parallel_size, pipeline_parallel_size,
+                      context_parallel_size, expert_parallel_size)
+    denom = tp * pp * cp
+    if world % denom != 0:
+        raise ValueError(
+            f"world size {world} not divisible by tp*pp*cp = {denom}")
+    dp = world // denom
+    if data_parallel_size is not None and data_parallel_size != dp:
+        raise ValueError(
+            f"explicit data_parallel_size {data_parallel_size} inconsistent "
+            f"with world {world} / (tp*pp*cp) = {dp}")
+    if (dp * cp) % ep != 0:
+        raise ValueError(
+            f"dp*cp = {dp * cp} not divisible by expert parallel size {ep}")
+    dcn_dp = dcn_data_parallel_size or 1
+    if dcn_dp > 1 and dp % dcn_dp != 0:
+        raise ValueError(
+            f"dp {dp} not divisible by dcn_data_parallel_size {dcn_dp}")
+    return dict(pp=pp, dp=dp, cp=cp, tp=tp, ep=ep, dp_exp=dp * cp // ep,
+                dcn_dp=dcn_dp, world=world)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The mesh's degrees (the reference's ``ParallelConfig``, for the
+    fields the port has); data parallel is the world over the rest. Only
+    tensor and data parallelism run: a pipeline, context or expert degree
+    above 1 raises, and so do ``tp_overlap_comm=True`` and a compressed
+    ``tp_activation_comm_dtype``."""
+
+    tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    context_parallel_size: int = 1
+    expert_parallel_size: int = 1
+    tp_overlap_comm: Optional[bool] = None
+    tp_activation_comm_dtype: str = "fp32"
+
+    def __post_init__(self) -> None:
+        for f in ("tensor_parallel_size", "pipeline_parallel_size",
+                  "context_parallel_size", "expert_parallel_size"):
+            v = getattr(self, f)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(f"{f} must be a positive int, got {v!r}")
+        later = [f"{f}={getattr(self, f)}" for f in (
+            "pipeline_parallel_size", "context_parallel_size",
+            "expert_parallel_size") if getattr(self, f) != 1]
+        if self.tp_overlap_comm:
+            later.append("tp_overlap_comm=True")
+        if self.tp_activation_comm_dtype != "fp32":
+            later.append("tp_activation_comm_dtype="
+                         f"{self.tp_activation_comm_dtype!r}")
+        if later:
+            raise ValueError(f"{', '.join(later)}: not in the port yet (a "
+                             "later slice); it runs tensor and data "
+                             "parallelism")
+
+
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """Global-norm clipping of the gradients before AdamW."""
+    """Global-norm clipping of the gradients before AdamW; with
+    ``zero_one_enabled`` the Adam moments are sharded over the data ranks
+    (ZeRO-1, :mod:`.trainer.optimizer`)."""
 
     zero_one_enabled: bool = False
     grad_clipping: bool = True
     max_grad_norm: float = 1.0
 
     def __post_init__(self) -> None:
-        if self.zero_one_enabled:
-            raise ValueError("zero_one_enabled needs data-parallel ranks; "
-                             "ZeRO-1 comes with the parallel slice")
         if self.grad_clipping and self.max_grad_norm <= 0:
             raise ValueError(
                 "max_grad_norm must be positive when grad_clipping is "
@@ -98,43 +168,84 @@ class CheckpointConfig:
 class NxDConfig:
     """Top-level config of the port's trainer."""
 
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     mixed_precision: MixedPrecisionConfig = field(
         default_factory=MixedPrecisionConfig)
     activation_checkpoint: ActivationCheckpointConfig = field(
         default_factory=ActivationCheckpointConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    sequence_parallel: bool = False
 
 
 def neuronx_distributed_config(
         tensor_parallel_size: int = 1,
+        pipeline_parallel_size: int = 1,
+        context_parallel_size: int = 1,
+        expert_parallel_size: int = 1,
         optimizer_config: Optional[OptimizerConfig] = None,
         activation_checkpoint_config: Optional[
             ActivationCheckpointConfig] = None,
         mixed_precision_config: Optional[MixedPrecisionConfig] = None,
-        checkpoint_config: Optional[CheckpointConfig] = None) -> NxDConfig:
-    """Build an :class:`NxDConfig`. Only ``tensor_parallel_size=1`` is
-    accepted until the parallel slice; there is no mesh to initialise."""
-    if tensor_parallel_size != 1:
-        raise ValueError(f"tensor_parallel_size={tensor_parallel_size}: the "
-                         "port runs tp=1 only until the parallel slice")
-    return NxDConfig(
+        checkpoint_config: Optional[CheckpointConfig] = None,
+        sequence_parallel: bool = False,
+        init_mesh: bool = True, tp_overlap_comm: Optional[bool] = None,
+        tp_activation_comm_dtype: str = "fp32") -> NxDConfig:
+    """Build an :class:`NxDConfig` and, by default, lay the ranks out
+    (:func:`.parallel.mesh.initialize_model_parallel`), as the reference
+    does (JAX ``config.py:356``). The world is the default
+    ``torch.distributed`` process group (``dist.get_world_size()``); with
+    none initialised it is this process alone, so a tensor- or
+    data-parallel degree above 1 raises. ``init_mesh=False`` only builds
+    the config."""
+    cfg = NxDConfig(
+        parallel=ParallelConfig(
+            tensor_parallel_size=tensor_parallel_size,
+            pipeline_parallel_size=pipeline_parallel_size,
+            context_parallel_size=context_parallel_size,
+            expert_parallel_size=expert_parallel_size,
+            tp_overlap_comm=tp_overlap_comm,
+            tp_activation_comm_dtype=tp_activation_comm_dtype),
         optimizer=optimizer_config or OptimizerConfig(),
         mixed_precision=mixed_precision_config or MixedPrecisionConfig(),
         activation_checkpoint=(activation_checkpoint_config
                                or ActivationCheckpointConfig()),
-        checkpoint=checkpoint_config or CheckpointConfig())
+        checkpoint=checkpoint_config or CheckpointConfig(),
+        sequence_parallel=sequence_parallel)
+    if init_mesh:
+        import torch.distributed as dist
+
+        from .parallel import mesh
+
+        if not dist.is_initialized() and tensor_parallel_size > 1:
+            raise ValueError(
+                f"tensor_parallel_size={tensor_parallel_size} needs that "
+                "many ranks, and no torch.distributed process group is "
+                "initialised: start the ranks first "
+                "(utils.cpu_mesh.run_ranks), or pass init_mesh=False")
+        mesh.initialize_model_parallel(
+            tensor_model_parallel_size=tensor_parallel_size,
+            pipeline_model_parallel_size=pipeline_parallel_size,
+            context_parallel_size=context_parallel_size,
+            expert_model_parallel_size=expert_parallel_size)
+    return cfg
 
 
 def configure_model(cfg: NxDConfig, model_cfg: Any) -> Any:
     """Carry the framework's knobs into a model config dataclass, as the
     reference's ``configure_model`` (``config.py:17-60``) does for the
-    fields the port's configs have: ``remat = activation_checkpoint.mode
-    != "none"`` and ``dtype`` from ``mixed_precision.compute_dtype``. The
-    policy is not carried (the reference does not carry it either). An MoE
-    config is then held to :func:`.modules.moe.validate_moe_config`."""
+    fields the port's configs have: ``sequence_parallel``, ``remat =
+    activation_checkpoint.mode != "none"``, ``dtype`` from
+    ``mixed_precision.compute_dtype`` and ``tp_size`` from
+    ``parallel.tensor_parallel_size``. The policy is not carried (the
+    reference does not carry it either). An MoE config is then held to
+    :func:`.modules.moe.validate_moe_config`."""
     updates = {}
     fields = {f.name for f in dataclasses.fields(model_cfg)}
+    if "sequence_parallel" in fields:
+        updates["sequence_parallel"] = cfg.sequence_parallel
+    if "tp_size" in fields:
+        updates["tp_size"] = cfg.parallel.tensor_parallel_size
     if "remat" in fields:
         updates["remat"] = cfg.activation_checkpoint.mode != "none"
     if "dtype" in fields:

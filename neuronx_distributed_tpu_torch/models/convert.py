@@ -23,11 +23,20 @@ path joined by dots.
 It reads numpy arrays and imports nothing of JAX nor ``ml_dtypes``: an
 fp8 or bf16 array (an ``ml_dtypes`` type) crosses as its bits, viewed as
 the torch type of the same name.
+
+Tensor parallelism: :func:`param_specs` is the reference's partition-spec
+table of a Llama (which dim of each parameter shards over tp),
+:func:`shard_state_dict` takes a tp rank's shards of a whole state dict
+and :func:`gather_state_dict` puts the ranks' shards back together;
+:func:`params_from_jax` given ``coords`` hands a rank its shards of JAX's
+tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -95,13 +104,120 @@ def _family_params_from_jax(cfg, p: Mapping[str, Any]
     return sd
 
 
-def params_from_jax(cfg: LlamaConfig,
-                    tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+TP = "tp"
+Spec = Tuple[Optional[str], ...]
+
+
+def _llama_spec(cfg: LlamaConfig, name: str, ndim: int) -> Spec:
+    """The partition spec of one Llama parameter at ``cfg``'s tp (JAX
+    ``nn.get_partition_spec`` of the same model, per layer)."""
+    leaf = name.split(".")[-1]
+    owner = name.split(".")[-2] if "." in name else ""
+    if name == "embed.embedding":
+        return (TP, None)
+    if leaf == "scale":
+        return (None,)
+    if owner == "qkv" and leaf == "q_kernel":
+        return (None, TP)
+    if owner == "qkv" and leaf in ("k_kernel", "v_kernel"):
+        # the kv kernels stay whole when tp exceeds the kv heads (JAX
+        # GQAQKVColumnParallelLinear: kv_size_multiplier > 1)
+        return (None, None) if cfg.tp > cfg.num_kv_heads else (None, TP)
+    if leaf == "gate_up_kernel":
+        return (None, None, TP)
+    if name.endswith(("o_proj.kernel", "down.kernel")):
+        return (TP, None)
+    if name == "lm_head.kernel":
+        return (None, TP)
+    raise ValueError(f"no partition spec for {name!r} (rank {ndim}) at "
+                     f"tp_size={cfg.tp}: the sharded Llama has no such "
+                     "parameter")
+
+
+def param_specs(cfg: LlamaConfig,
+                names: Optional[List[Tuple[str, int]]] = None
+                ) -> Dict[str, Spec]:
+    """``{name: spec}`` for every parameter of a Llama ``cfg`` (or the
+    ``(name, ndim)`` pairs given): per dim None or ``"tp"``, the reference's
+    ``nn.get_partition_spec`` of the same model (its scanned leaves
+    without the layer dim). Mixtral, LoRA and the quantized tiers are not
+    sharded by the port and raise."""
+    if names is None:
+        full = replace(cfg, tp_size=None, sequence_parallel=False)
+        names = [(n, t.dim()) for n, t in LlamaForCausalLM(
+            full, device="meta").state_dict().items()]
+    if type(cfg) is not LlamaConfig or cfg.lora is not None \
+            or cfg.weight_quant is not None:
+        raise ValueError("the port shards plain Llama configs only (no "
+                         "Mixtral, LoRA or weight_quant)")
+    return {n: _llama_spec(cfg, n, nd) for n, nd in names}
+
+
+def sequence_parallel_names(cfg: LlamaConfig,
+                            names: List[str]) -> List[str]:
+    """The parameters replicated over tp whose layers see
+    sequence-sharded activations under ``cfg.sequence_parallel`` (the
+    norms): their gradients are summed over tp
+    (:func:`..parallel.grads.allreduce_gradients`)."""
+    if not cfg.sp:
+        return []
+    return [n for n in names if n.endswith("norm.scale")]
+
+
+def _shard_dim(spec: Spec) -> Optional[int]:
+    return next((d for d, a in enumerate(spec) if a == TP), None)
+
+
+def shard_state_dict(cfg: LlamaConfig, sd: Mapping[str, torch.Tensor],
+                     coords: Mapping[str, int]) -> Dict[str, torch.Tensor]:
+    """Tensor-parallel rank ``coords["tp"]``'s shards of the whole state
+    dict ``sd`` (copies, so the whole tensors can be freed), by
+    :func:`param_specs` at ``cfg.tp``; replicated tensors are copied
+    whole."""
+    specs = param_specs(cfg, [(n, t.dim()) for n, t in sd.items()])
+    tp, rank = cfg.tp, int(coords.get(TP, 0))
+    out = {}
+    for name, t in sd.items():
+        d = _shard_dim(specs[name])
+        if d is None or tp == 1:
+            out[name] = t.clone()
+            continue
+        if t.shape[d] % tp:
+            raise ValueError(f"{name} dim {d} ({t.shape[d]}) not divisible "
+                             f"by tp {tp}")
+        n = t.shape[d] // tp
+        out[name] = t.narrow(d, rank * n, n).clone()
+    return out
+
+
+def gather_state_dict(cfg: LlamaConfig,
+                      shards: List[Mapping[str, torch.Tensor]]
+                      ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_state_dict`: ``shards[r]`` is tp rank
+    ``r``'s dict; sharded tensors are concatenated along their tp dim,
+    replicated ones taken from rank 0."""
+    if len(shards) != cfg.tp:
+        raise ValueError(f"{len(shards)} shards for tp_size {cfg.tp}")
+    specs = param_specs(cfg, [(n, t.dim()) for n, t in shards[0].items()])
+    out = {}
+    for name, t in shards[0].items():
+        d = _shard_dim(specs[name])
+        out[name] = (t.clone() if d is None or cfg.tp == 1 else
+                     torch.cat([s[name] for s in shards], dim=d))
+    return out
+
+
+def params_from_jax(cfg: LlamaConfig, tree: Mapping[str, Any],
+                    coords: Optional[Mapping[str, int]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """JAX ``LlamaForCausalLM``, ``MixtralForCausalLM``,
     ``GPTNeoXForCausalLM``, ``BertForPreTraining`` or
     ``ViTForImageClassification`` params (numpy arrays, with or without the
     outer ``"params"`` key) -> the port's state dict, in the tree's own
-    dtypes. ``cfg`` names the family."""
+    dtypes. ``cfg`` names the family. With ``coords`` (a rank's ``{"tp":
+    index}``) the whole tree gives that rank's shards at ``cfg.tp``."""
+    if coords is not None:
+        return shard_state_dict(cfg, params_from_jax(cfg, tree), coords)
     p = tree.get("params", tree)
     if isinstance(cfg, FAMILY_CONFIGS):
         return _family_params_from_jax(cfg, p)

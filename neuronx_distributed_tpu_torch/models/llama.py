@@ -1,6 +1,17 @@
-"""Llama (counterpart of ``neuronx_distributed_tpu/models/llama.py`` at
-tp=1): the cached serving forward over a paged pool or a contiguous cache,
-and the training forward.
+"""Llama (counterpart of ``neuronx_distributed_tpu/models/llama.py``): the
+cached serving forward over a paged pool or a contiguous cache at tp=1,
+and the training forward at any tensor-parallel degree.
+
+At ``tp_size > 1`` (the reference's explicit ``shard_map`` form) every
+rank holds its shards, built from :mod:`..parallel.layers`' sharded
+linears: q/k/v and gate_up column-parallel, o_proj and down
+row-parallel, a vocab-parallel embedding and LM head, and the loss over
+vocab-sharded logits. Attention runs on the rank's local heads through
+:func:`..ops.flash_attention.flash_attention`. With ``sequence_parallel``
+the embedding's output is split along the sequence, the norms and
+residuals run on each rank's sequence shard, every TP block enters by the
+sequence all-gather and leaves by the reduce-scatter, and the LM head
+gathers the final hidden states.
 
 The state dict keeps the JAX parameter names and layouts (kernels ``[in,
 out]``, the fused MLP kernel ``[H, 2, I]``), so :mod:`.convert` maps a JAX
@@ -38,8 +49,12 @@ from ..modules.attention import (apply_rotary, attention_dropout_seed,
 from ..modules.norms import RMSNorm
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
-from ..parallel.layers import (GQAQKVColumnParallelLinear, Linear,
-                               ParallelEmbedding)
+from ..parallel import mappings
+from ..parallel import mesh as ps
+from ..parallel.layers import (ColumnParallelLinear,
+                               GQAQKVColumnParallelLinear, Linear,
+                               ParallelEmbedding, RowParallelLinear,
+                               embedding_attend)
 from ..parallel.layers import dropout as adapter_dropout
 from ..parallel.loss_functions import (causal_lm_loss,
                                        fused_linear_cross_entropy)
@@ -109,7 +124,13 @@ class LlamaConfig:
     ``lora`` (:class:`..lora.LoraConfig`): adapters in the sublayers it
     targets; train them with :func:`..lora.make_lora_optimizer`, serve
     them as they are or folded by :func:`..lora.merge_lora_params` into a
-    config without ``lora``."""
+    config without ``lora``.
+    ``tp_size`` (None: 1) is the tensor-parallel degree the model's shards
+    are built for; the ranks' layout must say the same
+    (:func:`..config.neuronx_distributed_config`). ``sequence_parallel``
+    shards the activations between the TP blocks along the sequence (JAX
+    ``models/llama.py:401-418``, ``:563-654``, ``:886``). At tp > 1 only
+    training runs, and neither ``weight_quant`` nor ``lora``."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -132,9 +153,19 @@ class LlamaConfig:
     loss_chunk: Optional[int] = None
     weight_quant: Optional[str] = None
     lora: Optional[LoraConfig] = None
+    sequence_parallel: bool = False
+    tp_size: Optional[int] = None
 
     def __post_init__(self) -> None:
         validate_remat_policy(self.remat_policy)
+        if self.tp > 1:
+            later = [name for name, on in (
+                ("weight_quant", self.weight_quant is not None),
+                ("lora", self.lora is not None)) if on]
+            if later:
+                raise ValueError(f"{', '.join(later)} at tp_size="
+                                 f"{self.tp}: not in the port yet (a later "
+                                 "slice); they run at tp=1")
         if self.weight_quant is not None:
             self._validate_weight_quant()
         if self.loss_chunk is not None:
@@ -158,6 +189,11 @@ class LlamaConfig:
             raise ValueError(
                 f"weight_quant must be one of {WEIGHT_QUANT_FORMATS} "
                 f"or None, got {self.weight_quant!r}")
+        if self.sequence_parallel:
+            raise ValueError(
+                f"weight_quant={self.weight_quant!r} is incompatible with "
+                "sequence_parallel: the quantized layers have no sequence "
+                "entry or exit")
         incompatible = (
             "LoRA (adapters assume float kernels)"
             if self.lora is not None else
@@ -185,6 +221,16 @@ class LlamaConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def tp(self) -> int:
+        """The tensor-parallel degree (``tp_size``, 1 when None)."""
+        return self.tp_size or 1
+
+    @property
+    def sp(self) -> bool:
+        """Whether activations are sequence-sharded (tp > 1 only)."""
+        return self.sequence_parallel and self.tp > 1
 
 
 LLAMA2_7B = LlamaConfig(num_layers=32, hidden_size=4096,
@@ -287,11 +333,12 @@ class LlamaAttention(nn.Module):
         if fmt is None:
             self.qkv = GQAQKVColumnParallelLinear(
                 *qkv_args, dtype=cfg.dtype, device=device,
-                param_dtype=cfg.param_dtype, **_lora_kw(cfg, "qkv"))
-            self.o_proj = Linear(cfg.num_heads * d, cfg.hidden_size,
-                                 dtype=cfg.dtype, device=device,
-                                 param_dtype=cfg.param_dtype,
-                                 **_lora_kw(cfg, "o_proj"))
+                param_dtype=cfg.param_dtype, tp_size=cfg.tp,
+                sequence_parallel=cfg.sp, **_lora_kw(cfg, "qkv"))
+            self.o_proj = RowParallelLinear(
+                cfg.num_heads * d, cfg.hidden_size, tp_size=cfg.tp,
+                sequence_parallel=cfg.sp, dtype=cfg.dtype, device=device,
+                param_dtype=cfg.param_dtype, **_lora_kw(cfg, "o_proj"))
             return
         if fmt.startswith("mx"):
             self.qkv = mx_layers.MXGQAQKVColumnParallelLinear(
@@ -317,18 +364,18 @@ class LlamaAttention(nn.Module):
             "lora_generator": lora_generator}
         q, k, v = self.qkv(x, **lora)
         b, s = q.shape[:2]
-        q = apply_rotary(q.reshape(b, s, cfg.num_heads, d), cos, sin,
-                         positions)
-        k = apply_rotary(k.reshape(b, s, cfg.num_kv_heads, d), cos, sin,
-                         positions)
-        v = v.reshape(b, s, cfg.num_kv_heads, d)
+        # this rank's heads: all of them at tp=1
+        n_q, n_kv = q.shape[-1] // d, k.shape[-1] // d
+        q = apply_rotary(q.reshape(b, s, n_q, d), cos, sin, positions)
+        k = apply_rotary(k.reshape(b, s, n_kv, d), cos, sin, positions)
+        v = v.reshape(b, s, n_kv, d)
         if isinstance(view, PagedCacheView):
             out = _paged_cache_attend(cfg, q, k, v, positions, view)
         elif view is not None:
             out = _contiguous_cache_attend(cfg, q, k, v, positions, view)
         else:
             out = _causal_attend(cfg, q, k, v, dropout)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * d), **lora)
+        return self.o_proj(out.reshape(b, s, n_q * d), **lora)
 
 
 class LlamaMLP(nn.Module):
@@ -350,10 +397,15 @@ class LlamaMLP(nn.Module):
         fmt = cfg.weight_quant
         if fmt is None:
             pdt = cfg.param_dtype
+            if i % cfg.tp:
+                raise ValueError(f"intermediate_size {i} not divisible by "
+                                 f"tp {cfg.tp}")
             self.gate_up_kernel = nn.Parameter(torch.empty(
-                (h, 2, i), dtype=pdt, device=device))
-            self.down = Linear(i, h, dtype=cfg.dtype, device=device,
-                               param_dtype=pdt, **_lora_kw(cfg, "down"))
+                (h, 2, i // cfg.tp), dtype=pdt, device=device))
+            self.down = RowParallelLinear(
+                i, h, tp_size=cfg.tp, sequence_parallel=cfg.sp,
+                dtype=cfg.dtype, device=device, param_dtype=pdt,
+                **_lora_kw(cfg, "down"))
             r = _lora_kw(cfg, "gate_up").get("lora_rank", 0)
             self.lora_a = self.lora_b = None
             if r:
@@ -377,7 +429,7 @@ class LlamaMLP(nn.Module):
         """The fused kernel as ``[H, 2 I]`` in the compute dtype; with
         ``fold``, the adapter folded in first, in the parameter dtype."""
         cfg = self.cfg
-        h, i = cfg.hidden_size, cfg.intermediate_size
+        h, i = cfg.hidden_size, cfg.intermediate_size // cfg.tp
         fmt = cfg.weight_quant
         if fmt is None:
             kernel = self.gate_up_kernel
@@ -396,6 +448,12 @@ class LlamaMLP(nn.Module):
                 lora_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.tp > 1:
+            if cfg.sp:
+                x = mappings.gather_from_sequence_parallel_region(
+                    x, ps.TP_AXIS, 1, to_model_parallel=True)
+            else:
+                x = mappings.copy_to_tensor_parallel_region(x, ps.TP_AXIS)
         x = x.to(cfg.dtype)
         adapter = getattr(self, "lora_a", None) is not None
         live = (adapter and cfg.lora.dropout > 0.0
@@ -406,7 +464,7 @@ class LlamaMLP(nn.Module):
             h = h + cfg.lora.scale * torch.matmul(
                 torch.matmul(x_l, self.lora_a.to(cfg.dtype)),
                 self.lora_b.to(cfg.dtype).flatten(1))
-        h = h.unflatten(-1, (2, cfg.intermediate_size))
+        h = h.unflatten(-1, (2, cfg.intermediate_size // cfg.tp))
         lora = {} if lora_generator is None else {
             "lora_generator": lora_generator}
         return self.down(F.silu(h[..., 0, :]) * h[..., 1, :], **lora)
@@ -449,9 +507,11 @@ class LlamaForCausalLM(nn.Module):
         dev = resolve_device(device)
         pdt = cfg.param_dtype
         self.cfg = cfg
+        if cfg.tp > 1 and dev.type != "meta":
+            _check_tp_layout(cfg)
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
                                        dtype=cfg.dtype, device=dev,
-                                       param_dtype=pdt,
+                                       param_dtype=pdt, tp_size=cfg.tp,
                                        **_lora_kw(cfg, "embed"))
         self.layers = nn.ModuleList(
             [self.layer_cls(cfg, dev) for _ in range(cfg.num_layers)])
@@ -460,10 +520,10 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = quant_linear(cfg, cfg.hidden_size,
                                         cfg.vocab_size, dev)
         elif not cfg.tie_embeddings:
-            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
-                                  dtype=cfg.dtype, device=dev,
-                                  param_dtype=pdt,
-                                  **_lora_kw(cfg, "lm_head"))
+            self.lm_head = ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size, tp_size=cfg.tp,
+                sequence_parallel=cfg.sp, dtype=cfg.dtype, device=dev,
+                param_dtype=pdt, **_lora_kw(cfg, "lm_head"))
         self._rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def hidden(self, input_ids: torch.Tensor,
@@ -475,10 +535,16 @@ class LlamaForCausalLM(nn.Module):
         and the final norm over ``input_ids [B, S]``; rope positions
         default to ``arange(S)``."""
         x = self.embed(input_ids)
+        if self.cfg.sp:
+            x = mappings.scatter_to_sequence_parallel_region(x, ps.TP_AXIS,
+                                                             1)
         cos, sin = self.rope_tables(input_ids.device)
         for layer in self.layers:
             x = self.run_layer(layer, x, cos, sin, positions,
                                dropout_generator)
+        # still sequence-sharded under SP: the LM head gathers it, so that
+        # the gather's backward reduce-scatter pairs with the head's
+        # partial input gradients
         return self.norm(x)
 
     def run_layer(self, layer: nn.Module, x, cos, sin, positions,
@@ -526,8 +592,9 @@ class LlamaForCausalLM(nn.Module):
                     "LoRA on 'lm_head' is incompatible with "
                     "tie_embeddings=True (there is no lm_head param); "
                     "target 'embed' instead")
-            dt = cfg.dtype
-            return torch.matmul(x.to(dt), self.embed.embedding.to(dt).t())
+            return embedding_attend(self.embed.embedding, x, cfg.dtype,
+                                    tp_size=cfg.tp,
+                                    sequence_parallel=cfg.sp)
         gen = hidden_generator(lora_dropout, x.device)
         return self.lm_head(x) if gen is None else self.lm_head(
             x, lora_generator=gen)
@@ -538,14 +605,20 @@ class LlamaForCausalLM(nn.Module):
                 ignore_index: int = -100,
                 dropout_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """Logits ``[B, S, V]`` in ``cfg.dtype``, or, given ``labels`` (the
+        """Logits ``[B, S, V]`` in ``cfg.dtype`` (at tp > 1 this rank's
+        vocab shard ``[B, S, V / tp]``), or, given ``labels`` (the
         next-token ids, already shifted), the mean causal-LM loss over the
         labels that are not ``ignore_index`` (chunked through the LM head
-        with ``cfg.loss_chunk``)."""
+        with ``cfg.loss_chunk``), the same on every rank."""
         cfg = self.cfg
         x = self.hidden(input_ids, positions, dropout_generator)
         if (labels is not None and cfg.loss_chunk
                 and not _lora_kw(cfg, "lm_head")):
+            if cfg.sp:
+                x = mappings.gather_from_sequence_parallel_region(
+                    x, ps.TP_AXIS, 1, to_model_parallel=True)
+            elif cfg.tp > 1:
+                x = mappings.copy_to_tensor_parallel_region(x, ps.TP_AXIS)
             return fused_linear_cross_entropy(
                 x.to(cfg.dtype), self.lm_head.kernel, labels,
                 ignore_index=ignore_index, chunk=cfg.loss_chunk,
@@ -574,6 +647,17 @@ class LlamaForCausalLM(nn.Module):
         return self._rope
 
 
+def _check_tp_layout(cfg: LlamaConfig) -> None:
+    """A model sharded ``cfg.tp`` ways needs the ranks laid out with that
+    tensor-parallel size."""
+    have = (ps.get_tensor_model_parallel_size()
+            if ps.model_parallel_is_initialized() else 1)
+    if have != cfg.tp:
+        raise ValueError(
+            f"the config's tp_size {cfg.tp} differs from the ranks' "
+            f"tensor-parallel size {have} (neuronx_distributed_config)")
+
+
 def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
                 device: DeviceLike = None,
                 model_cls=LlamaForCausalLM) -> LlamaForCausalLM:
@@ -581,7 +665,10 @@ def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
     tensors moved to ``device`` and ``cfg.dtype`` (no copy where they
     already are): serving holds its weights in the compute dtype. A
     parameter the model holds in fp32 whatever its dtypes (the MoE router's
-    kernel) stays in fp32."""
+    kernel) stays in fp32. Serving runs at tp=1."""
+    if cfg.tp > 1:
+        raise ValueError(f"serving at tp_size={cfg.tp}: not in the port "
+                         "yet (a later slice); it serves at tp=1")
     dev = resolve_device(device)
     model = model_cls(replace(cfg, param_dtype=cfg.dtype), device="meta")
     want = model.state_dict()
@@ -598,7 +685,9 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
     """Random weights from a ``torch.Generator`` seeded with ``seed``:
     normal(0, ``std``) kernels and embeddings, unit norm scales, made on
     ``device`` in each parameter's dtype (``cfg.param_dtype``, or fp32 for
-    a parameter held so).
+    a parameter held so). The dict is the whole model's whatever
+    ``cfg.tp_size``: :func:`.convert.shard_state_dict` takes a rank's
+    shards of it.
 
     LoRA adapters are drawn after every base weight, so the base equals
     the same config's without ``lora``: normal(0, ``std``) A (B for the
@@ -614,7 +703,8 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
 
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shapes = model_cls(replace(cfg, weight_quant=None),
+    shapes = model_cls(replace(cfg, weight_quant=None, tp_size=None,
+                               sequence_parallel=False),
                        device="meta").state_dict()
     sd, group, group_of = {}, {}, None
 

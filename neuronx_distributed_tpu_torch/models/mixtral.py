@@ -73,6 +73,8 @@ class MixtralConfig(LlamaConfig):
             # the reference's Mixtral would get adapters only in the
             # attention it shares with Llama; the port adds none
             later.append("lora")
+        if self.tp > 1:
+            later.append(f"tp_size={self.tp_size}")
         if later:
             raise ValueError(f"{', '.join(later)}: not ported for Mixtral "
                              "yet (a later slice)")

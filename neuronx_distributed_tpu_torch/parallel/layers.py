@@ -1,12 +1,22 @@
-"""The tp=1 forward of the layers the model families use from
-``neuronx_distributed_tpu/parallel/layers.py``.
+"""The layers of ``neuronx_distributed_tpu/parallel/layers.py``.
 
 At one tensor-parallel rank the column- and row-parallel linears are the
 same product, ``x @ kernel`` with the kernel in the JAX layout ``[in,
-out]``, so one :class:`Linear` stands for both, and the output- and
-input-channel convolutions are the same convolution. The large products
-stay ``torch.matmul``, as the JAX package leaves them to XLA. The sharded
-forms come with the parallel substrate in a later slice.
+out]``, so one :class:`Linear` stands for both in the model families, and
+the output- and input-channel convolutions are the same convolution. The
+large products stay ``torch.matmul``, as the JAX package leaves them to
+XLA.
+
+The sharded forms (:class:`ColumnParallelLinear`,
+:class:`RowParallelLinear`, the vocab-sharded :class:`ParallelEmbedding`,
+:class:`GQAQKVColumnParallelLinear` at ``tp_size > 1``,
+:func:`embedding_attend`) are the reference's explicit (``shard_map``)
+path: each rank holds its local shard, ``tp_size`` ranks of the tp group
+(:mod:`.mesh`) together hold the layer, and the collectives are the
+differentiable pairs of :mod:`.mappings`. At ``tp_size=1`` they compute
+what :class:`Linear` does, with no collective. LoRA runs at tp=1 only, and
+collective-matmul overlap and activation compression are not ported: the
+sharded layers refuse adapters.
 
 As in flax (``dtype`` and ``param_dtype``), each layer holds its weights in
 ``param_dtype`` (default: ``dtype``) and casts them, and its input, to the
@@ -37,9 +47,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import mappings
+from . import mesh as ps
+
 
 def _empty(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def _local(n: int, tp: int, what: str) -> int:
+    """The local size of a dim of ``n`` sharded over ``tp`` ranks."""
+    if n % tp:
+        raise ValueError(f"{what} {n} not divisible by tp {tp}")
+    return n // tp
+
+
+def _refuse_lora_at_tp(tp_size: int, lora_rank: int) -> None:
+    if tp_size > 1 and lora_rank:
+        raise ValueError(f"LoRA at tp_size={tp_size}: not in the port yet "
+                         "(adapters run at tp=1)")
+
+
+def _enter(x: torch.Tensor, sequence_parallel: bool,
+           seq_dim: int) -> torch.Tensor:
+    """Enter the TP region: all-gather the sequence (backward
+    reduce-scatter) under sequence parallelism, else identity (backward
+    all-reduce)."""
+    if sequence_parallel:
+        return mappings.gather_from_sequence_parallel_region(
+            x, ps.TP_AXIS, seq_dim, to_model_parallel=True)
+    return mappings.copy_to_tensor_parallel_region(x, ps.TP_AXIS)
 
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -113,8 +150,10 @@ class Linear(nn.Module, _LoraFactors):
 
 
 class ParallelEmbedding(nn.Module, _LoraFactors):
-    """Vocab embedding at tp=1: a row lookup in ``embedding [V, H]``, cast
-    to ``dtype``. The lookup is ``F.embedding``, whose backward sums a
+    """Vocab embedding: a row lookup in ``embedding [V, H]``, cast to
+    ``dtype``. At ``tp_size > 1`` each rank holds the rows of its vocab
+    shard ``[V / tp, H]``, looks up the ids inside it, zeroes the others
+    and all-reduces (JAX ``:483``). The lookup is ``F.embedding``, whose backward sums a
     row's gradients in a fixed order: the backward of an indexed read
     (``index_put_`` with accumulate) gave other bits from run to run on
     the CPU, which broke bitwise resume and remat checks. With
@@ -126,10 +165,12 @@ class ParallelEmbedding(nn.Module, _LoraFactors):
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  param_dtype: Optional[torch.dtype] = None,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 lora_dropout: float = 0.0):
+                 lora_dropout: float = 0.0, tp_size: int = 1):
         super().__init__()
-        self.dtype = dtype
+        _refuse_lora_at_tp(tp_size, lora_rank)
+        self.dtype, self.tp_size = dtype, tp_size
         pdt = param_dtype or dtype
+        num_embeddings = _local(num_embeddings, tp_size, "vocab")
         self.embedding = _empty((num_embeddings, features), pdt, device)
         self._lora_init(lora_rank, lora_alpha, lora_dropout)
         self.lora_a = self.lora_b = None
@@ -139,6 +180,14 @@ class ParallelEmbedding(nn.Module, _LoraFactors):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = ids.long()
+        if self.tp_size > 1:
+            local = self.embedding.shape[0]
+            ids = ids - ps.get_tensor_model_parallel_rank() * local
+            valid = (ids >= 0) & (ids < local)
+            out = F.embedding(torch.where(valid, ids, 0),
+                              self.embedding).to(self.dtype)
+            out = torch.where(valid[..., None], out, 0.0)
+            return mappings.reduce_from_tensor_parallel_region(out)
         out = F.embedding(ids, self.embedding).to(self.dtype)
         if self.lora_a is not None:
             out = out + self.lora_scale * torch.matmul(
@@ -148,28 +197,52 @@ class ParallelEmbedding(nn.Module, _LoraFactors):
 
 
 class GQAQKVColumnParallelLinear(nn.Module, _LoraFactors):
-    """Fused Q/K/V projection with grouped-query attention at tp=1:
+    """Fused Q/K/V projection with grouped-query attention:
     ``q_kernel [H, N*D]``, ``k_kernel``/``v_kernel`` ``[H, KV*D]``, and with
     ``use_bias`` ``q_bias [N*D]``, ``k_bias``/``v_bias`` ``[KV*D]``. With
     ``lora_rank`` each kernel has ``{q,k,v}_lora_a [H, r]`` and
     ``{q,k,v}_lora_b [r, out]``, folded into the kernel in the parameter
     dtype (``wq + scale * (qa @ qb)``, then cast: JAX ``:634-662``), or,
     when dropout is live, added in activation space with one dropped input
-    for the three (``:738-745``)."""
+    for the three (``:738-745``).
+
+    At ``tp_size > 1`` (JAX ``:547``) each rank holds ``N / tp`` query
+    heads, and ``KV / tp`` kv heads when tp divides them. When ``KV < tp``
+    the kv kernels stay whole (true GQA, one stored copy per kv head: the
+    reference's ``kv_size_multiplier = tp / KV``): rank ``r`` takes head
+    ``r // kv_size_multiplier`` from the replicated kernel behind
+    ``copy_to_tensor_parallel_region``, whose backward sums every rank's
+    head-slice gradient. The input enters the TP region by identity, or
+    by the sequence all-gather with ``sequence_parallel``."""
 
     def __init__(self, hidden: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, dtype: torch.dtype = torch.bfloat16,
                  device=None, param_dtype: Optional[torch.dtype] = None,
                  use_bias: bool = False, lora_rank: int = 0,
-                 lora_alpha: float = 16.0, lora_dropout: float = 0.0):
+                 lora_alpha: float = 16.0, lora_dropout: float = 0.0,
+                 tp_size: int = 1, sequence_parallel: bool = False,
+                 seq_dim: int = 1):
         super().__init__()
         if num_heads % num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not a multiple of "
                              f"num_kv_heads {num_kv_heads}")
-        self.dtype = dtype
+        _refuse_lora_at_tp(tp_size, lora_rank)
+        mult = max(1, tp_size // num_kv_heads)
+        if mult > 1 and tp_size % num_kv_heads:
+            raise ValueError(
+                f"tp size {tp_size} must be a multiple of num_kv_heads "
+                f"{num_kv_heads} when tp > num_kv_heads")
+        if mult == 1 and num_kv_heads % tp_size:
+            raise ValueError(f"num_kv_heads {num_kv_heads} not divisible "
+                             f"by tp {tp_size}")
+        self.dtype, self.head_dim = dtype, head_dim
+        self.tp_size, self.kv_size_multiplier = tp_size, mult
+        self.sequence_parallel, self.seq_dim = sequence_parallel, seq_dim
         pdt = param_dtype or dtype
-        widths = {"q": num_heads * head_dim, "k": num_kv_heads * head_dim,
-                  "v": num_kv_heads * head_dim}
+        kv = num_kv_heads * head_dim
+        widths = {"q": _local(num_heads * head_dim, tp_size, "q features"),
+                  "k": kv if mult > 1 else kv // tp_size,
+                  "v": kv if mult > 1 else kv // tp_size}
         self.q_kernel = _empty((hidden, widths["q"]), pdt, device)
         self.k_kernel = _empty((hidden, widths["k"]), pdt, device)
         self.v_kernel = _empty((hidden, widths["v"]), pdt, device)
@@ -186,11 +259,26 @@ class GQAQKVColumnParallelLinear(nn.Module, _LoraFactors):
                 setattr(self, f"{j}_lora_b",
                         _empty((lora_rank, width), pdt, device))
 
+    def _kv_head(self, w: Optional[torch.Tensor], dim: int
+                 ) -> Optional[torch.Tensor]:
+        """This rank's kv head of a replicated kv kernel or bias."""
+        if w is None:
+            return None
+        w = mappings.copy_to_tensor_parallel_region(w)
+        head = ps.get_tensor_model_parallel_rank() // self.kv_size_multiplier
+        return w.narrow(dim, head * self.head_dim, self.head_dim)
+
     def forward(self, x: torch.Tensor,
                 lora_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = x.to(self.dtype)
         kernels = [self.q_kernel, self.k_kernel, self.v_kernel]
+        biases = [self.q_bias, self.k_bias, self.v_bias]
+        if self.tp_size > 1:
+            x = _enter(x, self.sequence_parallel, self.seq_dim)
+            if self.kv_size_multiplier > 1:
+                kernels[1:] = [self._kv_head(w, 1) for w in kernels[1:]]
+                biases[1:] = [self._kv_head(b, 0) for b in biases[1:]]
+        x = x.to(self.dtype)
         live = (self.lora_rank > 0 and self.lora_dropout > 0.0
                 and lora_generator is not None)
         factors = [(getattr(self, f"{j}_lora_a"), getattr(self, f"{j}_lora_b"))
@@ -203,8 +291,7 @@ class GQAQKVColumnParallelLinear(nn.Module, _LoraFactors):
             x_l = dropout(x, self.lora_dropout, lora_generator)
             outs = [y + self._adapter(x_l, a, b)
                     for y, (a, b) in zip(outs, factors)]
-        return tuple(_add_bias(y, b) for y, b in zip(
-            outs, (self.q_bias, self.k_bias, self.v_bias)))
+        return tuple(_add_bias(y, b) for y, b in zip(outs, biases))
 
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -300,7 +387,99 @@ class InputChannelParallelConv2d(_ChannelParallelConv2d):
 
 
 def embedding_attend(table: torch.Tensor, x: torch.Tensor,
-                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The tied LM head at tp=1: ``x @ table^T`` in ``dtype`` (JAX
-    ``embedding_attend``); the table's gradient sums over both its uses."""
-    return torch.matmul(x.to(dtype), table.to(dtype).t())
+                     dtype: torch.dtype = torch.bfloat16, *,
+                     tp_size: int = 1, sequence_parallel: bool = False,
+                     seq_dim: int = 1,
+                     gather_output: bool = False) -> torch.Tensor:
+    """The tied LM head: ``x @ table^T`` in ``dtype`` (JAX
+    ``embedding_attend``, ``:326``); the table's gradient sums over both
+    its uses. At ``tp_size > 1`` the table is the vocab shard, ``x``
+    enters the TP region as in :class:`ColumnParallelLinear`, and the
+    logits stay vocab-sharded unless ``gather_output``."""
+    if tp_size > 1:
+        x = _enter(x, sequence_parallel, seq_dim)
+    y = torch.matmul(x.to(dtype), table.to(dtype).t())
+    if tp_size > 1 and gather_output:
+        y = mappings.gather_from_tensor_parallel_region(y, ps.TP_AXIS, -1)
+    return y
+
+
+class ColumnParallelLinear(Linear):
+    """Linear with the output features sharded over tp (JAX ``:73``):
+    ``kernel [in, out / tp]`` (and ``bias [out / tp]``). The input enters
+    the TP region by identity (backward all-reduce), or by the sequence
+    all-gather with ``sequence_parallel`` (backward reduce-scatter); the
+    output stays sharded unless ``gather_output``. At ``tp_size=1`` it is
+    :class:`Linear`."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 gather_output: bool = False,
+                 sequence_parallel: bool = False, tp_size: int = 1,
+                 seq_dim: int = 1, **kw):
+        _refuse_lora_at_tp(tp_size, kw.get("lora_rank", 0))
+        super().__init__(in_features,
+                         _local(out_features, tp_size, "out_features"), **kw)
+        self.tp_size, self.gather_output = tp_size, gather_output
+        self.sequence_parallel, self.seq_dim = sequence_parallel, seq_dim
+
+    def forward(self, x: torch.Tensor,
+                lora_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if self.tp_size == 1:
+            return super().forward(x, lora_generator)
+        y = super().forward(_enter(x, self.sequence_parallel, self.seq_dim))
+        if self.gather_output:
+            y = mappings.gather_from_tensor_parallel_region(y, ps.TP_AXIS, -1)
+        return y
+
+
+class RowParallelLinear(Linear):
+    """Linear with the input features sharded over tp (JAX ``:353``):
+    ``kernel [in / tp, out]``, ``bias [out]`` added after the exit
+    collective. The partial products leave the TP region by all-reduce,
+    or by reduce-scatter along the sequence with ``sequence_parallel``;
+    ``input_is_parallel=False`` first splits a replicated input. At
+    ``tp_size=1`` it is :class:`Linear`."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 input_is_parallel: bool = True,
+                 sequence_parallel: bool = False, tp_size: int = 1,
+                 seq_dim: int = 1, **kw):
+        _refuse_lora_at_tp(tp_size, kw.get("lora_rank", 0))
+        super().__init__(_local(in_features, tp_size, "in_features"),
+                         out_features, **kw)
+        self.tp_size, self.input_is_parallel = tp_size, input_is_parallel
+        self.sequence_parallel, self.seq_dim = sequence_parallel, seq_dim
+
+    def forward(self, x: torch.Tensor,
+                lora_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if self.tp_size == 1:
+            return super().forward(x, lora_generator)
+        if not self.input_is_parallel:
+            x = mappings.scatter_to_tensor_parallel_region(x, ps.TP_AXIS, -1)
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.sequence_parallel:
+            y = mappings.reduce_scatter_to_sequence_parallel_region(
+                y, ps.TP_AXIS, self.seq_dim)
+        else:
+            y = mappings.reduce_from_tensor_parallel_region(y, ps.TP_AXIS)
+        return _add_bias(y, self.bias)
+
+
+class SPMDRank(nn.Module):
+    """This rank's tp index as a parameter (JAX ``:759``, reference
+    ``layers.py:1543``): ``rank int32 [1]``, so a traced graph can read
+    the rank without a host value; ``forward`` returns it as a 0-dim
+    tensor."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        r = (ps.get_tensor_model_parallel_rank()
+             if ps.model_parallel_is_initialized() else 0)
+        self.rank = nn.Parameter(torch.tensor([r], dtype=torch.int32,
+                                              device=device),
+                                 requires_grad=False)
+
+    def forward(self) -> torch.Tensor:
+        return self.rank[0]

@@ -294,10 +294,14 @@ def kv_payload_fingerprints(payload: Dict[str, np.ndarray],
 
 def dp_consensus_fingerprints(tree: Any) -> torch.Tensor:
     """The ``int32[dp, n_leaves]`` matrix of every data-parallel replica's
-    fingerprints, for :func:`majority_vote`. The port runs one replica
-    (dp = 1), so it is this replica's vector as one row; the all-gather
-    over a dp group comes with the port's data parallelism."""
-    return fingerprint_tree(tree)[None]
+    fingerprints, for :func:`majority_vote`: this replica's vector,
+    all-gathered over the dp group (JAX ``resilience/integrity.py:295``),
+    so every replica holds the whole matrix and the vote needs no leader.
+    One row where there is one replica."""
+    from ..parallel import comm
+    from ..parallel import mesh as ps
+
+    return comm.all_gather(fingerprint_tree(tree)[None], ps.DP_AXIS, 0)
 
 
 def majority_vote(fp_matrix: Any) -> Tuple[np.ndarray,

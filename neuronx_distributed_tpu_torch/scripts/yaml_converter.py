@@ -12,13 +12,14 @@ with the reference's keys:
     activation_checkpoint:
       mode: full
 
-The port runs one device, so what it cannot run is refused, not ignored:
-``tensor_parallel_size`` above 1 and ZeRO-1 raise where the port's config
-raises; the reference's other keys (``pipeline_parallel_size``,
-``sequence_parallel``, ``pipeline``, the gradient-compression fields of
-``optimizer``, ...) are accepted only at the reference's defaults, which
-is what the port runs. Unknown keys raise, as in the reference.
-:func:`config_to_dict` writes the reference's dict for the same config.
+``tensor_parallel_size``, ``sequence_parallel`` and ZeRO-1
+(``optimizer.zero_one_enabled``) map onto the port's config; what the port
+cannot run is refused, not ignored: the reference's other keys
+(``pipeline_parallel_size``, ``pipeline``, the gradient-compression
+fields of ``optimizer``, ...) are accepted only at the reference's
+defaults, which is what the port runs. Unknown keys raise, as in the
+reference. :func:`config_to_dict` writes the reference's dict for the
+same config.
 """
 
 from __future__ import annotations
@@ -54,9 +55,10 @@ _REFERENCE_SCALARS = {
     "expert_parallel_size": 1, "dcn_data_parallel_size": None,
     "tp_overlap_comm": None, "tp_activation_comm_dtype": "fp32",
     "tp_activation_sync_fraction": 1.0, "moe_ep_wire_dtype": "fp32",
-    "moe_overlap_dispatch": None, "weight_quant": None,
-    "sequence_parallel": False, "seed": 0,
+    "moe_overlap_dispatch": None, "weight_quant": None, "seed": 0,
 }
+# the top-level scalars the port's config takes, with their defaults
+_SCALARS = {"tensor_parallel_size": 1, "sequence_parallel": False}
 
 
 def _at_defaults(where: str, given: Dict[str, Any],
@@ -102,7 +104,7 @@ def dict_to_config_kwargs(doc: Dict[str, Any]) -> Dict[str, Any]:
                     f"unknown {key} option(s) {sorted(unknown)}; "
                     f"valid: {sorted(reference)}")
             _at_defaults(f"{key}.", value, reference)
-        elif key == "tensor_parallel_size":
+        elif key in _SCALARS:
             kwargs[key] = value
         elif key in _REFERENCE_SCALARS:
             _at_defaults("", {key: value}, _REFERENCE_SCALARS)
@@ -114,7 +116,7 @@ def dict_to_config_kwargs(doc: Dict[str, Any]) -> Dict[str, Any]:
 def config_to_dict(cfg: _cfg.NxDConfig) -> Dict[str, Any]:
     """The reference's dict for ``cfg``: sections that differ from their
     defaults (with the reference's own fields of a section at their
-    defaults); the scalars are the defaults at tp=1, so none is written.
+    defaults), then the scalars that differ from theirs.
     ``dict_to_config_kwargs(config_to_dict(cfg))`` rebuilds ``cfg``."""
     doc: Dict[str, Any] = {}
     for section, (_, cls) in _SECTIONS.items():
@@ -122,16 +124,21 @@ def config_to_dict(cfg: _cfg.NxDConfig) -> Dict[str, Any]:
         if value != cls():
             doc[section] = {**dataclasses.asdict(value),
                             **_REFERENCE_FIELDS.get(section, {})}
+    scalars = {"tensor_parallel_size": cfg.parallel.tensor_parallel_size,
+               "sequence_parallel": cfg.sequence_parallel}
+    doc.update({k: v for k, v in scalars.items() if v != _SCALARS[k]})
     return doc
 
 
-def load_yaml_config(path: str) -> _cfg.NxDConfig:
-    """Parse a YAML file into an :class:`..config.NxDConfig`."""
+def load_yaml_config(path: str, init_mesh: bool = False) -> _cfg.NxDConfig:
+    """Parse a YAML file into an :class:`..config.NxDConfig`; with
+    ``init_mesh`` also lay the ranks out, as the reference's does."""
     import yaml
 
     with open(path) as f:
         doc = yaml.safe_load(f) or {}
-    return _cfg.neuronx_distributed_config(**dict_to_config_kwargs(doc))
+    return _cfg.neuronx_distributed_config(init_mesh=init_mesh,
+                                           **dict_to_config_kwargs(doc))
 
 
 def main(argv=None) -> None:

@@ -44,6 +44,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import refuse_ranks
 from ..device import DeviceLike, resolve_device
 from ..resilience import manifest as _manifest
 from .checkpoint_storage import (BaseCheckpointStorage,
@@ -296,7 +297,9 @@ def save_checkpoint(
 
     Returns once every tensor has been copied to host memory; with
     ``async_save`` the payload, the manifest and the done-marker are
-    written on a background thread and training goes on."""
+    written on a background thread and training goes on. One rank only
+    (a sharded state waits for a later slice)."""
+    refuse_ranks("save_checkpoint")
     tag = str(tag)
     path = _normalize_path(path)
     _IO_STATE.raise_pending_errors()
@@ -423,6 +426,7 @@ def load_checkpoint(
     ``TrainState``) the values are copied into its tensors in place and
     ``target`` is returned; without, the saved tree of dicts and lists is
     returned with its tensors on ``device`` (None: the CUDA card)."""
+    refuse_ranks("load_checkpoint")
     path = _normalize_path(path)
     storage = create_checkpoint_storage(path)
     # with a target the payload is staged on the host and copied into the

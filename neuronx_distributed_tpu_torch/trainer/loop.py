@@ -148,6 +148,9 @@ class Trainer:
                  resume_path: Optional[str] = None,
                  eval_fn: Optional[Callable] = None,
                  preemption_guard: Optional[Any] = None):
+        from ..parallel.mesh import refuse_ranks
+
+        refuse_ranks("the Trainer loop")
         self.step_fn = step_fn
         self.eval_fn = eval_fn
         self.state = state

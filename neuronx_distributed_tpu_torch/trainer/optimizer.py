@@ -18,12 +18,21 @@ one group with one weight decay; this module writes it out instead, so the
 clip, the schedule's count and a skipped step follow optax exactly. Updates
 are in place: the moments and the parameters are overwritten, and no copy
 of the model is kept.
+
+ZeRO-1 (JAX ``zero1_state_specs`` ``:80``, ``_zero1_extend_spec``): each
+parameter's moments are sharded over the merged dp x cp ranks along the
+dim :func:`zero1_dim` picks, the largest one not already sharded that the
+ranks divide. The train step reduce-scatters the gradient along that dim,
+updates this rank's slice of the parameter with its moments, and
+all-gathers the parameter (the reference's ``NeuronZero1Optimizer``
+dataflow, which GSPMD derives from the specs).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, \
+    Tuple, Union
 
 import torch
 
@@ -117,6 +126,46 @@ class AdamW:
             u = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
             u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
+
+
+def zero1_dim(spec: Sequence, shape: Sequence[int],
+              zero_size: int) -> Optional[int]:
+    """The dim ZeRO-1 shards a parameter's moments along over ``zero_size``
+    ranks: of the dims the spec leaves unsharded, the largest that
+    ``zero_size`` divides (the first of equal ones); None when none does
+    or ``zero_size`` is 1 (JAX ``_zero1_extend_spec``)."""
+    if zero_size == 1 or not shape:
+        return None
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if (parts[i] is None and shape[i] % zero_size == 0
+                and shape[i] >= zero_size):
+            return i
+    return None
+
+
+def zero1_state_specs(param_specs: Mapping[str, Sequence],
+                      param_shapes: Mapping[str, Sequence[int]],
+                      sizes: Mapping[str, int],
+                      zero_axes: Tuple[str, ...] = ("dp", "cp"),
+                      enabled: bool = True) -> Dict[str, tuple]:
+    """The moments' specs: each parameter's spec (of its whole shape) with
+    ``zero_axes`` (a tuple, or the one axis) at its :func:`zero1_dim`,
+    over the product of their ``sizes`` (JAX ``zero1_state_specs``)."""
+    zero_size = 1
+    for a in zero_axes:
+        zero_size *= sizes.get(a, 1)
+    out = {}
+    for name, spec in param_specs.items():
+        shape = tuple(param_shapes[name])
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        d = zero1_dim(spec, shape, zero_size) if enabled else None
+        if d is not None:
+            parts[d] = zero_axes if len(zero_axes) > 1 else zero_axes[0]
+            out[name] = tuple(parts)
+        else:
+            out[name] = tuple(spec)
+    return out
 
 
 def make_optimizer(cfg: NxDConfig, learning_rate: LearningRate = 1e-4,

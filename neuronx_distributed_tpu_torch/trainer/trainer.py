@@ -19,11 +19,22 @@ returns the same :class:`TrainState`.
 ``loss_fn``, ``scan_steps`` and ``integrity_every`` are the reference's
 (:func:`make_train_step`); ``compression`` and ``grad_fn`` come with later
 slices, and passing one raises.
+
+Across ranks (a world above 1, laid out by
+:func:`..config.neuronx_distributed_config`) a Llama trains tensor- and
+data-parallel, as the reference's explicit form: each rank holds its
+shards (:func:`..models.convert.shard_state_dict`), takes its data-parallel
+slice of the global batch, and after its backward the gradients are
+synchronised (:func:`..parallel.grads.allreduce_gradients`; with ZeRO-1
+reduce-scattered), the global norm is taken over every shard once, and
+each rank updates its parameters (with ZeRO-1 its slice of them, then
+all-gathered). ``loss`` and ``grad_norm`` are global and equal on every
+rank.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -31,6 +42,8 @@ import torch
 from ..config import NxDConfig
 from ..device import DeviceLike, resolve_device
 from ..models import family_of
+from ..parallel import comm, grads as grads_mod
+from ..parallel import mesh as ps
 from . import optimizer as opt_mod
 
 
@@ -47,11 +60,114 @@ class TrainState:
 @dataclass
 class ParallelModel:
     """What :func:`initialize_parallel_model` returns beside the params:
-    the module, the config and the device."""
+    the module, the config and the device; across ranks also each
+    parameter's partition spec (:func:`..models.convert.param_specs`), the
+    names whose gradients sum over tp under sequence parallelism, and each
+    parameter's ZeRO-1 dim (None: not sharded over the data ranks)."""
 
     module: torch.nn.Module
     config: NxDConfig
     device: torch.device
+    world: int = 1
+    specs: Dict[str, tuple] = field(default_factory=dict)
+    sequence_parallel_names: List[str] = field(default_factory=list)
+    zero_dims: Dict[str, Optional[int]] = field(default_factory=dict)
+
+    def zero_view(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """This data rank's ZeRO-1 slice of parameter ``name`` (a view), or
+        the parameter itself."""
+        d = self.zero_dims.get(name)
+        if d is None:
+            return p
+        n = p.shape[d] // comm.axis_size(ps.DATA_AXES)
+        return p.narrow(d, ps.axis_rank(ps.DATA_AXES) * n, n)
+
+    def grad_specs(self) -> Dict[str, tuple]:
+        """The specs of the synchronised gradients: a ZeRO-1 one is also
+        sharded over the data axes."""
+        out = {}
+        for name, spec in self.specs.items():
+            d = self.zero_dims.get(name)
+            parts = list(spec)
+            if d is not None:
+                parts += [None] * (d + 1 - len(parts))
+                parts[d] = ps.DATA_AXES
+            out[name] = tuple(parts)
+        return out
+
+    def rows(self, n: int) -> slice:
+        """This rank's data-parallel rows of a leading dim of ``n``: all of
+        them in a world of 1."""
+        return ps.data_slice(n) if self.world > 1 else slice(None)
+
+    def sync(self, grads: Dict[str, torch.Tensor]
+             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The local gradients made global
+        (:func:`..parallel.grads.allreduce_gradients`: the tp sum under
+        sequence parallelism, the mean over the data ranks, under ZeRO-1
+        this rank's slice of it) and their global norm, each shard counted
+        once. The identity and ``optax.global_norm`` in a world of 1."""
+        grads = grads_mod.allreduce_gradients(
+            grads, self.specs,
+            sequence_parallel_names=self.sequence_parallel_names,
+            zero_dims=self.zero_dims)
+        return grads, grads_mod.global_grad_norm(grads, self.grad_specs())
+
+    def gather_updated(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Under ZeRO-1, all-gather each parameter's updated slices over
+        the data ranks into the whole parameter."""
+        with torch.no_grad():
+            for name, p in params.items():
+                d = self.zero_dims.get(name)
+                if d is not None:
+                    p.copy_(comm.all_gather(self.zero_view(name, p),
+                                            ps.DATA_AXES, d))
+
+
+def _world() -> int:
+    return ps.get_world_size() if ps.model_parallel_is_initialized() else 1
+
+
+def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
+                   state_dict: Optional[Mapping[str, torch.Tensor]],
+                   dev: torch.device, std: float):
+    """The local module of a rank of a world above 1, from the whole
+    ``state_dict`` or the seed: every rank makes (or gets) the same whole
+    weights and keeps its shards."""
+    from ..models import convert, llama
+
+    if type(model_cfg) is not llama.LlamaConfig:
+        raise ValueError(f"{type(model_cfg).__name__} across ranks: not in "
+                         "the port yet (a later slice); Llama trains "
+                         "tensor- and data-parallel")
+    tp = ps.get_tensor_model_parallel_size()
+    if model_cfg.tp_size is None:
+        model_cfg = replace(model_cfg, tp_size=tp)
+    elif model_cfg.tp_size != tp:
+        raise ValueError(f"the config's tp_size {model_cfg.tp_size} differs "
+                         f"from the ranks' tensor-parallel size {tp}")
+    whole = replace(model_cfg, tp_size=None, sequence_parallel=False)
+    if state_dict is None:
+        state_dict = llama.init_state_dict(whole, seed=seed, std=std,
+                                           device=dev)
+    model = llama.LlamaForCausalLM(model_cfg, device="meta")
+    want = model.state_dict()
+    sd = {k: v.to(device=dev, dtype=want[k].dtype)
+          for k, v in convert.shard_state_dict(
+              model_cfg, state_dict, ps.coords()).items()}
+    del state_dict
+    model.load_state_dict(sd, strict=True, assign=True)
+    shapes = {n: t.shape for n, t in llama.LlamaForCausalLM(
+        whole, device="meta").state_dict().items()}
+    specs = convert.param_specs(model_cfg, [(n, len(s))
+                                            for n, s in shapes.items()])
+    zero_size = comm.axis_size(ps.DATA_AXES)
+    zero_dims = {n: (opt_mod.zero1_dim(specs[n], shapes[n], zero_size)
+                     if cfg.optimizer.zero_one_enabled else None)
+                 for n in shapes}
+    sp_names = convert.sequence_parallel_names(model_cfg, list(shapes))
+    return model, dict(world=_world(), specs=specs, zero_dims=zero_dims,
+                       sequence_parallel_names=sp_names)
 
 
 def initialize_parallel_model(
@@ -68,8 +184,21 @@ def initialize_parallel_model(
     a ``GPTNeoXForCausalLM``, a ``BertConfig`` a ``BertForPreTraining``, a
     ``ViTConfig`` a ``ViTForImageClassification``. Parameters are in
     ``model_cfg.param_dtype``, but for those the model holds in fp32 (the
-    MoE router's kernel). Returns ``(ParallelModel, params)``."""
+    MoE router's kernel). Returns ``(ParallelModel, params)``.
+
+    Across ranks (a world above 1) the config is a Llama one, and every
+    rank keeps its shards of the whole weights (``state_dict``, or those
+    ``seed`` makes, the same on every rank) at the ranks' tensor-parallel
+    size (``model_cfg.tp_size`` if set, which must agree);
+    ``sequence_parallel`` is the model config's
+    (:func:`..config.configure_model` carries the config's)."""
     dev = resolve_device(device)
+    if _world() > 1:
+        model, extra = _sharded_model(cfg, model_cfg, seed, state_dict, dev,
+                                      std)
+        model.requires_grad_(True).train()
+        return (ParallelModel(module=model, config=cfg, device=dev,
+                              **extra), dict(model.named_parameters()))
     family, model_cls = family_of(model_cfg)
     model = model_cls(model_cfg, device="meta")
     if state_dict is None:
@@ -92,12 +221,13 @@ def initialize_parallel_optimizer(
 ) -> Tuple[opt_mod.AdamW, TrainState]:
     """The optimizer (:func:`.optimizer.make_optimizer`) and a
     :class:`TrainState` at step 0 with zeroed moments for the
-    :func:`trainable` parameters."""
+    :func:`trainable` parameters; under ZeRO-1 the moments of this data
+    rank's slice of each parameter (:meth:`ParallelModel.zero_view`)."""
     tx = opt_mod.make_optimizer(pm.config, learning_rate=learning_rate,
                                 weight_decay=weight_decay, **adam_kw)
     params = dict(params)
-    return tx, TrainState(step=0, params=params,
-                          opt_state=tx.init(trainable(params)))
+    return tx, TrainState(step=0, params=params, opt_state=tx.init(
+        [pm.zero_view(n, p) for n, p in _trainable_named(params).items()]))
 
 
 def trainable(params: Mapping[str, torch.nn.Parameter]
@@ -106,7 +236,12 @@ def trainable(params: Mapping[str, torch.nn.Parameter]
     in ``params``' order: those that require gradients. A frozen one
     (``requires_grad=False``, as :func:`..lora.make_lora_optimizer` leaves
     the base) gets no gradient, no moments and no update."""
-    return [p for p in params.values() if p.requires_grad]
+    return list(_trainable_named(params).values())
+
+
+def _trainable_named(params: Mapping[str, torch.nn.Parameter]
+                     ) -> Dict[str, torch.nn.Parameter]:
+    return {n: p for n, p in params.items() if p.requires_grad}
 
 
 def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
@@ -160,11 +295,24 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     met, the port's analog of the reference's compile count
     (:class:`..obs.accounting.CompileTracker` reads it).
 
+    Across ranks ``batch`` is the global batch, the same on every rank:
+    each rank takes its data-parallel rows (of each microbatch with
+    ``grad_accum_steps``), as the reference shards the batch over dp. The
+    default loss weighs each rank's local mean by its share of the
+    microbatch's counted labels, so the step's loss and gradient are
+    those of the global mean even where ranks count different labels; a
+    ``loss_fn``'s local values are averaged over the data ranks.
+    ``dropout_generator`` and ``integrity_every`` wait for a later slice
+    there and raise.
+
     ``grad_fn`` and ``compression`` come with later slices; passing one
     raises.
     """
     later = {"grad_fn": grad_fn is not None,
              "compression": compression is not None}
+    if pm.world > 1:
+        later.update(dropout_generator=dropout_generator is not None,
+                     integrity_every=integrity_every is not None)
     asked = [k for k, v in later.items() if v]
     if asked:
         raise ValueError(f"{', '.join(asked)}: not in the port yet (later "
@@ -182,48 +330,54 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
         raise ValueError(f"integrity_every must be >= 1, got "
                          f"{integrity_every}")
     model = pm.module
-    shapes = set()
+    n_data = comm.axis_size(ps.DATA_AXES)
 
     def microbatch_loss(params, mb: Dict[str, torch.Tensor]) -> torch.Tensor:
         if loss_fn is not None:
             return loss_fn(model, params, mb)
-        return model.loss(mb["input_ids"], mb["labels"],
-                          dropout_generator=dropout_generator)
+        return data_parallel_loss(model, mb, dropout_generator)
 
     def one_step(state: TrainState, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, Any]:
-        params = trainable(state.params)
+        named = _trainable_named(state.params)
         a = grad_accum_steps
         for name, x in batch.items():
-            if x.shape[0] % a:
-                raise ValueError(f"batch dim {x.shape[0]} of {name!r} not "
-                                 f"divisible by grad_accum_steps {a}")
-        for p in params:
+            if x.shape[0] % (a * n_data):
+                raise ValueError(
+                    f"batch dim {x.shape[0]} of {name!r} not divisible by "
+                    f"grad_accum_steps {a}" + (
+                        f" x data-parallel size {n_data}" if n_data > 1
+                        else ""))
+        for p in named.values():
             p.grad = None
         loss = None
         chunks = {k: x.chunk(a) for k, x in batch.items()}
         for i in range(a):
-            mb_loss = microbatch_loss(state.params,
-                                      {k: c[i] for k, c in chunks.items()})
+            mb = {k: c[i][pm.rows(c[i].shape[0])] for k, c in chunks.items()}
+            mb_loss = microbatch_loss(state.params, mb)
             mb_loss.backward()
             mb_loss = mb_loss.detach()
             loss = mb_loss if loss is None else loss + mb_loss
-        for p in params:
+        for p in named.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
         if a > 1:
             loss = loss * (1.0 / a)
-            torch._foreach_mul_(grads, 1.0 / a)
-        grad_norm = opt_mod.global_norm(grads)
+            torch._foreach_mul_([p.grad for p in named.values()], 1.0 / a)
+        if n_data > 1:
+            loss = comm.all_reduce(loss, ps.DATA_AXES) / n_data
+        grads, grad_norm = pm.sync({n: p.grad for n, p in named.items()})
         metrics: Dict[str, Any] = {"loss": loss, "grad_norm": grad_norm}
         ok = True
         if skip_nonfinite:
             ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
             metrics["nonfinite_skipped"] = int(not ok)
         if ok:
-            tx.update(params, grads, state.opt_state, grad_norm=grad_norm)
-        for p in params:
+            tx.update([pm.zero_view(n, p) for n, p in named.items()],
+                      [grads[n] for n in named], state.opt_state,
+                      grad_norm=grad_norm)
+            pm.gather_updated(named)
+        for p in named.values():
             p.grad = None
         if integrity_every is not None:
             # the lazy import keeps the resilience package off the step's
@@ -237,6 +391,8 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
                     len(state.params), dtype=torch.int32, device=pm.device)
         state.step += 1
         return metrics
+
+    shapes = set()
 
     def step(state: TrainState, batch: Mapping[str, Any]
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -256,3 +412,22 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
 
     step.cache_size = lambda: len(shapes)
     return step
+
+
+def data_parallel_loss(model: torch.nn.Module,
+                       batch: Mapping[str, torch.Tensor],
+                       dropout_generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """This rank's default loss over its rows ``batch``: the model's loss,
+    across data ranks the local mean weighted by the rank's share of the
+    labels counted over the data ranks (not ``-100``), so that its mean
+    over the data ranks is the mean over the global batch, as the
+    reference's loss over the dp-sharded batch."""
+    data = ps.DATA_AXES
+    loss = model.loss(batch["input_ids"], batch["labels"],
+                      dropout_generator=dropout_generator)
+    if comm.axis_size(data) == 1:
+        return loss
+    count = (batch["labels"] != -100).sum().float()
+    total = comm.all_reduce(count, data)
+    return loss * (count * comm.axis_size(data) / torch.clamp(total, min=1.0))

@@ -299,9 +299,19 @@ def test_configure_model_matches_jax(mode, compute):
     assert str(tm.dtype).split(".")[-1] == jnp.dtype(jm.dtype).name
     # neither carries the policy
     assert tm.remat_policy == jm.remat_policy == "save_attention"
-    with pytest.raises(ValueError, match="tp=1"):
+    # tp_size and sequence_parallel are carried as JAX carries them
+    tp = 2
+    jm = jconfig.configure_model(jconfig.neuronx_distributed_config(
+        tensor_parallel_size=tp, sequence_parallel=True, init_mesh=False),
+        jl.tiny_config())
+    tm = tconfig.configure_model(tconfig.neuronx_distributed_config(
+        tensor_parallel_size=tp, sequence_parallel=True, init_mesh=False),
+        tl.tiny_config())
+    assert (tm.tp_size, tm.sequence_parallel) == (
+        jm.tp_size, jm.sequence_parallel) == (tp, True)
+    with pytest.raises(ValueError, match="process group"):
         tconfig.neuronx_distributed_config(
-            tensor_parallel_size=2,
+            tensor_parallel_size=tp,
             activation_checkpoint_config=tconfig.ActivationCheckpointConfig(
                 mode=mode))
 

@@ -338,8 +338,9 @@ def test_validator_passes_good_configs_as_jax():
         cfg = tm.tiny_moe_config(**kw)
         assert tval(cfg) is cfg
         jval(jm.tiny_moe_config(**kw))
+        # configure_model carries the config's tp_size (1), as JAX's does
         assert configure_model(neuronx_distributed_config(), cfg) == \
-            dataclasses.replace(cfg, remat=False)
+            dataclasses.replace(cfg, remat=False, tp_size=1)
     llama_like = dataclasses.make_dataclass("C", [("hidden_size", int)])(8)
     assert tval(llama_like) is llama_like
 

@@ -219,12 +219,12 @@ def test_yaml_dicts_match_jax(doc):
 
 
 @pytest.mark.parametrize("doc,match", [
-    ({"tensor_parallel_size": 2}, "tp=1"),
-    ({"optimizer": {"zero_one_enabled": True}}, "ZeRO-1"),
+    ({"context_parallel_size": 2}, "not in the port yet"),
+    ({"expert_parallel_size": 2}, "not in the port yet"),
     ({"pipeline_parallel_size": 2}, "not in the port yet"),
     ({"pipeline": {"num_microbatches": 8}}, "not in the port yet"),
     ({"optimizer": {"grad_comm_dtype": "int8"}}, "not in the port yet"),
-    ({"sequence_parallel": True}, "not in the port yet"),
+    ({"tp_overlap_comm": True}, "not in the port yet"),
     ({"nope": 1}, "unknown config key"),
     ({"optimizer": {"nope": 1}}, "unknown optimizer option"),
     ({"optimizer": None}, "must be a mapping"),
@@ -238,6 +238,25 @@ def test_yaml_refusals(doc, match):
                  "must be a mapping"):
         with pytest.raises(ValueError, match=match):
             jyc.dict_to_config_kwargs(doc)
+
+
+def test_yaml_tensor_parallel_sequence_parallel_and_zero1_run(tmp_path):
+    """``tensor_parallel_size``, ``sequence_parallel`` and ZeRO-1 map onto
+    the port's config (the ranks are laid out by the caller, or with
+    ``init_mesh=True``), and ``config_to_dict`` writes JAX's dict."""
+    path = tmp_path / "tp.yaml"
+    path.write_text("tensor_parallel_size: 2\nsequence_parallel: true\n"
+                    "optimizer:\n  zero_one_enabled: true\n")
+    cfg = tyc.load_yaml_config(str(path))
+    assert cfg.parallel.tensor_parallel_size == 2
+    assert cfg.sequence_parallel and cfg.optimizer.zero_one_enabled
+    jcfg = jyc.load_yaml_config(str(path))
+    assert tyc.config_to_dict(cfg) == jyc.config_to_dict(jcfg)
+    assert tyc._cfg.neuronx_distributed_config(
+        init_mesh=False, **tyc.dict_to_config_kwargs(
+            tyc.config_to_dict(cfg))) == cfg
+    with pytest.raises(ValueError, match="process group"):
+        tyc.load_yaml_config(str(path), init_mesh=True)
 
 
 def test_load_yaml_config_and_main(tmp_path, capsys):

@@ -513,11 +513,18 @@ def test_later_slice_options_and_configs_raise():
             ttr.make_train_step(pm, tx, **kw)
     with pytest.raises(ValueError, match="grad_accum_steps"):
         ttr.make_train_step(pm, tx, grad_accum_steps=0)
-    for tp in (2, 8):
-        with pytest.raises(ValueError, match="tp=1"):
-            neuronx_distributed_config(tensor_parallel_size=tp)
-    with pytest.raises(ValueError, match="ZeRO-1"):
-        OptimizerConfig(zero_one_enabled=True)
+    # tensor parallelism and ZeRO-1 run (tests/test_torch_train_tp.py);
+    # pipeline, context and expert parallelism, overlap and activation
+    # compression are later tiers
+    for kw in (dict(pipeline_parallel_size=2), dict(context_parallel_size=2),
+               dict(expert_parallel_size=2), dict(tp_overlap_comm=True),
+               dict(tp_activation_comm_dtype="int8")):
+        with pytest.raises(ValueError, match="later slice"):
+            neuronx_distributed_config(init_mesh=False, **kw)
+    # a tp degree needs that many ranks
+    tp = 2
+    with pytest.raises(ValueError, match="process group"):
+        neuronx_distributed_config(tensor_parallel_size=tp)
     with pytest.raises(ValueError, match="max_grad_norm"):
         OptimizerConfig(max_grad_norm=0.0)
     if not torch.cuda.is_available():

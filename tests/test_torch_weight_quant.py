@@ -264,8 +264,8 @@ def test_config_accepts_what_jax_accepts_and_lacks_later_fields():
     for fmt in FORMATS:
         assert tl.tiny_config(weight_quant=fmt).weight_quant == fmt
         jl.tiny_config(weight_quant=fmt)
-    # LoRA with weight_quant raises JAX's ValueError; sequence parallelism
-    # is not a field of the port
+    # LoRA with weight_quant raises JAX's ValueError; so does sequence
+    # parallelism in the port (the quantized layers have no sequence entry)
     from neuronx_distributed_tpu.lora import LoraConfig as JLoraConfig
     from neuronx_distributed_tpu_torch.lora import LoraConfig
 
@@ -273,5 +273,5 @@ def test_config_accepts_what_jax_accepts_and_lacks_later_fields():
                          (tl.tiny_config, LoraConfig())):
         with pytest.raises(ValueError, match="incompatible with LoRA"):
             cfg_fn(weight_quant="int8", lora=lora)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="sequence_parallel"):
         tl.tiny_config(weight_quant="int8", sequence_parallel=True)
