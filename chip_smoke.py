@@ -370,10 +370,44 @@ script exits non-zero and prints no result:
    Phases 52 and 53 share one start of the four processes.
 53. train_tp_cross_check: the same path at full width, 2 layers, S=256,
    fp32, global batch 2, 2 steps, against the port's tp=1 step on the card
-   from the same weights (both made on the card from seed 1): losses
-   within 1e-4 relative, grad norms within 1e-3, each parameter's update
-   (the tp shards gathered) within 1e-3 of its norm; the kernels' first
+   (run on rank 0 before the ranks build their shards) from the same
+   weights (both made on the card from seed 1): losses within 1e-4
+   relative, grad norms within 1e-3, each parameter's update (the tp
+   shards gathered on rank 0) within 1e-3 of its norm; the kernels' first
    launches within 1e-4 of plain.
+54. train_tp_loop, and 55. train_tp_loop_cross_check, around one sharded
+   tag (Llama-3-8B's widths at 1 layer with the tied head: the card's
+   machine caps what a run writes to its disk at 45 GiB, and a tag holds
+   12 bytes a parameter). 55's part A: ``Trainer.fit``, 4 fp32 steps at
+   S=256 (global batch 2) at tp=2 x dp=2 with sequence parallelism and
+   ZeRO-1, an async sharded save at step 2 (block and commit seconds,
+   bytes); B: the same model resumed from the tag trains steps 3-4 bit
+   for bit A's (losses and every leaf's whole-tensor fingerprint). 54: a
+   bf16-compute model over fp32 parameters, attention dropout 0.1 and
+   ``integrity_every=2`` resumes from the tag and trains steps 3-4 at
+   S=4096; K2-K4 launched layers x 2 times with dropout at each rank's
+   offsets and held to plain within 2e-2; a bit flipped in data rank 1's
+   shard at the step-4 boundary is seen on every rank, whose watchdog
+   rewinds to the tag, the fingerprint the tag's; rank 0 times K2-K4
+   with dropout at its offsets. 55's part C: tp=4 x dp=1 without ZeRO-1
+   resumes from the tag, losses within 1e-5 of A's, each update within
+   1e-3 of its norm; D: ``scripts/reshard_checkpoint.py`` merges the tag
+   on the card and the port's tp=1 step resumed from it gives step 3's
+   loss within 1e-4.
+56. train_mixtral_tp: Mixtral 8x7B's widths at 2 layers, tp=4 x dp=1 with
+   sequence parallelism, blockwise dispatch (block 64), bf16 over fp32,
+   S=4096, 3 steps: the experts at I/tp = 3584; K2-K5, K7 and K8 each
+   launched layers x steps times on every rank, the first launch of each
+   held to its plain version on the path's inputs (1e-2 for K5, K7, K8
+   in bf16, 2e-2 for K2-K4); rank 0 times K5, K7 and K8 at the local width
+   (kernel, plain, bound, cuBLAS per expert).
+57. train_mixtral_tp_cross_check: that step in fp32 at 1 layer, S=256,
+   against the port's tp=1 Mixtral step on the card (run on rank 0 first)
+   under phase 53's limits.
+   Phases 52-57 share one start of the four processes. The CPU halves of
+   phases 9, 16, 24, 29 and 31 (the train steps, the quantized codes, the
+   other routers) are computed on a background thread (``CpuSide``) while
+   earlier phases run.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -1269,11 +1303,10 @@ def same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def card_vs_cpu_step(cfg, sds, width=64):
-    """One packed step of ``cfg`` (two prompts of 40 and 20 tokens, pad rows
-    up to ``width``) on the card and on the port's CPU path, ``sds``
-    mapping each device to its state dict. Returns max |diff| over max
-    |logit| of the real rows."""
+def packed_logits(cfg, sd, dev, width=64):
+    """The real rows' logits (fp32, on the host) of one packed step of
+    ``cfg`` (two prompts of 40 and 20 tokens, pad rows up to ``width``) on
+    ``dev`` from the state dict ``sd``."""
     from neuronx_distributed_tpu_torch.inference.kv_cache import PAD_POSITION
     from neuronx_distributed_tpu_torch.inference.paging import (
         init_paged_kv_cache)
@@ -1295,87 +1328,135 @@ def card_vs_cpu_step(cfg, sds, width=64):
     p[0, :n] = pos
     s = np.full((width,), 2, np.int32)
     s[:n] = slots
-    out = {}
-    for dev, sd in sds.items():
-        model = family.build_model(cfg, sd, dev)
-        cache = init_paged_kv_cache(
-            cfg.num_layers, nb, bs, cfg.num_kv_heads, cfg.head_dim_, 2, maxb,
-            dtype=torch.float32, device=dev)
-        cache.block_tables.copy_(torch.from_numpy(tables))
-        logits, _ = forward(model, torch.from_numpy(toks).to(dev),
-                            torch.from_numpy(p).to(dev), cache,
-                            torch.from_numpy(s).to(dev))
-        out[dev] = logits[0, :n].float().cpu()
-        del model, cache, logits
-    diff = (out["cuda"] - out["cpu"]).abs().max().item()
-    return diff / out["cpu"].abs().max().item()
+    model = family.build_model(cfg, sd, dev)
+    cache = init_paged_kv_cache(
+        cfg.num_layers, nb, bs, cfg.num_kv_heads, cfg.head_dim_, 2, maxb,
+        dtype=torch.float32, device=dev)
+    cache.block_tables.copy_(torch.from_numpy(tables))
+    logits, _ = forward(model, torch.from_numpy(toks).to(dev),
+                        torch.from_numpy(p).to(dev), cache,
+                        torch.from_numpy(s).to(dev))
+    return logits[0, :n].float().cpu()
 
 
-def phase_quant_cross_check():
+def card_vs_cpu_step(cfg, sd, cpu, width=64):
+    """One packed step of ``cfg`` (:func:`packed_logits`) on the card from
+    the state dict ``sd``, against ``cpu``, the logits the CPU side's path
+    gave. Returns max |diff| over max |logit| of the real rows."""
+    card = packed_logits(cfg, sd, "cuda", width)
+    return (card - cpu).abs().max().item() / cpu.abs().max().item()
+
+
+QUANT_CASES = (("llama", "mxfp4"), ("llama", "fp8"), ("mixtral", "int8"),
+               ("mixtral", "mxfp8"))
+
+
+def quant_case(model, fmt):
+    """The family module and config of one ``quant_cross_check`` case:
+    full width, 1 layer, fp32, ``weight_quant=fmt``."""
+    from neuronx_distributed_tpu_torch.models import llama, mixtral
+
+    family = mixtral if model == "mixtral" else llama
+    base = mixtral.MIXTRAL_8X7B if model == "mixtral" else llama.LLAMA3_8B
+    return family, dataclasses.replace(base, num_layers=1,
+                                       dtype=torch.float32,
+                                       param_dtype=torch.float32,
+                                       weight_quant=fmt)
+
+
+def quant_cpu_half(model, fmt):
+    """The CPU half of one ``quant_cross_check`` case (run by
+    :class:`CpuSide`): the float weights (seed 1) on the host, quantized
+    there, and the packed step's logits on the CPU path."""
+    from neuronx_distributed_tpu_torch.quantization.serving import (
+        quantize_params_for_serving)
+
+    family, cfg = quant_case(model, fmt)
+    t0 = time.perf_counter()
+    fsd = family.init_state_dict(
+        dataclasses.replace(cfg, weight_quant=None), seed=1, std=0.02,
+        device="cpu")
+    cpu_q = quantize_params_for_serving(cfg, fsd)
+    cpu_s = time.perf_counter() - t0
+    return dict(fsd=fsd, cpu_q=cpu_q, logits=packed_logits(cfg, cpu_q, "cpu"),
+                cpu_quantize_s=cpu_s)
+
+
+def phase_quant_cross_check(cpu_side):
     """Full width, 1 layer, fp32: the float weights (seed 1) quantized on
     the card and on the CPU, the codes and scales compared bit for bit, then
     one packed step each, logits within 1e-3 x max|logit|. Llama-3-8B at
     ``mxfp4`` and ``fp8``, Mixtral 8x7B at ``int8`` and ``mxfp8`` (its
-    experts in the tier's format)."""
-    from neuronx_distributed_tpu_torch.models import llama, mixtral
+    experts in the tier's format). The CPU halves come from ``cpu_side``
+    (computed while earlier phases ran on the card)."""
     from neuronx_distributed_tpu_torch.quantization.serving import (
         quantize_params_for_serving)
 
     results = []
-    for base, fmt in ((llama.LLAMA3_8B, "mxfp4"), (llama.LLAMA3_8B, "fp8"),
-                      (mixtral.MIXTRAL_8X7B, "int8"),
-                      (mixtral.MIXTRAL_8X7B, "mxfp8")):
-        family = mixtral if isinstance(base, mixtral.MixtralConfig) else llama
-        cfg = dataclasses.replace(base, num_layers=1, dtype=torch.float32,
-                                  param_dtype=torch.float32,
-                                  weight_quant=fmt)
-        t0 = time.perf_counter()
-        fsd = family.init_state_dict(
-            dataclasses.replace(cfg, weight_quant=None), seed=1, std=0.02,
-            device="cpu")
-        cpu_q = quantize_params_for_serving(cfg, fsd)
-        cpu_s = time.perf_counter() - t0
+    for model, fmt in QUANT_CASES:
+        _, cfg = quant_case(model, fmt)
+        half = cpu_side.result(f"quant_{fmt}")
+        cpu_q = half["cpu_q"]
         card_q = quantize_params_for_serving(
-            cfg, {k: v.cuda() for k, v in fsd.items()})
-        del fsd
+            cfg, {k: v.cuda() for k, v in half["fsd"].items()})
         differ = [k for k in cpu_q if not same_bits(card_q[k], cpu_q[k])]
         if differ or set(card_q) != set(cpu_q):
             raise AssertionError(f"quant_cross_check {fmt}: the card's "
                                  f"codes differ from the CPU's at {differ}")
-        rel = card_vs_cpu_step(cfg, {"cuda": card_q, "cpu": cpu_q})
+        rel = card_vs_cpu_step(cfg, card_q, half["logits"])
         if not rel <= 1e-3:
             raise AssertionError(f"quant_cross_check {fmt}: max |diff| "
                                  f"{rel} x max|logit|, above 1e-3")
-        results.append(dict(model=type(base).__name__, weight_quant=fmt,
+        results.append(dict(model=type(cfg).__name__, weight_quant=fmt,
                             tensors=len(cpu_q), codes_equal=True,
-                            max_rel_diff=rel, cpu_quantize_s=cpu_s))
-        del cpu_q, card_q
+                            max_rel_diff=rel,
+                            cpu_quantize_s=half["cpu_quantize_s"],
+                            cpu_job_s=half.get("cpu_job_s")))
+        del cpu_q, card_q, half
         torch.cuda.empty_cache()
     emit("quant_cross_check", layers=1, tol=1e-3, cases=results)
 
 
-def phase_moe_variants_cross_check():
+MOE_ROUTERS = ("sinkhorn", "group_limited")
+
+
+def moe_variant_cfg(router):
+    from neuronx_distributed_tpu_torch.models import mixtral
+
+    return dataclasses.replace(
+        mixtral.MIXTRAL_8X7B, num_layers=1, dtype=torch.float32,
+        param_dtype=torch.float32, router_type=router,
+        shared_expert_intermediate=14336)
+
+
+def moe_variant_cpu_half(router):
+    """The CPU half of one ``moe_variants_cross_check`` case (run by
+    :class:`CpuSide`): the weights (seed 1) and the CPU path's logits."""
+    from neuronx_distributed_tpu_torch.models import mixtral
+
+    cfg = moe_variant_cfg(router)
+    sd = mixtral.init_state_dict(cfg, seed=1, std=0.02, device="cpu")
+    return dict(sd=sd, logits=packed_logits(cfg, sd, "cpu"))
+
+
+def phase_moe_variants_cross_check(cpu_side):
     """Mixtral 8x7B's widths, 1 layer, fp32, capacity dispatch, with the
     Sinkhorn router and with the group-limited one, each beside shared
     experts of intermediate 14336: one packed step on the card and on the
-    CPU path, logits within 1e-3 x max|logit|."""
-    from neuronx_distributed_tpu_torch.models import mixtral
-
+    CPU path, logits within 1e-3 x max|logit| (the CPU half from
+    ``cpu_side``)."""
     results = []
-    for router in ("sinkhorn", "group_limited"):
-        cfg = dataclasses.replace(
-            mixtral.MIXTRAL_8X7B, num_layers=1, dtype=torch.float32,
-            param_dtype=torch.float32, router_type=router,
-            shared_expert_intermediate=14336)
-        sd = mixtral.init_state_dict(cfg, seed=1, std=0.02, device="cpu")
-        rel = card_vs_cpu_step(cfg, {"cuda": sd, "cpu": sd})
+    for router in MOE_ROUTERS:
+        cfg = moe_variant_cfg(router)
+        half = cpu_side.result(f"moe_variants_{router}")
+        rel = card_vs_cpu_step(cfg, half["sd"], half["logits"])
         if not rel <= 1e-3:
             raise AssertionError(f"moe_variants_cross_check {router}: max "
                                  f"|diff| {rel} x max|logit|, above 1e-3")
         results.append(dict(router_type=router,
                             shared_expert_intermediate=14336,
                             max_rel_diff=rel))
-        del sd
+        del half
         torch.cuda.empty_cache()
     emit("moe_variants_cross_check", layers=1, tol=1e-3, cases=results)
 
@@ -2000,7 +2081,52 @@ def phase_train_integrity(workdir, steps=12, seq=4096):
     return enabled_launches
 
 
-def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2,
+def train_cross_cfg(base_cfg, layers, cfg_kw):
+    return dataclasses.replace(base_cfg, num_layers=layers,
+                               dtype=torch.float32, param_dtype=torch.float32,
+                               use_flash_attention=True, **cfg_kw)
+
+
+def train_cross_side(cfg, sd, batch, steps, dev):
+    """``steps`` fp32 steps of the port's one-rank path on ``dev`` from
+    ``sd``: each step's loss and grad norm, each parameter's update on the
+    host, the seconds, and the experts each MoE layer routed to."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+
+    t0 = time.perf_counter()
+    # no layout: the CPU side runs this on a thread beside the card phases
+    pm, params = trainer.initialize_parallel_model(
+        neuronx_distributed_config(init_mesh=False), cfg, state_dict=sd,
+        device=dev)
+    routes = []
+    for layer in pm.module.layers:
+        if hasattr(layer, "moe"):
+            layer.moe.router.register_forward_hook(
+                lambda mod, inp, out, r=routes: r.append(out[1].cpu()))
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    step = trainer.make_train_step(pm, tx)
+    metrics = [step(state, batch)[1] for _ in range(steps)]
+    return ([(m["loss"].item(), m["grad_norm"].item()) for m in metrics],
+            {n: p.detach().cpu() - sd[n] for n, p in params.items()},
+            time.perf_counter() - t0, routes)
+
+
+def train_cross_cpu_half(base_cfg, layers, seq, steps, cfg_kw):
+    """The CPU half of ``train_cross_check`` (run by :class:`CpuSide`):
+    the weights (seed 1), the batch, and the CPU path's steps."""
+    from neuronx_distributed_tpu_torch.models import llama, mixtral
+    from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
+
+    cfg = train_cross_cfg(base_cfg, layers, cfg_kw)
+    family = mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama
+    sd = family.init_state_dict(cfg, seed=1, std=0.02, device="cpu")
+    batch = train_batch(cfg.vocab_size, seq, seed=1)
+    return dict(sd=sd, batch=batch, side=train_cross_side(cfg, sd, batch,
+                                                          steps, "cpu"))
+
+
+def phase_train_cross_check(base_cfg, cpu_side, layers=2, seq=256, steps=2,
                             phase="train_cross_check", **cfg_kw):
     """Two fp32 steps at full width on the card and on the CPU path, from
     the same weights and batch. The second step's loss and grad norm depend
@@ -2011,38 +2137,15 @@ def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2,
     element-wise limit below ``lr`` would hold; the norm bounds how much
     of the update such elements carry. A Mixtral config first has both
     sides route every token to the same experts in every step, so that a
-    failure names its cause."""
-    from neuronx_distributed_tpu_torch import trainer
-    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
-    from neuronx_distributed_tpu_torch.models import llama, mixtral
-    from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
-
-    cfg = dataclasses.replace(base_cfg, num_layers=layers,
-                              dtype=torch.float32, param_dtype=torch.float32,
-                              use_flash_attention=True, **cfg_kw)
-    family = mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama
-    sd = family.init_state_dict(cfg, seed=1, std=0.02, device="cpu")
-    batch = train_batch(cfg.vocab_size, seq, seed=1)
-    side = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        pm, params = trainer.initialize_parallel_model(
-            neuronx_distributed_config(), cfg, state_dict=sd, device=dev)
-        routes = []
-        for layer in pm.module.layers:
-            if hasattr(layer, "moe"):
-                layer.moe.router.register_forward_hook(
-                    lambda mod, inp, out, r=routes: r.append(out[1].cpu()))
-        tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
-        step = trainer.make_train_step(pm, tx)
-        metrics = [step(state, batch)[1] for _ in range(steps)]
-        side[dev] = ([(m["loss"].item(), m["grad_norm"].item())
-                      for m in metrics],
-                     {n: p.detach().cpu() - sd[n] for n, p in params.items()},
-                     time.perf_counter() - t0, routes)
-        del pm, params, tx, state, step
+    failure names its cause. The CPU half comes from ``cpu_side`` (job
+    ``phase``, the same ``layers``, ``seq``, ``steps`` and ``cfg_kw``),
+    computed while earlier phases ran on the card."""
+    cfg = train_cross_cfg(base_cfg, layers, cfg_kw)
+    half = cpu_side.result(phase)
+    sd, batch = half["sd"], half["batch"]
+    mg, ug, tg, rg = train_cross_side(cfg, sd, batch, steps, "cuda")
     torch.cuda.empty_cache()
-    (mg, ug, tg, rg), (mc, uc, tc, rc) = side["cuda"], side["cpu"]
+    mc, uc, tc, rc = half["side"]
     if len(rg) != len(rc) or any(not torch.equal(a, b)
                                  for a, b in zip(rg, rc)):
         moved = sum(int((a != b).any(-1).sum()) for a, b in zip(rg, rc))
@@ -2069,13 +2172,100 @@ def phase_train_cross_check(base_cfg, layers=2, seq=256, steps=2,
         if not rel <= 1e-3:
             raise AssertionError(f"{phase}: {name}'s update differs by {rel} "
                                  "of its norm, above 1e-3")
-    del sd
+    del sd, half
     emit(phase, layers=layers, seq=seq, steps=steps,
          loss_card=[m[0] for m in mg], loss_cpu=[m[0] for m in mc],
          grad_norm_card=[m[1] for m in mg], grad_norm_cpu=[m[1] for m in mc],
          max_update_rel_diff=worst, max_update_rel_diff_param=worst_name,
          max_update_elem_diff_of_max=worst_elem, routed_calls=len(rc),
          card_s=tg, cpu_s=tc)
+
+
+class CpuSide:
+    """The CPU halves of cross checks, computed on a thread of this
+    process while the card phases before them run (PyTorch's CPU ops
+    release the interpreter lock, so the two overlap): ``jobs`` is a list
+    of ``(name, function name in this module, args, kwargs)``, run in
+    order, at most ``PENDING`` results held ahead of the phase that takes
+    them (weights of 8B widths are gigabytes). :meth:`result` takes the
+    next one, which must be ``name``; :meth:`close` stops the thread after
+    its current job. Nothing of the checks changes: the same functions
+    compute the same halves, on another thread. The thread's CPU ops run
+    on all the intra-op threads but ``SPARE`` (PyTorch's count is kept per
+    thread), so the card phases' host thread keeps cores of its own; the
+    count is set back when the jobs are done."""
+
+    PENDING = 2
+    SPARE = 2
+
+    def __init__(self, jobs):
+        import queue
+
+        # read here first, so the main thread's count is fixed before the
+        # side thread lowers the default for threads that start later
+        self.full = torch.get_num_threads()
+        self.threads = max(1, self.full - self.SPARE)
+        self.ready = queue.Queue(maxsize=self.PENDING)
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, args=(jobs,),
+                                       daemon=True, name="cpu-side")
+        self.thread.start()
+
+    def _run(self, jobs):
+        torch.set_num_threads(self.threads)
+        try:
+            self._jobs(jobs)
+        finally:
+            torch.set_num_threads(self.full)
+
+    def _jobs(self, jobs):
+        import queue
+        import traceback
+
+        for name, fn, args, kw in jobs:
+            t0 = time.perf_counter()
+            try:
+                out = globals()[fn](*args, **kw)
+                out["cpu_job_s"] = time.perf_counter() - t0
+            except BaseException:  # handed to the phase, which raises it
+                out = {"error": traceback.format_exc()}
+            while not self.stop.is_set():
+                try:
+                    self.ready.put((name, out), timeout=1.0)
+                    break
+                except queue.Full:
+                    pass
+            del out
+            if self.stop.is_set():
+                return
+
+    def result(self, name, timeout=900):
+        t0 = time.perf_counter()
+        got, out = self.ready.get(timeout=timeout)
+        if got != name or "error" in out:
+            raise AssertionError(f"cpu side: got {got}, want {name}: "
+                                 f"{out.get('error', '')}")
+        out["cpu_wait_s"] = time.perf_counter() - t0
+        return out
+
+    def close(self):
+        self.stop.set()
+
+
+def cpu_side_jobs(llama_cfg, mixtral_cfg):
+    """The CPU halves :func:`main` computes in the background, in the
+    order the phases want them."""
+    return ([(f"quant_{fmt}", "quant_cpu_half", (model, fmt), {})
+             for model, fmt in QUANT_CASES]
+            + [(f"moe_variants_{router}", "moe_variant_cpu_half", (router,),
+                {}) for router in MOE_ROUTERS]
+            + [("train_cross_check", "train_cross_cpu_half",
+                (llama_cfg, 2, 256, 2, {}), {}),
+               ("mixtral_train_cross_check", "train_cross_cpu_half",
+                (mixtral_cfg, 1, 256, 2, dict(moe_dispatch="blockwise",
+                                              moe_block_size=64)), {}),
+               ("train_loop_cross_check", "train_cross_cpu_half",
+                (llama_cfg, 2, 256, 2, LOOP_CROSS_KW), {})])
 
 
 # ---------------------------------------------------------------------------
@@ -3000,18 +3190,21 @@ def phase_train_resume(workdir, seq=4096, steps=6):
     free_cuda()
 
 
-def phase_train_loop_cross_check(base_cfg, seq=4096):
+LOOP_CROSS_KW = dict(remat=True, remat_policy="save_attention", loss_chunk=64)
+
+
+def phase_train_loop_cross_check(base_cfg, cpu_side, seq=4096):
     """fp32 card against the CPU with remat and the chunked loss (phase
-    9's limits), then on the card, in fp32 and bf16 at S=4096, the
-    gradients under ``save_attention`` and ``"nothing"`` remat equal to
-    those without, bit for bit, with K2 launched layers or 2 x layers
-    times and K3/K4 layers times."""
+    9's limits; the CPU half from ``cpu_side``), then on the
+    card, in fp32 and bf16 at S=4096, the gradients under
+    ``save_attention`` and ``"nothing"`` remat equal to those without, bit
+    for bit, with K2 launched layers or 2 x layers times and K3/K4 layers
+    times."""
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
 
-    phase_train_cross_check(base_cfg, seq=256,
-                            phase="train_loop_cross_check", remat=True,
-                            remat_policy="save_attention", loss_chunk=64)
+    phase_train_cross_check(base_cfg, cpu_side, seq=256,
+                            phase="train_loop_cross_check", **LOOP_CROSS_KW)
     counters = [getattr(fa, name) for name, _ in FLASH_KERNELS]
     batch = train_batch(base_cfg.vocab_size, seq, seed=2)
     out = {}
@@ -5604,21 +5797,23 @@ def tp_holds(k2, k3, k4):
     return errs, k2.calls[0][0][:3], k3.calls[0][0][3]
 
 
-def tp_local_timing(q, k, v, g):
+def tp_local_timing(q, k, v, g, drop=()):
     """K2-K4 at a rank's local shape, each against its plain version, its
-    bound and SDPA, timed by one rank while the others wait."""
+    bound and SDPA (without dropout), timed by one rank while the others
+    wait; ``drop`` = ``(scale, dropout_p, seed, offsets)`` as the path
+    passed them, or nothing."""
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    out, lse = fa.flash_fwd_cuda(q, k, v, True)
+    out, lse = fa.flash_fwd_cuda(q, k, v, True, *drop)
     delta = fa.attention_delta(g, out)
-    bwd = (q, k, v, g, lse, delta, True)
+    bwd = (q, k, v, g, lse, delta, True, *drop)
     bounds = flash_bounds(q, k, True)
     fwd_ms, bwd_ms = sdpa_yardsticks(q, k, v, g, True, flush)
     timing = {}
     for name, cuda, plain, args in (
             ("flash_fwd", fa.flash_fwd_cuda, fa.flash_fwd_plain,
-             (q, k, v, True)),
+             (q, k, v, True, *drop)),
             ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_plain,
              bwd),
             ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_plain,
@@ -5632,15 +5827,23 @@ def tp_local_timing(q, k, v, g):
 
 
 def tp_rank(specs):
-    """One rank of ``train_tp`` and ``train_tp_cross_check``, in a process
-    of its own (``utils.cpu_mesh.run_ranks``; this module is imported by
-    name there): :func:`tp_rank_once` for each spec in turn, the first's
-    memory freed before the next; each result carries its seconds from
-    the rank's start."""
+    """One rank of phases 52-57, in a process of its own
+    (``utils.cpu_mesh.run_ranks``; this module is imported by name there):
+    for each spec in turn, by its ``kind``, :func:`tp_rank_once`,
+    :func:`tp_loop_rank`, :func:`mixtral_tp_rank` or
+    :func:`mixtral_tp_cross_rank`, each at its
+    own layout of the same ranks, the previous one's memory freed first;
+    each result carries its seconds from the rank's start."""
     start = time.perf_counter()
+    kinds = {"step": tp_rank_once, "loop": tp_loop_rank,
+             "mixtral": mixtral_tp_rank,
+             "mixtral_cross": mixtral_tp_cross_rank}
     out = []
     for spec in specs:
-        res = tp_rank_once(spec)
+        print(json.dumps({"rank_part": spec.get("kind", "step"),
+                          "start_s": time.perf_counter() - start}),
+              flush=True)
+        res = kinds[spec.get("kind", "step")](spec)
         res["done_s"] = time.perf_counter() - start
         out.append(res)
         torch.cuda.empty_cache()
@@ -5667,6 +5870,8 @@ def tp_rank_once(spec):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
+    ref = (reference_on_rank0(tp_reference, spec["layers"], spec["batch"],
+                              spec["steps"]) if spec["reference"] else None)
     ncfg = neuronx_distributed_config(
         tensor_parallel_size=TP_SIZE, sequence_parallel=True,
         optimizer_config=OptimizerConfig(zero_one_enabled=True),
@@ -5679,6 +5884,8 @@ def tp_rank_once(spec):
     pm, params = trainer.initialize_parallel_model(
         ncfg, cfg, seed=spec["seed"], std=0.02, device="cuda")
     load_peak = torch.cuda.max_memory_allocated()
+    start = ({n: p.detach().cpu() for n, p in params.items()}
+             if ref is not None else None)
     tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
     step = trainer.make_train_step(pm, tx)
     counters = {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
@@ -5714,7 +5921,14 @@ def tp_rank_once(spec):
         timing = tp_local_timing(q, k, v, g)
     dist.barrier()
     coords = mesh.coords()
-    keep = spec["return_params"] and coords["dp"] == 0
+    compared = None
+    if ref is not None:
+        whole = gather_whole(pm, {n: p.detach() - start[n].to(p.device)
+                                  for n, p in params.items()})
+        compared = (update_rel_diffs("train_tp_cross_check", whole,
+                                     ref["updates"])
+                    if ref["updates"] is not None else None)
+        ref = dict(metrics=ref["metrics"], seconds=ref["seconds"])
     return dict(coords=coords, losses=losses, grad_norms=norms,
                 init_s=init_s, run_s=time.perf_counter() - t0,
                 step_ms=times, launches=launches, holds=holds,
@@ -5722,9 +5936,56 @@ def tp_rank_once(spec):
                 timing=timing, load_peak_gib=load_peak / 2 ** 30,
                 peak_gib=peak / 2 ** 30, collective_bytes=moved,
                 host_staged_bytes=staged, ppermute_ring=ring,
-                fingerprint=fingerprint_tree(params),
-                params=({n: p.detach().cpu() for n, p in params.items()}
-                        if keep else None))
+                fingerprint=fingerprint_tree(params), reference=ref,
+                update_rel_diff=compared)
+
+
+def reference_on_rank0(fn, *args):
+    """``fn(*args)`` (a tp=1 reference step on the card) on world rank 0
+    while the other ranks wait, before any rank builds its shards: its
+    metrics on every rank (broadcast), its updates on rank 0's host.
+    Keeps the reference's updates out of the files ranks return."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    out = None
+    if dist.get_rank() == 0:
+        # a world of one in this process: the layout is forgotten here (no
+        # collective), and the reference builds no groups
+        mesh.destroy_model_parallel()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        out["seconds"] = time.perf_counter() - t0
+        free_cuda()
+    box = [None if out is None else dict(metrics=out["metrics"],
+                                          seconds=out["seconds"])]
+    dist.broadcast_object_list(box, src=0)
+    res = dict(box[0], updates=None if out is None else out["updates"])
+    dist.barrier()
+    return res
+
+
+def gather_whole(pm, tensors):
+    """Each of ``tensors`` (this rank's tp shards, by parameter name) made
+    whole over its tp group (``comm.all_gather`` along its spec's tp dim);
+    returned on world rank 0's host (empty elsewhere). Every rank calls
+    it, in the same order."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.parallel import comm
+    from neuronx_distributed_tpu_torch.parallel import mesh as ps
+
+    out = {}
+    for name, t in tensors.items():
+        d = next((i for i, a in enumerate(pm.specs[name]) if a == ps.TP_AXIS),
+                 None)
+        if d is not None:
+            t = comm.all_gather(t.contiguous(), ps.TP_AXIS, d)
+        if dist.get_rank() == 0:
+            out[name] = t.cpu()
+        del t
+    return out
 
 
 def tp_ppermute_ring(comm, mesh, n=1 << 20):
@@ -5761,7 +6022,16 @@ def run_tp_world(specs):
     try:
         ranks = run_ranks(me.tp_rank, TP_WORLD, backend="gloo",
                           device="cuda:0", store_dir=workdir, args=(specs,),
-                          timeout=600, threads=2)
+                          timeout=1100, threads=2)
+    except Exception:
+        # each rank's own output: where a slow or stuck rank was
+        for r in range(TP_WORLD):
+            log = os.path.join(workdir, f"rank_{r}.log")
+            if os.path.exists(log):
+                with open(log, errors="replace") as f:
+                    print(f"rank {r}'s output:\n{f.read()[-3000:]}",
+                          file=sys.stderr, flush=True)
+        raise
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return [[r[i] for r in ranks] for i in range(len(specs))]
@@ -5830,28 +6100,56 @@ def tp_summary(outs):
 
 def phase_train_tp(smi, steps=3, seq=4096, layers=2, cross_layers=2,
                    cross_seq=256, cross_steps=2):
-    """Phases 52 and 53 in one world of ranks (one start of the processes):
-    the tp=1 reference step of ``train_tp_cross_check`` first, in this
-    process, then the ranks run ``train_tp`` and the cross check's path in
-    turn. Returns ``train_tp``'s launches summed over the ranks."""
+    """Phases 52-57 in one world of ranks (one start of the processes),
+    each part at its own layout of the same four ranks: ``train_tp``, its
+    cross check's path (the tp=1 reference on rank 0 first),
+    ``train_tp_loop`` and its cross check's paths around one tag
+    (:func:`tp_loop_rank`), ``train_mixtral_tp`` and its cross check's
+    path (the tp=1 reference on rank 0 first), in turn; the tag's
+    directory under ``build/`` is removed at the end. Each cross check's
+    comparison runs on rank 0, so the ranks return no weights. Returns
+    each path's launches summed over the ranks."""
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
 
     free_cuda()
     t0 = time.perf_counter()
-    ref = tp_reference(cross_layers, cross_seq, cross_steps)
-    t_ref = time.perf_counter() - t0
-    main, cross = run_tp_world([
-        dict(compute="bfloat16", layers=layers, seed=0, steps=steps,
-             return_params=False, time_kernels=True,
-             batch=tp_batch(LLAMA3_8B.vocab_size, seq,
-                            TP_WORLD // TP_SIZE, 0)),
-        dict(compute="float32", layers=cross_layers, seed=1,
-             steps=cross_steps, return_params=True, time_kernels=False,
-             batch=ref["batch"])])
-    wall = time.perf_counter() - t0
-    launches = check_train_tp(smi, main, steps, seq, layers)
-    check_train_tp_cross(smi, cross, ref, cross_layers, cross_seq,
-                         cross_steps, t_ref, wall)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_", dir=build)
+    vocab = LLAMA3_8B.vocab_size
+    rows = TP_WORLD // TP_SIZE
+    cross_batches = tp_batches(vocab, cross_seq, rows, 4, 20)
+    path = os.path.join(workdir, "tag")
+    try:
+        main, cross, loop, moe, moe_cross = run_tp_world([
+            dict(compute="bfloat16", layers=layers, seed=0, steps=steps,
+                 reference=False, time_kernels=True,
+                 batch=tp_batch(vocab, seq, rows, 0)),
+            dict(compute="float32", layers=cross_layers, seed=1,
+                 steps=cross_steps, reference=True, time_kernels=False,
+                 batch=tp_batch(vocab, cross_seq, rows, 1)),
+            dict(kind="loop", layers=1, dir=path,
+                 cross_batches=cross_batches,
+                 batches=tp_batches(vocab, seq, rows, 2, 10)),
+            dict(kind="mixtral", layers=layers, steps=steps,
+                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 1, 30)),
+            dict(kind="mixtral_cross", layers=1, steps=cross_steps,
+                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, cross_seq, 1, 3))])
+        wall = time.perf_counter() - t0
+        launches = {"train_tp": check_train_tp(smi, main, steps, seq,
+                                               layers)}
+        check_train_tp_cross(smi, cross, cross_layers, cross_seq,
+                             cross_steps, wall)
+        launches["train_tp_loop"] = check_train_tp_loop(smi, loop, seq, 1)
+        check_train_tp_loop_cross(smi, loop, path, cross_batches, 1,
+                                  cross_seq)
+        launches["train_mixtral_tp"] = check_train_mixtral_tp(
+            smi, moe, steps, seq, layers)
+        check_train_mixtral_tp_cross(smi, moe_cross, 1, cross_seq,
+                                     cross_steps)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     return launches
 
 
@@ -5878,11 +6176,11 @@ def check_train_tp(smi, outs, steps, seq, layers):
     return launches
 
 
-def tp_reference(layers, seq, steps):
-    """The port's tp=1 step on the card in this process: full width,
-    ``layers`` layers, fp32, the weights made on the card from seed 1, a
-    global batch of 2 rows of ``seq``; each step's loss and grad norm, the
-    weights and each parameter's update, on the host."""
+def tp_reference(layers, batch, steps):
+    """The port's tp=1 step on the card: full width, ``layers`` layers,
+    fp32, the weights made on the card from seed 1, ``steps`` steps on the
+    global ``batch``; each step's loss and grad norm, and each parameter's
+    update on the host."""
     from neuronx_distributed_tpu_torch import trainer
     from neuronx_distributed_tpu_torch.config import (
         neuronx_distributed_config)
@@ -5891,34 +6189,31 @@ def tp_reference(layers, seq, steps):
     cfg = dataclasses.replace(llama.LLAMA3_8B, num_layers=layers,
                               dtype=torch.float32, param_dtype=torch.float32,
                               use_flash_attention=True)
-    batch = tp_batch(cfg.vocab_size, seq, TP_WORLD // TP_SIZE, 1)
-    sd = llama.init_state_dict(cfg, seed=1, std=0.02, device="cuda")
     pm, params = trainer.initialize_parallel_model(
-        neuronx_distributed_config(), cfg, state_dict=sd, device="cuda")
-    start = {n: t.cpu() for n, t in sd.items()}
-    del sd
+        neuronx_distributed_config(init_mesh=False), cfg, seed=1, std=0.02,
+        device="cuda")
+    start = {n: t.detach().cpu() for n, t in params.items()}
     tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
     step = trainer.make_train_step(pm, tx)
     metrics = [step(state, batch)[1] for _ in range(steps)]
     metrics = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
     upd = {n: p.detach().cpu() - start[n] for n, p in params.items()}
-    del pm, params, tx, state, step
+    del pm, params, tx, state, step, start
     free_cuda()
-    return dict(cfg=cfg, batch=batch, metrics=metrics, start=start,
-                updates=upd)
+    return dict(metrics=metrics, updates=upd)
 
 
-def check_train_tp_cross(smi, outs, ref, layers, seq, steps, t_ref, wall):
+def check_train_tp_cross(smi, outs, layers, seq, steps, wall):
     """``train_tp_cross_check``: full width, 2 layers, S=256, fp32: the
     world-4 path (tp=2 x dp=2, sequence parallel, ZeRO-1) against the
-    port's tp=1 step on the card (:func:`tp_reference`), from the same
-    weights (both made on the card from seed 1) and the same global batch
-    of 2, for 2 steps: each loss within 1e-4 relative, each grad norm
-    within 1e-3, each parameter's update (the tp shards gathered) within
-    1e-3 of its norm."""
-    from neuronx_distributed_tpu_torch.models import convert
-
+    port's tp=1 step on the card (:func:`tp_reference`, run on rank 0
+    before the ranks build their shards), from the same weights (both made
+    on the card from seed 1) and the same global batch of 2, for 2 steps:
+    each loss within 1e-4 relative, each grad norm within 1e-3, each
+    parameter's update (the tp shards gathered on rank 0) within 1e-3 of
+    its norm."""
     check_tp_ranks("train_tp_cross_check", outs, steps, layers)
+    ref = outs[0]["reference"]
     for i, ((lc, nc), lw, nw) in enumerate(zip(ref["metrics"],
                                                outs[0]["losses"],
                                                outs[0]["grad_norms"])):
@@ -5928,25 +6223,660 @@ def check_train_tp_cross(smi, outs, ref, layers, seq, steps, t_ref, wall):
         if not abs(nw - nc) <= 1e-3 * abs(nc):
             raise AssertionError(f"train_tp_cross_check: step {i + 1} grad "
                                  f"norm {nw} vs tp=1 {nc}")
-    first = sorted((o for o in outs if o["params"] is not None),
-                   key=lambda o: o["coords"]["tp"])
-    got = convert.gather_state_dict(
-        dataclasses.replace(ref["cfg"], tp_size=TP_SIZE),
-        [o["params"] for o in first])
-    worst, worst_name = 0.0, None
-    for name, upd in ref["updates"].items():
-        rel = ((got[name] - ref["start"][name] - upd).norm()
-               / upd.norm()).item()
-        if rel > worst:
-            worst, worst_name = rel, name
-        if not rel <= 1e-3:
-            raise AssertionError(f"train_tp_cross_check: {name}'s update "
-                                 f"differs by {rel} of its norm, above 1e-3")
+    worst, worst_name = outs[0]["update_rel_diff"]
     emit("train_tp_cross_check", card=smi, layers=layers, seq=seq,
          steps=steps, loss_tp1=[m[0] for m in ref["metrics"]],
          grad_norm_tp1=[m[1] for m in ref["metrics"]],
          max_update_rel_diff=worst, max_update_rel_diff_param=worst_name,
-         tp1_s=t_ref, wall_s_both_phases=wall, **tp_summary(outs))
+         tp1_s=ref["seconds"], wall_s_world=wall, **tp_summary(outs))
+
+
+# ---------------------------------------------------------------------------
+# phases 54-57: the Trainer loop, sharded checkpoints and Mixtral across
+# ranks, in the same start of the four processes
+# ---------------------------------------------------------------------------
+
+def tp_parts(model_cfg, tp, compute, seed, zero1=True, **step_kw):
+    """``(cfg, pm, state, step)`` of the public path at ``tp`` over the
+    four ranks with sequence parallelism (ZeRO-1 when ``zero1``), the whole
+    weights made from ``seed`` on the card a tensor at a time, AdamW lr
+    1e-4; ``step_kw`` go to ``make_train_step``."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        MixedPrecisionConfig, OptimizerConfig, configure_model,
+        neuronx_distributed_config)
+
+    ncfg = neuronx_distributed_config(
+        tensor_parallel_size=tp, sequence_parallel=True,
+        optimizer_config=OptimizerConfig(zero_one_enabled=zero1),
+        mixed_precision_config=MixedPrecisionConfig(compute_dtype=compute))
+    cfg = configure_model(ncfg, model_cfg)
+    pm, params = trainer.initialize_parallel_model(ncfg, cfg, seed=seed,
+                                                   std=0.02, device="cuda")
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    return cfg, pm, state, trainer.make_train_step(pm, tx, **step_kw)
+
+
+def tp_batches(vocab, seq, rows, n, seed):
+    """``n`` global batches (:func:`tp_batch`) from seeds ``seed, seed +
+    1, ...``."""
+    return [tp_batch(vocab, seq, rows, seed + i) for i in range(n)]
+
+
+def flash_counters():
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    return {name: getattr(fa, name) for name, _ in FLASH_KERNELS}
+
+
+def tag_bytes(path, tag):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(os.path.join(path, str(tag)))
+               for f in fs)
+
+
+class LiveFingerprints(StepFingerprints):
+    """Each step's loss and the whole parameters' fingerprint after it
+    (``step.fingerprint``, from the shards), keyed by step."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses = {}
+
+    def on_step_end(self, trainer, metrics):
+        self.losses[trainer.host_step] = metrics["loss"].item()
+        self.fps[trainer.host_step] = trainer.step_fn.fingerprint(
+            trainer.state.params).cpu()
+
+
+class RewindProbe:
+    """A ``Trainer`` callback after the integrity monitor: the step a
+    rewind went back to and the whole parameters' fingerprint there."""
+
+    def __init__(self, watchdog):
+        self.watchdog, self.seen, self.at, self.fp = watchdog, 0, None, None
+
+    def on_train_start(self, trainer):
+        pass
+
+    def on_step_end(self, trainer, metrics):
+        if self.watchdog.anomalies > self.seen:
+            self.seen = self.watchdog.anomalies
+            self.at = trainer.host_step
+            self.fp = trainer.step_fn.fingerprint(trainer.state.params).cpu()
+
+    def on_eval_end(self, trainer, metrics):
+        pass
+
+    def on_train_end(self, trainer):
+        pass
+
+
+def loop_cfg(layers):
+    """Llama-3-8B's widths at ``layers`` layers with the tied head (the
+    checkpoint's size, see :func:`tp_loop_rank`), fp32 parameters."""
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+
+    return dataclasses.replace(LLAMA3_8B, num_layers=layers,
+                               use_flash_attention=True, tie_embeddings=True,
+                               param_dtype=torch.float32)
+
+
+def tp_loop_rank(spec):
+    """Phases 54 and 55 on one rank, around one sharded tag (the card's
+    machine caps what a run writes to its disk at 45 GiB, and a tag of
+    Llama-3-8B's widths holds 12 bytes a parameter; so both phases share
+    it, at 1 layer with the tied head: 743 M parameters, 8.9 GB a tag).
+
+    ``train_tp_loop_cross_check``, A: ``Trainer.fit`` of 4 fp32 steps at
+    S=256 (global batch 2) at tp=2 x dp=2 with sequence parallelism and
+    ZeRO-1, an async sharded save at step 2 into ``spec["dir"]`` (timed:
+    the loop's block, the commit, the bytes); B: the same model resumes
+    from the tag through ``Trainer(resume_path=...)`` and trains steps 3-4
+    again, bit for bit A's. ``train_tp_loop``: a bf16-compute model over
+    fp32 parameters with attention dropout 0.1 (a generator seeded alike
+    on every rank) and ``integrity_every=2`` resumes from the tag and
+    trains steps 3-4 at S=4096; an ``IntegrityMonitor`` whose chaos plan
+    flips a bit of data rank 1, tp rank 0's largest shard at the step-4
+    boundary sees it on every rank, and its ``Watchdog(policy="rewind")``
+    restores the tag on every rank, whose fingerprint must be A's step 2.
+    Then ``train_tp_loop_cross_check``, C: a model at tp=4 x dp=1 without
+    ZeRO-1 resumes from the tag, trains steps 3-4 in fp32, and its update
+    over them is held to A's on rank 0 (both gathered whole there)."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.resilience.chaos import FaultPlan
+    from neuronx_distributed_tpu_torch.resilience.integrity import (
+        IntegrityMonitor)
+    from neuronx_distributed_tpu_torch.resilience.watchdog import Watchdog
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    path, layers = spec["dir"], spec["layers"]
+    fp32 = dataclasses.replace(loop_cfg(layers), dtype=torch.float32)
+    cross = spec["cross_batches"]
+    # A: four fp32 steps, the tag at step 2
+    _, pm, state, step = tp_parts(fp32, TP_SIZE, "float32", seed=1)
+    coords = mesh.coords()
+    a, snap = LiveFingerprints(), {}
+    saver = timed_checkpoint(path, every=2, num_kept=1)
+
+    class Snap:
+        def on_train_start(self, trainer):
+            pass
+
+        def on_step_end(self, trainer, metrics):
+            if trainer.host_step == 2:
+                snap.update({n: p.detach().cpu() for n, p in
+                             trainer.state.params.items()})
+
+        def on_eval_end(self, trainer, metrics):
+            pass
+
+        def on_train_end(self, trainer):
+            pass
+
+    class OnlyStep2:
+        """The timed saver, saving at step 2 only."""
+
+        def __getattr__(self, name):
+            return getattr(saver, name)
+
+        def on_step_end(self, trainer, metrics):
+            if trainer.host_step == 2:
+                saver.on_step_end(trainer, metrics)
+
+        def on_train_end(self, trainer):
+            from neuronx_distributed_tpu_torch.trainer import checkpoint
+
+            checkpoint.finalize_checkpoint()
+
+    Trainer(step, state, callbacks=[a, Snap(), OnlyStep2()]).fit(
+        iter(cross), max_steps=4)
+    for waiter in saver.waiters:
+        waiter.join(timeout=600)
+    upd_a = gather_whole(pm, {n: p.detach() - snap[n].to(p.device)
+                              for n, p in state.params.items()})
+    del snap
+    a_s = time.perf_counter() - t0
+    print(json.dumps({"loop_part": "A", "s": a_s}), flush=True)
+    # B: the same layout, resumed from the tag
+    b = LiveFingerprints()
+    trainer = Trainer(step, state, callbacks=[b], resume_path=path)
+    b_start = trainer.host_step
+    trainer.fit(iter(cross[2:]), max_steps=4)
+    del pm, state, step, trainer
+    free_cuda()
+    print(json.dumps({"loop_part": "B", "s": time.perf_counter() - t0}),
+          flush=True)
+    # the loop: bf16 over fp32, dropout, integrity, the drill
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, pm, state, step = tp_parts(
+        dataclasses.replace(loop_cfg(layers), attention_dropout=0.1),
+        TP_SIZE, "bfloat16", seed=2,
+        dropout_generator=torch.Generator().manual_seed(7),
+        integrity_every=2)
+    watchdog = Watchdog(policy="rewind", checkpoint_path=path)
+    flipper = coords["dp"] == 1 and coords["tp"] == 0
+    monitor = IntegrityMonitor(every=2, watchdog=watchdog, chaos=(
+        FaultPlan.parse("seed=5; integrity|params : bitflip, times=1")
+        if flipper else None))
+    probe, clock = RewindProbe(watchdog), StepClock()
+    counters = flash_counters()
+    torch.cuda.synchronize()
+    dist.barrier()
+    for c in counters.values():
+        c.launches = 0
+    with Capture(fa, "flash_fwd_cuda") as k2, \
+            Capture(fa, "flash_bwd_dq_cuda") as k3, \
+            Capture(fa, "flash_bwd_dkv_cuda") as k4:
+        trainer = Trainer(step, state, callbacks=[clock, monitor, probe],
+                          resume_path=path)
+        loop_start = trainer.host_step
+        trainer.fit(iter(spec["batches"]), max_steps=4)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    holds, (q, k, v), g = tp_holds(k2, k3, k4)
+    drop = tuple(k2.calls[0][0][4:8])
+    del k2, k3, k4
+    loop_s = time.perf_counter() - t1
+    timing = None
+    dist.barrier()
+    if dist.get_rank() == 0:
+        timing = tp_local_timing(q, k, v, g, drop)
+    dist.barrier()
+    loop = dict(losses=clock.losses, step_ms=clock.ms, launches=launches,
+                holds=holds, timing=timing,
+                dropout=dict(p=drop[1], offsets=list(drop[3])),
+                local_shape=dict(zip("bsnd", q.shape), kv=k.shape[2]),
+                peak_gib=peak / 2 ** 30, start=loop_start,
+                host_step=trainer.host_step, flips=monitor.flips_injected,
+                mismatches=monitor.mismatches, checks=monitor.checks,
+                rewinds=watchdog.anomalies, rewound_to=probe.at,
+                divergent_replicas=monitor.divergent_replicas,
+                rewound_is_step_2s=bool(probe.fp is not None and torch.equal(
+                    probe.fp, a.fps[2])), seconds=loop_s)
+    del pm, state, step, trainer, q, k, v, g
+    free_cuda()
+    print(json.dumps({"loop_part": "loop", "s": time.perf_counter() - t0}),
+          flush=True)
+    # C: tp=4 x dp=1, resumed from the tag
+    t2 = time.perf_counter()
+    _, pm, state, step = tp_parts(fp32, 4, "float32", seed=3, zero1=False)
+    c = LiveFingerprints()
+    trainer = Trainer(step, state, callbacks=[c], resume_path=path)
+    c_start = trainer.host_step
+    at2 = {n: p.detach().cpu() for n, p in state.params.items()}
+    trainer.fit(iter(cross[2:]), max_steps=4)
+    upd_c = gather_whole(pm, {n: p.detach() - at2[n].to(p.device)
+                              for n, p in state.params.items()})
+    compared = (update_rel_diffs("train_tp_loop_cross_check", upd_c, upd_a)
+                if dist.get_rank() == 0 else None)
+    del pm, state, step, trainer, at2, upd_a, upd_c
+    free_cuda()
+    tags = sorted(t for t in os.listdir(path) if t.isdigit())
+    return dict(coords=coords, loop=loop, a_losses=a.losses,
+                a_fps=a.fps, b_losses=b.losses, b_fps=b.fps,
+                c_losses=c.losses, b_start=b_start, c_start=c_start,
+                tags=tags, update_rel_diff=compared,
+                save_block_s=saver.block_s, commit_s=saver.commit_s,
+                tag_bytes=tag_bytes(path, "2"), a_s=a_s,
+                c_s=time.perf_counter() - t2)
+
+
+def mixtral_tp_rank(spec):
+    """``train_mixtral_tp`` on one rank: Mixtral 8x7B's widths at 2
+    layers, tp=4 x dp=1 with sequence parallelism, blockwise dispatch
+    (block 64), bf16 compute over fp32 parameters, the experts at I/tp =
+    3584, S=4096, ``spec["steps"]`` steps on one batch. K2-K5, K7 and K8
+    counted from 0 over the steps; the first launch of each held to its
+    plain version on the path's inputs; rank 0 times K5, K7 and K8 there
+    (kernel, plain version, bound, cuBLAS per expert) while the others
+    wait."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, pm, state, step = tp_parts(
+        dataclasses.replace(MIXTRAL_8X7B, num_layers=spec["layers"],
+                            use_flash_attention=True,
+                            param_dtype=torch.float32,
+                            moe_dispatch="blockwise", moe_block_size=64),
+        4, "bfloat16", seed=0, zero1=False)
+    load_peak = torch.cuda.max_memory_allocated()
+    counters = dict(flash_counters(), grouped_glu=tbm.grouped_glu,
+                    grouped_glu_dx=tbm.grouped_glu_dx,
+                    grouped_glu_dw=tbm.grouped_glu_dw)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, times = [], [], []
+    with Capture(fa, "flash_fwd_cuda") as k2, \
+            Capture(fa, "flash_bwd_dq_cuda") as k3, \
+            Capture(fa, "flash_bwd_dkv_cuda") as k4, \
+            Capture(tbm, "grouped_glu_cuda", by_ref=(1, 2)) as k5, \
+            Capture(tbm, "grouped_glu_bwd_cuda", by_ref=(1, 2)) as k78:
+        for _ in range(spec["steps"]):
+            t_step = time.perf_counter()
+            m = step(state, spec["batch"])[1]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # the plain versions at these widths need the room the training state
+    # held: the state goes, and the ranks hold their launches one at a
+    # time (four share the card)
+    del pm, state, step, m
+    free_cuda()
+    (xs, gu, dn, be, dy, bs, bi), _, got = k78.calls[0]
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            holds, _, _ = tp_holds(k2, k3, k4)
+            holds["grouped_glu"] = hold_glu(
+                k5.calls[0], tbm.grouped_glu_plain)["max_rel_err"]
+            ref = tbm.grouped_glu_bwd_plain(xs.float(), gu.float(),
+                                            dn.float(), be, dy.float(), bs,
+                                            bi)
+            for name, a, want in (("grouped_glu_dx", got[0], ref[0]),
+                                  ("grouped_glu_dw", got[1], ref[1]),
+                                  ("grouped_glu_dw.down", got[2], ref[2])):
+                holds[name] = flash_rel_err(a, want.to(a.dtype))
+            del ref
+            free_cuda()
+        dist.barrier()
+    fwd_args = k5.calls[0][0]
+    del k2, k3, k4, k5, k78
+    run_s = time.perf_counter() - t0
+    timing = None
+    dist.barrier()
+    if dist.get_rank() == 0:
+        timing = moe_tp_local_timing(fwd_args, (xs, gu, dn, be, dy, bs, bi))
+    dist.barrier()
+    return dict(coords=mesh.coords(), losses=losses, grad_norms=norms,
+                step_ms=times, launches=launches, holds=holds,
+                timing=timing, init_s=init_s, run_s=run_s,
+                load_peak_gib=load_peak / 2 ** 30, peak_gib=peak / 2 ** 30,
+                local_shape=dict(rows=xs.shape[0], h=xs.shape[1],
+                                 experts=gu.shape[0], i_local=gu.shape[-1],
+                                 block=bs))
+
+
+def moe_tp_local_timing(fwd_args, bwd_args):
+    """K5, K7 and K8 at a rank's local width on the path's inputs, each
+    against its plain version, its bound and cuBLAS expert by expert."""
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    xs, gu, dn, be, bs, bi = fwd_args
+    _, _, _, _, dy, _, _ = bwd_args
+    timing = {}
+    for name, cuda, plain, args, lib in (
+            ("grouped_glu", tbm.grouped_glu_cuda, tbm.grouped_glu_plain,
+             fwd_args, moe_library(xs, gu, dn, be, bs)),
+            ("grouped_glu_dx", tbm.grouped_glu_dx_cuda,
+             tbm.grouped_glu_dx_plain, bwd_args,
+             moe_bwd_library(xs, gu, dn, be, bs, dy, "grouped_glu_dx")),
+            ("grouped_glu_dw", tbm.grouped_glu_dw_cuda,
+             tbm.grouped_glu_dw_plain, bwd_args,
+             moe_bwd_library(xs, gu, dn, be, bs, dy, "grouped_glu_dw"))):
+        timing[name] = dict(
+            kernel_ms=time_ms(lambda: cuda(*args), flush=flush),
+            plain_ms=time_ms(lambda: plain(*args), reps=3, warmup=1),
+            library_ms=time_ms(lib, flush=flush),
+            **moe_bound(xs, gu, dn, be, bs, kind=name))
+    return timing
+
+
+def mixtral_tp_cross_rank(spec):
+    """``train_mixtral_tp_cross_check`` on one rank: first the port's tp=1
+    Mixtral step on the card on rank 0 (:func:`mixtral_tp_reference`)
+    while the others wait; then Mixtral 8x7B's full width at
+    ``spec["layers"]`` layers, fp32, blockwise (block 64), tp=4 x dp=1
+    with sequence parallelism, the weights made on the card from seed 1,
+    ``spec["steps"]`` steps on the global batch; each step's loss and
+    grad norm, and on rank 0 each parameter's update (gathered whole)
+    against the reference's."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ref = reference_on_rank0(mixtral_tp_reference, spec["layers"],
+                             spec["batch"], spec["steps"])
+    _, pm, state, step = tp_parts(
+        dataclasses.replace(MIXTRAL_8X7B, num_layers=spec["layers"],
+                            use_flash_attention=True, dtype=torch.float32,
+                            param_dtype=torch.float32,
+                            moe_dispatch="blockwise", moe_block_size=64),
+        4, "float32", seed=1, zero1=False)
+    start = {n: p.detach().cpu() for n, p in state.params.items()}
+    metrics = [step(state, spec["batch"])[1] for _ in range(spec["steps"])]
+    metrics = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    whole = gather_whole(pm, {n: p.detach() - start[n].to(p.device)
+                              for n, p in state.params.items()})
+    compared = (update_rel_diffs("train_mixtral_tp_cross_check", whole,
+                                 ref["updates"])
+                if dist.get_rank() == 0 else None)
+    del pm, state, step, start, whole, ref["updates"]
+    free_cuda()
+    return dict(coords=mesh.coords(), metrics=metrics,
+                reference=ref["metrics"], tp1_s=ref["seconds"],
+                update_rel_diff=compared, run_s=time.perf_counter() - t0)
+
+
+def mixtral_tp_reference(layers, batch, steps):
+    """The port's tp=1 Mixtral step on the card: full width, ``layers``
+    layers, fp32, blockwise (block 64), the weights made on the card from
+    seed 1, ``steps`` steps on ``batch``; each step's loss and grad norm
+    and each parameter's update on the host."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.MIXTRAL_8X7B, num_layers=layers,
+                              dtype=torch.float32, param_dtype=torch.float32,
+                              use_flash_attention=True,
+                              moe_dispatch="blockwise", moe_block_size=64)
+    pm, params = trainer.initialize_parallel_model(
+        neuronx_distributed_config(init_mesh=False), cfg, seed=1, std=0.02,
+        device="cuda")
+    start = {n: p.detach().cpu() for n, p in params.items()}
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    step = trainer.make_train_step(pm, tx)
+    metrics = [step(state, batch)[1] for _ in range(steps)]
+    metrics = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    upd = {n: p.detach().cpu() - start[n] for n, p in params.items()}
+    del pm, params, tx, state, step, start
+    free_cuda()
+    return dict(metrics=metrics, updates=upd)
+
+
+def update_rel_diffs(phase, got, want):
+    """Each parameter's ``|got - want| / |want|`` (updates, whole), raising
+    above 1e-3; the worst and its name."""
+    worst, worst_name = 0.0, None
+    for name, upd in want.items():
+        rel = ((got[name] - upd).norm() / upd.norm()).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not rel <= 1e-3:
+            raise AssertionError(f"{phase}: {name}'s update differs by {rel} "
+                                 "of its norm, above 1e-3")
+    return worst, worst_name
+
+
+def check_train_tp_loop(smi, outs, seq, layers):
+    """``train_tp_loop``: every rank resumed at step 2 and trained steps
+    3-4 with losses finite and equal to rank 0's; K2-K4 launched layers x
+    2 times with dropout at the rank's offsets, their first launches held
+    to their plain versions within 2e-2; the flip seen on data rank 1, tp
+    rank 0 alone, the mismatch and the rewind on every rank at the step-4
+    boundary (checks 1, mismatches 1, rewinds 1, back at step 2), the
+    rewound parameters' fingerprint the tag's (A's step 2), one tag on
+    disk."""
+    for r, out in enumerate(outs):
+        o = out["loop"]
+        if not (np.isfinite(o["losses"]).all() and np.allclose(
+                o["losses"], outs[0]["loop"]["losses"], rtol=1e-6, atol=0)):
+            raise AssertionError(f"train_tp_loop: rank {r} losses "
+                                 f"{o['losses']}")
+        for name, n in o["launches"].items():
+            if n != layers * 2:
+                raise AssertionError(f"train_tp_loop: rank {r} launched "
+                                     f"{name} {n} times, want {layers * 2}")
+        for name, err in o["holds"].items():
+            if not err <= 2e-2:
+                raise AssertionError(f"train_tp_loop: rank {r} {name} "
+                                     f"differs from plain by {err}")
+        c = out["coords"]
+        flipper = c["dp"] == 1 and c["tp"] == 0
+        got = (o["start"], o["flips"], o["mismatches"], o["checks"],
+               o["rewinds"], o["rewound_to"], o["rewound_is_step_2s"])
+        if got != (2, int(flipper), 1, 1, 1, 2, True):
+            raise AssertionError(f"train_tp_loop: rank {r} start, flips, "
+                                 f"mismatches, checks, rewinds, rewound "
+                                 f"to, rewound = step 2: {got}")
+        if o["dropout"]["p"] != 0.1 or o["dropout"]["offsets"] != [
+                c["dp"], 32, 16 * c["tp"]]:
+            raise AssertionError(f"train_tp_loop: rank {r} dropout "
+                                 f"{o['dropout']}")
+        if out["tags"] != ["2"]:
+            raise AssertionError(f"train_tp_loop: tags {out['tags']}")
+    loops = [o["loop"] for o in outs]
+    launches = {name: sum(o["launches"][name] for o in loops)
+                for name, _ in FLASH_KERNELS}
+    emit("train_tp_loop", card=smi, layers=layers, tie_embeddings=True,
+         seq=seq, steps=[3, 4], resumed_from_tag=2, world=TP_WORLD,
+         tp=TP_SIZE, dp=TP_WORLD // TP_SIZE, compute_dtype="bfloat16",
+         attention_dropout=0.1, integrity_every=2,
+         losses=loops[0]["losses"],
+         step_ms_by_rank=[o["step_ms"] for o in loops],
+         peak_gib_by_rank=[o["peak_gib"] for o in loops],
+         launches_by_rank=[o["launches"] for o in loops],
+         held_err_by_rank=[o["holds"] for o in loops],
+         dropout_offsets_by_rank=[o["dropout"]["offsets"] for o in loops],
+         local_shape=loops[0]["local_shape"],
+         timing_local_shape_dropout=loops[0]["timing"],
+         save_block_s_by_rank=[o["save_block_s"] for o in outs],
+         commit_s=outs[0]["commit_s"], tag_bytes=outs[0]["tag_bytes"],
+         bitflip_rank=next(r for r, o in enumerate(loops) if o["flips"]),
+         bitflip_detected_at=4, rewound_to_tag=2,
+         divergent_replicas=loops[0]["divergent_replicas"],
+         loop_s_by_rank=[o["seconds"] for o in loops],
+         rank_done_s=[o["done_s"] for o in outs])
+    TP_RESULTS["train_tp_loop"] = dict(launches=launches, outs=loops)
+    return launches
+
+
+def check_train_tp_loop_cross(smi, outs, path, batches, layers, seq):
+    """``train_tp_loop_cross_check``: B (the same layout, resumed from tag
+    2) equals A's steps 3-4 bit for bit, losses and every leaf's
+    fingerprint; C (tp=4 x dp=1) holds A's losses within 1e-5 and each
+    parameter's update over steps 3-4 within 1e-3 of its norm (checked on
+    rank 0); then ``reshard_checkpoint`` merges tag 2 on the card and the
+    port's tp=1 step, resumed from the merged tag, gives step 3's loss
+    within 1e-4."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.scripts import reshard_checkpoint
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+
+    ref = outs[0]
+    for r, o in enumerate(outs):
+        if o["b_start"] != 2 or o["c_start"] != 2:
+            raise AssertionError(f"train_tp_loop_cross_check: rank {r} "
+                                 f"resumed at {o['b_start']}, "
+                                 f"{o['c_start']}")
+        for s in (3, 4):
+            if o["b_losses"][s] != o["a_losses"][s] or not torch.equal(
+                    o["b_fps"][s], o["a_fps"][s]):
+                raise AssertionError(f"train_tp_loop_cross_check: rank {r} "
+                                     f"step {s} resumed at the same layout "
+                                     "is not bit for bit")
+            if not abs(o["c_losses"][s] - ref["a_losses"][s]) <= 1e-5 * abs(
+                    ref["a_losses"][s]):
+                raise AssertionError(f"train_tp_loop_cross_check: step {s} "
+                                     f"at tp=4 {o['c_losses'][s]} vs "
+                                     f"{ref['a_losses'][s]}")
+    worst, worst_name = ref["update_rel_diff"]
+    t0 = time.perf_counter()
+    merged = path + "_merged"
+    reshard_checkpoint.main(["--input", path, "--tag", "2", "--output",
+                             merged])
+    reshard_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(loop_cfg(layers), dtype=torch.float32)
+    pm, params = trainer.initialize_parallel_model(
+        neuronx_distributed_config(), cfg, seed=3, std=0.02, device="cuda")
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    clock = StepClock()
+    one = Trainer(trainer.make_train_step(pm, tx), state, callbacks=[clock],
+                  resume_path=merged)
+    start = one.host_step
+    one.fit(iter(batches[2:3]), max_steps=3)
+    del pm, params, tx, state, one
+    free_cuda()
+    shutil.rmtree(merged, ignore_errors=True)
+    tp1 = clock.losses[0]
+    if start != 2 or not abs(tp1 - ref["a_losses"][3]) <= 1e-4 * abs(
+            ref["a_losses"][3]):
+        raise AssertionError(f"train_tp_loop_cross_check: the tp=1 step "
+                             f"from the merged tag (at {start}) gave "
+                             f"{tp1}, want {ref['a_losses'][3]}")
+    emit("train_tp_loop_cross_check", card=smi, layers=layers,
+         tie_embeddings=True, seq=seq,
+         losses=[ref["a_losses"][s] for s in (1, 2, 3, 4)],
+         resumed_same_layout_bitwise=True,
+         losses_tp4=[ref["c_losses"][s] for s in (3, 4)],
+         max_update_rel_diff_tp4=worst,
+         max_update_rel_diff_param_tp4=worst_name,
+         loss_tp1_from_merged=tp1, reshard_s=reshard_s,
+         part_s_by_rank=[dict(a=o["a_s"], c=o["c_s"]) for o in outs],
+         rank_done_s=[o["done_s"] for o in outs])
+
+
+def check_train_mixtral_tp(smi, outs, steps, seq, layers):
+    """``train_mixtral_tp``: every rank's losses finite and equal, K2-K5,
+    K7 and K8 each launched layers x steps times, the first launch of
+    each held to its plain version within 2e-2 (K2-K4) and 1e-2 (K5, K7,
+    K8, bf16)."""
+    for r, o in enumerate(outs):
+        for key in ("losses", "grad_norms"):
+            if not (np.isfinite(o[key]).all()
+                    and np.allclose(o[key], outs[0][key], rtol=1e-6,
+                                    atol=0)):
+                raise AssertionError(f"train_mixtral_tp: rank {r} {key} "
+                                     f"{o[key]} vs {outs[0][key]}")
+        for name, n in o["launches"].items():
+            if n != layers * steps:
+                raise AssertionError(f"train_mixtral_tp: rank {r} launched "
+                                     f"{name} {n} times, want "
+                                     f"{layers * steps}")
+        for name, err in o["holds"].items():
+            tol = 1e-2 if name.startswith("grouped") else 2e-2
+            if not err <= tol:
+                raise AssertionError(f"train_mixtral_tp: rank {r} {name} "
+                                     f"differs from plain by {err}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    emit("train_mixtral_tp", card=smi, layers=layers, seq=seq, steps=steps,
+         world=TP_WORLD, tp=TP_WORLD, dp=1, compute_dtype="bfloat16",
+         moe_dispatch="blockwise", moe_block_size=64,
+         losses=outs[0]["losses"], grad_norms=outs[0]["grad_norms"],
+         step_ms_by_rank=[o["step_ms"] for o in outs],
+         peak_gib_by_rank=[o["peak_gib"] for o in outs],
+         load_peak_gib_by_rank=[o["load_peak_gib"] for o in outs],
+         launches_by_rank=[o["launches"] for o in outs],
+         held_err_by_rank=[o["holds"] for o in outs],
+         local_shape=outs[0]["local_shape"],
+         timing_local_shape=outs[0]["timing"],
+         rank_init_s=[o["init_s"] for o in outs],
+         rank_run_s=[o["run_s"] for o in outs],
+         rank_done_s=[o["done_s"] for o in outs])
+    TP_RESULTS["train_mixtral_tp"] = dict(launches=launches, outs=outs)
+    return launches
+
+
+def check_train_mixtral_tp_cross(smi, outs, layers, seq, steps):
+    """``train_mixtral_tp_cross_check``: the tp=4 Mixtral step against the
+    port's tp=1 Mixtral step on the card (run on rank 0 first) under
+    ``train_tp_cross_check``'s limits: losses 1e-4 relative, grad norms
+    1e-3, each parameter's update within 1e-3 of its norm (on rank 0)."""
+    for r, o in enumerate(outs):
+        for i, ((lw, nw), (lc, nc)) in enumerate(zip(o["metrics"],
+                                                     o["reference"])):
+            if not abs(lw - lc) <= 1e-4 * abs(lc):
+                raise AssertionError(f"train_mixtral_tp_cross_check: rank "
+                                     f"{r} step {i + 1} loss {lw} vs {lc}")
+            if not abs(nw - nc) <= 1e-3 * abs(nc):
+                raise AssertionError(f"train_mixtral_tp_cross_check: rank "
+                                     f"{r} step {i + 1} norm {nw} vs {nc}")
+    worst, worst_name = outs[0]["update_rel_diff"]
+    emit("train_mixtral_tp_cross_check", card=smi, layers=layers, seq=seq,
+         steps=steps, loss_tp4=[m[0] for m in outs[0]["metrics"]],
+         loss_tp1=[m[0] for m in outs[0]["reference"]],
+         grad_norm_tp4=[m[1] for m in outs[0]["metrics"]],
+         grad_norm_tp1=[m[1] for m in outs[0]["reference"]],
+         max_update_rel_diff=worst, max_update_rel_diff_param=worst_name,
+         tp1_s=outs[0]["tp1_s"], rank_done_s=[o["done_s"] for o in outs])
 
 
 TP_RESULTS = {}
@@ -5966,16 +6896,29 @@ def main() -> None:
          torch=torch.__version__, cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
-    from neuronx_distributed_tpu_torch.models.mixtral import (DBRX,
-                                                              MIXTRAL_8X7B)
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
     from neuronx_distributed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build()
     emit("build", seconds=time.perf_counter() - t0,
          kernels=sorted(libs))
+    cpu_side = CpuSide(cpu_side_jobs(LLAMA3_8B, MIXTRAL_8X7B))
+    emit("cpu_side", threads=cpu_side.threads, main_threads=cpu_side.full)
+    try:
+        run_phases(smi, kind, cpu_side)
+    finally:
+        cpu_side.close()
+
+
+def run_phases(smi, kind, cpu_side):
+    """Every phase after the build, then the kernels' summary and the
+    result line; the cross checks' CPU halves from ``cpu_side``."""
+    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+    from neuronx_distributed_tpu_torch.models.mixtral import (DBRX,
+                                                              MIXTRAL_8X7B)
 
     cases = phase_kernel_vs_plain()
 
@@ -6001,22 +6944,22 @@ def main() -> None:
                           ecfg, "serve_mixtral_int8",
                           probe=expert_step_probe)["paged_attention"]
     tier_launches = phase_serve_quant_tiers(LLAMA3_8B, ecfg)
-    phase_quant_cross_check()
+    phase_quant_cross_check(cpu_side)
     dbrx = dataclasses.replace(DBRX, num_layers=8, moe_dispatch="blockwise",
                                moe_block_size=64)
     dbrx_launches = serve(dbrx, ecfg, "serve_dbrx")
     dbrx_disagg_launches = serve(
         dbrx, dataclasses.replace(ecfg, disaggregated=True, max_slots=4,
                                   prefill_budget=512), "serve_dbrx_disagg")
-    phase_moe_variants_cross_check()
+    phase_moe_variants_cross_check(cpu_side)
     bwd_cases = phase_moe_bwd_vs_plain()
     flash_cases = phase_flash_vs_plain()
     flash_launches = phase_train()
-    phase_train_cross_check(LLAMA3_8B)
+    phase_train_cross_check(LLAMA3_8B, cpu_side)
     train_launches = phase_train(mixtral=True)
     remat_launches = phase_train(mixtral=True, remat=True)
     phase_mixtral_remat_bitwise()
-    phase_train_cross_check(MIXTRAL_8X7B, layers=1,
+    phase_train_cross_check(MIXTRAL_8X7B, cpu_side, layers=1,
                             phase="mixtral_train_cross_check",
                             moe_dispatch="blockwise", moe_block_size=64)
     phase_generate(LLAMA3_8B)
@@ -6044,7 +6987,7 @@ def main() -> None:
         phase_train_resume(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    phase_train_loop_cross_check(LLAMA3_8B)
+    phase_train_loop_cross_check(LLAMA3_8B, cpu_side)
     family_flash = phase_flash_families()
     family_launches = phase_train_families()
     vit_captures = phase_vit_serve()
@@ -6125,6 +7068,7 @@ def main() -> None:
         family_paths = {f"train_{f}": n[name]
                         for f, n in family_launches.items()}
         tp_outs = TP_RESULTS["train_tp"]["outs"]
+        loop_outs = TP_RESULTS["train_tp_loop"]["outs"]
         tp_local = tp_outs[0]["timing"][name]
         if name == "flash_fwd":
             family_paths["vit_serve"] = vit_captures
@@ -6142,8 +7086,19 @@ def main() -> None:
                               "train_mixtral_remat": remat_launches[name],
                               "train_integrity": integrity_launches[name],
                               "lora_train": lora_launches[name],
-                              "train_tp": tp_launches[name],
+                              "train_tp": tp_launches["train_tp"][name],
+                              "train_tp_loop":
+                                  tp_launches["train_tp_loop"][name],
+                              "train_mixtral_tp":
+                                  tp_launches["train_mixtral_tp"][name],
                               **family_paths},
+            "train_tp_loop_local_case_dropout": {
+                "shape": loop_outs[0]["local_shape"],
+                "dropout_offsets_rank0": loop_outs[0]["dropout"][
+                    "offsets"],
+                **{key: loop_outs[0]["timing"][name][key] for key in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}},
             "train_tp_by_rank": [o["launches"][name] for o in tp_outs],
             "train_tp_max_rel_err": max(o["holds"][name] for o in tp_outs),
             "train_tp_local_case": {
@@ -6182,7 +7137,11 @@ def main() -> None:
                 "serve_mixtral_spec": spec_moe_launches[name],
                 "train_mixtral": train_launches[name],
                 "train_mixtral_remat": remat_launches[name],
-                "serve_graph_mixtral": graph_moe[name]["launches"]},
+                "serve_graph_mixtral": graph_moe[name]["launches"],
+                **({"train_mixtral_tp": tp_launches["train_mixtral_tp"][
+                    name]} if name == "grouped_glu" else {})},
+            **({"train_mixtral_tp_local_case": moe_tp_case(name)}
+               if name == "grouped_glu" else {}),
             "path_worker_replays": {
                 "serve_graph_mixtral": graph_moe[name]["worker_replays"]},
             "path_traced_runs": {
@@ -6202,18 +7161,35 @@ def main() -> None:
             "kernel_ms": t["kernel_ms"], "max_err": err,
             "design": bwd_main["design"],
             "path_launches": {"train_mixtral": train_launches[name],
-                              "train_mixtral_remat": remat_launches[name]}})
+                              "train_mixtral_remat": remat_launches[name],
+                              "train_mixtral_tp":
+                                  tp_launches["train_mixtral_tp"][name]},
+            "train_mixtral_tp_local_case": moe_tp_case(name)})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def moe_tp_case(name):
+    """The grouped-GLU entry ``name`` timed at ``train_mixtral_tp``'s
+    local width by rank 0, with its launches by rank and its first
+    launch's error against plain on every rank."""
+    outs = TP_RESULTS["train_mixtral_tp"]["outs"]
+    t = outs[0]["timing"][name]
+    return dict(shape=outs[0]["local_shape"],
+                launches_by_rank=[o["launches"][name] for o in outs],
+                max_rel_err=max(o["holds"][name] for o in outs),
+                **{key: t[key] for key in ("kernel_ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "bound_by")})
+
+
 def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
     the speculation, migration, router, captured-serving, model-family,
     LoRA and tensor-parallel groups alone (``lora`` is phases 49 and 50
-    together, ``train_tp`` or ``train_tp_cross_check`` phases 52 and 53),
+    together, any of the tensor-parallel names phases 52-57),
     for a short run while such a phase is worked on; no summary and no
     result line."""
     if not torch.cuda.is_available():
@@ -6263,8 +7239,11 @@ def run_only(names) -> None:
               "lora": lambda: run_lora(ecfg),
               "lora_cross_check": phase_lora_cross_check,
               "train_tp": lambda: phase_train_tp(smi)}
-    # one world of ranks runs both tensor-parallel phases
-    phases["train_tp_cross_check"] = phases["train_tp"]
+    # one world of ranks runs every tensor-parallel phase
+    for name in ("train_tp_cross_check", "train_tp_loop",
+                 "train_tp_loop_cross_check", "train_mixtral_tp",
+                 "train_mixtral_tp_cross_check"):
+        phases[name] = phases["train_tp"]
     done = []
     for name in names:
         if phases[name] not in done:

@@ -14,8 +14,10 @@
 //    comes in precomputed.
 //  * K4: dv = sum_q p_dropped^T g, dk = sum_q ds^T q.
 // The keep mask is the same counter hash as `dropout_keep_mask` (:43) on
-// global (q, k) coordinates and the flat batch x query-head index, so the
-// kernels regenerate the plain version's mask bit for bit.
+// global (q, k) coordinates and the flat batch x query-head index of the
+// global array (a rank's rows and heads placed by `Dropout::b_off`,
+// `h_off` and `n_global`), so the kernels regenerate the plain version's
+// mask bit for bit.
 //
 // Bound: operations. At B=1, S=4096, N=32, D=128, causal, K2 does about
 // 137 GFLOP against 84 MB of traffic, over 1600 FLOP per byte, far above the
@@ -110,7 +112,19 @@ struct Dropout {
   uint32_t threshold;   // keep iff hash >= round(p * 0xFFFFFFFF)
   uint32_t seed;
   float inv_keep;       // 1 / (1 - p)
+  // where this call's heads sit in the global batch x query-head array:
+  // the mask of local (b, n) is that of global (b + b_off, n + h_off)
+  // among n_global heads, as the reference draws it over the whole array
+  uint32_t b_off, n_global, h_off;
 };
+
+// The flat batch x query-head coordinate of local (b, n) in the global
+// array: b * N + n when the call holds every head and row.
+__device__ __forceinline__ uint32_t global_bh(const Dropout& drop, int b,
+                                              int n) {
+  return ((uint32_t)b + drop.b_off) * drop.n_global + (uint32_t)n +
+         drop.h_off;
+}
 
 // The per-(seed, head) half of `dropout_keep_mask`.
 __device__ __forceinline__ uint32_t head_seed(uint32_t seed, uint32_t bh) {
@@ -224,7 +238,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const T* q_base = q + ((size_t)b * S * N + n) * D;
   const T* k_base = k + ((size_t)b * S * KV + h) * D;
   const T* v_base = v + ((size_t)b * S * KV + h) * D;
-  const uint32_t hseed = drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+  const uint32_t hseed =
+      drop.on ? head_seed(drop.seed, global_bh(drop, b, n)) : 0u;
 
   load_tile<T, D>(q_sh, q_base, q_stride, q0, S);
   float m[4], l[4], acc[4][D / 16];
@@ -329,7 +344,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const size_t q_off = ((size_t)b * S * N + n) * D;
   const T* k_base = k + ((size_t)b * S * KV + h) * D;
   const T* v_base = v + ((size_t)b * S * KV + h) * D;
-  const uint32_t hseed = drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+  const uint32_t hseed =
+      drop.on ? head_seed(drop.seed, global_bh(drop, b, n)) : 0u;
 
   load_tile<T, D>(q_sh, q + q_off, q_stride, q0, S);
   load_tile<T, D>(g_sh, g + q_off, q_stride, q0, S);
@@ -426,7 +442,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const int n = h * n_rep + r;
     const int bn = b * N + n;
     const uint32_t hseed =
-        drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+        drop.on ? head_seed(drop.seed, global_bh(drop, b, n)) : 0u;
     const size_t q_off = ((size_t)b * S * N + n) * D;
     for (int qb = qb_begin; qb < nqb; ++qb) {
       const int q0 = qb * kTile;
@@ -615,7 +631,8 @@ __global__ void __launch_bounds__(kWarpgroup, 2) flash_fwd_wgmma(
   const size_t q_off = ((size_t)b * S * N + n) * D;
   const bf16* k_base = k + ((size_t)b * S * KV + h) * D;
   const bf16* v_base = v + ((size_t)b * S * KV + h) * D;
-  const uint32_t hseed = drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+  const uint32_t hseed =
+      drop.on ? head_seed(drop.seed, global_bh(drop, b, n)) : 0u;
   const int nkb = (S + kRows - 1) / kRows;
   const int kb_end = causal ? min(nkb, qb + 1) : nkb;
 
@@ -733,7 +750,8 @@ __global__ void __launch_bounds__(kWarpgroup, 2) flash_bwd_dq_wgmma(
   const size_t q_off = ((size_t)b * S * N + n) * D;
   const bf16* k_base = k + ((size_t)b * S * KV + h) * D;
   const bf16* v_base = v + ((size_t)b * S * KV + h) * D;
-  const uint32_t hseed = drop.on ? head_seed(drop.seed, (uint32_t)bn) : 0u;
+  const uint32_t hseed =
+      drop.on ? head_seed(drop.seed, global_bh(drop, b, n)) : 0u;
   const int nkb = (S + kRows - 1) / kRows;
   const int kb_end = causal ? min(nkb, qb + 1) : nkb;
 
@@ -872,7 +890,7 @@ __global__ void __launch_bounds__(kWarpgroup, 2) flash_bwd_dkv_wgmma(
     const int qb = qb_begin + it % nq;
     const int q0 = qb * kRows;
     const uint32_t hseed =
-        drop.on ? head_seed(drop.seed, (uint32_t)(b * N + n)) : 0u;
+        drop.on ? head_seed(drop.seed, global_bh(drop, b, n)) : 0u;
     float s[32], dp[32];
     zero(s);
     zero(dp);
@@ -1082,9 +1100,11 @@ extern "C" int nxd_flash_fwd(int dtype, const void* q, const void* k,
                              int S, int N, int KV, int D, float scale,
                              int causal, int dropout, unsigned int threshold,
                              unsigned int seed, float inv_keep,
-                             void* stream) {
+                             unsigned int b_off, unsigned int n_global,
+                             unsigned int h_off, void* stream) {
   if (bad_shape(B, S, N, KV, D)) return cudaErrorInvalidValue;
-  const Dropout drop{dropout, threshold, seed, inv_keep};
+  const Dropout drop{dropout, threshold, seed, inv_keep, b_off, n_global,
+                     h_off};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return D == 64 ? fwd<float, 64>(q, k, v, out, lse, B, S, N, KV, scale,
@@ -1107,9 +1127,12 @@ extern "C" int nxd_flash_bwd_dq(int dtype, const void* q, const void* k,
                                 int B, int S, int N, int KV, int D,
                                 float scale, int causal, int dropout,
                                 unsigned int threshold, unsigned int seed,
-                                float inv_keep, void* stream) {
+                                float inv_keep, unsigned int b_off,
+                                unsigned int n_global, unsigned int h_off,
+                                void* stream) {
   if (bad_shape(B, S, N, KV, D)) return cudaErrorInvalidValue;
-  const Dropout drop{dropout, threshold, seed, inv_keep};
+  const Dropout drop{dropout, threshold, seed, inv_keep, b_off, n_global,
+                     h_off};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return D == 64 ? bwd_dq<float, 64>(q, k, v, g, lse, delta, dq, B, S, N,
@@ -1133,9 +1156,11 @@ extern "C" int nxd_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                  int KV, int D, float scale, int causal,
                                  int dropout, unsigned int threshold,
                                  unsigned int seed, float inv_keep,
-                                 void* stream) {
+                                 unsigned int b_off, unsigned int n_global,
+                                 unsigned int h_off, void* stream) {
   if (bad_shape(B, S, N, KV, D)) return cudaErrorInvalidValue;
-  const Dropout drop{dropout, threshold, seed, inv_keep};
+  const Dropout drop{dropout, threshold, seed, inv_keep, b_off, n_global,
+                     h_off};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return D == 64 ? bwd_dkv<float, 64>(q, k, v, g, lse, delta, dk, dv, B,

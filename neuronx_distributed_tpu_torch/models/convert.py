@@ -25,7 +25,8 @@ fp8 or bf16 array (an ``ml_dtypes`` type) crosses as its bits, viewed as
 the torch type of the same name.
 
 Tensor parallelism: :func:`param_specs` is the reference's partition-spec
-table of a Llama (which dim of each parameter shards over tp),
+table of a Llama or a Mixtral (which dim of each parameter shards over
+tp: Mixtral's experts over their intermediate width, its router whole),
 :func:`shard_state_dict` takes a tp rank's shards of a whole state dict
 and :func:`gather_state_dict` puts the ranks' shards back together;
 :func:`params_from_jax` given ``coords`` hands a rank its shards of JAX's
@@ -109,12 +110,19 @@ Spec = Tuple[Optional[str], ...]
 
 
 def _llama_spec(cfg: LlamaConfig, name: str, ndim: int) -> Spec:
-    """The partition spec of one Llama parameter at ``cfg``'s tp (JAX
-    ``nn.get_partition_spec`` of the same model, per layer)."""
+    """The partition spec of one Llama or Mixtral parameter at ``cfg``'s
+    tp (JAX ``nn.get_partition_spec`` of the same model, per layer; the
+    expert bank's ``ep`` dim is whole at ep = 1)."""
     leaf = name.split(".")[-1]
     owner = name.split(".")[-2] if "." in name else ""
     if name == "embed.embedding":
         return (TP, None)
+    if owner == "router" and leaf == "kernel":
+        return (None, None)
+    if owner == "experts" and leaf == "gate_up":
+        return (None, None, None, TP)
+    if owner == "experts" and leaf == "down":
+        return (None, TP, None)
     if leaf == "scale":
         return (None,)
     if owner == "qkv" and leaf == "q_kernel":
@@ -130,26 +138,30 @@ def _llama_spec(cfg: LlamaConfig, name: str, ndim: int) -> Spec:
     if name == "lm_head.kernel":
         return (None, TP)
     raise ValueError(f"no partition spec for {name!r} (rank {ndim}) at "
-                     f"tp_size={cfg.tp}: the sharded Llama has no such "
-                     "parameter")
+                     f"tp_size={cfg.tp}: the sharded Llama and Mixtral "
+                     "have no such parameter")
 
 
 def param_specs(cfg: LlamaConfig,
                 names: Optional[List[Tuple[str, int]]] = None
                 ) -> Dict[str, Spec]:
-    """``{name: spec}`` for every parameter of a Llama ``cfg`` (or the
-    ``(name, ndim)`` pairs given): per dim None or ``"tp"``, the reference's
-    ``nn.get_partition_spec`` of the same model (its scanned leaves
-    without the layer dim). Mixtral, LoRA and the quantized tiers are not
+    """``{name: spec}`` for every parameter of a Llama or Mixtral ``cfg``
+    (or the ``(name, ndim)`` pairs given): per dim None or ``"tp"``, the
+    reference's ``nn.get_partition_spec`` of the same model (its scanned
+    leaves without the layer dim). LoRA and the quantized tiers are not
     sharded by the port and raise."""
+    from .mixtral import MixtralConfig, MixtralForCausalLM
+
+    if type(cfg) not in (LlamaConfig, MixtralConfig) \
+            or cfg.lora is not None or cfg.weight_quant is not None:
+        raise ValueError("the port shards plain Llama and Mixtral configs "
+                         "only (no LoRA or weight_quant)")
     if names is None:
         full = replace(cfg, tp_size=None, sequence_parallel=False)
-        names = [(n, t.dim()) for n, t in LlamaForCausalLM(
+        cls = (MixtralForCausalLM if isinstance(cfg, MixtralConfig)
+               else LlamaForCausalLM)
+        names = [(n, t.dim()) for n, t in cls(
             full, device="meta").state_dict().items()]
-    if type(cfg) is not LlamaConfig or cfg.lora is not None \
-            or cfg.weight_quant is not None:
-        raise ValueError("the port shards plain Llama configs only (no "
-                         "Mixtral, LoRA or weight_quant)")
     return {n: _llama_spec(cfg, n, nd) for n, nd in names}
 
 
@@ -157,7 +169,8 @@ def sequence_parallel_names(cfg: LlamaConfig,
                             names: List[str]) -> List[str]:
     """The parameters replicated over tp whose layers see
     sequence-sharded activations under ``cfg.sequence_parallel`` (the
-    norms): their gradients are summed over tp
+    norms; not Mixtral's router, which sees the gathered sequence): their
+    gradients are summed over tp
     (:func:`..parallel.grads.allreduce_gradients`)."""
     if not cfg.sp:
         return []
@@ -175,19 +188,24 @@ def shard_state_dict(cfg: LlamaConfig, sd: Mapping[str, torch.Tensor],
     :func:`param_specs` at ``cfg.tp``; replicated tensors are copied
     whole."""
     specs = param_specs(cfg, [(n, t.dim()) for n, t in sd.items()])
-    tp, rank = cfg.tp, int(coords.get(TP, 0))
-    out = {}
-    for name, t in sd.items():
-        d = _shard_dim(specs[name])
-        if d is None or tp == 1:
-            out[name] = t.clone()
-            continue
-        if t.shape[d] % tp:
-            raise ValueError(f"{name} dim {d} ({t.shape[d]}) not divisible "
-                             f"by tp {tp}")
-        n = t.shape[d] // tp
-        out[name] = t.narrow(d, rank * n, n).clone()
-    return out
+    rank = int(coords.get(TP, 0))
+    return {name: shard_tensor(name, t, specs[name], cfg.tp, rank)
+            for name, t in sd.items()}
+
+
+def shard_tensor(name: str, t: torch.Tensor, spec: Spec, tp: int,
+                 rank: int) -> torch.Tensor:
+    """Tensor-parallel rank ``rank``'s shard (a copy) of the whole tensor
+    ``t`` under ``spec`` at ``tp``; the whole of it where the spec shards
+    no dim."""
+    d = _shard_dim(spec)
+    if d is None or tp == 1:
+        return t.clone()
+    if t.shape[d] % tp:
+        raise ValueError(f"{name} dim {d} ({t.shape[d]}) not divisible by "
+                         f"tp {tp}")
+    n = t.shape[d] // tp
+    return t.narrow(d, rank * n, n).clone()
 
 
 def gather_state_dict(cfg: LlamaConfig,

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +45,8 @@ from ..inference.paging import (PagedCacheView, PagedKVCache,
                                 spread_dropped_rows)
 from ..lora import LoraConfig, is_lora_path
 from ..modules.attention import (apply_rotary, attention_dropout_seed,
-                                 precompute_rope, repeat_kv, sdpa_reference)
+                                 precompute_rope, rank_dropout_offsets,
+                                 repeat_kv, sdpa_reference)
 from ..modules.norms import RMSNorm
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
@@ -312,15 +313,20 @@ def _contiguous_cache_attend(cfg: LlamaConfig, q, k, v, positions,
 def _causal_attend(cfg: LlamaConfig, q, k, v, dropout: Optional[Dropout]):
     """The no-cache branch at cp=1 (JAX ``models/llama.py:488-540``): flash
     attention, which reads the GQA K/V heads natively, or the dense
-    reference on K/V expanded by ``repeat_kv``."""
+    reference on K/V expanded by ``repeat_kv``. Across ranks the dropout
+    mask is drawn at this rank's rows and heads of the global array
+    (:func:`..modules.attention.rank_dropout_offsets`), as the reference's
+    GSPMD step draws it over the whole array."""
     dropout_p, seed = dropout or (0.0, None)
+    offsets = (rank_dropout_offsets(q.shape[0], q.shape[2], cfg.num_heads)
+               if dropout_p > 0.0 else None)
     if cfg.use_flash_attention:
         return flash_attention(q, k, v, causal=True, dropout_p=dropout_p,
-                               dropout_seed=seed)
+                               dropout_seed=seed, dropout_offsets=offsets)
     n_rep = q.shape[2] // k.shape[2]
     return sdpa_reference(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
                           causal=True, dropout_p=dropout_p,
-                          dropout_seed=seed)
+                          dropout_seed=seed, dropout_offsets=offsets)
 
 
 class LlamaAttention(nn.Module):
@@ -701,11 +707,6 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
     card in bf16 is made on it quantized."""
     from ..quantization.serving import quantize_params_for_serving
 
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    shapes = model_cls(replace(cfg, weight_quant=None, tp_size=None,
-                               sequence_parallel=False),
-                       device="meta").state_dict()
     sd, group, group_of = {}, {}, None
 
     def flush():
@@ -713,17 +714,32 @@ def init_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
                   if cfg.weight_quant else group)
         group.clear()
 
-    for name in sorted(shapes, key=is_lora_path):
-        t = shapes[name]
+    for name, t in draw_state_dict(cfg, seed, std, device, model_cls):
         # a layer's tensors are quantized together, the others one by one
         key = ".".join(name.split(".")[:2]) if name.startswith(
             "layers.") else name
         if key != group_of:
             flush()
             group_of = key
-        group[name] = _draw(name, t, gen, std, dev)
+        group[name] = t
     flush()
     return sd
+
+
+def draw_state_dict(cfg: LlamaConfig, seed: int = 0, std: float = 0.02,
+                    device: DeviceLike = None, model_cls=LlamaForCausalLM
+                    ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The whole float weights of :func:`init_state_dict` one tensor at a
+    time, in its order and from the same generator, so a caller can keep
+    a part of each (a rank its shards) and free the rest before the next
+    is made."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = model_cls(replace(cfg, weight_quant=None, tp_size=None,
+                               sequence_parallel=False),
+                       device="meta").state_dict()
+    for name in sorted(shapes, key=is_lora_path):
+        yield name, _draw(name, shapes[name], gen, std, dev)
 
 
 def _draw(name: str, t: torch.Tensor, gen: torch.Generator, std: float,

@@ -1,6 +1,14 @@
 """Mixtral, the MoE Llama (counterpart of
-``neuronx_distributed_tpu/models/mixtral.py`` at tp = ep = 1): the Llama
+``neuronx_distributed_tpu/models/mixtral.py`` at ep = 1): the Llama
 decoder with the MLP swapped for :class:`..modules.moe.MoE`.
+
+At ``tp_size > 1`` (training across ranks, the reference's explicit form)
+the attention is Llama's, the router is whole on every rank, and the
+experts and shared experts are sharded over the intermediate width
+(:class:`..modules.moe.ExpertMLPs`). Under ``sequence_parallel`` the MoE
+sees whole sequences: its input is gathered with ``to_model_parallel=
+False`` (backward a split: the bank's ``copy_to`` already sums its input
+gradient over tp) and its output split again after (JAX ``:127-155``).
 
 The state dict keeps the JAX names and layouts: per layer
 ``moe.router.kernel [H, E]`` (held in fp32), ``moe.experts.gate_up [E, H, 2,
@@ -39,6 +47,8 @@ from ..device import DeviceLike
 from ..inference.kv_cache import QuantizedKVCache
 from ..modules.moe import ROUTERS, MoE
 from ..modules.norms import RMSNorm
+from ..parallel import mappings
+from ..parallel import mesh as ps
 from ..parallel.loss_functions import causal_lm_loss
 from . import llama
 from .llama import LlamaAttention, LlamaConfig, LlamaForCausalLM
@@ -73,8 +83,6 @@ class MixtralConfig(LlamaConfig):
             # the reference's Mixtral would get adapters only in the
             # attention it shares with Llama; the port adds none
             later.append("lora")
-        if self.tp > 1:
-            later.append(f"tp_size={self.tp_size}")
         if later:
             raise ValueError(f"{', '.join(later)}: not ported for Mixtral "
                              "yet (a later slice)")
@@ -147,7 +155,8 @@ class MixtralDecoderLayer(nn.Module):
                        shared_expert_intermediate=(
                            cfg.shared_expert_intermediate),
                        dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                       device=device)
+                       device=device, tp_size=cfg.tp)
+        self.sp = cfg.sp
 
     def forward(self, x, cos, sin, positions,
                 view: Optional[llama.CacheView] = None,
@@ -159,7 +168,14 @@ class MixtralDecoderLayer(nn.Module):
         (with attention dropout given ``dropout = (p, seed)``)."""
         x = x + self.attn(self.input_norm(x), cos, sin, positions, view,
                           dropout)
-        moe_out, aux = self.moe(self.post_norm(x), sentinel_empty)
+        h = self.post_norm(x)
+        if self.sp:
+            h = mappings.gather_from_sequence_parallel_region(
+                h, ps.TP_AXIS, 1, to_model_parallel=False)
+        moe_out, aux = self.moe(h, sentinel_empty)
+        if self.sp:
+            moe_out = mappings.scatter_to_sequence_parallel_region(
+                moe_out, ps.TP_AXIS, 1)
         return x + moe_out, torch.stack([aux["load_balance_loss"],
                                          aux["z_loss"]])
 
@@ -189,6 +205,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
         """The JAX ``MixtralModel``: ``(normed hidden [B, S, H], aux)``,
         aux summed over the layers."""
         x = self.embed(input_ids)
+        if self.cfg.sp:
+            x = mappings.scatter_to_sequence_parallel_region(x, ps.TP_AXIS,
+                                                             1)
         cos, sin = self.rope_tables(input_ids.device)
         aux = []
         for layer in self.layers:
@@ -207,13 +226,27 @@ class MixtralForCausalLM(LlamaForCausalLM):
         (``models/mixtral.py:315``): ``ce + router_aux_coef · aux[0] +
         router_z_coef · aux[1]``, ce the mean causal-LM loss over the labels
         that are not ``ignore_index``. ``loss`` (inherited) calls this."""
-        x, aux = self.hidden(input_ids, positions, dropout_generator)
-        logits = self.lm_head(x)
         if labels is None:
-            return logits, aux
+            x, aux = self.hidden(input_ids, positions, dropout_generator)
+            return self.lm_head(x), aux
+        ce, extra = self.loss_parts(input_ids, labels, positions,
+                                    ignore_index, dropout_generator)
+        return ce + extra
+
+    def loss_parts(self, input_ids: torch.Tensor, labels: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None,
+                   ignore_index: int = -100,
+                   dropout_generator: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The loss as ``(ce, router_aux_coef · aux[0] + router_z_coef ·
+        aux[1])``: across data ranks the train step weighs the
+        cross-entropy by the rank's share of the counted labels and leaves
+        the router's terms, already global or plain means, as they are."""
+        x, aux = self.hidden(input_ids, positions, dropout_generator)
         cfg = self.cfg
-        ce = causal_lm_loss(logits, labels, ignore_index=ignore_index)
-        return ce + cfg.router_aux_coef * aux[0] + cfg.router_z_coef * aux[1]
+        ce = causal_lm_loss(self.lm_head(x), labels,
+                            ignore_index=ignore_index)
+        return ce, cfg.router_aux_coef * aux[0] + cfg.router_z_coef * aux[1]
 
 
 def build_model(cfg: MixtralConfig, state_dict: Dict[str, torch.Tensor],

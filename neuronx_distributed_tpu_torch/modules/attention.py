@@ -98,13 +98,34 @@ def attention_dropout_seed(rate: float,
     return 0.0, None
 
 
+def rank_dropout_offsets(b_local: int, n_local: int,
+                         n_global: int) -> Tuple[int, int, int]:
+    """``(b_off, n_global, h_off)`` of this rank's attention rows and query
+    heads in the global batch x head array (the dropout mask's
+    coordinates, :func:`..ops.flash_attention.flat_bh`): its first row is
+    its data-parallel index x ``b_local``, its first head its
+    tensor-parallel index x ``n_local``. ``(0, n_global, 0)`` without a
+    parallel layout."""
+    from ..parallel import mesh as ps
+
+    if not ps.model_parallel_is_initialized():
+        return 0, n_global, 0
+    h_off = (ps.axis_rank(ps.TP_AXIS) * n_local if n_local != n_global
+             else 0)
+    return ps.axis_rank(ps.DATA_AXES) * b_local, n_global, h_off
+
+
 def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, dropout_p: float = 0.0,
-                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+                   dropout_seed: Optional[int] = None,
+                   dropout_offsets: Optional[Tuple[int, int, int]] = None
+                   ) -> torch.Tensor:
     """Plain softmax attention in fp32, the JAX model's path when
     ``use_flash_attention`` is off. ``q``/``k``/``v`` ``[B, S, N, D]`` (K/V
     already GQA-expanded); masked scores are -1e30. Dropout uses the same
-    counter hash as the flash kernels, so both draw one mask per seed."""
+    counter hash as the flash kernels, so both draw one mask per seed;
+    ``dropout_offsets`` as :func:`..ops.flash_attention.flash_attention`
+    takes them."""
     b, sq, n, d = q.shape
     sk = k.shape[1]
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(),
@@ -118,7 +139,7 @@ def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         from ..ops.flash_attention import dropout_keep_mask, flat_bh
 
         keep = dropout_keep_mask(
-            dropout_seed, flat_bh(b, n, q.device),
+            dropout_seed, flat_bh(b, n, q.device, dropout_offsets),
             torch.arange(sq, device=q.device)[None, None, :, None],
             torch.arange(sk, device=q.device)[None, None, None, :], sk,
             dropout_p)

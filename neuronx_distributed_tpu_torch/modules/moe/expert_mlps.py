@@ -15,7 +15,16 @@ and ``down [E, I, H]``, with two dispatch programs:
   grouped GLU through their ``.to(dtype)`` casts, so the gradients in the
   compute dtype flow back to the parameters in theirs, as in the JAX bank.
 
-The expert- and tensor-parallel forms come with the parallel substrate.
+Tensor parallel (``tp_size > 1``, JAX ``:107-118``): every rank holds
+every expert at ``I / tp`` of the intermediate width, ``gate_up [E, H, 2,
+I/tp]`` and ``down [E, I/tp, H]``, and sees every token. Capacity
+dispatch enters the TP region through ``copy_to_tensor_parallel_region``
+and leaves it by ``reduce_from_tensor_parallel_region`` around the
+einsums at the local width; blockwise dispatch runs the grouped GLU (K5,
+K7, K8) at the local width, enters the gates through ``copy_to`` (so the
+router's gradient is complete on every rank), combines and then reduces
+over tp, in JAX's order (``:174-197``). The expert-parallel form comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import torch
 from torch import nn
 
 from ...ops import blockwise_moe as ops_bw
+from ...parallel import mappings
+from ...parallel import mesh as ps
 from . import blockwise as bw
 
 
@@ -66,22 +77,29 @@ def capacity_glu(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     to ``capacity`` slots per expert, ``silu(x Wg) (x Wu) Wd`` per slot,
     combine by gate. ``gate_up [E, H, 2, I]`` and ``down [E, I, H]``, or
     with ``contraction_last`` (the MX banks' layout) ``[E, 2, I, H]`` and
-    ``[E, H, I]``. Returns ``(y [T, H], {"dropped_fraction"})``."""
+    ``[E, H, I]``; across tensor-parallel ranks ``I`` is this rank's
+    shard, and the slots enter the TP region by ``copy_to`` and leave it
+    by ``reduce_from`` (the reference's expert-fused column and row
+    parallel linears). Returns ``(y [T, H], {"dropped_fraction"})``."""
     dispatch, combine, dropped = build_dispatch_combine(
         gates, idx, num_experts, capacity)
     xin = torch.einsum("tec,th->ech", dispatch.to(dtype), x.to(dtype))
+    xin = mappings.copy_to_tensor_parallel_region(xin, ps.TP_AXIS)
     h = torch.einsum("ech,ekih->ecki" if contraction_last
                      else "ech,ehki->ecki", xin, gate_up)
     h = ops_bw._silu(h[..., 0, :]) * h[..., 1, :]
     out = torch.einsum("eci,ehi->ech" if contraction_last
                        else "eci,eih->ech", h, down)
+    out = mappings.reduce_from_tensor_parallel_region(out, ps.TP_AXIS)
     y = torch.einsum("tec,ech->th", combine.to(dtype), out)
     return y.to(dtype), {"dropped_fraction": dropped}
 
 
 class ExpertMLPs(nn.Module):
-    """Stacked GLU experts at tp = ep = 1. ``block_i`` is the intermediate
-    tile of the plain grouped GLU, the Pallas kernel's ``block_i``. The
+    """Stacked GLU experts at ep = 1, at ``tp_size`` ranks of tensor
+    parallelism (``I / tp_size`` of the intermediate width here). ``block_i``
+    is the intermediate tile of the plain grouped GLU, the Pallas kernel's
+    ``block_i``. The
     capacity path reads ``top_k`` from the router's choices (``idx [T,
     K]``), as JAX builds its bank with ``top_k = gates.shape[-1]``: the
     Sinkhorn router picks one expert whatever the config's ``top_k``."""
@@ -91,8 +109,13 @@ class ExpertMLPs(nn.Module):
                  dispatch_mode: str = "capacity", block_size: int = 512,
                  block_i: int = 512, sentinel_empty: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: Optional[torch.dtype] = None, device=None):
+                 param_dtype: Optional[torch.dtype] = None, device=None,
+                 tp_size: int = 1):
         super().__init__()
+        if intermediate % tp_size:
+            raise ValueError(f"intermediate {intermediate} not divisible by "
+                             f"tp_size {tp_size}")
+        intermediate //= tp_size
         if dispatch_mode not in ("capacity", "blockwise"):
             raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
         self.num_experts = num_experts
@@ -142,8 +165,14 @@ class ExpertMLPs(nn.Module):
         order, src, dest, be, _, padded = bw.compute_block_metadata(
             idx, self.num_experts, self.block_size,
             sentinel_empty=sentinel_empty)
+        x = mappings.copy_to_tensor_parallel_region(x, ps.TP_AXIS)
         xs = bw.scatter_to_blocks(x.to(self.dtype), src, dest, padded)
         ys = self._run_grouped_glu(xs, be, sentinel_empty)
+        # the gates enter by copy_to (backward: the tp sum of their
+        # cotangent), so that the router's gradient is complete, and the
+        # combined [T, H] leaves by one all-reduce (JAX :186-197)
+        gates = mappings.copy_to_tensor_parallel_region(gates, ps.TP_AXIS)
         y = bw.combine_from_blocks(ys, gates, order, src, dest, t)
+        y = mappings.reduce_from_tensor_parallel_region(y, ps.TP_AXIS)
         return y.to(self.dtype), {
             "dropped_fraction": torch.zeros((), device=x.device)}

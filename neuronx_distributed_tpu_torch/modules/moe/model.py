@@ -18,7 +18,9 @@ import torch
 from torch import nn
 
 from ...ops import blockwise_moe as ops_bw
-from ...parallel.layers import Linear
+from ...parallel import mappings
+from ...parallel import mesh as ps
+from ...parallel.layers import RowParallelLinear
 from .expert_mlps import ExpertMLPs
 from .routing import GroupLimitedRouter, RouterSinkhorn, RouterTopK
 
@@ -33,20 +35,24 @@ EXPERT_IMPLS = ("float", "int8", "fp8", "mx_fp4", "mx_fp8")
 class SharedExperts(nn.Module):
     """An always-on dense GLU added to the routed output:
     ``gate_up_kernel [H, 2, I]`` and ``down.kernel [I, H]``, held in
-    ``param_dtype`` and used in ``dtype``."""
+    ``param_dtype`` and used in ``dtype``; at ``tp_size > 1`` column- then
+    row-parallel over I (``[H, 2, I/tp]``, ``[I/tp, H]``), as JAX's."""
 
     def __init__(self, hidden: int, intermediate: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: Optional[torch.dtype] = None, device=None):
+                 param_dtype: Optional[torch.dtype] = None, device=None,
+                 tp_size: int = 1):
         super().__init__()
         self.dtype = dtype
         self.gate_up_kernel = nn.Parameter(torch.empty(
-            (hidden, 2, intermediate), dtype=param_dtype or dtype,
+            (hidden, 2, intermediate // tp_size), dtype=param_dtype or dtype,
             device=device))
-        self.down = Linear(intermediate, hidden, dtype=dtype, device=device,
-                           param_dtype=param_dtype)
+        self.down = RowParallelLinear(intermediate, hidden, dtype=dtype,
+                                      device=device, param_dtype=param_dtype,
+                                      tp_size=tp_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = mappings.copy_to_tensor_parallel_region(x, ps.TP_AXIS)
         g = torch.einsum("th,hki->tki", x.to(self.dtype),
                          self.gate_up_kernel.to(self.dtype))
         return self.down(ops_bw._silu(g[..., 0, :]) * g[..., 1, :])
@@ -56,7 +62,7 @@ def _expert_bank(impl: str, num_experts: int, hidden: int,
                  intermediate: int, capacity_factor: float,
                  dispatch_mode: str, block_size: int, sentinel_empty: bool,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype],
-                 device) -> nn.Module:
+                 device, tp_size: int = 1) -> nn.Module:
     if impl not in EXPERT_IMPLS:
         raise ValueError(f"unknown expert_impl {impl!r}")
     if impl == "float":
@@ -64,7 +70,11 @@ def _expert_bank(impl: str, num_experts: int, hidden: int,
             num_experts, hidden, intermediate,
             capacity_factor=capacity_factor, dispatch_mode=dispatch_mode,
             block_size=block_size, sentinel_empty=sentinel_empty,
-            dtype=dtype, param_dtype=param_dtype, device=device)
+            dtype=dtype, param_dtype=param_dtype, device=device,
+            tp_size=tp_size)
+    if tp_size > 1:
+        raise ValueError(f"expert_impl={impl!r} at tp_size={tp_size}: the "
+                         "quantized banks are not sharded by the port")
     if dispatch_mode != "capacity":
         raise ValueError(
             f"expert_impl={impl!r} supports only dispatch_mode='capacity' "
@@ -92,7 +102,9 @@ class MoE(nn.Module):
     inputs. Returns ``(y, aux)``, aux holding the router's
     ``load_balance_loss`` and ``z_loss`` and the experts'
     ``dropped_fraction``. The Sinkhorn router takes no ``top_k`` (it picks
-    one expert); the bank reads the router's width from its choices."""
+    one expert); the bank reads the router's width from its choices. At
+    ``tp_size > 1`` the router is whole on every rank and sees every
+    token; the expert bank and the shared experts are sharded over I."""
 
     def __init__(self, num_experts: int, hidden: int, intermediate: int,
                  top_k: int = 2, capacity_factor: float = 2.0,
@@ -101,7 +113,8 @@ class MoE(nn.Module):
                  router_type: str = "top_k",
                  shared_expert_intermediate: int = 0,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: Optional[torch.dtype] = None, device=None):
+                 param_dtype: Optional[torch.dtype] = None, device=None,
+                 tp_size: int = 1):
         super().__init__()
         if router_type not in ROUTERS:
             raise ValueError(f"router_type must be one of {tuple(ROUTERS)}, "
@@ -113,9 +126,9 @@ class MoE(nn.Module):
         self.experts = _expert_bank(
             expert_impl, num_experts, hidden, intermediate, capacity_factor,
             dispatch_mode, block_size, sentinel_empty, dtype, param_dtype,
-            device)
+            device, tp_size)
         self.shared = (SharedExperts(hidden, shared_expert_intermediate,
-                                     dtype, param_dtype, device)
+                                     dtype, param_dtype, device, tp_size)
                        if shared_expert_intermediate > 0 else None)
 
     def forward(self, x: torch.Tensor, sentinel_empty: Optional[bool] = None

@@ -8,6 +8,15 @@ this one in fp32, so it routes as the JAX package does from the same
 checkpoint. Each returns ``(gates [T, k] fp32, idx [T, k] int32, aux)``,
 aux holding ``load_balance_loss`` and ``z_loss``; ties go to the lowest
 expert index, as ``jax.lax.top_k`` and ``jnp.argmax`` break them.
+
+Across data-parallel ranks the load-balance loss is the reference's over
+the global tokens (its GSPMD step sees the whole batch): ``f`` and ``p``
+are averaged over the data ranks before their product, ``p`` with its
+cotangent passed back whole (:class:`_DataMean`), so that the
+data-parallel mean of the ranks' gradients is the global loss's gradient.
+A product of local means averaged over the ranks is another number. The z-loss is a plain mean
+over tokens: each rank's local mean, averaged with the loss. The Sinkhorn
+router normalises over every token, so across data ranks it is refused.
 """
 
 from __future__ import annotations
@@ -17,14 +26,36 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ...parallel import comm
+from ...parallel import mesh as ps
+
+
+class _DataMean(torch.autograd.Function):
+    """The mean over the data-parallel ranks forward; the cotangent passed
+    back unchanged, since the train step averages the ranks' gradients
+    (each rank's share of the global mean is then carried whole)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce(x, ps.DATA_AXES) / comm.axis_size(
+            ps.DATA_AXES)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return g
+
 
 def _load_balance_loss(probs: torch.Tensor,
                        expert_mask: torch.Tensor) -> torch.Tensor:
     """``E · Σ_e f_e · p_e``: ``f_e`` the share of tokens sent to expert
-    ``e``, ``p_e`` its mean router probability. ``probs``/``expert_mask``
+    ``e``, ``p_e`` its mean router probability, over the tokens of every
+    data-parallel rank (each rank holds as many). ``probs``/``expert_mask``
     ``[T, E]``."""
     e = probs.shape[-1]
-    return e * torch.sum(expert_mask.mean(0) * probs.mean(0))
+    f, p = expert_mask.mean(0), probs.mean(0)
+    if comm.axis_size(ps.DATA_AXES) > 1:
+        f, p = _DataMean.apply(f.detach()), _DataMean.apply(p)
+    return e * torch.sum(f * p)
 
 
 def _z_loss(logits: torch.Tensor) -> torch.Tensor:
@@ -100,6 +131,10 @@ class RouterSinkhorn(RouterBase):
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Dict[str, torch.Tensor]]:
         """``x [T, H]`` -> ``(gates [T, 1] fp32, idx [T, 1] int32, aux)``."""
+        if comm.axis_size(ps.DATA_AXES) > 1:
+            raise ValueError("the Sinkhorn router across data-parallel "
+                             "ranks: not in the port yet (a later slice); "
+                             "it normalises over every token")
         logits = self.logits(x)
         probs = torch.softmax(logits, dim=-1)
         pi = torch.exp(logits - torch.logsumexp(logits, dim=(0, 1)))

@@ -37,7 +37,12 @@ versions see the padded shapes too.
 Attention dropout uses the JAX package's counter hash
 (:func:`dropout_keep_mask`, :func:`flat_bh`) on global (q, k) coordinates
 and the flat batch x query-head index, so the plain versions, the kernels
-and the JAX package draw the same mask for the same seed.
+and the JAX package draw the same mask for the same seed. Across ranks a
+call holds some rows and heads of the global array; ``dropout_offsets =
+(b_off, n_global, h_off)`` places them (local ``(b, n)`` is global ``(b +
+b_off, n + h_off)`` among ``n_global`` heads), so each rank draws its part
+of the mask the reference draws over the whole array. ``(0, N, 0)``, the
+default, is the whole array.
 """
 
 from __future__ import annotations
@@ -60,13 +65,14 @@ _M32 = 0xFFFFFFFF
 BLOCK_K = 512          # the plain versions' key block, as in the JAX scan
 
 # nxd_flash_fwd(dtype, q, k, v, out, lse, B, S, N, KV, D, scale, causal,
-#   dropout, threshold, seed, inv_keep, stream) in csrc/flash_attention.cu;
+#   dropout, threshold, seed, inv_keep, b_off, n_global, h_off, stream) in
+#   csrc/flash_attention.cu;
 # nxd_flash_bwd_dq(dtype, q, k, v, g, lse, delta, dq, B, S, N, KV, D, ...)
 # and nxd_flash_bwd_dkv(dtype, q, k, v, g, lse, delta, dk, dv, B, ...) end
 # in the same trailing arguments.
 _TAIL = ([ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                               ctypes.c_void_p])
+                               ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+         + [ctypes.c_uint] * 3 + [ctypes.c_void_p])
 FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + _TAIL
 DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + _TAIL
 DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + _TAIL
@@ -103,11 +109,31 @@ def dropout_keep_mask(seed, head_idx: torch.Tensor, q_pos: torch.Tensor,
     return x >= round(p * 0xFFFFFFFF)
 
 
-def flat_bh(b: int, n: int, device=None) -> torch.Tensor:
+Offsets = Tuple[int, int, int]
+
+
+def flat_bh(b: int, n: int, device=None,
+            offsets: Optional[Offsets] = None) -> torch.Tensor:
     """``[B, N, 1, 1]`` flat batch*head coordinate ``b * N + n`` of the
-    dropout mask (batch-major, over query heads)."""
-    return (torch.arange(b, device=device)[:, None] * n
-            + torch.arange(n, device=device)[None, :])[..., None, None]
+    dropout mask (batch-major, over query heads); with ``offsets = (b_off,
+    n_global, h_off)`` the coordinate of these rows and heads in the global
+    array, ``(b + b_off) * n_global + n + h_off``."""
+    b_off, n_global, h_off = _offsets(offsets, n)
+    return ((torch.arange(b, device=device)[:, None] + b_off) * n_global
+            + torch.arange(n, device=device)[None, :] + h_off)[..., None,
+                                                               None]
+
+
+def _offsets(offsets: Optional[Offsets], n: int) -> Offsets:
+    """``(b_off, n_global, h_off)``, the whole array's ``(0, n, 0)`` when
+    None."""
+    if offsets is None:
+        return 0, n, 0
+    b_off, n_global, h_off = (int(x) for x in offsets)
+    if b_off < 0 or h_off < 0 or h_off + n > n_global:
+        raise ValueError(f"dropout offsets {offsets} do not place {n} "
+                         "heads in the global array")
+    return b_off, n_global, h_off
 
 
 def _dropout_args(dropout_p: float, seed: Optional[int]):
@@ -168,18 +194,20 @@ def _block_terms(qt, kb, k0, causal, scale, dropout_p, seed, bh, q_pos, s):
     return sc, keep
 
 
-def _bh(b, n, kv, device):
+def _bh(b, n, kv, device, offsets=None):
     """flat_bh arranged as ``[B, KV, R, 1, 1]`` to match grouped scores."""
-    return flat_bh(b, n, device).reshape(b, kv, n // kv, 1, 1)
+    return flat_bh(b, n, device, offsets).reshape(b, kv, n // kv, 1, 1)
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
-                    dropout_p: float = 0.0, seed: Optional[int] = None
+                    dropout_p: float = 0.0, seed: Optional[int] = None,
+                    offsets: Optional[Offsets] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blockwise online-softmax forward, as ``_flash_xla_impl``: returns
     ``(out [B,S,N,D] in q's dtype, lse [B,N,S])``; lse is -inf for a row
-    with no valid key."""
+    with no valid key. ``offsets``: the dropout mask's ``(b_off, n_global,
+    h_off)``."""
     _check(q, k, v)
     b, s, n, d = q.shape
     kv = k.shape[2]
@@ -187,7 +215,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc_t = _acc_dtype(q)
     qt, kt, vt = _grouped(q, k, v, acc_t)
     q_pos = torch.arange(s, device=q.device)
-    bh = _bh(b, n, kv, q.device)
+    bh = _bh(b, n, kv, q.device, offsets)
     m = torch.full(qt.shape[:-1], float("-inf"), dtype=acc_t, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qt)
@@ -214,7 +242,8 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse.reshape(b, n, s)
 
 
-def _bwd_blocks(q, k, v, g, lse, delta, causal, scale, dropout_p, seed):
+def _bwd_blocks(q, k, v, g, lse, delta, causal, scale, dropout_p, seed,
+                offsets):
     """The loop of ``_flash_bwd_from_lse``: per key block, yield ``(k
     block, q, g, p_v, ds)`` with q/g grouped ``[B, KV, R, S, D]`` and the
     dropped probabilities ``p_v`` and ``ds`` ``[B, KV, R, S, BK]``,
@@ -227,7 +256,7 @@ def _bwd_blocks(q, k, v, g, lse, delta, causal, scale, dropout_p, seed):
     lse_t = lse.to(acc_t).reshape(b, kv, n // kv, s)[..., None]
     delta_t = delta.to(acc_t).reshape(b, kv, n // kv, s)[..., None]
     q_pos = torch.arange(s, device=q.device)
-    bh = _bh(b, n, kv, q.device)
+    bh = _bh(b, n, kv, q.device, offsets)
     inv_keep = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
     for k0 in range(0, s, BLOCK_K):
         kb, vb = kt[:, :, k0:k0 + BLOCK_K], vt[:, :, k0:k0 + BLOCK_K]
@@ -246,7 +275,8 @@ def _bwd_blocks(q, k, v, g, lse, delta, causal, scale, dropout_p, seed):
 
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, causal: bool = True,
                        scale: Optional[float] = None, dropout_p: float = 0.0,
-                       seed: Optional[int] = None) -> torch.Tensor:
+                       seed: Optional[int] = None,
+                       offsets: Optional[Offsets] = None) -> torch.Tensor:
     """dq of the flash backward (K3's plain version): ``g`` like q, ``lse``
     and ``delta`` ``[B, N, S]``; returns dq in q's dtype."""
     _check(q, k, v)
@@ -254,7 +284,7 @@ def flash_bwd_dq_plain(q, k, v, g, lse, delta, causal: bool = True,
     scale = _scale(q, scale)
     dq = None
     for kb, _, _, _, ds in _bwd_blocks(q, k, v, g, lse, delta, causal, scale,
-                                       dropout_p, seed):
+                                       dropout_p, seed, offsets):
         part = torch.einsum("bgrqk,bgkd->bgrqd", ds, kb)
         dq = part if dq is None else dq + part
     return dq.reshape(b, n, s, d).transpose(1, 2).to(q.dtype)
@@ -262,7 +292,8 @@ def flash_bwd_dq_plain(q, k, v, g, lse, delta, causal: bool = True,
 
 def flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal: bool = True,
                         scale: Optional[float] = None,
-                        dropout_p: float = 0.0, seed: Optional[int] = None
+                        dropout_p: float = 0.0, seed: Optional[int] = None,
+                        offsets: Optional[Offsets] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv of the flash backward (K4's plain version), summed over each
     kv head's query heads; returned ``[B, S, KV, D]`` in k's dtype."""
@@ -270,7 +301,7 @@ def flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal: bool = True,
     scale = _scale(q, scale)
     dks, dvs = [], []
     for _, qt, gt, p_v, ds in _bwd_blocks(q, k, v, g, lse, delta, causal,
-                                          scale, dropout_p, seed):
+                                          scale, dropout_p, seed, offsets):
         dvs.append(torch.einsum("bgrqk,bgrqd->bgkd", p_v, gt))
         dks.append(torch.einsum("bgrqk,bgrqd->bgkd", ds, qt))
     dk = torch.cat(dks, dim=2).transpose(1, 2).contiguous().to(k.dtype)
@@ -320,11 +351,12 @@ def _lib_fn(name, argtypes):
     return fn
 
 
-def _tail(q, k, scale, causal, dropout_p, seed):
+def _tail(q, k, scale, causal, dropout_p, seed, offsets):
     b, s, n, d = q.shape
     on, thr, sd, inv = _dropout_args(dropout_p, seed)
     return (b, s, n, k.shape[2], d, _scale(q, scale), int(bool(causal)), on,
-            thr, sd, inv, torch.cuda.current_stream(q.device).cuda_stream)
+            thr, sd, inv, *_offsets(offsets, n),
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def _raise_on(rc, name):
@@ -334,7 +366,8 @@ def _raise_on(rc, name):
 
 def flash_fwd_cuda(q, k, v, causal: bool = True,
                    scale: Optional[float] = None, dropout_p: float = 0.0,
-                   seed: Optional[int] = None):
+                   seed: Optional[int] = None,
+                   offsets: Optional[Offsets] = None):
     """Launch K2 on the current stream; checks and raises on anything the
     kernel does not take. Adds one to ``flash_fwd.launches``."""
     _check_kernel_args("flash_fwd_cuda", q, k, v)
@@ -344,21 +377,24 @@ def flash_fwd_cuda(q, k, v, causal: bool = True,
     fn = _lib_fn("nxd_flash_fwd", FWD_ARGTYPES)
     _raise_on(fn(_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), lse.data_ptr(),
-                 *_tail(q, k, scale, causal, dropout_p, seed)), "flash_fwd")
+                 *_tail(q, k, scale, causal, dropout_p, seed, offsets)),
+              "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
 
 
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool = True,
                       scale: Optional[float] = None, dropout_p: float = 0.0,
-                      seed: Optional[int] = None):
+                      seed: Optional[int] = None,
+                      offsets: Optional[Offsets] = None):
     """Launch K3; adds one to ``flash_bwd_dq.launches``."""
     _check_kernel_args("flash_bwd_dq_cuda", q, k, v, (g,), (lse, delta))
     dq = torch.empty_like(q)
     fn = _lib_fn("nxd_flash_bwd_dq", DQ_ARGTYPES)
     _raise_on(fn(_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), *_tail(q, k, scale, causal, dropout_p, seed)),
+                 dq.data_ptr(),
+                 *_tail(q, k, scale, causal, dropout_p, seed, offsets)),
               "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -366,7 +402,8 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool = True,
 
 def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool = True,
                        scale: Optional[float] = None,
-                       dropout_p: float = 0.0, seed: Optional[int] = None):
+                       dropout_p: float = 0.0, seed: Optional[int] = None,
+                       offsets: Optional[Offsets] = None):
     """Launch K4; adds one to ``flash_bwd_dkv.launches``."""
     _check_kernel_args("flash_bwd_dkv_cuda", q, k, v, (g,), (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -374,7 +411,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool = True,
     _raise_on(fn(_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(),
-                 *_tail(q, k, scale, causal, dropout_p, seed)),
+                 *_tail(q, k, scale, causal, dropout_p, seed, offsets)),
               "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -392,25 +429,27 @@ def _dispatch(name, plain, cuda, q, *args):
     raise ValueError(f"{name} has no path for device {q.device}")
 
 
-def flash_fwd(q, k, v, causal=True, scale=None, dropout_p=0.0, seed=None):
+def flash_fwd(q, k, v, causal=True, scale=None, dropout_p=0.0, seed=None,
+              offsets=None):
     """Flash forward: ``(out, lse)``. CPU -> plain, CUDA -> K2."""
     return _dispatch("flash_fwd", flash_fwd_plain, flash_fwd_cuda, q, k, v,
-                     causal, scale, dropout_p, seed)
+                     causal, scale, dropout_p, seed, offsets)
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal=True, scale=None,
-                 dropout_p=0.0, seed=None):
+                 dropout_p=0.0, seed=None, offsets=None):
     """dq of the flash backward. CPU -> plain, CUDA -> K3."""
     return _dispatch("flash_bwd_dq", flash_bwd_dq_plain, flash_bwd_dq_cuda,
-                     q, k, v, g, lse, delta, causal, scale, dropout_p, seed)
+                     q, k, v, g, lse, delta, causal, scale, dropout_p, seed,
+                     offsets)
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal=True, scale=None,
-                  dropout_p=0.0, seed=None):
+                  dropout_p=0.0, seed=None, offsets=None):
     """dk, dv of the flash backward. CPU -> plain, CUDA -> K4."""
     return _dispatch("flash_bwd_dkv", flash_bwd_dkv_plain,
                      flash_bwd_dkv_cuda, q, k, v, g, lse, delta, causal,
-                     scale, dropout_p, seed)
+                     scale, dropout_p, seed, offsets)
 
 
 #: kernel launches since each count was last set to 0
@@ -429,14 +468,14 @@ def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 @torch.library.custom_op(
     "nxd_torch::flash_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, bool causal, float? scale, "
-           "float dropout_p, int seed) -> (Tensor, Tensor)")
-def flash_fwd_op(q, k, v, causal, scale, dropout_p, seed):
+           "float dropout_p, int seed, int[] offsets) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, causal, scale, dropout_p, seed, offsets):
     """:func:`flash_fwd` as an operator of its own, so that remat's
     op-by-op policies see it: ``remat_policy="save_attention"`` keeps its
     ``(out, lse)``, the reference's named residuals ``flash_out`` and
     ``flash_lse``, and the recompute replays them instead of launching
     K2 again (:mod:`..utils.remat`)."""
-    return flash_fwd(q, k, v, causal, scale, dropout_p, seed)
+    return flash_fwd(q, k, v, causal, scale, dropout_p, seed, offsets)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -445,12 +484,14 @@ class FlashAttentionFunction(torch.autograd.Function):
     p from lse in the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
+    def forward(ctx, q, k, v, causal, scale, dropout_p, seed, offsets):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_fwd_op(q, k, v, causal, scale, dropout_p, seed)
+        out, lse = flash_fwd_op(q, k, v, causal, scale, dropout_p, seed,
+                                list(offsets))
         ctx.save_for_backward(q, k, v, out, lse,
                               torch.tensor([seed], dtype=torch.uint32))
         ctx.causal, ctx.scale, ctx.dropout_p = causal, scale, dropout_p
+        ctx.offsets = tuple(offsets)
         return out
 
     @staticmethod
@@ -460,10 +501,10 @@ class FlashAttentionFunction(torch.autograd.Function):
         g = g.contiguous()
         delta = attention_delta(g, out)
         args = (q, k, v, g, lse, delta, ctx.causal, ctx.scale, ctx.dropout_p,
-                seed)
+                seed, ctx.offsets)
         dq = flash_bwd_dq(*args)
         dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def kernel_head_dim(d: int) -> int:
@@ -479,7 +520,9 @@ def kernel_head_dim(d: int) -> int:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     dropout_p: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None,
+                    dropout_offsets: Optional[Offsets] = None
+                    ) -> torch.Tensor:
     """Flash attention, differentiable. ``q [B, S, N, D]``; ``k``/``v``
     ``[B, S, KV, D]`` with ``N % KV == 0`` and ``D <= 128``; returns ``[B,
     S, N, D]`` in q's dtype. A D other than 64 or 128 is zero-padded to
@@ -487,14 +530,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is ``1/sqrt(D)`` of the unpadded D. ``dropout_p > 0`` needs
     ``dropout_seed`` (a uint32): the softmax normaliser sums the undropped
     probabilities, dropped entries are zeroed and survivors rescaled by
-    1/(1-p), and the same mask regenerates in the backward."""
+    1/(1-p), and the same mask regenerates in the backward.
+    ``dropout_offsets = (b_off, n_global, h_off)`` places these rows and
+    heads in the global array whose mask the call draws its part of
+    (default: the whole array, ``(0, N, 0)``)."""
     d = q.shape[-1]
     width = kernel_head_dim(d)
     if width != d:
         scale = _scale(q, scale)
         q, k, v = (F.pad(t, (0, width - d)) for t in (q, k, v))
         return flash_attention(q, k, v, causal, scale, dropout_p,
-                               dropout_seed)[..., :d]
+                               dropout_seed, dropout_offsets)[..., :d]
     if dropout_p > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_p > 0 requires dropout_seed (a uint32 "
@@ -502,5 +548,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         seed = int(dropout_seed) & _M32
     else:
         seed = 0
+    offsets = _offsets(dropout_offsets if dropout_p > 0.0 else None,
+                       q.shape[2])
     return FlashAttentionFunction.apply(q, k, v, causal, scale, dropout_p,
-                                        seed)
+                                        seed, offsets)

@@ -23,7 +23,20 @@ and the per-phase MoE meshes of the serving tiers, which come with them.
 
 The state is one object per process, as the reference's: call
 :func:`destroy_model_parallel` before initialising another layout in the
-same process.
+same process. The ranks of one default process group may be laid out
+again at other sizes as often as they like (tp=2 x dp=2, then tp=4, then
+tp=1 x dp=4), so one start of the processes can save a checkpoint at one
+layout and load it at another; the groups of an earlier layout live on,
+unused, until the default group is destroyed.
+
+Host decisions that every rank must take together (stop for a
+preemption, rewind on an integrity mismatch, skip a corrupt checkpoint)
+go through :func:`agree`, one all-reduce of a host number over the whole
+world; :func:`barrier` orders the checkpoint engine's file writes. Both
+are called from the training thread only: the checkpoint engine's commit
+threads coordinate through files, never through a collective, so no
+collective of theirs can interleave with the step's on the same group.
+JAX's loop is one controller and needs neither.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 PP_AXIS = "pp"
@@ -292,13 +306,35 @@ def get_context_parallel_ring_pairs() -> List[Tuple[int, int]]:
     return [(i, (i + 1) % cp) for i in range(cp)]
 
 
-def refuse_ranks(what: str) -> None:
-    """Raise where ``what`` does not run across ranks yet: the parallel
-    state spans more than this process."""
-    if model_parallel_is_initialized() and get_world_size() > 1:
-        raise ValueError(f"{what} at a world of {get_world_size()} ranks: "
-                         "not in the port yet (a later slice); it runs on "
-                         "one rank")
+def world_size() -> int:
+    """The ranks of the default process group: 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def world_rank() -> int:
+    """This process's rank in the default process group: 0 without one."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def agree(value: float, op: str = "max") -> float:
+    """``value`` reduced (``"max"`` or ``"min"``) over every rank of the
+    default process group, returned on every rank: the host decisions all
+    ranks take together. ``value`` itself in a world of one."""
+    if world_size() == 1:
+        return value
+    ops = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    dev = ("cpu" if dist.get_backend() == "gloo"
+           else torch.device("cuda", torch.cuda.current_device()))
+    t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=ops[op])
+    return float(t.item())
+
+
+def barrier() -> None:
+    """Wait for every rank of the default process group (nothing in a
+    world of one)."""
+    if world_size() > 1:
+        dist.barrier()
 
 
 def data_slice(n: int, axes: Sequence[str] = DATA_AXES) -> slice:

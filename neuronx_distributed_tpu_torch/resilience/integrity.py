@@ -11,8 +11,13 @@ same fold, the same constants and the same bits).
   payloads, KV-session tickets) without touching the device.
 * **Cross-dp-replica consensus** — :func:`majority_vote` over an
   ``[replicas, n_leaves]`` fingerprint matrix localizes a divergent
-  replica. The port runs on one device, so
-  :func:`dp_consensus_fingerprints` is the one-replica matrix.
+  replica; :func:`dp_consensus_fingerprints` all-gathers it over the
+  data-parallel group (one row on one rank).
+* **Sharded fingerprints** — :func:`fingerprint_tree_sharded` gives the
+  whole tensors' fingerprints from their tensor-parallel shards, bit for
+  bit, without gathering them: the fold is an add mod 2**32 of
+  position-weighted words, so each rank folds its shard at its global
+  positions and the sums add over tp before the avalanche.
 * **Wire spot checks** — :func:`payload_fingerprint` digests an encoded
   payload ``(q, scales)``.
 
@@ -45,6 +50,7 @@ import torch
 
 from ..obs.events import emit_event
 from ..obs.metrics import get_registry
+from ..parallel import mesh as ps
 from ..utils.bfloat16 import is_bf16, widen_to_fp32_words
 from ..utils.logger import get_logger
 
@@ -189,6 +195,90 @@ def fingerprint_tree(tree: Any) -> torch.Tensor:
         for leaf in leaves])
 
 
+def _shard_fold_sum(x: torch.Tensor, shape: Tuple[int, ...], dim: int,
+                    offset: int, pos_term: torch.Tensor) -> torch.Tensor:
+    """The int64 sum (unmasked) of the fold's terms ``(w_j C_WORD) ^ (j
+    C_POS)`` over the elements of ``x``, the slice ``[offset, offset +
+    x.shape[dim])`` along ``dim`` of a tensor of ``shape``, each at its
+    flat position ``j`` (from 1) in that whole tensor. Viewed as ``[A,
+    L x Bk]``, row ``a`` of the slice is one contiguous run of the whole
+    tensor, from ``a x D x Bk + offset x Bk``."""
+    a = int(np.prod(shape[:dim], dtype=np.int64))
+    bk = int(np.prod(shape[dim + 1:], dtype=np.int64))
+    width = x.shape[dim] * bk
+    rows = x.detach().reshape(a, width)
+    dev = x.device
+    starts = (torch.arange(a, dtype=torch.int64, device=dev)
+              * (shape[dim] * bk) + offset * bk) & _MASK
+    start_terms = _to_int32(_mul32(starts, _C_POS))
+    c_word = torch.tensor(_signed32(_C_WORD), dtype=torch.int32, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    per = max(1, CHUNK // max(width, 1))
+    for r0 in range(0, a, per):
+        r1 = min(a, r0 + per)
+        for j0 in range(0, width, CHUNK):
+            j1 = min(width, j0 + CHUNK)
+            words = _as_words(rows[r0:r1, j0:j1])
+            pos = (pos_term[:j1 - j0][None, :] + start_terms[r0:r1, None]
+                   + _signed32(j0 * _C_POS & _MASK))
+            total += ((words * c_word) ^ pos).sum(dtype=torch.int64)
+    return total
+
+
+def fingerprint_tree_sharded(tree: Mapping[str, torch.Tensor],
+                             specs: Mapping[str, Tuple]) -> torch.Tensor:
+    """:func:`fingerprint_tree` of the whole tensors whose tensor-parallel
+    shards the ranks of the tp axis hold, bit for bit, without gathering
+    them: each rank folds its shard at the shard's positions in the whole
+    tensor, the int64 sums add over tp (one all-reduce of
+    ``int64[n_leaves]``), and every rank applies the avalanche.
+    ``specs[name]`` is the leaf's partition spec (per dim ``"tp"`` or
+    not); a leaf with no dim over tp, or one missing from ``specs``, is
+    whole on every rank and folded by tp rank 0 alone. The result is the
+    same on every rank of the axis; at tp=1 it is :func:`fingerprint_tree`."""
+    from ..parallel import comm
+
+    axis = ps.TP_AXIS
+    size = comm.axis_size(axis)
+    if size == 1:
+        return fingerprint_tree(tree)
+    rank = ps.axis_rank(axis)
+    leaves = list(tree.items())
+    dev = leaves[0][1].device
+    big = max(t.numel() for _, t in leaves)
+    pos_term = _pos_terms(max(1, min(big, CHUNK)), dev)
+    sums, counts = [], []
+    for name, t in leaves:
+        spec = tuple(specs.get(name, ()))
+        dim = next((d for d, a in enumerate(spec) if a == axis), None)
+        if dim is None:
+            shape = tuple(t.shape)
+            part = (_shard_fold_sum(t, shape, 0, 0, pos_term) if rank == 0
+                    else torch.zeros((), dtype=torch.int64, device=dev))
+        else:
+            shape = list(t.shape)
+            shape[dim] *= size
+            shape = tuple(shape)
+            part = _shard_fold_sum(t, shape, dim, rank * t.shape[dim],
+                                   pos_term)
+        sums.append(part.to(dev))
+        counts.append(int(np.prod(shape, dtype=np.int64)))
+    total = comm.all_reduce(torch.stack(sums), axis)
+    n = torch.tensor([c & _MASK for c in counts], dtype=torch.int64,
+                     device=dev)
+    return _to_int32(_avalanche(total, n))
+
+
+def _avalanche(h: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The fold's finish on the int64 sums ``h`` of tensors of ``n``
+    elements each (int64, masked): mask, xor the count, then the two
+    multiply-xorshift rounds."""
+    h = (h & _MASK) ^ n
+    h = _mul32(h ^ (h >> 15), _C_MIX1)
+    h = _mul32(h ^ (h >> 13), _C_MIX2)
+    return h ^ (h >> 16)
+
+
 def combine_fingerprints(fps: torch.Tensor) -> torch.Tensor:
     """Fold a vector of fingerprints into one scalar int32 (e.g. a whole
     param-tree digest, or a ``(q, scales)`` wire-payload pair)."""
@@ -292,16 +382,20 @@ def kv_payload_fingerprints(payload: Dict[str, np.ndarray],
 # ---------------------------------------------------------------------------
 
 
-def dp_consensus_fingerprints(tree: Any) -> torch.Tensor:
+def dp_consensus_fingerprints(tree: Any,
+                              fps: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The ``int32[dp, n_leaves]`` matrix of every data-parallel replica's
-    fingerprints, for :func:`majority_vote`: this replica's vector,
-    all-gathered over the dp group (JAX ``resilience/integrity.py:295``),
-    so every replica holds the whole matrix and the vote needs no leader.
-    One row where there is one replica."""
+    fingerprints, for :func:`majority_vote`: this replica's vector
+    (``fps``, or :func:`fingerprint_tree` of ``tree``), all-gathered over
+    the dp group (JAX ``resilience/integrity.py:295``), so every replica
+    holds the whole matrix and the vote needs no leader. One row where
+    there is one replica."""
     from ..parallel import comm
-    from ..parallel import mesh as ps
 
-    return comm.all_gather(fingerprint_tree(tree)[None], ps.DP_AXIS, 0)
+    if fps is None:
+        fps = fingerprint_tree(tree)
+    return comm.all_gather(fps[None], ps.DP_AXIS, 0)
 
 
 def majority_vote(fp_matrix: Any) -> Tuple[np.ndarray,
@@ -364,6 +458,15 @@ class IntegrityMonitor:
     consulted at ``("integrity", "params")`` and a ``bitflip`` directive
     flips the seeded bit in the largest parameter *before* verification —
     corruption at rest between the step's write and the next read.
+
+    Across ranks the recompute is the step's own fingerprint
+    (``step.fingerprint``: the whole tensors', from their shards), the
+    ranks agree on whether any of them saw a mismatch
+    (:func:`..parallel.mesh.agree`), so a flip in one rank's shard makes
+    every rank report it and rewind together, and the data-parallel
+    replicas' vectors are voted on (:func:`dp_consensus_fingerprints`,
+    :func:`majority_vote`; ``divergent_replicas`` names the outvoted
+    ones: of two replicas that disagree, one).
     """
 
     needs_prev_state = False
@@ -378,6 +481,7 @@ class IntegrityMonitor:
         self.checks = 0
         self.mismatches = 0
         self.flips_injected = 0
+        self.divergent_replicas: Dict[int, List[int]] = {}
 
     # -- Callback protocol -------------------------------------------------
 
@@ -401,18 +505,27 @@ class IntegrityMonitor:
                 "integrity", "params")
             if kind == "bitflip":
                 self._flip_param_bit(trainer, int(detail.get("bit", 0)))
+        fingerprint = getattr(trainer.step_fn, "fingerprint",
+                              fingerprint_tree)
+        actual_t = fingerprint(trainer.state.params)
         reported = metrics["integrity_fp"].cpu().numpy()
-        actual = fingerprint_tree(trainer.state.params).cpu().numpy()
+        actual = actual_t.cpu().numpy()
         self.checks += 1
         checks, mismatches = _metrics()
         checks.inc()
-        if np.array_equal(reported, actual):
+        same = np.array_equal(reported, actual)
+        if ps.world_size() > 1:
+            _, self.divergent_replicas = majority_vote(
+                dp_consensus_fingerprints(None, actual_t))
+            same = ps.agree(float(not same), "max") == 0
+        if same:
             return
         bad = [int(i) for i in np.nonzero(reported != actual)[0]]
         self.mismatches += 1
         mismatches.labels(scope="params").inc()
         emit_event("integrity_mismatch", scope="params", step=step,
-                   leaves=bad, cadence=self.every)
+                   leaves=bad, cadence=self.every,
+                   divergent_replicas=self.divergent_replicas)
         reason = (f"integrity fingerprint mismatch at step {step} "
                   f"(divergent leaves {bad})")
         if self.watchdog is not None:

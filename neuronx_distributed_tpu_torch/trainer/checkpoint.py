@@ -18,11 +18,34 @@ The protocol is the reference's, file for file:
 * async saves commit on a background thread; :func:`finalize_checkpoint`
   (also run at exit) joins them and raises a commit's error.
 
-The payload is the port's own: ``state/state.pt``, one ``torch.save`` of
-the state's tensors by name in a tree of dicts and lists (dataclasses
-become dicts, :func:`state_to_tree`), loaded with ``weights_only=True``.
-It cannot read the reference's Orbax payload; weights cross from JAX by
-:func:`..models.convert.params_from_jax`.
+The payload is the port's own: ``torch.save`` files of the state's
+tensors by path (dataclasses become dicts, :func:`state_to_tree`), loaded
+with ``weights_only=True``. It cannot read the reference's Orbax payload;
+weights cross from JAX by :func:`..models.convert.params_from_jax`.
+
+Each tensor of the state has a partition spec, per dim None, ``"tp"`` or
+``"dp"`` (the data axes of ZeRO-1): ``TrainState.shard_specs``, or
+``specs`` for another tree. Each rank writes the parts it alone holds to
+``state/shard_tp<t>_dp<d>.pt``, keyed by its mesh coordinates: a tensor
+the data ranks replicate is written by data rank 0, one the tp ranks
+replicate by tp rank 0, and each ZeRO-1 slice of the moments by its own
+rank (one rank writes everything to ``shard_tp0_dp0.pt``). Each rank
+digests its file and leaves ``ranks/<rank>.json``; rank 0 waits for every
+rank's (files, not a collective, so its commit thread never meets the
+training loop's collectives) and writes the one SHA-256 manifest over
+every file, with the shard table (each tensor's global shape, dtype, spec
+and the boxes each file holds) and the state's scalars, then the
+done-marker and ``newest``. Loading assembles each rank's part from the
+boxes that cover it (``torch.load(mmap=True, weights_only=True)``), so a
+tag loads onto another layout: another tp or dp, with or without ZeRO-1,
+or one rank, as the reference's Orbax restore reshards. A tag written
+before the shard table (one ``state/state.pt`` of the whole tree) still
+loads, as a table of whole tensors. Across ranks verification is shared
+out over the ranks and agreed (:func:`..parallel.mesh.agree`): a corrupt
+rank file fails the whole tag on every rank, and auto-resume falls back
+to the prior tag on every rank together. Saving and loading are
+collective across ranks: every rank calls them at the same point, from
+the training thread.
 
 The port's train step updates parameters and moments in place, where JAX
 arrays are immutable. So :func:`save_checkpoint` first copies every tensor
@@ -36,16 +59,20 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import io
+import json
 import logging
+import math
 import os
 import tempfile
 import threading
-from typing import Any, Callable, List, Optional, Tuple
+import time
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 
-from ..parallel.mesh import refuse_ranks
 from ..device import DeviceLike, resolve_device
+from ..parallel import mesh as ps
 from ..resilience import manifest as _manifest
 from .checkpoint_storage import (BaseCheckpointStorage,
                                  FilesysCheckpointStorage,
@@ -56,9 +83,15 @@ logger = logging.getLogger(__name__)
 DONE_FILE = "checkpoint"  # reference: done-marker file name
 NEWEST_FILE = "newest"
 STATE_DIR = "state"
+#: the one payload of a tag written before the shard table (read only)
 PAYLOAD_FILE = "state.pt"
 USER_CONTENT_FILE = "user_content.json"
 MANIFEST_FILE = _manifest.MANIFEST_FILE
+RANKS_DIR = "ranks"
+#: seconds rank 0's commit waits for every rank's file of a tag
+RANK_WAIT_S = 3600.0
+
+Spec = Tuple[Optional[str], ...]
 
 
 class CheckpointSaveError(RuntimeError):
@@ -123,6 +156,13 @@ atexit.register(_IO_STATE.wait_all)
 # the state as a tree of tensors
 # ---------------------------------------------------------------------------
 
+def _fields(obj: Any) -> List[dataclasses.Field]:
+    """A dataclass's saved fields: all but those marked
+    ``metadata={"checkpoint": False}`` (``TrainState.shard_specs``)."""
+    return [f for f in dataclasses.fields(obj)
+            if f.metadata.get("checkpoint", True)]
+
+
 def state_to_tree(obj: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
     """``obj`` (dataclasses, dicts, lists and tuples of tensors and
     scalars) as plain dicts and lists, each tensor replaced by ``fn(t)``."""
@@ -130,7 +170,7 @@ def state_to_tree(obj: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
         return fn(obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {f.name: state_to_tree(getattr(obj, f.name), fn)
-                for f in dataclasses.fields(obj)}
+                for f in _fields(obj)}
     if isinstance(obj, dict):
         return {str(k): state_to_tree(v, fn) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -138,6 +178,47 @@ def state_to_tree(obj: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     raise TypeError(f"cannot checkpoint a {type(obj).__name__}")
+
+
+def tree_leaves(tree: Any, prefix: Tuple[str, ...] = ()
+                ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` of every tensor of a tree of dicts and lists (as
+    :func:`state_to_tree` makes it), the path its keys and list indices
+    joined by ``/``."""
+    if isinstance(tree, torch.Tensor):
+        yield "/".join(prefix), tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, prefix + (str(i),))
+
+
+def _skeleton(tree: Any, prefix: Tuple[str, ...] = ()) -> Any:
+    """``tree`` with each tensor replaced by ``{"tensor": path}``: the
+    scalars and the shape of the state, as JSON."""
+    if isinstance(tree, torch.Tensor):
+        return {"tensor": "/".join(prefix)}
+    if isinstance(tree, dict):
+        return {"dict": {str(k): _skeleton(v, prefix + (str(k),))
+                         for k, v in tree.items()}}
+    if isinstance(tree, (list, tuple)):
+        return {"list": [_skeleton(v, prefix + (str(i),))
+                         for i, v in enumerate(tree)]}
+    return {"value": tree}
+
+
+def _unskeleton(sk: Any, tensors: Mapping[str, torch.Tensor]) -> Any:
+    """The tree :func:`_skeleton` describes, its tensors from ``tensors``
+    by path."""
+    if "tensor" in sk:
+        return tensors[sk["tensor"]]
+    if "dict" in sk:
+        return {k: _unskeleton(v, tensors) for k, v in sk["dict"].items()}
+    if "list" in sk:
+        return [_unskeleton(v, tensors) for v in sk["list"]]
+    return sk["value"]
 
 
 def _is_leaf(v: Any) -> bool:
@@ -160,10 +241,11 @@ def load_tree_(target: Any, tree: Any, where: str = "state") -> Any:
             raise ValueError(f"{where}: {tuple(tree.shape)} {tree.dtype} "
                              f"cannot load into {tuple(target.shape)} "
                              f"{target.dtype}")
-        target.copy_(tree)
+        if tree is not target:
+            target.copy_(tree)
         return target
     if dataclasses.is_dataclass(target):
-        keys = [f.name for f in dataclasses.fields(target)]
+        keys = [f.name for f in _fields(target)]
         get, put = target.__getattribute__, target.__setattr__
     elif isinstance(target, (dict, list)):
         keys = list(target) if isinstance(target, dict) else list(
@@ -186,6 +268,94 @@ def load_tree_(target: Any, tree: Any, where: str = "state") -> Any:
 
 
 # ---------------------------------------------------------------------------
+# layouts: which part of each tensor a rank holds
+# ---------------------------------------------------------------------------
+
+def _layout() -> Dict[str, int]:
+    """This process's tp and data (dp x cp) sizes and indices; one rank of
+    each without a parallel layout."""
+    if not ps.model_parallel_is_initialized():
+        return dict(tp=1, tp_rank=0, dp=1, dp_rank=0)
+    return dict(tp=ps.axis_size(ps.TP_AXIS), tp_rank=ps.axis_rank(ps.TP_AXIS),
+                dp=ps.axis_size(ps.DATA_AXES),
+                dp_rank=ps.axis_rank(ps.DATA_AXES))
+
+
+def _across_ranks() -> bool:
+    return ps.model_parallel_is_initialized() and ps.get_world_size() > 1
+
+
+def _rank_world() -> Tuple[int, int]:
+    """This rank's index among the ranks that write a tag, and their
+    count: ``(0, 1)`` outside a parallel layout of more than one rank."""
+    if not _across_ranks():
+        return 0, 1
+    return ps.world_rank(), ps.world_size()
+
+
+def _norm_spec(spec: Any, ndim: int) -> Spec:
+    """A spec as per-dim None, ``"tp"`` or ``"dp"`` (the data axes, named
+    ``"dp"``, ``("dp", "cp")`` or ``"data"``)."""
+    out = []
+    for a in tuple(spec or ())[:ndim]:
+        if a in (None, "tp"):
+            out.append(a)
+        elif a in ("dp", "data", ps.DATA_AXES):
+            out.append("dp")
+        else:
+            raise ValueError(f"spec entry {a!r}: the checkpoint shards over "
+                             "tp and the data axes only")
+    return tuple(out) + (None,) * (ndim - len(out))
+
+
+def _box(local_shape, spec: Spec, lay: Mapping[str, int]
+         ) -> Tuple[List[int], List[Tuple[int, int]]]:
+    """``(global shape, [(start, stop)] per dim)`` of the part of a tensor
+    a rank at ``lay`` holds, its local shape ``local_shape``."""
+    shape, box = [], []
+    for n, a in zip(local_shape, spec):
+        parts, idx = ((lay["tp"], lay["tp_rank"]) if a == "tp" else
+                      (lay["dp"], lay["dp_rank"]) if a == "dp" else (1, 0))
+        shape.append(n * parts)
+        box.append((n * idx, n * (idx + 1)))
+    return shape, box
+
+
+def _writes(spec: Spec, lay: Mapping[str, int]) -> bool:
+    """Whether the rank at ``lay`` writes its part: the first of the ranks
+    that hold the same part."""
+    return ((lay["tp_rank"] == 0 or "tp" in spec)
+            and (lay["dp_rank"] == 0 or "dp" in spec))
+
+
+def _shard_file(tp_rank: int, dp_rank: int) -> str:
+    return f"{STATE_DIR}/shard_tp{tp_rank}_dp{dp_rank}.pt"
+
+
+def shard_table(tree: Any, specs: Mapping[str, Any],
+                lay: Mapping[str, int]) -> Dict[str, Any]:
+    """The shard table of ``tree``, this rank's tensors at ``lay`` (every
+    rank's the same shapes): per tensor path its global shape, dtype,
+    spec and the ``[file, box]`` of every writing rank."""
+    leaves = {}
+    for path, t in tree_leaves(tree):
+        spec = _norm_spec(specs.get(path), t.dim())
+        shape, _ = _box(t.shape, spec, lay)
+        pieces = []
+        for tr in range(lay["tp"]):
+            for dr in range(lay["dp"]):
+                at = dict(lay, tp_rank=tr, dp_rank=dr)
+                if _writes(spec, at):
+                    pieces.append([_shard_file(tr, dr),
+                                   [list(b) for b in _box(t.shape, spec,
+                                                          at)[1]]])
+        leaves[path] = {"shape": shape, "dtype": str(t.dtype).split(".")[-1],
+                        "spec": list(spec), "pieces": pieces}
+    return {"tp": lay["tp"], "dp": lay["dp"], "leaves": leaves,
+            "tree": _skeleton(tree)}
+
+
+# ---------------------------------------------------------------------------
 # tags
 # ---------------------------------------------------------------------------
 
@@ -199,12 +369,6 @@ def _tag_dir(base: str, tag: str) -> str:
     if "://" in base:
         return base.rstrip("/") + "/" + str(tag)
     return os.path.join(base, str(tag))
-
-
-def _payload_path(tdir: str) -> str:
-    if "://" in tdir:
-        return tdir.rstrip("/") + f"/{STATE_DIR}/{PAYLOAD_FILE}"
-    return os.path.join(tdir, STATE_DIR, PAYLOAD_FILE)
 
 
 def _is_complete(storage: BaseCheckpointStorage, base: str, tag: str) -> bool:
@@ -248,6 +412,15 @@ def verify_checkpoint(path: str, tag: Any) -> Tuple[bool, str]:
     return _verify_tag(create_checkpoint_storage(path), path, str(tag))
 
 
+def saved_shard_table(path: str, tag: Any) -> Optional[Dict[str, Any]]:
+    """The shard table a tag carries in its manifest (each tensor's global
+    shape, dtype, spec and pieces), or None for a tag written before the
+    shard table."""
+    path = _normalize_path(path)
+    return _shard_table_of(create_checkpoint_storage(path),
+                           _tag_dir(path, str(tag)))
+
+
 def user_content(path: str, tag: Any) -> Optional[dict]:
     """The ``user_content`` saved with ``tag``, or None."""
     path = _normalize_path(path)
@@ -270,18 +443,36 @@ def _on_local_disk(storage: BaseCheckpointStorage) -> bool:
     return isinstance(storage, FilesysCheckpointStorage)
 
 
-def _write_payload(storage: BaseCheckpointStorage, tdir: str,
-                   tree: Any) -> None:
-    target = _payload_path(tdir)
+def _join(tdir: str, rel: str) -> str:
+    if "://" in tdir:
+        return tdir.rstrip("/") + "/" + rel
+    return os.path.join(tdir, *rel.split("/"))
+
+
+def _write_file(storage: BaseCheckpointStorage, target: str,
+                obj: Any) -> None:
+    """``torch.save`` ``obj`` to ``target`` (local disk: through a temporary
+    file renamed into place)."""
     if _on_local_disk(storage):
         os.makedirs(os.path.dirname(target), exist_ok=True)
         tmp = target + ".tmp"
-        torch.save(tree, tmp)
+        torch.save(obj, tmp)
         os.replace(tmp, target)
         return
     buf = io.BytesIO()
-    torch.save(tree, buf)
+    torch.save(obj, buf)
     storage.save_bytes(buf.getvalue(), target)
+
+
+def _clear_tag(storage: BaseCheckpointStorage, tdir: str) -> None:
+    """Drop a tag's done-marker and manifest, then its payload and rank
+    markers: a done-marker always implies a durable payload."""
+    storage.remove_file(os.path.join(tdir, DONE_FILE))
+    storage.remove_file(os.path.join(tdir, MANIFEST_FILE))
+    for sub in (STATE_DIR, RANKS_DIR):
+        d = _join(tdir, sub)
+        if storage.dir_exists(d):
+            storage.remove_dir(d)
 
 
 def save_checkpoint(
@@ -291,51 +482,47 @@ def save_checkpoint(
     user_content: Optional[dict] = None,
     async_save: bool = True,
     num_kept: int = -1,
+    specs: Optional[Mapping[str, Any]] = None,
 ) -> None:
     """Save ``state`` (a ``TrainState``, or any dataclass, dict or list of
     tensors and scalars) under ``path/tag``.
 
     Returns once every tensor has been copied to host memory; with
     ``async_save`` the payload, the manifest and the done-marker are
-    written on a background thread and training goes on. One rank only
-    (a sharded state waits for a later slice)."""
-    refuse_ranks("save_checkpoint")
+    written on a background thread and training goes on. Across ranks
+    every rank calls it at the same step: each writes its part (``specs``,
+    by tensor path, default ``state.shard_specs``; a tensor without one is
+    whole on every rank) and rank 0 commits the tag once every rank's file
+    is written; a synchronous save returns on every rank once the tag is
+    committed."""
     tag = str(tag)
     path = _normalize_path(path)
     _IO_STATE.raise_pending_errors()
     storage = create_checkpoint_storage(path)
     tdir = _tag_dir(path, tag)
-    storage.create_dir(tdir)
+    rank, world = _rank_world()
+    if specs is None:
+        specs = getattr(state, "shard_specs", None) or {}
 
     # done-marker implies a durable payload: an overwrite drops the stale
     # marker and manifest before the payload is touched, after joining an
-    # in-flight save of the same tag
+    # in-flight save of the same tag (on every rank, across ranks)
     _IO_STATE.wait_tag(tag)
-    storage.remove_file(os.path.join(tdir, DONE_FILE))
-    storage.remove_file(os.path.join(tdir, MANIFEST_FILE))
-    state_dir = os.path.dirname(_payload_path(tdir))
-    if storage.dir_exists(state_dir):
-        storage.remove_dir(state_dir)
+    if world > 1:
+        ps.barrier()
+    if rank == 0:
+        storage.create_dir(tdir)
+        _clear_tag(storage, tdir)
+    if world > 1:
+        ps.barrier()
 
     # the snapshot: a blocking copy to host memory, so the next step's
     # in-place update cannot reach the values being written
     tree = state_to_tree(state, lambda t: t.detach().to("cpu", copy=True))
-    if user_content is not None:
+    if user_content is not None and rank == 0:
         storage.save_object(user_content, os.path.join(tdir,
                                                        USER_CONTENT_FILE))
-
-    def commit():
-        _write_payload(storage, tdir, tree)
-        # manifest after the payload is durable, before the done-marker:
-        # a complete tag always carries its inventory
-        man = _manifest.build_manifest(storage, tdir, tag)
-        if man is not None:
-            storage.save_object(man, os.path.join(tdir, MANIFEST_FILE))
-        storage.save_text("done", os.path.join(tdir, DONE_FILE))
-        storage.save_text(tag, os.path.join(path, NEWEST_FILE))
-        if num_kept > 0:
-            _apply_retention(storage, path, num_kept)
-        logger.info("checkpoint %s committed", tdir)
+    commit = _rank_commit(storage, path, tdir, tag, tree, specs, num_kept)
 
     def commit_async():
         try:
@@ -349,8 +536,149 @@ def save_checkpoint(
                              name=f"ckpt-commit-{tag}")
         t.start()
         _IO_STATE.add(tag, t)
-    else:
+    elif world == 1:
         commit()
+    else:
+        # returns on every rank once rank 0 has committed, or raises on
+        # every rank when any rank's part failed
+        err = None
+        try:
+            commit()
+        except Exception as e:  # noqa: BLE001 - raised below, on all ranks
+            err = e
+        if ps.agree(float(err is None), "min") < 1.0:
+            raise err or CheckpointSaveError(
+                f"checkpoint {tdir}: another rank's part failed")
+
+
+def _finish(storage: BaseCheckpointStorage, path: str, tdir: str, tag: str,
+            num_kept: int) -> None:
+    """The last steps of a commit, after the manifest: the done-marker,
+    ``newest`` and retention."""
+    storage.save_text("done", os.path.join(tdir, DONE_FILE))
+    storage.save_text(tag, os.path.join(path, NEWEST_FILE))
+    if num_kept > 0:
+        _apply_retention(storage, path, num_kept)
+    logger.info("checkpoint %s committed", tdir)
+
+
+def _write_rank_part(storage: BaseCheckpointStorage, tdir: str, tree: Any,
+                     specs: Mapping[str, Any], lay: Mapping[str, int],
+                     rank: int) -> None:
+    """Write the part of ``tree`` (this rank's tensors at ``lay``) that
+    the rank writes, digest the file, and leave the rank's marker
+    ``ranks/<rank>.json`` (``[relpath, size, sha256]``)."""
+    marker = _join(tdir, f"{RANKS_DIR}/{rank}.json")
+    try:
+        part = {p: t for p, t in tree_leaves(tree)
+                if _writes(_norm_spec(specs.get(p), t.dim()), lay)}
+        rel = _shard_file(lay["tp_rank"], lay["dp_rank"])
+        target = _join(tdir, rel)
+        _write_file(storage, target, part)
+        size = storage.file_size(target)
+        storage.save_object(
+            [rel, size, _manifest.file_digest(storage, target)], marker)
+    except Exception as e:
+        # tell rank 0's commit, which waits for this marker, to give up
+        storage.save_object(["error", repr(e)], marker)
+        raise
+
+
+def _commit_tag(storage: BaseCheckpointStorage, path: str, tdir: str,
+                tag: str, world: int, table: Dict[str, Any],
+                num_kept: int, timeout: float = RANK_WAIT_S) -> None:
+    """Rank 0's half of a commit: wait for every rank's marker, write the
+    manifest over every file (with the shard table) once the payload is
+    durable, then :func:`_finish`: a complete tag always carries its
+    inventory."""
+    markers = [_join(tdir, f"{RANKS_DIR}/{r}.json") for r in range(world)]
+    deadline = time.monotonic() + timeout
+    while not all(storage.file_exists(m) for m in markers):
+        if time.monotonic() > deadline:
+            missing = [r for r, m in enumerate(markers)
+                       if not storage.file_exists(m)]
+            raise CheckpointSaveError(f"checkpoint {tdir}: rank(s) {missing} "
+                                      f"wrote nothing in {timeout:.0f} s")
+        time.sleep(0.05)
+    known = {}
+    for r, m in enumerate(markers):
+        entry = storage.load_object(m)
+        if entry[0] == "error":
+            raise CheckpointSaveError(f"checkpoint {tdir}: rank {r}'s part "
+                                      f"failed: {entry[1]}")
+        rel, size, digest = entry
+        known[rel] = [size, digest]
+    man = _manifest.build_manifest(storage, tdir, tag, known=known,
+                                   shards=table)
+    if man is not None:
+        storage.save_object(man, os.path.join(tdir, MANIFEST_FILE))
+    _finish(storage, path, tdir, tag, num_kept)
+
+
+def _rank_commit(storage, path, tdir, tag, tree, specs, num_kept
+                 ) -> Callable[[], None]:
+    """A rank's commit: its part and marker; on rank 0 also the wait for
+    every rank and the manifest, done-marker and ``newest``. Files only:
+    no collective, so it may run on a commit thread."""
+    lay, (rank, world) = _layout(), _rank_world()
+    table = shard_table(tree, specs, lay) if rank == 0 else None
+
+    def commit():
+        _write_rank_part(storage, tdir, tree, specs, lay, rank)
+        if rank == 0:
+            _commit_tag(storage, path, tdir, tag, world, table, num_kept)
+    return commit
+
+
+def save_at_layout(path: str, tag: Any, tree: Any,
+                   specs: Mapping[str, Any], tp: int, dp: int,
+                   user_content: Optional[dict] = None,
+                   num_kept: int = -1) -> None:
+    """Write the whole tensors of ``tree`` (from one process) as the tag
+    ``tp`` x ``dp`` ranks would save under ``specs``: one file per writing
+    rank, each rank's marker, then the manifest and the done-marker.
+    What :mod:`..scripts.reshard_checkpoint` writes at another layout."""
+    tag = str(tag)
+    path = _normalize_path(path)
+    storage = create_checkpoint_storage(path)
+    tdir = _tag_dir(path, tag)
+    _IO_STATE.wait_tag(tag)
+    storage.create_dir(tdir)
+    _clear_tag(storage, tdir)
+    tree = state_to_tree(tree, lambda t: t.detach().to("cpu"))
+    if user_content is not None:
+        storage.save_object(user_content, os.path.join(tdir,
+                                                       USER_CONTENT_FILE))
+    table = None
+    for tr in range(tp):
+        for dr in range(dp):
+            lay = dict(tp=tp, tp_rank=tr, dp=dp, dp_rank=dr)
+            local = _local_tree(tree, specs, lay)
+            if table is None:
+                table = shard_table(local, specs, lay)
+            _write_rank_part(storage, tdir, local, specs, lay, dr * tp + tr)
+    _commit_tag(storage, path, tdir, tag, tp * dp, table, num_kept)
+
+
+def _local_tree(tree: Any, specs: Mapping[str, Any],
+                lay: Mapping[str, int]) -> Any:
+    """``tree`` of whole tensors cut to the parts the rank at ``lay``
+    holds under ``specs``."""
+    def cut(path, t):
+        spec = _norm_spec(specs.get(path), t.dim())
+        for d, a in enumerate(spec):
+            parts, idx = ((lay["tp"], lay["tp_rank"]) if a == "tp" else
+                          (lay["dp"], lay["dp_rank"]) if a == "dp" else
+                          (1, 0))
+            if t.shape[d] % parts:
+                raise ValueError(f"{path}: dim {d} ({t.shape[d]}) not "
+                                 f"divisible by {parts}")
+            n = t.shape[d] // parts
+            t = t.narrow(d, idx * n, n)
+        return t.contiguous()
+
+    leaves = {p: cut(p, t) for p, t in tree_leaves(tree)}
+    return _unskeleton(_skeleton(tree), leaves)
 
 
 # Retention runs on async commit threads: two overlapping saves that both
@@ -371,8 +699,11 @@ def _apply_retention(storage: BaseCheckpointStorage, path: str,
 
 def finalize_checkpoint() -> None:
     """Block until all async saves are committed; raise a failed commit's
-    error."""
+    error. Across ranks every rank calls it together, and it returns once
+    rank 0 has committed every tag the ranks saved."""
     _IO_STATE.wait_all()
+    if _across_ranks():
+        ps.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -381,14 +712,22 @@ def finalize_checkpoint() -> None:
 
 def _verify_tag(storage: BaseCheckpointStorage, path: str,
                 tag: str) -> Tuple[bool, str]:
+    """Verify one tag; across ranks each rank digests its share of the
+    files and the ranks agree (one rank's failure fails it on all)."""
     tdir = _tag_dir(path, tag)
-    return _manifest.verify_manifest(storage, tdir,
-                                     os.path.join(tdir, MANIFEST_FILE))
+    if not _across_ranks():
+        return _manifest.verify_manifest(storage, tdir,
+                                         os.path.join(tdir, MANIFEST_FILE))
+    ok, why = _manifest.verify_manifest(
+        storage, tdir, os.path.join(tdir, MANIFEST_FILE),
+        share=(ps.world_rank(), ps.world_size()))
+    if ps.agree(float(ok), "min") < 1.0:
+        return False, why if not ok else "another rank's share failed"
+    return True, why
 
 
-def _read_payload(storage: BaseCheckpointStorage, tdir: str,
-                  map_location: torch.device) -> Any:
-    source = _payload_path(tdir)
+def _read_file(storage: BaseCheckpointStorage, source: str,
+               map_location: torch.device) -> Any:
     if _on_local_disk(storage):
         return torch.load(source, map_location=map_location,
                           weights_only=True, mmap=True)
@@ -398,16 +737,132 @@ def _read_payload(storage: BaseCheckpointStorage, tdir: str,
         return torch.load(f, map_location=map_location, weights_only=True)
 
 
+class _Files(dict):
+    """A tag's payload files by relpath, each loaded (memory-mapped) at
+    first use."""
+
+    def __init__(self, storage: BaseCheckpointStorage, tdir: str):
+        super().__init__()
+        self.storage, self.tdir = storage, tdir
+
+    def __missing__(self, rel: str) -> Any:
+        self[rel] = _read_file(self.storage, _join(self.tdir, rel),
+                               torch.device("cpu"))
+        return self[rel]
+
+
+def _shard_table_of(storage: BaseCheckpointStorage,
+                    tdir: str) -> Optional[Dict[str, Any]]:
+    """The shard table of a tag, None for a tag written before it."""
+    man_path = os.path.join(tdir, MANIFEST_FILE)
+    if not storage.file_exists(man_path):
+        return None
+    return storage.load_object(man_path).get("shards")
+
+
+def _whole_table(storage: BaseCheckpointStorage, tdir: str
+                 ) -> Tuple[Dict[str, Any], _Files]:
+    """A tag written before the shard table, as one: every tensor whole
+    in its one payload."""
+    rel = f"{STATE_DIR}/{PAYLOAD_FILE}"
+    tree = _read_file(storage, _join(tdir, rel), torch.device("cpu"))
+    files = _Files(storage, tdir)
+    files[rel] = dict(tree_leaves(tree))
+    leaves = {p: {"shape": list(t.shape),
+                  "dtype": str(t.dtype).split(".")[-1],
+                  "spec": [None] * t.dim(),
+                  "pieces": [[rel, [[0, n] for n in t.shape]]]}
+              for p, t in tree_leaves(tree)}
+    return {"tp": 1, "dp": 1, "leaves": leaves,
+            "tree": _skeleton(tree)}, files
+
+
+@torch.no_grad()
+def _assemble(entry: Mapping[str, Any], path: str, files: Mapping[str, Any],
+              box: List[Tuple[int, int]], out: torch.Tensor) -> None:
+    """Fill ``out`` (the part ``box`` of the tensor ``path``) from the
+    saved pieces that overlap it."""
+    covered = 0
+    for rel, pbox in entry["pieces"]:
+        lo = [max(a, p[0]) for (a, _), p in zip(box, pbox)]
+        hi = [min(b, p[1]) for (_, b), p in zip(box, pbox)]
+        if any(h <= l for l, h in zip(lo, hi)):
+            continue
+        piece = files[rel][path]
+        src = piece[tuple(slice(l - p[0], h - p[0])
+                          for l, h, p in zip(lo, hi, pbox))]
+        out[tuple(slice(l - b[0], h - b[0])
+                  for l, h, b in zip(lo, hi, box))].copy_(src)
+        covered += math.prod(h - l for l, h in zip(lo, hi))
+    if covered != math.prod(b - a for a, b in box):
+        raise ValueError(f"{path}: the saved pieces cover {covered} of the "
+                         f"{math.prod(b - a for a, b in box)} elements "
+                         "wanted")
+
+
 def _restore_tag(storage: BaseCheckpointStorage, path: str, tag: str,
-                 target: Optional[Any], device: torch.device
+                 target: Optional[Any], device: torch.device,
+                 specs: Optional[Mapping[str, Any]] = None
                  ) -> Tuple[Any, Optional[dict]]:
     tdir = _tag_dir(path, tag)
-    state = _read_payload(storage, tdir, device)
-    if target is not None:
-        state = load_tree_(target, state)
+    table = _shard_table_of(storage, tdir)
+    if table is None:
+        table, files = _whole_table(storage, tdir)
+    else:
+        files = _Files(storage, tdir)
+    state = (_assemble_whole(table, files, device) if target is None
+             else _assemble_into(table, files, target, specs))
     uc = os.path.join(tdir, USER_CONTENT_FILE)
     content = storage.load_object(uc) if storage.file_exists(uc) else None
     return state, content
+
+
+def _assemble_whole(table: Mapping[str, Any], files: Mapping[str, Any],
+                    device: torch.device) -> Any:
+    """The saved tree with every tensor whole, on ``device``."""
+    whole = {}
+    for p, entry in table["leaves"].items():
+        t = torch.empty(entry["shape"], dtype=getattr(torch, entry["dtype"]))
+        _assemble(entry, p, files, [(0, n) for n in entry["shape"]], t)
+        whole[p] = t.to(device)
+    return _unskeleton(table["tree"], whole)
+
+
+@torch.no_grad()
+def _assemble_into(table: Mapping[str, Any], files: Mapping[str, Any],
+                   target: Any, specs: Optional[Mapping[str, Any]]) -> Any:
+    """Copy into each tensor of ``target`` its part at this rank's layout
+    (under ``specs``, default ``target.shard_specs``), then the saved
+    scalars. Returns ``target``."""
+    if specs is None:
+        specs = getattr(target, "shard_specs", None) or {}
+    leaves, lay = table["leaves"], _layout()
+    mine = dict(tree_leaves(state_to_tree(target, lambda t: t)))
+    if set(mine) != set(leaves):
+        raise ValueError(f"the checkpoint holds {sorted(leaves)}, the "
+                         f"target {sorted(mine)}")
+    for p, t in mine.items():
+        entry = leaves[p]
+        shape, box = _box(t.shape, _norm_spec(specs.get(p), t.dim()), lay)
+        if (shape != list(entry["shape"])
+                or str(t.dtype).split(".")[-1] != entry["dtype"]):
+            raise ValueError(f"{p}: {entry['shape']} {entry['dtype']} "
+                             f"cannot load into {shape} {t.dtype}")
+        _assemble(entry, p, files, box, t)
+    return load_tree_(target, _unskeleton(table["tree"], mine))
+
+
+def _try_restore(storage, path, tag, target, device, specs):
+    """:func:`_restore_tag`; across ranks the ranks agree on success (a
+    failure on one fails the tag on all). ``(state, content)`` or the
+    error's text."""
+    try:
+        out, err = _restore_tag(storage, path, tag, target, device, specs), ""
+    except Exception as e:  # reported or raised by the caller
+        out, err = None, repr(e)
+    if _across_ranks() and ps.agree(float(out is not None), "min") < 1.0:
+        return None, err or "another rank failed to restore"
+    return out, err
 
 
 def load_checkpoint(
@@ -416,6 +871,7 @@ def load_checkpoint(
     target: Optional[Any] = None,
     verify: bool = True,
     device: DeviceLike = None,
+    specs: Optional[Mapping[str, Any]] = None,
 ) -> Tuple[Any, Optional[dict]]:
     """Load ``(state, user_content)``.
 
@@ -425,8 +881,11 @@ def load_checkpoint(
     :class:`CheckpointCorruptionError`. With ``target`` (e.g. the live
     ``TrainState``) the values are copied into its tensors in place and
     ``target`` is returned; without, the saved tree of dicts and lists is
-    returned with its tensors on ``device`` (None: the CUDA card)."""
-    refuse_ranks("load_checkpoint")
+    returned with its whole tensors on ``device`` (None: the CUDA card).
+    Across ranks every rank calls it together and gets its part of each
+    tensor under ``specs`` (default ``target.shard_specs``; a tensor
+    without one is whole) at the current layout, whatever layout saved
+    the tag."""
     path = _normalize_path(path)
     storage = create_checkpoint_storage(path)
     # with a target the payload is staged on the host and copied into the
@@ -448,13 +907,13 @@ def load_checkpoint(
                         why)
                     skipped.append((t, why))
                     continue
-            try:
-                return _restore_tag(storage, path, t, target, device)
-            except Exception as e:
-                logger.warning(
-                    "checkpoint %s/%s failed to restore (%r); falling back "
-                    "to the prior complete tag", path, t, e)
-                skipped.append((t, repr(e)))
+            out, err = _try_restore(storage, path, t, target, device, specs)
+            if out is not None:
+                return out
+            logger.warning(
+                "checkpoint %s/%s failed to restore (%s); falling back "
+                "to the prior complete tag", path, t, err)
+            skipped.append((t, err))
         raise CheckpointCorruptionError(
             f"no intact checkpoint under {path}; skipped: "
             + "; ".join(f"{t}: {why}" for t, why in skipped))
@@ -467,4 +926,4 @@ def load_checkpoint(
         if not ok:
             raise CheckpointCorruptionError(
                 f"checkpoint {path}/{tag} is corrupt: {why}")
-    return _restore_tag(storage, path, tag, target, device)
+    return _restore_tag(storage, path, tag, target, device, specs)

@@ -21,6 +21,21 @@ With obs disabled each hook costs one bool check.
 The port's step updates the state in place, and the state lives on the
 model's device; batches (numpy arrays or tensors) move there inside the
 step.
+
+Across ranks every rank runs ``fit`` on the same global batches (the step
+takes each rank's rows), and every host decision is taken by all ranks
+together at the same step boundary: a preemption that any rank's guard
+saw makes every rank save the same emergency tag and exit (one
+:func:`..parallel.mesh.agree` of a flag per step); the watchdog's halt,
+skip and rewind agree because ``loss`` and ``grad_norm`` are global, and a
+rewind loads the same tag on every rank (verification agreed); the
+integrity monitor agrees on a mismatch any rank saw. Checkpoints are
+saved and loaded by every rank together (:mod:`.checkpoint`). Only rank 0
+logs ``MetricsLogger``'s lines and writes its file. The reference's loop
+is a single controller and needs no such agreement: this is a divergence
+of the port, which runs one process per rank. The emergency save's grace
+deadline is not enforced across ranks: the save runs on the training
+thread, since its collectives may not run beside a deadline thread's.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import torch
 from ..obs.accounting import CompileTracker
 from ..obs.metrics import get_registry
 from ..obs.tracing import get_tracer
+from ..parallel import mesh as ps
 from ..utils.logger import get_logger, log_event
 from . import checkpoint as ckpt
 
@@ -69,7 +85,7 @@ class MetricsLogger(Callback):
     def on_step_end(self, trainer, metrics):
         step = trainer.host_step
         self._tokens += trainer.tokens_per_batch
-        if step % self.every == 0:
+        if step % self.every == 0 and ps.world_rank() == 0:
             dt = time.perf_counter() - self._t0
             tps = self._tokens / max(dt, 1e-9)
             line = (f"step {step} loss {float(metrics['loss']):.4f} "
@@ -148,9 +164,6 @@ class Trainer:
                  resume_path: Optional[str] = None,
                  eval_fn: Optional[Callable] = None,
                  preemption_guard: Optional[Any] = None):
-        from ..parallel.mesh import refuse_ranks
-
-        refuse_ranks("the Trainer loop")
         self.step_fn = step_fn
         self.eval_fn = eval_fn
         self.state = state
@@ -251,8 +264,7 @@ class Trainer:
             with tracer.span("train/callbacks", step=self.host_step):
                 for cb in self.callbacks:
                     cb.on_step_end(self, metrics)
-            if (self.preemption_guard is not None
-                    and self.preemption_guard.requested):
+            if self._preempted():
                 # step boundary: the request recorded by the signal handler
                 # becomes a synchronous emergency save + resumable exit
                 self._handle_preemption()
@@ -266,6 +278,16 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_train_end(self)
         return self.state, metrics
+
+    def _preempted(self) -> bool:
+        """Whether to stop for a preemption at this boundary: this
+        process's guard saw a signal, or across ranks any rank's did."""
+        if self.preemption_guard is None:
+            return False
+        requested = self.preemption_guard.requested
+        if ps.world_size() > 1:
+            requested = ps.agree(float(requested), "max") > 0
+        return requested
 
     def _checkpoint_path(self) -> Optional[str]:
         """Where an emergency save goes: the guard's explicit path, else
@@ -305,6 +327,19 @@ class Trainer:
         rather than a half-written emergency tag (which the commit
         protocol would reject on resume anyway)."""
         tag = str(self.host_step)
+        if ps.world_size() > 1:
+            # every rank saves its part on the training thread: the save's
+            # collectives may not run on a deadline thread beside the
+            # loop's
+            try:
+                ckpt.save_checkpoint(path, tag, self.state,
+                                     async_save=False)
+            except Exception as e:  # noqa: BLE001 - reported below
+                logger.error("emergency checkpoint %s/%s failed: %r", path,
+                             tag, e)
+                return None
+            logger.info("emergency checkpoint saved: %s/%s", path, tag)
+            return tag
         box: Dict[str, Any] = {}
 
         def run():

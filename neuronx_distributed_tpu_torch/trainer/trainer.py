@@ -21,15 +21,20 @@ returns the same :class:`TrainState`.
 slices, and passing one raises.
 
 Across ranks (a world above 1, laid out by
-:func:`..config.neuronx_distributed_config`) a Llama trains tensor- and
-data-parallel, as the reference's explicit form: each rank holds its
-shards (:func:`..models.convert.shard_state_dict`), takes its data-parallel
-slice of the global batch, and after its backward the gradients are
-synchronised (:func:`..parallel.grads.allreduce_gradients`; with ZeRO-1
-reduce-scattered), the global norm is taken over every shard once, and
-each rank updates its parameters (with ZeRO-1 its slice of them, then
-all-gathered). ``loss`` and ``grad_norm`` are global and equal on every
-rank.
+:func:`..config.neuronx_distributed_config`) a Llama or a Mixtral trains
+tensor- and data-parallel, as the reference's explicit form: each rank
+holds its shards (:func:`..models.convert.shard_state_dict`), takes its
+data-parallel slice of the global batch, and after its backward the
+gradients are synchronised (:func:`..parallel.grads.allreduce_gradients`;
+with ZeRO-1 reduce-scattered), the global norm is taken over every shard
+once, and each rank updates its parameters (with ZeRO-1 its slice of
+them, then all-gathered). ``loss`` and ``grad_norm`` are global and equal
+on every rank; so are ``integrity_fp`` (each leaf's whole-tensor
+fingerprint, :func:`..resilience.integrity.fingerprint_tree_sharded`) and
+the attention-dropout masks, drawn at each rank's rows and heads of the
+global array. The :class:`TrainState` carries the partition spec of each
+of its tensors (``shard_specs``), by which :mod:`.checkpoint` saves each
+rank's part and loads it onto another layout.
 """
 
 from __future__ import annotations
@@ -50,11 +55,18 @@ from . import optimizer as opt_mod
 @dataclass
 class TrainState:
     """Step count, the model's parameters (by state-dict name) and the
-    optimizer state."""
+    optimizer state. Across ranks ``shard_specs`` maps the path of each
+    tensor of the state (``"params/<name>"``, ``"opt_state/mu/<i>"``, as
+    :func:`.checkpoint.state_to_tree` nests them) to its partition spec,
+    per dim None, ``"tp"`` or ``"dp"`` (the merged data axes of ZeRO-1); it
+    describes the state and is not saved with it."""
 
     step: int
     params: Dict[str, torch.nn.Parameter]
     opt_state: opt_mod.AdamWState
+    shard_specs: Optional[Dict[str, tuple]] = field(
+        default=None, repr=False, compare=False,
+        metadata={"checkpoint": False})
 
 
 @dataclass
@@ -113,6 +125,26 @@ class ParallelModel:
             zero_dims=self.zero_dims)
         return grads, grads_mod.global_grad_norm(grads, self.grad_specs())
 
+    def state_specs(self, state: TrainState) -> Dict[str, tuple]:
+        """``TrainState.shard_specs`` of ``state``: each parameter's spec,
+        and the spec of its ZeRO-1 slice (:meth:`grad_specs`) for each
+        optimizer tensor of the :func:`trainable` parameter at its index
+        (moments and fp32 masters alike)."""
+        from .checkpoint import state_to_tree, tree_leaves
+
+        def norm(spec):
+            return tuple("dp" if a == ps.DATA_AXES else a for a in spec)
+
+        names = list(_trainable_named(state.params))
+        zero = self.grad_specs()
+        out = {f"params/{n}": norm(self.specs[n]) for n in state.params}
+        tree = state_to_tree(state.opt_state, lambda t: t)
+        for path, _ in tree_leaves(tree, ("opt_state",)):
+            last = path.rsplit("/", 1)[-1]
+            if last.isdigit() and int(last) < len(names):
+                out[path] = norm(zero[names[int(last)]])
+        return out
+
     def gather_updated(self, params: Mapping[str, torch.Tensor]) -> None:
         """Under ZeRO-1, all-gather each parameter's updated slices over
         the data ranks into the whole parameter."""
@@ -133,13 +165,15 @@ def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
                    dev: torch.device, std: float):
     """The local module of a rank of a world above 1, from the whole
     ``state_dict`` or the seed: every rank makes (or gets) the same whole
-    weights and keeps its shards."""
-    from ..models import convert, llama
+    weights and keeps its shards, one whole tensor at a time (made, cut,
+    freed), so a rank never holds the whole model."""
+    from ..models import convert, llama, mixtral
 
-    if type(model_cfg) is not llama.LlamaConfig:
+    if type(model_cfg) not in (llama.LlamaConfig, mixtral.MixtralConfig):
         raise ValueError(f"{type(model_cfg).__name__} across ranks: not in "
-                         "the port yet (a later slice); Llama trains "
-                         "tensor- and data-parallel")
+                         "the port yet (a later slice); Llama and Mixtral "
+                         "train tensor- and data-parallel")
+    _, model_cls = family_of(model_cfg)
     tp = ps.get_tensor_model_parallel_size()
     if model_cfg.tp_size is None:
         model_cfg = replace(model_cfg, tp_size=tp)
@@ -147,20 +181,21 @@ def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
         raise ValueError(f"the config's tp_size {model_cfg.tp_size} differs "
                          f"from the ranks' tensor-parallel size {tp}")
     whole = replace(model_cfg, tp_size=None, sequence_parallel=False)
-    if state_dict is None:
-        state_dict = llama.init_state_dict(whole, seed=seed, std=std,
-                                           device=dev)
-    model = llama.LlamaForCausalLM(model_cfg, device="meta")
+    model = model_cls(model_cfg, device="meta")
     want = model.state_dict()
-    sd = {k: v.to(device=dev, dtype=want[k].dtype)
-          for k, v in convert.shard_state_dict(
-              model_cfg, state_dict, ps.coords()).items()}
-    del state_dict
-    model.load_state_dict(sd, strict=True, assign=True)
-    shapes = {n: t.shape for n, t in llama.LlamaForCausalLM(
+    shapes = {n: t.shape for n, t in model_cls(
         whole, device="meta").state_dict().items()}
     specs = convert.param_specs(model_cfg, [(n, len(s))
                                             for n, s in shapes.items()])
+    rank = ps.axis_rank(ps.TP_AXIS)
+    source = (llama.draw_state_dict(whole, seed, std, dev, model_cls)
+              if state_dict is None else state_dict.items())
+    sd = {}
+    for name, t in source:
+        sd[name] = convert.shard_tensor(name, t, specs[name], tp, rank).to(
+            device=dev, dtype=want[name].dtype)
+        del t
+    model.load_state_dict(sd, strict=True, assign=True)
     zero_size = comm.axis_size(ps.DATA_AXES)
     zero_dims = {n: (opt_mod.zero1_dim(specs[n], shapes[n], zero_size)
                      if cfg.optimizer.zero_one_enabled else None)
@@ -186,10 +221,11 @@ def initialize_parallel_model(
     ``model_cfg.param_dtype``, but for those the model holds in fp32 (the
     MoE router's kernel). Returns ``(ParallelModel, params)``.
 
-    Across ranks (a world above 1) the config is a Llama one, and every
-    rank keeps its shards of the whole weights (``state_dict``, or those
-    ``seed`` makes, the same on every rank) at the ranks' tensor-parallel
-    size (``model_cfg.tp_size`` if set, which must agree);
+    Across ranks (a world above 1) the config is a Llama or a Mixtral one,
+    and every rank keeps its shards of the whole weights (``state_dict``,
+    or those ``seed`` makes, the same on every rank, one tensor at a time)
+    at the ranks' tensor-parallel size (``model_cfg.tp_size`` if set,
+    which must agree);
     ``sequence_parallel`` is the model config's
     (:func:`..config.configure_model` carries the config's)."""
     dev = resolve_device(device)
@@ -222,12 +258,17 @@ def initialize_parallel_optimizer(
     """The optimizer (:func:`.optimizer.make_optimizer`) and a
     :class:`TrainState` at step 0 with zeroed moments for the
     :func:`trainable` parameters; under ZeRO-1 the moments of this data
-    rank's slice of each parameter (:meth:`ParallelModel.zero_view`)."""
+    rank's slice of each parameter (:meth:`ParallelModel.zero_view`);
+    across ranks the state's ``shard_specs`` (:meth:`ParallelModel.
+    state_specs`)."""
     tx = opt_mod.make_optimizer(pm.config, learning_rate=learning_rate,
                                 weight_decay=weight_decay, **adam_kw)
     params = dict(params)
-    return tx, TrainState(step=0, params=params, opt_state=tx.init(
+    state = TrainState(step=0, params=params, opt_state=tx.init(
         [pm.zero_view(n, p) for n, p in _trainable_named(params).items()]))
+    if pm.world > 1:
+        state.shard_specs = pm.state_specs(state)
+    return tx, state
 
 
 def trainable(params: Mapping[str, torch.nn.Parameter]
@@ -301,18 +342,22 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     default loss weighs each rank's local mean by its share of the
     microbatch's counted labels, so the step's loss and gradient are
     those of the global mean even where ranks count different labels; a
-    ``loss_fn``'s local values are averaged over the data ranks.
-    ``dropout_generator`` and ``integrity_every`` wait for a later slice
-    there and raise.
+    ``loss_fn``'s local values are averaged over the data ranks. Every
+    rank draws the same dropout seeds from ``dropout_generator`` (seed it
+    alike on every rank) and the masks at its rows and heads of the
+    global array; ``integrity_fp`` holds the whole tensors' fingerprints,
+    the same on every rank.
+
+    ``step.fingerprint(params)`` is the fingerprint the step reports,
+    :func:`..resilience.integrity.fingerprint_tree` of ``params`` (across
+    ranks of the whole tensors their shards make), for the
+    :class:`..resilience.integrity.IntegrityMonitor`'s recompute.
 
     ``grad_fn`` and ``compression`` come with later slices; passing one
     raises.
     """
     later = {"grad_fn": grad_fn is not None,
              "compression": compression is not None}
-    if pm.world > 1:
-        later.update(dropout_generator=dropout_generator is not None,
-                     integrity_every=integrity_every is not None)
     asked = [k for k, v in later.items() if v]
     if asked:
         raise ValueError(f"{', '.join(asked)}: not in the port yet (later "
@@ -380,12 +425,8 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
         for p in named.values():
             p.grad = None
         if integrity_every is not None:
-            # the lazy import keeps the resilience package off the step's
-            # import path unless integrity is on
-            from ..resilience.integrity import fingerprint_tree
-
             if (state.step + 1) % integrity_every == 0:
-                metrics["integrity_fp"] = fingerprint_tree(state.params)
+                metrics["integrity_fp"] = fingerprint(state.params)
             else:
                 metrics["integrity_fp"] = torch.zeros(
                     len(state.params), dtype=torch.int32, device=pm.device)
@@ -410,7 +451,17 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
             metrics = one_step(state, {k: x[i] for k, x in batch.items()})
         return state, metrics
 
+    def fingerprint(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        # the lazy import keeps the resilience package off the step's
+        # import path unless a fingerprint is asked for
+        from ..resilience import integrity
+
+        if pm.world > 1:
+            return integrity.fingerprint_tree_sharded(params, pm.specs)
+        return integrity.fingerprint_tree(params)
+
     step.cache_size = lambda: len(shapes)
+    step.fingerprint = fingerprint
     return step
 
 
@@ -422,12 +473,21 @@ def data_parallel_loss(model: torch.nn.Module,
     across data ranks the local mean weighted by the rank's share of the
     labels counted over the data ranks (not ``-100``), so that its mean
     over the data ranks is the mean over the global batch, as the
-    reference's loss over the dp-sharded batch."""
+    reference's loss over the dp-sharded batch. A model with
+    ``loss_parts`` (Mixtral) has only its cross-entropy weighted; its
+    router terms are global or plain means already."""
     data = ps.DATA_AXES
-    loss = model.loss(batch["input_ids"], batch["labels"],
-                      dropout_generator=dropout_generator)
     if comm.axis_size(data) == 1:
-        return loss
+        return model.loss(batch["input_ids"], batch["labels"],
+                          dropout_generator=dropout_generator)
+    if hasattr(model, "loss_parts"):
+        loss, extra = model.loss_parts(batch["input_ids"], batch["labels"],
+                                       dropout_generator=dropout_generator)
+    else:
+        loss = model.loss(batch["input_ids"], batch["labels"],
+                          dropout_generator=dropout_generator)
+        extra = 0.0
     count = (batch["labels"] != -100).sum().float()
     total = comm.all_reduce(count, data)
-    return loss * (count * comm.axis_size(data) / torch.clamp(total, min=1.0))
+    return loss * (count * comm.axis_size(data)
+                   / torch.clamp(total, min=1.0)) + extra

@@ -6,8 +6,8 @@ The same sequence of saves, an overwrite, an incomplete tag, a truncated
 and a flipped payload, and retention runs through both packages, which
 must agree on ``list_complete_tags``, the ``newest`` pointer, the
 fallback of auto-resume and what raises. The payloads differ (Orbax in
-JAX, one ``torch.save`` in the port), so the values loaded are compared
-with the values saved.
+JAX, a ``torch.save`` file per writing rank in the port), so the values
+loaded are compared with the values saved.
 """
 
 import os
@@ -23,6 +23,7 @@ from neuronx_distributed_tpu.trainer import checkpoint as jck
 from neuronx_distributed_tpu_torch import trainer as ttr
 from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
 from neuronx_distributed_tpu_torch.models import llama as tl
+from neuronx_distributed_tpu_torch.resilience import manifest as tman
 from neuronx_distributed_tpu_torch.trainer import checkpoint as tck
 from neuronx_distributed_tpu_torch.trainer import checkpoint_storage as tcs
 
@@ -217,13 +218,13 @@ def test_async_save_holds_the_pre_step_values(tmp_path, monkeypatch):
     _, state, step, batch = _train_state(0)
     saved = _tensors(state)
     stepped = threading.Event()
-    write = tck._write_payload
+    write = tck._write_file
 
     def late_write(*args):
         assert stepped.wait(timeout=60)
         write(*args)
 
-    monkeypatch.setattr(tck, "_write_payload", late_write)
+    monkeypatch.setattr(tck, "_write_file", late_write)
     tck.save_checkpoint(path, state.step, state, async_save=True)
     state, _ = step(state, batch)
     stepped.set()
@@ -242,11 +243,52 @@ def test_async_commit_failure_raises_at_the_next_save(tmp_path,
     def fail(*args):
         raise OSError(28, "No space left on device")
 
-    monkeypatch.setattr(tck, "_write_payload", fail)
+    monkeypatch.setattr(tck, "_write_file", fail)
     tck.save_checkpoint(path, 1, _torch_state(1, 1), async_save=True)
     with pytest.raises(tck.CheckpointSaveError, match="1"):
         tck.finalize_checkpoint()
     assert not tck.has_checkpoint(path)
+
+
+def test_one_rank_tag_holds_one_shard_file_and_its_table(tmp_path):
+    """A save outside a parallel layout writes what one rank of any
+    layout writes: one ``state/shard_tp0_dp0.pt``, its rank marker, and
+    the shard table (every tensor whole) in the manifest."""
+    path = str(tmp_path / "ck")
+    tck.save_checkpoint(path, 1, _torch_state(1, 1), async_save=False)
+    assert [os.path.relpath(f, os.path.join(path, "1"))
+            for f in _payload_files(path, 1)] == [
+                os.path.join("state", "shard_tp0_dp0.pt")]
+    table = tck.saved_shard_table(path, 1)
+    assert (table["tp"], table["dp"]) == (1, 1)
+    assert table["leaves"]["params/w"]["pieces"] == [
+        ["state/shard_tp0_dp0.pt", [[0, 8], [0, 4]]]]
+    assert os.path.isfile(os.path.join(path, "1", "ranks", "0.json"))
+
+
+def test_a_tag_written_before_the_shard_table_still_loads(tmp_path):
+    """A tag of the earlier format (the whole tree in one
+    ``state/state.pt``, a manifest over it, the done-marker) verifies,
+    loads whole and loads in place."""
+    path = str(tmp_path / "ck")
+    tdir = os.path.join(path, "3")
+    state = _torch_state(3, 3)
+    os.makedirs(os.path.join(tdir, "state"))
+    torch.save(state, os.path.join(tdir, "state", "state.pt"))
+    storage = tcs.create_checkpoint_storage(path)
+    storage.save_object(tman.build_manifest(storage, tdir, "3"),
+                        os.path.join(tdir, tman.MANIFEST_FILE))
+    storage.save_text("done", os.path.join(tdir, tck.DONE_FILE))
+    assert tck.saved_shard_table(path, 3) is None
+    assert tck.verify_checkpoint(path, 3)[0]
+    tree, _ = tck.load_checkpoint(path, tag=3, device="cpu")
+    _assert_trees_equal(tree["params"], state["params"])
+    assert tree["step"] == 3
+    target = _torch_state(4, 0)
+    same = target["params"]["w"]
+    tck.load_checkpoint(path, target=target)
+    assert target["params"]["w"] is same and target["step"] == 3
+    _assert_trees_equal(target["params"], state["params"])
 
 
 def test_object_store_backend_round_trips():

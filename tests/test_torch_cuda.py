@@ -437,6 +437,37 @@ def test_flash_kernel_dropout_mask_is_the_plain_mask(cuda):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", [(3, 24, 8), (1, 8, 4)])
+def test_flash_kernels_with_dropout_at_offsets_match_plain(cuda, dtype,
+                                                           offsets):
+    """K2, K3 and K4 with dropout drawn at a rank's rows and heads of a
+    global array (``offsets = (b_off, n_global, h_off)``, what a rank of
+    tp x dp passes) against their plain versions at the same offsets:
+    fp32 within 1e-4, bf16 (the tensor-core kernels) within 2e-2 of the
+    plain version in fp32 on the same inputs. The offsets move the mask:
+    the output differs from the one at ``(0, N, 0)``."""
+    q, k, v, g = _flash_case(cuda, 41, dtype, b=2, s=130, n=4, kv=2, d=64)
+    kw = dict(causal=True, scale=None, dropout_p=0.2, seed=1234)
+    out, lse = tfa.flash_fwd(q, k, v, offsets=offsets, **kw)
+    delta = tfa.attention_delta(g, out)
+    bwd = (q, k, v, g, lse, delta)
+    dq = tfa.flash_bwd_dq(*bwd, offsets=offsets, **kw)
+    dk, dv = tfa.flash_bwd_dkv(*bwd, offsets=offsets, **kw)
+    f32 = [t.float() for t in bwd]
+    ref_out, ref_lse = tfa.flash_fwd_plain(*f32[:3], offsets=offsets, **kw)
+    ref_dq = tfa.flash_bwd_dq_plain(*f32, offsets=offsets, **kw)
+    ref_dk, ref_dv = tfa.flash_bwd_dkv_plain(*f32, offsets=offsets, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for label, a, r in (("out", out, ref_out), ("lse", lse, ref_lse),
+                        ("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                        ("dv", dv, ref_dv)):
+        rel = flash_rel_err(a, r.to(a.dtype) if label != "lse" else r)
+        assert rel <= tol, (label, rel)
+    whole, _ = tfa.flash_fwd(q, k, v, **kw)
+    assert not torch.equal(whole, out)
+
+
 def test_flash_autograd_on_card_matches_cpu(cuda):
     q, k, v, g = _flash_case("cpu", 3, torch.float32, s=70, n=4, kv=2, d=64)
     grads = {}
@@ -855,6 +886,36 @@ def test_grouped_glu_wrappers_refuse_what_they_do_not_take(cuda):
     with torch.no_grad():
         tbm.grouped_glu_decode_cuda(xs, gu, dn, be, bs, 16)
     assert tbm.grouped_glu_cuda(xs, gu, dn, be, bs, 16).grad_fn is None
+
+
+def test_grouped_glu_kernels_at_mixtral_tp4_local_width(cuda):
+    """K5, K7 and K8 at the widths a rank of Mixtral 8x7B at tp=4 runs:
+    H=4096 and the local intermediate width I/tp = 3584, 8 experts, 64-row
+    blocks, bf16 against the plain versions in fp32 on the same inputs
+    within 1e-2; each entry counts its launch."""
+    xs, gu, dn, be, bs = _moe_case(cuda, 5, torch.bfloat16, t=256, e=8,
+                                   h=4096, i=3584, bs=64)
+    dy = torch.from_numpy(np.random.RandomState(6).randn(
+        *xs.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    bi = gu.shape[-1] // 2
+    before = [c.launches for c in (tbm.grouped_glu, tbm.grouped_glu_dx,
+                                   tbm.grouped_glu_dw)]
+    y = tbm.grouped_glu(xs, gu, dn, be, bs, bi)
+    dx = tbm.grouped_glu_dx_cuda(xs, gu, dn, be, dy, bs, bi)
+    dgu, ddn = tbm.grouped_glu_dw_cuda(xs, gu, dn, be, dy, bs, bi)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(
+        (tbm.grouped_glu, tbm.grouped_glu_dx, tbm.grouped_glu_dw),
+        before)] == [1, 1, 1]
+    f32 = [t.float() for t in (xs, gu, dn)]
+    ref_y = tbm.grouped_glu_plain(*f32, be, bs, bi)
+    ref = tbm.grouped_glu_bwd_plain(*f32, be, dy.float(), bs, bi)
+    for label, got, want in (("y", y, ref_y), ("dx", dx, ref[0]),
+                             ("dgate_up", dgu, ref[1]),
+                             ("ddown", ddn, ref[2])):
+        assert torch.isfinite(got).all(), label
+        rel = flash_rel_err(got, want.to(torch.bfloat16))
+        assert rel <= 1e-2, (label, rel)
 
 
 @pytest.mark.parametrize("decode", [False, True])

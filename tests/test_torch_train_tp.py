@@ -380,17 +380,23 @@ def test_zero1_dims_match_jax_zero1_state_specs():
 
 
 def test_what_stays_out_across_ranks_raises(tmp_path):
-    """The ``Trainer`` loop, checkpoints, ``integrity_every`` and dropout
-    at a world above 1, Mixtral across ranks, serving at tp > 1 and a
-    model config whose tp_size is not the ranks' raise; so do LoRA and
-    weight quantization at tp > 1 in the config."""
+    """The other model families across ranks, serving a Llama or a
+    Mixtral at tp > 1, the Sinkhorn router across data ranks, a quantized
+    expert bank at tp > 1 and a model config whose tp_size is not the
+    ranks' raise; so do LoRA and weight quantization at tp > 1 in the
+    config, Mixtral's included. (The ``Trainer`` loop, checkpoints,
+    ``integrity_every``, dropout and Mixtral across ranks run:
+    ``tests/test_torch_trainer_loop_tp.py``,
+    ``tests/test_torch_mixtral_tp.py``.)"""
     tcfg = tl.tiny_config(dtype=torch.float32, num_layers=1)
     out = _ranks(tmp_path, torch_ranks.refusals_across_ranks, 2, tcfg,
                  str(tmp_path / "ckpt"))
     for r in out:
         assert all("later slice" in msg for name, msg in r.items()
-                   if name not in ("mixtral", "tp_size")), r
-        assert "LlamaConfig" not in r["mixtral"] and "later" in r["mixtral"]
+                   if name not in ("gpt_neox", "tp_size",
+                                   "quantized_bank")), r
+        assert "across ranks" in r["gpt_neox"] and "later" in r["gpt_neox"]
+        assert "not sharded by the port" in r["quantized_bank"]
         assert "differs from the ranks' tensor-parallel size" in r["tp_size"]
     from neuronx_distributed_tpu_torch.lora import LoraConfig
     from neuronx_distributed_tpu_torch.models import mixtral as tm
@@ -400,5 +406,5 @@ def test_what_stays_out_across_ranks_raises(tmp_path):
         tl.tiny_config(tp_size=tp, lora=LoraConfig())
     with pytest.raises(ValueError, match="weight_quant at tp_size=2"):
         tl.tiny_config(tp_size=tp, weight_quant="int8")
-    with pytest.raises(ValueError, match="tp_size=2"):
-        tm.tiny_moe_config(tp_size=tp)
+    with pytest.raises(ValueError, match="weight_quant at tp_size=2"):
+        tm.tiny_moe_config(tp_size=tp, weight_quant="int8")
