@@ -21,7 +21,7 @@ script exits non-zero and prints no result:
    pool (the tensor-core kernel) a second launch equal to the first bit
    for bit; times the kernel, the plain version and one PyTorch library
    call, and computes the card's bound.
-4. serve: ``ServingEngine`` with Llama-3-8B at full width and all 32 layers
+4. serve: ``ServingEngine`` with Llama-3-8B at full width and 16 layers
    in bf16 (random weights, seed 0, std 0.02): 8 requests of 128-1024
    prompt tokens and 64 new tokens each, two admitted mid-flight. Asserts
    every request completes, one step shape, and ``launches == layers x
@@ -63,7 +63,7 @@ script exits non-zero and prints no result:
    DBRX's widths (E=16, top-4, H=6144, I=10752: K5 at 512 tokens, 2048
    pairs; K6 at 4 tokens, 16 pairs).
 11. serve_mixtral: ``ServingEngine`` with ``MIXTRAL_8X7B``'s widths cut to
-   8 layers, bf16, blockwise dispatch with block 64 (random weights, seed
+   4 layers, bf16, blockwise dispatch with block 64 (random weights, seed
    0, std 0.02), phase 4's engine config and requests. Asserts every
    request completes, one step shape, paged_attention and grouped_glu
    launches = layers x steps, and no grouped_glu_decode launch.
@@ -95,8 +95,8 @@ script exits non-zero and prints no result:
 16. mixtral_train_cross_check: phase 9 for Mixtral at full width, 1 layer,
    blockwise with block 64; both sides must first route every token to the
    same experts.
-17. generate: ``generate`` (contiguous KV cache) on Llama-3-8B at all 32
-   layers in bf16 (random weights, seed 0, std 0.02): B=8 right-padded
+17. generate: ``generate`` (contiguous KV cache) on Llama-3-8B's widths
+   at 8 layers in bf16 (random weights, seed 0, std 0.02): B=8 right-padded
    prompts of 100-500 tokens (bucket 512), 64 greedy tokens (a 576-slot
    cache). Asserts the ``[8, 64]`` shape, ids inside the vocabulary, and,
    in a second call with an ``eos_id``, every row pinned past it; prints
@@ -111,14 +111,15 @@ script exits non-zero and prints no result:
    x max|logit| of the card.
 19. generate_mixtral: ``generation.prefill`` and ``decode_step`` with
    Mixtral's cached forward over a contiguous ``KVCache``, Mixtral 8x7B
-   widths cut to 8 layers, bf16, blockwise with block 64: B=4 prompts of
+   widths cut to 4 layers, bf16, blockwise with block 64: B=4 prompts of
    100-500 tokens padded to 512, then 32 greedy decode steps; asserts K5
    launched layers times (the prefill) and K6 layers x 32 times (sentinel
    metadata), holds K5's launch at layer 0 of the prefill and K6's at
    layer 0 of the first decode step to their plain versions on the
    inputs the path gave them (within 1e-2, as ``moe_vs_plain``), prints
    prefill ms and decode step p50 ms.
-20. serve_prefix: phase 4's engine with ``prefix_sharing=True`` on 8
+20. serve_prefix: phase 4's engine at 8 layers with
+   ``prefix_sharing=True`` on 8
    requests that share a 1000-token system prompt and add 16-256 tokens
    each, 64 new tokens; request 0 runs alone until its first token.
    Asserts every request completes, one step shape, K1 launched layers x
@@ -188,16 +189,18 @@ script exits non-zero and prints no result:
    byte bound; prints the ``train/*`` span stats and the step p50 with obs
    on and off.
 
-27. serve_mixtral_int8 (run after phase 13): ``MIXTRAL_8X7B`` at all 32
-   layers with ``weight_quant="int8"`` (capacity dispatch, bf16 compute;
-   random weights, seed 0, std 0.02, quantized layer by layer as they are
-   made on the card, so the 93 GB float model never exists), phase 4's
-   engine and requests. Asserts every request completes, one step shape,
-   K1 launched 32 x steps and no grouped GLU; times one step's expert
+27. serve_mixtral_int8 (run after phase 31): ``MIXTRAL_8X7B``'s widths at
+   16 layers with ``weight_quant="int8"`` (capacity dispatch, bf16
+   compute; random weights, seed 0, std 0.02, quantized layer by layer as
+   they are made on the card, so the 47 GB float model never exists),
+   phase 4's engine config and requests. Asserts every request completes,
+   one step shape, K1 launched 16 x steps and no grouped GLU; times one
+   step's expert
    dequantize, capacity einsums and K1 with CUDA events
    (``probe_step``).
 28. serve_quant_tiers: ``ServingEngine`` handed Llama-3-8B's float bf16
-   state dict on the card with ``weight_quant`` ``fp8``, ``mxfp8`` and
+   state dict at 4 layers on the card with ``weight_quant`` ``fp8``,
+   ``mxfp8`` and
    ``mxfp4`` (the engine quantizes it there), 4 of phase 4's requests
    each; asserts completion, one step shape and K1 layers x steps; prints
    each tier's weight GiB and step p50.
@@ -214,8 +217,8 @@ script exits non-zero and prints no result:
    capacity dispatch, the Sinkhorn and the group-limited router, each with
    shared experts of intermediate 14336: one packed step on the card and
    on the CPU, logits within 1e-3 x max|logit|.
-32. serve_spec (run after phase 21): phase 4's model on 8 requests of
-   200-1000 prompt tokens, 64 new, served plain, with
+32. serve_spec (run after phase 21): phase 4's model at 4 layers on 8
+   requests of 200-1000 prompt tokens, 64 new, served plain, with
    ``SpeculationConfig(4, num_branches=2)`` and a draft of Llama-3.2-1B's
    widths (``llama32_1b_widths``, seed 1), and with a self-draft. Asserts
    completion, one shape per worker and K1 launched once per layer per
@@ -228,12 +231,13 @@ script exits non-zero and prints no result:
 33. spec_cross_check: full width, 2 layers, fp32: greedy ids with a
    self-draft and with a 1-layer draft, on the card and on the CPU, equal
    the card's ids without speculation, or part only at a near tie (top-2
-   gap under 1e-4 x max|logit|, printed).
+   gap under 1e-4 x max|logit|, printed); the CPU runs and the weights,
+   made on the host, come from the CPU side's thread.
 34. serve_mixtral_spec: phase 11's model with a self-draft and two
    speculating slots: K6 in the draft worker, K5 in the verify worker (and
    twice a packed run), each held to its plain version within 1e-2 with
    equal bits on a relaunch; launch counts asserted.
-35. migrate: two engines sharing one Llama-3-8B at 32 layers in bf16;
+35. migrate: two engines sharing one Llama-3-8B at 8 layers in bf16;
    sessions exported mid-decode with integrity on, through ``to_bytes`` /
    ``from_bytes``, into the other engine (``import_session`` and the
    stream import) finish with the unmigrated ids bit for bit; a flipped
@@ -242,7 +246,8 @@ script exits non-zero and prints no result:
    shipping gives the promised hits; an evicted request resubmitted
    elsewhere gives the same ids; prints ticket bytes a token and the ms of
    each step of a move.
-36. router: ``ReplicaRouter`` over 2 replicas of phase 4's engine sharing
+36. router (run after phase 51, as 37-39): ``ReplicaRouter`` over 2
+   replicas of phase 4's engine at 8 layers sharing
    one copy of the weights, 16 requests from two tenants (one on a finite
    token bucket), ``r1`` crashed after 6 steps: availability 1.0, one
    failover, resubmissions, one step shape per engine, K1 layers x worker
@@ -251,14 +256,16 @@ script exits non-zero and prints no result:
    after ``del`` (no garbage collection); prints fleet and single-replica
    output tokens/s, TTFT p50/p99, resubmitted tokens and the bf16 greedy
    match share (recorded, not limited).
-37. fabric: the two-tier prefill/decode fabric streaming every session
-   over the KV transport: a bf16 pool through the int8 wire codec, with
-   and without ``link_corrupt``, an int8 pool shipped raw (ids equal to
-   one engine's bit for bit) and a ``link_partition`` that tears every
-   stream (re-prefill); no leaked block, one decode step shape; prints
-   wire bytes a token, the ratio against fp32, chunks, retries and the
-   host ms a session of export, encode, transit and land.
-38. router_elastic: ``elastic_chaos_drill`` at full width on the real
+37. fabric: the two-tier prefill/decode fabric (Llama-3-8B's widths at 4
+   layers) streaming every session over the KV transport: a bf16 pool through
+   the int8 wire codec, with and without ``link_corrupt``, an int8 pool
+   shipped raw (ids equal to one engine's bit for bit) and a
+   ``link_partition`` that tears every stream (re-prefill); no leaked block,
+   one decode step shape; prints wire bytes a token, the ratio against fp32,
+   chunks, retries and the host ms a session of export, encode, transit and
+   land.
+38. router_elastic: ``elastic_chaos_drill`` at full width, 16 layers, on
+   the real
    clock (preemption with migration, ``scale_burst``, scale-down by
    migration, revival, the SLO breach): availability 1.0, ids equal to
    the reference, migrated tokens, one step shape. Every engine of the
@@ -296,7 +303,8 @@ script exits non-zero and prints no result:
    the card: each key's logits there equal this process's bit for bit, and
    ``bundle_generate`` gives the ids of ``generate`` in both.
 44. benchmark: ``python -m neuronx_distributed_tpu_torch.inference.
-   benchmark`` on the card; its JSON line is printed on a line of its own.
+   benchmark`` on the card, in a process that runs beside phase 35 and
+   phase 43; its JSON line is printed on a line of its own.
 
 45. flash_families: ``flash_attention`` (K2-K4; a head width other than 64
    or 128 zero-padded around them) at GPT-NeoX-20B's attention (B=1,
@@ -359,7 +367,7 @@ script exits non-zero and prints no result:
    makes the whole weights from seed 0 on the card and keeps its shards),
    bf16 compute over fp32 parameters, flash attention on each rank's 16
    query heads over 4 kv heads, global batch 2 at S=4096 (one row a data
-   rank), 3 steps. Asserts on every rank finite losses and grad norms
+   rank), 2 steps. Asserts on every rank finite losses and grad norms
    equal to rank 0's, a falling loss, K2, K3 and K4 each launched layers x
    steps times, the first launch of each held to its plain version on the
    path's inputs within 2e-2 (``flash_rel_err``), nothing staged through
@@ -389,14 +397,15 @@ script exits non-zero and prints no result:
    offsets and held to plain within 2e-2; a bit flipped in data rank 1's
    shard at the step-4 boundary is seen on every rank, whose watchdog
    rewinds to the tag, the fingerprint the tag's; rank 0 times K2-K4
-   with dropout at its offsets. 55's part C: tp=4 x dp=1 without ZeRO-1
-   resumes from the tag, losses within 1e-5 of A's, each update within
-   1e-3 of its norm; D: ``scripts/reshard_checkpoint.py`` merges the tag
-   on the card and the port's tp=1 step resumed from it gives step 3's
-   loss within 1e-4.
+   with dropout at its offsets (after part D, alone on the card). 55's
+   part C: tp=4 x dp=1 without ZeRO-1 resumes from the tag, losses within
+   1e-5 of A's, each update within 1e-3 of its norm; D (in this process,
+   beside 54 and C): ``scripts/reshard_checkpoint.py`` merges the tag on
+   the card and the port's tp=1 step resumed from it gives step 3's loss
+   within 1e-4.
 56. train_mixtral_tp: Mixtral 8x7B's widths at 2 layers, tp=4 x dp=1 with
    sequence parallelism, blockwise dispatch (block 64), bf16 over fp32,
-   S=4096, 3 steps: the experts at I/tp = 3584; K2-K5, K7 and K8 each
+   S=4096, 2 steps: the experts at I/tp = 3584; K2-K5, K7 and K8 each
    launched layers x steps times on every rank, the first launch of each
    held to its plain version on the path's inputs (1e-2 for K5, K7, K8
    in bf16, 2e-2 for K2-K4); rank 0 times K5, K7 and K8 at the local width
@@ -404,10 +413,39 @@ script exits non-zero and prints no result:
 57. train_mixtral_tp_cross_check: that step in fp32 at 1 layer, S=256,
    against the port's tp=1 Mixtral step on the card (run on rank 0 first)
    under phase 53's limits.
-   Phases 52-57 share one start of the four processes. The CPU halves of
-   phases 9, 16, 24, 29 and 31 (the train steps, the quantized codes, the
-   other routers) are computed on a background thread (``CpuSide``) while
-   earlier phases run.
+58. train_pp: the same four ranks laid out as pp=2 x tp=2 with sequence
+   parallelism: ``neuronx_distributed_config(pipeline_parallel_size=2,
+   pipeline_config=PipelineConfig(num_microbatches=4))``, each rank
+   building its stage of Llama-3-8B's widths at 4 untied layers (2 a
+   stage, the embedding on stage 0, the norm and head on stage 1), then
+   ``make_train_step(grad_fn=llama_pipeline.make_pipeline_grad_fn(...,
+   schedule="1f1b"))``, bf16 over fp32, 4 microbatches of one row at
+   S=4096, 3 steps. Asserts finite losses equal on every rank and
+   falling; K2-K4 launched (layers / pp) x M x steps times a rank and
+   held to plain within 2e-2; the bytes the stage rings staged through
+   the host equal to four activations a tick; at most S - s graphs live.
+59. train_pp_cross_check: fp32, the same widths at 4 layers, S=256, global
+   batch 4, 2 steps at pp=2 x tp=2 under 1F1B, interleaved (C=2) and
+   GPipe, against the same ranks at tp=2 x dp=2 from the same weights and
+   batch: losses within 1e-5, grad norms within 1e-4, each parameter's
+   update within 1e-3 of its norm.
+60. train_mixtral_pp: Mixtral 8x7B's widths at 2 layers (1 a stage),
+   pp=2 x tp=2, blockwise (block 64), 1F1B with M=2 and the router's aux,
+   3 steps: K2-K5, K7 and K8 launched and held on every rank; rank 0 times
+   K5, K7 and K8 at I/tp = 7168.
+61. train_pp_resume: phase 54's tag (tp=2 x dp=2) loaded at pp=2 x tp=2,
+   stage 1 holding only the norm and the tied table: every tensor equal
+   to the tag's pieces bit for bit, the parameters' fingerprint the tag's;
+   steps 3-4 within 1e-5 of the tp=2 x dp=2 resume's losses. Writes no
+   tag.
+   Phases 52-61 share one start of the four processes; phase 55's part D
+   (the merge and the tp=1 step) runs in this process beside them. The
+   CPU halves of phases 9, 16, 24, 29, 31, 33, 39 and 51 (the train steps,
+   the quantized codes, the other routers, speculation, the replica
+   router's drills, LoRA) are computed on a background thread
+   (``CpuSide``) while earlier phases run; phase 36 waits until the
+   thread is idle: 39's tap swaps the router module's classes, and the
+   router phases run on the host's clock.
 
 Each phase line carries ``elapsed_s``, the seconds since the start.
 
@@ -429,7 +467,13 @@ import threading
 import time
 import weakref
 
-import numpy as np
+if __name__ == "__main__":
+    # the card phases' host thread shares the host's cores with the CPU
+    # side's OpenMP team (CpuSide): threads that sleep as soon as a
+    # parallel region ends, instead of spinning, leave those cores to it
+    os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
+
+import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -1546,7 +1590,7 @@ def phase_moe_bwd_vs_plain(tokens=4096):
                                            flush=flush),
                          **moe_bound(*args[:4], bs, kind=name))
                 if dtype == torch.bfloat16:
-                    t["plain_ms"] = time_ms(lambda: plain(*args), reps=2,
+                    t["plain_ms"] = time_ms(lambda: plain(*args), reps=1,
                                             flush=flush, warmup=1)
                     t["library_ms"] = time_ms(
                         moe_bwd_library(xs, gate_up, down, be, bs, dy, name),
@@ -2181,13 +2225,22 @@ def phase_train_cross_check(base_cfg, cpu_side, layers=2, seq=256, steps=2,
          card_s=tg, cpu_s=tc)
 
 
+CPU_SIDE_THREAD = "cpu-side"
+
+
+def on_cpu_side() -> bool:
+    """Whether this call runs on :class:`CpuSide`'s thread."""
+    return threading.current_thread().name == CPU_SIDE_THREAD
+
+
 class CpuSide:
     """The CPU halves of cross checks, computed on a thread of this
     process while the card phases before them run (PyTorch's CPU ops
     release the interpreter lock, so the two overlap): ``jobs`` is a list
     of ``(name, function name in this module, args, kwargs)``, run in
     order, at most ``PENDING`` results held ahead of the phase that takes
-    them (weights of 8B widths are gigabytes). :meth:`result` takes the
+    them (weights of 8B widths are gigabytes: four hold about 25 GB of
+    host memory). :meth:`result` takes the
     next one, which must be ``name``; :meth:`close` stops the thread after
     its current job. Nothing of the checks changes: the same functions
     compute the same halves, on another thread. The thread's CPU ops run
@@ -2195,7 +2248,7 @@ class CpuSide:
     thread), so the card phases' host thread keeps cores of its own; the
     count is set back when the jobs are done."""
 
-    PENDING = 2
+    PENDING = 4
     SPARE = 2
 
     def __init__(self, jobs):
@@ -2207,8 +2260,9 @@ class CpuSide:
         self.threads = max(1, self.full - self.SPARE)
         self.ready = queue.Queue(maxsize=self.PENDING)
         self.stop = threading.Event()
+        self.done = {name: threading.Event() for name, *_ in jobs}
         self.thread = threading.Thread(target=self._run, args=(jobs,),
-                                       daemon=True, name="cpu-side")
+                                       daemon=True, name=CPU_SIDE_THREAD)
         self.thread.start()
 
     def _run(self, jobs):
@@ -2229,6 +2283,7 @@ class CpuSide:
                 out["cpu_job_s"] = time.perf_counter() - t0
             except BaseException:  # handed to the phase, which raises it
                 out = {"error": traceback.format_exc()}
+            self.done[name].set()
             while not self.stop.is_set():
                 try:
                     self.ready.put((name, out), timeout=1.0)
@@ -2248,6 +2303,16 @@ class CpuSide:
         out["cpu_wait_s"] = time.perf_counter() - t0
         return out
 
+    def wait_idle(self, timeout=900):
+        """Block until every job has finished (the results may still wait
+        in the queue, which holds all of the last ``PENDING``): a phase
+        that must not run beside the thread calls this."""
+        deadline = time.perf_counter() + timeout
+        for name, event in self.done.items():
+            if not event.wait(max(0.0, deadline - time.perf_counter())):
+                raise AssertionError(f"cpu side: {name} not done in "
+                                     f"{timeout} s")
+
     def close(self):
         self.stop.set()
 
@@ -2264,8 +2329,11 @@ def cpu_side_jobs(llama_cfg, mixtral_cfg):
                ("mixtral_train_cross_check", "train_cross_cpu_half",
                 (mixtral_cfg, 1, 256, 2, dict(moe_dispatch="blockwise",
                                               moe_block_size=64)), {}),
+               ("spec_cross_check", "spec_cpu_half", (llama_cfg,), {}),
                ("train_loop_cross_check", "train_cross_cpu_half",
-                (llama_cfg, 2, 256, 2, LOOP_CROSS_KW), {})])
+                (llama_cfg, 2, 256, 2, LOOP_CROSS_KW), {}),
+               ("lora_cross_check", "lora_cpu_half", (2, 256, 2), {}),
+               ("router_cross_check", "router_cpu_half", (llama_cfg,), {})])
 
 
 # ---------------------------------------------------------------------------
@@ -2515,23 +2583,47 @@ class Capture:
     call goes through as before, and up to ``limit`` calls that ``want``
     picks (it sees the call's arguments) are kept as copies of their
     arguments and output, to hold a kernel to its plain version on the
-    inputs the path gave it. Positional arguments in ``by_ref`` (weights,
-    which the path does not change) are kept by reference."""
+    inputs the path gave it. Calls made on the CPU side's thread, which
+    runs the same functions on host tensors meanwhile, are not kept (the
+    autograd engine's threads, which run a backward's kernels, are).
+    Positional arguments in ``by_ref`` (weights,
+    which the path does not change) are kept by reference. With ``host``
+    every tensor is copied to host memory instead (none by reference), so
+    the copies take no room on the card while the path runs;
+    :meth:`on_card` moves them back."""
 
-    def __init__(self, module, name, want=None, limit=1, by_ref=()):
+    def __init__(self, module, name, want=None, limit=1, by_ref=(),
+                 host=False):
         self.module, self.name, self.limit = module, name, limit
         self.want = want or (lambda *a, **kw: True)
-        self.by_ref, self.calls = by_ref, []
+        self.by_ref = () if host else by_ref
+        self.host, self.calls = host, []
+
+    def on_card(self):
+        """The kept calls with every tensor moved to the card."""
+        def back(a):
+            if isinstance(a, tuple):
+                return tuple(back(x) for x in a)
+            return a.to("cuda") if isinstance(a, torch.Tensor) else a
+
+        return [([back(a) for a in args], {k: back(v) for k, v in kw.items()},
+                 back(out)) for args, kw, out in self.calls]
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
 
         def copy(a):
-            return a.clone() if isinstance(a, torch.Tensor) else a
+            if not self.host:
+                return a.clone() if isinstance(a, torch.Tensor) else a
+            if isinstance(a, tuple):
+                return tuple(copy(x) for x in a)
+            return (a.to("cpu", copy=True) if isinstance(a, torch.Tensor)
+                    else a)
 
         def spy(*args, **kw):
             out = self.real(*args, **kw)
-            if len(self.calls) < self.limit and self.want(*args, **kw):
+            if (len(self.calls) < self.limit and not on_cpu_side()
+                    and self.want(*args, **kw)):
                 self.calls.append(([a if i in self.by_ref else copy(a)
                                     for i, a in enumerate(args)],
                                    {k: copy(v) for k, v in kw.items()},
@@ -3346,8 +3438,9 @@ def spec_launches_want(eng, target_layers, draft_layers, k):
 
 
 def phase_serve_spec(cfg, ecfg, new=64, k=4, nb=2):
-    """``ServingEngine`` with Llama-3-8B at all 32 layers in bf16 (random
-    weights, seed 0, std 0.02) on 8 requests of 200-1000 prompt tokens,
+    """``ServingEngine`` with Llama-3-8B's widths at ``cfg``'s depth (4
+    layers in the whole script) in bf16 (random weights, seed 0, std
+    0.02) on 8 requests of 200-1000 prompt tokens,
     64 new tokens each: without speculation, with
     ``SpeculationConfig(k=4, num_branches=2)`` and a draft of Llama-3.2-1B's
     widths (seed 1), and with a self-draft. Asserts every request completes,
@@ -3459,52 +3552,91 @@ def first_parting(a, b):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-def phase_spec_cross_check(base_cfg, new=8, k=3, nb=2):
-    """Speculation at full width, 2 layers, fp32, block 16: three requests
-    of 20-40 prompt tokens, 8 new tokens, served on the card without
-    speculation, with a self-draft and with a 1-layer draft (seed 7), and
-    on the CPU without and with the self-draft. Every run's greedy ids must
-    equal the card's run without speculation; two runs may part only at a
-    near tie: the top-2 gap of the reference's logits at the parting
-    position under 1e-4 x max|logit| (each parting is printed with its
-    gap)."""
-    from neuronx_distributed_tpu_torch.inference.engine import (
-        EngineConfig, ServingEngine)
-    from neuronx_distributed_tpu_torch.inference.speculative import (
-        SpeculationConfig)
-    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+SPEC_CROSS = dict(new=8, k=3, nb=2)
+
+
+def spec_cross_setup(base_cfg):
+    """``spec_cross_check``'s model (full width, 2 layers, fp32), its
+    1-layer draft's config, three prompts of 20-40 tokens and the engine
+    config (block 16)."""
+    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
 
     cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
-    sd = init_state_dict(cfg, seed=4, std=0.02)
-    dcfg = dataclasses.replace(cfg, num_layers=1)
-    dsd = init_state_dict(dcfg, seed=7, std=0.02)
     rng = np.random.RandomState(6)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in rng.randint(20, 41, 3)]
     ecfg = EngineConfig(block_size=16, num_blocks=64, max_slots=3,
                         max_blocks_per_seq=8, token_budget=32)
-    spec = SpeculationConfig(k, nb)
-    # (run, device, speculate, draft); None: the card, the default
-    plans = [("card_plain", None, False, None),
-             ("card_self_draft", None, True, None),
-             ("card_draft_1l", None, True, (dcfg, dsd)),
-             ("cpu_plain", "cpu", False, None),
-             ("cpu_self_draft", "cpu", True, None)]
+    return cfg, dataclasses.replace(cfg, num_layers=1), prompts, ecfg
+
+
+def spec_run(cfg, sd, ecfg, prompts, dev, speculate, draft):
+    """One ``spec_cross_check`` run on ``dev`` (None: the card): the
+    greedy ids, the engine's counts and its model."""
+    from neuronx_distributed_tpu_torch.inference.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.inference.speculative import (
+        SpeculationConfig)
+
+    spec = SpeculationConfig(SPEC_CROSS["k"], SPEC_CROSS["nb"])
+    kw = dict(draft_cfg=draft[0], draft_params=draft[1]) if draft else {}
+    eng = ServingEngine(cfg, sd, dataclasses.replace(
+        ecfg, speculation=spec if speculate else None), device=dev, **kw)
+    ids, _ = serve_shared(eng, prompts, SPEC_CROSS["new"])
+    stats = dict(steps=eng.stats.steps, spec_rounds=eng.stats.spec_rounds,
+                 accepted=eng.stats.spec_accepted_tokens,
+                 worker_runs=dict(eng.worker_runs))
+    return ids, stats, eng.model
+
+
+def spec_cpu_half(base_cfg):
+    """The CPU half of ``spec_cross_check`` (run by :class:`CpuSide`): the
+    weights (seed 4) and the 1-layer draft's (seed 7), made on the host,
+    and the CPU path's runs without and with the self-draft."""
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+
+    cfg, dcfg, prompts, ecfg = spec_cross_setup(base_cfg)
+    sd = init_state_dict(cfg, seed=4, std=0.02, device="cpu")
+    dsd = init_state_dict(dcfg, seed=7, std=0.02, device="cpu")
+    runs = {}
+    for label, speculate in (("cpu_plain", False), ("cpu_self_draft", True)):
+        ids, stats, _ = spec_run(cfg, sd, ecfg, prompts, "cpu", speculate,
+                                 None)
+        runs[label] = (ids, stats)
+    return dict(sd=sd, dsd=dsd, runs=runs)
+
+
+def phase_spec_cross_check(base_cfg, cpu_side=None):
+    """Speculation at full width, 2 layers, fp32, block 16: three requests
+    of 20-40 prompt tokens, 8 new tokens, served on the card without
+    speculation, with a self-draft and with a 1-layer draft (seed 7), and
+    on the CPU without and with the self-draft (the CPU half and the
+    weights, made on the host, from ``cpu_side``, else computed here).
+    Every run's greedy ids must
+    equal the card's run without speculation; two runs may part only at a
+    near tie: the top-2 gap of the reference's logits at the parting
+    position under 1e-4 x max|logit| (each parting is printed with its
+    gap)."""
+    cfg, dcfg, prompts, ecfg = spec_cross_setup(base_cfg)
+    half = (cpu_side.result("spec_cross_check") if cpu_side is not None
+            else spec_cpu_half(base_cfg))
+    sd = {k: v.to("cuda") for k, v in half.pop("sd").items()}
+    dsd = {k: v.to("cuda") for k, v in half.pop("dsd").items()}
+    # (run, speculate, draft) on the card
+    plans = [("card_plain", False, None),
+             ("card_self_draft", True, None),
+             ("card_draft_1l", True, (dcfg, dsd))]
     ids, stats, ref_model = {}, {}, None
-    for label, dev, speculate, draft in plans:
-        kw = dict(draft_cfg=draft[0], draft_params=draft[1]) if draft else {}
-        eng = ServingEngine(cfg, sd, dataclasses.replace(
-            ecfg, speculation=spec if speculate else None), device=dev, **kw)
-        ids[label], _ = serve_shared(eng, prompts, new)
-        stats[label] = dict(steps=eng.stats.steps,
-                            spec_rounds=eng.stats.spec_rounds,
-                            accepted=eng.stats.spec_accepted_tokens,
-                            worker_runs=dict(eng.worker_runs))
-        if speculate and not eng.stats.spec_rounds:
-            raise AssertionError(f"spec_cross_check {label}: no round ran")
+    for label, speculate, draft in plans:
+        ids[label], stats[label], model = spec_run(
+            cfg, sd, ecfg, prompts, None, speculate, draft)
         if label == "card_plain":
-            ref_model = eng.model
-        del eng
+            ref_model = model
+        del model
+    for label, (got, st) in half["runs"].items():
+        ids[label], stats[label] = got, st
+    for label in ("card_self_draft", "card_draft_1l", "cpu_self_draft"):
+        if not stats[label]["spec_rounds"]:
+            raise AssertionError(f"spec_cross_check {label}: no round ran")
     partings = []
     for label in ids:
         for r, (got, want) in enumerate(zip(ids[label], ids["card_plain"])):
@@ -3526,10 +3658,10 @@ def phase_spec_cross_check(base_cfg, new=8, k=3, nb=2):
                     f"card's plain ids at {j} with a top-2 gap {gap} not "
                     f"under {limit}")
     emit("spec_cross_check", layers=cfg.num_layers, requests=len(prompts),
-         new_tokens=new, speculation_length=k, num_branches=nb,
-         runs=stats, partings=partings,
+         new_tokens=SPEC_CROSS["new"], speculation_length=SPEC_CROSS["k"],
+         num_branches=SPEC_CROSS["nb"], runs=stats, partings=partings,
          ids_equal={label: ids[label] == ids["card_plain"] for label in ids})
-    del ref_model, sd, dsd
+    del ref_model, sd, dsd, half
     torch.cuda.empty_cache()
 
 
@@ -3545,7 +3677,7 @@ def hold_glu_again(call, cuda_fn, plain):
 
 
 def phase_serve_mixtral_spec(cfg, ecfg, new=64, k=4, nb=2, spec_slots=2):
-    """``ServingEngine`` with Mixtral 8x7B's widths at 8 layers (as
+    """``ServingEngine`` with Mixtral 8x7B's widths at 4 layers (as
     ``serve_mixtral``) and a self-draft, ``SpeculationConfig(k=4,
     num_branches=2, max_spec_slots=2)``: the draft worker's 4 rows put 8
     pairs on sentinel metadata (K6), the verify worker's 20 rows run K5, and
@@ -3657,7 +3789,8 @@ def migrate_sessions(src, dst, uids, stream=False):
 
 def phase_migrate(cfg, ecfg, new=32, n=4):
     """Session migration between two engines in one process that share one
-    Llama-3-8B model at 32 layers in bf16 (random weights, seed 0, std
+    Llama-3-8B model at ``cfg``'s depth (8 layers in the whole script) in
+    bf16 (random weights, seed 0, std
     0.02). ``n`` requests of 200-500 prompt tokens, 32 new tokens: run on
     engine A without moving (the reference ids); then again on A, each
     exported mid-decode with ``integrity=True``, passed through
@@ -3670,8 +3803,8 @@ def phase_migrate(cfg, ecfg, new=32, n=4):
     pair of engines migrates a session to the same ids. ``export_prefixes``
     / ``import_prefixes`` give B the prefix hits the donor's trie promised.
     ``evict`` on A and a resubmission on B give the reference ids. Prints
-    ticket bytes per cached token (bf16 at 32 layers: 32 x 2 x 8 x 128 x
-    2 B = 128 KiB, plus the positions and the last block's unused rows) and
+    ticket bytes per cached token (bf16 at 8 layers: 8 x 2 x 8 x 128 x
+    2 B = 32 KiB, plus the positions and the last block's unused rows) and
     export, serialize, parse and import ms a session; K1 launches on the
     migrated run."""
     from neuronx_distributed_tpu_torch.inference.engine import (
@@ -3928,7 +4061,8 @@ def match_share(got, want):
 
 def phase_router(cfg, ecfg, new=64, n=16):
     """``ReplicaRouter`` with 2 replicas of phase 4's engine on one copy of
-    Llama-3-8B at 32 layers in bf16: 16 requests of 128-1024 prompt tokens
+    Llama-3-8B at ``cfg``'s depth (8 layers in the whole script) in bf16:
+    16 requests of 128-1024 prompt tokens
     and 64 new tokens from two tenants, ``batch`` on a finite token bucket
     (rate 0, a burst for 6 of its 8 requests: 2 throttled at submit), under
     ``step|r1 : crash, after=6, times=1``; then the same requests on a
@@ -4215,44 +4349,71 @@ def phase_router_elastic(cfg, ecfg, n=8, prompt_len=256, new=16):
     return k1, replays
 
 
-def phase_router_cross_check(base_cfg):
+ROUTER_CROSS_ECFG = dict(block_size=16, num_blocks=64, max_slots=4,
+                         max_blocks_per_seq=8, token_budget=16)
+
+
+def router_cross_side(base_cfg, dev):
+    """One side of ``router_cross_check`` on ``dev``: the three drills on
+    Llama-3-8B's widths at 2 layers in fp32 from weights made on the card
+    from seed 0 (moved to the CPU for its side), under a ``RouterTap``:
+    the drills' dicts, the fabric's handoff bytes, every router's ids and
+    the seconds. The CPU side runs as a ``CpuSide`` job
+    (``router_cpu_half``), after the card's router phases, whose classes
+    the tap would otherwise swap under them."""
+    from neuronx_distributed_tpu_torch.inference import router as rt
+    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+    from neuronx_distributed_tpu_torch.models.llama import init_state_dict
+
+    cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
+    weights = init_state_dict(cfg, seed=0, std=0.02)
+    if dev == "cpu":
+        weights = {k: v.cpu() for k, v in weights.items()}
+    ecfg = EngineConfig(**ROUTER_CROSS_ECFG)
+    fab = dataclasses.replace(ecfg, quantized=True, max_slots=6)
+    drills = (("chaos_drill", ecfg), ("sdc_serving_drill", ecfg),
+              ("fabric_chaos_drill", fab))
+    t0 = time.perf_counter()
+    with RouterTap() as tap:
+        dicts = {name: getattr(rt, name)(cfg, weights, e,
+                                         clock=lambda: 0.0, device=dev)
+                 for name, e in drills}
+    # chunk headers carry fingerprints of each side's own K/V, whose
+    # last bits differ: their digits move the byte count a little
+    return dict(
+        dicts={name: {k: v for k, v in d.items()
+                      if "ttft" not in k and k != "handoff_bytes"}
+               for name, d in dicts.items()},
+        handoff_bytes=dicts["fabric_chaos_drill"]["handoff_bytes"],
+        ids=[{u: r.tokens for u, r in res.items()} for res in tap.results],
+        seconds=time.perf_counter() - t0)
+
+
+def router_cpu_half(base_cfg):
+    """``router_cross_check``'s CPU side, for the ``CpuSide`` thread."""
+    out = {"side": router_cross_side(base_cfg, "cpu")}
+    free_cuda()
+    return out
+
+
+def phase_router_cross_check(base_cfg, cpu_side=None):
     """Full width, 2 layers, fp32, on the card and on the CPU from the same
     weights under ``clock=lambda: 0.0``: ``chaos_drill``,
     ``sdc_serving_drill`` and ``fabric_chaos_drill`` (int8 pool) give the
     same ids in every router they build and the same dicts (TTFT keys left
     out); the wire codec's int8 and fp8 codes and scales made from card
     tensors (an fp32 weight slab and its bf16 cast, blocks of 256 and 7)
-    equal the CPU's bit for bit."""
-    from neuronx_distributed_tpu_torch.inference import router as rt
-    from neuronx_distributed_tpu_torch.inference.engine import EngineConfig
+    equal the CPU's bit for bit. The CPU side comes from ``cpu_side``
+    (:func:`router_cross_side` on its thread), or is computed here."""
     from neuronx_distributed_tpu_torch.models.llama import init_state_dict
     from neuronx_distributed_tpu_torch.parallel import wire_codec as tw
 
     cfg = dataclasses.replace(base_cfg, num_layers=2, dtype=torch.float32)
+    sides = {"cuda": router_cross_side(base_cfg, "cuda"),
+             "cpu": (cpu_side.result("router_cross_check")["side"]
+                     if cpu_side is not None
+                     else router_cross_side(base_cfg, "cpu"))}
     sd = init_state_dict(cfg, seed=0, std=0.02)
-    sd_cpu = {k: v.cpu() for k, v in sd.items()}
-    ecfg = EngineConfig(block_size=16, num_blocks=64, max_slots=4,
-                        max_blocks_per_seq=8, token_budget=16)
-    fab = dataclasses.replace(ecfg, quantized=True, max_slots=6)
-    drills = (("chaos_drill", ecfg), ("sdc_serving_drill", ecfg),
-              ("fabric_chaos_drill", fab))
-    sides = {}
-    for dev, weights in (("cuda", sd), ("cpu", sd_cpu)):
-        t0 = time.perf_counter()
-        with RouterTap() as tap:
-            dicts = {name: getattr(rt, name)(cfg, weights, e,
-                                             clock=lambda: 0.0, device=dev)
-                     for name, e in drills}
-        # chunk headers carry fingerprints of each side's own K/V, whose
-        # last bits differ: their digits move the byte count a little
-        sides[dev] = dict(
-            dicts={name: {k: v for k, v in d.items()
-                          if "ttft" not in k and k != "handoff_bytes"}
-                   for name, d in dicts.items()},
-            handoff_bytes=dicts["fabric_chaos_drill"]["handoff_bytes"],
-            ids=[{u: r.tokens for u, r in res.items()}
-                 for res in tap.results],
-            seconds=time.perf_counter() - t0)
     hb = (sides["cuda"]["handoff_bytes"], sides["cpu"]["handoff_bytes"])
     same_dicts = (sides["cuda"]["dicts"] == sides["cpu"]["dicts"]
                   and abs(hb[0] - hb[1]) <= 1e-3 * hb[1])
@@ -4277,7 +4438,7 @@ def phase_router_cross_check(base_cfg):
          handoff_bytes_card_cpu=hb,
          ids_equal=same_ids, dicts_equal=same_dicts, codec_bits_equal=codes,
          card_s=sides["cuda"]["seconds"], cpu_s=sides["cpu"]["seconds"])
-    del sd, sd_cpu
+    del sd
     free_cuda()
 
 
@@ -4300,8 +4461,9 @@ class SyncErrors:
 
 class K1Stash:
     """While on, every call of the model's K1 keeps its output tensor, in
-    call order. Tensors kept during a capture live in the graph's pool: a
-    replay rewrites them, so after a replay they hold its outputs."""
+    call order (but those of the CPU side's thread). Tensors kept during a
+    capture live in the graph's pool: a replay rewrites them, so after a
+    replay they hold its outputs."""
 
     def __init__(self):
         from neuronx_distributed_tpu_torch.models import llama
@@ -4312,7 +4474,8 @@ class K1Stash:
 
         def stash(*args, **kw):     # holds no reference to the stash
             out = real(*args, **kw)
-            outs.append(out)
+            if not on_cpu_side():
+                outs.append(out)
             return out
 
         self._stash = stash
@@ -4727,8 +4890,10 @@ def bundle_configs(base, engine_config_cls):
     return cfg, ecfg
 
 
-def phase_bundle(base):
-    """Phase 43. Returns K1's launches in this process (the captures)."""
+def phase_bundle(base, meanwhile=None):
+    """Phase 43; ``meanwhile`` (phase 44) runs here while the fresh
+    process loads and runs the bundles. Returns K1's launches in this
+    process (the captures)."""
     import functools
 
     from neuronx_distributed_tpu_torch.inference import model_builder as mb
@@ -4789,14 +4954,24 @@ def phase_bundle(base):
         del paged, contig, cache0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, "-c", _BUNDLE_CHILD, *paths],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=400)
-        child_s = time.perf_counter() - t0
-        if child.returncode != 0:
-            raise AssertionError(f"bundle child failed:\n"
-                                 f"{child.stderr[-3000:]}")
+        with open(os.path.join(workdir, "child.err"), "w+") as err:
+            child = subprocess.Popen(
+                [sys.executable, "-c", _BUNDLE_CHILD, *paths],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.DEVNULL, stderr=err)
+            try:
+                if meanwhile is not None:
+                    meanwhile()
+                child.wait(timeout=400)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+            child_s = time.perf_counter() - t0
+            if child.returncode != 0:
+                err.seek(0)
+                raise AssertionError(f"bundle child failed:\n"
+                                     f"{err.read()[-3000:]}")
         there = torch.load(paths[2])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4818,13 +4993,47 @@ def phase_bundle(base):
     return launches
 
 
-def phase_benchmark():
-    """Phase 44: the benchmark command line on the card."""
-    out = subprocess.run(
+def start_benchmark():
+    """Phase 44 started: the benchmark command line on the card, in a
+    process of its own whose output goes to temporary files
+    (:func:`finish_benchmark` takes its line, :func:`stop_process` ends
+    it)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "neuronx_distributed_tpu_torch.inference."
          "benchmark"], cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=300, check=True)
-    line = out.stdout.strip().splitlines()[-1]
+        stdout=out, stderr=err)
+    proc.files = (out, err)
+    return proc
+
+
+def stop_process(proc):
+    """Ends ``proc`` if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_benchmark():
+    """Phase 44: the benchmark command line on the card."""
+    proc = start_benchmark()
+    try:
+        finish_benchmark(proc)
+    finally:
+        stop_process(proc)
+
+
+def finish_benchmark(proc):
+    """Phase 44's end: waits for the process :func:`start_benchmark`
+    started and checks and prints its last line."""
+    proc.wait(timeout=300)
+    out, err = proc.files
+    for f in proc.files:
+        f.seek(0)
+    if proc.returncode != 0:
+        raise AssertionError(f"benchmark exited {proc.returncode}:\n"
+                             f"{err.read()[-3000:]}")
+    line = out.read().strip().splitlines()[-1]
     parsed = json.loads(line)
     if (parsed["metric"] != "decode_tokens_per_sec_gpu"
             or not parsed["value"] > 0):
@@ -5635,29 +5844,16 @@ def phase_lora_serve(adapter_path, ecfg, new=32, n=4, bf16_layers=1):
     return launches, replays
 
 
-def phase_lora_cross_check(layers=2, seq=256, steps=2):
-    """Phase 51: ``LLAMA3_8B``'s widths at 2 layers, fp32, LoRA on all six
-    targets (B made nonzero, seed 2), S=256: one backward and ``steps``
-    steps of ``make_lora_optimizer`` on the card and on the CPU from the
-    same state: each loss within 1e-4 relative and ``grad_norm`` within
-    1e-3, each adapter gradient and each adapter's update within 1e-3 of
-    its norm, the base unchanged on both. Prints the largest per-module
-    gaps of one forward through ``tensor_capture.capture_intermediates``
-    and ``max_diff``. Then one conv LoRA pair (Output- then
-    InputChannelParallelConv2d, 3x3, 64 -> 128 -> 64 channels, rank 8,
-    bf16 compute) on the card against the CPU, within 2e-2 of max|y|."""
-    from neuronx_distributed_tpu_torch import trainer
-    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
-    from neuronx_distributed_tpu_torch.lora import (LoraConfig, is_lora_path,
-                                                    make_lora_optimizer)
+def lora_cross_inputs(layers, seq):
+    """``(cfg, sd, batch)`` of ``lora_cross_check``: Llama-3-8B's widths at
+    ``layers`` layers, fp32, LoRA on all six targets with B made nonzero
+    (seed 2), the weights made on the CPU from seed 1, a batch at
+    ``seq``."""
+    from neuronx_distributed_tpu_torch.lora import LoraConfig, is_lora_path
     from neuronx_distributed_tpu_torch.models.llama import (LLAMA3_8B,
                                                             init_state_dict)
-    from neuronx_distributed_tpu_torch.parallel import layers as pl
     from neuronx_distributed_tpu_torch.scripts.workloads import train_batch
-    from neuronx_distributed_tpu_torch.utils.tensor_capture import (
-        capture_intermediates, max_diff)
 
-    base_mem = memory_base()
     cfg = dataclasses.replace(
         LLAMA3_8B, num_layers=layers, dtype=torch.float32,
         param_dtype=torch.float32, use_flash_attention=True,
@@ -5668,37 +5864,77 @@ def phase_lora_cross_check(layers=2, seq=256, steps=2):
     for n, t in sd.items():
         if is_lora_path(n) and not t.any():
             sd[n] = torch.randn(t.shape, generator=gen) * 0.02
-    batch = train_batch(cfg.vocab_size, seq, seed=1)
-    side = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        ncfg = neuronx_distributed_config()
-        pm, params = trainer.initialize_parallel_model(ncfg, cfg,
-                                                       state_dict=sd,
-                                                       device=dev)
-        tx = make_lora_optimizer(trainer.make_optimizer(
-            ncfg, learning_rate=1e-3), params)
-        ids = batch["input_ids"].to(dev)
-        with torch.no_grad():
-            _, caps = capture_intermediates(
-                pm.module, ids, filter_fn=lambda m, p: p.count(".") <= 2)
-        caps = {k: tuple(t.cpu() if torch.is_tensor(t) else t for t in v)
-                for k, v in caps.items() if all(torch.is_tensor(t)
-                                                for t in v)}
-        pm.module.loss(ids, batch["labels"].to(dev)).backward()
-        grads = {n: p.grad.cpu() for n, p in params.items()
-                 if p.grad is not None}
-        for p in params.values():
-            p.grad = None
-        state = trainer.TrainState(0, params,
-                                   tx.init(trainer.trainable(params)))
-        step = trainer.make_train_step(pm, tx)
-        metrics = [step(state, batch)[1] for _ in range(steps)]
-        side[dev] = ([(m["loss"].item(), m["grad_norm"].item())
-                      for m in metrics], grads,
-                     {n: p.detach().cpu() - sd[n] for n, p in params.items()},
-                     caps, time.perf_counter() - t0)
-        del pm, params, tx, state, step, metrics
+    return cfg, sd, train_batch(cfg.vocab_size, seq, seed=1)
+
+
+def lora_side(dev, cfg, sd, batch, steps):
+    """One side of ``lora_cross_check`` on ``dev`` from
+    :func:`lora_cross_inputs`: ``(metrics, adapter gradients, updates,
+    captured intermediates, seconds)``, on the host. The CPU side runs as a
+    ``CpuSide`` job (``lora_cpu_half``)."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import neuronx_distributed_config
+    from neuronx_distributed_tpu_torch.lora import make_lora_optimizer
+    from neuronx_distributed_tpu_torch.utils.tensor_capture import (
+        capture_intermediates)
+
+    t0 = time.perf_counter()
+    ncfg = neuronx_distributed_config()
+    pm, params = trainer.initialize_parallel_model(ncfg, cfg, state_dict=sd,
+                                                   device=dev)
+    tx = make_lora_optimizer(trainer.make_optimizer(
+        ncfg, learning_rate=1e-3), params)
+    ids = batch["input_ids"].to(dev)
+    with torch.no_grad():
+        _, caps = capture_intermediates(
+            pm.module, ids, filter_fn=lambda m, p: p.count(".") <= 2)
+    caps = {k: tuple(t.cpu() if torch.is_tensor(t) else t for t in v)
+            for k, v in caps.items() if all(torch.is_tensor(t) for t in v)}
+    pm.module.loss(ids, batch["labels"].to(dev)).backward()
+    grads = {n: p.grad.cpu() for n, p in params.items()
+             if p.grad is not None}
+    for p in params.values():
+        p.grad = None
+    state = trainer.TrainState(0, params, tx.init(trainer.trainable(params)))
+    step = trainer.make_train_step(pm, tx)
+    metrics = [step(state, batch)[1] for _ in range(steps)]
+    out = ([(m["loss"].item(), m["grad_norm"].item()) for m in metrics],
+           grads, {n: p.detach().cpu() - sd[n] for n, p in params.items()},
+           caps, time.perf_counter() - t0)
+    del pm, params, tx, state, step, metrics
+    return out
+
+
+def lora_cpu_half(layers, seq, steps):
+    """``lora_cross_check``'s inputs and its CPU side, for the
+    ``CpuSide`` thread."""
+    cfg, sd, batch = lora_cross_inputs(layers, seq)
+    return {"inputs": (cfg, sd, batch),
+            "side": lora_side("cpu", cfg, sd, batch, steps)}
+
+
+def phase_lora_cross_check(cpu_side, layers=2, seq=256, steps=2):
+    """Phase 51: ``LLAMA3_8B``'s widths at 2 layers, fp32, LoRA on all six
+    targets (B made nonzero, seed 2), S=256: one backward and ``steps``
+    steps of ``make_lora_optimizer`` on the card and on the CPU (the CPU
+    side computed beforehand on the ``CpuSide`` thread, :func:`lora_side`)
+    from the same state: each loss within 1e-4 relative and ``grad_norm``
+    within 1e-3, each adapter gradient and each adapter's update within
+    1e-3 of its norm, the base unchanged on both. Prints the largest
+    per-module gaps of one forward through
+    ``tensor_capture.capture_intermediates`` and ``max_diff``. Then one
+    conv LoRA pair (Output- then InputChannelParallelConv2d, 3x3, 64 ->
+    128 -> 64 channels, rank 8, bf16 compute) on the card against the CPU,
+    within 2e-2 of max|y|."""
+    from neuronx_distributed_tpu_torch.lora import is_lora_path
+    from neuronx_distributed_tpu_torch.parallel import layers as pl
+    from neuronx_distributed_tpu_torch.utils.tensor_capture import max_diff
+
+    base_mem = memory_base()
+    half = (cpu_side.result("lora_cross_check") if cpu_side is not None
+            else lora_cpu_half(layers, seq, steps))
+    side = {"cuda": lora_side("cuda", *half["inputs"], steps),
+            "cpu": half["side"]}
     free_cuda()
     (mg, gg, ug, cg, tg), (mc, gc, uc, cc, tc) = side["cuda"], side["cpu"]
     for i, ((lg, ng), (lc, nc)) in enumerate(zip(mg, mc)):
@@ -5759,7 +5995,7 @@ def phase_lora_cross_check(layers=2, seq=256, steps=2):
          adapters=sum(is_lora_path(n) for n in gc),
          module_max_abs_gaps=top, conv_pair_gap_of_max=conv_gap,
          card_s=tg, cpu_s=tc)
-    del side, sd, gg, gc, ug, uc, cg, cc
+    del side, half, gg, gc, ug, uc, cg, cc
     free_cuda()
     check_freed("lora_cross_check", base_mem)
 
@@ -5837,7 +6073,9 @@ def tp_rank(specs):
     start = time.perf_counter()
     kinds = {"step": tp_rank_once, "loop": tp_loop_rank,
              "mixtral": mixtral_tp_rank,
-             "mixtral_cross": mixtral_tp_cross_rank}
+             "mixtral_cross": mixtral_tp_cross_rank,
+             "pp_train": pp_train_rank, "pp_cross": pp_cross_rank,
+             "pp_mixtral": pp_mixtral_rank, "pp_resume": pp_resume_rank}
     out = []
     for spec in specs:
         print(json.dumps({"rank_part": spec.get("kind", "step"),
@@ -6098,15 +6336,20 @@ def tp_summary(outs):
         rank_done_s=[o["done_s"] for o in outs])
 
 
-def phase_train_tp(smi, steps=3, seq=4096, layers=2, cross_layers=2,
-                   cross_seq=256, cross_steps=2):
-    """Phases 52-57 in one world of ranks (one start of the processes),
+def phase_train_tp(smi, steps=2, seq=4096, layers=2, cross_layers=2,
+                   cross_seq=256, cross_steps=2, pp_layers=4, pp_steps=3):
+    """Phases 52-61 in one world of ranks (one start of the processes),
     each part at its own layout of the same four ranks: ``train_tp``, its
     cross check's path (the tp=1 reference on rank 0 first),
     ``train_tp_loop`` and its cross check's paths around one tag
-    (:func:`tp_loop_rank`), ``train_mixtral_tp`` and its cross check's
-    path (the tp=1 reference on rank 0 first), in turn; the tag's
-    directory under ``build/`` is removed at the end. Each cross check's
+    (:func:`tp_loop_rank`; part D, the merge and the tp=1 step, runs on a
+    thread here beside the ranks, :func:`merged_tag_side`),
+    ``train_mixtral_tp`` and its cross check's
+    path (the tp=1 reference on rank 0 first), then the pipeline phases at
+    pp=2 x tp=2: ``train_pp``, ``train_pp_cross_check``,
+    ``train_mixtral_pp`` and ``train_pp_resume`` (from the loop's tag), in
+    turn; the tag's directory under ``build/`` is removed at the end.
+    Each cross check's
     comparison runs on rank 0, so the ranks return no weights. Returns
     each path's launches summed over the ranks."""
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
@@ -6121,34 +6364,57 @@ def phase_train_tp(smi, steps=3, seq=4096, layers=2, cross_layers=2,
     rows = TP_WORLD // TP_SIZE
     cross_batches = tp_batches(vocab, cross_seq, rows, 4, 20)
     path = os.path.join(workdir, "tag")
+    a_done, d_done = (os.path.join(workdir, f"{p}_done") for p in "ad")
+    stop, merged = threading.Event(), {}
+    side = threading.Thread(target=merged_tag_side, name="part-d", args=(
+        path, a_done, d_done, cross_batches, 1, stop, merged))
+    side.start()
     try:
-        main, cross, loop, moe, moe_cross = run_tp_world([
+        (main, cross, loop, moe, moe_cross, pp_main, pp_cross, pp_moe,
+         pp_resume) = run_tp_world([
             dict(compute="bfloat16", layers=layers, seed=0, steps=steps,
                  reference=False, time_kernels=True,
                  batch=tp_batch(vocab, seq, rows, 0)),
             dict(compute="float32", layers=cross_layers, seed=1,
                  steps=cross_steps, reference=True, time_kernels=False,
                  batch=tp_batch(vocab, cross_seq, rows, 1)),
-            dict(kind="loop", layers=1, dir=path,
-                 cross_batches=cross_batches,
+            dict(kind="loop", layers=1, dir=path, a_done=a_done,
+                 d_done=d_done, cross_batches=cross_batches,
                  batches=tp_batches(vocab, seq, rows, 2, 10)),
             dict(kind="mixtral", layers=layers, steps=steps,
                  batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 1, 30)),
             dict(kind="mixtral_cross", layers=1, steps=cross_steps,
-                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, cross_seq, 1, 3))])
+                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, cross_seq, 1, 3)),
+            dict(kind="pp_train", layers=pp_layers, steps=pp_steps,
+                 microbatches=4, batch=tp_batch(vocab, seq, 4, 40)),
+            dict(kind="pp_cross", layers=pp_layers, steps=cross_steps,
+                 microbatches=4, batch=tp_batch(vocab, cross_seq, 4, 41)),
+            dict(kind="pp_mixtral", layers=layers, steps=pp_steps,
+                 microbatches=2,
+                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 2, 42)),
+            dict(kind="pp_resume", dir=path, cross_batches=cross_batches)])
         wall = time.perf_counter() - t0
+        side.join()
         launches = {"train_tp": check_train_tp(smi, main, steps, seq,
                                                layers)}
         check_train_tp_cross(smi, cross, cross_layers, cross_seq,
                              cross_steps, wall)
         launches["train_tp_loop"] = check_train_tp_loop(smi, loop, seq, 1)
-        check_train_tp_loop_cross(smi, loop, path, cross_batches, 1,
-                                  cross_seq)
+        check_train_tp_loop_cross(smi, loop, merged, 1, cross_seq)
         launches["train_mixtral_tp"] = check_train_mixtral_tp(
             smi, moe, steps, seq, layers)
         check_train_mixtral_tp_cross(smi, moe_cross, 1, cross_seq,
                                      cross_steps)
+        launches["train_pp"] = check_train_pp(smi, pp_main, pp_steps, seq,
+                                              pp_layers, 4)
+        check_train_pp_cross(smi, pp_cross, pp_layers, cross_seq,
+                             cross_steps)
+        launches["train_mixtral_pp"] = check_train_mixtral_pp(
+            smi, pp_moe, pp_steps, seq, layers, 2)
+        check_train_pp_resume(smi, pp_resume, loop)
     finally:
+        stop.set()
+        side.join()
         shutil.rmtree(workdir, ignore_errors=True)
     return launches
 
@@ -6156,7 +6422,7 @@ def phase_train_tp(smi, steps=3, seq=4096, layers=2, cross_layers=2,
 def check_train_tp(smi, outs, steps, seq, layers):
     """``train_tp``: Llama-3-8B widths at 2 layers, bf16 compute over fp32
     parameters, 4 ranks on the one card (tp=2 x dp=2, sequence parallel,
-    ZeRO-1), global batch 2 at S=4096, 3 steps; each rank's K2-K4 counts
+    ZeRO-1), global batch 2 at S=4096, 2 steps; each rank's K2-K4 counts
     and held launches, its step times and peak memory, the bytes gloo's
     collectives moved (gloo passes CUDA tensors through pinned host
     buffers) and what ``comm`` staged itself; rank 0 timed K2-K4 at the
@@ -6342,7 +6608,12 @@ def tp_loop_rank(spec):
     restores the tag on every rank, whose fingerprint must be A's step 2.
     Then ``train_tp_loop_cross_check``, C: a model at tp=4 x dp=1 without
     ZeRO-1 resumes from the tag, trains steps 3-4 in fp32, and its update
-    over them is held to A's on rank 0 (both gathered whole there)."""
+    over them is held to A's on rank 0 (both gathered whole there).
+
+    Rank 0 leaves the file ``spec["a_done"]`` once A is done, which starts
+    part D in the parent (:func:`merged_tag_side`) beside B, the loop and
+    C, and at the end waits for ``spec["d_done"]`` before it times K2-K4
+    at the loop's inputs with dropout."""
     import torch.distributed as dist
 
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
@@ -6403,6 +6674,11 @@ def tp_loop_rank(spec):
     del snap
     a_s = time.perf_counter() - t0
     print(json.dumps({"loop_part": "A", "s": a_s}), flush=True)
+    if dist.get_rank() == 0:
+        # the tag is committed, and the layouts that resume it next hold
+        # little of the card: part D may start beside them
+        # (:func:`merged_tag_side`)
+        open(spec["a_done"], "w").close()
     # B: the same layout, resumed from the tag
     b = LiveFingerprints()
     trainer = Trainer(step, state, callbacks=[b], resume_path=path)
@@ -6444,13 +6720,8 @@ def tp_loop_rank(spec):
     drop = tuple(k2.calls[0][0][4:8])
     del k2, k3, k4
     loop_s = time.perf_counter() - t1
-    timing = None
-    dist.barrier()
-    if dist.get_rank() == 0:
-        timing = tp_local_timing(q, k, v, g, drop)
-    dist.barrier()
     loop = dict(losses=clock.losses, step_ms=clock.ms, launches=launches,
-                holds=holds, timing=timing,
+                holds=holds, timing=None,
                 dropout=dict(p=drop[1], offsets=list(drop[3])),
                 local_shape=dict(zip("bsnd", q.shape), kv=k.shape[2]),
                 peak_gib=peak / 2 ** 30, start=loop_start,
@@ -6460,7 +6731,7 @@ def tp_loop_rank(spec):
                 divergent_replicas=monitor.divergent_replicas,
                 rewound_is_step_2s=bool(probe.fp is not None and torch.equal(
                     probe.fp, a.fps[2])), seconds=loop_s)
-    del pm, state, step, trainer, q, k, v, g
+    del pm, state, step, trainer
     free_cuda()
     print(json.dumps({"loop_part": "loop", "s": time.perf_counter() - t0}),
           flush=True)
@@ -6478,14 +6749,23 @@ def tp_loop_rank(spec):
                 if dist.get_rank() == 0 else None)
     del pm, state, step, trainer, at2, upd_a, upd_c
     free_cuda()
+    c_s = time.perf_counter() - t2
+    # rank 0 times K2-K4 at the loop's inputs once part D is done, so that
+    # nothing else runs on the card meanwhile
+    dist.barrier()
+    if dist.get_rank() == 0:
+        wait_for_file(spec["d_done"])
+        loop["part_d_wait_s"] = time.perf_counter() - t2 - c_s
+        loop["timing"] = tp_local_timing(q, k, v, g, drop)
+    dist.barrier()
+    del q, k, v, g
     tags = sorted(t for t in os.listdir(path) if t.isdigit())
     return dict(coords=coords, loop=loop, a_losses=a.losses,
                 a_fps=a.fps, b_losses=b.losses, b_fps=b.fps,
                 c_losses=c.losses, b_start=b_start, c_start=c_start,
                 tags=tags, update_rel_diff=compared,
                 save_block_s=saver.block_s, commit_s=saver.commit_s,
-                tag_bytes=tag_bytes(path, "2"), a_s=a_s,
-                c_s=time.perf_counter() - t2)
+                tag_bytes=tag_bytes(path, "2"), a_s=a_s, c_s=c_s)
 
 
 def mixtral_tp_rank(spec):
@@ -6683,6 +6963,596 @@ def update_rel_diffs(phase, got, want):
     return worst, worst_name
 
 
+# ---------------------------------------------------------------------------
+# phases 58-61: pipeline parallelism, in the same start of the four
+# processes
+# ---------------------------------------------------------------------------
+
+PP_SIZE = 2      # pp=2 x tp=2 over the four ranks
+
+
+def pp_parts(model_cfg, compute, seed=None, state_dict=None, pp=PP_SIZE,
+             microbatches=4, schedule="1f1b", chunks=1, **step_kw):
+    """``(cfg, pm, state, step, grad_fn)`` of the public path at ``pp`` x
+    ``tp=2`` over the four ranks with sequence parallelism: each rank
+    builds its stage from the whole weights made from ``seed`` on the
+    card a tensor at a time (or ``state_dict``'s, a mapping or anything
+    with ``items()``), AdamW lr 1e-4, and ``make_train_step`` over the
+    pipeline grad function of ``schedule`` (Mixtral's for a Mixtral
+    config) with ``microbatches`` microbatches and ``chunks`` chunks a
+    stage."""
+    from neuronx_distributed_tpu_torch import trainer
+    from neuronx_distributed_tpu_torch.config import (
+        MixedPrecisionConfig, PipelineConfig, configure_model,
+        neuronx_distributed_config)
+    from neuronx_distributed_tpu_torch.models import llama_pipeline as lpp
+    from neuronx_distributed_tpu_torch.models import mixtral_pipeline as mpp
+
+    ncfg = neuronx_distributed_config(
+        tensor_parallel_size=TP_SIZE, pipeline_parallel_size=pp,
+        sequence_parallel=True,
+        pipeline_config=PipelineConfig(num_microbatches=microbatches,
+                                       schedule=schedule),
+        mixed_precision_config=MixedPrecisionConfig(compute_dtype=compute))
+    cfg = configure_model(ncfg, model_cfg)
+    pm, params = trainer.initialize_parallel_model(
+        ncfg, cfg, seed=seed or 0, state_dict=state_dict, std=0.02,
+        device="cuda")
+    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+    if hasattr(cfg, "router_aux_coef"):
+        gf = mpp.make_moe_1f1b_grad_fn(cfg, microbatches, pm,
+                                       num_chunks=chunks)
+    else:
+        gf = lpp.make_pipeline_grad_fn(cfg, microbatches, pm,
+                                       schedule=schedule, num_chunks=chunks)
+    return cfg, pm, state, trainer.make_train_step(pm, tx, grad_fn=gf), gf
+
+
+class InterleavedDraw:
+    """The whole weights ``draw_state_dict`` makes from ``seed`` (those of
+    ``initialize_parallel_model(seed=...)``), a tensor at a time, the
+    layers renamed into the interleaved storage order of ``stages`` x
+    ``chunks`` (``llama_pipeline.interleave_pipeline_params``)."""
+
+    def __init__(self, cfg, seed, stages, chunks):
+        self.cfg, self.seed = cfg, seed
+        self.stages, self.chunks = stages, chunks
+
+    def items(self):
+        from neuronx_distributed_tpu_torch.models import llama
+        from neuronx_distributed_tpu_torch.pipeline.engine_1f1b import (
+            interleaved_layer_order)
+
+        order = interleaved_layer_order(self.cfg.num_layers, self.stages,
+                                        self.chunks)
+        slot = {int(c): j for j, c in enumerate(order)}
+        for name, t in llama.draw_state_dict(self.cfg, self.seed, 0.02,
+                                             "cuda"):
+            if name.startswith("layers."):
+                _, i, rest = name.split(".", 2)
+                name = f"layers.{slot[int(i)]}.{rest}"
+            yield name, t
+
+
+def pp_canonical(name, chunks, layers):
+    """The canonical name of a parameter a pipeline stage holds under the
+    interleaved storage order of ``chunks`` chunks (itself at 1)."""
+    if chunks == 1 or not name.startswith("layers."):
+        return name
+    from neuronx_distributed_tpu_torch.pipeline.engine_1f1b import (
+        interleaved_layer_order)
+
+    order = interleaved_layer_order(layers, PP_SIZE, chunks)
+    _, i, rest = name.split(".", 2)
+    return f"layers.{int(order[int(i)])}.{rest}"
+
+
+def pp_staged_want(act_shape, itemsize, microbatches, chunks=1,
+                   stages=PP_SIZE):
+    """The bytes one 1F1B / interleaved step stages through the host on a
+    rank: every tick of ``T = M·C + S·C + S - 2`` passes an activation
+    (or its gradient) of ``act_shape`` around each of two rings, and
+    ``comm.ppermute`` counts the copy down of what a rank sends and the
+    copy up of what it receives: four activations a tick."""
+    ticks = microbatches * chunks + stages * chunks + stages - 2
+    return 4 * ticks * int(np.prod(act_shape)) * itemsize
+
+
+def pp_train_rank(spec):
+    """``train_pp`` on one rank: Llama-3-8B's widths at 4 layers (2 a
+    stage) with the untied head, pp=2 x tp=2 with sequence parallelism,
+    1F1B with M=4 microbatches of one row at S=4096, bf16 compute over
+    fp32 parameters, AdamW lr 1e-4 clipped at 1.0, ``spec["steps"]``
+    steps. K2-K4 counted from 0 over the steps (each rank runs its 2
+    layers for each of the 4 microbatches: 8 each a step), their first
+    launches held to their plain versions; the bytes staged through the
+    host by the stage rings against :func:`pp_staged_want`."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.parallel import comm, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, pm, state, step, gf = pp_parts(
+        dataclasses.replace(LLAMA3_8B, num_layers=spec["layers"],
+                            use_flash_attention=True,
+                            param_dtype=torch.float32),
+        "bfloat16", seed=0, microbatches=spec["microbatches"])
+    load_peak = torch.cuda.max_memory_allocated()
+    counters = flash_counters()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    comm.collective_bytes.clear()
+    comm.host_staged_bytes.clear()
+    init_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, times = [], [], []
+    with Capture(fa, "flash_fwd_cuda") as k2, \
+            Capture(fa, "flash_bwd_dq_cuda") as k3, \
+            Capture(fa, "flash_bwd_dkv_cuda") as k4:
+        for _ in range(spec["steps"]):
+            t_step = time.perf_counter()
+            _, m = step(state, spec["batch"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    staged = dict(comm.host_staged_bytes)
+    moved = dict(comm.collective_bytes)
+    holds, (q, k, v), g = tp_holds(k2, k3, k4)
+    del k2, k3, k4, q, k, v, g
+    seq = spec["batch"]["input_ids"].shape[1]
+    act = (spec["batch"]["input_ids"].shape[0] // spec["microbatches"],
+           seq // TP_SIZE, cfg.hidden_size)
+    want_staged = spec["steps"] * pp_staged_want(
+        act, torch.finfo(torch.bfloat16).bits // 8, spec["microbatches"])
+    out = dict(coords=mesh.coords(), losses=losses, grad_norms=norms,
+               step_ms=times, launches=launches, holds=holds,
+               init_s=init_s, run_s=time.perf_counter() - t0,
+               load_peak_gib=load_peak / 2 ** 30, peak_gib=peak / 2 ** 30,
+               host_staged_bytes=staged, want_staged_bytes=want_staged,
+               collective_bytes=moved, stats=dict(gf.last_stats),
+               held_params=sum(p.numel() for p in state.params.values()))
+    del pm, state, step, gf
+    free_cuda()
+    return out
+
+
+def pp_keep(name, stage, layers):
+    """Whether rank-local reference updates of ``name`` are kept for a
+    stage of :func:`pp_cross_rank`'s pipelines: the layers stage ``stage``
+    holds under 1F1B or the interleaved order (C=2), and its end of the
+    model."""
+    from neuronx_distributed_tpu_torch.models.llama_pipeline import (
+        stage_layers)
+    from neuronx_distributed_tpu_torch.pipeline.engine_1f1b import (
+        interleaved_layer_order)
+
+    if name.startswith("layers."):
+        i = int(name.split(".")[1])
+        order = interleaved_layer_order(layers, PP_SIZE, 2)
+        held = set(stage_layers(layers, PP_SIZE, stage)) | {
+            int(order[j]) for j in stage_layers(layers, PP_SIZE, stage)}
+        return i in held
+    return name.startswith("embed.") if stage == 0 else not \
+        name.startswith("embed.")
+
+
+def pp_update_diffs(updates, want, group_names):
+    """Each parameter's ``|update - want| / |want|`` over the whole tensor
+    (the sums of squares of a stage's tp shards added over tp), the worst
+    over the world and its name."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.parallel import comm, mesh
+
+    names = sorted(group_names)
+    sums = torch.tensor([[float(torch.linalg.vector_norm(
+        updates[n] - want[n], dtype=torch.float64) ** 2),
+        float(torch.linalg.vector_norm(want[n], dtype=torch.float64) ** 2)]
+        for n in names], dtype=torch.float64)
+    sums = comm.all_reduce(sums, mesh.TP_AXIS)
+    rel = (sums[:, 0] / sums[:, 1].clamp_min(1e-300)).sqrt()
+    i = int(rel.argmax())
+    worst = [float(rel[i]), names[i]]
+    box = [None] * dist.get_world_size()
+    dist.all_gather_object(box, worst)
+    return max(box, key=lambda w: w[0])
+
+
+def pp_cross_rank(spec):
+    """``train_pp_cross_check`` on one rank: Llama-3-8B's widths at 4
+    layers with the untied head, fp32, S=256, global batch of 4, 2 steps:
+    first at tp=2 x dp=2 (sequence parallel, ZeRO-1; the layout
+    ``train_tp_cross_check`` holds to tp=1), each rank keeping on its host
+    the updates of the parameters its stage will hold; then at pp=2 x tp=2
+    under ``1f1b``, ``interleaved`` (C=2, the stack in the interleaved
+    order) and ``gpipe`` from the same weights (made from seed 1) and
+    batch, one layout's state live at a time: each step's loss and grad
+    norm, and each parameter's update against the kept one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    layers, steps, batch = spec["layers"], spec["steps"], spec["batch"]
+    model = dataclasses.replace(loop_cfg(layers), tie_embeddings=False,
+                                dtype=torch.float32)
+
+    def run(step, state, keep=lambda name: True):
+        # the kept parameters' updates, on the host: the card has no room
+        # for a copy of them beside the reference layout's state
+        start = {n: p.detach().cpu() for n, p in state.params.items()
+                 if keep(n)}
+        metrics = [step(state, batch)[1] for _ in range(steps)]
+        metrics = [(m["loss"].item(), m["grad_norm"].item())
+                   for m in metrics]
+        return metrics, {n: state.params[n].detach().cpu() - s0
+                         for n, s0 in start.items()}
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    _, pm, state, step = tp_parts(model, TP_SIZE, "float32", seed=1)
+    stage = mesh.axis_rank(mesh.DP_AXIS)     # the same rank's stage below
+    ref_metrics, kept = run(step, state,
+                            lambda n: pp_keep(n, stage, layers))
+    del pm, state, step
+    free_cuda()
+    out = dict(reference=ref_metrics, ref_s=time.perf_counter() - t0)
+    for name, schedule, chunks in (("1f1b", "1f1b", 1),
+                                   ("interleaved", "interleaved", 2),
+                                   ("gpipe", "gpipe", 1)):
+        t1 = time.perf_counter()
+        source = (InterleavedDraw(model, 1, PP_SIZE, chunks) if chunks > 1
+                  else None)
+        _, pm, state, step, gf = pp_parts(
+            model, "float32", seed=1, state_dict=source,
+            microbatches=spec["microbatches"], schedule=schedule,
+            chunks=chunks)
+        metrics, upd = run(step, state)
+        upd = {pp_canonical(n, chunks, layers): u for n, u in upd.items()}
+        worst = pp_update_diffs(upd, kept, upd)
+        out[name] = dict(metrics=metrics, update_rel_diff=worst,
+                         stats=dict(gf.last_stats),
+                         seconds=time.perf_counter() - t1)
+        del pm, state, step, gf, upd
+        free_cuda()
+    return out
+
+
+def pp_mixtral_rank(spec):
+    """``train_mixtral_pp`` on one rank: Mixtral 8x7B's widths at 2 layers
+    (1 a stage), pp=2 x tp=2 with sequence parallelism, blockwise
+    dispatch (block 64), the experts at I/tp = 7168, 1F1B with M=2
+    microbatches of one row at S=4096 and the router's aux, bf16 over fp32
+    parameters, ``spec["steps"]`` steps. K2-K5, K7 and K8 counted from 0
+    over the steps, the first launch of each held to its plain version
+    (one rank at a time, the state freed first); rank 0 times K5, K7 and
+    K8 on the path's inputs (kernel, plain, bound, cuBLAS per expert)."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.parallel import comm, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, pm, state, step, gf = pp_parts(
+        dataclasses.replace(MIXTRAL_8X7B, num_layers=spec["layers"],
+                            use_flash_attention=True,
+                            param_dtype=torch.float32,
+                            moe_dispatch="blockwise", moe_block_size=64),
+        "bfloat16", seed=0, microbatches=spec["microbatches"])
+    load_peak = torch.cuda.max_memory_allocated()
+    counters = dict(flash_counters(), grouped_glu=tbm.grouped_glu,
+                    grouped_glu_dx=tbm.grouped_glu_dx,
+                    grouped_glu_dw=tbm.grouped_glu_dw)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    comm.host_staged_bytes.clear()
+    init_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, times = [], [], []
+    # the first launches kept on the host: at I/tp = 7168 a copy of the
+    # experts' dW alone is 2.8 GB a rank, which four ranks' states leave
+    # no room for on the card
+    with Capture(fa, "flash_fwd_cuda") as k2, \
+            Capture(fa, "flash_bwd_dq_cuda") as k3, \
+            Capture(fa, "flash_bwd_dkv_cuda") as k4, \
+            Capture(tbm, "grouped_glu_cuda", host=True) as k5, \
+            Capture(tbm, "grouped_glu_bwd_cuda", host=True) as k78:
+        for _ in range(spec["steps"]):
+            t_step = time.perf_counter()
+            m = step(state, spec["batch"])[1]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    staged = dict(comm.host_staged_bytes)
+    del pm, state, step, m, gf
+    free_cuda()
+    k5.calls, k78.calls = k5.on_card(), k78.on_card()
+    (xs, gu, dn, be, dy, bs, bi), _, got = k78.calls[0]
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            holds, _, _ = tp_holds(k2, k3, k4)
+            holds["grouped_glu"] = hold_glu(
+                k5.calls[0], tbm.grouped_glu_plain)["max_rel_err"]
+            ref = tbm.grouped_glu_bwd_plain(xs.float(), gu.float(),
+                                            dn.float(), be, dy.float(), bs,
+                                            bi)
+            for name, a, want in (("grouped_glu_dx", got[0], ref[0]),
+                                  ("grouped_glu_dw", got[1], ref[1]),
+                                  ("grouped_glu_dw.down", got[2], ref[2])):
+                holds[name] = flash_rel_err(a, want.to(a.dtype))
+            del ref
+            free_cuda()
+        dist.barrier()
+    fwd_args = k5.calls[0][0]
+    del k2, k3, k4, k5, k78
+    timing = None
+    dist.barrier()
+    if dist.get_rank() == 0:
+        timing = moe_tp_local_timing(fwd_args, (xs, gu, dn, be, dy, bs, bi))
+    dist.barrier()
+    return dict(coords=mesh.coords(), losses=losses, grad_norms=norms,
+                step_ms=times, launches=launches, holds=holds,
+                timing=timing, init_s=init_s,
+                run_s=time.perf_counter() - t0, host_staged_bytes=staged,
+                load_peak_gib=load_peak / 2 ** 30, peak_gib=peak / 2 ** 30,
+                local_shape=dict(rows=xs.shape[0], h=xs.shape[1],
+                                 experts=gu.shape[0], i_local=gu.shape[-1],
+                                 block=bs))
+
+
+def tag_pieces_equal(path, tag, state):
+    """Whether every tensor of a stage's ``state`` (params and optimizer
+    state) equals, bit for bit, the part of the saved pieces of tag
+    ``tag`` it covers at this rank's layout, read straight from the tag's
+    files (memory-mapped), and the count of elements compared."""
+    from neuronx_distributed_tpu_torch.trainer import checkpoint as ck
+
+    table = ck.saved_shard_table(path, tag)
+    lay = ck._layout()
+    files = {}
+    compared, same = 0, True
+    tree = ck.state_to_tree(state, lambda t: t)
+    for p, t in ck.tree_leaves(tree):
+        g = state.global_paths[p][0]
+        entry = table["leaves"][g]
+        _, box = ck._box(t.shape, ck._norm_spec(state.shard_specs.get(p),
+                                                 t.dim()), lay)
+        for rel, pbox in entry["pieces"]:
+            lo = [max(a, q[0]) for (a, _), q in zip(box, pbox)]
+            hi = [min(b, q[1]) for (_, b), q in zip(box, pbox)]
+            if any(h <= l for l, h in zip(lo, hi)):
+                continue
+            if rel not in files:
+                files[rel] = torch.load(os.path.join(path, str(tag), rel),
+                                        map_location="cpu",
+                                        weights_only=True, mmap=True)
+            piece = files[rel][g][tuple(slice(l - q[0], h - q[0]) for l, h, q
+                                        in zip(lo, hi, pbox))]
+            mine = t.detach()[tuple(slice(l - b[0], h - b[0]) for l, h, b
+                                    in zip(lo, hi, box))].cpu()
+            same = same and torch.equal(mine, piece)
+            compared += mine.numel()
+    return same, compared
+
+
+def pp_resume_rank(spec):
+    """``train_pp_resume`` on one rank: ``train_tp_loop``'s tag (1 layer,
+    the tied head, saved at tp=2 x dp=2 with ZeRO-1) loaded at pp=2 x
+    tp=2: stage 0 holds the embedding and the layer, stage 1 only the
+    final norm and the tied table. Every tensor held to the tag's pieces
+    bit for bit, the parameters' fingerprint (of the whole model, from
+    the stages) against the one the tag's parameters had when saved; then
+    steps 3-4 of ``train_tp_loop_cross_check``'s fp32 batches at S=256
+    through ``Trainer`` (1F1B, M=2), whose losses the caller holds to the
+    tp=2 x dp=2 resume's. Writes nothing."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+    from neuronx_distributed_tpu_torch.trainer import checkpoint as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _, pm, state, step, gf = pp_parts(
+        dataclasses.replace(loop_cfg(1), dtype=torch.float32), "float32",
+        seed=5, microbatches=2)
+    t1 = time.perf_counter()
+    ck.load_checkpoint(spec["dir"], tag="2", target=state)
+    load_s = time.perf_counter() - t1
+    same, compared = tag_pieces_equal(spec["dir"], "2", state)
+    fp = step.fingerprint(state.params).cpu()
+    held = sorted(state.params)
+    clock = StepClock()
+    Trainer(step, state, callbacks=[clock]).fit(
+        iter(spec["cross_batches"][2:]), max_steps=4)
+    out = dict(coords=mesh.coords(), same=same, compared=compared,
+               fingerprint=fp, held=[n for n in held
+                                     if not n.startswith("layers.")]
+               + sorted({".".join(n.split(".")[:2]) for n in held
+                         if n.startswith("layers.")}),
+               losses=clock.losses, step=state.step, load_s=load_s,
+               run_s=time.perf_counter() - t0)
+    del pm, state, step, gf
+    free_cuda()
+    return out
+
+
+def check_train_pp(smi, outs, steps, seq, layers, microbatches):
+    """``train_pp``: finite losses equal on every rank and falling; each
+    rank's K2-K4 launched (layers / pp) x M x steps times, their first
+    launches within 2e-2 of their plain versions; the bytes the stage
+    rings staged through the host equal to :func:`pp_staged_want`'s; at
+    most S - s graphs live on stage s."""
+    want = layers // PP_SIZE * microbatches * steps
+    for r, out in enumerate(outs):
+        if not (np.isfinite(out["losses"]).all()
+                and np.isfinite(out["grad_norms"]).all()
+                and np.allclose(out["losses"], outs[0]["losses"], rtol=1e-6,
+                                atol=0)):
+            raise AssertionError(f"train_pp: rank {r} losses {out['losses']}"
+                                 f" vs {outs[0]['losses']}")
+        for name, n in out["launches"].items():
+            if n != want:
+                raise AssertionError(f"train_pp: rank {r} launched {name} "
+                                     f"{n} times, want {want}")
+        for name, err in out["holds"].items():
+            if not err <= 2e-2:
+                raise AssertionError(f"train_pp: rank {r} {name} differs "
+                                     f"from its plain version by {err}")
+        staged = out["host_staged_bytes"].get("ppermute", 0)
+        if staged != out["want_staged_bytes"] or len(
+                out["host_staged_bytes"]) != 1:
+            raise AssertionError(f"train_pp: rank {r} staged "
+                                 f"{out['host_staged_bytes']}, want "
+                                 f"{out['want_staged_bytes']}")
+        if out["stats"]["max_live"] > PP_SIZE - out["coords"]["pp"]:
+            raise AssertionError(f"train_pp: rank {r} held "
+                                 f"{out['stats']} graphs")
+    if not outs[0]["losses"][-1] < outs[0]["losses"][0]:
+        raise AssertionError(f"train_pp: loss did not fall: "
+                             f"{outs[0]['losses']}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name, _ in FLASH_KERNELS}
+    p50 = float(np.median([t for o in outs for t in o["step_ms"][1:]]))
+    emit("train_pp", card=smi, layers=layers, seq=seq, steps=steps,
+         world=TP_WORLD, pp=PP_SIZE, tp=TP_SIZE, schedule="1f1b",
+         microbatches=microbatches, compute_dtype="bfloat16",
+         losses=outs[0]["losses"], grad_norms=outs[0]["grad_norms"],
+         step_ms_p50=p50, step_ms_by_rank=[o["step_ms"] for o in outs],
+         peak_gib_by_rank=[o["peak_gib"] for o in outs],
+         load_peak_gib_by_rank=[o["load_peak_gib"] for o in outs],
+         held_params_by_rank=[o["held_params"] for o in outs],
+         launches_by_rank=[o["launches"] for o in outs],
+         held_err_by_rank=[o["holds"] for o in outs],
+         live_graphs_by_rank=[o["stats"] for o in outs],
+         host_staged_bytes_by_rank=[o["host_staged_bytes"] for o in outs],
+         gloo_bytes_by_rank=[o["collective_bytes"] for o in outs],
+         rank_init_s=[o["init_s"] for o in outs],
+         rank_run_s=[o["run_s"] for o in outs],
+         rank_done_s=[o["done_s"] for o in outs])
+    TP_RESULTS["train_pp"] = dict(launches=launches, outs=outs)
+    return launches
+
+
+def check_train_pp_cross(smi, outs, layers, seq, steps):
+    """``train_pp_cross_check``: each pipeline schedule's losses within
+    1e-5 relative and grad norms within 1e-4 of the tp=2 x dp=2 step's,
+    equal on every rank; every parameter's update within 1e-3 of its
+    norm."""
+    ref = outs[0]["reference"]
+    line = {}
+    for name in ("1f1b", "interleaved", "gpipe"):
+        for r, out in enumerate(outs):
+            if out[name]["metrics"] != outs[0][name]["metrics"]:
+                raise AssertionError(f"train_pp_cross_check: {name} rank "
+                                     f"{r} {out[name]['metrics']}")
+        for i, ((l, n), (lw, nw)) in enumerate(zip(outs[0][name]["metrics"],
+                                                   ref)):
+            if not (abs(l - lw) <= 1e-5 * abs(lw)
+                    and abs(n - nw) <= 1e-4 * abs(nw)):
+                raise AssertionError(
+                    f"train_pp_cross_check: {name} step {i + 1} ({l}, {n})"
+                    f" vs tp=2 x dp=2 ({lw}, {nw})")
+        worst = outs[0][name]["update_rel_diff"]
+        if not worst[0] <= 1e-3:
+            raise AssertionError(f"train_pp_cross_check: {name} update of "
+                                 f"{worst[1]} differs by {worst[0]}")
+        line[name] = dict(metrics=outs[0][name]["metrics"],
+                          max_update_rel_diff=worst,
+                          live_graphs_by_rank=[o[name]["stats"]
+                                               for o in outs],
+                          seconds=outs[0][name]["seconds"])
+    emit("train_pp_cross_check", card=smi, layers=layers, seq=seq,
+         steps=steps, reference_tp2_dp2=ref, ref_s=outs[0]["ref_s"],
+         rank_done_s=[o["done_s"] for o in outs], **line)
+
+
+def check_train_mixtral_pp(smi, outs, steps, seq, layers, microbatches):
+    """``train_mixtral_pp``: finite losses equal on every rank; each
+    rank's K2-K4, K5, K7 and K8 launched (layers / pp) x M x steps times,
+    the first launch of each within 2e-2 (K2-K4) or 1e-2 (K5, K7, K8) of
+    its plain version."""
+    want = layers // PP_SIZE * microbatches * steps
+    for r, out in enumerate(outs):
+        if not (np.isfinite(out["losses"]).all() and np.allclose(
+                out["losses"], outs[0]["losses"], rtol=1e-6, atol=0)):
+            raise AssertionError(f"train_mixtral_pp: rank {r} losses "
+                                 f"{out['losses']}")
+        for name, n in out["launches"].items():
+            if n != want:
+                raise AssertionError(f"train_mixtral_pp: rank {r} launched "
+                                     f"{name} {n} times, want {want}")
+        for name, err in out["holds"].items():
+            tol = 2e-2 if name.startswith("flash") else 1e-2
+            if not err <= tol:
+                raise AssertionError(f"train_mixtral_pp: rank {r} {name} "
+                                     f"differs from plain by {err}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    emit("train_mixtral_pp", card=smi, layers=layers, seq=seq, steps=steps,
+         pp=PP_SIZE, tp=TP_SIZE, schedule="1f1b", microbatches=microbatches,
+         compute_dtype="bfloat16", losses=outs[0]["losses"],
+         grad_norms=outs[0]["grad_norms"],
+         step_ms_by_rank=[o["step_ms"] for o in outs],
+         peak_gib_by_rank=[o["peak_gib"] for o in outs],
+         load_peak_gib_by_rank=[o["load_peak_gib"] for o in outs],
+         launches_by_rank=[o["launches"] for o in outs],
+         held_err_by_rank=[o["holds"] for o in outs],
+         host_staged_bytes_by_rank=[o["host_staged_bytes"] for o in outs],
+         local_shape=outs[0]["local_shape"], timing=outs[0]["timing"],
+         rank_run_s=[o["run_s"] for o in outs],
+         rank_done_s=[o["done_s"] for o in outs])
+    TP_RESULTS["train_mixtral_pp"] = dict(launches=launches, outs=outs)
+    return launches
+
+
+def check_train_pp_resume(smi, outs, loop_outs):
+    """``train_pp_resume``: every rank's tensors equal the tag's pieces
+    bit for bit, the stages' fingerprint of the whole parameters equals
+    the one the tag's had when saved (``train_tp_loop_cross_check``'s A at
+    step 2), stage 1 holds only the norm and the tied table, and steps 3-4
+    from the tag at pp=2 x tp=2 hold the tp=2 x dp=2 resume's losses
+    within 1e-5."""
+    want_fp = loop_outs[0]["a_fps"][2]
+    want = [loop_outs[0]["b_losses"][s] for s in (3, 4)]
+    for r, out in enumerate(outs):
+        if not (out["same"] and out["compared"] > 0):
+            raise AssertionError(f"train_pp_resume: rank {r} differs from "
+                                 "the tag's pieces")
+        if not torch.equal(out["fingerprint"], want_fp):
+            raise AssertionError(f"train_pp_resume: rank {r}'s fingerprint "
+                                 "is not the tag's")
+        if out["coords"]["pp"] == 1 and out["held"] != [
+                "embed.embedding", "norm.scale"]:
+            raise AssertionError(f"train_pp_resume: stage 1 holds "
+                                 f"{out['held']}")
+        if not (out["step"] == 4 and all(
+                abs(a - b) <= 1e-5 * abs(b)
+                for a, b in zip(out["losses"], want))):
+            raise AssertionError(f"train_pp_resume: rank {r} losses "
+                                 f"{out['losses']} vs {want}")
+    emit("train_pp_resume", card=smi, pp=PP_SIZE, tp=TP_SIZE, layers=1,
+         tied=True, held_by_rank=[o["held"] for o in outs],
+         elements_compared_by_rank=[o["compared"] for o in outs],
+         losses=outs[0]["losses"], losses_tp2_dp2=want,
+         load_s_by_rank=[o["load_s"] for o in outs],
+         rank_run_s=[o["run_s"] for o in outs],
+         rank_done_s=[o["done_s"] for o in outs])
+
+
 def check_train_tp_loop(smi, outs, seq, layers):
     """``train_tp_loop``: every rank resumed at step 2 and trained steps
     3-4 with losses finite and equal to rank 0's; K2-K4 launched layers x
@@ -6741,25 +7611,77 @@ def check_train_tp_loop(smi, outs, seq, layers):
          bitflip_detected_at=4, rewound_to_tag=2,
          divergent_replicas=loops[0]["divergent_replicas"],
          loop_s_by_rank=[o["seconds"] for o in loops],
+         part_d_wait_s_rank0=loops[0]["part_d_wait_s"],
          rank_done_s=[o["done_s"] for o in outs])
     TP_RESULTS["train_tp_loop"] = dict(launches=launches, outs=loops)
     return launches
 
 
-def check_train_tp_loop_cross(smi, outs, path, batches, layers, seq):
-    """``train_tp_loop_cross_check``: B (the same layout, resumed from tag
-    2) equals A's steps 3-4 bit for bit, losses and every leaf's
-    fingerprint; C (tp=4 x dp=1) holds A's losses within 1e-5 and each
-    parameter's update over steps 3-4 within 1e-3 of its norm (checked on
-    rank 0); then ``reshard_checkpoint`` merges tag 2 on the card and the
-    port's tp=1 step, resumed from the merged tag, gives step 3's loss
-    within 1e-4."""
+def wait_for_file(path, timeout=900):
+    """Block until ``path`` exists (another process or thread leaves it)."""
+    deadline = time.perf_counter() + timeout
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+
+
+def merged_tag_side(path, go, done, batches, layers, stop, out):
+    """Phase 55's part D, on a thread of this process while the ranks run
+    B, the loop and part C: once the file ``go`` exists (left by rank 0
+    after part A), ``scripts/reshard_checkpoint.py`` merges tag 2 of
+    ``path`` on the card into ``path + "_merged"`` (timed), and the port's
+    tp=1 step resumes from the merged tag and trains step 3 on
+    ``batches[2]``. Puts the resumed step, its loss and the seconds into
+    ``out`` (or the traceback under ``"error"``), removes the merged tag
+    and leaves the file ``done`` in any case; ``stop`` (set when the world
+    failed) ends the wait for ``go``."""
+    import traceback
+
     from neuronx_distributed_tpu_torch import trainer
     from neuronx_distributed_tpu_torch.config import (
         neuronx_distributed_config)
     from neuronx_distributed_tpu_torch.scripts import reshard_checkpoint
     from neuronx_distributed_tpu_torch.trainer import Trainer
 
+    merged = path + "_merged"
+    try:
+        while not os.path.exists(go):
+            if stop.wait(0.2):
+                return
+        t0 = time.perf_counter()
+        reshard_checkpoint.main(["--input", path, "--tag", "2", "--output",
+                                 merged])
+        out["reshard_s"] = time.perf_counter() - t0
+        cfg = dataclasses.replace(loop_cfg(layers), dtype=torch.float32)
+        pm, params = trainer.initialize_parallel_model(
+            neuronx_distributed_config(), cfg, seed=3, std=0.02,
+            device="cuda")
+        tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
+        clock = StepClock()
+        one = Trainer(trainer.make_train_step(pm, tx), state,
+                      callbacks=[clock], resume_path=merged)
+        out["start"] = one.host_step
+        one.fit(iter(batches[2:3]), max_steps=3)
+        out["loss"] = clock.losses[0]
+        out["seconds"] = time.perf_counter() - t0
+        del pm, params, tx, state, one
+        free_cuda()
+    except BaseException:  # raised by the phase's check, after the world
+        out["error"] = traceback.format_exc()
+    finally:
+        shutil.rmtree(merged, ignore_errors=True)
+        open(done, "w").close()
+
+
+def check_train_tp_loop_cross(smi, outs, merged, layers, seq):
+    """``train_tp_loop_cross_check``: B (the same layout, resumed from tag
+    2) equals A's steps 3-4 bit for bit, losses and every leaf's
+    fingerprint; C (tp=4 x dp=1) holds A's losses within 1e-5 and each
+    parameter's update over steps 3-4 within 1e-3 of its norm (checked on
+    rank 0); then ``reshard_checkpoint`` merges tag 2 on the card and the
+    port's tp=1 step, resumed from the merged tag, gives step 3's loss
+    within 1e-4 (``merged``: :func:`merged_tag_side`'s results)."""
     ref = outs[0]
     for r, o in enumerate(outs):
         if o["b_start"] != 2 or o["c_start"] != 2:
@@ -6778,24 +7700,10 @@ def check_train_tp_loop_cross(smi, outs, path, batches, layers, seq):
                                      f"at tp=4 {o['c_losses'][s]} vs "
                                      f"{ref['a_losses'][s]}")
     worst, worst_name = ref["update_rel_diff"]
-    t0 = time.perf_counter()
-    merged = path + "_merged"
-    reshard_checkpoint.main(["--input", path, "--tag", "2", "--output",
-                             merged])
-    reshard_s = time.perf_counter() - t0
-    cfg = dataclasses.replace(loop_cfg(layers), dtype=torch.float32)
-    pm, params = trainer.initialize_parallel_model(
-        neuronx_distributed_config(), cfg, seed=3, std=0.02, device="cuda")
-    tx, state = trainer.initialize_parallel_optimizer(pm, params, 1e-4)
-    clock = StepClock()
-    one = Trainer(trainer.make_train_step(pm, tx), state, callbacks=[clock],
-                  resume_path=merged)
-    start = one.host_step
-    one.fit(iter(batches[2:3]), max_steps=3)
-    del pm, params, tx, state, one
-    free_cuda()
-    shutil.rmtree(merged, ignore_errors=True)
-    tp1 = clock.losses[0]
+    if "error" in merged:
+        raise AssertionError(f"train_tp_loop_cross_check: part D failed:\n"
+                             f"{merged['error']}")
+    tp1, start = merged["loss"], merged["start"]
     if start != 2 or not abs(tp1 - ref["a_losses"][3]) <= 1e-4 * abs(
             ref["a_losses"][3]):
         raise AssertionError(f"train_tp_loop_cross_check: the tp=1 step "
@@ -6808,7 +7716,8 @@ def check_train_tp_loop_cross(smi, outs, path, batches, layers, seq):
          losses_tp4=[ref["c_losses"][s] for s in (3, 4)],
          max_update_rel_diff_tp4=worst,
          max_update_rel_diff_param_tp4=worst_name,
-         loss_tp1_from_merged=tp1, reshard_s=reshard_s,
+         loss_tp1_from_merged=tp1, reshard_s=merged["reshard_s"],
+         part_d_s=merged["seconds"],
          part_s_by_rank=[dict(a=o["a_s"], c=o["c_s"]) for o in outs],
          rank_done_s=[o["done_s"] for o in outs])
 
@@ -6924,13 +7833,20 @@ def run_phases(smi, kind, cpu_side):
 
     ecfg = EngineConfig(block_size=16, num_blocks=2048, max_slots=8,
                         max_blocks_per_seq=128, token_budget=512)
-    launches = serve(LLAMA3_8B, ecfg, "serve")["paged_attention"]
+    # the room for phases 58-61 under the call's limit: the serving
+    # phases run Llama-3-8B's widths at 16 layers (phases 4 and 40, whose
+    # ids are held to each other's, and the replica router's elastic
+    # drill), at 8 or at 4 (a layer's work is the same at any depth)
+    half = dataclasses.replace(LLAMA3_8B, num_layers=16)
+    quarter = dataclasses.replace(LLAMA3_8B, num_layers=8)
+    eighth = dataclasses.replace(LLAMA3_8B, num_layers=4)
+    launches = serve(half, ecfg, "serve")["paged_attention"]
     serve(dataclasses.replace(LLAMA3_8B, num_layers=4),
           dataclasses.replace(ecfg, quantized=True), "serve_int8")
-    graph_k1 = phase_serve_graph(LLAMA3_8B, ecfg)
+    graph_k1 = phase_serve_graph(half, ecfg)
     phase_cross_check(LLAMA3_8B)
     moe_cases = phase_moe_vs_plain()
-    mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=8,
+    mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=4,
                                   moe_dispatch="blockwise", moe_block_size=64)
     moe_launches = {
         "grouped_glu": serve(mixtral, ecfg, "serve_mixtral")["grouped_glu"],
@@ -6940,10 +7856,7 @@ def run_phases(smi, kind, cpu_side):
             "serve_mixtral_disagg")["grouped_glu_decode"]}
     graph_moe = phase_serve_graph_mixtral(mixtral, ecfg)
     phase_mixtral_cross_check(MIXTRAL_8X7B)
-    int8_launches = serve(dataclasses.replace(MIXTRAL_8X7B, weight_quant="int8"),
-                          ecfg, "serve_mixtral_int8",
-                          probe=expert_step_probe)["paged_attention"]
-    tier_launches = phase_serve_quant_tiers(LLAMA3_8B, ecfg)
+    tier_launches = phase_serve_quant_tiers(eighth, ecfg)
     phase_quant_cross_check(cpu_side)
     dbrx = dataclasses.replace(DBRX, num_layers=8, moe_dispatch="blockwise",
                                moe_block_size=64)
@@ -6952,32 +7865,40 @@ def run_phases(smi, kind, cpu_side):
         dbrx, dataclasses.replace(ecfg, disaggregated=True, max_slots=4,
                                   prefill_budget=512), "serve_dbrx_disagg")
     phase_moe_variants_cross_check(cpu_side)
+    # after the CPU halves' first six results are taken, which frees the
+    # thread's queue sooner
+    int8_launches = serve(dataclasses.replace(
+        MIXTRAL_8X7B, num_layers=16, weight_quant="int8"), ecfg,
+        "serve_mixtral_int8", probe=expert_step_probe)["paged_attention"]
     bwd_cases = phase_moe_bwd_vs_plain()
     flash_cases = phase_flash_vs_plain()
     flash_launches = phase_train()
-    phase_train_cross_check(LLAMA3_8B, cpu_side)
     train_launches = phase_train(mixtral=True)
     remat_launches = phase_train(mixtral=True, remat=True)
     phase_mixtral_remat_bitwise()
+    phase_generate(quarter)
+    phase_generate_cross_check(LLAMA3_8B)
+    gen_moe_launches = phase_generate_mixtral(mixtral)
+    prefix_launches = phase_serve_prefix(quarter, ecfg)
+    phase_prefix_cross_check(LLAMA3_8B)
+    # the train cross checks come after the serving phases above, which
+    # gives the thread's CPU halves (the longest of its jobs) time to be
+    # ready
+    phase_train_cross_check(LLAMA3_8B, cpu_side)
     phase_train_cross_check(MIXTRAL_8X7B, cpu_side, layers=1,
                             phase="mixtral_train_cross_check",
                             moe_dispatch="blockwise", moe_block_size=64)
-    phase_generate(LLAMA3_8B)
-    phase_generate_cross_check(LLAMA3_8B)
-    gen_moe_launches = phase_generate_mixtral(mixtral)
-    prefix_launches = phase_serve_prefix(LLAMA3_8B, ecfg)
-    phase_prefix_cross_check(LLAMA3_8B)
-    spec_launches, spec_held = phase_serve_spec(LLAMA3_8B, ecfg)
-    phase_spec_cross_check(LLAMA3_8B)
+    spec_launches, spec_held = phase_serve_spec(eighth, ecfg)
+    phase_spec_cross_check(LLAMA3_8B, cpu_side)
     spec_moe_launches = phase_serve_mixtral_spec(mixtral, ecfg)
-    migrate_launches = phase_migrate(LLAMA3_8B, ecfg)
-    router_launches = phase_router(LLAMA3_8B, ecfg)
-    fabric_launches = phase_fabric(LLAMA3_8B, ecfg)
-    elastic_launches, elastic_replayed = phase_router_elastic(LLAMA3_8B,
-                                                              ecfg)
-    phase_router_cross_check(LLAMA3_8B)
-    bundle_launches = phase_bundle(LLAMA3_8B)
-    phase_benchmark()
+    # the benchmark's process runs beside migrate and the bundle's phase
+    benchmark = start_benchmark()
+    try:
+        migrate_launches = phase_migrate(quarter, ecfg)
+        bundle_launches = phase_bundle(
+            LLAMA3_8B, meanwhile=lambda: finish_benchmark(benchmark))
+    finally:
+        stop_process(benchmark)
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=build)
@@ -6998,7 +7919,16 @@ def run_phases(smi, kind, cpu_side):
         lora_k1, lora_replays = phase_lora_serve(adapters, ecfg)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    phase_lora_cross_check()
+    phase_lora_cross_check(cpu_side)
+    # the router phases run on the host's clock (replica health) and with
+    # the router module's own classes: the thread, whose router_cross_check
+    # half (its last job) swaps them under its tap, is idle before they
+    # start; they come last, so that the thread's jobs never hold them up
+    cpu_side.wait_idle()
+    router_launches = phase_router(quarter, ecfg)
+    fabric_launches = phase_fabric(eighth, ecfg)
+    elastic_launches, elastic_replayed = phase_router_elastic(half, ecfg)
+    phase_router_cross_check(LLAMA3_8B, cpu_side)
     tp_launches = phase_train_tp(smi)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
@@ -7091,7 +8021,14 @@ def run_phases(smi, kind, cpu_side):
                                   tp_launches["train_tp_loop"][name],
                               "train_mixtral_tp":
                                   tp_launches["train_mixtral_tp"][name],
+                              "train_pp": tp_launches["train_pp"][name],
+                              "train_mixtral_pp":
+                                  tp_launches["train_mixtral_pp"][name],
                               **family_paths},
+            "train_pp_by_rank": [o["launches"][name]
+                                 for o in TP_RESULTS["train_pp"]["outs"]],
+            "train_pp_max_rel_err": max(
+                o["holds"][name] for o in TP_RESULTS["train_pp"]["outs"]),
             "train_tp_loop_local_case_dropout": {
                 "shape": loop_outs[0]["local_shape"],
                 "dropout_offsets_rank0": loop_outs[0]["dropout"][
@@ -7139,8 +8076,12 @@ def run_phases(smi, kind, cpu_side):
                 "train_mixtral_remat": remat_launches[name],
                 "serve_graph_mixtral": graph_moe[name]["launches"],
                 **({"train_mixtral_tp": tp_launches["train_mixtral_tp"][
-                    name]} if name == "grouped_glu" else {})},
-            **({"train_mixtral_tp_local_case": moe_tp_case(name)}
+                    name], "train_mixtral_pp": tp_launches[
+                        "train_mixtral_pp"][name]}
+                   if name == "grouped_glu" else {})},
+            **({"train_mixtral_tp_local_case": moe_tp_case(name),
+                "train_mixtral_pp_local_case": moe_tp_case(
+                    name, "train_mixtral_pp")}
                if name == "grouped_glu" else {}),
             "path_worker_replays": {
                 "serve_graph_mixtral": graph_moe[name]["worker_replays"]},
@@ -7163,19 +8104,24 @@ def run_phases(smi, kind, cpu_side):
             "path_launches": {"train_mixtral": train_launches[name],
                               "train_mixtral_remat": remat_launches[name],
                               "train_mixtral_tp":
-                                  tp_launches["train_mixtral_tp"][name]},
-            "train_mixtral_tp_local_case": moe_tp_case(name)})
+                                  tp_launches["train_mixtral_tp"][name],
+                              "train_mixtral_pp":
+                                  tp_launches["train_mixtral_pp"][name]},
+            "train_mixtral_tp_local_case": moe_tp_case(name),
+            "train_mixtral_pp_local_case": moe_tp_case(name,
+                                                       "train_mixtral_pp")})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def moe_tp_case(name):
-    """The grouped-GLU entry ``name`` timed at ``train_mixtral_tp``'s
-    local width by rank 0, with its launches by rank and its first
-    launch's error against plain on every rank."""
-    outs = TP_RESULTS["train_mixtral_tp"]["outs"]
+def moe_tp_case(name, phase="train_mixtral_tp"):
+    """The grouped-GLU entry ``name`` timed at ``phase``'s local width by
+    rank 0 (``train_mixtral_tp``: I/tp at tp=4; ``train_mixtral_pp``: at
+    tp=2), with its launches by rank and its first launch's error against
+    plain on every rank."""
+    outs = TP_RESULTS[phase]["outs"]
     t = outs[0]["timing"][name]
     return dict(shape=outs[0]["local_shape"],
                 launches_by_rank=[o["launches"][name] for o in outs],
@@ -7214,18 +8160,20 @@ def run_only(names) -> None:
          kernels=sorted(_build.build()))
     ecfg = EngineConfig(block_size=16, num_blocks=2048, max_slots=8,
                         max_blocks_per_seq=128, token_budget=512)
-    mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=8,
+    mixtral = dataclasses.replace(MIXTRAL_8X7B, num_layers=4,
                                   moe_dispatch="blockwise", moe_block_size=64)
-    phases = {"serve_spec": lambda: phase_serve_spec(LLAMA3_8B, ecfg),
+    half = dataclasses.replace(LLAMA3_8B, num_layers=16)
+    quarter = dataclasses.replace(LLAMA3_8B, num_layers=8)
+    eighth = dataclasses.replace(LLAMA3_8B, num_layers=4)
+    phases = {"serve_spec": lambda: phase_serve_spec(eighth, ecfg),
               "spec_cross_check": lambda: phase_spec_cross_check(LLAMA3_8B),
               "serve_mixtral_spec":
                   lambda: phase_serve_mixtral_spec(mixtral, ecfg),
-              "migrate": lambda: phase_migrate(LLAMA3_8B, ecfg),
-              "router": lambda: phase_router(LLAMA3_8B, ecfg),
-              "fabric": lambda: phase_fabric(LLAMA3_8B, ecfg),
-              "router_elastic": lambda: phase_router_elastic(LLAMA3_8B,
-                                                             ecfg),
-              "serve_graph": lambda: phase_serve_graph(LLAMA3_8B, ecfg),
+              "migrate": lambda: phase_migrate(quarter, ecfg),
+              "router": lambda: phase_router(quarter, ecfg),
+              "fabric": lambda: phase_fabric(eighth, ecfg),
+              "router_elastic": lambda: phase_router_elastic(half, ecfg),
+              "serve_graph": lambda: phase_serve_graph(half, ecfg),
               "serve_graph_mixtral":
                   lambda: phase_serve_graph_mixtral(mixtral, ecfg),
               "bundle": lambda: phase_bundle(LLAMA3_8B),
@@ -7237,12 +8185,14 @@ def run_only(names) -> None:
               "vit_serve": phase_vit_serve,
               "families_cross_check": phase_families_cross_check,
               "lora": lambda: run_lora(ecfg),
-              "lora_cross_check": phase_lora_cross_check,
+              "lora_cross_check": lambda: phase_lora_cross_check(None),
               "train_tp": lambda: phase_train_tp(smi)}
     # one world of ranks runs every tensor-parallel phase
     for name in ("train_tp_cross_check", "train_tp_loop",
                  "train_tp_loop_cross_check", "train_mixtral_tp",
-                 "train_mixtral_tp_cross_check"):
+                 "train_mixtral_tp_cross_check", "train_pp",
+                 "train_pp_cross_check", "train_mixtral_pp",
+                 "train_pp_resume"):
         phases[name] = phases["train_tp"]
     done = []
     for name in names:

@@ -3,9 +3,10 @@
 
 :func:`neuronx_distributed_config` lays the ranks of the default
 ``torch.distributed`` process group out as the mesh (tensor and data
-parallel, ZeRO-1 over the data ranks); pipeline, context and expert
-parallelism, collective-matmul overlap and activation compression wait
-for later slices and raise.
+parallel, ZeRO-1 over the data ranks, and pipeline parallel with a
+:class:`PipelineConfig`); context and expert parallelism,
+collective-matmul overlap and activation compression wait for later
+slices and raise.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def mesh_factorization(
 @dataclass(frozen=True)
 class ParallelConfig:
     """The mesh's degrees (the reference's ``ParallelConfig``, for the
-    fields the port has); data parallel is the world over the rest. Only
-    tensor and data parallelism run: a pipeline, context or expert degree
+    fields the port has); data parallel is the world over the rest.
+    Tensor, pipeline and data parallelism run: a context or expert degree
     above 1 raises, and so do ``tp_overlap_comm=True`` and a compressed
     ``tp_activation_comm_dtype``."""
 
@@ -73,8 +74,8 @@ class ParallelConfig:
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{f} must be a positive int, got {v!r}")
         later = [f"{f}={getattr(self, f)}" for f in (
-            "pipeline_parallel_size", "context_parallel_size",
-            "expert_parallel_size") if getattr(self, f) != 1]
+            "context_parallel_size", "expert_parallel_size")
+            if getattr(self, f) != 1]
         if self.tp_overlap_comm:
             later.append("tp_overlap_comm=True")
         if self.tp_activation_comm_dtype != "fp32":
@@ -82,8 +83,42 @@ class ParallelConfig:
                          f"{self.tp_activation_comm_dtype!r}")
         if later:
             raise ValueError(f"{', '.join(later)}: not in the port yet (a "
-                             "later slice); it runs tensor and data "
-                             "parallelism")
+                             "later slice); it runs tensor, pipeline and "
+                             "data parallelism")
+
+
+#: the schedules :class:`PipelineConfig` names (JAX ``config.py:269``)
+PIPELINE_SCHEDULES = ("gpipe", "1f1b", "interleaved", "inference")
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The reference's ``pipeline_config`` (JAX ``config.py:269``): the
+    microbatches a step splits its batch into and the schedule's name,
+    which :func:`..models.llama_pipeline.make_pipeline_grad_fn` takes.
+    ``manual_cut_points`` takes only its default ``()``: the JAX package
+    reads it nowhere, and the port cuts the layers evenly (the first
+    stages take one more where the count does not divide)."""
+
+    num_microbatches: int = 1
+    schedule: str = "1f1b"
+    manual_cut_points: tuple = ()
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.num_microbatches, int) \
+                or self.num_microbatches < 1:
+            raise ValueError("num_microbatches must be a positive int, got "
+                             f"{self.num_microbatches!r}")
+        if self.schedule not in PIPELINE_SCHEDULES:
+            raise ValueError(f"unknown pipeline schedule {self.schedule!r}; "
+                             f"options {list(PIPELINE_SCHEDULES)}")
+        object.__setattr__(self, "manual_cut_points",
+                           tuple(self.manual_cut_points))
+        if self.manual_cut_points != ():
+            raise ValueError(
+                f"PipelineConfig.manual_cut_points="
+                f"{self.manual_cut_points!r}: nothing reads it; only the "
+                "default () is accepted")
 
 
 @dataclass(frozen=True)
@@ -174,6 +209,7 @@ class NxDConfig:
         default_factory=MixedPrecisionConfig)
     activation_checkpoint: ActivationCheckpointConfig = field(
         default_factory=ActivationCheckpointConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     sequence_parallel: bool = False
 
@@ -183,6 +219,7 @@ def neuronx_distributed_config(
         pipeline_parallel_size: int = 1,
         context_parallel_size: int = 1,
         expert_parallel_size: int = 1,
+        pipeline_config: Optional[PipelineConfig] = None,
         optimizer_config: Optional[OptimizerConfig] = None,
         activation_checkpoint_config: Optional[
             ActivationCheckpointConfig] = None,
@@ -207,6 +244,7 @@ def neuronx_distributed_config(
             tp_overlap_comm=tp_overlap_comm,
             tp_activation_comm_dtype=tp_activation_comm_dtype),
         optimizer=optimizer_config or OptimizerConfig(),
+        pipeline=pipeline_config or PipelineConfig(),
         mixed_precision=mixed_precision_config or MixedPrecisionConfig(),
         activation_checkpoint=(activation_checkpoint_config
                                or ActivationCheckpointConfig()),
@@ -217,10 +255,12 @@ def neuronx_distributed_config(
 
         from .parallel import mesh
 
-        if not dist.is_initialized() and tensor_parallel_size > 1:
+        if not dist.is_initialized() and (tensor_parallel_size > 1
+                                          or pipeline_parallel_size > 1):
             raise ValueError(
-                f"tensor_parallel_size={tensor_parallel_size} needs that "
-                "many ranks, and no torch.distributed process group is "
+                f"tensor_parallel_size={tensor_parallel_size} x "
+                f"pipeline_parallel_size={pipeline_parallel_size} needs "
+                "that many ranks, and no torch.distributed process group is "
                 "initialised: start the ranks first "
                 "(utils.cpu_mesh.run_ranks), or pass init_mesh=False")
         mesh.initialize_model_parallel(

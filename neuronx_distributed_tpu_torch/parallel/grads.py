@@ -98,6 +98,33 @@ def global_grad_norm(grads: Mapping[str, torch.Tensor],
     return torch.sqrt(total)
 
 
+def global_grad_norm_pp(grads: Mapping[str, torch.Tensor],
+                        specs: Optional[Mapping[str, Spec]],
+                        device: torch.device) -> torch.Tensor:
+    """:func:`global_grad_norm` across pipeline stages: ``grads`` are the
+    leaves this rank's stage counts (each stage holds other leaves, so
+    ranks differ in which axis sets they have). The squares are summed in
+    four fixed groups (sharded over none, tp, the data axes, or both), each
+    reduced over its axes, then the total over pp: every rank runs the same
+    collectives whatever it holds."""
+    data = set(ps.DATA_AXES)
+    groups = [[], [], [], []]
+    for name, g in grads.items():
+        axes = spec_axes(specs.get(name) if specs else None)
+        on_tp = ps.TP_AXIS in axes and comm.axis_size(ps.TP_AXIS) > 1
+        on_data = bool(axes & data) and comm.axis_size(ps.DATA_AXES) > 1
+        groups[2 * on_data + on_tp].append(g)
+    sums = torch.stack([
+        global_norm(leaves) ** 2 if leaves
+        else torch.zeros((), dtype=torch.float32, device=device)
+        for leaves in groups])
+    tp_part = comm.all_reduce(sums[1::2].contiguous(), ps.TP_AXIS)
+    data_part = comm.all_reduce(
+        torch.stack([sums[2], tp_part[1]]), ps.DATA_AXES)
+    total = sums[0] + tp_part[0] + data_part.sum()
+    return torch.sqrt(comm.all_reduce(total, ps.PP_AXIS))
+
+
 def clip_grad_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
                    specs: Optional[Mapping[str, Spec]] = None
                    ) -> Tuple[Mapping[str, torch.Tensor], torch.Tensor]:

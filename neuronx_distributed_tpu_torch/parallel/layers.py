@@ -69,14 +69,14 @@ def _refuse_lora_at_tp(tp_size: int, lora_rank: int) -> None:
 
 
 def _enter(x: torch.Tensor, sequence_parallel: bool,
-           seq_dim: int) -> torch.Tensor:
+           seq_dim: int, axis: ps.Axis = ps.TP_AXIS) -> torch.Tensor:
     """Enter the TP region: all-gather the sequence (backward
     reduce-scatter) under sequence parallelism, else identity (backward
-    all-reduce)."""
+    all-reduce over ``axis``)."""
     if sequence_parallel:
         return mappings.gather_from_sequence_parallel_region(
             x, ps.TP_AXIS, seq_dim, to_model_parallel=True)
-    return mappings.copy_to_tensor_parallel_region(x, ps.TP_AXIS)
+    return mappings.copy_to_tensor_parallel_region(x, axis)
 
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -159,16 +159,20 @@ class ParallelEmbedding(nn.Module, _LoraFactors):
     the CPU, which broke bitwise resume and remat checks. With
     ``lora_rank``, ``out + scale * lookup(lora_a, ids) @ lora_b`` (``lora_a
     [V, r]``, ``lora_b [r, H]``; JAX ``:513-533``); the input is ids, so
-    ``lora_dropout`` is accepted and never applied, as in the reference."""
+    ``lora_dropout`` is accepted and never applied, as in the reference.
+    ``axis`` names the ranks the vocab is sharded over, ``tp_size`` of
+    them: ``(pp, tp)`` for a pipeline's ``vocab_pp`` table (JAX
+    ``axis=``)."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  param_dtype: Optional[torch.dtype] = None,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 lora_dropout: float = 0.0, tp_size: int = 1):
+                 lora_dropout: float = 0.0, tp_size: int = 1,
+                 axis: ps.Axis = ps.TP_AXIS):
         super().__init__()
         _refuse_lora_at_tp(tp_size, lora_rank)
-        self.dtype, self.tp_size = dtype, tp_size
+        self.dtype, self.tp_size, self.axis = dtype, tp_size, axis
         pdt = param_dtype or dtype
         num_embeddings = _local(num_embeddings, tp_size, "vocab")
         self.embedding = _empty((num_embeddings, features), pdt, device)
@@ -182,12 +186,13 @@ class ParallelEmbedding(nn.Module, _LoraFactors):
         ids = ids.long()
         if self.tp_size > 1:
             local = self.embedding.shape[0]
-            ids = ids - ps.get_tensor_model_parallel_rank() * local
+            ids = ids - ps.axis_rank(self.axis) * local
             valid = (ids >= 0) & (ids < local)
             out = F.embedding(torch.where(valid, ids, 0),
                               self.embedding).to(self.dtype)
             out = torch.where(valid[..., None], out, 0.0)
-            return mappings.reduce_from_tensor_parallel_region(out)
+            return mappings.reduce_from_tensor_parallel_region(out,
+                                                               self.axis)
         out = F.embedding(ids, self.embedding).to(self.dtype)
         if self.lora_a is not None:
             out = out + self.lora_scale * torch.matmul(
@@ -389,18 +394,19 @@ class InputChannelParallelConv2d(_ChannelParallelConv2d):
 def embedding_attend(table: torch.Tensor, x: torch.Tensor,
                      dtype: torch.dtype = torch.bfloat16, *,
                      tp_size: int = 1, sequence_parallel: bool = False,
-                     seq_dim: int = 1,
-                     gather_output: bool = False) -> torch.Tensor:
+                     seq_dim: int = 1, gather_output: bool = False,
+                     axis: ps.Axis = ps.TP_AXIS) -> torch.Tensor:
     """The tied LM head: ``x @ table^T`` in ``dtype`` (JAX
     ``embedding_attend``, ``:326``); the table's gradient sums over both
-    its uses. At ``tp_size > 1`` the table is the vocab shard, ``x``
-    enters the TP region as in :class:`ColumnParallelLinear`, and the
-    logits stay vocab-sharded unless ``gather_output``."""
+    its uses. At ``tp_size > 1`` the table is the vocab shard over
+    ``axis``, ``x`` enters the TP region as in
+    :class:`ColumnParallelLinear`, and the logits stay vocab-sharded
+    unless ``gather_output``."""
     if tp_size > 1:
-        x = _enter(x, sequence_parallel, seq_dim)
+        x = _enter(x, sequence_parallel, seq_dim, axis)
     y = torch.matmul(x.to(dtype), table.to(dtype).t())
     if tp_size > 1 and gather_output:
-        y = mappings.gather_from_tensor_parallel_region(y, ps.TP_AXIS, -1)
+        y = mappings.gather_from_tensor_parallel_region(y, axis, -1)
     return y
 
 
@@ -410,26 +416,30 @@ class ColumnParallelLinear(Linear):
     the TP region by identity (backward all-reduce), or by the sequence
     all-gather with ``sequence_parallel`` (backward reduce-scatter); the
     output stays sharded unless ``gather_output``. At ``tp_size=1`` it is
-    :class:`Linear`."""
+    :class:`Linear`. ``axis`` names the ``tp_size`` ranks the output
+    features are sharded over: ``(pp, tp)`` for a pipeline's ``vocab_pp``
+    LM head (JAX ``axis=``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  gather_output: bool = False,
                  sequence_parallel: bool = False, tp_size: int = 1,
-                 seq_dim: int = 1, **kw):
+                 seq_dim: int = 1, axis: ps.Axis = ps.TP_AXIS, **kw):
         _refuse_lora_at_tp(tp_size, kw.get("lora_rank", 0))
         super().__init__(in_features,
                          _local(out_features, tp_size, "out_features"), **kw)
         self.tp_size, self.gather_output = tp_size, gather_output
         self.sequence_parallel, self.seq_dim = sequence_parallel, seq_dim
+        self.axis = axis
 
     def forward(self, x: torch.Tensor,
                 lora_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         if self.tp_size == 1:
             return super().forward(x, lora_generator)
-        y = super().forward(_enter(x, self.sequence_parallel, self.seq_dim))
+        y = super().forward(_enter(x, self.sequence_parallel, self.seq_dim,
+                                   self.axis))
         if self.gather_output:
-            y = mappings.gather_from_tensor_parallel_region(y, ps.TP_AXIS, -1)
+            y = mappings.gather_from_tensor_parallel_region(y, self.axis, -1)
         return y
 
 

@@ -55,6 +55,9 @@ EP_AXIS = "ep"
 EXP_DP_AXIS = "dp_exp"
 #: the merged data axes ZeRO-1 shards over (reference ``parallel_state.py:1684``)
 DATA_AXES = (DP_AXIS, CP_AXIS)
+#: the merged pipeline and tensor axes a ``vocab_pp`` table shards over
+#: (JAX ``llama_pipeline.make_1f1b_grad_fn(vocab_pp=True)``), pp major
+PP_TP_AXES = (PP_AXIS, TP_AXIS)
 
 MESH_AXES = (PP_AXIS, DP_AXIS, CP_AXIS, TP_AXIS)
 EXPERT_MESH_AXES = (PP_AXIS, EXP_DP_AXIS, EP_AXIS, TP_AXIS)
@@ -82,6 +85,15 @@ def replica_groups(sizes: Dict[str, int]) -> Dict[str, List[List[int]]]:
             EP_AXIS: _groups_over(expert, 2),
             EXP_DP_AXIS: _groups_over(expert, 1),
             "zero1": _groups_over(ids.reshape(pp, dp * cp, tp), 1)}
+
+
+def _pp_tp_groups(sizes: Dict[str, int]) -> List[List[int]]:
+    """The rank lists of the merged ``(pp, tp)`` axes: for each data and
+    context index, its ranks pp major, tp minor."""
+    pp, dp, cp, tp = (sizes[a] for a in MESH_AXES)
+    ids = np.arange(pp * dp * cp * tp).reshape(pp, dp, cp, tp)
+    return [list(map(int, row)) for row in
+            np.moveaxis(ids, 0, 2).reshape(dp * cp, pp * tp)]
 
 
 class _ParallelState:
@@ -122,7 +134,8 @@ def initialize_model_parallel(
         data_parallel_size=data_parallel_size)
     destroy_model_parallel()
     made: Dict[Tuple[int, ...], dist.ProcessGroup] = {}
-    for axis, lines in replica_groups(sizes).items():
+    axes = dict(replica_groups(sizes), pp_tp=_pp_tp_groups(sizes))
+    for axis, lines in axes.items():
         for line in lines:
             key = tuple(line)
             if len(line) > 1 and key not in made:
@@ -135,6 +148,8 @@ def initialize_model_parallel(
     _STATE.members[DATA_AXES] = _STATE.members.pop("zero1")
     _STATE.ranks[DATA_AXES] = _STATE.ranks.pop("zero1")
     _STATE.groups[DATA_AXES] = _STATE.groups.pop("zero1")
+    for table in (_STATE.members, _STATE.ranks, _STATE.groups):
+        table[PP_TP_AXES] = table.pop("pp_tp")
     _STATE.sizes = dict(sizes, rank=rank)
     return dict(sizes)
 
@@ -169,6 +184,8 @@ def _key(axis: Axis) -> Axis:
         return names[0]
     if set(names) == set(DATA_AXES):
         return DATA_AXES
+    if names == PP_TP_AXES:
+        return PP_TP_AXES
     raise ValueError(f"no process group spans the axes {names}")
 
 

@@ -269,6 +269,50 @@ def fingerprint_tree_sharded(tree: Mapping[str, torch.Tensor],
     return _to_int32(_avalanche(total, n))
 
 
+def fingerprint_tree_stages(tree: Mapping[str, torch.Tensor],
+                            specs: Mapping[str, Tuple],
+                            names: List[str]) -> torch.Tensor:
+    """:func:`fingerprint_tree` of the whole model whose parameters
+    ``names`` (in the model's order) the pipeline stages hold: ``tree``
+    is the part this rank's stage counts, each leaf a shard over tp (or
+    over ``(pp, tp)``, a ``vocab_pp`` table) or whole. Each rank folds its
+    shards at their positions in the whole tensors into its leaves' slots
+    of an ``int64[len(names)]`` vector, the vector is summed over tp and
+    pp, and every rank applies the avalanche: the same vector on every
+    rank, equal to one process's over the whole tensors."""
+    from ..parallel import comm
+
+    tp = comm.axis_size(ps.TP_AXIS)
+    tp_rank = ps.axis_rank(ps.TP_AXIS) if tp > 1 else 0
+    index = {n: i for i, n in enumerate(names)}
+    leaves = list(tree.items())
+    dev = leaves[0][1].device
+    big = max(t.numel() for _, t in leaves)
+    pos_term = _pos_terms(max(1, min(big, CHUNK)), dev)
+    sums = torch.zeros(len(names), dtype=torch.int64, device=dev)
+    counts = torch.zeros(len(names), dtype=torch.int64, device=dev)
+    for name, t in leaves:
+        spec = tuple(specs.get(name, ()))
+        dim = next((d for d, a in enumerate(spec)
+                    if a in (ps.TP_AXIS, ps.PP_TP_AXES)), None)
+        shape = list(t.shape)
+        if dim is None:
+            if tp_rank == 0:
+                sums[index[name]] = _shard_fold_sum(t, tuple(shape), 0, 0,
+                                                    pos_term)
+        else:
+            axis = spec[dim]
+            shape[dim] *= comm.axis_size(axis)
+            sums[index[name]] = _shard_fold_sum(
+                t, tuple(shape), dim, ps.axis_rank(axis) * t.shape[dim]
+                if comm.axis_size(axis) > 1 else 0, pos_term)
+        counts[index[name]] = int(np.prod(shape, dtype=np.int64)) & _MASK
+    for axis in (ps.TP_AXIS, ps.PP_AXIS):
+        sums = comm.all_reduce(sums, axis)
+        counts = comm.all_reduce(counts, axis, op="max")
+    return _to_int32(_avalanche(sums, counts))
+
+
 def _avalanche(h: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """The fold's finish on the int64 sums ``h`` of tensors of ``n``
     elements each (int64, masked): mask, xor the count, then the two

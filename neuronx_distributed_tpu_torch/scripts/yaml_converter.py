@@ -12,12 +12,13 @@ with the reference's keys:
     activation_checkpoint:
       mode: full
 
-``tensor_parallel_size``, ``sequence_parallel`` and ZeRO-1
-(``optimizer.zero_one_enabled``) map onto the port's config; what the port
-cannot run is refused, not ignored: the reference's other keys
-(``pipeline_parallel_size``, ``pipeline``, the gradient-compression
-fields of ``optimizer``, ...) are accepted only at the reference's
-defaults, which is what the port runs. Unknown keys raise, as in the
+``tensor_parallel_size``, ``pipeline_parallel_size``, the ``pipeline``
+section (:class:`..config.PipelineConfig`), ``sequence_parallel`` and
+ZeRO-1 (``optimizer.zero_one_enabled``) map onto the port's config; what
+the port cannot run is refused, not ignored: the reference's other keys
+(``context_parallel_size``, the gradient-compression fields of
+``optimizer``, ...) are accepted only at the reference's defaults, which
+is what the port runs. Unknown keys raise, as in the
 reference. :func:`config_to_dict` writes the reference's dict for the
 same config.
 """
@@ -36,6 +37,7 @@ _SECTIONS = {
                         _cfg.MixedPrecisionConfig),
     "activation_checkpoint": ("activation_checkpoint_config",
                               _cfg.ActivationCheckpointConfig),
+    "pipeline": ("pipeline_config", _cfg.PipelineConfig),
     "checkpoint": ("checkpoint_config", _cfg.CheckpointConfig),
 }
 
@@ -46,19 +48,17 @@ _REFERENCE_FIELDS = {
                   "grad_comm_block_size": 256,
                   "grad_comm_error_feedback": True},
 }
-_REFERENCE_SECTIONS = {
-    "pipeline": {"num_microbatches": 1, "schedule": "1f1b",
-                 "manual_cut_points": ()},
-}
+_REFERENCE_SECTIONS: Dict[str, Dict[str, Any]] = {}
 _REFERENCE_SCALARS = {
-    "pipeline_parallel_size": 1, "context_parallel_size": 1,
+    "context_parallel_size": 1,
     "expert_parallel_size": 1, "dcn_data_parallel_size": None,
     "tp_overlap_comm": None, "tp_activation_comm_dtype": "fp32",
     "tp_activation_sync_fraction": 1.0, "moe_ep_wire_dtype": "fp32",
     "moe_overlap_dispatch": None, "weight_quant": None, "seed": 0,
 }
 # the top-level scalars the port's config takes, with their defaults
-_SCALARS = {"tensor_parallel_size": 1, "sequence_parallel": False}
+_SCALARS = {"tensor_parallel_size": 1, "pipeline_parallel_size": 1,
+            "sequence_parallel": False}
 
 
 def _at_defaults(where: str, given: Dict[str, Any],
@@ -125,6 +125,7 @@ def config_to_dict(cfg: _cfg.NxDConfig) -> Dict[str, Any]:
             doc[section] = {**dataclasses.asdict(value),
                             **_REFERENCE_FIELDS.get(section, {})}
     scalars = {"tensor_parallel_size": cfg.parallel.tensor_parallel_size,
+               "pipeline_parallel_size": cfg.parallel.pipeline_parallel_size,
                "sequence_parallel": cfg.sequence_parallel}
     doc.update({k: v for k, v in scalars.items() if v != _SCALARS[k]})
     return doc

@@ -272,13 +272,15 @@ def load_tree_(target: Any, tree: Any, where: str = "state") -> Any:
 # ---------------------------------------------------------------------------
 
 def _layout() -> Dict[str, int]:
-    """This process's tp and data (dp x cp) sizes and indices; one rank of
-    each without a parallel layout."""
+    """This process's tp, data (dp x cp) and pp sizes and indices; one rank
+    of each without a parallel layout."""
     if not ps.model_parallel_is_initialized():
-        return dict(tp=1, tp_rank=0, dp=1, dp_rank=0)
+        return dict(tp=1, tp_rank=0, dp=1, dp_rank=0, pp=1, pp_rank=0)
     return dict(tp=ps.axis_size(ps.TP_AXIS), tp_rank=ps.axis_rank(ps.TP_AXIS),
                 dp=ps.axis_size(ps.DATA_AXES),
-                dp_rank=ps.axis_rank(ps.DATA_AXES))
+                dp_rank=ps.axis_rank(ps.DATA_AXES),
+                pp=ps.axis_size(ps.PP_AXIS),
+                pp_rank=ps.axis_rank(ps.PP_AXIS))
 
 
 def _across_ranks() -> bool:
@@ -294,18 +296,33 @@ def _rank_world() -> Tuple[int, int]:
 
 
 def _norm_spec(spec: Any, ndim: int) -> Spec:
-    """A spec as per-dim None, ``"tp"`` or ``"dp"`` (the data axes, named
-    ``"dp"``, ``("dp", "cp")`` or ``"data"``)."""
+    """A spec as per-dim None, ``"tp"``, ``"dp"`` (the data axes, named
+    ``"dp"``, ``("dp", "cp")`` or ``"data"``) or ``"pptp"`` (the merged
+    ``(pp, tp)`` axes of a pipeline's ``vocab_pp`` table)."""
     out = []
     for a in tuple(spec or ())[:ndim]:
-        if a in (None, "tp"):
+        if a in (None, "tp", "pptp"):
             out.append(a)
         elif a in ("dp", "data", ps.DATA_AXES):
             out.append("dp")
+        elif a in (ps.PP_TP_AXES, list(ps.PP_TP_AXES)):
+            out.append("pptp")
         else:
             raise ValueError(f"spec entry {a!r}: the checkpoint shards over "
-                             "tp and the data axes only")
+                             "tp, (pp, tp) and the data axes only")
     return tuple(out) + (None,) * (ndim - len(out))
+
+
+def _parts(a: Optional[str], lay: Mapping[str, int]) -> Tuple[int, int]:
+    """``(parts, index)`` of the rank at ``lay`` along a spec entry."""
+    if a == "tp":
+        return lay["tp"], lay["tp_rank"]
+    if a == "dp":
+        return lay["dp"], lay["dp_rank"]
+    if a == "pptp":
+        return (lay["pp"] * lay["tp"],
+                lay["pp_rank"] * lay["tp"] + lay["tp_rank"])
+    return 1, 0
 
 
 def _box(local_shape, spec: Spec, lay: Mapping[str, int]
@@ -314,8 +331,7 @@ def _box(local_shape, spec: Spec, lay: Mapping[str, int]
     a rank at ``lay`` holds, its local shape ``local_shape``."""
     shape, box = [], []
     for n, a in zip(local_shape, spec):
-        parts, idx = ((lay["tp"], lay["tp_rank"]) if a == "tp" else
-                      (lay["dp"], lay["dp_rank"]) if a == "dp" else (1, 0))
+        parts, idx = _parts(a, lay)
         shape.append(n * parts)
         box.append((n * idx, n * (idx + 1)))
     return shape, box
@@ -324,12 +340,21 @@ def _box(local_shape, spec: Spec, lay: Mapping[str, int]
 def _writes(spec: Spec, lay: Mapping[str, int]) -> bool:
     """Whether the rank at ``lay`` writes its part: the first of the ranks
     that hold the same part."""
-    return ((lay["tp_rank"] == 0 or "tp" in spec)
+    return ((lay["tp_rank"] == 0 or "tp" in spec or "pptp" in spec)
             and (lay["dp_rank"] == 0 or "dp" in spec))
 
 
-def _shard_file(tp_rank: int, dp_rank: int) -> str:
-    return f"{STATE_DIR}/shard_tp{tp_rank}_dp{dp_rank}.pt"
+def _shard_file(tp_rank: int, dp_rank: int, pp_rank: Optional[int] = None
+                ) -> str:
+    """A writing rank's payload file; a pipeline stage's carry its pp
+    index too."""
+    pp = "" if pp_rank is None else f"pp{pp_rank}_"
+    return f"{STATE_DIR}/shard_{pp}tp{tp_rank}_dp{dp_rank}.pt"
+
+
+def _file_of(lay: Mapping[str, int]) -> str:
+    return _shard_file(lay["tp_rank"], lay["dp_rank"],
+                       lay["pp_rank"] if lay.get("pp", 1) > 1 else None)
 
 
 def shard_table(tree: Any, specs: Mapping[str, Any],
@@ -346,13 +371,148 @@ def shard_table(tree: Any, specs: Mapping[str, Any],
             for dr in range(lay["dp"]):
                 at = dict(lay, tp_rank=tr, dp_rank=dr)
                 if _writes(spec, at):
-                    pieces.append([_shard_file(tr, dr),
+                    pieces.append([_file_of(at),
                                    [list(b) for b in _box(t.shape, spec,
                                                           at)[1]]])
         leaves[path] = {"shape": shape, "dtype": str(t.dtype).split(".")[-1],
                         "spec": list(spec), "pieces": pieces}
-    return {"tp": lay["tp"], "dp": lay["dp"], "leaves": leaves,
-            "tree": _skeleton(tree)}
+    return {"tp": lay["tp"], "dp": lay["dp"], "pp": lay.get("pp", 1),
+            "leaves": leaves, "tree": _skeleton(tree)}
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages: each rank holds the tensors of a part of the paths
+# ---------------------------------------------------------------------------
+
+def _global_paths(state: Any) -> Optional[Mapping[str, Tuple[str, bool]]]:
+    """A pipeline stage's ``TrainState.global_paths`` (local path ->
+    ``(path in the whole state, whether this rank writes it)``), None
+    outside a pipeline layout."""
+    gp = getattr(state, "global_paths", None)
+    if gp is None or not _across_ranks() or ps.axis_size(ps.PP_AXIS) == 1:
+        return None
+    return gp
+
+
+def _flat_skeleton(sk: Any, gpaths: Mapping[str, Tuple[str, bool]],
+                   prefix: Tuple[str, ...] = (),
+                   out: Optional[Tuple[list, dict]] = None
+                   ) -> Tuple[list, dict]:
+    """``(entries, kinds)`` of a stage's skeleton in whole-state paths:
+    ``entries`` the ``(path, node)`` of each tensor and scalar, ``kinds``
+    each container's path and kind (``"dict"`` or ``"list"``)."""
+    entries, kinds = out if out is not None else ([], {})
+    if "tensor" in sk:
+        g = gpaths.get(sk["tensor"], (sk["tensor"], True))[0]
+        entries.append((tuple(g.split("/")), {"tensor": g}))
+    elif "value" in sk:
+        entries.append((prefix, sk))
+    else:
+        kind = "dict" if "dict" in sk else "list"
+        kinds[prefix] = kind
+        items = (sk["dict"].items() if kind == "dict"
+                 else ((str(i), v) for i, v in enumerate(sk["list"])))
+        for k, v in items:
+            _flat_skeleton(v, gpaths, prefix + (k,), (entries, kinds))
+    return entries, kinds
+
+
+def _merge_skeletons(parts: List[Tuple[list, dict]]) -> Any:
+    """The whole state's skeleton from every stage's
+    :func:`_flat_skeleton`: each container holds the union of its
+    children, in the order the stages (in rank order) name them."""
+    entries: Dict[tuple, Any] = {}
+    kinds: Dict[tuple, str] = {}
+    for ents, kd in parts:
+        for path, node in ents:
+            entries.setdefault(tuple(path), node)
+        for path, kind in kd.items():
+            kinds.setdefault(tuple(path), kind)
+    children: Dict[tuple, List[str]] = {}
+    for path in list(kinds) + list(entries):
+        for i in range(len(path)):
+            kids = children.setdefault(path[:i], [])
+            if path[i] not in kids:
+                kids.append(path[i])
+
+    def build(prefix):
+        if prefix not in kinds:
+            return entries[prefix]
+        kids = children.get(prefix, [])
+        if kinds[prefix] == "list":
+            kids = sorted(kids, key=int)
+            if kids != [str(i) for i in range(len(kids))]:
+                raise ValueError(f"{'/'.join(prefix)}: the stages hold "
+                                 f"items {kids} of a list")
+            return {"list": [build(prefix + (k,)) for k in kids]}
+        return {"dict": {k: build(prefix + (k,)) for k in kids}}
+    return build(())
+
+
+def _merge_tables(tables: List[Mapping[str, Any]]) -> Dict[str, Any]:
+    """One shard table from the stages' tables: each path's pieces from
+    every stage that wrote it."""
+    leaves: Dict[str, Any] = {}
+    for t in tables:
+        for p, entry in t["leaves"].items():
+            if p not in leaves:
+                leaves[p] = dict(entry, pieces=list(entry["pieces"]))
+            else:
+                leaves[p]["pieces"] += [x for x in entry["pieces"]
+                                        if x not in leaves[p]["pieces"]]
+    first = tables[0]
+    return {"tp": first["tp"], "dp": first["dp"], "pp": first.get("pp", 1),
+            "leaves": leaves, "tree": None}
+
+
+def _stage_view(tree: Any, specs: Mapping[str, Any],
+                gpaths: Mapping[str, Tuple[str, bool]], rank: int
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
+                           Optional[Dict[str, Any]]]:
+    """A stage's snapshot in whole-state paths: the tensors it writes, their
+    specs, and on rank 0 the shard table of the whole state, gathered from
+    every rank (collective)."""
+    import torch.distributed as dist
+
+    leaves, gspecs = {}, {}
+    for p, t in tree_leaves(tree):
+        g, writes = gpaths.get(p, (p, True))
+        if writes:
+            leaves[g] = t
+            gspecs[g] = specs.get(p)
+    mine = (shard_table(leaves, gspecs, _layout()),
+            _flat_skeleton(_skeleton(tree), gpaths))
+    gathered: List[Any] = [None] * ps.world_size()
+    dist.all_gather_object(gathered, mine)
+    table = None
+    if rank == 0:
+        table = _merge_tables([g[0] for g in gathered])
+        table["tree"] = _merge_skeletons([g[1] for g in gathered])
+    return leaves, gspecs, table
+
+
+def _set_scalars(target: Any, sk: Any) -> None:
+    """Copy the scalars of the skeleton ``sk`` into ``target``'s fields and
+    dict entries of the same paths (a stage's state loading a whole
+    state's: the step and the optimizer's counts)."""
+    if "dict" not in sk:
+        return
+    if dataclasses.is_dataclass(target):
+        keys = [f.name for f in _fields(target)]
+        get, put = target.__getattribute__, target.__setattr__
+    elif isinstance(target, dict):
+        keys = list(target)
+        get, put = target.__getitem__, target.__setitem__
+    else:
+        return
+    for k in keys:
+        node = sk["dict"].get(str(k))
+        if node is None:
+            continue
+        if "value" in node and _is_leaf(get(k)):
+            put(k, node["value"])
+        else:
+            _set_scalars(get(k), node)
 
 
 # ---------------------------------------------------------------------------
@@ -449,19 +609,59 @@ def _join(tdir: str, rel: str) -> str:
     return os.path.join(tdir, *rel.split("/"))
 
 
+class _HashingWriter:
+    """A file that ``torch.save`` writes through, with the SHA-256 of what
+    it writes taken on a second thread while each large record goes to
+    disk (both release the interpreter lock), so a shard's digest needs
+    no second read of the file."""
+
+    LARGE = 1 << 20
+
+    def __init__(self, f):
+        import concurrent.futures
+        import hashlib
+
+        self.f, self.h = f, hashlib.sha256()
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="ckpt-digest")
+
+    def write(self, b) -> int:
+        if memoryview(b).nbytes < self.LARGE:
+            self.h.update(b)
+            return self.f.write(b)
+        digest = self.pool.submit(self.h.update, b)
+        try:
+            return self.f.write(b)
+        finally:
+            digest.result()
+
+    def flush(self) -> None:
+        self.f.flush()
+
+    def close(self) -> None:
+        self.pool.shutdown()
+
+
 def _write_file(storage: BaseCheckpointStorage, target: str,
-                obj: Any) -> None:
+                obj: Any) -> Optional[str]:
     """``torch.save`` ``obj`` to ``target`` (local disk: through a temporary
-    file renamed into place)."""
+    file renamed into place, digested as it is written). Returns the
+    file's SHA-256 on a local disk, else None."""
     if _on_local_disk(storage):
         os.makedirs(os.path.dirname(target), exist_ok=True)
         tmp = target + ".tmp"
-        torch.save(obj, tmp)
+        with open(tmp, "wb") as f:
+            w = _HashingWriter(f)
+            try:
+                torch.save(obj, w)
+            finally:
+                w.close()
         os.replace(tmp, target)
-        return
+        return w.h.hexdigest()
     buf = io.BytesIO()
     torch.save(obj, buf)
     storage.save_bytes(buf.getvalue(), target)
+    return None
 
 
 def _clear_tag(storage: BaseCheckpointStorage, tdir: str) -> None:
@@ -494,7 +694,10 @@ def save_checkpoint(
     by tensor path, default ``state.shard_specs``; a tensor without one is
     whole on every rank) and rank 0 commits the tag once every rank's file
     is written; a synchronous save returns on every rank once the tag is
-    committed."""
+    committed. A pipeline stage's state (``TrainState.global_paths``)
+    writes its tensors under their paths in the whole state, and the tag's
+    shard table is the union over the stages: the tag is the one the same
+    state saved at another layout would write."""
     tag = str(tag)
     path = _normalize_path(path)
     _IO_STATE.raise_pending_errors()
@@ -519,10 +722,15 @@ def save_checkpoint(
     # the snapshot: a blocking copy to host memory, so the next step's
     # in-place update cannot reach the values being written
     tree = state_to_tree(state, lambda t: t.detach().to("cpu", copy=True))
+    table = None
+    gpaths = _global_paths(state)
+    if gpaths is not None:
+        tree, specs, table = _stage_view(tree, specs, gpaths, rank)
     if user_content is not None and rank == 0:
         storage.save_object(user_content, os.path.join(tdir,
                                                        USER_CONTENT_FILE))
-    commit = _rank_commit(storage, path, tdir, tag, tree, specs, num_kept)
+    commit = _rank_commit(storage, path, tdir, tag, tree, specs, num_kept,
+                          table)
 
     def commit_async():
         try:
@@ -572,12 +780,13 @@ def _write_rank_part(storage: BaseCheckpointStorage, tdir: str, tree: Any,
     try:
         part = {p: t for p, t in tree_leaves(tree)
                 if _writes(_norm_spec(specs.get(p), t.dim()), lay)}
-        rel = _shard_file(lay["tp_rank"], lay["dp_rank"])
+        rel = _file_of(lay)
         target = _join(tdir, rel)
-        _write_file(storage, target, part)
+        digest = _write_file(storage, target, part)
         size = storage.file_size(target)
-        storage.save_object(
-            [rel, size, _manifest.file_digest(storage, target)], marker)
+        if digest is None:
+            digest = _manifest.file_digest(storage, target)
+        storage.save_object([rel, size, digest], marker)
     except Exception as e:
         # tell rank 0's commit, which waits for this marker, to give up
         storage.save_object(["error", repr(e)], marker)
@@ -615,13 +824,15 @@ def _commit_tag(storage: BaseCheckpointStorage, path: str, tdir: str,
     _finish(storage, path, tdir, tag, num_kept)
 
 
-def _rank_commit(storage, path, tdir, tag, tree, specs, num_kept
-                 ) -> Callable[[], None]:
+def _rank_commit(storage, path, tdir, tag, tree, specs, num_kept,
+                 table=None) -> Callable[[], None]:
     """A rank's commit: its part and marker; on rank 0 also the wait for
-    every rank and the manifest, done-marker and ``newest``. Files only:
-    no collective, so it may run on a commit thread."""
+    every rank and the manifest (with ``table``, by default this rank's
+    shard table), done-marker and ``newest``. Files only: no collective,
+    so it may run on a commit thread."""
     lay, (rank, world) = _layout(), _rank_world()
-    table = shard_table(tree, specs, lay) if rank == 0 else None
+    if rank == 0 and table is None:
+        table = shard_table(tree, specs, lay)
 
     def commit():
         _write_rank_part(storage, tdir, tree, specs, lay, rank)
@@ -633,11 +844,15 @@ def _rank_commit(storage, path, tdir, tag, tree, specs, num_kept
 def save_at_layout(path: str, tag: Any, tree: Any,
                    specs: Mapping[str, Any], tp: int, dp: int,
                    user_content: Optional[dict] = None,
-                   num_kept: int = -1) -> None:
+                   num_kept: int = -1, pp: int = 1,
+                   stage_of: Optional[Callable[[str], int]] = None) -> None:
     """Write the whole tensors of ``tree`` (from one process) as the tag
-    ``tp`` x ``dp`` ranks would save under ``specs``: one file per writing
-    rank, each rank's marker, then the manifest and the done-marker.
-    What :mod:`..scripts.reshard_checkpoint` writes at another layout."""
+    ``pp`` x ``tp`` x ``dp`` ranks would save under ``specs``: one file
+    per writing rank, each rank's marker, then the manifest and the
+    done-marker. At ``pp > 1`` ``stage_of(path)`` names the stage that
+    writes each tensor (one over pp for a ``"pptp"`` spec: every stage
+    writes its shard). What :mod:`..scripts.reshard_checkpoint` writes at
+    another layout."""
     tag = str(tag)
     path = _normalize_path(path)
     storage = create_checkpoint_storage(path)
@@ -649,15 +864,25 @@ def save_at_layout(path: str, tag: Any, tree: Any,
     if user_content is not None:
         storage.save_object(user_content, os.path.join(tdir,
                                                        USER_CONTENT_FILE))
-    table = None
-    for tr in range(tp):
-        for dr in range(dp):
-            lay = dict(tp=tp, tp_rank=tr, dp=dp, dp_rank=dr)
-            local = _local_tree(tree, specs, lay)
-            if table is None:
-                table = shard_table(local, specs, lay)
-            _write_rank_part(storage, tdir, local, specs, lay, dr * tp + tr)
-    _commit_tag(storage, path, tdir, tag, tp * dp, table, num_kept)
+    tables = []
+    flat = dict(tree_leaves(tree))
+    for st in range(pp):
+        part = flat if pp == 1 else {
+            p: t for p, t in flat.items()
+            if "pptp" in _norm_spec(specs.get(p), t.dim())
+            or stage_of(p) == st}
+        for tr in range(tp):
+            for dr in range(dp):
+                lay = dict(tp=tp, tp_rank=tr, dp=dp, dp_rank=dr, pp=pp,
+                           pp_rank=st)
+                local = _local_tree(part, specs, lay)
+                if tr == dr == 0:
+                    tables.append(shard_table(local, specs, lay))
+                _write_rank_part(storage, tdir, local, specs, lay,
+                                 (st * dp + dr) * tp + tr)
+    table = _merge_tables(tables)
+    table["tree"] = _skeleton(tree)
+    _commit_tag(storage, path, tdir, tag, pp * tp * dp, table, num_kept)
 
 
 def _local_tree(tree: Any, specs: Mapping[str, Any],
@@ -667,9 +892,7 @@ def _local_tree(tree: Any, specs: Mapping[str, Any],
     def cut(path, t):
         spec = _norm_spec(specs.get(path), t.dim())
         for d, a in enumerate(spec):
-            parts, idx = ((lay["tp"], lay["tp_rank"]) if a == "tp" else
-                          (lay["dp"], lay["dp_rank"]) if a == "dp" else
-                          (1, 0))
+            parts, idx = _parts(a, lay)
             if t.shape[d] % parts:
                 raise ValueError(f"{path}: dim {d} ({t.shape[d]}) not "
                                  f"divisible by {parts}")
@@ -838,6 +1061,21 @@ def _assemble_into(table: Mapping[str, Any], files: Mapping[str, Any],
         specs = getattr(target, "shard_specs", None) or {}
     leaves, lay = table["leaves"], _layout()
     mine = dict(tree_leaves(state_to_tree(target, lambda t: t)))
+    gpaths = _global_paths(target)
+    if gpaths is not None:
+        # a pipeline stage: its tensors by their paths in the whole state
+        for p, t in mine.items():
+            g = gpaths.get(p, (p, True))[0]
+            if g not in leaves:
+                raise ValueError(f"{p}: the checkpoint holds no {g}")
+            shape, box = _box(t.shape, _norm_spec(specs.get(p), t.dim()),
+                              lay)
+            if shape != list(leaves[g]["shape"]):
+                raise ValueError(f"{g}: {leaves[g]['shape']} cannot load "
+                                 f"into {shape}")
+            _assemble(leaves[g], g, files, box, t)
+        _set_scalars(target, table["tree"])
+        return target
     if set(mine) != set(leaves):
         raise ValueError(f"the checkpoint holds {sorted(leaves)}, the "
                          f"target {sorted(mine)}")

@@ -117,15 +117,33 @@ class AdamW:
         state.count += 1
         bc1 = 1.0 - self.b1 ** state.count
         bc2 = 1.0 - self.b2 ** state.count
-        # one parameter at a time: the temporaries stay the size of the
-        # largest parameter, not of the model
+        # one parameter, and of a large one a block of rows, at a time:
+        # the temporaries stay under UPDATE_CHUNK elements, not the size
+        # of the largest parameter (an expert bank's is gigabytes)
         for p, g, m, v in zip(params, grads, state.mu, state.nu,
                               strict=True):
-            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            u = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
-            u.add_(p, alpha=self.weight_decay)
-            p.add_(u, alpha=-lr)
+            for pc, gc, mc, vc in _row_blocks(p, g, m, v):
+                mc.mul_(self.b1).add_(gc, alpha=1.0 - self.b1)
+                vc.mul_(self.b2).addcmul_(gc, gc, value=1.0 - self.b2)
+                u = (mc / bc1).div_((vc / bc2).sqrt_().add_(self.eps))
+                u.add_(pc, alpha=self.weight_decay)
+                pc.add_(u, alpha=-lr)
+
+
+#: the most elements one block of a parameter's AdamW update spans
+UPDATE_CHUNK = 1 << 26
+
+
+def _row_blocks(*tensors: torch.Tensor):
+    """The tensors (of one shape) split along dim 0 into blocks of at most
+    :data:`UPDATE_CHUNK` elements (whole when smaller, or 0-dim): views,
+    so in-place ops on a block write the tensor. The update is elementwise,
+    so its values do not depend on the blocks."""
+    t = tensors[0]
+    if t.dim() == 0 or t.numel() <= UPDATE_CHUNK:
+        return [tensors]
+    rows = max(1, UPDATE_CHUNK // max(1, t.numel() // t.shape[0]))
+    return zip(*(x.split(rows) for x in tensors))
 
 
 def zero1_dim(spec: Sequence, shape: Sequence[int],

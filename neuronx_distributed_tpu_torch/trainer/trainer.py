@@ -59,12 +59,19 @@ class TrainState:
     tensor of the state (``"params/<name>"``, ``"opt_state/mu/<i>"``, as
     :func:`.checkpoint.state_to_tree` nests them) to its partition spec,
     per dim None, ``"tp"`` or ``"dp"`` (the merged data axes of ZeRO-1); it
-    describes the state and is not saved with it."""
+    describes the state and is not saved with it. At ``pp > 1`` a rank
+    holds one stage's tensors, and ``global_paths`` maps the path of each
+    to its path in the whole model's state (an optimizer tensor's index
+    is then the parameter's among all the model's) and whether this rank
+    writes it (not the tied table on the last stage: stage 0 does)."""
 
     step: int
     params: Dict[str, torch.nn.Parameter]
     opt_state: opt_mod.AdamWState
     shard_specs: Optional[Dict[str, tuple]] = field(
+        default=None, repr=False, compare=False,
+        metadata={"checkpoint": False})
+    global_paths: Optional[Dict[str, Tuple[str, bool]]] = field(
         default=None, repr=False, compare=False,
         metadata={"checkpoint": False})
 
@@ -84,6 +91,44 @@ class ParallelModel:
     specs: Dict[str, tuple] = field(default_factory=dict)
     sequence_parallel_names: List[str] = field(default_factory=list)
     zero_dims: Dict[str, Optional[int]] = field(default_factory=dict)
+    pp: int = 1
+    stage: int = 0
+    holders: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
+    global_names: List[str] = field(default_factory=list)
+    shared_sum: Dict[str, Tuple[tuple, torch.dtype]] = field(
+        default_factory=dict)
+    vocab_pp: bool = False
+
+    def owns(self, name: str) -> bool:
+        """Whether this rank's stage is the one that counts and writes
+        parameter ``name``: its only holder, the first of its holders (the
+        tied table, held on the first and last stage), or any stage for a
+        parameter sharded over pp (``vocab_pp``)."""
+        if self.pp == 1 or ps.PP_AXIS in grads_mod.spec_axes(
+                self.specs.get(name)):
+            return True
+        return self.stage == min(self.holders[name])
+
+    def sum_shared_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Sum, in place, the gradients of a parameter two stages hold and
+        use (the tied table: the embedding on stage 0, the head on the
+        last) over pp; a stage that holds none of them adds zeros."""
+        for name, (shape, dtype) in self.shared_sum.items():
+            g = grads.get(name)
+            if g is None:
+                g = torch.zeros(shape, dtype=dtype, device=self.device)
+            comm.all_reduce_(g, ps.PP_AXIS)
+
+    def grad_norm(self, grads: Mapping[str, torch.Tensor],
+                  specs: Mapping[str, tuple]) -> torch.Tensor:
+        """The global norm of ``grads`` under ``specs``: each leaf counted
+        once over the whole world (over pp, by the stage that
+        :meth:`owns` it)."""
+        if self.pp == 1:
+            return grads_mod.global_grad_norm(grads, specs)
+        return grads_mod.global_grad_norm_pp(
+            {n: g for n, g in grads.items() if self.owns(n)}, specs,
+            self.device)
 
     def zero_view(self, name: str, p: torch.Tensor) -> torch.Tensor:
         """This data rank's ZeRO-1 slice of parameter ``name`` (a view), or
@@ -123,7 +168,13 @@ class ParallelModel:
             grads, self.specs,
             sequence_parallel_names=self.sequence_parallel_names,
             zero_dims=self.zero_dims)
-        return grads, grads_mod.global_grad_norm(grads, self.grad_specs())
+        return grads, self.grad_norm(grads, self.grad_specs())
+
+    def zero_slices(self, grads: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Each whole synchronised gradient cut to this data rank's ZeRO-1
+        slice (:meth:`zero_view`), as the moments are."""
+        return {n: self.zero_view(n, g) for n, g in grads.items()}
 
     def state_specs(self, state: TrainState) -> Dict[str, tuple]:
         """``TrainState.shard_specs`` of ``state``: each parameter's spec,
@@ -145,6 +196,29 @@ class ParallelModel:
                 out[path] = norm(zero[names[int(last)]])
         return out
 
+    def global_state_paths(self, state: TrainState
+                           ) -> Dict[str, Tuple[str, bool]]:
+        """``TrainState.global_paths`` of a stage's ``state``: for each
+        local path, ``(path in the whole state, whether this rank writes
+        it)``; a parameter's path is its own, an optimizer tensor's takes
+        the index of its parameter among the whole model's, and a tensor
+        of a parameter another stage :meth:`owns` is not written here."""
+        from .checkpoint import state_to_tree, tree_leaves
+
+        names = list(_trainable_named(state.params))
+        index = {n: i for i, n in enumerate(self.global_names)}
+        out = {f"params/{n}": (f"params/{n}", self.owns(n))
+               for n in state.params}
+        tree = state_to_tree(state.opt_state, lambda t: t)
+        for path, _ in tree_leaves(tree, ("opt_state",)):
+            head, last = path.rsplit("/", 1)
+            if last.isdigit() and int(last) < len(names):
+                n = names[int(last)]
+                out[path] = (f"{head}/{index[n]}", self.owns(n))
+            else:
+                out[path] = (path, True)
+        return out
+
     def gather_updated(self, params: Mapping[str, torch.Tensor]) -> None:
         """Under ZeRO-1, all-gather each parameter's updated slices over
         the data ranks into the whole parameter."""
@@ -162,19 +236,25 @@ def _world() -> int:
 
 def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
                    state_dict: Optional[Mapping[str, torch.Tensor]],
-                   dev: torch.device, std: float):
+                   dev: torch.device, std: float, vocab_pp: bool = False):
     """The local module of a rank of a world above 1, from the whole
     ``state_dict`` or the seed: every rank makes (or gets) the same whole
     weights and keeps its shards, one whole tensor at a time (made, cut,
-    freed), so a rank never holds the whole model."""
-    from ..models import convert, llama, mixtral
+    freed), so a rank never holds the whole model. At ``pp > 1`` the
+    module is this rank's stage (:func:`..models.llama_pipeline.
+    build_stage`), which keeps the tensors of its own parameters only."""
+    from ..models import convert, llama, llama_pipeline as lpp, mixtral
 
     if type(model_cfg) not in (llama.LlamaConfig, mixtral.MixtralConfig):
         raise ValueError(f"{type(model_cfg).__name__} across ranks: not in "
                          "the port yet (a later slice); Llama and Mixtral "
-                         "train tensor- and data-parallel")
+                         "train tensor-, pipeline- and data-parallel")
     _, model_cls = family_of(model_cfg)
     tp = ps.get_tensor_model_parallel_size()
+    pp = ps.get_pipeline_model_parallel_size()
+    stage = ps.get_pipeline_model_parallel_rank()
+    if vocab_pp and pp == 1:
+        raise ValueError("vocab_pp needs pipeline_parallel_size > 1")
     if model_cfg.tp_size is None:
         model_cfg = replace(model_cfg, tp_size=tp)
     elif model_cfg.tp_size != tp:
@@ -182,33 +262,66 @@ def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
                          f"from the ranks' tensor-parallel size {tp}")
     whole = replace(model_cfg, tp_size=None, sequence_parallel=False)
     model = model_cls(model_cfg, device="meta")
-    want = model.state_dict()
     shapes = {n: t.shape for n, t in model_cls(
         whole, device="meta").state_dict().items()}
     specs = convert.param_specs(model_cfg, [(n, len(s))
                                             for n, s in shapes.items()])
+    extra = {}
+    if pp > 1:
+        if vocab_pp:
+            specs["embed.embedding"] = (ps.PP_TP_AXES, None)
+            if "lm_head.kernel" in specs:
+                specs["lm_head.kernel"] = (None, ps.PP_TP_AXES)
+        held = lpp.holders(list(shapes), model_cfg.num_layers, pp,
+                           model_cfg.tie_embeddings, vocab_pp)
+        local = model.state_dict()
+        shared_sum = {n: (tuple(local[n].shape), local[n].dtype)
+                      for n, h in held.items()
+                      if len(h) > 1 and not vocab_pp}
+        lpp.build_stage(model, pp, stage, vocab_pp)
+        extra = dict(pp=pp, stage=stage, holders=held,
+                     global_names=list(shapes), shared_sum=shared_sum,
+                     vocab_pp=vocab_pp)
+    want = model.state_dict()
     rank = ps.axis_rank(ps.TP_AXIS)
     source = (llama.draw_state_dict(whole, seed, std, dev, model_cls)
               if state_dict is None else state_dict.items())
     sd = {}
     for name, t in source:
-        sd[name] = convert.shard_tensor(name, t, specs[name], tp, rank).to(
-            device=dev, dtype=want[name].dtype)
+        if name in want:
+            sd[name] = _shard(name, t, specs[name], tp, rank).to(
+                device=dev, dtype=want[name].dtype)
         del t
     model.load_state_dict(sd, strict=True, assign=True)
+    specs = {n: specs[n] for n in want}
     zero_size = comm.axis_size(ps.DATA_AXES)
     zero_dims = {n: (opt_mod.zero1_dim(specs[n], shapes[n], zero_size)
                      if cfg.optimizer.zero_one_enabled else None)
-                 for n in shapes}
-    sp_names = convert.sequence_parallel_names(model_cfg, list(shapes))
+                 for n in want}
+    sp_names = convert.sequence_parallel_names(model_cfg, list(want))
     return model, dict(world=_world(), specs=specs, zero_dims=zero_dims,
-                       sequence_parallel_names=sp_names)
+                       sequence_parallel_names=sp_names, **extra)
+
+
+def _shard(name: str, t: torch.Tensor, spec: tuple, tp: int,
+           rank: int) -> torch.Tensor:
+    """This rank's shard (a copy) of the whole tensor ``t``: over tp by
+    :func:`..models.convert.shard_tensor`, or along a dim sharded over
+    ``(pp, tp)``."""
+    from ..models import convert
+
+    for d, a in enumerate(spec):
+        if a == ps.PP_TP_AXES:
+            n = t.shape[d] // comm.axis_size(a)
+            return t.narrow(d, ps.axis_rank(a) * n, n).clone()
+    return convert.shard_tensor(name, t, spec, tp, rank)
 
 
 def initialize_parallel_model(
         cfg: NxDConfig, model_cfg: Any, seed: int = 0,
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-        device: DeviceLike = None, std: float = 0.02
+        device: DeviceLike = None, std: float = 0.02,
+        vocab_pp: bool = False
 ) -> Tuple[ParallelModel, Dict[str, torch.nn.Parameter]]:
     """Build the model on ``device`` (None: the CUDA card) with parameters
     that require gradients: random normal(0, ``std``) from ``seed`` (unit
@@ -227,11 +340,19 @@ def initialize_parallel_model(
     at the ranks' tensor-parallel size (``model_cfg.tp_size`` if set,
     which must agree);
     ``sequence_parallel`` is the model config's
-    (:func:`..config.configure_model` carries the config's)."""
+    (:func:`..config.configure_model` carries the config's).
+
+    At ``pipeline_parallel_size > 1`` each rank builds only its stage
+    (:mod:`..models.llama_pipeline`: its layers, and the embedding, norm
+    and head where its stage holds them), every parameter under its global
+    name; train it with ``make_train_step(pm, tx, grad_fn=llama_pipeline.
+    make_pipeline_grad_fn(...))``. ``vocab_pp`` shards the embedding and
+    the LM head over ``(pp, tp)`` on every stage, for a grad function made
+    with ``vocab_pp=True``."""
     dev = resolve_device(device)
     if _world() > 1:
         model, extra = _sharded_model(cfg, model_cfg, seed, state_dict, dev,
-                                      std)
+                                      std, vocab_pp)
         model.requires_grad_(True).train()
         return (ParallelModel(module=model, config=cfg, device=dev,
                               **extra), dict(model.named_parameters()))
@@ -268,6 +389,8 @@ def initialize_parallel_optimizer(
         [pm.zero_view(n, p) for n, p in _trainable_named(params).items()]))
     if pm.world > 1:
         state.shard_specs = pm.state_specs(state)
+    if pm.pp > 1:
+        state.global_paths = pm.global_state_paths(state)
     return tx, state
 
 
@@ -353,19 +476,35 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
     ranks of the whole tensors their shards make), for the
     :class:`..resilience.integrity.IntegrityMonitor`'s recompute.
 
-    ``grad_fn`` and ``compression`` come with later slices; passing one
-    raises.
+    ``grad_fn(params, batch) -> (loss, grads)``: a path that computes its
+    own gradients (the pipeline executors,
+    :func:`..models.llama_pipeline.make_pipeline_grad_fn`), called on the
+    global batch (or each global microbatch with ``grad_accum_steps``);
+    ``grads`` by parameter name, already synchronised over the ranks, as
+    the reference's are. Clipping, ZeRO-1, ``skip_nonfinite`` and
+    ``integrity_every`` apply to them as to the default loss's; at
+    ``pp > 1`` the step needs one. Passing it with ``loss_fn`` or with
+    ``dropout_generator`` raises, as in the reference.
+
+    ``compression`` comes with a later slice; passing it raises.
     """
-    later = {"grad_fn": grad_fn is not None,
-             "compression": compression is not None}
-    asked = [k for k, v in later.items() if v]
-    if asked:
-        raise ValueError(f"{', '.join(asked)}: not in the port yet (later "
-                         "slices)")
-    if dropout_generator is not None and loss_fn is not None:
+    if compression is not None:
+        raise ValueError("compression: not in the port yet (a later "
+                         "slice)")
+    if loss_fn is not None and grad_fn is not None:
+        raise ValueError(
+            "pass either loss_fn (differentiated here) or grad_fn "
+            "(self-differentiating, e.g. the pipeline engine), not both")
+    if dropout_generator is not None and (loss_fn is not None
+                                          or grad_fn is not None):
         raise ValueError(
             "dropout_generator is only threaded through the default loss; "
-            "a custom loss_fn must manage its own randomness")
+            "a custom loss_fn or grad_fn must manage its own randomness")
+    if pm.pp > 1 and grad_fn is None:
+        raise ValueError(
+            f"pipeline_parallel_size={pm.pp}: each rank holds one stage, "
+            "so the step needs a pipeline grad_fn (models.llama_pipeline."
+            "make_pipeline_grad_fn)")
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
@@ -393,10 +532,13 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
                     f"grad_accum_steps {a}" + (
                         f" x data-parallel size {n_data}" if n_data > 1
                         else ""))
+        chunks = {k: x.chunk(a) for k, x in batch.items()}
+        if grad_fn is not None:
+            loss, grads, grad_norm = grad_fn_grads(state, chunks)
+            return update(state, named, loss, grads, grad_norm)
         for p in named.values():
             p.grad = None
         loss = None
-        chunks = {k: x.chunk(a) for k, x in batch.items()}
         for i in range(a):
             mb = {k: c[i][pm.rows(c[i].shape[0])] for k, c in chunks.items()}
             mb_loss = microbatch_loss(state.params, mb)
@@ -412,6 +554,34 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
         if n_data > 1:
             loss = comm.all_reduce(loss, ps.DATA_AXES) / n_data
         grads, grad_norm = pm.sync({n: p.grad for n, p in named.items()})
+        return update(state, named, loss, grads, grad_norm)
+
+    def grad_fn_grads(state: TrainState, chunks):
+        """``grad_fn`` over each of the ``grad_accum_steps`` global
+        microbatches: the mean loss, the mean synchronised gradients (each
+        cut to this rank's ZeRO-1 slice) and their global norm."""
+        a = grad_accum_steps
+        names = list(_trainable_named(state.params))
+        loss, total = None, None
+        for i in range(a):
+            mb_loss, g = grad_fn(state.params, {k: c[i]
+                                                for k, c in chunks.items()})
+            g = [g[n] if g.get(n) is not None
+                 else torch.zeros_like(state.params[n]) for n in names]
+            loss = mb_loss if loss is None else loss + mb_loss
+            if total is None:
+                total = g
+            else:
+                torch._foreach_add_(total, g)
+        if a > 1:
+            loss = loss * (1.0 / a)
+            torch._foreach_mul_(total, 1.0 / a)
+        grads = dict(zip(names, total))
+        grad_norm = pm.grad_norm(grads, pm.specs)
+        return loss, pm.zero_slices(grads), grad_norm
+
+    def update(state: TrainState, named, loss, grads, grad_norm
+               ) -> Dict[str, Any]:
         metrics: Dict[str, Any] = {"loss": loss, "grad_norm": grad_norm}
         ok = True
         if skip_nonfinite:
@@ -429,7 +599,9 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
                 metrics["integrity_fp"] = fingerprint(state.params)
             else:
                 metrics["integrity_fp"] = torch.zeros(
-                    len(state.params), dtype=torch.int32, device=pm.device)
+                    len(pm.global_names) if pm.pp > 1
+                    else len(state.params), dtype=torch.int32,
+                    device=pm.device)
         state.step += 1
         return metrics
 
@@ -456,6 +628,10 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
         # import path unless a fingerprint is asked for
         from ..resilience import integrity
 
+        if pm.pp > 1:
+            return integrity.fingerprint_tree_stages(
+                {n: t for n, t in params.items() if pm.owns(n)}, pm.specs,
+                pm.global_names)
         if pm.world > 1:
             return integrity.fingerprint_tree_sharded(params, pm.specs)
         return integrity.fingerprint_tree(params)

@@ -228,7 +228,10 @@ _ISOLATED = textwrap.dedent("""
               "quantization.quantization_layers",
               "quantization.mx_layers", "quantization.serving",
               "quantization.quantize", "inference.aot_cache",
-              "inference.model_builder", "inference.benchmark"):
+              "inference.model_builder", "inference.benchmark",
+              "pipeline", "pipeline.schedules", "pipeline.spmd_engine",
+              "pipeline.engine_1f1b", "models.llama_pipeline",
+              "models.mixtral_pipeline"):
         assert pkg.__name__ + "." + m in mods, m
     from neuronx_distributed_tpu_torch.inference import engine as te
     from neuronx_distributed_tpu_torch.models import llama as tl

@@ -221,8 +221,6 @@ def test_yaml_dicts_match_jax(doc):
 @pytest.mark.parametrize("doc,match", [
     ({"context_parallel_size": 2}, "not in the port yet"),
     ({"expert_parallel_size": 2}, "not in the port yet"),
-    ({"pipeline_parallel_size": 2}, "not in the port yet"),
-    ({"pipeline": {"num_microbatches": 8}}, "not in the port yet"),
     ({"optimizer": {"grad_comm_dtype": "int8"}}, "not in the port yet"),
     ({"tp_overlap_comm": True}, "not in the port yet"),
     ({"nope": 1}, "unknown config key"),
@@ -238,6 +236,30 @@ def test_yaml_refusals(doc, match):
                  "must be a mapping"):
         with pytest.raises(ValueError, match=match):
             jyc.dict_to_config_kwargs(doc)
+
+
+def test_yaml_pipeline_parallel_runs(tmp_path):
+    """``pipeline_parallel_size`` and the ``pipeline`` section map onto the
+    port's config (:class:`PipelineConfig`), and ``config_to_dict`` writes
+    JAX's dict; the ranks are laid out by the caller."""
+    path = tmp_path / "pp.yaml"
+    path.write_text("tensor_parallel_size: 2\npipeline_parallel_size: 2\n"
+                    "pipeline:\n  num_microbatches: 8\n"
+                    "  schedule: interleaved\n")
+    cfg = tyc.load_yaml_config(str(path))
+    assert cfg.parallel.pipeline_parallel_size == 2
+    assert cfg.pipeline.num_microbatches == 8
+    assert cfg.pipeline.schedule == "interleaved"
+    jcfg = jyc.load_yaml_config(str(path))
+    assert tyc.config_to_dict(cfg) == jyc.config_to_dict(jcfg)
+    assert tyc._cfg.neuronx_distributed_config(
+        init_mesh=False, **tyc.dict_to_config_kwargs(
+            tyc.config_to_dict(cfg))) == cfg
+    with pytest.raises(ValueError, match="process group"):
+        tyc.load_yaml_config(str(path), init_mesh=True)
+    with pytest.raises(ValueError, match="manual_cut_points"):
+        tyc.dict_to_config_kwargs(
+            {"pipeline": {"manual_cut_points": ["layers.4"]}})
 
 
 def test_yaml_tensor_parallel_sequence_parallel_and_zero1_run(tmp_path):

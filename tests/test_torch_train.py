@@ -508,15 +508,27 @@ def test_later_slice_options_and_configs_raise():
     pm, params = ttr.initialize_parallel_model(
         neuronx_distributed_config(), cfg, device="cpu")
     tx, _ = ttr.initialize_parallel_optimizer(pm, params)
-    for kw in (dict(compression=object()), dict(grad_fn=lambda *a: 0)):
-        with pytest.raises(ValueError, match="later"):
-            ttr.make_train_step(pm, tx, **kw)
+    with pytest.raises(ValueError, match="later"):
+        ttr.make_train_step(pm, tx, compression=object())
+    # grad_fn runs (tests/test_torch_trainer_loop_pp.py); with loss_fn or
+    # dropout_generator it raises, as the reference's
+    with pytest.raises(ValueError, match="not both"):
+        ttr.make_train_step(pm, tx, grad_fn=lambda *a: 0,
+                            loss_fn=_port_loss_fn)
+    with pytest.raises(ValueError, match="dropout_generator"):
+        ttr.make_train_step(pm, tx, grad_fn=lambda *a: 0,
+                            dropout_generator=torch.Generator())
     with pytest.raises(ValueError, match="grad_accum_steps"):
         ttr.make_train_step(pm, tx, grad_accum_steps=0)
-    # tensor parallelism and ZeRO-1 run (tests/test_torch_train_tp.py);
-    # pipeline, context and expert parallelism, overlap and activation
-    # compression are later tiers
-    for kw in (dict(pipeline_parallel_size=2), dict(context_parallel_size=2),
+    # tensor, pipeline and data parallelism and ZeRO-1 run
+    # (tests/test_torch_train_tp.py, tests/test_torch_pipeline.py);
+    # context and expert parallelism, overlap and activation compression
+    # are later tiers
+    pp = 2
+    assert neuronx_distributed_config(
+        init_mesh=False, pipeline_parallel_size=pp
+    ).parallel.pipeline_parallel_size == pp
+    for kw in (dict(context_parallel_size=2),
                dict(expert_parallel_size=2), dict(tp_overlap_comm=True),
                dict(tp_activation_comm_dtype="int8")):
         with pytest.raises(ValueError, match="later slice"):
