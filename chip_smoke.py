@@ -438,7 +438,34 @@ script exits non-zero and prints no result:
    to the tag's pieces bit for bit, the parameters' fingerprint the tag's;
    steps 3-4 within 1e-5 of the tp=2 x dp=2 resume's losses. Writes no
    tag.
-   Phases 52-61 share one start of the four processes; phase 55's part D
+62. train_mixtral_ep: Mixtral 8x7B's widths at 2 layers, tp=2 x dp=2
+   with ep=2 (``neuronx_distributed_config(tensor_parallel_size=2,
+   expert_parallel_size=2)``: each rank holds 4 of the 8 experts at I/tp
+   = 7168, ``[4, 4096, 2, 7168]``), sequence parallelism, ZeRO-1,
+   blockwise dispatch (block 64), bf16 over fp32, one sequence of S=4096
+   a data rank, 2 steps, the fp32 wire and auto overlap (off at ep=2).
+   Each rank gathers both data ranks' tokens over ep, routes the other
+   rank's experts' pairs to the sentinel expert and reduce-scatters its
+   partials back, so K5, K7 and K8 see sentinel blocks in training: K2-K5,
+   K7 and K8 launched layers x steps times on every rank, the first launch
+   of each held to plain (2e-2, 1e-2), K5's and K7's sentinel rows exactly
+   zero and K8's dW of the expert whose run the sentinels follow held on
+   its own; rank 0 times K5, K7 and K8 at this local shape (kernel, plain,
+   bound, cuBLAS per expert); per-rank peak memory, step ms, gloo bytes
+   and host-staged bytes.
+63. train_mixtral_ep_cross_check: fp32, 1 layer at Mixtral's widths,
+   S=256, 2 steps: the ep=2 step against the ep=1 step at the same tp=2 x
+   dp=2 layout (no ZeRO-1: at ep=1 its transients at a whole bank leave
+   four ranks no room) from the same weights (seed 1) and batch: first loss
+   within 1e-6 relative, later 1e-4, grad norms 1e-3, each update within
+   1e-3 of its norm; on layer 0's inputs as the path gave them, the bank's
+   fp32 ring (``moe_overlap_dispatch=True``, its hops staged through the
+   host) equal to the monolithic path bit for bit forward and in dx and
+   dgates (dW within 1e-5), int8 ring equal to int8 monolithic bit for bit
+   in every output and gradient.
+   Phases 52-63 share one start of the four processes, started beside
+   phases 49-51 (the ranks wait for their turn, and phase 36 waits until
+   every rank has started); phase 55's part D
    (the merge and the tp=1 step) runs in this process beside them. The
    CPU halves of phases 9, 16, 24, 29, 31, 33, 39 and 51 (the train steps,
    the quantized codes, the other routers, speculation, the replica
@@ -6063,17 +6090,21 @@ def tp_local_timing(q, k, v, g, drop=()):
 
 
 def tp_rank(specs):
-    """One rank of phases 52-57, in a process of its own
+    """One rank of phases 52-63, in a process of its own
     (``utils.cpu_mesh.run_ranks``; this module is imported by name there):
-    for each spec in turn, by its ``kind``, :func:`tp_rank_once`,
-    :func:`tp_loop_rank`, :func:`mixtral_tp_rank` or
-    :func:`mixtral_tp_cross_rank`, each at its
+    for each spec in turn, by its ``kind``, :func:`wait_for_go`,
+    :func:`tp_rank_once`, :func:`tp_loop_rank`, :func:`mixtral_tp_rank`,
+    :func:`mixtral_tp_cross_rank`, :func:`mixtral_ep_rank`,
+    :func:`mixtral_ep_cross_rank` or a pipeline part, each at its
     own layout of the same ranks, the previous one's memory freed first;
     each result carries its seconds from the rank's start."""
     start = time.perf_counter()
     kinds = {"step": tp_rank_once, "loop": tp_loop_rank,
              "mixtral": mixtral_tp_rank,
              "mixtral_cross": mixtral_tp_cross_rank,
+             "mixtral_ep": mixtral_ep_rank,
+             "mixtral_ep_cross": mixtral_ep_cross_rank,
+             "wait": wait_for_go,
              "pp_train": pp_train_rank, "pp_cross": pp_cross_rank,
              "pp_mixtral": pp_mixtral_rank, "pp_resume": pp_resume_rank}
     out = []
@@ -6161,11 +6192,11 @@ def tp_rank_once(spec):
     coords = mesh.coords()
     compared = None
     if ref is not None:
-        whole = gather_whole(pm, {n: p.detach() - start[n].to(p.device)
-                                  for n, p in params.items()})
-        compared = (update_rel_diffs("train_tp_cross_check", whole,
-                                     ref["updates"])
-                    if ref["updates"] is not None else None)
+        # the moments go first: the comparison gathers whole updates
+        del state, step, tx
+        free_cuda()
+        compared = gather_compare("train_tp_cross_check", pm, params, start,
+                                  ref["updates"])
         ref = dict(metrics=ref["metrics"], seconds=ref["seconds"])
     return dict(coords=coords, losses=losses, grad_norms=norms,
                 init_s=init_s, run_s=time.perf_counter() - t0,
@@ -6226,6 +6257,42 @@ def gather_whole(pm, tensors):
     return out
 
 
+def gather_compare(phase, pm, params, start, want):
+    """Each parameter's update (this rank's tp shard of ``params`` less its
+    host copy in ``start``) made whole over its tp group and, on world rank
+    0, held on the card to ``want`` (rank 0's host copy of the reference's
+    whole update), a parameter at a time: each within 1e-3 of its norm
+    (:func:`update_rel_diffs`'s limit), computed where the tensors are
+    rather than after a copy of them all to the host. Every rank calls it,
+    in the same order; the worst and its name on rank 0, None
+    elsewhere."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.parallel import comm
+    from neuronx_distributed_tpu_torch.parallel import mesh as ps
+
+    rels = {}
+    for name, p in params.items():
+        t = p.detach() - start[name].to(p.device)
+        d = next((i for i, a in enumerate(pm.specs[name]) if a == ps.TP_AXIS),
+                 None)
+        if d is not None:
+            t = comm.all_gather(t.contiguous(), ps.TP_AXIS, d)
+        if dist.get_rank() == 0:
+            upd = want[name].to(t.device)
+            rels[name] = ((t - upd).norm() / upd.norm()).item()
+            del upd
+        del t
+    if dist.get_rank() != 0:
+        return None
+    for name, rel in rels.items():
+        if not rel <= 1e-3:
+            raise AssertionError(f"{phase}: {name}'s update differs by {rel} "
+                                 "of its norm, above 1e-3")
+    worst = max(rels, key=rels.get)
+    return rels[worst], worst
+
+
 def tp_ppermute_ring(comm, mesh, n=1 << 20):
     """``comm.ppermute`` of a CUDA tensor around the tp ring, the one op
     ``comm`` stages through the host on gloo (off the train path): whether
@@ -6244,35 +6311,105 @@ def tp_ppermute_ring(comm, mesh, n=1 << 20):
                 staged_bytes=staged, want_bytes=2 * n * 4)
 
 
-def run_tp_world(specs):
+def wait_for_go(spec):
+    """A world's first part: leave the file ``spec["ready"]`` + ``_<rank>``
+    (this rank has started), wait until the file ``spec["go"]`` exists
+    (raise once ``spec["abort"]`` does), then meet the other ranks; the
+    seconds waited."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    open(f"{spec['ready']}_{dist.get_rank()}", "w").close()
+    while not os.path.exists(spec["go"]):
+        if os.path.exists(spec["abort"]):
+            raise RuntimeError("the world was aborted before its turn")
+        time.sleep(0.05)
+    dist.barrier()
+    return dict(waited_s=time.perf_counter() - t0)
+
+
+class TpWorld:
     """``tp_rank`` on ``TP_WORLD`` ranks sharing ``cuda:0`` over gloo with
     CUDA tensors (NCCL refuses two ranks on one device), through a
-    ``file://`` store under ``build/``, removed after: per spec, each
-    rank's result."""
-    import importlib
+    ``file://`` store under ``build/``, removed after. :meth:`start` runs
+    the processes from a thread of this process, their first part waiting
+    (:func:`wait_for_go`) until :meth:`result` leaves the file it polls:
+    so the processes' start (interpreter, torch, the CUDA context, gloo)
+    runs beside earlier phases, which the waiting ranks leave the card
+    to; :meth:`wait_ready` returns once every rank waits. :meth:`result`
+    returns, per spec, each rank's result; :meth:`abort` makes the waiting
+    ranks raise."""
 
-    from neuronx_distributed_tpu_torch.utils.cpu_mesh import run_ranks
+    def __init__(self, specs):
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+        os.makedirs(build, exist_ok=True)
+        self.workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=build)
+        self.go_file = os.path.join(self.workdir, "go")
+        self.abort_file = os.path.join(self.workdir, "abort")
+        self.ready = os.path.join(self.workdir, "ready")
+        self.ready_wait_s = None
+        self.specs = [dict(kind="wait", go=self.go_file,
+                           abort=self.abort_file,
+                           ready=self.ready)] + list(specs)
+        self.box = {}
+        self.thread = threading.Thread(target=self._run, name="tp-world")
 
-    me = importlib.import_module("chip_smoke")
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=build)
-    try:
-        ranks = run_ranks(me.tp_rank, TP_WORLD, backend="gloo",
-                          device="cuda:0", store_dir=workdir, args=(specs,),
-                          timeout=1100, threads=2)
-    except Exception:
-        # each rank's own output: where a slow or stuck rank was
-        for r in range(TP_WORLD):
-            log = os.path.join(workdir, f"rank_{r}.log")
-            if os.path.exists(log):
-                with open(log, errors="replace") as f:
-                    print(f"rank {r}'s output:\n{f.read()[-3000:]}",
-                          file=sys.stderr, flush=True)
-        raise
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    return [[r[i] for r in ranks] for i in range(len(specs))]
+    def start(self):
+        self.thread.start()
+        return self
+
+    def _run(self):
+        import importlib
+
+        from neuronx_distributed_tpu_torch.utils.cpu_mesh import run_ranks
+
+        me = importlib.import_module("chip_smoke")
+        try:
+            self.box["ranks"] = run_ranks(
+                me.tp_rank, TP_WORLD, backend="gloo", device="cuda:0",
+                store_dir=self.workdir, args=(self.specs,), timeout=1150,
+                threads=2)
+        except BaseException as e:   # raised by result()
+            self.box["error"] = e
+
+    def wait_ready(self, timeout=300):
+        """Block until every rank has started and waits for its turn (or
+        the world failed, which :meth:`result` raises): the seconds
+        waited."""
+        t0 = time.perf_counter()
+        while (self.thread.is_alive()
+               and time.perf_counter() - t0 < timeout
+               and not all(os.path.exists(f"{self.ready}_{r}")
+                           for r in range(TP_WORLD))):
+            time.sleep(0.05)
+        self.ready_wait_s = time.perf_counter() - t0
+        return self.ready_wait_s
+
+    def abort(self):
+        open(self.abort_file, "w").close()
+        self.thread.join()
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+    def result(self):
+        open(self.go_file, "w").close()
+        self.thread.join()
+        try:
+            if "error" in self.box:
+                # each rank's own output: where a slow or stuck rank was
+                for r in range(TP_WORLD):
+                    log = os.path.join(self.workdir, f"rank_{r}.log")
+                    if os.path.exists(log):
+                        with open(log, errors="replace") as f:
+                            print(f"rank {r}'s output:\n{f.read()[-3000:]}",
+                                  file=sys.stderr, flush=True)
+                raise self.box["error"]
+            ranks = self.box["ranks"]
+        finally:
+            shutil.rmtree(self.workdir, ignore_errors=True)
+        emit("tp_world_start", waited_s=[r[0]["waited_s"] for r in ranks],
+             ready_wait_s=self.ready_wait_s)
+        return [[r[i] for r in ranks] for i in range(1, len(self.specs))]
 
 
 def check_tp_ranks(phase, outs, steps, layers):
@@ -6336,27 +6473,29 @@ def tp_summary(outs):
         rank_done_s=[o["done_s"] for o in outs])
 
 
-def phase_train_tp(smi, steps=2, seq=4096, layers=2, cross_layers=2,
+def ep_specs(seq=4096, layers=2, cross_seq=256, cross_steps=2, steps=2):
+    """The parts of phases 62 and 63 (:func:`mixtral_ep_rank`,
+    :func:`mixtral_ep_cross_rank`): one sequence a data rank."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+
+    vocab = MIXTRAL_8X7B.vocab_size
+    rows = TP_WORLD // TP_SIZE
+    return [dict(kind="mixtral_ep", layers=layers, steps=steps,
+                 batch=tp_batch(vocab, seq, rows, 50)),
+            dict(kind="mixtral_ep_cross", layers=1, steps=cross_steps,
+                 batch=tp_batch(vocab, cross_seq, rows, 51))]
+
+
+def start_train_tp(steps=2, seq=4096, layers=2, cross_layers=2,
                    cross_seq=256, cross_steps=2, pp_layers=4, pp_steps=3):
-    """Phases 52-61 in one world of ranks (one start of the processes),
-    each part at its own layout of the same four ranks: ``train_tp``, its
-    cross check's path (the tp=1 reference on rank 0 first),
-    ``train_tp_loop`` and its cross check's paths around one tag
-    (:func:`tp_loop_rank`; part D, the merge and the tp=1 step, runs on a
-    thread here beside the ranks, :func:`merged_tag_side`),
-    ``train_mixtral_tp`` and its cross check's
-    path (the tp=1 reference on rank 0 first), then the pipeline phases at
-    pp=2 x tp=2: ``train_pp``, ``train_pp_cross_check``,
-    ``train_mixtral_pp`` and ``train_pp_resume`` (from the loop's tag), in
-    turn; the tag's directory under ``build/`` is removed at the end.
-    Each cross check's
-    comparison runs on rank 0, so the ranks return no weights. Returns
-    each path's launches summed over the ranks."""
+    """Phases 52-63's world, started ahead of its turn
+    (:class:`TpWorld`): the parts' specs, the directory of the loop's tag
+    under ``build/`` and part D's thread (:func:`merged_tag_side`), which
+    waits for the loop's part A. :func:`phase_train_tp` lets the world go
+    and checks it."""
     from neuronx_distributed_tpu_torch.models.llama import LLAMA3_8B
     from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
 
-    free_cuda()
-    t0 = time.perf_counter()
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_", dir=build)
@@ -6368,36 +6507,86 @@ def phase_train_tp(smi, steps=2, seq=4096, layers=2, cross_layers=2,
     stop, merged = threading.Event(), {}
     side = threading.Thread(target=merged_tag_side, name="part-d", args=(
         path, a_done, d_done, cross_batches, 1, stop, merged))
+    specs = [
+        dict(compute="bfloat16", layers=layers, seed=0, steps=steps,
+             reference=False, time_kernels=True,
+             batch=tp_batch(vocab, seq, rows, 0)),
+        dict(compute="float32", layers=cross_layers, seed=1,
+             steps=cross_steps, reference=True, time_kernels=False,
+             batch=tp_batch(vocab, cross_seq, rows, 1)),
+        dict(kind="loop", layers=1, dir=path, a_done=a_done,
+             d_done=d_done, cross_batches=cross_batches,
+             batches=tp_batches(vocab, seq, rows, 2, 10)),
+        dict(kind="mixtral", layers=layers, steps=steps,
+             batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 1, 30)),
+        dict(kind="mixtral_cross", layers=1, steps=cross_steps,
+             batch=tp_batch(MIXTRAL_8X7B.vocab_size, cross_seq, 1, 3)),
+        *ep_specs(seq, layers, cross_seq, cross_steps, steps),
+        dict(kind="pp_train", layers=pp_layers, steps=pp_steps,
+             microbatches=4, batch=tp_batch(vocab, seq, 4, 40)),
+        dict(kind="pp_cross", layers=pp_layers, steps=cross_steps,
+             microbatches=4, batch=tp_batch(vocab, cross_seq, 4, 41)),
+        dict(kind="pp_mixtral", layers=layers, steps=pp_steps,
+             microbatches=2,
+             batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 2, 42)),
+        dict(kind="pp_resume", dir=path, cross_batches=cross_batches)]
     side.start()
     try:
-        (main, cross, loop, moe, moe_cross, pp_main, pp_cross, pp_moe,
-         pp_resume) = run_tp_world([
-            dict(compute="bfloat16", layers=layers, seed=0, steps=steps,
-                 reference=False, time_kernels=True,
-                 batch=tp_batch(vocab, seq, rows, 0)),
-            dict(compute="float32", layers=cross_layers, seed=1,
-                 steps=cross_steps, reference=True, time_kernels=False,
-                 batch=tp_batch(vocab, cross_seq, rows, 1)),
-            dict(kind="loop", layers=1, dir=path, a_done=a_done,
-                 d_done=d_done, cross_batches=cross_batches,
-                 batches=tp_batches(vocab, seq, rows, 2, 10)),
-            dict(kind="mixtral", layers=layers, steps=steps,
-                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 1, 30)),
-            dict(kind="mixtral_cross", layers=1, steps=cross_steps,
-                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, cross_seq, 1, 3)),
-            dict(kind="pp_train", layers=pp_layers, steps=pp_steps,
-                 microbatches=4, batch=tp_batch(vocab, seq, 4, 40)),
-            dict(kind="pp_cross", layers=pp_layers, steps=cross_steps,
-                 microbatches=4, batch=tp_batch(vocab, cross_seq, 4, 41)),
-            dict(kind="pp_mixtral", layers=layers, steps=pp_steps,
-                 microbatches=2,
-                 batch=tp_batch(MIXTRAL_8X7B.vocab_size, seq, 2, 42)),
-            dict(kind="pp_resume", dir=path, cross_batches=cross_batches)])
-        wall = time.perf_counter() - t0
+        world = TpWorld(specs).start()
+    except BaseException:
+        stop.set()
         side.join()
+        shutil.rmtree(workdir, ignore_errors=True)
+        raise
+    return dict(world=world, side=side, stop=stop, merged=merged,
+                workdir=workdir, sizes=dict(
+                    steps=steps, seq=seq, layers=layers,
+                    cross_layers=cross_layers, cross_seq=cross_seq,
+                    cross_steps=cross_steps, pp_layers=pp_layers,
+                    pp_steps=pp_steps))
+
+
+def abort_train_tp(started):
+    """Stop a world :func:`start_train_tp` started (an earlier phase
+    failed): its ranks leave their wait by raising, and part D's thread
+    ends; the tag's directory goes."""
+    started["world"].abort()
+    started["stop"].set()
+    started["side"].join()
+    shutil.rmtree(started["workdir"], ignore_errors=True)
+
+
+def phase_train_tp(smi, started=None):
+    """Phases 52-63 in one world of ranks (one start of the processes,
+    :func:`start_train_tp`), each part at its own layout of the same four
+    ranks: ``train_tp``, its cross check's path (the tp=1 reference on
+    rank 0 first), ``train_tp_loop`` and its cross check's paths around
+    one tag (:func:`tp_loop_rank`; part D, the merge and the tp=1 step,
+    runs on a thread here beside the ranks, :func:`merged_tag_side`),
+    ``train_mixtral_tp`` and its cross check's path (the tp=1 reference on
+    rank 0 first), ``train_mixtral_ep`` and its cross check's path (ep=1
+    then ep=2), then the pipeline phases at pp=2 x tp=2: ``train_pp``,
+    ``train_pp_cross_check``, ``train_mixtral_pp`` and
+    ``train_pp_resume`` (from the loop's tag), in turn; the tag's
+    directory under ``build/`` is removed at the end. Each cross check's
+    comparison runs on the ranks, so they return no weights. Returns
+    each path's launches summed over the ranks."""
+    if started is None:
+        started = start_train_tp()
+    z = started["sizes"]
+    steps, seq, layers = z["steps"], z["seq"], z["layers"]
+    cross_seq, cross_steps = z["cross_seq"], z["cross_steps"]
+    free_cuda()
+    t0 = time.perf_counter()
+    try:
+        (main, cross, loop, moe, moe_cross, ep, ep_cross, pp_main, pp_cross,
+         pp_moe, pp_resume) = started["world"].result()
+        wall = time.perf_counter() - t0
+        started["side"].join()
+        merged = started["merged"]
         launches = {"train_tp": check_train_tp(smi, main, steps, seq,
                                                layers)}
-        check_train_tp_cross(smi, cross, cross_layers, cross_seq,
+        check_train_tp_cross(smi, cross, z["cross_layers"], cross_seq,
                              cross_steps, wall)
         launches["train_tp_loop"] = check_train_tp_loop(smi, loop, seq, 1)
         check_train_tp_loop_cross(smi, loop, merged, 1, cross_seq)
@@ -6405,17 +6594,33 @@ def phase_train_tp(smi, steps=2, seq=4096, layers=2, cross_layers=2,
             smi, moe, steps, seq, layers)
         check_train_mixtral_tp_cross(smi, moe_cross, 1, cross_seq,
                                      cross_steps)
-        launches["train_pp"] = check_train_pp(smi, pp_main, pp_steps, seq,
-                                              pp_layers, 4)
-        check_train_pp_cross(smi, pp_cross, pp_layers, cross_seq,
+        launches["train_mixtral_ep"] = check_train_mixtral_ep(
+            smi, ep, steps, seq, layers)
+        check_train_mixtral_ep_cross(smi, ep_cross, 1, cross_seq,
+                                     cross_steps)
+        launches["train_pp"] = check_train_pp(smi, pp_main, z["pp_steps"],
+                                              seq, z["pp_layers"], 4)
+        check_train_pp_cross(smi, pp_cross, z["pp_layers"], cross_seq,
                              cross_steps)
         launches["train_mixtral_pp"] = check_train_mixtral_pp(
-            smi, pp_moe, pp_steps, seq, layers, 2)
+            smi, pp_moe, z["pp_steps"], seq, layers, 2)
         check_train_pp_resume(smi, pp_resume, loop)
     finally:
-        stop.set()
-        side.join()
-        shutil.rmtree(workdir, ignore_errors=True)
+        started["stop"].set()
+        started["side"].join()
+        shutil.rmtree(started["workdir"], ignore_errors=True)
+    return launches
+
+
+def phase_train_ep(smi, seq=4096, layers=2, cross_seq=256, cross_steps=2,
+                   steps=2):
+    """``--only train_mixtral_ep``: phases 62 and 63 in a world of their
+    own."""
+    free_cuda()
+    ep, ep_cross = TpWorld(ep_specs(seq, layers, cross_seq, cross_steps,
+                                    steps)).start().result()
+    launches = check_train_mixtral_ep(smi, ep, steps, seq, layers)
+    check_train_mixtral_ep_cross(smi, ep_cross, 1, cross_seq, cross_steps)
     return launches
 
 
@@ -6502,18 +6707,20 @@ def check_train_tp_cross(smi, outs, layers, seq, steps, wall):
 # ranks, in the same start of the four processes
 # ---------------------------------------------------------------------------
 
-def tp_parts(model_cfg, tp, compute, seed, zero1=True, **step_kw):
-    """``(cfg, pm, state, step)`` of the public path at ``tp`` over the
-    four ranks with sequence parallelism (ZeRO-1 when ``zero1``), the whole
-    weights made from ``seed`` on the card a tensor at a time, AdamW lr
-    1e-4; ``step_kw`` go to ``make_train_step``."""
+def tp_parts(model_cfg, tp, compute, seed, zero1=True, ep=1, **step_kw):
+    """``(cfg, pm, state, step)`` of the public path at ``tp`` (and ``ep``
+    of expert parallelism) over the four ranks with sequence parallelism
+    (ZeRO-1 when ``zero1``), the whole weights made from ``seed`` on the
+    card a tensor at a time, AdamW lr 1e-4; ``step_kw`` go to
+    ``make_train_step``."""
     from neuronx_distributed_tpu_torch import trainer
     from neuronx_distributed_tpu_torch.config import (
         MixedPrecisionConfig, OptimizerConfig, configure_model,
         neuronx_distributed_config)
 
     ncfg = neuronx_distributed_config(
-        tensor_parallel_size=tp, sequence_parallel=True,
+        tensor_parallel_size=tp, expert_parallel_size=ep,
+        sequence_parallel=True,
         optimizer_config=OptimizerConfig(zero_one_enabled=zero1),
         mixed_precision_config=MixedPrecisionConfig(compute_dtype=compute))
     cfg = configure_model(ncfg, model_cfg)
@@ -6874,9 +7081,11 @@ def moe_tp_local_timing(fwd_args, bwd_args):
             ("grouped_glu_dw", tbm.grouped_glu_dw_cuda,
              tbm.grouped_glu_dw_plain, bwd_args,
              moe_bwd_library(xs, gu, dn, be, bs, dy, "grouped_glu_dw"))):
+        # the plain version ran on these inputs for the holds: one timed
+        # run of its second or more (a Python loop over the blocks)
         timing[name] = dict(
             kernel_ms=time_ms(lambda: cuda(*args), flush=flush),
-            plain_ms=time_ms(lambda: plain(*args), reps=3, warmup=1),
+            plain_ms=time_ms(lambda: plain(*args), reps=1, warmup=0),
             library_ms=time_ms(lib, flush=flush),
             **moe_bound(xs, gu, dn, be, bs, kind=name))
     return timing
@@ -6891,8 +7100,6 @@ def mixtral_tp_cross_rank(spec):
     ``spec["steps"]`` steps on the global batch; each step's loss and
     grad norm, and on rank 0 each parameter's update (gathered whole)
     against the reference's."""
-    import torch.distributed as dist
-
     from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
     from neuronx_distributed_tpu_torch.parallel import mesh
 
@@ -6909,12 +7116,12 @@ def mixtral_tp_cross_rank(spec):
     start = {n: p.detach().cpu() for n, p in state.params.items()}
     metrics = [step(state, spec["batch"])[1] for _ in range(spec["steps"])]
     metrics = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
-    whole = gather_whole(pm, {n: p.detach() - start[n].to(p.device)
-                              for n, p in state.params.items()})
-    compared = (update_rel_diffs("train_mixtral_tp_cross_check", whole,
-                                 ref["updates"])
-                if dist.get_rank() == 0 else None)
-    del pm, state, step, start, whole, ref["updates"]
+    params = state.params
+    del state, step
+    free_cuda()
+    compared = gather_compare("train_mixtral_tp_cross_check", pm, params,
+                              start, ref["updates"])
+    del pm, params, start, ref["updates"]
     free_cuda()
     return dict(coords=mesh.coords(), metrics=metrics,
                 reference=ref["metrics"], tp1_s=ref["seconds"],
@@ -6961,6 +7168,327 @@ def update_rel_diffs(phase, got, want):
             raise AssertionError(f"{phase}: {name}'s update differs by {rel} "
                                  "of its norm, above 1e-3")
     return worst, worst_name
+
+
+# ---------------------------------------------------------------------------
+# phases 62-63: expert parallelism, in the same start of the four processes
+# ---------------------------------------------------------------------------
+
+EP_SIZE = 2      # tp=2 x dp=2 with ep=2: each ep group is a dp pair
+
+
+def ep_cfg(layers, dtype=None):
+    """Mixtral 8x7B's widths at ``layers`` layers, fp32 parameters,
+    blockwise dispatch (block 64), flash attention; ``dtype`` sets the
+    compute dtype in the config too (the cross check's fp32)."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+
+    kw = {} if dtype is None else {"dtype": dtype}
+    return dataclasses.replace(MIXTRAL_8X7B, num_layers=layers,
+                               use_flash_attention=True,
+                               param_dtype=torch.float32,
+                               moe_dispatch="blockwise", moe_block_size=64,
+                               **kw)
+
+
+def glu_holds(k5_call, k78_call):
+    """The first K5 launch and the first K7+K8 launch a rank made on the
+    path, held to their plain versions in fp32 on the same inputs (1e-2,
+    ``flash_rel_err``), with the sentinel blocks (expert id ``E`` of the
+    rank's bank) shown: K5's rows of them exactly zero (``hold_glu``),
+    K7's dx rows of them exactly zero, and K8's dW of the last local
+    expert, whose run the sentinel blocks follow, held on its own (it must
+    not be zeroed again after its run). Returns ``(holds, sentinel)``."""
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
+
+    k5 = hold_glu(k5_call, tbm.grouped_glu_plain)
+    holds = {"grouped_glu": k5["max_rel_err"]}
+    (xs, gu, dn, be, dy, bs, bi), _, got = k78_call
+    e = gu.shape[0]
+    ref = tbm.grouped_glu_bwd_plain(xs.float(), gu.float(), dn.float(), be,
+                                    dy.float(), bs, bi)
+    for name, a, want in (("grouped_glu_dx", got[0], ref[0]),
+                          ("grouped_glu_dw", got[1], ref[1]),
+                          ("grouped_glu_dw.down", got[2], ref[2])):
+        holds[name] = flash_rel_err(a, want.to(a.dtype))
+    sentinel_blocks = int((be >= e).sum())
+    first = int(torch.nonzero(be >= e)[0, 0]) if sentinel_blocks else -1
+    sent = torch.repeat_interleave(be >= e, bs)
+    # K5's own launch (a forward) has metadata of its own
+    be5, bs5 = k5_call[0][3], k5_call[0][4]
+    sent5 = torch.repeat_interleave(be5 >= e, bs5)
+    info = dict(experts=e, blocks=be.numel(), sentinel_blocks=sentinel_blocks,
+                sentinel_rows=int(sent.sum()),
+                k5_sentinel_blocks=int((be5 >= e).sum()),
+                k5_sentinel_rows_zero=not bool(k5_call[2][sent5].any()),
+                k7_sentinel_rows_zero=not bool(got[0][sent].any()),
+                last_run_expert=int(be[first - 1]) if first > 0 else -1)
+    if first > 0:
+        holds["grouped_glu_dw.last_expert"] = max(
+            flash_rel_err(got[1][e - 1], ref[1][e - 1].to(got[1].dtype)),
+            flash_rel_err(got[2][e - 1], ref[2][e - 1].to(got[2].dtype)))
+    del ref
+    if not (sentinel_blocks and info["k5_sentinel_blocks"]
+            and info["k5_sentinel_rows_zero"]
+            and info["k7_sentinel_rows_zero"]
+            and info["last_run_expert"] == e - 1):
+        raise AssertionError(f"grouped GLU at the EP shape: {info}")
+    return holds, info
+
+
+def mixtral_ep_rank(spec):
+    """``train_mixtral_ep`` on one rank: Mixtral 8x7B's widths at 2 layers,
+    tp=2 x dp=2 with ep=2 (dp_exp=1), sequence parallelism, ZeRO-1,
+    blockwise dispatch (block 64), bf16 compute over fp32 parameters, one
+    sequence of S=4096 a data rank, ``spec["steps"]`` steps, the fp32 wire
+    and auto overlap (off at ep=2: the monolithic gather and
+    reduce-scatter). Each rank holds 4 of the 8 experts at I/tp = 7168 and
+    gathers both data ranks' tokens: the pairs of the other rank's experts
+    go to the sentinel expert, whose blocks K5, K7 and K8 see inside the
+    step. K2-K5, K7 and K8 counted from 0 over the steps; the ranks hold
+    the first launch of each to its plain version one at a time (the state
+    freed first; :func:`glu_holds` for the sentinel blocks); rank 0 times K5, K7
+    and K8 on the path's inputs (kernel, plain, bound, cuBLAS per
+    expert). Also the gloo bytes of the steps and the bytes staged through
+    the host."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.ops import blockwise_moe as tbm
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.parallel import comm, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, pm, state, step = tp_parts(ep_cfg(spec["layers"]), TP_SIZE,
+                                  "bfloat16", seed=0, ep=EP_SIZE)
+    load_peak = torch.cuda.max_memory_allocated()
+    bank = pm.module.layers[0].moe.experts
+    local_bank = tuple(bank.gate_up.shape)
+    counters = dict(flash_counters(), grouped_glu=tbm.grouped_glu,
+                    grouped_glu_dx=tbm.grouped_glu_dx,
+                    grouped_glu_dw=tbm.grouped_glu_dw)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    comm.collective_bytes.clear()
+    comm.host_staged_bytes.clear()
+    init_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    losses, norms, times = [], [], []
+    # K5's and K7/K8's first launches kept on the host: four ranks' states
+    # leave little room on the card for copies of an expert bank's dW
+    with Capture(fa, "flash_fwd_cuda") as k2, \
+            Capture(fa, "flash_bwd_dq_cuda") as k3, \
+            Capture(fa, "flash_bwd_dkv_cuda") as k4, \
+            Capture(tbm, "grouped_glu_cuda", host=True) as k5, \
+            Capture(tbm, "grouped_glu_bwd_cuda", host=True) as k78:
+        for _ in range(spec["steps"]):
+            t_step = time.perf_counter()
+            m = step(state, spec["batch"])[1]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    moved = dict(comm.collective_bytes)
+    staged = dict(comm.host_staged_bytes)
+    del pm, state, step, m, bank
+    free_cuda()
+    run_s = time.perf_counter() - t0
+    # one rank at a time: the fp64 comparisons of an expert bank's dW take
+    # about 11 GB a rank, which four ranks at once leave no room for
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            holds, _, _ = tp_holds(k2, k3, k4)
+            k5.calls, k78.calls = k5.on_card(), k78.on_card()
+            glu, sentinel = glu_holds(k5.calls[0], k78.calls[0])
+            holds.update(glu)
+            free_cuda()
+        dist.barrier()
+    fwd_args = k5.calls[0][0]
+    bwd_args = k78.calls[0][0]
+    del k2, k3, k4, k5, k78
+    free_cuda()
+    holds_s = time.perf_counter() - t0 - run_s
+    timing = None
+    dist.barrier()
+    t_timing = time.perf_counter()
+    if dist.get_rank() == 0:
+        timing = moe_tp_local_timing(fwd_args, bwd_args)
+    timing_s = time.perf_counter() - t_timing
+    dist.barrier()
+    xs, gu = fwd_args[0], fwd_args[1]
+    return dict(coords=mesh.coords(), losses=losses, grad_norms=norms,
+                step_ms=times, launches=launches, holds=holds,
+                sentinel=sentinel, timing=timing, init_s=init_s,
+                run_s=run_s, holds_s=holds_s, timing_s=timing_s,
+                load_peak_gib=load_peak / 2 ** 30, peak_gib=peak / 2 ** 30,
+                collective_bytes=moved, host_staged_bytes=staged,
+                local_bank=local_bank,
+                local_shape=dict(rows=xs.shape[0], h=xs.shape[1],
+                                 experts=gu.shape[0], i_local=gu.shape[-1],
+                                 block=fwd_args[4]))
+
+
+def ep_bank_variants(bank, x, gates, idx, gy):
+    """The expert bank of one layer (its weights copied) on the inputs the
+    path gave it, forward and backward from the cotangent ``gy``, for each
+    dispatch of :mod:`neuronx_distributed_tpu_torch.parallel.ep_dispatch`:
+    the fp32 and int8 wires, monolithic and as the ``ppermute`` ring. Per
+    variant ``(y, dx, dgates, dgate_up, ddown)`` on the card, and the bytes
+    the ring staged through the host."""
+    from neuronx_distributed_tpu_torch.modules.moe import ExpertMLPs
+    from neuronx_distributed_tpu_torch.parallel import comm
+
+    out = {}
+    for wire in ("fp32", "int8"):
+        for ring in (False, True):
+            m = ExpertMLPs(
+                bank.num_experts, bank.gate_up.shape[1],
+                bank.gate_up.shape[-1] * TP_SIZE, dispatch_mode="blockwise",
+                block_size=bank.block_size, block_i=bank.block_i,
+                dtype=bank.dtype, device=x.device, tp_size=TP_SIZE,
+                ep_size=EP_SIZE, ep_wire_dtype=wire, ep_overlap=ring)
+            with torch.no_grad():
+                m.gate_up.copy_(bank.gate_up)
+                m.down.copy_(bank.down)
+            xg = x.detach().clone().requires_grad_(True)
+            gg = gates.detach().clone().requires_grad_(True)
+            comm.host_staged_bytes.clear()
+            y, _ = m(xg, gg, idx)
+            (y * gy).sum().backward()
+            torch.cuda.synchronize()
+            out[(wire, ring)] = dict(
+                tensors=(y.detach(), xg.grad, gg.grad, m.gate_up.grad,
+                         m.down.grad),
+                staged=dict(comm.host_staged_bytes))
+            del m, xg, gg, y
+    return out
+
+
+def ep_chunk_checks(variants, on_card=True):
+    """What the per-chunk dispatch must show on the path's inputs: the
+    fp32 ring equals the monolithic path bit for bit forward and in the
+    gradients of the tokens and gates (the experts' dW sums the two chunks'
+    products one chunk at a time: within 1e-5 of its max); int8 ring equals
+    int8 monolithic bit for bit in every output and gradient; the ring
+    stages its hops through the host (gloo's send/recv take no CUDA
+    pointer) where the tensors are on the card, the monolithic forms
+    nothing."""
+    names = ("y", "dx", "dgates", "dgate_up", "ddown")
+    fr, fm = variants[("fp32", True)], variants[("fp32", False)]
+    qr, qm = variants[("int8", True)], variants[("int8", False)]
+    res = dict(
+        fp32_ring_bitwise={n: bool(torch.equal(a, b)) for n, a, b in zip(
+            names, fr["tensors"], fm["tensors"])},
+        int8_ring_bitwise={n: bool(torch.equal(a, b)) for n, a, b in zip(
+            names, qr["tensors"], qm["tensors"])},
+        fp32_ring_dw_rel={n: ((a - b).abs().max() / b.abs().max()).item()
+                          for n, a, b in zip(names[3:], fr["tensors"][3:],
+                                             fm["tensors"][3:])},
+        int8_vs_fp32_y_rel=((qm["tensors"][0] - fm["tensors"][0]).abs().max()
+                            / fm["tensors"][0].abs().max()).item(),
+        staged_ring={w: variants[(w, True)]["staged"] for w in ("fp32",
+                                                                "int8")},
+        staged_monolithic={w: variants[(w, False)]["staged"]
+                           for w in ("fp32", "int8")})
+    ok = (all(res["fp32_ring_bitwise"][n] for n in names[:3])
+          and all(v <= 1e-5 for v in res["fp32_ring_dw_rel"].values())
+          and all(res["int8_ring_bitwise"].values())
+          and all((sum(v.values()) > 0) == on_card
+                  for v in res["staged_ring"].values())
+          and not any(sum(v.values())
+                      for v in res["staged_monolithic"].values()))
+    if not ok:
+        raise AssertionError(f"train_mixtral_ep_cross_check per chunk: {res}")
+    return res
+
+
+def mixtral_ep_cross_rank(spec):
+    """``train_mixtral_ep_cross_check`` on one rank: Mixtral 8x7B's widths
+    at ``spec["layers"]`` layer, fp32, blockwise (block 64), tp=2 x dp=2
+    with sequence parallelism (no ZeRO-1), the weights made on the card
+    from seed 1, ``spec["steps"]`` steps on the global batch: first at
+    ep=1, keeping on the host the updates of the part of each parameter
+    this rank holds at ep=2; then at ep=2 from the same weights and batch:
+    each step's loss and grad norm, and each parameter's update against
+    the kept one over every rank's part (its squares summed over the axes
+    its spec shards it on). Then, on layer 0's inputs as the ep=2 path
+    gave them, its bank through each EP dispatch
+    (:func:`ep_bank_variants`, :func:`ep_chunk_checks`)."""
+    from neuronx_distributed_tpu_torch.models import convert
+    from neuronx_distributed_tpu_torch.modules.moe import expert_mlps
+    from neuronx_distributed_tpu_torch.parallel import comm, grads, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = ep_cfg(spec["layers"], torch.float32)
+    batch, steps = spec["batch"], spec["steps"]
+
+    def run(step, state):
+        metrics = [step(state, batch)[1] for _ in range(steps)]
+        return [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+
+    # without ZeRO-1 at both layouts: at ep=1 its reduce-scatter of a whole
+    # 8-expert bank takes about 4 GB of transients a rank, which four
+    # ranks at full width leave no room for (the main phase runs ZeRO-1)
+    _, pm, state, step = tp_parts(cfg, TP_SIZE, "float32", seed=1,
+                                  zero1=False)
+    start = {n: p.detach().to("cpu", copy=True)
+             for n, p in state.params.items()}
+    comm.collective_bytes.clear()
+    ref = run(step, state)
+    ref_bytes = dict(comm.collective_bytes)
+    # this rank's ep index at ep=2 is its data index (one dp_exp group)
+    ep_rank = mesh.axis_rank(mesh.DATA_AXES)
+    kept = {}
+    for n, p in state.params.items():
+        u = p.detach().cpu() - start[n]
+        if "experts" in n:
+            u = convert.shard_tensor(n, u, (mesh.EP_AXIS,),
+                                     {mesh.EP_AXIS: EP_SIZE},
+                                     {mesh.EP_AXIS: ep_rank})
+        kept[n] = u
+    del pm, state, step, start
+    free_cuda()
+    ref_s = time.perf_counter() - t0
+    _, pm, state, step = tp_parts(cfg, TP_SIZE, "float32", seed=1,
+                                  zero1=False, ep=EP_SIZE)
+    start = {n: p.detach().clone() for n, p in state.params.items()}
+    comm.collective_bytes.clear()
+    with Capture(expert_mlps.ExpertMLPs, "_forward_blockwise_ep",
+                 by_ref=(0,)) as bank_in:
+        metrics = run(step, state)
+    ep_bytes = dict(comm.collective_bytes)
+    worst, worst_name = 0.0, None
+    for n, p in state.params.items():
+        diff = ((p.detach() - start[n]).cpu() - kept[n]).double()
+        sums = torch.stack([diff.pow(2).sum(),
+                            kept[n].double().pow(2).sum()]).to(p.device)
+        for ax in sorted(grads.spec_axes(pm.specs[n])):
+            sums = comm.all_reduce(sums, ax)
+        rel = float(torch.sqrt(sums[0] / sums[1]))
+        if rel > worst:
+            worst, worst_name = rel, n
+    if not worst <= 1e-3:
+        raise AssertionError(f"train_mixtral_ep_cross_check: {worst_name}'s "
+                             f"update differs by {worst} of its norm")
+    (bank, x, gates, idx, *_), _, _ = bank_in.calls[0]
+    del kept, start, pm, state, step, bank_in
+    free_cuda()
+    gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        7 + mesh.axis_rank(mesh.EP_AXIS)), dtype=x.dtype).to(x.device)
+    chunk = ep_chunk_checks(ep_bank_variants(bank, x, gates, idx, gy),
+                            x.is_cuda)
+    del bank, x, gates, idx, gy
+    free_cuda()
+    return dict(coords=mesh.coords(), metrics=metrics, reference=ref,
+                update_rel_diff=(worst, worst_name), per_chunk=chunk,
+                gloo_bytes_ep1=ref_bytes, gloo_bytes_ep2=ep_bytes,
+                ep1_s=ref_s, run_s=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -7788,6 +8316,105 @@ def check_train_mixtral_tp_cross(smi, outs, layers, seq, steps):
          tp1_s=outs[0]["tp1_s"], rank_done_s=[o["done_s"] for o in outs])
 
 
+def check_train_mixtral_ep(smi, outs, steps, seq, layers):
+    """``train_mixtral_ep``: every rank's losses finite and equal, its
+    bank ``[E/ep, H, 2, I/tp]``, K2-K5, K7 and K8 each launched layers x
+    steps times, the first launch of each held to its plain version within
+    2e-2 (K2-K4) and 1e-2 (K5, K7, K8, bf16), the sentinel blocks seen
+    and exact (:func:`glu_holds`), nothing staged through the host."""
+    from neuronx_distributed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+
+    for r, o in enumerate(outs):
+        for key in ("losses", "grad_norms"):
+            if not (np.isfinite(o[key]).all()
+                    and np.allclose(o[key], outs[0][key], rtol=1e-6,
+                                    atol=0)):
+                raise AssertionError(f"train_mixtral_ep: rank {r} {key} "
+                                     f"{o[key]} vs {outs[0][key]}")
+        want = (MIXTRAL_8X7B.num_experts // EP_SIZE,
+                MIXTRAL_8X7B.intermediate_size // TP_SIZE)
+        if (o["local_bank"][0], o["local_bank"][-1]) != want:
+            raise AssertionError(f"train_mixtral_ep: rank {r} bank "
+                                 f"{o['local_bank']}")
+        for name, n in o["launches"].items():
+            if n != layers * steps:
+                raise AssertionError(f"train_mixtral_ep: rank {r} launched "
+                                     f"{name} {n} times, want "
+                                     f"{layers * steps}")
+        for name, err in o["holds"].items():
+            tol = 1e-2 if name.startswith("grouped") else 2e-2
+            if not err <= tol:
+                raise AssertionError(f"train_mixtral_ep: rank {r} {name} "
+                                     f"differs from plain by {err}")
+        if any(o["host_staged_bytes"].values()):
+            raise AssertionError(f"train_mixtral_ep: rank {r} staged "
+                                 f"{o['host_staged_bytes']}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    emit("train_mixtral_ep", card=smi, layers=layers, seq=seq, steps=steps,
+         world=TP_WORLD, tp=TP_SIZE, dp=TP_WORLD // TP_SIZE, ep=EP_SIZE,
+         dp_exp=TP_WORLD // TP_SIZE // EP_SIZE, zero1=True,
+         compute_dtype="bfloat16", moe_dispatch="blockwise",
+         moe_block_size=64, ep_wire_dtype="fp32", ep_overlap=False,
+         losses=outs[0]["losses"], grad_norms=outs[0]["grad_norms"],
+         step_ms_by_rank=[o["step_ms"] for o in outs],
+         peak_gib_by_rank=[o["peak_gib"] for o in outs],
+         load_peak_gib_by_rank=[o["load_peak_gib"] for o in outs],
+         launches_by_rank=[o["launches"] for o in outs],
+         held_err_by_rank=[o["holds"] for o in outs],
+         sentinel_by_rank=[o["sentinel"] for o in outs],
+         local_bank=outs[0]["local_bank"], local_shape=outs[0]["local_shape"],
+         timing_local_shape=outs[0]["timing"],
+         gloo_bytes_by_rank=[o["collective_bytes"] for o in outs],
+         gloo_bytes_total=sum(sum(o["collective_bytes"].values())
+                              for o in outs),
+         host_staged_bytes_total=sum(sum(o["host_staged_bytes"].values())
+                                     for o in outs),
+         rank_init_s=[o["init_s"] for o in outs],
+         rank_run_s=[o["run_s"] for o in outs],
+         rank_holds_s=[o["holds_s"] for o in outs],
+         timing_s_rank0=outs[0]["timing_s"],
+         rank_done_s=[o["done_s"] for o in outs])
+    TP_RESULTS["train_mixtral_ep"] = dict(launches=launches, outs=outs)
+    return launches
+
+
+def check_train_mixtral_ep_cross(smi, outs, layers, seq, steps):
+    """``train_mixtral_ep_cross_check``: the ep=2 step against the ep=1
+    step at the same tp=2 x dp=2 layout, from the same weights and batch:
+    the first loss within 1e-6 relative, later losses 1e-4, grad norms
+    1e-3, each parameter's update within 1e-3 of its norm (checked on the
+    ranks); the per-chunk dispatch on layer 0's inputs
+    (:func:`ep_chunk_checks`, on every rank)."""
+    for r, o in enumerate(outs):
+        for i, ((le, ne), (l1, n1)) in enumerate(zip(o["metrics"],
+                                                     o["reference"])):
+            tol = 1e-6 if i == 0 else 1e-4
+            if not abs(le - l1) <= tol * abs(l1):
+                raise AssertionError(f"train_mixtral_ep_cross_check: rank "
+                                     f"{r} step {i + 1} loss {le} vs {l1}")
+            if not abs(ne - n1) <= 1e-3 * abs(n1):
+                raise AssertionError(f"train_mixtral_ep_cross_check: rank "
+                                     f"{r} step {i + 1} norm {ne} vs {n1}")
+        if not o["update_rel_diff"][0] <= 1e-3:
+            raise AssertionError(f"train_mixtral_ep_cross_check: rank {r} "
+                                 f"update {o['update_rel_diff']}")
+    emit("train_mixtral_ep_cross_check", card=smi, layers=layers, seq=seq,
+         steps=steps, tp=TP_SIZE, dp=TP_WORLD // TP_SIZE, ep=EP_SIZE,
+         loss_ep2=[m[0] for m in outs[0]["metrics"]],
+         loss_ep1=[m[0] for m in outs[0]["reference"]],
+         grad_norm_ep2=[m[1] for m in outs[0]["metrics"]],
+         grad_norm_ep1=[m[1] for m in outs[0]["reference"]],
+         max_update_rel_diff=max(o["update_rel_diff"][0] for o in outs),
+         max_update_rel_diff_param=max(
+             (o["update_rel_diff"] for o in outs))[1],
+         per_chunk_by_rank=[o["per_chunk"] for o in outs],
+         gloo_bytes_ep1_by_rank=[o["gloo_bytes_ep1"] for o in outs],
+         gloo_bytes_ep2_by_rank=[o["gloo_bytes_ep2"] for o in outs],
+         ep1_s=outs[0]["ep1_s"], rank_run_s=[o["run_s"] for o in outs],
+         rank_done_s=[o["done_s"] for o in outs])
+
+
 TP_RESULTS = {}
 
 
@@ -7913,23 +8540,33 @@ def run_phases(smi, kind, cpu_side):
     family_launches = phase_train_families()
     vit_captures = phase_vit_serve()
     phase_families_cross_check()
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_lora_", dir=build)
+    # the world of phases 52-63 starts its processes beside the LoRA
+    # phases (its ranks wait for their turn, the card left to the phases)
+    tp_started = start_train_tp()
     try:
-        adapters, lora_launches = phase_lora_train(workdir)
-        lora_k1, lora_replays = phase_lora_serve(adapters, ecfg)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    phase_lora_cross_check(cpu_side)
-    # the router phases run on the host's clock (replica health) and with
-    # the router module's own classes: the thread, whose router_cross_check
-    # half (its last job) swaps them under its tap, is idle before they
-    # start; they come last, so that the thread's jobs never hold them up
-    cpu_side.wait_idle()
-    router_launches = phase_router(quarter, ecfg)
-    fabric_launches = phase_fabric(eighth, ecfg)
-    elastic_launches, elastic_replayed = phase_router_elastic(half, ecfg)
-    phase_router_cross_check(LLAMA3_8B, cpu_side)
-    tp_launches = phase_train_tp(smi)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_lora_", dir=build)
+        try:
+            adapters, lora_launches = phase_lora_train(workdir)
+            lora_k1, lora_replays = phase_lora_serve(adapters, ecfg)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        phase_lora_cross_check(cpu_side)
+        # the router phases run on the host's clock (replica health) and
+        # with the router module's own classes: the thread, whose
+        # router_cross_check half (its last job) swaps them under its tap,
+        # is idle before they start, and so is the world's start; they
+        # come last, so that the thread's jobs never hold them up
+        cpu_side.wait_idle()
+        tp_started["world"].wait_ready()
+        router_launches = phase_router(quarter, ecfg)
+        fabric_launches = phase_fabric(eighth, ecfg)
+        elastic_launches, elastic_replayed = phase_router_elastic(half,
+                                                                  ecfg)
+        phase_router_cross_check(LLAMA3_8B, cpu_side)
+    except BaseException:
+        abort_train_tp(tp_started)
+        raise
+    tp_launches = phase_train_tp(smi, tp_started)
 
     main_case = next(c for c in cases if c["case"] == "bf16")
     summary = [{
@@ -8021,6 +8658,8 @@ def run_phases(smi, kind, cpu_side):
                                   tp_launches["train_tp_loop"][name],
                               "train_mixtral_tp":
                                   tp_launches["train_mixtral_tp"][name],
+                              "train_mixtral_ep":
+                                  tp_launches["train_mixtral_ep"][name],
                               "train_pp": tp_launches["train_pp"][name],
                               "train_mixtral_pp":
                                   tp_launches["train_mixtral_pp"][name],
@@ -8076,10 +8715,13 @@ def run_phases(smi, kind, cpu_side):
                 "train_mixtral_remat": remat_launches[name],
                 "serve_graph_mixtral": graph_moe[name]["launches"],
                 **({"train_mixtral_tp": tp_launches["train_mixtral_tp"][
-                    name], "train_mixtral_pp": tp_launches[
-                        "train_mixtral_pp"][name]}
+                    name], "train_mixtral_ep": tp_launches[
+                        "train_mixtral_ep"][name], "train_mixtral_pp":
+                    tp_launches["train_mixtral_pp"][name]}
                    if name == "grouped_glu" else {})},
             **({"train_mixtral_tp_local_case": moe_tp_case(name),
+                "train_mixtral_ep_local_case": moe_tp_case(
+                    name, "train_mixtral_ep"),
                 "train_mixtral_pp_local_case": moe_tp_case(
                     name, "train_mixtral_pp")}
                if name == "grouped_glu" else {}),
@@ -8105,9 +8747,13 @@ def run_phases(smi, kind, cpu_side):
                               "train_mixtral_remat": remat_launches[name],
                               "train_mixtral_tp":
                                   tp_launches["train_mixtral_tp"][name],
+                              "train_mixtral_ep":
+                                  tp_launches["train_mixtral_ep"][name],
                               "train_mixtral_pp":
                                   tp_launches["train_mixtral_pp"][name]},
             "train_mixtral_tp_local_case": moe_tp_case(name),
+            "train_mixtral_ep_local_case": moe_tp_case(name,
+                                                       "train_mixtral_ep"),
             "train_mixtral_pp_local_case": moe_tp_case(name,
                                                        "train_mixtral_pp")})
     print(json.dumps({"kernels": summary}), flush=True)
@@ -8119,8 +8765,9 @@ def run_phases(smi, kind, cpu_side):
 def moe_tp_case(name, phase="train_mixtral_tp"):
     """The grouped-GLU entry ``name`` timed at ``phase``'s local width by
     rank 0 (``train_mixtral_tp``: I/tp at tp=4; ``train_mixtral_pp``: at
-    tp=2), with its launches by rank and its first launch's error against
-    plain on every rank."""
+    tp=2; ``train_mixtral_ep``: E/ep = 4 experts and the sentinel's blocks
+    at tp=2), with its launches by rank and its first launch's error
+    against plain on every rank."""
     outs = TP_RESULTS[phase]["outs"]
     t = outs[0]["timing"][name]
     return dict(shape=outs[0]["local_shape"],
@@ -8135,9 +8782,11 @@ def run_only(names) -> None:
     """``--only a,b``: the device line, the build and the named phases of
     the speculation, migration, router, captured-serving, model-family,
     LoRA and tensor-parallel groups alone (``lora`` is phases 49 and 50
-    together, any of the tensor-parallel names phases 52-57),
-    for a short run while such a phase is worked on; no summary and no
-    result line."""
+    together, any of the tensor-parallel names but the expert-parallel
+    ones phases 52-63 in one world, ``train_mixtral_ep`` or
+    ``train_mixtral_ep_cross_check`` phases 62 and 63 in a world of their
+    own), for a short run while such a phase is worked on; no summary and
+    no result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8186,8 +8835,10 @@ def run_only(names) -> None:
               "families_cross_check": phase_families_cross_check,
               "lora": lambda: run_lora(ecfg),
               "lora_cross_check": lambda: phase_lora_cross_check(None),
-              "train_tp": lambda: phase_train_tp(smi)}
+              "train_tp": lambda: phase_train_tp(smi),
+              "train_mixtral_ep": lambda: phase_train_ep(smi)}
     # one world of ranks runs every tensor-parallel phase
+    phases["train_mixtral_ep_cross_check"] = phases["train_mixtral_ep"]
     for name in ("train_tp_cross_check", "train_tp_loop",
                  "train_tp_loop_cross_check", "train_mixtral_tp",
                  "train_mixtral_tp_cross_check", "train_pp",

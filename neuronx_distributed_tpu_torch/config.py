@@ -4,9 +4,9 @@
 :func:`neuronx_distributed_config` lays the ranks of the default
 ``torch.distributed`` process group out as the mesh (tensor and data
 parallel, ZeRO-1 over the data ranks, and pipeline parallel with a
-:class:`PipelineConfig`); context and expert parallelism,
-collective-matmul overlap and activation compression wait for later
-slices and raise.
+:class:`PipelineConfig`, expert parallel over the data ranks); context
+parallelism, collective-matmul overlap and activation compression wait
+for later slices and raise.
 """
 
 from __future__ import annotations
@@ -56,9 +56,14 @@ def mesh_factorization(
 class ParallelConfig:
     """The mesh's degrees (the reference's ``ParallelConfig``, for the
     fields the port has); data parallel is the world over the rest.
-    Tensor, pipeline and data parallelism run: a context or expert degree
-    above 1 raises, and so do ``tp_overlap_comm=True`` and a compressed
-    ``tp_activation_comm_dtype``."""
+    Tensor, pipeline, data and expert parallelism run (expert parallelism
+    splits the data ranks, ``dp*cp % ep == 0``, and ``dp_exp = dp*cp/ep``
+    ranks replicate each expert shard). ``moe_ep_wire_dtype`` (``"fp32"``,
+    ``"int8"``, ``"fp8"``) and ``moe_overlap_dispatch`` (None: the ring at
+    ep >= 4; True, False) pick the expert-parallel dispatch
+    (:mod:`.parallel.ep_dispatch`), with the reference's checks. A
+    context degree above 1 raises, and so do ``tp_overlap_comm=True`` and
+    a compressed ``tp_activation_comm_dtype``."""
 
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -66,6 +71,8 @@ class ParallelConfig:
     expert_parallel_size: int = 1
     tp_overlap_comm: Optional[bool] = None
     tp_activation_comm_dtype: str = "fp32"
+    moe_ep_wire_dtype: str = "fp32"
+    moe_overlap_dispatch: Optional[bool] = None
 
     def __post_init__(self) -> None:
         for f in ("tensor_parallel_size", "pipeline_parallel_size",
@@ -73,9 +80,23 @@ class ParallelConfig:
             v = getattr(self, f)
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{f} must be a positive int, got {v!r}")
-        later = [f"{f}={getattr(self, f)}" for f in (
-            "context_parallel_size", "expert_parallel_size")
-            if getattr(self, f) != 1]
+        if self.moe_ep_wire_dtype not in _WIRE_DTYPES:
+            raise ValueError(
+                f"moe_ep_wire_dtype must be one of {_WIRE_DTYPES}, "
+                f"got {self.moe_ep_wire_dtype!r}")
+        if self.moe_overlap_dispatch not in (None, True, False):
+            raise ValueError(
+                "moe_overlap_dispatch must be None (auto), True, or False, "
+                f"got {self.moe_overlap_dispatch!r}")
+        if (self.moe_overlap_dispatch is True
+                and self.expert_parallel_size <= 1):
+            raise ValueError(
+                "moe_overlap_dispatch=True requires expert_parallel_size > "
+                f"1 (got ep={self.expert_parallel_size}): with a single EP "
+                "rank there is no dispatch to decompose — use None (auto) "
+                "or raise expert_parallel_size")
+        later = [f"context_parallel_size={self.context_parallel_size}"
+                 ] if self.context_parallel_size != 1 else []
         if self.tp_overlap_comm:
             later.append("tp_overlap_comm=True")
         if self.tp_activation_comm_dtype != "fp32":
@@ -83,9 +104,19 @@ class ParallelConfig:
                          f"{self.tp_activation_comm_dtype!r}")
         if later:
             raise ValueError(f"{', '.join(later)}: not in the port yet (a "
-                             "later slice); it runs tensor, pipeline and "
-                             "data parallelism")
+                             "later slice); it runs tensor, pipeline, "
+                             "expert and data parallelism")
+        if self.pipeline_parallel_size > 1 and self.expert_parallel_size > 1:
+            raise ValueError(
+                f"pipeline_parallel_size={self.pipeline_parallel_size} x "
+                f"expert_parallel_size={self.expert_parallel_size}: not in "
+                "the port yet (a later slice); the pipeline executors run "
+                "the experts at ep = 1")
 
+
+#: the wire dtypes of the expert-parallel dispatch (those of
+#: :mod:`.parallel.wire_codec`)
+_WIRE_DTYPES = ("fp32", "int8", "fp8")
 
 #: the schedules :class:`PipelineConfig` names (JAX ``config.py:269``)
 PIPELINE_SCHEDULES = ("gpipe", "1f1b", "interleaved", "inference")
@@ -227,7 +258,9 @@ def neuronx_distributed_config(
         checkpoint_config: Optional[CheckpointConfig] = None,
         sequence_parallel: bool = False,
         init_mesh: bool = True, tp_overlap_comm: Optional[bool] = None,
-        tp_activation_comm_dtype: str = "fp32") -> NxDConfig:
+        tp_activation_comm_dtype: str = "fp32",
+        moe_ep_wire_dtype: str = "fp32",
+        moe_overlap_dispatch: Optional[bool] = None) -> NxDConfig:
     """Build an :class:`NxDConfig` and, by default, lay the ranks out
     (:func:`.parallel.mesh.initialize_model_parallel`), as the reference
     does (JAX ``config.py:356``). The world is the default
@@ -242,7 +275,9 @@ def neuronx_distributed_config(
             context_parallel_size=context_parallel_size,
             expert_parallel_size=expert_parallel_size,
             tp_overlap_comm=tp_overlap_comm,
-            tp_activation_comm_dtype=tp_activation_comm_dtype),
+            tp_activation_comm_dtype=tp_activation_comm_dtype,
+            moe_ep_wire_dtype=moe_ep_wire_dtype,
+            moe_overlap_dispatch=moe_overlap_dispatch),
         optimizer=optimizer_config or OptimizerConfig(),
         pipeline=pipeline_config or PipelineConfig(),
         mixed_precision=mixed_precision_config or MixedPrecisionConfig(),
@@ -256,10 +291,12 @@ def neuronx_distributed_config(
         from .parallel import mesh
 
         if not dist.is_initialized() and (tensor_parallel_size > 1
-                                          or pipeline_parallel_size > 1):
+                                          or pipeline_parallel_size > 1
+                                          or expert_parallel_size > 1):
             raise ValueError(
                 f"tensor_parallel_size={tensor_parallel_size} x "
-                f"pipeline_parallel_size={pipeline_parallel_size} needs "
+                f"pipeline_parallel_size={pipeline_parallel_size} x "
+                f"expert_parallel_size={expert_parallel_size} needs "
                 "that many ranks, and no torch.distributed process group is "
                 "initialised: start the ranks first "
                 "(utils.cpu_mesh.run_ranks), or pass init_mesh=False")
@@ -277,7 +314,9 @@ def configure_model(cfg: NxDConfig, model_cfg: Any) -> Any:
     fields the port's configs have: ``sequence_parallel``, ``remat =
     activation_checkpoint.mode != "none"``, ``dtype`` from
     ``mixed_precision.compute_dtype`` and ``tp_size`` from
-    ``parallel.tensor_parallel_size``. The policy is not carried (the
+    ``parallel.tensor_parallel_size``, and for a config that has them
+    ``ep_size``, ``moe_ep_wire_dtype`` and ``moe_overlap_dispatch`` from
+    ``parallel`` (JAX ``config.py:46-49``). The policy is not carried (the
     reference does not carry it either). An MoE config is then held to
     :func:`.modules.moe.validate_moe_config`."""
     updates = {}
@@ -286,6 +325,12 @@ def configure_model(cfg: NxDConfig, model_cfg: Any) -> Any:
         updates["sequence_parallel"] = cfg.sequence_parallel
     if "tp_size" in fields:
         updates["tp_size"] = cfg.parallel.tensor_parallel_size
+    if "ep_size" in fields:
+        updates["ep_size"] = cfg.parallel.expert_parallel_size
+    if "moe_ep_wire_dtype" in fields:
+        updates["moe_ep_wire_dtype"] = cfg.parallel.moe_ep_wire_dtype
+    if "moe_overlap_dispatch" in fields:
+        updates["moe_overlap_dispatch"] = cfg.parallel.moe_overlap_dispatch
     if "remat" in fields:
         updates["remat"] = cfg.activation_checkpoint.mode != "none"
     if "dtype" in fields:

@@ -24,11 +24,13 @@ It reads numpy arrays and imports nothing of JAX nor ``ml_dtypes``: an
 fp8 or bf16 array (an ``ml_dtypes`` type) crosses as its bits, viewed as
 the torch type of the same name.
 
-Tensor parallelism: :func:`param_specs` is the reference's partition-spec
-table of a Llama or a Mixtral (which dim of each parameter shards over
-tp: Mixtral's experts over their intermediate width, its router whole),
-:func:`shard_state_dict` takes a tp rank's shards of a whole state dict
-and :func:`gather_state_dict` puts the ranks' shards back together;
+Tensor and expert parallelism: :func:`param_specs` is the reference's
+partition-spec table of a Llama or a Mixtral (which dim of each parameter
+shards over tp, and over ep: Mixtral's experts over their intermediate
+width and, at ``ep_size > 1``, their expert dim; its router whole),
+:func:`shard_state_dict` takes a rank's shards of a whole state dict by
+its coords and :func:`gather_state_dict` puts the ranks' shards back
+together;
 :func:`params_from_jax` given ``coords`` hands a rank its shards of JAX's
 tree.
 """
@@ -106,23 +108,29 @@ def _family_params_from_jax(cfg, p: Mapping[str, Any]
 
 
 TP = "tp"
+EP = "ep"
 Spec = Tuple[Optional[str], ...]
+
+
+def _ep_size(cfg: LlamaConfig) -> int:
+    return getattr(cfg, "ep_size", 1)
 
 
 def _llama_spec(cfg: LlamaConfig, name: str, ndim: int) -> Spec:
     """The partition spec of one Llama or Mixtral parameter at ``cfg``'s
-    tp (JAX ``nn.get_partition_spec`` of the same model, per layer; the
-    expert bank's ``ep`` dim is whole at ep = 1)."""
+    tp and ep (JAX ``nn.get_partition_spec`` of the same model, per layer;
+    the expert bank's ``ep`` dim is whole, None, at ep = 1)."""
     leaf = name.split(".")[-1]
     owner = name.split(".")[-2] if "." in name else ""
+    ep = EP if _ep_size(cfg) > 1 else None
     if name == "embed.embedding":
         return (TP, None)
     if owner == "router" and leaf == "kernel":
         return (None, None)
     if owner == "experts" and leaf == "gate_up":
-        return (None, None, None, TP)
+        return (ep, None, None, TP)
     if owner == "experts" and leaf == "down":
-        return (None, TP, None)
+        return (ep, TP, None)
     if leaf == "scale":
         return (None,)
     if owner == "qkv" and leaf == "q_kernel":
@@ -146,7 +154,8 @@ def param_specs(cfg: LlamaConfig,
                 names: Optional[List[Tuple[str, int]]] = None
                 ) -> Dict[str, Spec]:
     """``{name: spec}`` for every parameter of a Llama or Mixtral ``cfg``
-    (or the ``(name, ndim)`` pairs given): per dim None or ``"tp"``, the
+    (or the ``(name, ndim)`` pairs given): per dim None, ``"tp"`` or
+    ``"ep"`` (the expert banks' expert dim at ``ep_size > 1``), the
     reference's ``nn.get_partition_spec`` of the same model (its scanned
     leaves without the layer dim). LoRA and the quantized tiers are not
     sharded by the port and raise."""
@@ -157,7 +166,8 @@ def param_specs(cfg: LlamaConfig,
         raise ValueError("the port shards plain Llama and Mixtral configs "
                          "only (no LoRA or weight_quant)")
     if names is None:
-        full = replace(cfg, tp_size=None, sequence_parallel=False)
+        full = replace(cfg, tp_size=None, sequence_parallel=False,
+                       **({"ep_size": 1} if _ep_size(cfg) > 1 else {}))
         cls = (MixtralForCausalLM if isinstance(cfg, MixtralConfig)
                else LlamaForCausalLM)
         names = [(n, t.dim()) for n, t in cls(
@@ -177,51 +187,69 @@ def sequence_parallel_names(cfg: LlamaConfig,
     return [n for n in names if n.endswith("norm.scale")]
 
 
-def _shard_dim(spec: Spec) -> Optional[int]:
-    return next((d for d, a in enumerate(spec) if a == TP), None)
+def _sizes(cfg: LlamaConfig) -> Dict[str, int]:
+    return {TP: cfg.tp, EP: _ep_size(cfg)}
 
 
 def shard_state_dict(cfg: LlamaConfig, sd: Mapping[str, torch.Tensor],
                      coords: Mapping[str, int]) -> Dict[str, torch.Tensor]:
-    """Tensor-parallel rank ``coords["tp"]``'s shards of the whole state
-    dict ``sd`` (copies, so the whole tensors can be freed), by
-    :func:`param_specs` at ``cfg.tp``; replicated tensors are copied
-    whole."""
+    """The shards (copies, so the whole tensors can be freed) of the whole
+    state dict ``sd`` that the rank at ``coords`` (``{"tp": i, "ep": j}``,
+    a missing axis 0) holds, by :func:`param_specs` at ``cfg.tp`` and
+    ``cfg.ep_size``; replicated tensors are copied whole."""
     specs = param_specs(cfg, [(n, t.dim()) for n, t in sd.items()])
-    rank = int(coords.get(TP, 0))
-    return {name: shard_tensor(name, t, specs[name], cfg.tp, rank)
+    return {name: shard_tensor(name, t, specs[name], _sizes(cfg), coords)
             for name, t in sd.items()}
 
 
-def shard_tensor(name: str, t: torch.Tensor, spec: Spec, tp: int,
-                 rank: int) -> torch.Tensor:
-    """Tensor-parallel rank ``rank``'s shard (a copy) of the whole tensor
-    ``t`` under ``spec`` at ``tp``; the whole of it where the spec shards
-    no dim."""
-    d = _shard_dim(spec)
-    if d is None or tp == 1:
-        return t.clone()
-    if t.shape[d] % tp:
-        raise ValueError(f"{name} dim {d} ({t.shape[d]}) not divisible by "
-                         f"tp {tp}")
-    n = t.shape[d] // tp
-    return t.narrow(d, rank * n, n).clone()
+def shard_tensor(name: str, t: torch.Tensor, spec: Spec,
+                 sizes: Mapping[str, int],
+                 coords: Mapping[str, int]) -> torch.Tensor:
+    """The shard (a copy) of the whole tensor ``t`` that the rank at
+    ``coords`` holds under ``spec`` over axes of ``sizes`` (each a
+    mapping by axis name); the whole of it where the spec shards no dim
+    over an axis above 1."""
+    for d, a in enumerate(spec):
+        n = sizes.get(a, 1) if isinstance(a, str) else 1
+        if n == 1:
+            continue
+        if t.shape[d] % n:
+            raise ValueError(f"{name} dim {d} ({t.shape[d]}) not divisible "
+                             f"by {a} {n}")
+        m = t.shape[d] // n
+        t = t.narrow(d, int(coords.get(a, 0)) * m, m)
+    return t.clone()
 
 
 def gather_state_dict(cfg: LlamaConfig,
                       shards: List[Mapping[str, torch.Tensor]]
                       ) -> Dict[str, torch.Tensor]:
-    """The inverse of :func:`shard_state_dict`: ``shards[r]`` is tp rank
-    ``r``'s dict; sharded tensors are concatenated along their tp dim,
-    replicated ones taken from rank 0."""
-    if len(shards) != cfg.tp:
-        raise ValueError(f"{len(shards)} shards for tp_size {cfg.tp}")
+    """The inverse of :func:`shard_state_dict`: ``shards[ep_rank * tp +
+    tp_rank]`` is the dict of the rank at those coords (``shards[r]`` the
+    tp rank ``r``'s at ep = 1); sharded tensors are concatenated along
+    their sharded dims, replicated ones taken from the first rank."""
+    sizes = _sizes(cfg)
+    tp, ep = sizes[TP], sizes[EP]
+    if len(shards) != tp * ep:
+        raise ValueError(f"{len(shards)} shards for tp_size {tp} x ep_size "
+                         f"{ep}")
     specs = param_specs(cfg, [(n, t.dim()) for n, t in shards[0].items()])
     out = {}
     for name, t in shards[0].items():
-        d = _shard_dim(specs[name])
-        out[name] = (t.clone() if d is None or cfg.tp == 1 else
-                     torch.cat([s[name] for s in shards], dim=d))
+        spec = specs[name]
+        dims = {a: d for d, a in enumerate(spec) if sizes.get(a, 1) > 1}
+        if not dims:
+            out[name] = t.clone()
+            continue
+
+        def whole_tp(e):
+            if TP not in dims:
+                return shards[e * tp][name]
+            return torch.cat([shards[e * tp + r][name] for r in range(tp)],
+                             dim=dims[TP])
+        out[name] = (torch.cat([whole_tp(e) for e in range(ep)],
+                               dim=dims[EP]) if EP in dims
+                     else whole_tp(0).clone())
     return out
 
 
@@ -233,7 +261,8 @@ def params_from_jax(cfg: LlamaConfig, tree: Mapping[str, Any],
     ``ViTForImageClassification`` params (numpy arrays, with or without the
     outer ``"params"`` key) -> the port's state dict, in the tree's own
     dtypes. ``cfg`` names the family. With ``coords`` (a rank's ``{"tp":
-    index}``) the whole tree gives that rank's shards at ``cfg.tp``."""
+    i, "ep": j}``) the whole tree gives that rank's shards at ``cfg.tp``
+    and ``cfg.ep_size``."""
     if coords is not None:
         return shard_state_dict(cfg, params_from_jax(cfg, tree), coords)
     p = tree.get("params", tree)

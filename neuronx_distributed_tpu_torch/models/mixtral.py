@@ -1,6 +1,6 @@
 """Mixtral, the MoE Llama (counterpart of
-``neuronx_distributed_tpu/models/mixtral.py`` at ep = 1): the Llama
-decoder with the MLP swapped for :class:`..modules.moe.MoE`.
+``neuronx_distributed_tpu/models/mixtral.py``): the Llama decoder with the
+MLP swapped for :class:`..modules.moe.MoE`.
 
 At ``tp_size > 1`` (training across ranks, the reference's explicit form)
 the attention is Llama's, the router is whole on every rank, and the
@@ -9,6 +9,14 @@ experts and shared experts are sharded over the intermediate width
 sees whole sequences: its input is gathered with ``to_model_parallel=
 False`` (backward a split: the bank's ``copy_to`` already sums its input
 gradient over tp) and its output split again after (JAX ``:127-155``).
+
+At ``ep_size > 1`` (training across ranks: ``expert_parallel_size`` splits
+the data ranks) each rank's expert bank holds ``E / ep`` experts, ``gate_up
+[E/ep, H, 2, I/tp]`` and ``down [E/ep, I/tp, H]``, and the bank runs its
+expert-parallel dispatch (:class:`..modules.moe.ExpertMLPs`), over the wire
+``moe_ep_wire_dtype`` and, with ``moe_overlap_dispatch`` (None: at ep >=
+4), the ring (JAX ``:41-47``, ``:143-144``). The JAX GSPMD step computes
+the same function over the global batch.
 
 The state dict keeps the JAX names and layouts: per layer
 ``moe.router.kernel [H, E]`` (held in fp32), ``moe.experts.gate_up [E, H, 2,
@@ -73,9 +81,21 @@ class MixtralConfig(LlamaConfig):
     # weights of the router's aux losses in the train loss
     router_aux_coef: float = 0.02
     router_z_coef: float = 0.001
+    # the expert-parallel wire ("fp32" | "int8" | "fp8", blockwise only)
+    # and the ring (None: at ep >= 4); :mod:`..parallel.ep_dispatch`
+    moe_ep_wire_dtype: str = "fp32"
+    moe_overlap_dispatch: Optional[bool] = None
+    # the expert-parallel degree the bank's shards were cut for
+    ep_size: int = 1
 
     def __post_init__(self):
         super().__post_init__()
+        if not isinstance(self.ep_size, int) or self.ep_size < 1:
+            raise ValueError(f"ep_size must be a positive int, got "
+                             f"{self.ep_size!r}")
+        if self.num_experts % self.ep_size:
+            raise ValueError(f"num_experts {self.num_experts} not divisible "
+                             f"by ep_size {self.ep_size}")
         later = ["tie_embeddings"] if self.tie_embeddings else []
         if self.loss_chunk is not None:
             later.append("loss_chunk")
@@ -155,7 +175,9 @@ class MixtralDecoderLayer(nn.Module):
                        shared_expert_intermediate=(
                            cfg.shared_expert_intermediate),
                        dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                       device=device, tp_size=cfg.tp)
+                       device=device, tp_size=cfg.tp, ep_size=cfg.ep_size,
+                       ep_wire_dtype=cfg.moe_ep_wire_dtype,
+                       ep_overlap=cfg.moe_overlap_dispatch)
         self.sp = cfg.sp
 
     def forward(self, x, cos, sin, positions,
@@ -252,7 +274,10 @@ class MixtralForCausalLM(LlamaForCausalLM):
 def build_model(cfg: MixtralConfig, state_dict: Dict[str, torch.Tensor],
                 device: DeviceLike = None) -> MixtralForCausalLM:
     """A frozen serving model in ``cfg.dtype``, the router in fp32
-    (:func:`.llama.build_model`)."""
+    (:func:`.llama.build_model`); serving runs at tp = ep = 1."""
+    if cfg.ep_size > 1:
+        raise ValueError(f"serving at ep_size={cfg.ep_size}: not in the "
+                         "port yet (a later slice); it serves at ep=1")
     return llama.build_model(cfg, state_dict, device, MixtralForCausalLM)
 
 

@@ -3,11 +3,10 @@
 MoE knobs raise at configure time with the JAX validator's messages,
 instead of surfacing as shape errors inside a step.
 
-The port runs at tensor- and expert-parallel size 1, where the JAX
-checks of ``num_experts`` against the expert-parallel size and of
-``intermediate_size`` against the tensor-parallel size always pass, and
-has no EP wire or overlapped-dispatch fields, whose checks read their
-defaults (a dataclass that has the fields is held as in JAX).
+With the framework config it also holds ``num_experts`` to the
+expert-parallel size and ``intermediate_size`` to the tensor-parallel
+size, and ``moe_overlap_dispatch=True`` to an expert-parallel size above
+1, as JAX does.
 """
 
 from __future__ import annotations
@@ -30,7 +29,8 @@ def validate_moe_config(model_cfg: Any, parallel_cfg: Optional[Any] = None):
     """Validate an MoE model config (any dataclass with ``num_experts``;
     others pass through) and return it unchanged. Raises ``ValueError``
     where the JAX validator raises; ``parallel_cfg`` is the framework
-    config, whose expert-parallel size is 1."""
+    config, whose expert- and tensor-parallel sizes the bank's widths must
+    divide."""
     f = {fl.name for fl in dataclasses.fields(model_cfg)}
     if "num_experts" not in f:
         return model_cfg
@@ -99,10 +99,12 @@ def validate_moe_config(model_cfg: Any, parallel_cfg: Optional[Any] = None):
                 f"the blockwise-EP token gather); got "
                 f"moe_dispatch={dispatch!r}")
     if overlap is True and parallel_cfg is not None:
-        raise ValueError(
-            "moe_overlap_dispatch=True requires expert_parallel_size "
-            "> 1 (got ep=1): a single EP rank has no dispatch to "
-            "decompose. Use None (auto) or raise expert_parallel_size.")
+        ep = parallel_cfg.parallel.expert_parallel_size
+        if ep <= 1:
+            raise ValueError(
+                "moe_overlap_dispatch=True requires expert_parallel_size "
+                f"> 1 (got ep={ep}): a single EP rank has no dispatch to "
+                "decompose. Use None (auto) or raise expert_parallel_size.")
 
     impl = getattr(model_cfg, "moe_expert_impl", "float")
     if impl not in _EXPERT_IMPLS:
@@ -116,4 +118,18 @@ def validate_moe_config(model_cfg: Any, parallel_cfg: Optional[Any] = None):
                 f"MX expert banks need hidden_size ({h}) and "
                 f"intermediate_size ({i}) divisible by the MX block "
                 f"({MX_BLOCK})")
+
+    if parallel_cfg is not None:
+        p = parallel_cfg.parallel
+        ep = p.expert_parallel_size
+        tp = p.tensor_parallel_size
+        if ep > 1 and e % ep != 0:
+            raise ValueError(
+                f"num_experts {e} not divisible by expert_parallel_size "
+                f"{ep}. Please adjust your configuration.")
+        i = getattr(model_cfg, "intermediate_size", 0)
+        if tp > 1 and i % tp != 0:
+            raise ValueError(
+                f"intermediate_size {i} not divisible by "
+                f"tensor_parallel_size {tp}")
     return model_cfg

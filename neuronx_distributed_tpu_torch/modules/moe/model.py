@@ -7,7 +7,9 @@ capacity or blockwise dispatch), ``"int8"``/``"fp8"``
 (:class:`...quantization.quantization_layers.QuantizedExpertMLPs`) or
 ``"mx_fp4"``/``"mx_fp8"`` (:class:`...quantization.mx_layers.MXExpertMLPs`).
 The quantized banks have the capacity path only, and refuse blockwise
-dispatch as the JAX layer does.
+dispatch as the JAX layer does; they are not sharded by the port, so they
+refuse tp or ep above 1. ``ep_wire_dtype`` and ``ep_overlap`` reach the
+float bank's expert-parallel dispatch (JAX ``model.py:66-67``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def _expert_bank(impl: str, num_experts: int, hidden: int,
                  intermediate: int, capacity_factor: float,
                  dispatch_mode: str, block_size: int, sentinel_empty: bool,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype],
-                 device, tp_size: int = 1) -> nn.Module:
+                 device, tp_size: int = 1, ep_size: int = 1,
+                 ep_wire_dtype: str = "fp32",
+                 ep_overlap: Optional[bool] = None) -> nn.Module:
     if impl not in EXPERT_IMPLS:
         raise ValueError(f"unknown expert_impl {impl!r}")
     if impl == "float":
@@ -71,10 +75,12 @@ def _expert_bank(impl: str, num_experts: int, hidden: int,
             capacity_factor=capacity_factor, dispatch_mode=dispatch_mode,
             block_size=block_size, sentinel_empty=sentinel_empty,
             dtype=dtype, param_dtype=param_dtype, device=device,
-            tp_size=tp_size)
-    if tp_size > 1:
-        raise ValueError(f"expert_impl={impl!r} at tp_size={tp_size}: the "
-                         "quantized banks are not sharded by the port")
+            tp_size=tp_size, ep_size=ep_size, ep_wire_dtype=ep_wire_dtype,
+            ep_overlap=ep_overlap)
+    if tp_size > 1 or ep_size > 1:
+        raise ValueError(f"expert_impl={impl!r} at tp_size={tp_size}, "
+                         f"ep_size={ep_size}: the quantized banks are not "
+                         "sharded by the port")
     if dispatch_mode != "capacity":
         raise ValueError(
             f"expert_impl={impl!r} supports only dispatch_mode='capacity' "
@@ -104,7 +110,9 @@ class MoE(nn.Module):
     ``dropped_fraction``. The Sinkhorn router takes no ``top_k`` (it picks
     one expert); the bank reads the router's width from its choices. At
     ``tp_size > 1`` the router is whole on every rank and sees every
-    token; the expert bank and the shared experts are sharded over I."""
+    token; the expert bank and the shared experts are sharded over I. At
+    ``ep_size > 1`` the bank holds ``E / ep_size`` experts (the router
+    stays whole)."""
 
     def __init__(self, num_experts: int, hidden: int, intermediate: int,
                  top_k: int = 2, capacity_factor: float = 2.0,
@@ -114,7 +122,9 @@ class MoE(nn.Module):
                  shared_expert_intermediate: int = 0,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: Optional[torch.dtype] = None, device=None,
-                 tp_size: int = 1):
+                 tp_size: int = 1, ep_size: int = 1,
+                 ep_wire_dtype: str = "fp32",
+                 ep_overlap: Optional[bool] = None):
         super().__init__()
         if router_type not in ROUTERS:
             raise ValueError(f"router_type must be one of {tuple(ROUTERS)}, "
@@ -126,7 +136,7 @@ class MoE(nn.Module):
         self.experts = _expert_bank(
             expert_impl, num_experts, hidden, intermediate, capacity_factor,
             dispatch_mode, block_size, sentinel_empty, dtype, param_dtype,
-            device, tp_size)
+            device, tp_size, ep_size, ep_wire_dtype, ep_overlap)
         self.shared = (SharedExperts(hidden, shared_expert_intermediate,
                                      dtype, param_dtype, device, tp_size)
                        if shared_expert_intermediate > 0 else None)

@@ -16,7 +16,11 @@ cotangent passed back whole (:class:`_DataMean`), so that the
 data-parallel mean of the ranks' gradients is the global loss's gradient.
 A product of local means averaged over the ranks is another number. The z-loss is a plain mean
 over tokens: each rank's local mean, averaged with the loss. The Sinkhorn
-router normalises over every token, so across data ranks it is refused.
+router normalises over every token: across data ranks its log-sum-exp and
+its column sums are taken over every data rank's tokens (two all-reduces
+for the log-sum-exp, one per iteration for the columns; none carries a
+gradient, since the choice is an argmax), as the reference's GSPMD step
+normalises over the global batch.
 """
 
 from __future__ import annotations
@@ -131,19 +135,29 @@ class RouterSinkhorn(RouterBase):
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Dict[str, torch.Tensor]]:
         """``x [T, H]`` -> ``(gates [T, 1] fp32, idx [T, 1] int32, aux)``."""
-        if comm.axis_size(ps.DATA_AXES) > 1:
-            raise ValueError("the Sinkhorn router across data-parallel "
-                             "ranks: not in the port yet (a later slice); "
-                             "it normalises over every token")
         logits = self.logits(x)
         probs = torch.softmax(logits, dim=-1)
-        pi = torch.exp(logits - torch.logsumexp(logits, dim=(0, 1)))
+        lg = logits.detach()
+        pi = torch.exp(lg - _global_logsumexp(lg))
         for _ in range(self.num_iters):
-            pi = pi / torch.clamp(pi.sum(0, keepdim=True), min=1e-9)
+            cols = comm.all_reduce(pi.sum(0, keepdim=True), ps.DATA_AXES)
+            pi = pi / torch.clamp(cols, min=1e-9)
             pi = pi / torch.clamp(pi.sum(1, keepdim=True), min=1e-9)
         idx = torch.argmax(pi, dim=-1)[:, None]
         gates = torch.gather(probs, 1, idx)
         return gates, idx.to(torch.int32), _aux(logits, probs, idx)
+
+
+def _global_logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over every element of ``logits`` on every data rank
+    (this rank's alone where it is the only one): the global max, then the
+    sum of ``exp(logits - max)`` over the ranks."""
+    if comm.axis_size(ps.DATA_AXES) == 1:
+        return torch.logsumexp(logits, dim=(0, 1))
+    m = comm.all_reduce(logits.amax().reshape(1), ps.DATA_AXES, op="max")
+    s = comm.all_reduce(torch.exp(logits - m).sum().reshape(1),
+                        ps.DATA_AXES)
+    return (m + torch.log(s))[0]
 
 
 class GroupLimitedRouter(RouterBase):

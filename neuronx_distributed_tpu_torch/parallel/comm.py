@@ -23,12 +23,17 @@ that it copies back to the card, on purpose and counted:
 :data:`host_staged_bytes` adds the bytes it moved to the host and back.
 Compute stays on the card. :data:`collective_bytes` counts every op's
 payload (its input and output bytes), staged or not.
+
+Gloo has no float8 types: :func:`all_gather`, :func:`all_to_all` and
+:func:`ppermute` move a float8 tensor as its bytes (``uint8``) and view
+the result back, so the quantized expert-parallel wire
+(:mod:`.ep_dispatch`) crosses as the codes themselves.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,6 +56,21 @@ def axis_size(axis: ps.Axis) -> int:
     """Ranks along ``axis``; 1 where the parallel state is not
     initialised."""
     return ps.axis_size(axis) if ps.model_parallel_is_initialized() else 1
+
+
+def combined_axis_index(axis: ps.Axis) -> int:
+    """This rank's index along ``axis`` (the flat index, major to minor,
+    over a tuple); 0 where the parallel state is not initialised (JAX
+    ``comm.combined_axis_index``)."""
+    return ps.axis_rank(axis) if ps.model_parallel_is_initialized() else 0
+
+
+_FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or its bytes for a float8 tensor, which gloo cannot move."""
+    return x.view(torch.uint8) if x.dtype in _FLOAT8 else x
 
 
 def _count(op: str, *tensors: torch.Tensor) -> None:
@@ -77,18 +97,21 @@ def all_reduce(x: torch.Tensor, axis: ps.Axis = ps.TP_AXIS,
 
 
 def all_gather(x: torch.Tensor, axis: ps.Axis = ps.TP_AXIS,
-               dim: int = -1) -> torch.Tensor:
+               dim: int = -1, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in axis order (the
-    reference's tiled ``all_gather``)."""
+    reference's tiled ``all_gather``); written into ``out`` when given
+    (no second whole-size copy along a ``dim`` other than 0)."""
     n = axis_size(axis)
     if n == 1:
-        return x
+        return x if out is None else out.copy_(x)
     dim = dim % x.dim()
-    xt = x.movedim(dim, 0).contiguous()
-    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
-    _count("all_gather", out, xt)
-    dist.all_gather_into_tensor(out, xt, group=ps.axis_group(axis))
-    return out.movedim(0, dim).contiguous()
+    xt = _as_bytes(x.movedim(dim, 0).contiguous())
+    got = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    _count("all_gather", got, xt)
+    dist.all_gather_into_tensor(got, xt, group=ps.axis_group(axis))
+    got = got.view(x.dtype).movedim(0, dim)
+    return got.contiguous() if out is None else out.copy_(got)
 
 
 def reduce_scatter(x: torch.Tensor, axis: ps.Axis = ps.TP_AXIS,
@@ -121,11 +144,11 @@ def all_to_all(x: torch.Tensor, axis: ps.Axis, split_dim: int,
     if x.shape[split_dim] % n:
         raise ValueError(f"dim {split_dim} size {x.shape[split_dim]} not "
                          f"divisible by axis {axis!r} size {n}")
-    inp = torch.stack(x.chunk(n, split_dim)).contiguous()
+    inp = _as_bytes(torch.stack(x.chunk(n, split_dim)).contiguous())
     out = torch.empty_like(inp)
     _count("all_to_all", out, inp)
     dist.all_to_all_single(out, inp, group=ps.axis_group(axis))
-    return torch.cat(out.unbind(0), dim=concat_dim)
+    return torch.cat(out.view(x.dtype).unbind(0), dim=concat_dim)
 
 
 def ppermute(x: torch.Tensor, axis: ps.Axis,
@@ -135,6 +158,8 @@ def ppermute(x: torch.Tensor, axis: ps.Axis,
     where no pair sends here (the reference's ``ppermute``)."""
     if axis_size(axis) == 1:
         return x
+    if x.dtype in _FLOAT8:
+        return ppermute(_as_bytes(x.contiguous()), axis, perm).view(x.dtype)
     me = ps.axis_rank(axis)
     members = ps.axis_members(axis)
     x = x.contiguous()

@@ -12,6 +12,17 @@ parameter replicated over tp whose layer sees sequence-sharded activations
 of that rank's sequence shard only, so :func:`allreduce_gradients` sums it
 over tp. The reference's GSPMD step needs no such pass; its explicit form
 folds the same sum into the norm's ``copy_to`` backward.
+
+The expert-parallel rule: a gradient sharded over ``ep`` (an expert bank
+at ``ep > 1``) already holds, on each rank, the sum over its ep group's
+ranks of their losses' gradients, since the expert dispatch's backward
+brings every rank's output gradient to the rank that holds the expert.
+So it is summed over ``dp_exp`` (the ranks that hold the same experts)
+and divided by the whole data-parallel size: averaging over ``dp_exp``
+alone would leave it ``ep`` times too large, and averaging over every
+data rank would mix different experts. Where the default loss weighs the
+ranks by their counted labels the weights are already in each rank's
+loss, so the same sum carries them.
 """
 
 from __future__ import annotations
@@ -52,15 +63,26 @@ def allreduce_gradients(
     global gradient is the mean of the local ones. A gradient with a
     ZeRO-1 dim in ``zero_dims`` is reduce-scattered along it over the
     merged data axes instead: the returned dict holds this rank's slice
-    of its mean."""
+    of its mean. A gradient sharded over ``ep`` is summed (or with ZeRO-1
+    reduce-scattered) over ``dp_exp`` and divided by the data axes' size
+    (the module docstring's expert-parallel rule)."""
     for name in sequence_parallel_names:
         comm.all_reduce_(grads[name], ps.TP_AXIS)
     out = dict(grads)
     bound = [ax for ax in axes if comm.axis_size(ax) > 1]
     if not bound:
         return out
+    n_data = comm.axis_size(tuple(axes))
+    ep = comm.axis_size(ps.EP_AXIS) > 1
     for name, g in grads.items():
         d = zero_dims.get(name) if zero_dims else None
+        if ep and specs and ps.EP_AXIS in spec_axes(specs.get(name)):
+            if d is not None:
+                out[name] = comm.reduce_scatter(
+                    g, ps.EXP_DP_AXIS, d).div_(n_data)
+            else:
+                comm.all_reduce_(g, ps.EXP_DP_AXIS).div_(n_data)
+            continue
         if d is not None:
             red = tuple(axes)
             out[name] = comm.reduce_scatter(g, red, d).div_(

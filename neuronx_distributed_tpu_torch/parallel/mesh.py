@@ -276,6 +276,16 @@ def get_expert_model_parallel_rank() -> int:
     return axis_rank(EP_AXIS)
 
 
+def get_expert_data_parallel_rank() -> int:
+    return axis_rank(EXP_DP_AXIS)
+
+
+def get_expert_data_parallel_group() -> Optional[dist.ProcessGroup]:
+    """The dp_exp group: the ranks that hold the same expert shard (None
+    where one does)."""
+    return axis_group(EXP_DP_AXIS)
+
+
 def coords() -> Dict[str, int]:
     """This process's index on every axis of both views."""
     _require_init()

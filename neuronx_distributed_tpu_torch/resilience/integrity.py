@@ -196,20 +196,22 @@ def fingerprint_tree(tree: Any) -> torch.Tensor:
 
 
 def _shard_fold_sum(x: torch.Tensor, shape: Tuple[int, ...], dim: int,
-                    offset: int, pos_term: torch.Tensor) -> torch.Tensor:
+                    offset: int, pos_term: torch.Tensor,
+                    base: int = 0) -> torch.Tensor:
     """The int64 sum (unmasked) of the fold's terms ``(w_j C_WORD) ^ (j
     C_POS)`` over the elements of ``x``, the slice ``[offset, offset +
     x.shape[dim])`` along ``dim`` of a tensor of ``shape``, each at its
-    flat position ``j`` (from 1) in that whole tensor. Viewed as ``[A,
-    L x Bk]``, row ``a`` of the slice is one contiguous run of the whole
-    tensor, from ``a x D x Bk + offset x Bk``."""
+    flat position ``j`` (from 1) in that whole tensor, shifted by ``base``
+    (a tensor of ``shape`` that is itself a run of a larger one). Viewed
+    as ``[A, L x Bk]``, row ``a`` of the slice is one contiguous run of
+    the whole tensor, from ``base + a x D x Bk + offset x Bk``."""
     a = int(np.prod(shape[:dim], dtype=np.int64))
     bk = int(np.prod(shape[dim + 1:], dtype=np.int64))
     width = x.shape[dim] * bk
     rows = x.detach().reshape(a, width)
     dev = x.device
     starts = (torch.arange(a, dtype=torch.int64, device=dev)
-              * (shape[dim] * bk) + offset * bk) & _MASK
+              * (shape[dim] * bk) + offset * bk + base) & _MASK
     start_terms = _to_int32(_mul32(starts, _C_POS))
     c_word = torch.tensor(_signed32(_C_WORD), dtype=torch.int32, device=dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
@@ -227,43 +229,61 @@ def _shard_fold_sum(x: torch.Tensor, shape: Tuple[int, ...], dim: int,
 
 def fingerprint_tree_sharded(tree: Mapping[str, torch.Tensor],
                              specs: Mapping[str, Tuple]) -> torch.Tensor:
-    """:func:`fingerprint_tree` of the whole tensors whose tensor-parallel
-    shards the ranks of the tp axis hold, bit for bit, without gathering
-    them: each rank folds its shard at the shard's positions in the whole
-    tensor, the int64 sums add over tp (one all-reduce of
-    ``int64[n_leaves]``), and every rank applies the avalanche.
-    ``specs[name]`` is the leaf's partition spec (per dim ``"tp"`` or
-    not); a leaf with no dim over tp, or one missing from ``specs``, is
-    whole on every rank and folded by tp rank 0 alone. The result is the
-    same on every rank of the axis; at tp=1 it is :func:`fingerprint_tree`."""
+    """:func:`fingerprint_tree` of the whole tensors whose shards the
+    ranks of the tp axis (and of the ep axis, for an expert bank sharded
+    over it on its first dim) hold, bit for bit, without gathering them:
+    each rank folds its shard at the shard's positions in the whole
+    tensor, the int64 sums add over tp and ep (one all-reduce of
+    ``int64[n_leaves]`` each), and every rank applies the avalanche.
+    ``specs[name]`` is the leaf's partition spec (per dim ``"tp"``,
+    ``"ep"`` or not); a leaf whole on an axis, or one missing from
+    ``specs``, is folded by that axis's rank 0 alone. The result is the
+    same on every rank; at tp = ep = 1 it is :func:`fingerprint_tree`."""
     from ..parallel import comm
 
     axis = ps.TP_AXIS
     size = comm.axis_size(axis)
-    if size == 1:
+    ep = comm.axis_size(ps.EP_AXIS)
+    if size == 1 and ep == 1:
         return fingerprint_tree(tree)
-    rank = ps.axis_rank(axis)
+    rank = ps.axis_rank(axis) if size > 1 else 0
+    ep_rank = ps.axis_rank(ps.EP_AXIS) if ep > 1 else 0
     leaves = list(tree.items())
     dev = leaves[0][1].device
     big = max(t.numel() for _, t in leaves)
     pos_term = _pos_terms(max(1, min(big, CHUNK)), dev)
     sums, counts = [], []
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
     for name, t in leaves:
         spec = tuple(specs.get(name, ()))
         dim = next((d for d, a in enumerate(spec) if a == axis), None)
-        if dim is None:
-            shape = tuple(t.shape)
-            part = (_shard_fold_sum(t, shape, 0, 0, pos_term) if rank == 0
-                    else torch.zeros((), dtype=torch.int64, device=dev))
-        else:
-            shape = list(t.shape)
+        if size == 1:
+            dim = None
+        on_ep = ep > 1 and ps.EP_AXIS in spec
+        if on_ep and spec.index(ps.EP_AXIS) != 0:
+            raise ValueError(f"{name}: an ep-sharded leaf is sharded on "
+                             "its first dim")
+        # the block this ep rank holds whole over tp, a run of the tensor
+        shape = list(t.shape)
+        if dim is not None:
             shape[dim] *= size
-            shape = tuple(shape)
-            part = _shard_fold_sum(t, shape, dim, rank * t.shape[dim],
-                                   pos_term)
+        block = int(np.prod(shape, dtype=np.int64))
+        whole = list(shape)
+        if on_ep:
+            whole[0] *= ep
+        if (dim is None and rank != 0) or (not on_ep and ep_rank != 0):
+            part = zero
+        elif dim is None:
+            part = _shard_fold_sum(t, tuple(shape), 0, 0, pos_term,
+                                   ep_rank * block if on_ep else 0)
+        else:
+            part = _shard_fold_sum(t, tuple(shape), dim,
+                                   rank * t.shape[dim], pos_term,
+                                   ep_rank * block if on_ep else 0)
         sums.append(part.to(dev))
-        counts.append(int(np.prod(shape, dtype=np.int64)))
-    total = comm.all_reduce(torch.stack(sums), axis)
+        counts.append(int(np.prod(whole, dtype=np.int64)))
+    total = comm.all_reduce(comm.all_reduce(torch.stack(sums), axis),
+                            ps.EP_AXIS)
     n = torch.tensor([c & _MASK for c in counts], dtype=torch.int64,
                      device=dev)
     return _to_int32(_avalanche(total, n))

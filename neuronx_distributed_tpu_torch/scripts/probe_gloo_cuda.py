@@ -7,7 +7,9 @@ Each rank runs every op in turn and logs it; an op that aborts the
 process (gloo's send/recv on a CUDA pointer do) is recorded and skipped in
 the next world. Prints one line per op: OK, FAIL with the error, or CRASH.
 Its finding that send/recv crash is why :func:`..parallel.comm.ppermute`
-stages through host memory."""
+stages through host memory. The int8 and uint8 cases are the
+expert-parallel wire's codes (:mod:`..parallel.ep_dispatch`: int8 as
+such, fp8 as its bytes), on a two-rank group as an ep group is."""
 import os, subprocess, sys, tempfile, time
 import torch
 
@@ -15,7 +17,9 @@ OPS = ["all_reduce_sum", "all_reduce_max", "all_reduce_bf16",
        "all_reduce_int64", "broadcast", "all_gather_list",
        "all_gather_into_tensor", "reduce_scatter_list",
        "reduce_scatter_tensor", "all_to_all_single", "all_to_all_list",
-       "send_recv", "batch_isend_irecv", "subgroup_all_reduce"]
+       "send_recv", "batch_isend_irecv", "subgroup_all_reduce",
+       "all_gather_into_tensor_int8", "all_to_all_single_int8",
+       "subgroup_all_to_all_single_uint8"]
 
 
 def child(rank, world, store, skip, log):
@@ -76,6 +80,19 @@ def child(rank, world, store, skip, log):
         elif name == "subgroup_all_reduce":
             if rank < 2:
                 y = x.clone(); dist.all_reduce(y, group=sub); assert y[0, 0].item() == 3
+        elif name == "all_gather_into_tensor_int8":
+            q = torch.full((4, 6), rank - 2, device=dev, dtype=torch.int8)
+            o = torch.empty((4 * world, 6), device=dev, dtype=torch.int8)
+            dist.all_gather_into_tensor(o, q); assert o[-1, 0].item() == world - 3
+        elif name == "all_to_all_single_int8":
+            inp = (torch.arange(world * 3, device=dev) + 10 * rank).to(torch.int8)
+            o = torch.empty_like(inp)
+            dist.all_to_all_single(o, inp); assert o[3 * (world - 1)].item() == 10 * (world - 1) + 3 * rank
+        elif name == "subgroup_all_to_all_single_uint8":
+            if rank < 2:
+                inp = (torch.arange(4, device=dev) + 100 * rank).to(torch.uint8)
+                o = torch.empty_like(inp)
+                dist.all_to_all_single(o, inp, group=sub); assert o[2].item() == 100 + 2 * rank
         torch.cuda.synchronize()
 
     for name in OPS:

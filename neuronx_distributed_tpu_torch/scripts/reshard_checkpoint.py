@@ -9,6 +9,9 @@ and the saved tag cannot disagree, verifies it, loads every tensor whole
 and saves it as ``--tp`` x ``--dp`` ranks would have saved it (default
 one rank: what the port's one-rank step loads), each tensor split by its
 saved spec (a ``"dp"`` dim, the moments' ZeRO-1 slices, over ``--dp``).
+A tag saved at an expert-parallel layout (an expert bank's ``"ep"`` dim,
+its moments' ``"dp_exp"`` dim) merges the same way, and loads directly at
+any other layout too (:func:`..trainer.checkpoint.load_checkpoint`).
 With ``--pp S`` the output is a pipeline layout's tag: each stage writes
 the tensors of the parameters it holds (:func:`..models.llama_pipeline.
 holders`: its layers, the embedding on the first stage, the norm and the

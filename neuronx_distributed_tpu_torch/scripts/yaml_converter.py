@@ -12,9 +12,11 @@ with the reference's keys:
     activation_checkpoint:
       mode: full
 
-``tensor_parallel_size``, ``pipeline_parallel_size``, the ``pipeline``
-section (:class:`..config.PipelineConfig`), ``sequence_parallel`` and
-ZeRO-1 (``optimizer.zero_one_enabled``) map onto the port's config; what
+``tensor_parallel_size``, ``pipeline_parallel_size``,
+``expert_parallel_size`` with ``moe_ep_wire_dtype`` and
+``moe_overlap_dispatch``, the ``pipeline`` section
+(:class:`..config.PipelineConfig`), ``sequence_parallel`` and ZeRO-1
+(``optimizer.zero_one_enabled``) map onto the port's config; what
 the port cannot run is refused, not ignored: the reference's other keys
 (``context_parallel_size``, the gradient-compression fields of
 ``optimizer``, ...) are accepted only at the reference's defaults, which
@@ -50,15 +52,14 @@ _REFERENCE_FIELDS = {
 }
 _REFERENCE_SECTIONS: Dict[str, Dict[str, Any]] = {}
 _REFERENCE_SCALARS = {
-    "context_parallel_size": 1,
-    "expert_parallel_size": 1, "dcn_data_parallel_size": None,
+    "context_parallel_size": 1, "dcn_data_parallel_size": None,
     "tp_overlap_comm": None, "tp_activation_comm_dtype": "fp32",
-    "tp_activation_sync_fraction": 1.0, "moe_ep_wire_dtype": "fp32",
-    "moe_overlap_dispatch": None, "weight_quant": None, "seed": 0,
+    "tp_activation_sync_fraction": 1.0, "weight_quant": None, "seed": 0,
 }
 # the top-level scalars the port's config takes, with their defaults
 _SCALARS = {"tensor_parallel_size": 1, "pipeline_parallel_size": 1,
-            "sequence_parallel": False}
+            "expert_parallel_size": 1, "moe_ep_wire_dtype": "fp32",
+            "moe_overlap_dispatch": None, "sequence_parallel": False}
 
 
 def _at_defaults(where: str, given: Dict[str, Any],
@@ -124,8 +125,12 @@ def config_to_dict(cfg: _cfg.NxDConfig) -> Dict[str, Any]:
         if value != cls():
             doc[section] = {**dataclasses.asdict(value),
                             **_REFERENCE_FIELDS.get(section, {})}
-    scalars = {"tensor_parallel_size": cfg.parallel.tensor_parallel_size,
-               "pipeline_parallel_size": cfg.parallel.pipeline_parallel_size,
+    p = cfg.parallel
+    scalars = {"tensor_parallel_size": p.tensor_parallel_size,
+               "pipeline_parallel_size": p.pipeline_parallel_size,
+               "expert_parallel_size": p.expert_parallel_size,
+               "moe_ep_wire_dtype": p.moe_ep_wire_dtype,
+               "moe_overlap_dispatch": p.moe_overlap_dispatch,
                "sequence_parallel": cfg.sequence_parallel}
     doc.update({k: v for k, v in scalars.items() if v != _SCALARS[k]})
     return doc

@@ -23,8 +23,10 @@ tensors by path (dataclasses become dicts, :func:`state_to_tree`), loaded
 with ``weights_only=True``. It cannot read the reference's Orbax payload;
 weights cross from JAX by :func:`..models.convert.params_from_jax`.
 
-Each tensor of the state has a partition spec, per dim None, ``"tp"`` or
-``"dp"`` (the data axes of ZeRO-1): ``TrainState.shard_specs``, or
+Each tensor of the state has a partition spec, per dim None, ``"tp"``,
+``"dp"`` (the data axes of ZeRO-1), or for an expert bank at ep > 1
+``"ep"`` and ``"dp_exp"`` (the expert view splits the merged data index
+``d`` as ``d = dp_exp_rank * ep + ep_rank``): ``TrainState.shard_specs``, or
 ``specs`` for another tree. Each rank writes the parts it alone holds to
 ``state/shard_tp<t>_dp<d>.pt``, keyed by its mesh coordinates: a tensor
 the data ranks replicate is written by data rank 0, one the tp ranks
@@ -275,12 +277,13 @@ def _layout() -> Dict[str, int]:
     """This process's tp, data (dp x cp) and pp sizes and indices; one rank
     of each without a parallel layout."""
     if not ps.model_parallel_is_initialized():
-        return dict(tp=1, tp_rank=0, dp=1, dp_rank=0, pp=1, pp_rank=0)
+        return dict(tp=1, tp_rank=0, dp=1, dp_rank=0, pp=1, pp_rank=0, ep=1)
     return dict(tp=ps.axis_size(ps.TP_AXIS), tp_rank=ps.axis_rank(ps.TP_AXIS),
                 dp=ps.axis_size(ps.DATA_AXES),
                 dp_rank=ps.axis_rank(ps.DATA_AXES),
                 pp=ps.axis_size(ps.PP_AXIS),
-                pp_rank=ps.axis_rank(ps.PP_AXIS))
+                pp_rank=ps.axis_rank(ps.PP_AXIS),
+                ep=ps.axis_size(ps.EP_AXIS))
 
 
 def _across_ranks() -> bool:
@@ -297,11 +300,12 @@ def _rank_world() -> Tuple[int, int]:
 
 def _norm_spec(spec: Any, ndim: int) -> Spec:
     """A spec as per-dim None, ``"tp"``, ``"dp"`` (the data axes, named
-    ``"dp"``, ``("dp", "cp")`` or ``"data"``) or ``"pptp"`` (the merged
-    ``(pp, tp)`` axes of a pipeline's ``vocab_pp`` table)."""
+    ``"dp"``, ``("dp", "cp")`` or ``"data"``), ``"ep"``, ``"dp_exp"`` or
+    ``"pptp"`` (the merged ``(pp, tp)`` axes of a pipeline's ``vocab_pp``
+    table)."""
     out = []
     for a in tuple(spec or ())[:ndim]:
-        if a in (None, "tp", "pptp"):
+        if a in (None, "tp", "pptp", "ep", "dp_exp"):
             out.append(a)
         elif a in ("dp", "data", ps.DATA_AXES):
             out.append("dp")
@@ -309,7 +313,7 @@ def _norm_spec(spec: Any, ndim: int) -> Spec:
             out.append("pptp")
         else:
             raise ValueError(f"spec entry {a!r}: the checkpoint shards over "
-                             "tp, (pp, tp) and the data axes only")
+                             "tp, (pp, tp), ep and the data axes only")
     return tuple(out) + (None,) * (ndim - len(out))
 
 
@@ -319,6 +323,11 @@ def _parts(a: Optional[str], lay: Mapping[str, int]) -> Tuple[int, int]:
         return lay["tp"], lay["tp_rank"]
     if a == "dp":
         return lay["dp"], lay["dp_rank"]
+    ep = lay.get("ep", 1)
+    if a == "ep":
+        return ep, lay["dp_rank"] % ep
+    if a == "dp_exp":
+        return lay["dp"] // ep, lay["dp_rank"] // ep
     if a == "pptp":
         return (lay["pp"] * lay["tp"],
                 lay["pp_rank"] * lay["tp"] + lay["tp_rank"])
@@ -339,9 +348,13 @@ def _box(local_shape, spec: Spec, lay: Mapping[str, int]
 
 def _writes(spec: Spec, lay: Mapping[str, int]) -> bool:
     """Whether the rank at ``lay`` writes its part: the first of the ranks
-    that hold the same part."""
-    return ((lay["tp_rank"] == 0 or "tp" in spec or "pptp" in spec)
-            and (lay["dp_rank"] == 0 or "dp" in spec))
+    that hold the same part (along the data index, the first whose parts
+    of the data axes the spec does not shard over are 0)."""
+    ep = lay.get("ep", 1)
+    data = ("dp" in spec or lay["dp_rank"] == 0
+            or (("ep" in spec or lay["dp_rank"] % ep == 0)
+                and ("dp_exp" in spec or lay["dp_rank"] // ep == 0)))
+    return (lay["tp_rank"] == 0 or "tp" in spec or "pptp" in spec) and data
 
 
 def _shard_file(tp_rank: int, dp_rank: int, pp_rank: Optional[int] = None
@@ -377,7 +390,8 @@ def shard_table(tree: Any, specs: Mapping[str, Any],
         leaves[path] = {"shape": shape, "dtype": str(t.dtype).split(".")[-1],
                         "spec": list(spec), "pieces": pieces}
     return {"tp": lay["tp"], "dp": lay["dp"], "pp": lay.get("pp", 1),
-            "leaves": leaves, "tree": _skeleton(tree)}
+            "ep": lay.get("ep", 1), "leaves": leaves,
+            "tree": _skeleton(tree)}
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +476,7 @@ def _merge_tables(tables: List[Mapping[str, Any]]) -> Dict[str, Any]:
                                         if x not in leaves[p]["pieces"]]
     first = tables[0]
     return {"tp": first["tp"], "dp": first["dp"], "pp": first.get("pp", 1),
-            "leaves": leaves, "tree": None}
+            "ep": first.get("ep", 1), "leaves": leaves, "tree": None}
 
 
 def _stage_view(tree: Any, specs: Mapping[str, Any],

@@ -169,17 +169,22 @@ def zero1_state_specs(param_specs: Mapping[str, Sequence],
                       enabled: bool = True) -> Dict[str, tuple]:
     """The moments' specs: each parameter's spec (of its whole shape) with
     ``zero_axes`` (a tuple, or the one axis) at its :func:`zero1_dim`,
-    over the product of their ``sizes`` (JAX ``zero1_state_specs``)."""
-    zero_size = 1
-    for a in zero_axes:
-        zero_size *= sizes.get(a, 1)
+    over the product of their ``sizes`` (JAX ``zero1_state_specs``). A
+    spec that names ``ep`` lives on the expert view, whose data axis is
+    ``dp_exp``: its moments shard over that instead (JAX
+    ``_zero1_extend_spec``, the reference's ``NeuronEPZero1Optimizer``)."""
     out = {}
     for name, spec in param_specs.items():
+        axes = (("dp_exp",) if "ep" in spec or "dp_exp" in spec
+                else tuple(zero_axes))
+        zero_size = 1
+        for a in axes:
+            zero_size *= sizes.get(a, 1)
         shape = tuple(param_shapes[name])
         parts = list(spec) + [None] * (len(shape) - len(spec))
         d = zero1_dim(spec, shape, zero_size) if enabled else None
         if d is not None:
-            parts[d] = zero_axes if len(zero_axes) > 1 else zero_axes[0]
+            parts[d] = axes if len(axes) > 1 else axes[0]
             out[name] = tuple(parts)
         else:
             out[name] = tuple(spec)

@@ -16,9 +16,10 @@ optimizer. The model's parameters are the state:
 every step updates them, the gradients and the Adam moments in place, and
 returns the same :class:`TrainState`.
 
-``loss_fn``, ``scan_steps`` and ``integrity_every`` are the reference's
-(:func:`make_train_step`); ``compression`` and ``grad_fn`` come with later
-slices, and passing one raises.
+``loss_fn``, ``scan_steps``, ``integrity_every`` and ``grad_fn`` (the
+pipeline executors' self-differentiating path) are the reference's
+(:func:`make_train_step`); ``compression`` comes with a later slice, and
+passing it raises.
 
 Across ranks (a world above 1, laid out by
 :func:`..config.neuronx_distributed_config`) a Llama or a Mixtral trains
@@ -28,7 +29,11 @@ data-parallel slice of the global batch, and after its backward the
 gradients are synchronised (:func:`..parallel.grads.allreduce_gradients`;
 with ZeRO-1 reduce-scattered), the global norm is taken over every shard
 once, and each rank updates its parameters (with ZeRO-1 its slice of
-them, then all-gathered). ``loss`` and ``grad_norm`` are global and equal
+them, then all-gathered). A Mixtral at ``expert_parallel_size > 1`` holds
+``E / ep`` of the experts on each rank (the ranks of one ep group split
+the data ranks); their gradients are summed over ``dp_exp`` and divided by
+the data-parallel size, and ZeRO-1 shards their moments over ``dp_exp``
+(:mod:`..parallel.grads`). ``loss`` and ``grad_norm`` are global and equal
 on every rank; so are ``integrity_fp`` (each leaf's whole-tensor
 fingerprint, :func:`..resilience.integrity.fingerprint_tree_sharded`) and
 the attention-dropout masks, drawn at each rank's rows and heads of the
@@ -59,7 +64,9 @@ class TrainState:
     tensor of the state (``"params/<name>"``, ``"opt_state/mu/<i>"``, as
     :func:`.checkpoint.state_to_tree` nests them) to its partition spec,
     per dim None, ``"tp"`` or ``"dp"`` (the merged data axes of ZeRO-1); it
-    describes the state and is not saved with it. At ``pp > 1`` a rank
+    describes the state and is not saved with it; an expert bank at ep >
+    1 has ``"ep"`` on its expert dim, and its ZeRO-1 moments ``"dp_exp"``
+    (the expert view's data axis). At ``pp > 1`` a rank
     holds one stage's tensors, and ``global_paths`` maps the path of each
     to its path in the whole model's state (an optimizer tensor's index
     is then the parameter's among all the model's) and whether this rank
@@ -130,14 +137,22 @@ class ParallelModel:
             {n: g for n, g in grads.items() if self.owns(n)}, specs,
             self.device)
 
+    def zero_axis(self, name: str) -> ps.Axis:
+        """The axis ZeRO-1 shards parameter ``name``'s moments over: the
+        merged data axes, or ``dp_exp`` for one sharded over ``ep``."""
+        if ps.EP_AXIS in grads_mod.spec_axes(self.specs.get(name)):
+            return ps.EXP_DP_AXIS
+        return ps.DATA_AXES
+
     def zero_view(self, name: str, p: torch.Tensor) -> torch.Tensor:
         """This data rank's ZeRO-1 slice of parameter ``name`` (a view), or
         the parameter itself."""
         d = self.zero_dims.get(name)
         if d is None:
             return p
-        n = p.shape[d] // comm.axis_size(ps.DATA_AXES)
-        return p.narrow(d, ps.axis_rank(ps.DATA_AXES) * n, n)
+        axis = self.zero_axis(name)
+        n = p.shape[d] // comm.axis_size(axis)
+        return p.narrow(d, ps.axis_rank(axis) * n, n)
 
     def grad_specs(self) -> Dict[str, tuple]:
         """The specs of the synchronised gradients: a ZeRO-1 one is also
@@ -148,7 +163,7 @@ class ParallelModel:
             parts = list(spec)
             if d is not None:
                 parts += [None] * (d + 1 - len(parts))
-                parts[d] = ps.DATA_AXES
+                parts[d] = self.zero_axis(name)
             out[name] = tuple(parts)
         return out
 
@@ -226,8 +241,10 @@ class ParallelModel:
             for name, p in params.items():
                 d = self.zero_dims.get(name)
                 if d is not None:
-                    p.copy_(comm.all_gather(self.zero_view(name, p),
-                                            ps.DATA_AXES, d))
+                    # the slice is read into the collective's own buffers
+                    # before the gathered whole is written over ``p``
+                    comm.all_gather(self.zero_view(name, p),
+                                    self.zero_axis(name), d, out=p)
 
 
 def _world() -> int:
@@ -260,7 +277,18 @@ def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
     elif model_cfg.tp_size != tp:
         raise ValueError(f"the config's tp_size {model_cfg.tp_size} differs "
                          f"from the ranks' tensor-parallel size {tp}")
-    whole = replace(model_cfg, tp_size=None, sequence_parallel=False)
+    ep = ps.get_expert_model_parallel_size()
+    if ep > 1 and not hasattr(model_cfg, "ep_size"):
+        raise ValueError(f"expert_parallel_size={ep} for a "
+                         f"{type(model_cfg).__name__}: only a Mixtral has "
+                         "experts to shard")
+    if getattr(model_cfg, "ep_size", 1) not in (1, ep):
+        raise ValueError(f"the config's ep_size {model_cfg.ep_size} differs "
+                         f"from the ranks' expert-parallel size {ep}")
+    if ep > 1:
+        model_cfg = replace(model_cfg, ep_size=ep)
+    whole = replace(model_cfg, tp_size=None, sequence_parallel=False,
+                    **({"ep_size": 1} if ep > 1 else {}))
     model = model_cls(model_cfg, device="meta")
     shapes = {n: t.shape for n, t in model_cls(
         whole, device="meta").state_dict().items()}
@@ -283,30 +311,35 @@ def _sharded_model(cfg: NxDConfig, model_cfg: Any, seed: int,
                      global_names=list(shapes), shared_sum=shared_sum,
                      vocab_pp=vocab_pp)
     want = model.state_dict()
-    rank = ps.axis_rank(ps.TP_AXIS)
+    sizes = {ps.TP_AXIS: tp, ps.EP_AXIS: ep}
+    coords = {ps.TP_AXIS: ps.axis_rank(ps.TP_AXIS),
+              ps.EP_AXIS: ps.axis_rank(ps.EP_AXIS)}
     source = (llama.draw_state_dict(whole, seed, std, dev, model_cls)
               if state_dict is None else state_dict.items())
     sd = {}
     for name, t in source:
         if name in want:
-            sd[name] = _shard(name, t, specs[name], tp, rank).to(
+            sd[name] = _shard(name, t, specs[name], sizes, coords).to(
                 device=dev, dtype=want[name].dtype)
         del t
     model.load_state_dict(sd, strict=True, assign=True)
     specs = {n: specs[n] for n in want}
-    zero_size = comm.axis_size(ps.DATA_AXES)
-    zero_dims = {n: (opt_mod.zero1_dim(specs[n], shapes[n], zero_size)
-                     if cfg.optimizer.zero_one_enabled else None)
-                 for n in want}
+    zero_dims = {}
+    for n in want:
+        axis = (ps.EXP_DP_AXIS if ps.EP_AXIS in grads_mod.spec_axes(specs[n])
+                else ps.DATA_AXES)
+        zero_dims[n] = (opt_mod.zero1_dim(specs[n], shapes[n],
+                                          comm.axis_size(axis))
+                        if cfg.optimizer.zero_one_enabled else None)
     sp_names = convert.sequence_parallel_names(model_cfg, list(want))
     return model, dict(world=_world(), specs=specs, zero_dims=zero_dims,
                        sequence_parallel_names=sp_names, **extra)
 
 
-def _shard(name: str, t: torch.Tensor, spec: tuple, tp: int,
-           rank: int) -> torch.Tensor:
-    """This rank's shard (a copy) of the whole tensor ``t``: over tp by
-    :func:`..models.convert.shard_tensor`, or along a dim sharded over
+def _shard(name: str, t: torch.Tensor, spec: tuple, sizes, coords
+           ) -> torch.Tensor:
+    """This rank's shard (a copy) of the whole tensor ``t``: over tp and ep
+    by :func:`..models.convert.shard_tensor`, or along a dim sharded over
     ``(pp, tp)``."""
     from ..models import convert
 
@@ -314,7 +347,7 @@ def _shard(name: str, t: torch.Tensor, spec: tuple, tp: int,
         if a == ps.PP_TP_AXES:
             n = t.shape[d] // comm.axis_size(a)
             return t.narrow(d, ps.axis_rank(a) * n, n).clone()
-    return convert.shard_tensor(name, t, spec, tp, rank)
+    return convert.shard_tensor(name, t, spec, sizes, coords)
 
 
 def initialize_parallel_model(
@@ -554,6 +587,10 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
         if n_data > 1:
             loss = comm.all_reduce(loss, ps.DATA_AXES) / n_data
         grads, grad_norm = pm.sync({n: p.grad for n, p in named.items()})
+        # the synchronised gradients are all the update reads: a ZeRO-1
+        # slice's whole gradient is freed before the update's temporaries
+        for p in named.values():
+            p.grad = None
         return update(state, named, loss, grads, grad_norm)
 
     def grad_fn_grads(state: TrainState, chunks):
@@ -591,6 +628,8 @@ def make_train_step(pm: ParallelModel, tx: opt_mod.AdamW, *,
             tx.update([pm.zero_view(n, p) for n, p in named.items()],
                       [grads[n] for n in named], state.opt_state,
                       grad_norm=grad_norm)
+            # the update has read them: their room goes to the gather
+            grads.clear()
             pm.gather_updated(named)
         for p in named.values():
             p.grad = None

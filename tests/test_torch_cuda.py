@@ -918,6 +918,60 @@ def test_grouped_glu_kernels_at_mixtral_tp4_local_width(cuda):
         assert rel <= 1e-2, (label, rel)
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_grouped_glu_kernels_with_ep_sentinel_blocks(cuda, rank):
+    """K5, K7 and K8 as an expert-parallel training step runs them: ep
+    rank ``rank`` of ep=2 over Mixtral 8x7B's 8 experts at tp=2 (H=4096,
+    I/tp = 7168, 4 local experts, 64-row blocks, bf16), the metadata over
+    the local experts plus the sentinel expert 4 that the other rank's
+    pairs map to (``ExpertMLPs._local_expert_partial``). Against the plain
+    versions in fp32 on the same inputs within 1e-2; K5's output rows and
+    K7's dx rows of the sentinel blocks are exactly zero; K8's dW of the
+    last local expert, whose run the sentinel blocks follow, is held on its
+    own (its sum must not start again after its run)."""
+    rng = np.random.RandomState(10 + rank)
+    t, e_all, e_local, h, i, bs = 512, 8, 4, 4096, 7168, 64
+    idx = torch.from_numpy(rng.randint(0, e_all, (t, 2)).astype(np.int32))
+    off = rank * e_local
+    local = (idx >= off) & (idx < off + e_local)
+    idx_local = torch.where(local, idx - off, torch.full_like(idx, e_local))
+    _, src, dest, be, _, padded = tbw.compute_block_metadata(
+        idx_local, e_local + 1, bs)
+    x = torch.from_numpy(rng.randn(t, h).astype(np.float32))
+    xs = tbw.scatter_to_blocks(x, src, dest, padded).to(cuda, torch.bfloat16)
+    gu = torch.from_numpy((rng.randn(e_local, h, 2, i) * 0.02).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    dn = torch.from_numpy((rng.randn(e_local, i, h) * 0.02).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    dy = torch.from_numpy(rng.randn(padded, h).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    be = be.to(cuda)
+    sent = torch.repeat_interleave(be >= e_local, bs)
+    first = int(torch.nonzero(be >= e_local)[0, 0])
+    assert sent.any() and int(be[first - 1]) == e_local - 1
+    bi = i // 2
+    before = [c.launches for c in (tbm.grouped_glu, tbm.grouped_glu_dx,
+                                   tbm.grouped_glu_dw)]
+    y = tbm.grouped_glu(xs, gu, dn, be, bs, bi)
+    dx, dgu, ddn = tbm.grouped_glu_bwd_cuda(xs, gu, dn, be, dy, bs, bi)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(
+        (tbm.grouped_glu, tbm.grouped_glu_dx, tbm.grouped_glu_dw),
+        before)] == [1, 1, 1]
+    f32 = [a.float() for a in (xs, gu, dn)]
+    ref_y = tbm.grouped_glu_plain(*f32, be, bs, bi)
+    ref = tbm.grouped_glu_bwd_plain(*f32, be, dy.float(), bs, bi)
+    assert not y[sent].any() and not dx[sent].any()
+    for label, got, want in (("y", y, ref_y), ("dx", dx, ref[0]),
+                             ("dgate_up", dgu, ref[1]),
+                             ("ddown", ddn, ref[2]),
+                             ("dgate_up[last]", dgu[-1], ref[1][-1]),
+                             ("ddown[last]", ddn[-1], ref[2][-1])):
+        assert torch.isfinite(got).all(), label
+        rel = flash_rel_err(got, want.to(torch.bfloat16))
+        assert rel <= 1e-2, (label, rel)
+
+
 @pytest.mark.parametrize("decode", [False, True])
 @pytest.mark.parametrize("bs,sentinel_empty,shape", [
     (64, False, dict(h=256, i=384, e=8)), (80, True, {}), (16, False, {}),

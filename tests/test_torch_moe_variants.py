@@ -315,9 +315,10 @@ _WIRED = dataclasses.make_dataclass("Wired", [
     (dict(moe_overlap_dispatch=True), "expert_parallel_size", True),
 ])
 def test_validator_holds_the_ep_fields_as_jax(kw, match, with_parallel):
-    """The port's configs have no EP wire or overlap fields; a config that
-    has them is held as JAX holds its own (the pinned overlap needs more
-    than the one expert-parallel rank the port runs)."""
+    """A config with the EP wire and overlap fields (the port's
+    ``MixtralConfig`` has them since expert parallelism) is held as JAX
+    holds its own: the pinned overlap needs more than one expert-parallel
+    rank."""
     import neuronx_distributed_tpu as nxd
 
     jkw = dict(kw, moe_block_size=8)

@@ -520,19 +520,31 @@ def test_later_slice_options_and_configs_raise():
                             dropout_generator=torch.Generator())
     with pytest.raises(ValueError, match="grad_accum_steps"):
         ttr.make_train_step(pm, tx, grad_accum_steps=0)
-    # tensor, pipeline and data parallelism and ZeRO-1 run
-    # (tests/test_torch_train_tp.py, tests/test_torch_pipeline.py);
-    # context and expert parallelism, overlap and activation compression
-    # are later tiers
-    pp = 2
+    # tensor, pipeline, expert and data parallelism and ZeRO-1 run
+    # (tests/test_torch_train_tp.py, tests/test_torch_pipeline.py,
+    # tests/test_torch_mixtral_ep.py); context parallelism, pipeline x
+    # expert parallelism, overlap and activation compression are later
+    # tiers
+    pp, ep = 2, 2
     assert neuronx_distributed_config(
         init_mesh=False, pipeline_parallel_size=pp
     ).parallel.pipeline_parallel_size == pp
+    assert neuronx_distributed_config(
+        init_mesh=False, expert_parallel_size=ep,
+        moe_ep_wire_dtype="int8", moe_overlap_dispatch=True
+    ).parallel.moe_ep_wire_dtype == "int8"
     for kw in (dict(context_parallel_size=2),
-               dict(expert_parallel_size=2), dict(tp_overlap_comm=True),
+               dict(expert_parallel_size=ep, pipeline_parallel_size=pp),
+               dict(tp_overlap_comm=True),
                dict(tp_activation_comm_dtype="int8")):
         with pytest.raises(ValueError, match="later slice"):
             neuronx_distributed_config(init_mesh=False, **kw)
+    # the reference's checks of the EP dispatch options
+    with pytest.raises(ValueError, match="expert_parallel_size > 1"):
+        neuronx_distributed_config(init_mesh=False,
+                                   moe_overlap_dispatch=True)
+    with pytest.raises(ValueError, match="moe_ep_wire_dtype"):
+        neuronx_distributed_config(init_mesh=False, moe_ep_wire_dtype="int4")
     # a tp degree needs that many ranks
     tp = 2
     with pytest.raises(ValueError, match="process group"):

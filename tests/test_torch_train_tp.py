@@ -381,13 +381,13 @@ def test_zero1_dims_match_jax_zero1_state_specs():
 
 def test_what_stays_out_across_ranks_raises(tmp_path):
     """The other model families across ranks, serving a Llama or a
-    Mixtral at tp > 1, the Sinkhorn router across data ranks, a quantized
-    expert bank at tp > 1 and a model config whose tp_size is not the
-    ranks' raise; so do LoRA and weight quantization at tp > 1 in the
-    config, Mixtral's included. (The ``Trainer`` loop, checkpoints,
-    ``integrity_every``, dropout and Mixtral across ranks run:
+    Mixtral at tp > 1 or a Mixtral at ep > 1, a quantized expert bank at
+    tp > 1 and a model config whose tp_size is not the ranks' raise; so do
+    LoRA and weight quantization at tp > 1 in the config, Mixtral's
+    included. (The ``Trainer`` loop, checkpoints, ``integrity_every``,
+    dropout, Mixtral and the Sinkhorn router across ranks run:
     ``tests/test_torch_trainer_loop_tp.py``,
-    ``tests/test_torch_mixtral_tp.py``.)"""
+    ``tests/test_torch_mixtral_tp.py``, ``tests/test_torch_mixtral_ep.py``.)"""
     tcfg = tl.tiny_config(dtype=torch.float32, num_layers=1)
     out = _ranks(tmp_path, torch_ranks.refusals_across_ranks, 2, tcfg,
                  str(tmp_path / "ckpt"))

@@ -251,9 +251,9 @@ def synced_grads(cfg, sd: Dict[str, torch.Tensor], batch: Dict[str, Any],
 
 def refusals_across_ranks(cfg, tmp: str) -> Dict[str, str]:
     """What stays out at a world above 1, each refusal's message: the
-    other model families, serving a Llama or a Mixtral at tp > 1, the
-    Sinkhorn router across data ranks, a quantized expert bank at tp > 1,
-    and a model config at another tp_size."""
+    other model families, serving a Llama or a Mixtral at tp > 1 or a
+    Mixtral at ep > 1, a quantized expert bank at tp > 1, and a model
+    config at another tp_size."""
     import dataclasses
 
     from neuronx_distributed_tpu_torch import trainer
@@ -273,10 +273,10 @@ def refusals_across_ranks(cfg, tmp: str) -> Dict[str, str]:
                                       tp_size=2, device="meta"),
         "tp_size": lambda: trainer.initialize_parallel_model(
             ncfg, dataclasses.replace(cfg, tp_size=1), device="cpu"),
-        # at tp=1 x dp=2, the data ranks the router would normalise over
-        "sinkhorn": lambda: trainer.initialize_parallel_model(
-            _layout(1), dataclasses.replace(moe, router_type="sinkhorn"),
-            device="cpu")[0].module(torch.zeros(2, 8, dtype=torch.long)),
+        # the Sinkhorn router across data ranks runs
+        # (tests/test_torch_mixtral_ep.py); serving at ep > 1 stays out
+        "serving_mixtral_ep": lambda: mixtral.build_model(
+            dataclasses.replace(moe, ep_size=2), {}, "cpu"),
     }
     out = {}
     for name, fn in tries.items():
